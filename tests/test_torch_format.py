@@ -173,7 +173,7 @@ def test_plan_to_moves_every_tensor():
 @pytest.mark.parametrize("kwargs,cfg", [
     (dict(backend="native"), {}),
     (dict(values=True), {}),
-    ({}, dict(block_h=128, cluster_cols=True)),
+    (dict(values=True), dict(block_h=128, cluster_cols=True)),
     ({}, dict(gather_segment=4, pack_order="incidence")),
     ({}, dict(gather_segment=2, block_unroll=2, seg_interleaved=True)),
 ])
@@ -183,6 +183,18 @@ def test_preprocess_refuses_unported(kwargs, cfg):
         kwargs = dict(values=np.ones(a.nnz, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         vt.csr_preprocess(a.indptr, a.indices, 256, vt.PlanConfig(**cfg), **kwargs)
+
+
+@pytest.mark.parametrize("keys", [
+    np.zeros(0, np.int64), np.array([7], np.int64), np.array([3, 3, 3], np.int64),
+    np.random.default_rng(13).integers(0, 500, 4000),
+])
+def test_sorted_unique_matches_np_unique(keys):
+    from voltrix_spmm_tpu_torch.format.preprocess import _sorted_unique
+
+    got = _sorted_unique(keys.copy())
+    assert got.dtype == keys.dtype
+    np.testing.assert_array_equal(got, np.unique(keys))
 
 
 def test_preprocess_rejects_bad_csr():

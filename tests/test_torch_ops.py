@@ -64,15 +64,14 @@ def assert_close(out, ref):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-# tests/test_spmm.py:36-45 plus the port's own edge geometries; a
-# gather_segment >= 8 plan belongs to kernel K3, so the port runs it only
-# through the plain version
+# tests/test_spmm.py:36-45 plus the port's own edge geometries; "auto"
+# sends the gather_segment >= 8 plan to kernel K3's wrapper, as JAX does
 SPMM_CASES = [
     (512, 0.05, 64, dict(block_h=128, block_w=128), "auto"),
     (300, 0.02, 130, dict(block_h=32, block_w=128), "auto"),
     (1000, 0.01, 256, dict(block_h=128, block_w=256), "auto"),
     (512, 0.05, 64, dict(block_h=32, block_w=128, block_unroll=4), "auto"),
-    (400, 0.03, 96, dict(block_h=32, block_w=128, gather_segment=8, block_unroll=2), "reference"),
+    (400, 0.03, 96, dict(block_h=32, block_w=128, gather_segment=8, block_unroll=2), "auto"),
     (1001, 0.01, 40, dict(block_h=128, block_w=128, gather_segment=4), "auto"),
     (1024, 0.02, 72, dict(block_h=128, block_w=128), "auto"),  # words with bit 31 set
 ]
@@ -150,7 +149,6 @@ def _plan_kinds():
     seg8 = vt.csr_preprocess(a.indptr, a.indices, n, vt.PlanConfig(32, 128, gather_segment=8))
     return {
         "values": dataclasses.replace(tplan, values=torch.ones(tplan.total_blocks, 128, 128)),
-        "gather_segment_8": seg8,
         "seg_interleaved": dataclasses.replace(
             seg8, config=vt.PlanConfig(32, 128, gather_segment=8, block_unroll=8,
                                        seg_interleaved=True)),
@@ -161,7 +159,7 @@ def _plan_kinds():
     }
 
 
-@pytest.mark.parametrize("kind", ["values", "gather_segment_8", "seg_interleaved",
+@pytest.mark.parametrize("kind", ["values", "seg_interleaved",
                                   "src_perm", "ell", "hybrid", "plan_list"])
 def test_spmm_refuses_unported_plans(kind):
     plan = _plan_kinds()[kind]
@@ -174,7 +172,7 @@ def test_spmm_rejects_bad_arguments():
     n = 256
     _, tplan = both_plans(random_csr(n, 0.05, seed=10))
     with pytest.raises(ValueError, match="unknown impl"):
-        vt.spmm(tplan, torch.zeros(n, 8), impl="pallas")
+        vt.spmm(tplan, torch.zeros(n, 8), impl="cusparse")
     with pytest.raises(ValueError, match="rows"):
         vt.spmm(tplan, torch.zeros(n + 1, 8))
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -1,5 +1,7 @@
+from .cluster import block_occupancy, cluster_window_columns, subtile_stats
 from .plan import PlanConfig, SpmmPlan
 from .preprocess import (
+    coverage_expansion,
     csr_preprocess,
     expand_bitmask_np,
     pad_empty_windows,
@@ -10,7 +12,11 @@ from .preprocess import (
 __all__ = [
     "PlanConfig",
     "SpmmPlan",
+    "block_occupancy",
+    "cluster_window_columns",
+    "coverage_expansion",
     "csr_preprocess",
+    "subtile_stats",
     "expand_bitmask_np",
     "pad_empty_windows",
     "plan_stats",

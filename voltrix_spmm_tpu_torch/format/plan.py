@@ -36,8 +36,12 @@ class PlanConfig:
     gather_segment: source-row coverage granularity; s > 1 covers each
         window's neighbour set with s-aligned runs of s consecutive rows.
     block_unroll: blocks per window are padded to a multiple of this.
-    cluster_cols, pack_order, seg_interleaved: layouts the port does not
-        build yet (see ROADMAP.md); kept so configs compare equal.
+    cluster_cols: sort each window's lanes by 128-row sub-window
+        signature (format/cluster.py) and store the per-block occupancy
+        in ``occ``; needs block_h % 128 == 0. Kernel K2 skips the
+        sub-windows whose occupancy bit is clear.
+    pack_order, seg_interleaved: TPU gather layouts the port does not
+        build (ROADMAP.md item 18); kept so configs compare equal.
     """
 
     block_h: int = 128
@@ -94,9 +98,11 @@ class SpmmPlan:
     total_blocks: int
     has_empty_windows: bool = False  # any window with zero blocks
     num_cols: int | None = None  # source (column) space size; None = square
+    # int32 (total_blocks,) carrying uint32 bits: bit s set iff 128-row
+    # sub-window s of the block holds a bit (cluster_cols plans only)
+    occ: torch.Tensor | None = None
     # layouts of the JAX package the port does not build yet; a plan that
     # carries one is refused by ops.spmm
-    occ: torch.Tensor | None = None
     values: torch.Tensor | None = None
     src_perm: torch.Tensor | None = None
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cluster import _bits_np, _host, block_occupancy, cluster_window_columns
 from .plan import PlanConfig, SpmmPlan
 
 
@@ -18,13 +19,17 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _host(t) -> np.ndarray:
-    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-
-
-def _bits_np(bitmask) -> np.ndarray:
-    """The plan's int32 bitmask as the uint32 words it stores."""
-    return np.ascontiguousarray(_host(bitmask)).view(np.uint32)
+def _sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """np.unique(keys) by a sort and a neighbour mask: the same sorted
+    array, without the hash pass that numpy >= 2.3 runs in np.unique,
+    about 10x slower than the sort on tens of millions of int64 keys."""
+    keys = np.sort(keys)
+    if keys.shape[0] < 2:
+        return keys
+    keep = np.empty(keys.shape[0], dtype=bool)
+    keep[0] = True
+    np.not_equal(keys[1:], keys[:-1], out=keep[1:])
+    return keys[keep]
 
 
 def csr_preprocess(
@@ -46,11 +51,6 @@ def csr_preprocess(
         raise NotImplementedError(
             "weighted plans (values=) need kernel K4: ROADMAP.md item 11"
         )
-    if config.cluster_cols:
-        raise NotImplementedError(
-            "cluster_cols plans need format/cluster.py and kernel K2: "
-            "ROADMAP.md item 1"
-        )
     if config.pack_order != "natural" or config.seg_interleaved:
         raise NotImplementedError(
             "pack_order='incidence' and seg_interleaved are TPU gather "
@@ -63,7 +63,13 @@ def csr_preprocess(
             f"bad CSR: indptr {indptr.shape}, indices {indices.shape}, "
             f"num_nodes {num_nodes}"
         )
-    return _numpy_preprocess(indptr, indices, num_nodes, config, num_cols)
+    plan = _numpy_preprocess(indptr, indices, num_nodes, config, num_cols)
+    if config.cluster_cols:
+        # two-level windows: sort each window's lanes by sub-window
+        # signature and precompute K2's skip bitmap
+        plan = cluster_window_columns(plan)
+        plan.occ = torch.from_numpy(block_occupancy(plan.bitmask))
+    return plan
 
 
 def pad_empty_windows(blocks_per_window: np.ndarray, unroll: int) -> np.ndarray:
@@ -118,7 +124,7 @@ def _numpy_preprocess(
     cols = indices.astype(np.int64)
 
     # deduplicate (row, col) so every bit is set exactly once
-    edge_key = np.unique(rows * span + cols)
+    edge_key = _sorted_unique(rows * span + cols)
     rows = edge_key // span
     cols = edge_key % span
     nnz = int(rows.shape[0])
@@ -198,6 +204,22 @@ def _numpy_preprocess(
         num_edges=nnz,
         has_empty_windows=bool((blocks_per_window == 0).any()),
     )
+
+
+def coverage_expansion(indptr, indices, num_nodes: int, block_h: int, seg: int) -> float:
+    """Gather rows per nnz of a coverage plan (gather_segment=seg, windows
+    of block_h rows), straight from the CSR without building the plan.
+    A plain statistic: the JAX package gates its fused regime on it with
+    a TPU-measured threshold, which the port does not carry over."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    nnz = int(indices.shape[0])
+    if nnz == 0:
+        return 0.0
+    rows = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(indptr))
+    nseg = _cdiv(num_nodes, seg)
+    keys = (rows // block_h) * nseg + indices // seg
+    return float(_sorted_unique(keys).shape[0] * seg) / nnz
 
 
 def expand_bitmask_np(bitmask, block_h: int) -> np.ndarray:

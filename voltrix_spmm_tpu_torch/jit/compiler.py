@@ -27,6 +27,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
 runtime_cache: dict[str, Runtime] = {}

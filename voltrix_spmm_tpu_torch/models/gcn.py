@@ -40,8 +40,8 @@ def gcn_forward(
 ) -> torch.Tensor:
     """logits = agg(relu(agg(x) @ W1 + b1)) @ W2 + b2, mean aggregation.
 
-    impl: "auto" aggregates through kernel K1 on the card; "reference"
-    through the plain version."""
+    impl: "auto" aggregates through the plan's kernel on the card (K1,
+    K2 or K3, see ops.autodiff); "reference" through the plain version."""
     h = torch.relu(_agg_linear(g, x, params["w1"], transform_first, impl) + params["b1"])
     return _agg_linear(g, h, params["w2"], transform_first, impl) + params["b2"]
 

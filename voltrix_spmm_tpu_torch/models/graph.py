@@ -41,7 +41,11 @@ def build_graph(
 
     `config` must be an explicit PlanConfig: the JAX package's "auto"
     picks from constants measured on a TPU, and the H100 tuner is
-    ROADMAP.md item 9."""
+    ROADMAP.md item 9. Every binary config builds: the default windows
+    (kernel K1), column-clustered tall windows such as
+    PlanConfig(2048, 128, block_unroll=4, cluster_cols=True) (K2), and
+    coverage plans such as PlanConfig(2048, 128, gather_segment=128,
+    block_unroll=4) (K3); `spmm_ad` picks the kernel from each plan."""
     import scipy.sparse as sp
 
     if not isinstance(config, PlanConfig):
@@ -88,7 +92,8 @@ def aggregate(g: GraphData, x: torch.Tensor, mode: str = "mean", *, impl: str = 
     feature axis, so one kernel launch serves the whole batch.
 
     mode: "sum" (A @ x), "mean" (D^-1 A x), "sym" (D^-1/2 A D^-1/2 x).
-    impl: "auto" (kernel K1 on the card) or "reference" (plain version).
+    impl: "auto" (the plan's kernel on the card: K1, K2 for clustered
+    plans, K3 for coverage plans) or "reference" (plain version).
     """
     if x.dim() == 3:
         b, n, d = x.shape

@@ -1,8 +1,8 @@
 """Differentiable SpMM (counterpart of voltrix_spmm_tpu/ops/autodiff.py).
 
 A is binary, so d/dX (A @ X) = A^T @ g: the backward is another SpMM,
-over the transpose plan, through the same kernel K1. For a symmetric
-adjacency the same plan serves both directions.
+over the transpose plan. For a symmetric adjacency the same plan serves
+both directions.
 """
 
 from __future__ import annotations
@@ -12,20 +12,27 @@ import torch
 from ..format.plan import SpmmPlan
 
 
+def _dispatch(plan: SpmmPlan, feat: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """The JAX package's rule (autodiff.py:45-49): coverage plans
+    (gather_segment >= 8) run the fused kernel K3, column-clustered plans
+    the subtile kernel K2, the rest K1. Each side of the gradient
+    dispatches on its own plan, so `plan` and `plan_t` may be of
+    different kinds. impl="reference" runs the plain version instead."""
+    from . import spmm
+
+    return spmm(plan, feat, impl=impl, subtile=plan.config.cluster_cols)
+
+
 class _SpmmFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, plan, plan_t, impl):
-        from . import spmm
-
         ctx.plan_t = plan_t
         ctx.impl = impl
-        return spmm(plan, feat, impl=impl)
+        return _dispatch(plan, feat, impl)
 
     @staticmethod
     def backward(ctx, grad):
-        from . import spmm
-
-        return spmm(ctx.plan_t, grad.contiguous(), impl=ctx.impl), None, None, None
+        return _dispatch(ctx.plan_t, grad.contiguous(), ctx.impl), None, None, None
 
 
 def spmm_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *, impl: str = "auto"):

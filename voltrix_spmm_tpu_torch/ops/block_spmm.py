@@ -38,19 +38,22 @@ def load_library():
     return launch, error_string
 
 
-def _check(plan: SpmmPlan, feat: torch.Tensor) -> None:
+def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None:
+    """What every CUDA SpMM kernel of the port takes: float32 row-major
+    features on the plan's device, a binary plan in natural lane order
+    with contiguous int32 arrays, and 32-bit row and column indices."""
     cfg = plan.config
     if feat.dtype != torch.float32:
-        raise TypeError(f"spmm_block takes float32 features, got {feat.dtype}")
+        raise TypeError(f"{name} takes float32 features, got {feat.dtype}")
     if feat.dim() != 2 or feat.shape[0] != plan.source_rows:
         raise ValueError(
             f"feat must be (source_rows={plan.source_rows}, D), got {tuple(feat.shape)}"
         )
     if not feat.is_contiguous():
-        raise ValueError("spmm_block needs row-major contiguous features")
+        raise ValueError(f"{name} needs row-major contiguous features")
     if plan.values is not None or plan.src_perm is not None or cfg.seg_interleaved:
         raise ValueError(
-            "spmm_block takes binary plans in natural lane order only "
+            f"{name} takes binary plans in natural lane order only "
             "(no values, src_perm or seg_interleaved)"
         )
     shapes = {
@@ -58,22 +61,41 @@ def _check(plan: SpmmPlan, feat: torch.Tensor) -> None:
         "hind": (plan.total_blocks, cfg.block_w),
         "block_ptr": (plan.num_windows + 1,),
     }
-    for name, shape in shapes.items():
-        t = getattr(plan, name)
+    if plan.occ is not None:
+        shapes["occ"] = (plan.total_blocks,)
+    for field, shape in shapes.items():
+        t = getattr(plan, field)
         if t.device != feat.device:
             raise ValueError(
-                f"plan.{name} is on {t.device}, feat on {feat.device}: move the "
+                f"plan.{field} is on {t.device}, feat on {feat.device}: move the "
                 "plan once with SpmmPlan.to(device)"
             )
         if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"plan.{name} must be contiguous int32 {shape}, got "
+                f"plan.{field} must be contiguous int32 {shape}, got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
     if max(plan.num_nodes, plan.source_rows, feat.shape[1]) > _INT_MAX:
-        raise ValueError("spmm_block indexes rows and columns with 32-bit ints")
-    if -(-feat.shape[1] // _COLS) > 65535 or cfg.words_per_col > 65535:
-        raise ValueError("D or block_h exceeds the kernel's grid limits")
+        raise ValueError(f"{name} indexes rows and columns with 32-bit ints")
+    if -(-feat.shape[1] // _COLS) > 65535:
+        raise ValueError(f"D exceeds {name}'s grid limits")
+
+
+def launch(name: str, library, feat: torch.Tensor, *args) -> None:
+    """Call `library`'s launch function on the current stream of feat's
+    device; raise with CUDA's message if the launch was refused."""
+    fn, error_string = library
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {error_string(rc).decode()} ({rc})")
+
+
+def cast_out(out: torch.Tensor, out_dtype) -> torch.Tensor:
+    if out_dtype is None or out_dtype == torch.float32:
+        return out
+    return out.to(out_dtype)
 
 
 def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -84,26 +106,20 @@ def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tens
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_block runs on cuda or cpu tensors, not {feat.device}")
     _check(plan, feat)
+    if plan.config.words_per_col > 65535:
+        raise ValueError("block_h exceeds spmm_block's grid limits")
     d = feat.shape[1]
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
-        launch, error_string = load_library()
-        with torch.cuda.device(feat.device):
-            stream = torch.cuda.current_stream(feat.device).cuda_stream
-            rc = launch(
-                plan.bitmask.data_ptr(), plan.hind.data_ptr(),
-                plan.block_ptr.data_ptr(), feat.data_ptr(), out.data_ptr(),
-                plan.num_windows, plan.config.words_per_col, plan.config.block_h,
-                plan.config.block_w, plan.num_nodes, plan.source_rows, d, stream,
-            )
-        if rc != 0:
-            raise RuntimeError(
-                f"spmm_block launch failed: {error_string(rc).decode()} ({rc})"
-            )
+        launch(
+            "spmm_block", load_library(), feat,
+            plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+            plan.block_ptr.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            plan.num_windows, plan.config.words_per_col, plan.config.block_h,
+            plan.config.block_w, plan.num_nodes, plan.source_rows, d,
+        )
         spmm_block.launches += 1
-    if out_dtype is None or out_dtype == torch.float32:
-        return out
-    return out.to(out_dtype)
+    return cast_out(out, out_dtype)
 
 
 spmm_block.launches = 0  # plain-int launch count, read by chip_smoke.py
