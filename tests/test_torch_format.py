@@ -172,15 +172,23 @@ def test_plan_to_moves_every_tensor():
 
 @pytest.mark.parametrize("kwargs,cfg", [
     (dict(backend="native"), {}),
-    (dict(values=True), {}),
+    (dict(values=True), dict(block_h=128, gather_segment=8)),
     (dict(values=True), dict(block_h=128, cluster_cols=True)),
     ({}, dict(gather_segment=4, pack_order="incidence")),
     ({}, dict(gather_segment=2, block_unroll=2, seg_interleaved=True)),
 ])
 def test_preprocess_refuses_unported(kwargs, cfg):
+    """Layouts the port does not build are refused naming their ROADMAP
+    item; weighted plans without exact lanes are refused as the JAX
+    package refuses them (values alone build: tests/test_torch_weighted.py)."""
     a = random_csr(256, 0.05, seed=11)
     if kwargs.get("values"):
         kwargs = dict(values=np.ones(a.nnz, np.float32))
+        with pytest.raises(AssertionError):
+            jfmt.csr_preprocess(a.indptr, a.indices, 256, jfmt.PlanConfig(**cfg), **kwargs)
+        with pytest.raises(ValueError, match="weighted plans"):
+            vt.csr_preprocess(a.indptr, a.indices, 256, vt.PlanConfig(**cfg), **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         vt.csr_preprocess(a.indptr, a.indices, 256, vt.PlanConfig(**cfg), **kwargs)
 

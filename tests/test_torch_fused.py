@@ -238,10 +238,11 @@ def test_gcn_slice_matches_jax(path):
     assert auto_plan_config(a.indptr, a.indices, n) == jvx.PlanConfig(**cfg)
     gj = jmodels.build_graph(a.indptr, a.indices, n, jvx.PlanConfig(**cfg), symmetric=True,
                              backend="numpy")
-    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(**cfg), symmetric=True)
+    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(**cfg), symmetric=True,
+                        device="cpu")
     p = jax_params(*widths, seed=12)
     pj = {k: jnp.asarray(v) for k, v in p.items()}
-    model = vt.GCN.from_params(vt.gcn_params_from_jax(p)).eval()
+    model = vt.GCN.from_params(vt.gcn_params_from_jax(p, device="cpu")).eval()
     for request in range(3):
         x = features(n, widths[0], seed=20 + request)
         calls, k1 = counter.calls, spmm_reference.calls

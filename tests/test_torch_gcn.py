@@ -33,7 +33,7 @@ def both_graphs(a, block_h=128, symmetric=None):
     gj = jmodels.build_graph(a.indptr, a.indices, n, JaxPlanConfig(block_h, 128),
                              symmetric=symmetric, backend="numpy")
     gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(block_h, 128),
-                        symmetric=symmetric)
+                        symmetric=symmetric, device="cpu")
     return gj, gt
 
 
@@ -66,7 +66,7 @@ def test_gcn_forward_matches_jax(in_dim, transform_first):
     x = features(n, in_dim, seed=1)
     ref = jmodels.gcn_forward({k: jnp.asarray(v) for k, v in p.items()}, gj, jnp.asarray(x),
                               transform_first=transform_first)
-    out = vt.gcn_forward(vt.gcn_params_from_jax(p), gt, torch.from_numpy(x),
+    out = vt.gcn_forward(vt.gcn_params_from_jax(p, device="cpu"), gt, torch.from_numpy(x),
                          transform_first=transform_first)
     assert out.shape == (n, 8) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -74,7 +74,7 @@ def test_gcn_forward_matches_jax(in_dim, transform_first):
 
 def test_gcn_params_from_jax():
     p = jmodels.init_gcn(jax.random.PRNGKey(3), 20, 16, 5)
-    t = vt.gcn_params_from_jax(p)
+    t = vt.gcn_params_from_jax(p, device="cpu")
     assert set(t) == {"w1", "b1", "w2", "b2"}
     for k, v in t.items():
         assert v.dtype == torch.float32 and v.device.type == "cpu"
@@ -85,7 +85,7 @@ def test_gcn_module_runs_gcn_forward():
     a = power_law_graph(n=600, edges=2000, seed=2)
     n = a.shape[0]
     _, gt = both_graphs(a)
-    p = vt.gcn_params_from_jax(jax_params(48, 16, 4, seed=2))
+    p = vt.gcn_params_from_jax(jax_params(48, 16, 4, seed=2), device="cpu")
     model = vt.GCN.from_params(p)
     assert [name for name, _ in model.named_parameters()] == ["w1", "b1", "w2", "b2"]
     x = torch.from_numpy(features(n, 48, seed=3))
@@ -95,7 +95,7 @@ def test_gcn_module_runs_gcn_forward():
 
 def test_gcn_init_from_generator():
     def make(seed):
-        return vt.GCN(300, 64, 10, generator=torch.Generator().manual_seed(seed))
+        return vt.GCN(300, 64, 10, generator=torch.Generator().manual_seed(seed), device="cpu")
 
     m1, m2, m3 = make(0), make(0), make(1)
     assert torch.equal(m1.w1, m2.w1) and torch.equal(m1.w2, m2.w2)
@@ -140,7 +140,7 @@ def test_build_graph_refuses_unported(kwargs):
     a = power_law_graph(n=300, edges=900, seed=6)
     kwargs = {"config": vt.PlanConfig(), **kwargs}
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        vt.build_graph(a.indptr, a.indices, a.shape[0], **kwargs)
+        vt.build_graph(a.indptr, a.indices, a.shape[0], device="cpu", **kwargs)
 
 
 def test_serving_slice_matches_jax():
@@ -154,7 +154,7 @@ def test_serving_slice_matches_jax():
     gj, gt = both_graphs(a, symmetric=True)
     p = jax_params(in_dim, hidden, classes, seed=7)
     pj = {k: jnp.asarray(v) for k, v in p.items()}
-    model = vt.GCN.from_params(vt.gcn_params_from_jax(p)).eval()
+    model = vt.GCN.from_params(vt.gcn_params_from_jax(p, device="cpu")).eval()
     for request in range(3):
         x = features(n, in_dim, seed=10 + request)
         calls = spmm_reference.calls
@@ -180,7 +180,7 @@ def test_gcn_gradient_matches_jax():
         return jnp.sum(jmodels.gcn_forward(params, gj, jnp.asarray(x)) * w)
 
     ref = jax.grad(jloss)({k: jnp.asarray(v) for k, v in p.items()})
-    pt = {k: v.requires_grad_(True) for k, v in vt.gcn_params_from_jax(p).items()}
+    pt = {k: v.requires_grad_(True) for k, v in vt.gcn_params_from_jax(p, device="cpu").items()}
     (vt.gcn_forward(pt, gt, torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
     for k in pt:
         np.testing.assert_allclose(pt[k].grad.numpy(), np.asarray(ref[k]), **TOL, err_msg=k)

@@ -29,7 +29,13 @@ import voltrix_spmm_tpu_torch.jit.compiler as compiler
 from voltrix_spmm_tpu.format.ell import csr_preprocess_ell
 from voltrix_spmm_tpu.format.hybrid import csr_preprocess_hybrid
 from voltrix_spmm_tpu_torch.models.graph import aggregate
-from voltrix_spmm_tpu_torch.ops import expand_bitmask, spmm_block, spmm_reference, spmm_scipy
+from voltrix_spmm_tpu_torch.ops import (
+    expand_bitmask,
+    spmm_block,
+    spmm_reference,
+    spmm_scipy,
+    spmm_weighted_reference,
+)
 from voltrix_spmm_tpu_torch.ops.block_spmm import _check
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -148,7 +154,9 @@ def _plan_kinds():
     tplan = vt.csr_preprocess(a.indptr, a.indices, n)
     seg8 = vt.csr_preprocess(a.indptr, a.indices, n, vt.PlanConfig(32, 128, gather_segment=8))
     return {
-        "values": dataclasses.replace(tplan, values=torch.ones(tplan.total_blocks, 128, 128)),
+        # weighted plans are ported; one in the TPU's incidence order is not
+        "values": dataclasses.replace(tplan, values=torch.ones(tplan.total_blocks, 128, 128),
+                                      src_perm=torch.arange(n, dtype=torch.int32)),
         "seg_interleaved": dataclasses.replace(
             seg8, config=vt.PlanConfig(32, 128, gather_segment=8, block_unroll=8,
                                        seg_interleaved=True)),
@@ -164,6 +172,12 @@ def _plan_kinds():
 def test_spmm_refuses_unported_plans(kind):
     plan = _plan_kinds()[kind]
     x = torch.zeros(256, 8)
+    if kind == "values":
+        # a weighted plan is ported: "auto" sends it to K4 (its plain
+        # version on the CPU); in the TPU's incidence order it is refused
+        calls = spmm_weighted_reference.calls
+        out = vt.spmm(dataclasses.replace(plan, src_perm=None), x)
+        assert spmm_weighted_reference.calls == calls + 1 and tuple(out.shape) == (256, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         vt.spmm(plan, x)
 
@@ -247,6 +261,20 @@ def test_build_is_content_addressed_and_cached(tmp_path, monkeypatch):
     assert not [f for f in os.listdir(os.path.dirname(rt.path)) if f.endswith(".tmp")]
 
 
+def test_weighted_kernel_sources_build_for_sm90a(tmp_path, monkeypatch):
+    """K4 and K5 build as K1 does: one nvcc per source, for sm_90a."""
+    nvcc, log = _fake_nvcc(tmp_path)
+    monkeypatch.setenv(vt.project.NVCC_FLAG, nvcc)
+    monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
+    monkeypatch.setattr(compiler, "runtime_cache", {})
+    for name in ("spmm_weighted", "spmm_dvalues"):
+        assert os.path.basename(compiler.build(name, [f"{name}.cu"]).path) == f"lib{name}.so"
+    cmds = [line.split() for line in log.read_text().splitlines()]
+    assert [c[-1] for c in cmds] == [os.path.join(compiler.CSRC_DIR, f"{s}.cu")
+                                     for s in ("spmm_weighted", "spmm_dvalues")]
+    assert all("arch=compute_90a,code=sm_90a" in c for c in cmds)
+
+
 def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
     nvcc, _ = _fake_nvcc(tmp_path, fail=True)
     monkeypatch.setenv(vt.project.NVCC_FLAG, nvcc)
@@ -294,7 +322,7 @@ def test_aggregate_matches_jax(mode):
     n, d = 700, 40
     a = random_csr(n, 0.02, seed=14)
     gj = jmodels.build_graph(a.indptr, a.indices, n, jvx.PlanConfig(64, 128), backend="numpy")
-    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(64, 128))
+    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(64, 128), device="cpu")
     x = features(n, d, seed=8)
     out = aggregate(gt, torch.from_numpy(x), mode)
     assert_close(out, np.asarray(jmodels.aggregate(gj, jnp.asarray(x), mode)))
@@ -317,6 +345,6 @@ def test_accuracy_helpers_match_jax():
 def test_aggregate_rejects_unknown_mode():
     n = 200
     a = random_csr(n, 0.05, seed=15)
-    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(64, 128))
+    gt = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(64, 128), device="cpu")
     with pytest.raises(ValueError, match="unknown aggregation mode"):
         aggregate(gt, torch.zeros(n, 4), "max")

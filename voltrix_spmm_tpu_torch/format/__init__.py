@@ -3,6 +3,8 @@ from .plan import PlanConfig, SpmmPlan
 from .preprocess import (
     coverage_expansion,
     csr_preprocess,
+    csr_transpose,
+    edge_slot_map,
     expand_bitmask_np,
     pad_empty_windows,
     plan_stats,
@@ -16,6 +18,8 @@ __all__ = [
     "cluster_window_columns",
     "coverage_expansion",
     "csr_preprocess",
+    "csr_transpose",
+    "edge_slot_map",
     "subtile_stats",
     "expand_bitmask_np",
     "pad_empty_windows",

@@ -101,9 +101,10 @@ class SpmmPlan:
     # int32 (total_blocks,) carrying uint32 bits: bit s set iff 128-row
     # sub-window s of the block holds a bit (cluster_cols plans only)
     occ: torch.Tensor | None = None
-    # layouts of the JAX package the port does not build yet; a plan that
-    # carries one is refused by ops.spmm
+    # float32 (total_blocks, block_h, block_w) value tiles of a weighted
+    # plan (csr_preprocess(values=...)); ops.spmm runs K4 on it
     values: torch.Tensor | None = None
+    # a layout of the JAX package the port does not build; refused by ops.spmm
     src_perm: torch.Tensor | None = None
 
     @property

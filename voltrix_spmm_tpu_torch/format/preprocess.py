@@ -41,16 +41,29 @@ def csr_preprocess(
     num_cols: int | None = None,
     values=None,
 ) -> SpmmPlan:
-    """Build an `SpmmPlan` (tensors on the CPU) from a binary CSR."""
+    """Build an `SpmmPlan` (tensors on the CPU) from a CSR.
+
+    values: optional per-edge weights aligned with `indices`. The plan then
+    carries a dense float32 (total_blocks, block_h, block_w) value plane
+    aligned with the bitmask, and `ops.spmm` runs the weighted kernel K4.
+    Duplicate (row, col) edges sum their values, the scipy CSR convention.
+    Weighted plans need exact lanes (gather_segment 1, no cluster_cols) and
+    block_h % 32 == 0 (K5 reads whole bitmask words)."""
     if backend != "numpy":
         raise NotImplementedError(
             f"backend={backend!r}: the port has only the numpy preprocess; "
             "the native C++ backend is ROADMAP.md item 1"
         )
     if values is not None:
-        raise NotImplementedError(
-            "weighted plans (values=) need kernel K4: ROADMAP.md item 11"
-        )
+        if config.gather_segment != 1:
+            raise ValueError("weighted plans need exact lanes (gather_segment=1)")
+        if config.cluster_cols:
+            raise ValueError("weighted plans do not support column clustering")
+        if config.block_h % 32:
+            raise ValueError(
+                f"weighted plans need block_h % 32 == 0 (got {config.block_h}): "
+                "spmm_weighted_dvalues reads row bits in uint32 words"
+            )
     if config.pack_order != "natural" or config.seg_interleaved:
         raise NotImplementedError(
             "pack_order='incidence' and seg_interleaved are TPU gather "
@@ -63,7 +76,11 @@ def csr_preprocess(
             f"bad CSR: indptr {indptr.shape}, indices {indices.shape}, "
             f"num_nodes {num_nodes}"
         )
-    plan = _numpy_preprocess(indptr, indices, num_nodes, config, num_cols)
+    if values is not None:
+        values = np.asarray(values, dtype=np.float32)
+        if values.shape != indices.shape:
+            raise ValueError(f"values {values.shape} must align with indices {indices.shape}")
+    plan = _numpy_preprocess(indptr, indices, num_nodes, config, num_cols, values)
     if config.cluster_cols:
         # two-level windows: sort each window's lanes by sub-window
         # signature and precompute K2's skip bitmap
@@ -88,8 +105,20 @@ def pad_empty_windows(blocks_per_window: np.ndarray, unroll: int) -> np.ndarray:
     return out
 
 
+def _sorted_unique_inverse(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """np.unique(keys, return_inverse=True) by a stable sort, for the
+    reason `_sorted_unique` gives."""
+    order = np.argsort(keys, kind="stable")
+    sorted_keys = keys[order]
+    first = np.ones(sorted_keys.shape[0], dtype=bool)
+    np.not_equal(sorted_keys[1:], sorted_keys[:-1], out=first[1:])
+    inverse = np.empty(keys.shape[0], dtype=np.int64)
+    inverse[order] = np.cumsum(first) - 1
+    return sorted_keys[first], inverse
+
+
 def _plan(config, num_nodes, num_cols, bitmask, hind, window_of_block,
-          block_ptr, num_edges, has_empty_windows) -> SpmmPlan:
+          block_ptr, num_edges, has_empty_windows, values=None) -> SpmmPlan:
     return SpmmPlan(
         bitmask=torch.from_numpy(np.ascontiguousarray(bitmask).view(np.int32)),
         hind=torch.from_numpy(np.ascontiguousarray(hind, dtype=np.int32)),
@@ -104,6 +133,7 @@ def _plan(config, num_nodes, num_cols, bitmask, hind, window_of_block,
         total_blocks=int(hind.shape[0]),
         has_empty_windows=has_empty_windows,
         num_cols=num_cols,
+        values=None if values is None else torch.from_numpy(values),
     )
 
 
@@ -113,6 +143,7 @@ def _numpy_preprocess(
     num_nodes: int,
     config: PlanConfig,
     num_cols: int | None = None,
+    values: np.ndarray | None = None,
 ) -> SpmmPlan:
     span = num_cols if num_cols is not None else num_nodes
     W, K = config.block_h, config.block_w
@@ -123,8 +154,15 @@ def _numpy_preprocess(
     rows = np.repeat(np.arange(num_nodes, dtype=np.int64), deg)
     cols = indices.astype(np.int64)
 
-    # deduplicate (row, col) so every bit is set exactly once
-    edge_key = _sorted_unique(rows * span + cols)
+    # deduplicate (row, col) so every bit is set exactly once; weighted
+    # plans sum duplicate values, in np.add.at order as the JAX package does
+    vals = None
+    if values is None:
+        edge_key = _sorted_unique(rows * span + cols)
+    else:
+        edge_key, edge_inv = _sorted_unique_inverse(rows * span + cols)
+        vals = np.zeros(edge_key.shape[0], np.float32)
+        np.add.at(vals, edge_inv, values)
     rows = edge_key // span
     cols = edge_key % span
     nnz = int(rows.shape[0])
@@ -138,6 +176,7 @@ def _numpy_preprocess(
             block_ptr=np.zeros((num_windows + 1,), np.int32),
             num_edges=0,
             has_empty_windows=True,
+            values=None if vals is None else np.zeros((0, W, K), np.float32),
         )
 
     win = rows // W
@@ -192,6 +231,12 @@ def _numpy_preprocess(
         (np.uint32(1) << (r_local % 32).astype(np.uint32)),
     )
 
+    vplane = None
+    if vals is not None:
+        # each deduplicated edge owns one slot of the dense value plane
+        vplane = np.zeros((total_blocks, W, K), dtype=np.float32)
+        vplane[e_block, r_local, e_lane] = vals
+
     window_of_block = np.repeat(
         np.arange(num_windows, dtype=np.int32), blocks_per_window
     )
@@ -203,6 +248,7 @@ def _numpy_preprocess(
         block_ptr=block_ptr,
         num_edges=nnz,
         has_empty_windows=bool((blocks_per_window == 0).any()),
+        values=vplane,
     )
 
 
@@ -220,6 +266,66 @@ def coverage_expansion(indptr, indices, num_nodes: int, block_h: int, seg: int) 
     nseg = _cdiv(num_nodes, seg)
     keys = (rows // block_h) * nseg + indices // seg
     return float(_sorted_unique(keys).shape[0] * seg) / nnz
+
+
+def csr_transpose(indptr, indices, num_nodes: int, values=None,
+                  num_cols: int | None = None):
+    """CSR(A) -> CSR(A^T) on the host by a stable counting sort.
+
+    A is (num_nodes, span) with span = num_cols or num_nodes. Returns
+    (indptr_t, indices_t, values_t) of the (span, num_nodes) transpose;
+    values_t is None when values is None. With `csr_preprocess(...,
+    values=...)` it builds the transpose plan that the weighted backward
+    (`ops.spmm_weighted_ad`) runs over."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    span = num_cols if num_cols is not None else num_nodes
+    rows = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(indptr))
+    order = np.argsort(indices, kind="stable")  # stable keeps rows sorted
+    indptr_t = np.zeros(span + 1, dtype=np.int64)
+    np.cumsum(np.bincount(indices, minlength=span), out=indptr_t[1:])
+    values_t = None if values is None else np.asarray(values, np.float32)[order]
+    return indptr_t, rows[order], values_t
+
+
+def edge_slot_map(plan: SpmmPlan, indptr, indices) -> np.ndarray:
+    """Flat index into `plan.values` (int64, one per CSR edge), derived
+    from the plan's hind and bitmask. With it a differentiable value plane
+    is built from per-edge tensors `w`:
+
+        plane = torch.zeros(tb * H * K).index_add_(0, slots, w).view(tb, H, K)
+
+    Duplicate (row, col) edges share a slot, so the sum reproduces
+    `csr_preprocess(values=...)`. Raises ValueError when an edge is not in
+    the plan (a plan of another CSR)."""
+    cfg = plan.config
+    if cfg.gather_segment != 1 or cfg.cluster_cols:
+        raise ValueError("edge_slot_map needs an exact-lane plan (gather_segment=1, "
+                         "no cluster_cols)")
+    W, K = cfg.block_h, cfg.block_w
+    span = plan.source_rows
+    bm = _host(plan.bitmask)
+    hind = _host(plan.hind).astype(np.int64)
+    wob = _host(plan.window_of_block).astype(np.int64)
+    # real lanes carry at least one presence bit; padding lanes none
+    b_idx, l_idx = np.nonzero((bm != 0).any(axis=1))
+    keys = wob[b_idx] * span + hind[b_idx, l_idx]
+    order = np.argsort(keys)
+    keys_sorted = keys[order]
+    lane_flat = (b_idx * K + l_idx)[order]
+
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    rows = np.repeat(np.arange(indptr.shape[0] - 1, dtype=np.int64), np.diff(indptr))
+    ekeys = (rows // W) * span + indices
+    pos = np.searchsorted(keys_sorted, ekeys)
+    if pos.shape[0] and not bool(
+        (keys_sorted[np.minimum(pos, keys_sorted.shape[0] - 1)] == ekeys).all()
+    ):
+        # a real raise: a mismatch would scatter weights into other edges' slots
+        raise ValueError("edge not represented in plan (wrong plan for this CSR?)")
+    bl = lane_flat[pos] if pos.shape[0] else np.zeros(0, np.int64)
+    return (bl // K) * (W * K) + (rows % W) * K + (bl % K)
 
 
 def expand_bitmask_np(bitmask, block_h: int) -> np.ndarray:

@@ -2,7 +2,9 @@
 voltrix_spmm_tpu/models/gcn.py).
 
 Weights keep the JAX package's layout, (in, out) used as ``x @ w``, so
-parameters carry across unchanged (`gcn_params_from_jax`).
+parameters carry across unchanged (`gcn_params_from_jax`). Training is
+`gcn_loss` and `make_train_step` over a torch.optim optimizer; the
+backward of each aggregation is an SpMM over the transpose plan.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .graph import GraphData, aggregate
@@ -46,7 +49,32 @@ def gcn_forward(
     return _agg_linear(g, h, params["w2"], transform_first, impl) + params["b2"]
 
 
-def gcn_params_from_jax(params: Mapping[str, np.ndarray], device="cpu") -> dict:
+def gcn_loss(params: Mapping[str, torch.Tensor], g: GraphData, x: torch.Tensor,
+             labels: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Mean softmax cross-entropy of the GCN's logits against integer
+    labels (the JAX package's gcn_loss)."""
+    return F.cross_entropy(gcn_forward(params, g, x, impl=impl), labels)
+
+
+def make_train_step(optimizer: torch.optim.Optimizer, loss_fn=gcn_loss):
+    """The counterpart of the JAX package's make_train_step: returns
+    `train_step(params, g, x, y, *, impl="auto") -> loss`, one full step
+    that zeroes the gradients, runs `loss_fn` forward and backward, and
+    steps `optimizer`, which holds the tensors of `params` (a mapping such
+    as `GCN.params()`). The parameters are updated in place; after the
+    call their `.grad` holds the step's gradients."""
+
+    def train_step(params, g, x, y, *, impl: str = "auto") -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, g, x, y, impl=impl)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def gcn_params_from_jax(params: Mapping[str, np.ndarray], device="cuda") -> dict:
     """The JAX package's `init_gcn` parameters (or any mapping of arrays
     in its layout) as float32 tensors on `device`."""
     return {
@@ -58,7 +86,8 @@ def gcn_params_from_jax(params: Mapping[str, np.ndarray], device="cpu") -> dict:
 class GCN(nn.Module):
     """Two-layer GCN with parameters w1 (in, hidden), b1, w2 (hidden,
     classes), b2, initialised as the JAX package's `init_gcn` does (He
-    normal weights, zero biases), from a torch.Generator."""
+    normal weights, zero biases), from a torch.Generator (drawn on the
+    CPU, then moved to `device`)."""
 
     def __init__(
         self,
@@ -67,7 +96,7 @@ class GCN(nn.Module):
         num_classes: int,
         *,
         generator: torch.Generator | None = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
 

@@ -33,11 +33,11 @@ def build_graph(
     config: PlanConfig,
     symmetric: bool | None = None,
     stream_chunks: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> GraphData:
     """Preprocess the adjacency into plans for A and A^T and the degree
-    normalisations, and move them to `device` once, so requests never
-    upload the plan again.
+    normalisations, and move them to `device` (the card unless the caller
+    asks for the CPU) once, so requests never upload the plan again.
 
     `config` must be an explicit PlanConfig: the JAX package's "auto"
     picks from constants measured on a TPU, and the H100 tuner is

@@ -6,9 +6,17 @@ from .block_spmm import spmm_block
 from .fused_spmm import spmm_fused, spmm_fused_reference
 from .reference import spmm_reference, spmm_scipy
 from .subtile_spmm import spmm_subtile, spmm_subtile_reference
+from .weighted import (
+    sddmm,
+    spmm_weighted,
+    spmm_weighted_ad,
+    spmm_weighted_dvalues,
+    spmm_weighted_dvalues_reference,
+    spmm_weighted_reference,
+)
 from ..format.plan import SpmmPlan
 
-IMPLS = ("auto", "pregather", "pallas", "fused", "reference")
+IMPLS = ("auto", "pregather", "pallas", "fused", "weighted", "reference")
 
 
 def _refuse_unported(plan) -> None:
@@ -22,10 +30,6 @@ def _refuse_unported(plan) -> None:
         raise NotImplementedError(
             f"{type(plan).__name__} is not ported: EllPlan is ROADMAP.md item 12 "
             "(K6, K7), HybridPlan item 10"
-        )
-    if plan.values is not None:
-        raise NotImplementedError(
-            "weighted plans need kernel K4: ROADMAP.md item 11"
         )
     if plan.config.seg_interleaved or plan.src_perm is not None:
         raise NotImplementedError(
@@ -61,7 +65,10 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool = False, out_dtype=Non
     - "pregather" / "pallas": kernel K1, or K2 with `subtile=True` (a
       clustered plan without it runs K1, as in JAX);
     - "fused": kernel K3;
-    - "reference": the plain version.
+    - "weighted": kernel K4, which "auto" picks for a plan with a value
+      plane (K1, K2 and K3 raise ValueError on one);
+    - "reference": the plain version: K4's for a weighted plan (the JAX
+      package's oracle would drop the plane and return A @ feat).
     A CUDA tensor launches the kernel; a CPU tensor runs the kernel's
     plain version.
 
@@ -77,9 +84,17 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool = False, out_dtype=Non
         flat = feat.permute(1, 0, 2).reshape(n, b * d)
         out = spmm(plan, flat, impl=impl, subtile=subtile, out_dtype=out_dtype)
         return out.reshape(-1, b, d).permute(1, 0, 2)
+    weighted = plan.values is not None
     if impl == "auto":
-        impl = "fused" if plan.config.gather_segment >= 8 else "pregather"
+        if weighted:
+            impl = "weighted"
+        else:
+            impl = "fused" if plan.config.gather_segment >= 8 else "pregather"
+    if impl == "weighted":
+        return spmm_weighted(plan, feat, out_dtype)
     if impl == "reference":
+        if weighted:
+            return spmm_weighted_reference(plan, feat, out_dtype)
         return spmm_reference(plan, feat, out_dtype)
     if impl == "fused":
         return spmm_fused(plan, feat, out_dtype)
@@ -98,5 +113,11 @@ __all__ = [
     "spmm_subtile",
     "spmm_subtile_reference",
     "spmm_scipy",
+    "spmm_weighted",
+    "spmm_weighted_ad",
+    "spmm_weighted_dvalues",
+    "spmm_weighted_dvalues_reference",
+    "spmm_weighted_reference",
+    "sddmm",
     "expand_bitmask",
 ]

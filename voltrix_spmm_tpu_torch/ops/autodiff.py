@@ -37,5 +37,9 @@ class _SpmmFunction(torch.autograd.Function):
 
 def spmm_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *, impl: str = "auto"):
     """SpMM with gradient support. `plan_t` must encode A^T (pass the same
-    plan for a symmetric adjacency)."""
+    plan for a symmetric adjacency). Binary plans only, as in JAX: a
+    weighted plan takes `spmm_weighted_ad`, which also differentiates the
+    value plane."""
+    if plan.values is not None or plan_t.values is not None:
+        raise ValueError("plan carries a value plane; use spmm_weighted_ad")
     return _SpmmFunction.apply(feat, plan, plan_t, impl)

@@ -51,10 +51,15 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
         )
     if not feat.is_contiguous():
         raise ValueError(f"{name} needs row-major contiguous features")
-    if plan.values is not None or plan.src_perm is not None or cfg.seg_interleaved:
+    if plan.values is not None:
+        raise ValueError(
+            f"plan carries a value plane; use ops.spmm(plan, feat) or "
+            f"spmm_weighted: {name} is the binary SpMM"
+        )
+    if plan.src_perm is not None or cfg.seg_interleaved:
         raise ValueError(
             f"{name} takes binary plans in natural lane order only "
-            "(no values, src_perm or seg_interleaved)"
+            "(no src_perm or seg_interleaved)"
         )
     shapes = {
         "bitmask": (plan.total_blocks, cfg.words_per_col, cfg.block_w),

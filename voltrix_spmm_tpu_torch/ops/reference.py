@@ -4,7 +4,8 @@
 semantics (gather, bitmask expansion, per-block matmul, sum over each
 window's blocks) with ordinary torch operators on whatever device the
 tensors lie on. `block_sum` is the body it shares with the plain
-versions of K2 (ops/subtile_spmm.py) and K3 (ops/fused_spmm.py).
+versions of K2 (ops/subtile_spmm.py), K3 (ops/fused_spmm.py) and K4
+(ops/weighted.py).
 `spmm_scipy` computes A @ X straight from the CSR.
 """
 
@@ -23,11 +24,12 @@ CHUNK_BYTES = 256 * 2**20
 
 
 def block_sum(plan: SpmmPlan, feat: torch.Tensor, gather, sub_keep=None,
-              chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
-    """The body the plain versions of K1, K2 and K3 share: for each chunk
-    of blocks, expand the masks, multiply them by the chunk's gathered
-    rows `gather(b0, b1)` (a (c, block_w, D) float32 tensor) and add the
-    products into their windows with `index_add_`, in block order.
+              chunk_bytes: int = CHUNK_BYTES, tiles=None) -> torch.Tensor:
+    """The body the plain versions of K1-K4 share: for each chunk of
+    blocks, take the blocks' (block_h, block_w) tiles (the expanded masks,
+    or `tiles(b0, b1)`: K4's value tiles), multiply them by the chunk's
+    gathered rows `gather(b0, b1)` (a (c, block_w, D) float32 tensor) and
+    add the products into their windows with `index_add_`, in block order.
 
     sub_keep: optional float (total_blocks, block_h // 128) 0/1 tensor;
     sub-window s of block b is added only where sub_keep[b, s] is 1 (K2's
@@ -40,7 +42,10 @@ def block_sum(plan: SpmmPlan, feat: torch.Tensor, gather, sub_keep=None,
     wob = plan.window_of_block.long()
     for b0 in range(0, plan.total_blocks, step):
         b1 = min(plan.total_blocks, b0 + step)
-        masks = expand_bitmask(plan.bitmask[b0:b1], H, torch.float32)  # (c, H, K)
+        if tiles is not None:
+            masks = tiles(b0, b1)
+        else:
+            masks = expand_bitmask(plan.bitmask[b0:b1], H, torch.float32)  # (c, H, K)
         if sub_keep is not None:
             masks *= sub_keep[b0:b1].repeat_interleave(128, dim=1)[:, :, None]
         out.index_add_(0, wob[b0:b1], torch.bmm(masks, gather(b0, b1)))
@@ -64,10 +69,15 @@ def clipped_gather(plan: SpmmPlan, feat: torch.Tensor):
 def check_binary(plan: SpmmPlan, feat: torch.Tensor) -> None:
     if feat.shape[0] != plan.source_rows:
         raise ValueError(f"feat has {feat.shape[0]} rows, plan gathers from {plan.source_rows}")
-    if plan.values is not None or plan.src_perm is not None:
+    if plan.values is not None:
+        # a binary SpMM would silently drop the plane: (A o V) @ X != A @ X
+        raise ValueError(
+            "plan carries a value plane; use ops.spmm(plan, feat) or "
+            "spmm_weighted: this is the binary SpMM"
+        )
+    if plan.src_perm is not None:
         raise NotImplementedError(
-            "weighted (K4, ROADMAP.md item 11) and pack_order='incidence' "
-            "(item 18) plans are not ported"
+            "pack_order='incidence' plans are not ported (ROADMAP.md item 18)"
         )
 
 

@@ -1,0 +1,320 @@
+"""Weighted SpMM: kernels K4 and K5, their wrappers, plain versions and
+gradient (counterpart of voltrix_spmm_tpu/ops/weighted.py).
+
+A weighted plan (`csr_preprocess(..., values=...)`) carries a dense
+float32 (total_blocks, block_h, block_w) value tile per block, aligned
+with the bitmask.
+
+- `spmm_weighted(plan, feat)` computes out = (A o V) @ feat through K4
+  (csrc/spmm_weighted.cu, replacing weighted.py:_spmm_weighted_kernel). As
+  in JAX, the whole value tile multiplies the gathered rows: the bitmask
+  is not read, and a value placed off it counts.
+- `spmm_weighted_dvalues(plan, feat, g)` computes the value gradient
+  dV[b] = mask[b] o (g_window @ feat[hind[b]]^T) through K5
+  (csrc/spmm_dvalues.cu, replacing weighted.py:_dvalues_kernel); it is
+  exactly 0.0 off the bitmask.
+- `sddmm` and `spmm_weighted_ad` are built on the two.
+
+A CPU tensor takes the plain versions, `spmm_weighted_reference` and
+`spmm_weighted_dvalues_reference`. A CUDA tensor launches the kernel or
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from ..format.plan import SpmmPlan
+from ..jit import build
+from .bitmask import expand_bitmask
+from .block_spmm import _INT_MAX, cast_out, launch
+from .reference import CHUNK_BYTES, block_sum, clipped_gather
+
+_SMEM_LIMIT = 232448  # dynamic shared memory a thread block may use on sm_90
+
+
+@functools.cache
+def load_library():
+    """Build (or reuse) K4's library; return (launch, error_string)."""
+    rt = build("spmm_weighted", ["spmm_weighted.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = rt.function("voltrix_spmm_weighted_f32", [p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+@functools.cache
+def load_dvalues_library():
+    """Build (or reuse) K5's library; return (launch, error_string)."""
+    rt = build("spmm_dvalues", ["spmm_dvalues.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = rt.function("voltrix_spmm_dvalues_f32", [p, p, p, p, p, p, i, i, i, i, i, i, i, p])
+    return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+def _check_rows(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
+    if feat.dim() != 2 or feat.shape[0] != plan.source_rows:
+        raise ValueError(
+            f"{name}: feat must be (source_rows={plan.source_rows}, D), got {tuple(feat.shape)}"
+        )
+    if plan.src_perm is not None or plan.config.seg_interleaved:
+        raise ValueError(f"{name} takes plans in natural lane order only")
+
+
+def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors) -> None:
+    """What K4 and K5 take: contiguous float32 tensors on the plan's
+    device, contiguous plan arrays of the right type and shape, and row,
+    column and block counts that fit 32-bit ints."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} takes contiguous float32 tensors, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    for field, (dtype, shape) in fields.items():
+        t = getattr(plan, field)
+        if t is None:
+            raise ValueError(f"{name}: plan.{field} is None")
+        if t.device != device:
+            raise ValueError(
+                f"plan.{field} is on {t.device}, feat on {device}: move the plan "
+                "once with SpmmPlan.to(device)"
+            )
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"plan.{field} must be contiguous {dtype} {shape}, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    if max(plan.num_nodes, plan.source_rows, plan.total_blocks, tensors[0].shape[1]) > _INT_MAX:
+        raise ValueError(f"{name} indexes rows, blocks and columns with 32-bit ints")
+
+
+def spmm_weighted_reference(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *,
+                            chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """out = (A o V) @ feat via the plan's value tiles, accumulated in
+    float32: the plain version of K4. Walks the blocks in chunks of at
+    most `chunk_bytes`."""
+    spmm_weighted_reference.calls += 1
+    if plan.values is None:
+        raise ValueError("plan has no value plane; use spmm_reference")
+    _check_rows(plan, feat, "spmm_weighted_reference")
+    d = feat.shape[1]
+    out_dtype = feat.dtype if out_dtype is None else out_dtype
+    if plan.total_blocks == 0:
+        return torch.zeros(plan.num_nodes, d, dtype=out_dtype, device=feat.device)
+    values = plan.values
+
+    def tiles(b0, b1):
+        return values[b0:b1].float()
+
+    out = block_sum(plan, feat, clipped_gather(plan, feat), chunk_bytes=chunk_bytes, tiles=tiles)
+    return out.to(out_dtype)
+
+
+spmm_weighted_reference.calls = 0  # plain-int call count, read by chip_smoke.py
+
+
+def _k4_geometry(block_h: int, block_w: int, d: int) -> tuple[int, int]:
+    """K4's thread block, (dc, rg): dc = min(d, 64) feature columns (wider
+    d in chunks) by rg row groups, rg the largest power of two that
+    divides block_h with dc * rg <= 256 threads. dc is halved until a
+    thread sums at most 32 rows (block_h / rg) and the tiles fit in shared
+    memory."""
+    dc = max(1, min(d, 64))
+    while True:
+        rg = 1
+        while 2 * rg * dc <= 256 and block_h % (2 * rg) == 0:
+            rg *= 2
+        smem = (block_h * (block_w + 4) + block_w * dc + 2 * block_w) * 4
+        if block_h // rg <= 32 and smem <= _SMEM_LIMIT:
+            return dc, rg
+        if dc == 1:
+            raise ValueError(
+                f"spmm_weighted: a {block_h} x {block_w} value tile does not fit one "
+                "thread block's shared memory; use a shorter block_h"
+            )
+        dc = (dc + 1) // 2
+
+
+def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 in,
+    float32 accumulation, cast to `out_dtype` at the end)."""
+    if feat.device.type == "cpu":
+        return spmm_weighted_reference(plan, feat, out_dtype)
+    if feat.device.type != "cuda":
+        raise ValueError(f"spmm_weighted runs on cuda or cpu tensors, not {feat.device}")
+    if plan.values is None:
+        raise ValueError("plan has no value plane; use spmm_block")
+    _check_rows(plan, feat, "spmm_weighted")
+    cfg = plan.config
+    tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
+    _check_kernel_args(plan, "spmm_weighted", {
+        "values": (torch.float32, (tb, H, K)),
+        "hind": (torch.int32, (tb, K)),
+        "window_of_block": (torch.int32, (tb,)),
+    }, feat)
+    if H % 32 or K % 128 or K & (K - 1):
+        raise ValueError(f"spmm_weighted needs block_h % 32 == 0 and a power of two "
+                         f"block_w >= 128, got {H}x{K}")
+    if plan.values.data_ptr() % 16:
+        raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
+                         "it must start 16-byte aligned")
+    d = feat.shape[1]
+    dc, rg = _k4_geometry(H, K, d)
+    if -(-d // dc) > 65535:
+        raise ValueError("D exceeds spmm_weighted's grid limits")
+    out = torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    if out.numel() and tb:
+        launch(
+            "spmm_weighted", load_library(), feat,
+            plan.values.data_ptr(), plan.hind.data_ptr(), plan.window_of_block.data_ptr(),
+            feat.data_ptr(), out.data_ptr(),
+            tb, H, K, plan.num_nodes, plan.source_rows, d, dc, rg,
+        )
+        spmm_weighted.launches += 1
+    return cast_out(out, out_dtype)
+
+
+spmm_weighted.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def _check_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor, name: str) -> None:
+    _check_rows(plan, feat, name)
+    if g.dim() != 2 or tuple(g.shape) != (plan.num_nodes, feat.shape[1]):
+        raise ValueError(
+            f"{name}: g must be (num_nodes={plan.num_nodes}, {feat.shape[1]}), "
+            f"got {tuple(g.shape)}"
+        )
+    if plan.config.block_h % 32:
+        raise ValueError(f"{name} needs block_h % 32 == 0 (whole bitmask words)")
+
+
+def spmm_weighted_dvalues_reference(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor, *,
+                                    chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """d/d(plan.values) of sum(spmm_weighted(plan, feat) * g): the float32
+    (total_blocks, block_h, block_w) plane dV[b, r, l] = g[w*H + r] .
+    feat[hind[b, l]] where the bitmask has an edge, exactly 0.0 elsewhere.
+    The plain version of K5; walks the blocks in chunks."""
+    spmm_weighted_dvalues_reference.calls += 1
+    _check_dvalues(plan, feat, g, "spmm_weighted_dvalues_reference")
+    cfg = plan.config
+    H, K = cfg.block_h, cfg.block_w
+    out = torch.zeros(plan.total_blocks, H, K, dtype=torch.float32, device=feat.device)
+    if plan.total_blocks == 0:
+        return out
+    d = feat.shape[1]
+    g_win = torch.zeros(plan.padded_nodes, d, dtype=torch.float32, device=feat.device)
+    g_win[: plan.num_nodes] = g
+    g_win = g_win.view(plan.num_windows, H, d)
+    gather = clipped_gather(plan, feat)
+    wob = plan.window_of_block.long()
+    step = max(1, chunk_bytes // (4 * (2 * H * K + K * d + H * d)))
+    for b0 in range(0, plan.total_blocks, step):
+        b1 = min(plan.total_blocks, b0 + step)
+        prod = torch.bmm(g_win[wob[b0:b1]], gather(b0, b1).transpose(1, 2))
+        mask = expand_bitmask(plan.bitmask[b0:b1], H, torch.bool)
+        out[b0:b1] = torch.where(mask, prod, 0.0)
+    return out
+
+
+spmm_weighted_dvalues_reference.calls = 0  # plain-int call count, read by chip_smoke.py
+
+
+def spmm_weighted_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The value gradient plane through kernel K5 (see the plain version
+    for the definition). The plan's value plane is not read: any plan with
+    exact lanes, binary or weighted, takes it."""
+    if feat.device.type == "cpu":
+        return spmm_weighted_dvalues_reference(plan, feat, g)
+    if feat.device.type != "cuda":
+        raise ValueError(f"spmm_weighted_dvalues runs on cuda or cpu tensors, not {feat.device}")
+    _check_dvalues(plan, feat, g, "spmm_weighted_dvalues")
+    cfg = plan.config
+    tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
+    _check_kernel_args(plan, "spmm_weighted_dvalues", {
+        "bitmask": (torch.int32, (tb, cfg.words_per_col, K)),
+        "hind": (torch.int32, (tb, K)),
+        "window_of_block": (torch.int32, (tb,)),
+    }, feat, g)
+    if K not in (128, 256):
+        raise ValueError(f"spmm_weighted_dvalues takes block_w 128 or 256, got {K}")
+    out = torch.empty(tb, H, K, dtype=torch.float32, device=feat.device)
+    if tb:
+        launch(
+            "spmm_dvalues", load_dvalues_library(), feat,
+            plan.bitmask.data_ptr(), plan.hind.data_ptr(), plan.window_of_block.data_ptr(),
+            feat.data_ptr(), g.data_ptr(), out.data_ptr(),
+            tb, cfg.words_per_col, H, K, plan.num_nodes, plan.source_rows, feat.shape[1],
+        )
+        spmm_weighted_dvalues.launches += 1
+    return out
+
+
+spmm_weighted_dvalues.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def sddmm(plan: SpmmPlan, x: torch.Tensor, y: torch.Tensor, *, per_edge=None) -> torch.Tensor:
+    """Sampled dense-dense product: out_uv = x[u] . y[v] for every edge
+    (u, v) of the plan, through K5. Returns the (total_blocks, block_h,
+    block_w) plane (zero off-edge), or with `per_edge=slots` from
+    `format.edge_slot_map` the (nnz,) per-edge vector."""
+    plane = spmm_weighted_dvalues(plan, y, x)
+    if per_edge is not None:
+        return plane.reshape(-1)[per_edge]
+    return plane
+
+
+def _forward(plan: SpmmPlan, feat: torch.Tensor, impl: str) -> torch.Tensor:
+    if impl == "reference":
+        return spmm_weighted_reference(plan, feat)
+    return spmm_weighted(plan, feat)
+
+
+class _WeightedFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, values, plan, plan_t, impl):
+        plan = dataclasses.replace(plan, values=values)
+        # the backward reads the plan's geometry only: do not hold the plane
+        ctx.plan = dataclasses.replace(plan, values=None)
+        ctx.plan_t = plan_t
+        ctx.impl = impl
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(feat)
+        return _forward(plan, feat, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dfeat = dvalues = None
+        if ctx.needs_input_grad[0]:
+            if ctx.plan_t.values is None:
+                raise ValueError("the feature gradient needs plan_t.values (A^T's plane)")
+            dfeat = _forward(ctx.plan_t, g, ctx.impl)
+        if ctx.needs_input_grad[1]:
+            (feat,) = ctx.saved_tensors
+            dvalues_fn = (spmm_weighted_dvalues_reference if ctx.impl == "reference"
+                          else spmm_weighted_dvalues)
+            dvalues = dvalues_fn(ctx.plan, feat, g)
+        return dfeat, dvalues, None, None, None
+
+
+def spmm_weighted_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *,
+                     impl: str = "auto") -> torch.Tensor:
+    """Weighted SpMM with gradients for feat and for the value plane.
+
+    `plan_t` encodes A^T with the transposed values (its CSR from
+    `format.csr_transpose(..., values=...)`). Backward: d/dfeat = (A o V)^T
+    @ g, K4 over plan_t; d/dvalues = mask o (g @ feat^T) per block, K5
+    over plan, delivered to `plan.values` (a plane built from per-edge
+    tensors through `format.edge_slot_map` passes it on to them). plan_t's
+    values get no gradient, as in JAX. A side whose input needs no
+    gradient is not launched. impl: "auto" (the kernels) or "reference"
+    (the plain versions)."""
+    if impl not in ("auto", "weighted", "reference"):
+        raise ValueError(f"unknown impl {impl!r} for the weighted SpMM")
+    if plan.values is None:
+        raise ValueError("plan has no value plane; use spmm_ad")
+    return _WeightedFunction.apply(feat, plan.values, plan, plan_t, impl)
