@@ -10,13 +10,14 @@ non-zero on failure (there is no CPU fallback):
 1. Device: the card's name and count, and nvidia-smi's name and power
    limit. No CUDA device -> exit 1 before anything else.
 2. Build: kernels K1 (csrc/spmm_block.cu), K2 (csrc/spmm_subtile.cu), K3
-   (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu) and K5
-   (csrc/spmm_dvalues.cu), one nvcc each, all started together, into
+   (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
+   (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu) and K7
+   (csrc/spmm_ell_dvals.cu), one nvcc each, all started together, into
    build/kernels/.
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K5 also exactly 0.0
-   off the bitmask.
+   off the bitmask, K7 exactly 0.0 on padding lanes.
 4. The paths, each driven through the entry points a user calls, with
    every count set to 0 just before and read just after:
    A. GCN serving on the ogbn-arxiv proxy (169,343 nodes),
@@ -27,23 +28,34 @@ non-zero on failure (there is no CPU fallback):
    D. GAT serving and training on the same graph with self-loops
       (2,083,571 nnz), PlanConfig(64, 128), 128 -> 8 heads x 8 (ELU) ->
       40: K4 9 times per request; K4 18 and K5 9 times per Adam step.
+   E. Dot-product GAT serving and training on D's graph, ELL plans
+      PlanConfig(128, 128, block_unroll=4), 128 -> 8 heads x 8 (ELU) ->
+      40: K6 and K7 9 times per request; K6 36 and K7 18 times per Adam
+      step.
+   F. GCN link prediction on the ogbl-ddi proxy (4,267 nodes, 2,571,386
+      nnz), GCN 256 -> 256 -> 256 on PlanConfig(128, 128) (K1), SDDMM
+      scores over the edges and as many sampled non-edges (ELL plan,
+      PlanConfig(128, 128)): K1 2 and K7 1 per scoring request; K1 3, K7 1
+      and K6 2 per Adam step.
    C. GCN serving on the protein proxy (132,534 nodes, 79.0M nnz),
       PlanConfig(2048, 128, gather_segment=128, block_unroll=4),
       8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
-   first and the last window). A training step 0's loss and gradients
-   must match the plain path's (calc_diff < 1e-6, allclose rtol 1e-4,
-   atol 1e-5 x max|grad| for GAT, 1e-3 x max|grad| for GCN, whose ReLU
-   may switch on an input within float32 noise of 0); the loss after 3
-   steps must be finite, and for GAT below step 0's. Each path's kernels are held against their plain
-   versions at the path's widths, under the float32 summation bound of
-   their rows.
+   first and the last window); F's scores must match the plain path's
+   (calc_diff < 1e-6, allclose rtol 1e-4, atol 1e-4 x max|score|) and so
+   must their AUC. A training step 0's loss and gradients must match the
+   plain path's (calc_diff < 1e-6, allclose rtol 1e-4, atol 1e-5 x
+   max|grad| for GAT, 1e-3 x max|grad| for GCN, whose ReLU may switch on
+   an input within float32 noise of 0); the loss after 3 steps must be
+   finite, and for D, E and F below step 0's. Each path's kernels are
+   held against their plain versions at the path's widths, under the
+   float32 summation bound of their rows.
 5. Timing with CUDA events, in turns (plain, kernel, kernel, plain): each
    kernel and its plain version at its path's widths, the one PyTorch
    call that computes the same function (torch.sparse.mm on the CSR for
-   K1-K4, torch.sparse.sampled_addmm for K5), the request and the
+   K1-K4 and K6, torch.sparse.sampled_addmm for K5 and K7), the request and the
    training step on the kernel path and on the plain path; each kernel's
    bound (bytes over 3.35 TB/s or float32 flops over 67 TFLOP/s, the
    larger); torch.profiler's device time by kernel, and the share of the
@@ -226,19 +238,25 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
+    import torch.nn.functional as F
+
     from voltrix_spmm_tpu_torch import (
-        GAT, GCN, PlanConfig, build_gat_graph, build_graph, calc_diff, csr_preprocess,
-        gat_loss, gat_params_from_jax, gcn_loss, gcn_params_from_jax, make_train_step,
+        GAT, GCN, GATDot, PlanConfig, build_ell_graph, build_gat_graph, build_graph,
+        build_link_candidates, calc_diff, csr_preprocess, csr_preprocess_ell, gat_dot_loss,
+        gat_dot_params_from_jax, gat_loss, gat_params_from_jax, gcn_loss, gcn_params_from_jax,
+        lane_values, link_auc, link_pred_loss, link_scores, make_link_pred_step,
+        make_train_step,
     )
     from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
-    from voltrix_spmm_tpu_torch.format import plan_stats, subtile_stats
+    from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
     from voltrix_spmm_tpu_torch.models import edge_softmax
     from voltrix_spmm_tpu_torch.ops import (
-        block_spmm, expand_bitmask, fused_spmm, spmm_block, spmm_fused, spmm_fused_reference,
-        spmm_reference, spmm_subtile, spmm_subtile_reference, spmm_weighted,
-        spmm_weighted_dvalues, spmm_weighted_dvalues_reference, spmm_weighted_reference,
-        subtile_spmm, weighted,
+        block_spmm, ell, expand_bitmask, fused_spmm, sddmm_ell, spmm_block, spmm_ell,
+        spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_fused,
+        spmm_fused_reference, spmm_reference, spmm_subtile, spmm_subtile_reference,
+        spmm_weighted, spmm_weighted_dvalues, spmm_weighted_dvalues_reference,
+        spmm_weighted_reference, subtile_spmm, weighted,
     )
 
     t_start = time.perf_counter()
@@ -265,6 +283,10 @@ def main() -> None:
         "spmm_dvalues": (spmm_weighted_dvalues, spmm_weighted_dvalues_reference,
                          "spmm_dvalues.cu", "voltrix_spmm_tpu/ops/weighted.py:151",
                          weighted.load_dvalues_library),
+        "spmm_ell": (spmm_ell, spmm_ell_reference, "spmm_ell.cu",
+                     "voltrix_spmm_tpu/ops/ell.py:35", ell.load_library),
+        "spmm_ell_dvals": (spmm_ell_dvals, spmm_ell_dvals_reference, "spmm_ell_dvals.cu",
+                           "voltrix_spmm_tpu/ops/ell.py:190", ell.load_dvals_library),
     }
 
     # --- 2. build: one nvcc per source, all started together -----------
@@ -285,8 +307,8 @@ def main() -> None:
 
     def compare(name, label, plan, args, deg=None):
         """The kernel against its plain version on `args` ((feat,), or
-        (feat, g) for K5). With `deg` (row degrees) the allowance of each
-        row also holds the textbook bound on float32 summation in any
+        (feat, g) for K5 and K7). With `deg` (row degrees) the allowance of
+        each row also holds the textbook bound on float32 summation in any
         order, (deg - 1) * 2**-24 * sum|a x|, once for each version: hub
         rows of a power-law graph sum tens of thousands of terms, and the
         test_spmm tolerance is set for small degrees."""
@@ -302,7 +324,12 @@ def main() -> None:
         max_err[name] = max(max_err[name], err)
         allow = TOL_KERNEL["atol"] + TOL_KERNEL["rtol"] * out_p.abs()
         if deg is not None:
-            abs_sum = plain(plan, args[0].abs())  # K4's values are >= 0 on path D
+            abs_plan = plan
+            if name == "spmm_weighted":
+                abs_plan = dataclasses.replace(plan, values=plan.values.abs())
+            elif name == "spmm_ell":
+                abs_plan = dataclasses.replace(plan, vals=plan.vals.abs())
+            abs_sum = plain(abs_plan, args[0].abs())
             allow = allow + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * abs_sum
         ok = diff < 1e-6 and bool(((out_k - out_p).abs() <= allow).all())
         extra = ""
@@ -311,6 +338,10 @@ def main() -> None:
             zero = bool((out_k[off] == 0).all())
             ok = ok and zero
             extra = f", off the bitmask {'all 0.0' if zero else 'NOT ZERO'}"
+        if name == "spmm_ell_dvals" and out_k.numel():
+            zero = bool((out_k[plan.erow < 0] == 0).all())
+            ok = ok and zero
+            extra = f", padding lanes {'all 0.0' if zero else 'NOT ZERO'}"
         print(f"  {label}: calc_diff {diff:.3e}, max|kernel - plain| {err:.3e}{extra} "
               f"-> {'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -441,6 +472,78 @@ def main() -> None:
         case(name, "n2000 d40 PlanConfig(64,128), values off the bitmask",
              erdos_renyi_csr(2000, 0.01, 32), 40, PlanConfig(64, 128), off_mask=True)
 
+    def with_duplicates(a, seed):
+        """(indptr, indices, n) of `a` with a fifth of its edges repeated:
+        duplicate edges keep separate ELL lanes and sum."""
+        coo = a.tocoo()
+        pick = np.random.default_rng(seed).random(coo.nnz) < 0.2
+        rows = np.concatenate([coo.row, coo.row[pick]])
+        order = np.argsort(rows, kind="stable")
+        indptr = np.zeros(a.shape[0] + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=a.shape[0]), out=indptr[1:])
+        return indptr, np.concatenate([coo.col, coo.col[pick]])[order], a.shape[0]
+
+    def ell_case(name, label, a, d, cfg, num_cols=None, expect=None, pad_vals=False,
+                 misaligned=False):
+        """K6 or K7 against its plain version on an ELL plan of `a` (a CSR,
+        or (indptr, indices, n)) with random edge values."""
+        indptr, indices, n = (a.indptr, a.indices, a.shape[0]) if sp.issparse(a) else a
+        values = rng.standard_normal(len(indices)).astype(np.float32)
+        plan = csr_preprocess_ell(indptr, indices, n, cfg, values=values, num_cols=num_cols)
+        if pad_vals:  # values on padding lanes: K6 must ignore them
+            pad = plan.erow < 0
+            vals = plan.vals.clone()
+            vals[pad] = torch.from_numpy(rng.standard_normal(int(pad.sum())).astype(np.float32))
+            plan = dataclasses.replace(plan, vals=vals)
+        if expect is not None and not expect(plan):
+            fail(f"{label}: the plan lacks the property this case is for")
+        src = num_cols or n
+        feat = feat_of(src, d)
+        if misaligned:  # 4 bytes past a 16-byte boundary: K7 takes scalar loads
+            buf = torch.empty(src * d + 1, device=dev)
+            buf[1:] = feat.reshape(-1)
+            feat = buf[1:].view(src, d)
+        args = (feat,) if name == "spmm_ell" else (feat, feat_of(n, d))
+        compare(name, label, plan.to(dev), args)
+
+    for name, kid in (("spmm_ell", "K6"), ("spmm_ell_dvals", "K7")):
+        print(f"kernel {kid} against its plain version (ELL plans):")
+        ell_case(name, "n3001 d8 PlanConfig(128,128,block_unroll=4) (unaligned n)",
+                 erdos_renyi_csr(3001, 0.005, 40), 8, PlanConfig(128, 128, block_unroll=4))
+        ell_case(name, "n1000 d40 PlanConfig(64,128)", erdos_renyi_csr(1000, 0.02, 41), 40,
+                 PlanConfig(64, 128))
+        ell_case(name, "n700 d1 PlanConfig(32,128)", erdos_renyi_csr(700, 0.02, 42), 1,
+                 PlanConfig(32, 128))
+        ell_case(name, "n2000 d256 PlanConfig(128,128,block_unroll=4)",
+                 erdos_renyi_csr(2000, 0.02, 43), 256, PlanConfig(128, 128, block_unroll=4))
+        ell_case(name, "n800 d40 PlanConfig(32,128,block_unroll=4), duplicate edges",
+                 with_duplicates(erdos_renyi_csr(800, 0.02, 44), 44), 40,
+                 PlanConfig(32, 128, block_unroll=4))
+        ell_case(name, "500 x 900 d64 PlanConfig(64,128) (rectangular)",
+                 sp.random(500, 900, density=0.02, format="csr",
+                           random_state=np.random.default_rng(45)), 64, PlanConfig(64, 128),
+                 num_cols=900)
+        ell_case(name, "n500 d8 empty matrix (padding blocks only)",
+                 erdos_renyi_csr(500, 0.0, 46), 8, PlanConfig(128, 128),
+                 expect=lambda p: p.total_blocks > 0 and bool((p.erow < 0).all()))
+        ell_case(name, "n12800 d8 empty matrix, no blocks", erdos_renyi_csr(12800, 0.0, 47), 8,
+                 PlanConfig(128, 128), expect=lambda p: p.total_blocks == 0)
+        ell_case(name, "n10240 d40 empty windows left without blocks",
+                 rows_only(erdos_renyi_csr(10240, 0.002, 48), lambda r: r < 128), 40,
+                 PlanConfig(128, 128), expect=lambda p: p.has_empty_windows)
+        ell_case(name, "n4000 d40 PlanConfig(128,128), values on padding lanes",
+                 erdos_renyi_csr(4000, 0.005, 49), 40, PlanConfig(128, 128), pad_vals=True,
+                 expect=lambda p: bool((p.erow < 0).any()))
+        ell_case(name, "n8000 d40 PlanConfig(128,128,block_unroll=4), power-law hub windows",
+                 hub, 40, PlanConfig(128, 128, block_unroll=4),
+                 expect=lambda p: int(torch.diff(p.block_ptr).max()) > 16)
+        ell_case(name, "n3000 d100 PlanConfig(128,256)", erdos_renyi_csr(3000, 0.01, 50), 100,
+                 PlanConfig(128, 256))
+        ell_case(name, "n6000 d64 PlanConfig(2048,128) (tall windows, 16-column tile)",
+                 erdos_renyi_csr(6000, 0.005, 51), 64, PlanConfig(2048, 128))
+        ell_case(name, "n2000 d40 PlanConfig(128,128), misaligned features",
+                 erdos_renyi_csr(2000, 0.01, 52), 40, PlanConfig(128, 128), misaligned=True)
+
     # --- 4. + 5. the paths ------------------------------------------------
     def reset_counts():
         for wrapper, plain, *_ in kernels.values():
@@ -460,16 +563,15 @@ def main() -> None:
     def library_ms(fn):
         return cuda_ms(torch, fn, iters=10, warmup=2)
 
-    def train(label, loss_fn, model, g, x, y, optimizer, want_launches, atol_scale):
-        """STEPS steps of make_train_step(optimizer, loss_fn) on the kernel
-        path, counted; step 0's loss and gradients against the plain path
-        from the same parameters (see grads_close for atol_scale). Returns
-        (losses, launch counts, final loss, peak GiB)."""
-        params = model.params()
+    def train(label, loss_fn, step, params, g, x, y, want_launches, atol_scale):
+        """STEPS calls of step(params, g, x, y) (a training step over an
+        optimizer that holds `params`) on the kernel path, counted; step 0's
+        loss and gradients against loss_fn(..., impl="reference") from the
+        same parameters (see grads_close for atol_scale). Returns (losses,
+        launch counts, final loss, peak GiB)."""
         pref = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         loss_ref = loss_fn(pref, g, x, y, impl="reference")
         want = dict(zip(pref, torch.autograd.grad(loss_ref, list(pref.values()))))
-        step = make_train_step(optimizer, loss_fn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -501,9 +603,9 @@ def main() -> None:
         print(f"  loss after {STEPS} steps {final.item():.6f} (step 0: {losses[0].item():.6f})")
         return losses, counts, final, peak
 
-    def time_steps(label, loss_fn, model, g, x, y, optimizer):
-        step = make_train_step(optimizer, loss_fn)
-        params = model.params()
+    def time_steps(step, params, g, x, y):
+        """The training step on the kernel path and on the plain path, in
+        turns, and a profile of 3 steps on the kernel path."""
         k_ms, p_ms, turns = in_turns(torch, lambda: step(params, g, x, y),
                                      lambda: step(params, g, x, y, impl="reference"),
                                      plain_iters=2)
@@ -620,19 +722,26 @@ def main() -> None:
             # may switch between the two paths, moving one node's share of
             # a gradient (1.1e-4 of max|grad_b1| in one run of this script)
             _, _, _, peak = train(
-                f"{label} training", gcn_loss, tmodel, g, xs[0], y,
-                torch.optim.SGD(tmodel.parameters(), lr=0.1), {name: 3}, atol_scale=1e-3)
+                f"{label} training", gcn_loss,
+                make_train_step(torch.optim.SGD(tmodel.parameters(), lr=0.1), gcn_loss),
+                tmodel.params(), g, xs[0], y, {name: 3}, atol_scale=1e-3)
             step_ms, plain_step_ms = time_steps(
-                label, gcn_loss, tmodel, g, xs[0], y, torch.optim.SGD(tmodel.parameters(), lr=0.1))
+                make_train_step(torch.optim.SGD(tmodel.parameters(), lr=0.1), gcn_loss),
+                tmodel.params(), g, xs[0], y)
             result.update(train_launches=STEPS * 3, train_step_ms=step_ms,
                           plain_train_step_ms=plain_step_ms, train_peak_gib=peak)
         del g, csr
         torch.cuda.empty_cache()
         return result
 
+    def loss_fell(label, losses, final):
+        if not final.item() < losses[0].item():
+            fail(f"path {label}: the loss after {STEPS} steps ({final.item():.6f}) is not "
+                 f"below step 0's ({losses[0].item():.6f})")
+
     def widths_summary(per_width):
         """ms, plain_ms, library_ms and bound_ms: one call at each of the
-        path's widths, summed; and each width's numbers."""
+        paths' widths, summed; and each width's numbers."""
         result = {"ms": sum(v[0] for v in per_width.values()),
                   "plain_ms": sum(v[1] for v in per_width.values()),
                   "library_ms": sum(v[2] for v in per_width.values()),
@@ -760,14 +869,14 @@ def main() -> None:
         tmodel = GAT.from_params(gat_params_from_jax(params_np, dev))
         y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
         losses, train_counts, final, peak = train(
-            f"{label} training", gat_loss, tmodel, g, xs[0], y,
-            torch.optim.Adam(tmodel.parameters(), lr=5e-3),
+            f"{label} training", gat_loss,
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_loss),
+            tmodel.params(), g, xs[0], y,
             {"spmm_weighted": 2 * per_request, "spmm_dvalues": per_request}, atol_scale=1e-5)
-        if not final.item() < losses[0].item():
-            fail(f"path {label}: the loss after {STEPS} steps ({final.item():.6f}) is not "
-                 f"below step 0's ({losses[0].item():.6f})")
+        loss_fell(label, losses, final)
         step_ms, plain_step_ms = time_steps(
-            label, gat_loss, tmodel, g, xs[0], y, torch.optim.Adam(tmodel.parameters(), lr=5e-3))
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_loss),
+            tmodel.params(), g, xs[0], y)
         results_k4 = {"launches": serve_launches, "train_launches": train_counts["spmm_weighted"],
                       "request_ms": req_ms, "plain_request_ms": plain_req_ms,
                       "train_step_ms": step_ms, "plain_train_step_ms": plain_step_ms,
@@ -778,6 +887,268 @@ def main() -> None:
         del g
         torch.cuda.empty_cache()
         return results_k4, results_k5
+
+    def time_ell(label, wplan, feat, grad, csr_w, csr_1, nnz, per_width, deg):
+        """K6 on `wplan` and `feat`, and K7 on (feat, grad), against their
+        plain versions at the path's width (K6 under the float32 summation
+        bound of rows of degree `deg`; K7 sums d terms); each timed in
+        turns with its plain version and its library call
+        (torch.sparse.mm on the weighted CSR `csr_w`, sampled_addmm on the
+        pattern `csr_1`), with its bound."""
+        n, d = wplan.num_nodes, feat.shape[1]
+        compare("spmm_ell", f"path {label} K6 d{d} (float32 summation bound)", wplan, (feat,),
+                deg)
+        compare("spmm_ell_dvals", f"path {label} K7 d{d}", wplan, (feat, grad))
+        k6, k7 = kernels["spmm_ell"][:2], kernels["spmm_ell_dvals"][:2]
+        k_ms, p_ms, turns = in_turns(torch, lambda: k6[0](wplan, feat), lambda: k6[1](wplan, feat))
+        lib = library_ms(lambda: torch.sparse.mm(csr_w, feat))
+        # reads hind, erow and vals, feat once; writes out once
+        b_ms, b_by = bound_ms(tensor_bytes(wplan.hind, wplan.erow, wplan.vals) + 2 * n * d * 4,
+                              2 * nnz * d)
+        per_width["spmm_ell"][d] = (k_ms, p_ms, lib, b_ms, b_by)
+        print(f"  K6 d={d}: spmm_ell {turns[1]:.4f} / {turns[2]:.4f} ms, plain {turns[0]:.4f} / "
+              f"{turns[3]:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        k_ms, p_ms, turns = in_turns(torch, lambda: k7[0](wplan, feat, grad),
+                                     lambda: k7[1](wplan, feat, grad))
+        feat_t = feat.t().contiguous()
+        lib = library_ms(lambda: torch.sparse.sampled_addmm(csr_1, grad, feat_t, beta=0.0))
+        # reads hind, erow, window_of_block, g and feat once; writes the lanes once
+        b_ms, b_by = bound_ms(
+            tensor_bytes(wplan.hind, wplan.erow, wplan.window_of_block) + 2 * n * d * 4
+            + wplan.erow.numel() * 4, 2 * nnz * d)
+        per_width["spmm_ell_dvals"][d] = (k_ms, p_ms, lib, b_ms, b_by)
+        print(f"  K7 d={d}: spmm_ell_dvals {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.sampled_addmm {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+
+    def gat_ell_path(label, a, cfg, widths, heads):
+        """Path E: dot-product GAT on ELL plans of `a`, serving (K6 and K7)
+        and training (K6 and K7)."""
+        in_dim, hidden, classes = widths
+        n = a.shape[0]
+        t0 = time.perf_counter()
+        g = build_ell_graph(a.indptr, a.indices, n, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        st, st_t = ell_stats(g.plan), ell_stats(g.plan_t)
+        bpw = torch.diff(g.plan.block_ptr)
+        print(f"path {label}: {n} nodes, {st['nnz']} nnz, {cfg}: {st['num_windows']} windows, "
+              f"{st['total_blocks']} blocks for A and {st_t['total_blocks']} for A^T (largest "
+              f"window {int(bpw.max())}), {st['lane_slots']} lane slots (fill "
+              f"{st['lane_fill']:.4f}, {st['value_bytes_per_edge']:.3f} value bytes per edge, "
+              f"{st['lane_slots'] * 4 / 2**20:.2f} MiB per lane array); build_ell_graph "
+              f"{t_build:.2f} s, host peak RSS "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+        if not (g.plan.hind.is_cuda and g.plan_t.lane_edge.is_cuda and g.rows.is_cuda):
+            fail(f"path {label}: the graph is not on the card before the first request")
+
+        prng = np.random.default_rng(2)  # init_gat_dot's layouts and scales
+        h2 = heads * hidden
+        params_np = {k: prng.standard_normal((heads, in_dim, hidden)) * (2.0 / in_dim) ** 0.5
+                     for k in ("wq1", "wk1", "wv1")}
+        params_np.update({k: prng.standard_normal((h2, classes)) * (2.0 / h2) ** 0.5
+                          for k in ("wq2", "wk2", "wv2")})
+        model = GATDot.from_params(gat_dot_params_from_jax(params_np, dev)).eval()
+        xs = [feat_of(n, in_dim) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        per_request = heads + 1
+
+        reset_counts()
+        logits, wall_ms = [], []
+        with torch.no_grad():
+            for x in xs:
+                t0 = time.perf_counter()
+                logits.append(model(g, x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        serve_counts, plain_calls = read_counts()
+        print(f"  served {REQUESTS} requests: launches {serve_counts}, plain calls {plain_calls}; "
+              f"host ms per request {[round(t, 3) for t in wall_ms]}")
+        check_counts(label, serve_counts, plain_calls,
+                     {"spmm_ell": per_request * REQUESTS, "spmm_ell_dvals": per_request * REQUESTS})
+        with torch.no_grad():
+            for i, (x, out) in enumerate(zip(xs, logits)):
+                ref = model(g, x, impl="reference")
+                torch.cuda.synchronize()
+                ok = (out.shape == (n, classes) and bool(torch.isfinite(out).all())
+                      and torch.allclose(out, ref, **TOL_LOGITS))
+                print(f"  request {i}: logits {tuple(out.shape)}, max|kernel - plain| "
+                      f"{(out - ref).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"path {label} request {i}: logits disagree with the plain forward")
+
+        # the kernels at the path's widths, on head 0's attention
+        with torch.no_grad():
+            x = xs[0]
+            q, k, v = ((x @ model.params()[w][0]).contiguous() for w in ("wq1", "wk1", "wv1"))
+            e = sddmm_ell(g.plan, q, k, per_edge=True) / hidden ** 0.5
+            alpha = edge_softmax(g, F.leaky_relu(e, 0.2))
+            wplan = dataclasses.replace(g.plan, vals=lane_values(g.plan, alpha))
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr_w, csr_1 = csr_tensor(torch, a, dev, alpha), csr_tensor(torch, a, dev)
+        per_width = {"spmm_ell": {}, "spmm_ell_dvals": {}}
+        for d in (hidden, classes):
+            feat = v if d == hidden else feat_of(n, d)
+            time_ell(label, wplan, feat, feat_of(n, d), csr_w, csr_1, a.nnz, per_width, deg)
+        del wplan, csr_w, csr_1
+        with torch.no_grad():
+            req_ms, plain_req_ms, turns = in_turns(
+                torch, lambda: model(g, x), lambda: model(g, x, impl="reference"))
+        print(f"  request (dot-product GAT forward): kernel path {req_ms:.4f} ms ({turns[1]:.4f} / "
+              f"{turns[2]:.4f}), plain path {plain_req_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+        with torch.no_grad():
+            print_profile(*profile_requests(torch, lambda: model(g, x)), "request")
+
+        print(f"path {label}, training: {STEPS} Adam steps (lr 5e-3, examples/train_gat_dot.py:88) "
+              "on labels from the seed")
+        tmodel = GATDot.from_params(gat_dot_params_from_jax(params_np, dev))
+        y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
+        losses, train_counts, final, peak = train(
+            f"{label} training", gat_dot_loss,
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_dot_loss),
+            tmodel.params(), g, xs[0], y,
+            {"spmm_ell": 4 * per_request, "spmm_ell_dvals": 2 * per_request}, atol_scale=1e-5)
+        loss_fell(label, losses, final)
+        step_ms, plain_step_ms = time_steps(
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_dot_loss),
+            tmodel.params(), g, xs[0], y)
+        common = {"request_ms": req_ms, "plain_request_ms": plain_req_ms,
+                  "train_step_ms": step_ms, "plain_train_step_ms": plain_step_ms,
+                  "train_peak_gib": peak}
+        del g
+        torch.cuda.empty_cache()
+        return {name: {"launches": serve_counts[name], "train_launches": train_counts[name],
+                       **common, "per_width": per_width[name]}
+                for name in ("spmm_ell", "spmm_ell_dvals")}
+
+    def linkpred_path(label, a, cfg, widths):
+        """Path F: GCN link prediction on `a`: K1 for the encoder, K7 for
+        the SDDMM scores of the candidate edges, K6 in their backward."""
+        in_dim, hidden, emb = widths
+        n = a.shape[0]
+        t0 = time.perf_counter()
+        g = build_graph(a.indptr, a.indices, n, cfg, symmetric=True, device=dev)
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan, plan_t, labels = build_link_candidates(a.indptr, a.indices, n,
+                                                     np.random.default_rng(5), neg_ratio=1.0,
+                                                     config=cfg, device=dev)
+        torch.cuda.synchronize()
+        t_cand = time.perf_counter() - t0
+        st = ell_stats(plan)
+        bpw = torch.diff(plan.block_ptr)
+        print(f"path {label}: {n} nodes, {a.nnz} nnz, GCN plan {cfg}: "
+              f"{plan_stats(g.plan)['total_blocks']} blocks; {st['nnz']} candidate edges "
+              f"({int(labels.sum().item())} of A), ELL {cfg}: {st['num_windows']} windows, "
+              f"{st['total_blocks']} blocks (largest window {int(bpw.max())}), fill "
+              f"{st['lane_fill']:.4f}; build_graph {t_graph:.2f} s, build_link_candidates "
+              f"{t_cand:.2f} s, host peak RSS "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+
+        prng = np.random.default_rng(3)
+        params_np = {
+            "w1": prng.standard_normal((in_dim, hidden)) * (2.0 / in_dim) ** 0.5,
+            "b1": prng.standard_normal(hidden) * 0.1,
+            "w2": prng.standard_normal((hidden, emb)) * (2.0 / hidden) ** 0.5,
+            "b2": prng.standard_normal(emb) * 0.1,
+        }
+        model = GCN.from_params(gcn_params_from_jax(params_np, dev)).eval()
+        xs = [feat_of(n, in_dim) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+
+        def request(x, impl="auto"):
+            return link_scores(plan, plan_t, model(g, x, impl=impl), impl=impl)
+
+        reset_counts()
+        scores, wall_ms = [], []
+        with torch.no_grad():
+            for x in xs:
+                t0 = time.perf_counter()
+                scores.append(request(x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        serve_counts, plain_calls = read_counts()
+        print(f"  served {REQUESTS} scoring requests: launches {serve_counts}, plain calls "
+              f"{plain_calls}; host ms per request {[round(t, 3) for t in wall_ms]}")
+        check_counts(label, serve_counts, plain_calls,
+                     {"spmm_block": 2 * REQUESTS, "spmm_ell_dvals": REQUESTS})
+        with torch.no_grad():
+            for i, (x, out) in enumerate(zip(xs, scores)):
+                ref = request(x, "reference")
+                torch.cuda.synchronize()
+                scale = ref.abs().max().item()
+                diff = calc_diff(out, ref)
+                ok = (out.shape == ref.shape == (plan.num_edges,)
+                      and bool(torch.isfinite(out).all()) and diff < 1e-6
+                      and torch.allclose(out, ref, rtol=1e-4, atol=1e-4 * scale))
+                extra = ""
+                if i == 0:  # AUC sorts 5M scores on the host: request 0 only
+                    auc_k, auc_p = link_auc(out, labels), link_auc(ref, labels)
+                    ok = ok and abs(auc_k - auc_p) <= 1e-5
+                    extra = f", AUC {auc_k:.7f} / plain {auc_p:.7f}"
+                print(f"  request {i}: {out.numel()} scores, calc_diff {diff:.3e}, max|kernel - "
+                      f"plain| {(out - ref).abs().max().item():.3e} (max|score| {scale:.3e})"
+                      f"{extra} -> {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"path {label} request {i}: scores disagree with the plain path")
+
+        # the kernels at the path's width: K7 on the scores, K6 on random cotangents
+        with torch.no_grad():
+            h = model(g, xs[0]).contiguous()
+        cot_np = rng.standard_normal(plan.num_edges).astype(np.float32)
+        gplan = dataclasses.replace(plan, vals=lane_values(plan, torch.from_numpy(cot_np).to(dev)))
+        H, K = cfg.block_h, cfg.block_w
+        lane_edge = plan.lane_edge.cpu().numpy()
+        lanes = np.nonzero(lane_edge >= 0)[0]
+        rows = (plan.window_of_block.cpu().numpy()[lanes // K].astype(np.int64) * H
+                + plan.erow.cpu().numpy().reshape(-1)[lanes])
+        cols = plan.hind.cpu().numpy().reshape(-1)[lanes]
+        cand = sp.csr_matrix((cot_np[lane_edge[lanes]], (rows, cols)), shape=(n, n))
+        cand.sort_indices()
+        csr_w = csr_tensor(torch, cand, dev, torch.from_numpy(cand.data))
+        csr_1 = csr_tensor(torch, cand, dev)
+        deg = torch.from_numpy(np.diff(cand.indptr).astype(np.float32)).to(dev)[:, None]
+        per_width = {"spmm_ell": {}, "spmm_ell_dvals": {}}
+        time_ell(label, gplan, h, h, csr_w, csr_1, plan.num_edges, per_width, deg)
+        del gplan, csr_w, csr_1, cand
+        with torch.no_grad():
+            x = xs[0]
+            req_ms, plain_req_ms, turns = in_turns(torch, lambda: request(x),
+                                                   lambda: request(x, "reference"))
+        print(f"  request (GCN forward and scores): kernel path {req_ms:.4f} ms ({turns[1]:.4f} / "
+              f"{turns[2]:.4f}), plain path {plain_req_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+        with torch.no_grad():
+            print_profile(*profile_requests(torch, lambda: request(x)), "request")
+
+        print(f"path {label}, training: {STEPS} Adam steps (lr 5e-3) on the candidates' labels")
+        tmodel = GCN.from_params(gcn_params_from_jax(params_np, dev))
+
+        def loss_fn(params, g_, x_, y_, impl="auto"):
+            return link_pred_loss(params, g_, plan, plan_t, x_, y_, impl=impl)
+
+        def stepper(optimizer):
+            step = make_link_pred_step(optimizer)
+            return lambda params, g_, x_, y_, impl="auto": step(params, g_, plan, plan_t, x_, y_,
+                                                                impl=impl)
+
+        # atol 1e-3 x max|grad|: the GCN's ReLU, as on path A
+        losses, train_counts, final, peak = train(
+            f"{label} training", loss_fn,
+            stepper(torch.optim.Adam(tmodel.parameters(), lr=5e-3)), tmodel.params(), g, xs[0],
+            labels, {"spmm_block": 3, "spmm_ell_dvals": 1, "spmm_ell": 2}, atol_scale=1e-3)
+        loss_fell(label, losses, final)
+        step_ms, plain_step_ms = time_steps(
+            stepper(torch.optim.Adam(tmodel.parameters(), lr=5e-3)), tmodel.params(), g, xs[0],
+            labels)
+        common = {"request_ms": req_ms, "plain_request_ms": plain_req_ms,
+                  "train_step_ms": step_ms, "plain_train_step_ms": plain_step_ms,
+                  "train_peak_gib": peak}
+        del g, plan, plan_t
+        torch.cuda.empty_cache()
+        return {name: {"launches": serve_counts[name], "train_launches": train_counts[name],
+                       **common, "per_width": per_width.get(name, {})}
+                for name in ("spmm_ell", "spmm_ell_dvals", "spmm_block")}
 
     t0 = time.perf_counter()
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
@@ -796,7 +1167,23 @@ def main() -> None:
     results["spmm_weighted"], results["spmm_dvalues"] = gat_path(
         "D (ogbn-arxiv proxy with self-loops, GAT, K4 and K5)", loops, PlanConfig(64, 128),
         (128, 8, 40), heads=8)
+    # examples/train_gat_dot.py:54's plan geometry
+    path_e = gat_ell_path("E (ogbn-arxiv proxy with self-loops, dot-product GAT, K6 and K7)",
+                          loops, PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8)
     del loops
+    t0 = time.perf_counter()
+    ddi = symmetrize(proxy_csr("ddi", seed=0))
+    print(f"graph: ogbl-ddi proxy in {time.perf_counter() - t0:.2f} s")
+    path_f = linkpred_path("F (ogbl-ddi proxy, GCN link prediction, K1, K6 and K7)", ddi,
+                           PlanConfig(128, 128), (256, 256, 256))
+    del ddi
+    for name in ("spmm_ell", "spmm_ell_dvals"):
+        # E's widths (8, 40) and F's (256) side by side
+        per_width = {**path_e[name].pop("per_width"), **path_f[name].pop("per_width")}
+        results[name] = {**path_e[name], **{f"f_{k}": v for k, v in path_f[name].items()},
+                         **widths_summary(per_width)}
+    results["spmm_block"].update(f_launches=path_f["spmm_block"]["launches"],
+                                 f_train_launches=path_f["spmm_block"]["train_launches"])
     t0 = time.perf_counter()
     protein = symmetrize(proxy_csr("protein", seed=0))
     n = protein.shape[0]
@@ -818,7 +1205,8 @@ def main() -> None:
         line.append({"name": name, "route": "cuda",
                      "source": f"voltrix_spmm_tpu_torch/csrc/{source}",
                      "replaces": replaces, "max_abs_err": max_err[name], **results[name]})
-    # ms / plain_ms / library_ms / bound_ms: one call at each of the path's two widths, summed
+    # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed
+    # (K6 and K7: E's d 8 and 40 and F's d 256); f_*: path F's counts and times
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -69,7 +69,9 @@ def assert_same_plan(jplan, tplan):
 
 
 def test_import_leaves_out_jax():
-    code = ("import sys, voltrix_spmm_tpu_torch; "
+    code = ("import sys, voltrix_spmm_tpu_torch, voltrix_spmm_tpu_torch.format.ell, "
+            "voltrix_spmm_tpu_torch.ops.ell, voltrix_spmm_tpu_torch.models.gat_ell, "
+            "voltrix_spmm_tpu_torch.models.linkpred; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('voltrix_spmm_tpu') and not m.startswith('voltrix_spmm_tpu_torch')); "
             "assert not bad, bad")

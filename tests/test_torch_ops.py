@@ -32,6 +32,7 @@ from voltrix_spmm_tpu_torch.models.graph import aggregate
 from voltrix_spmm_tpu_torch.ops import (
     expand_bitmask,
     spmm_block,
+    spmm_ell_reference,
     spmm_reference,
     spmm_scipy,
     spmm_weighted_reference,
@@ -178,6 +179,13 @@ def test_spmm_refuses_unported_plans(kind):
         calls = spmm_weighted_reference.calls
         out = vt.spmm(dataclasses.replace(plan, src_perm=None), x)
         assert spmm_weighted_reference.calls == calls + 1 and tuple(out.shape) == (256, 8)
+    if kind == "ell":
+        # the port's EllPlan is ported: "auto" sends it to K6 (its plain
+        # version on the CPU); the JAX package's EllPlan is refused
+        a = random_csr(256, 0.05, seed=9)
+        calls = spmm_ell_reference.calls
+        out = vt.spmm(vt.csr_preprocess_ell(a.indptr, a.indices, 256), x)
+        assert spmm_ell_reference.calls == calls + 1 and tuple(out.shape) == (256, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         vt.spmm(plan, x)
 

@@ -11,26 +11,63 @@ jax or voltrix_spmm_tpu.
     GCN serving and training path
   - ``build_gat_graph`` / ``gat_forward`` / ``GAT``: GAT on the weighted
     SpMM (``csr_preprocess(..., values=...)``, ``spmm_weighted_ad``)
+  - ``csr_preprocess_ell`` / ``build_ell_pair -> EllPlan``: the
+    edge-per-lane plan; ``spmm_ell_ad`` and ``sddmm_ell_ad`` on it
+  - ``build_ell_graph`` / ``gat_dot_forward`` / ``GATDot``: dot-product
+    GAT on the ELL plan; ``build_link_candidates`` / ``link_pred_loss`` /
+    ``make_link_pred_step``: GCN link prediction with an SDDMM decoder
 """
 
 from . import project
-from .format import PlanConfig, SpmmPlan, csr_preprocess, csr_transpose, edge_slot_map
+from .format import (
+    EllPlan,
+    PlanConfig,
+    SpmmPlan,
+    build_ell_pair,
+    csr_preprocess,
+    csr_preprocess_ell,
+    csr_transpose,
+    edge_slot_map,
+    lane_values,
+)
 from .models import (
     GAT,
     GCN,
+    EllGraph,
+    GATDot,
     GatGraph,
     GraphData,
+    build_ell_graph,
     build_gat_graph,
     build_graph,
+    build_link_candidates,
+    gat_dot_forward,
+    gat_dot_loss,
+    gat_dot_params_from_jax,
     gat_forward,
     gat_loss,
     gat_params_from_jax,
     gcn_forward,
     gcn_loss,
     gcn_params_from_jax,
+    init_link_predictor,
+    link_auc,
+    link_pred_loss,
+    link_scores,
+    make_link_pred_step,
     make_train_step,
 )
-from .ops import sddmm, spmm, spmm_ad, spmm_reference, spmm_weighted_ad
+from .ops import (
+    sddmm,
+    sddmm_ell,
+    sddmm_ell_ad,
+    spmm,
+    spmm_ad,
+    spmm_ell,
+    spmm_ell_ad,
+    spmm_reference,
+    spmm_weighted_ad,
+)
 from .utils import calc_diff, relative_error
 
 __version__ = "0.1.0"
@@ -59,6 +96,26 @@ __all__ = [
     "gat_loss",
     "gat_params_from_jax",
     "GAT",
+    "EllPlan",
+    "csr_preprocess_ell",
+    "build_ell_pair",
+    "lane_values",
+    "spmm_ell",
+    "spmm_ell_ad",
+    "sddmm_ell",
+    "sddmm_ell_ad",
+    "build_ell_graph",
+    "EllGraph",
+    "gat_dot_forward",
+    "gat_dot_loss",
+    "gat_dot_params_from_jax",
+    "GATDot",
+    "build_link_candidates",
+    "init_link_predictor",
+    "link_scores",
+    "link_pred_loss",
+    "make_link_pred_step",
+    "link_auc",
     "calc_diff",
     "relative_error",
     "project",

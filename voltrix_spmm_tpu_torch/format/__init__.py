@@ -1,4 +1,14 @@
 from .cluster import block_occupancy, cluster_window_columns, subtile_stats
+from .ell import (
+    EllPlan,
+    build_ell_pair,
+    csr_preprocess_ell,
+    edge_values,
+    ell_stats,
+    ell_transpose,
+    lane_values,
+    slice_ell_windows,
+)
 from .plan import PlanConfig, SpmmPlan
 from .preprocess import (
     coverage_expansion,
@@ -12,8 +22,16 @@ from .preprocess import (
 )
 
 __all__ = [
+    "EllPlan",
     "PlanConfig",
     "SpmmPlan",
+    "build_ell_pair",
+    "csr_preprocess_ell",
+    "edge_values",
+    "ell_stats",
+    "ell_transpose",
+    "lane_values",
+    "slice_ell_windows",
     "block_occupancy",
     "cluster_window_columns",
     "coverage_expansion",

@@ -1,0 +1,346 @@
+"""The ELL SpMM and SDDMM: kernels K6 and K7, their wrappers, plain
+versions and gradients (counterpart of voltrix_spmm_tpu/ops/ell.py).
+
+On an `EllPlan` (format/ell.py; one lane per edge):
+
+- `spmm_ell(plan, feat)` computes out = (A o V) @ feat through K6
+  (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel). Padding lanes
+  (erow = -1) add nothing, whatever `vals` holds there.
+- `spmm_ell_dvals(plan, feat, g)` computes the lane gradient
+  dval[b, l] = g[wob[b] * block_h + erow[b, l]] . feat[hind[b, l]] through
+  K7 (csrc/spmm_ell_dvals.cu, replacing ell.py:_ell_dvals_kernel), exactly
+  0.0 on padding lanes; with g = x and feat = y it is the SDDMM.
+- `spmm_ell_ad`, `sddmm_ell` and `sddmm_ell_ad` are built on the two.
+
+A CPU tensor takes the plain versions, `spmm_ell_reference` and
+`spmm_ell_dvals_reference`. A CUDA tensor launches the kernel or raises:
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from ..format.ell import EllPlan, edge_values, lane_values, slice_ell_windows
+from ..jit import build
+from .block_spmm import cast_out, launch
+from .reference import CHUNK_BYTES
+from .weighted import _SMEM_LIMIT, _check_kernel_args
+
+_K6_TASK_BLOCKS = 8  # plan blocks per K6 task (see csrc/spmm_ell.cu)
+IMPLS = ("auto", "ell", "reference")
+
+
+@functools.cache
+def load_library():
+    """Build (or reuse) K6's library; return (launch, error_string)."""
+    rt = build("spmm_ell", ["spmm_ell.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = rt.function("voltrix_spmm_ell_f32", [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+@functools.cache
+def load_dvals_library():
+    """Build (or reuse) K7's library; return (launch, error_string)."""
+    rt = build("spmm_ell_dvals", ["spmm_ell_dvals.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = rt.function("voltrix_spmm_ell_dvals_f32",
+                     [p, p, p, p, p, p, ctypes.c_int64, i, i, i, i, i, i, i, p])
+    return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+def _check_rows(plan: EllPlan, feat: torch.Tensor, name: str) -> None:
+    if not isinstance(plan, EllPlan):
+        raise TypeError(f"{name} takes an EllPlan (csr_preprocess_ell), got {type(plan).__name__}")
+    if feat.dim() != 2 or feat.shape[0] != plan.source_rows:
+        raise ValueError(
+            f"{name}: feat must be (source_rows={plan.source_rows}, D), got {tuple(feat.shape)}"
+        )
+
+
+def _check_g(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor, name: str) -> None:
+    _check_rows(plan, feat, name)
+    if g.dim() != 2 or tuple(g.shape) != (plan.num_nodes, feat.shape[1]):
+        raise ValueError(
+            f"{name}: g must be (num_nodes={plan.num_nodes}, {feat.shape[1]}), "
+            f"got {tuple(g.shape)}"
+        )
+
+
+def _lane_chunks(plan: EllPlan, d: int, chunk_bytes: int):
+    """(l0, l1, kept lanes, their output rows, their source rows) over the
+    plan's lanes in chunks of about `chunk_bytes` of gathered rows; kept
+    lanes are the real ones (erow >= 0, row < num_nodes)."""
+    K, H = plan.config.block_w, plan.config.block_h
+    hind = plan.hind.reshape(-1)
+    erow = plan.erow.reshape(-1)
+    wob = plan.window_of_block.long()
+    src_max = plan.source_rows - 1
+    step = max(K, chunk_bytes // (8 * max(d, 1) + 32))
+    for l0 in range(0, plan.gather_rows, step):
+        l1 = min(plan.gather_rows, l0 + step)
+        lanes = torch.arange(l0, l1, device=hind.device)
+        e = erow[l0:l1].long()
+        rows = wob[lanes // K] * H + e
+        keep = (e >= 0) & (rows < plan.num_nodes)
+        src = hind[l0:l1].long().clamp(0, src_max)
+        yield l0, l1, keep, rows[keep], src[keep]
+
+
+def spmm_ell_reference(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
+                       chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """out = (A o V) @ feat over the plan's lanes, accumulated in float32:
+    gather, scale by `vals`, `index_add_` into wob * block_h + erow over
+    the lanes with erow >= 0. The plain version of K6; walks the lanes in
+    chunks of about `chunk_bytes`."""
+    spmm_ell_reference.calls += 1
+    _check_rows(plan, feat, "spmm_ell_reference")
+    d = feat.shape[1]
+    out_dtype = feat.dtype if out_dtype is None else out_dtype
+    out = torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    vals = plan.vals.reshape(-1)
+    for l0, l1, keep, rows, src in _lane_chunks(plan, d, chunk_bytes):
+        contrib = feat.index_select(0, src).float() * vals[l0:l1][keep].float()[:, None]
+        out.index_add_(0, rows, contrib)
+    return out.to(out_dtype)
+
+
+spmm_ell_reference.calls = 0  # plain-int call count, read by chip_smoke.py
+
+
+def _k6_smem(block_h: int, block_w: int, dc: int, task: int) -> int:
+    return (block_h * (dc | 1) + block_h + 3 * task * block_w + task) * 4
+
+
+def _k6_geometry(block_h: int, block_w: int, d: int) -> tuple[int, int]:
+    """K6's (dc, task_blocks): dc = min(d, 64) feature columns per thread
+    block, task_blocks = 8 plan blocks per task; dc (the window tile's
+    width), then the task, is halved until the tile and the staged lanes
+    fit in shared memory."""
+    dc, task = max(1, min(d, 64)), _K6_TASK_BLOCKS
+    while _k6_smem(block_h, block_w, dc, task) > _SMEM_LIMIT:
+        if dc > 1:
+            dc = (dc + 1) // 2
+        elif task > 1:
+            task //= 2
+        else:
+            raise ValueError(
+                f"spmm_ell: a {block_h}-row window tile does not fit one thread block's "
+                "shared memory; use a shorter block_h"
+            )
+    return dc, task
+
+
+def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 in,
+    float32 accumulation, cast to `out_dtype` at the end)."""
+    if feat.device.type == "cpu":
+        return spmm_ell_reference(plan, feat, out_dtype)
+    if feat.device.type != "cuda":
+        raise ValueError(f"spmm_ell runs on cuda or cpu tensors, not {feat.device}")
+    _check_rows(plan, feat, "spmm_ell")
+    tb, H, K = plan.total_blocks, plan.config.block_h, plan.config.block_w
+    _check_kernel_args(plan, "spmm_ell", {
+        "hind": (torch.int32, (tb, K)),
+        "erow": (torch.int32, (tb, K)),
+        "vals": (torch.float32, (tb, K)),
+        "window_of_block": (torch.int32, (tb,)),
+    }, feat)
+    d = feat.shape[1]
+    dc, task = _k6_geometry(H, K, d)
+    if -(-d // dc) > 65535:
+        raise ValueError("D exceeds spmm_ell's grid limits")
+    out = torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    if out.numel() and tb:
+        launch(
+            "spmm_ell", load_library(), feat,
+            plan.hind.data_ptr(), plan.erow.data_ptr(), plan.vals.data_ptr(),
+            plan.window_of_block.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            tb, H, K, plan.num_nodes, plan.source_rows, d, dc, task,
+        )
+        spmm_ell.launches += 1
+    return cast_out(out, out_dtype)
+
+
+spmm_ell.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def spmm_ell_streamed(plan, feat: torch.Tensor, *, num_chunks: int = 8,
+                      out_dtype=None) -> torch.Tensor:
+    """K6 over window-contiguous slices of the plan, one after another, so
+    only one slice's work is in flight; `plan` may be an EllPlan or the
+    list `slice_ell_windows` returns."""
+    subs = slice_ell_windows(plan, num_chunks) if isinstance(plan, EllPlan) else list(plan)
+    outs = [spmm_ell(s, feat, out_dtype) for s in subs]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def spmm_ell_dvals_reference(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor, *,
+                             chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """d/d(plan.vals) of sum(spmm_ell(plan, feat) * g): the float32
+    (total_blocks, block_w) lane plane, the row-wise dot of
+    g[wob * block_h + erow] and feat[hind], exactly 0.0 where erow < 0.
+    The plain version of K7; walks the lanes in chunks."""
+    spmm_ell_dvals_reference.calls += 1
+    _check_g(plan, feat, g, "spmm_ell_dvals_reference")
+    K = plan.config.block_w
+    out = torch.zeros(plan.gather_rows, dtype=torch.float32, device=feat.device)
+    for l0, l1, keep, rows, src in _lane_chunks(plan, feat.shape[1], chunk_bytes):
+        dots = (g.index_select(0, rows).float() * feat.index_select(0, src).float()).sum(1)
+        out[l0:l1][keep] = dots
+    return out.view(plan.total_blocks, K)
+
+
+spmm_ell_dvals_reference.calls = 0  # plain-int call count, read by chip_smoke.py
+
+
+def _k7_geometry(d: int, aligned: bool) -> tuple[int, int]:
+    """K7's (vec, sub): float4 loads when d % 4 == 0 and both tensors are
+    16-byte aligned, and sub threads per lane, the power of two (at most
+    32) at or above half the row's vectors."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    half = -(-(d // vec) // 2)
+    sub = 1
+    while sub < half and sub < 32:
+        sub *= 2
+    return vec, sub
+
+
+def spmm_ell_dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The lane gradient through kernel K7 (see the plain version for the
+    definition). The plan's `vals` are not read."""
+    if feat.device.type == "cpu":
+        return spmm_ell_dvals_reference(plan, feat, g)
+    if feat.device.type != "cuda":
+        raise ValueError(f"spmm_ell_dvals runs on cuda or cpu tensors, not {feat.device}")
+    _check_g(plan, feat, g, "spmm_ell_dvals")
+    tb, H, K = plan.total_blocks, plan.config.block_h, plan.config.block_w
+    _check_kernel_args(plan, "spmm_ell_dvals", {
+        "hind": (torch.int32, (tb, K)),
+        "erow": (torch.int32, (tb, K)),
+        "window_of_block": (torch.int32, (tb,)),
+    }, feat, g)
+    d = feat.shape[1]
+    if d == 0:
+        return torch.zeros(tb, K, dtype=torch.float32, device=feat.device)
+    out = torch.empty(tb, K, dtype=torch.float32, device=feat.device)
+    if tb:
+        vec, sub = _k7_geometry(d, feat.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+        launch(
+            "spmm_ell_dvals", load_dvals_library(), feat,
+            plan.hind.data_ptr(), plan.erow.data_ptr(), plan.window_of_block.data_ptr(),
+            feat.data_ptr(), g.data_ptr(), out.data_ptr(),
+            tb * K, H, K, plan.num_nodes, plan.source_rows, d, vec, sub,
+        )
+        spmm_ell_dvals.launches += 1
+    return out
+
+
+spmm_ell_dvals.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def _check_impl(impl: str, name: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} for {name}: it takes {', '.join(IMPLS)}")
+
+
+def _forward(plan: EllPlan, feat: torch.Tensor, impl: str) -> torch.Tensor:
+    if impl == "reference":
+        return spmm_ell_reference(plan, feat)
+    return spmm_ell(plan, feat)
+
+
+def _dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor, impl: str) -> torch.Tensor:
+    if impl == "reference":
+        return spmm_ell_dvals_reference(plan, feat, g)
+    return spmm_ell_dvals(plan, feat, g)
+
+
+def sddmm_ell(plan: EllPlan, x: torch.Tensor, y: torch.Tensor, *,
+              per_edge: bool = False) -> torch.Tensor:
+    """Sampled dense-dense product on the ELL plan, through K7: for every
+    edge (u, v), x[u] . y[v]. Returns the (total_blocks, block_w) lane
+    plane (0.0 on padding lanes), or with per_edge=True the (nnz,) vector
+    in CSR edge order. No gradient: training takes `sddmm_ell_ad`."""
+    lanes = spmm_ell_dvals(plan, y, x)
+    return edge_values(plan, lanes) if per_edge else lanes
+
+
+class _EllFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, vals, plan, plan_t, impl):
+        plan = dataclasses.replace(plan, vals=vals)
+        ctx.plan = plan
+        ctx.plan_t = plan_t
+        ctx.impl = impl
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(feat)
+        return _forward(plan, feat, impl).to(feat.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.float().contiguous()
+        dfeat = dvals = None
+        if ctx.needs_input_grad[0]:
+            if ctx.plan_t is None or ctx.plan_t.vals is None:
+                raise ValueError("the feature gradient needs plan_t with A^T's lane values")
+            dfeat = _forward(ctx.plan_t, g, ctx.impl)
+        if ctx.needs_input_grad[1]:
+            (feat,) = ctx.saved_tensors
+            dvals = _dvals(ctx.plan, feat.float().contiguous(), g, ctx.impl)
+        return dfeat, dvals, None, None, None
+
+
+def spmm_ell_ad(plan: EllPlan, plan_t: EllPlan | None, feat: torch.Tensor, *,
+                impl: str = "auto") -> torch.Tensor:
+    """ELL weighted SpMM with gradients for feat and for the lane values.
+
+    An autograd Function of (feat, plan.vals, plan, plan_t): `plan_t`
+    encodes A^T with matching lane values (build both with
+    `format.build_ell_pair`; give plan_t's vals through `lane_values(plan_t,
+    w)` for learned edges). Backward: d/dfeat = (A o V)^T @ g, K6 over
+    plan_t; d/dvals = the per-lane dot products, K7 over plan, delivered
+    to `plan.vals` (and through `lane_values` to per-edge parameters).
+    plan_t's values get no gradient, as in JAX. A side whose input needs
+    no gradient is not launched (plan_t may then be None). impl: "auto"
+    or "ell" (the kernels), "reference" (the plain versions)."""
+    _check_impl(impl, "spmm_ell_ad")
+    return _EllFunction.apply(feat, plan.vals, plan, plan_t, impl)
+
+
+class _SddmmFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, plan, plan_t, impl):
+        ctx.plan, ctx.plan_t, ctx.impl = plan, plan_t, impl
+        ctx.save_for_backward(x, y)
+        return edge_values(plan, _dvals(plan, y, x, impl))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        g = g.float().contiguous()
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            gp = dataclasses.replace(ctx.plan, vals=lane_values(ctx.plan, g))
+            dx = _forward(gp, y.float().contiguous(), ctx.impl).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gp_t = dataclasses.replace(ctx.plan_t, vals=lane_values(ctx.plan_t, g))
+            dy = _forward(gp_t, x.float().contiguous(), ctx.impl).to(y.dtype)
+        return dx, dy, None, None, None
+
+
+def sddmm_ell_ad(plan: EllPlan, plan_t: EllPlan, x: torch.Tensor, y: torch.Tensor, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """Differentiable SDDMM -> (nnz,) per-edge scores x[u] . y[v] in CSR
+    order, through K7. Backward, two K6 launches (the SDDMM/SpMM adjoint
+    pair): dx = (A o G) @ y over plan, dy = (A o G)^T @ x over plan_t, with
+    G the score cotangents placed on each plan's lanes by `lane_values`.
+    Build (plan, plan_t) with `format.build_ell_pair`, so both edge maps
+    are in A's CSR edge order."""
+    _check_impl(impl, "sddmm_ell_ad")
+    return _SddmmFunction.apply(x, y, plan, plan_t, impl)

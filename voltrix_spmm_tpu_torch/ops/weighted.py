@@ -65,7 +65,7 @@ def _check_rows(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
 
 
 def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors) -> None:
-    """What K4 and K5 take: contiguous float32 tensors on the plan's
+    """What K4-K7 take: contiguous float32 tensors on the plan's
     device, contiguous plan arrays of the right type and shape, and row,
     column and block counts that fit 32-bit ints."""
     device = tensors[0].device
@@ -81,7 +81,7 @@ def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors) -> Non
         if t.device != device:
             raise ValueError(
                 f"plan.{field} is on {t.device}, feat on {device}: move the plan "
-                "once with SpmmPlan.to(device)"
+                "once with SpmmPlan.to(device) or EllPlan.to(device)"
             )
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(

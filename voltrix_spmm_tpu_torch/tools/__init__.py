@@ -1,0 +1,2 @@
+"""Measurement tools of the port that run on the card (not imported by
+the package)."""
