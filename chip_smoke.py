@@ -11,13 +11,17 @@ non-zero on failure (there is no CPU fallback):
    limit. No CUDA device -> exit 1 before anything else.
 2. Build: kernels K1 (csrc/spmm_block.cu), K2 (csrc/spmm_subtile.cu), K3
    (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
-   (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu) and K7
-   (csrc/spmm_ell_dvals.cu), one nvcc each, all started together, into
-   build/kernels/.
+   (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
+   (csrc/spmm_ell_dvals.cu), K13 (csrc/attn_mh_fwd.cu), K14
+   (csrc/attn_mh_dq.cu) and K15 (csrc/attn_mh_dkv.cu), one nvcc each, all
+   started together, into build/kernels/.
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K5 also exactly 0.0
-   off the bitmask, K7 exactly 0.0 on padding lanes.
+   off the bitmask, K7 exactly 0.0 on padding lanes. K13-K15 (out, lse,
+   dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
+   allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
+   exactly 0 with lse exactly 1e30.
 4. The paths, each driven through the entry points a user calls, with
    every count set to 0 just before and read just after:
    A. GCN serving on the ogbn-arxiv proxy (169,343 nodes),
@@ -37,6 +41,16 @@ non-zero on failure (there is no CPU fallback):
       scores over the edges and as many sampled non-edges (ELL plan,
       PlanConfig(128, 128)): K1 2 and K7 1 per scoring request; K1 3, K7 1
       and K6 2 per Adam step.
+   G. Flash GAT serving and training on D's graph, PlanConfig(128, 128,
+      block_unroll=4), 128 -> 8 heads x 8 (ELU) -> 40, bf16 planes (the
+      JAX package's rule at >= 65,536 nodes): K13 twice per request; K13,
+      K14 and K15 twice each per Adam step. With bf16 planes float32 noise
+      may move a layer-2 input across a bf16 rounding boundary, so logits
+      and step-0 gradients are held to the bf16 class (calc_diff < 1e-4,
+      rtol and atol 2e-2, gradients 1e-2 x max|grad|); the same model
+      with float32 planes is held to rtol and atol 1e-4 (gradients 1e-4 x
+      max|grad|: a hub row's dq sums ~38k terms whose coefficients add up
+      to 0).
    C. GCN serving on the protein proxy (132,534 nodes, 79.0M nnz),
       PlanConfig(2048, 128, gather_segment=128, block_unroll=4),
       8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3.
@@ -49,14 +63,16 @@ non-zero on failure (there is no CPU fallback):
    plain path's (calc_diff < 1e-6, allclose rtol 1e-4, atol 1e-5 x
    max|grad| for GAT, 1e-3 x max|grad| for GCN, whose ReLU may switch on
    an input within float32 noise of 0); the loss after 3 steps must be
-   finite, and for D, E and F below step 0's. Each path's kernels are
+   finite, and for D, E, F and G below step 0's. Each path's kernels are
    held against their plain versions at the path's widths, under the
    float32 summation bound of their rows.
 5. Timing with CUDA events, in turns (plain, kernel, kernel, plain): each
    kernel and its plain version at its path's widths, the one PyTorch
    call that computes the same function (torch.sparse.mm on the CSR for
-   K1-K4 and K6, torch.sparse.sampled_addmm for K5 and K7), the request and the
-   training step on the kernel path and on the plain path; each kernel's
+   K1-K4 and K6, torch.sparse.sampled_addmm for K5 and K7; none for
+   K13-K15, as no single call computes masked-softmax attention over a
+   sparse pattern), the request and the training step on the kernel path
+   and on the plain path; each kernel's
    bound (bytes over 3.35 TB/s or float32 flops over 67 TFLOP/s, the
    larger); torch.profiler's device time by kernel, and the share of the
    profiled wall time the card was busy.
@@ -149,9 +165,10 @@ def csr_tensor(torch, a, dev, values=None):
         vals.float().cpu(), size=a.shape).to(dev)
 
 
-def grads_close(torch, calc_diff, got: dict, want: dict, atol_scale: float):
+def grads_close(torch, calc_diff, got: dict, want: dict, atol_scale: float,
+                max_diff: float = 1e-6, rtol: float = 1e-4):
     """(ok, worst calc_diff, worst max|diff| / max|grad|) of two gradient
-    dicts: calc_diff < 1e-6 and allclose(rtol 1e-4, atol atol_scale *
+    dicts: calc_diff < max_diff and allclose(rtol, atol atol_scale *
     max|grad|) for each parameter."""
     ok, worst_diff, worst_rel = True, 0.0, 0.0
     for k, w in want.items():
@@ -162,7 +179,7 @@ def grads_close(torch, calc_diff, got: dict, want: dict, atol_scale: float):
         print(f"    grad {k} {tuple(w.shape)}: calc_diff {diff:.3e}, max|diff| {err:.3e}, "
               f"max|grad| {scale:.3e}")
         worst_diff, worst_rel = max(worst_diff, diff), max(worst_rel, err / max(scale, 1e-30))
-        ok = ok and diff < 1e-6 and torch.allclose(g, w, rtol=1e-4, atol=atol_scale * scale)
+        ok = ok and diff < max_diff and torch.allclose(g, w, rtol=rtol, atol=atol_scale * scale)
     return ok, worst_diff, worst_rel
 
 
@@ -241,18 +258,20 @@ def main() -> None:
     import torch.nn.functional as F
 
     from voltrix_spmm_tpu_torch import (
-        GAT, GCN, GATDot, PlanConfig, build_ell_graph, build_gat_graph, build_graph,
+        GAT, GCN, GATDot, GATFlash, PlanConfig, build_ell_graph, build_gat_graph, build_graph,
         build_link_candidates, calc_diff, csr_preprocess, csr_preprocess_ell, gat_dot_loss,
-        gat_dot_params_from_jax, gat_loss, gat_params_from_jax, gcn_loss, gcn_params_from_jax,
-        lane_values, link_auc, link_pred_loss, link_scores, make_link_pred_step,
-        make_train_step,
+        gat_dot_params_from_jax, gat_flash_loss, gat_flash_params_from_jax, gat_loss,
+        gat_params_from_jax, gcn_loss, gcn_params_from_jax, lane_values, link_auc,
+        link_pred_loss, link_scores, make_link_pred_step, make_train_step,
     )
     from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
     from voltrix_spmm_tpu_torch.models import edge_softmax
     from voltrix_spmm_tpu_torch.ops import (
-        block_spmm, ell, expand_bitmask, fused_spmm, sddmm_ell, spmm_block, spmm_ell,
+        attention_mh, attention_mh_dkv, attention_mh_dkv_reference, attention_mh_dq,
+        attention_mh_dq_reference, block_spmm, ell, expand_bitmask, fused_spmm, sddmm_ell,
+        spmm_attention_mh, spmm_attention_mh_reference, spmm_block, spmm_ell,
         spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_fused,
         spmm_fused_reference, spmm_reference, spmm_subtile, spmm_subtile_reference,
         spmm_weighted, spmm_weighted_dvalues, spmm_weighted_dvalues_reference,
@@ -287,6 +306,14 @@ def main() -> None:
                      "voltrix_spmm_tpu/ops/ell.py:35", ell.load_library),
         "spmm_ell_dvals": (spmm_ell_dvals, spmm_ell_dvals_reference, "spmm_ell_dvals.cu",
                            "voltrix_spmm_tpu/ops/ell.py:190", ell.load_dvals_library),
+        "attn_mh_fwd": (spmm_attention_mh, spmm_attention_mh_reference, "attn_mh_fwd.cu",
+                        "voltrix_spmm_tpu/ops/attention_mh.py:126",
+                        attention_mh.load_fwd_library),
+        "attn_mh_dq": (attention_mh_dq, attention_mh_dq_reference, "attn_mh_dq.cu",
+                       "voltrix_spmm_tpu/ops/attention_mh.py:411", attention_mh.load_dq_library),
+        "attn_mh_dkv": (attention_mh_dkv, attention_mh_dkv_reference, "attn_mh_dkv.cu",
+                        "voltrix_spmm_tpu/ops/attention_mh.py:499",
+                        attention_mh.load_dkv_library),
     }
 
     # --- 2. build: one nvcc per source, all started together -----------
@@ -544,6 +571,115 @@ def main() -> None:
         ell_case(name, "n2000 d40 PlanConfig(128,128), misaligned features",
                  erdos_renyi_csr(2000, 0.01, 52), 40, PlanConfig(128, 128), misaligned=True)
 
+    def close(name, label, got, want, extra=""):
+        """One K13-K15 output against its plain version: calc_diff < 1e-6 and
+        |got - want| <= 1e-4 |want| + 1e-5 max|want| (float32 sums in another
+        order, a softmax merged across tasks)."""
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{name} {label}: kernel output {tuple(got.shape)} is not a finite "
+                 f"{tuple(want.shape)}")
+        scale = want.abs().max().item() if want.numel() else 0.0
+        diff = calc_diff(got, want)
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        max_err[name] = max(max_err[name], err)
+        ok = diff < 1e-6 and torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+        print(f"    {name} {label}: calc_diff {diff:.3e}, max|kernel - plain| {err:.3e} "
+              f"(max|plain| {scale:.3e}){extra} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"kernel {name} disagrees with its plain version on {label}")
+
+    def attn_compare(label, plan, plan_t, q, k, v, g, slope, pdt):
+        """K13, K14 and K15 against their plain versions on one problem; the
+        backward takes the plain forward's lse and D. Rows without edges
+        must come out exactly 0 with lse exactly 1e30."""
+        kw = dict(negative_slope=slope, plane_dtype=pdt)
+        scale = 1.0 / q.shape[2] ** 0.5
+        out_k, lse_k = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
+        out_p, lse_p = spmm_attention_mh_reference(plan, q, k, v, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        empty = lse_p == 1e30
+        rows_empty = empty[:, : plan.num_nodes]
+        exact = bool((lse_k[empty] == 1e30).all()) and bool((out_k[rows_empty] == 0).all())
+        close("attn_mh_fwd", f"{label} out", out_k, out_p)
+        finite = ~empty
+        lse_err = (lse_k[finite] - lse_p[finite]).abs().max().item() if finite.any() else 0.0
+        lse_ok = lse_err <= 1e-5 * max(1.0, lse_p[finite].abs().max().item()) and exact
+        print(f"    attn_mh_fwd {label} lse: max|kernel - plain| {lse_err:.3e}; "
+              f"{int(rows_empty.sum())} (head, row) pairs without edges "
+              f"{'exactly 0 / 1e30' if exact else 'NOT EXACT'} -> {'ok' if lse_ok else 'MISMATCH'}")
+        if not lse_ok:
+            fail(f"kernel attn_mh_fwd's lse disagrees with its plain version on {label}")
+        d_row = (g * out_p).sum(-1)
+        bwd = (q, k, v, g, lse_p, d_row)
+        kw["scale"] = scale
+        close("attn_mh_dq", f"{label} dq", attention_mh_dq(plan, *bwd, **kw),
+              attention_mh_dq_reference(plan, *bwd, **kw))
+        dk_k, dv_k = attention_mh_dkv(plan_t, *bwd, **kw)
+        dk_p, dv_p = attention_mh_dkv_reference(plan_t, *bwd, **kw)
+        close("attn_mh_dkv", f"{label} dk", dk_k, dk_p)
+        close("attn_mh_dkv", f"{label} dv", dv_k, dv_p)
+
+    def attn_case(label, a, cfg, heads, dk, dv, slope=0.2, pdt=None, cfg_t=None, expect=None):
+        """K13-K15 on plans of `a` and of its transpose (`cfg_t`, default
+        `cfg`), with random q, k, v and dO."""
+        n = a.shape[0]
+        at = a.T.tocsr()
+        plan = csr_preprocess(a.indptr, a.indices, n, cfg)
+        plan_t = csr_preprocess(at.indptr, at.indices, n, cfg_t or cfg)
+        if expect is not None and not expect(plan):
+            fail(f"{label}: the plan lacks the property this case is for")
+        q, k, g = (feat_of(heads * n, d).view(heads, n, d) for d in (dk, dk, dv))
+        v = feat_of(heads * n, dv).view(heads, n, dv)
+        pname = "bf16" if pdt is not None else "f32"
+        print(f"  {label}, H {heads}, dk {dk}, dv {dv}, slope {slope}, {pname} planes:")
+        attn_compare(label, plan.to(dev), plan_t.to(dev), q, k, v, g, slope, pdt)
+
+    def isolated(a, keep):
+        """`a` with the rows and columns r for which keep(r) is false emptied."""
+        d = sp.diags(np.array([1.0 if keep(r) else 0.0 for r in range(a.shape[0])]))
+        b = (d @ a @ d).tocsr()
+        b.eliminate_zeros()
+        return b
+
+    print("kernels K13, K14 and K15 against their plain versions (multi-head attention):")
+    bf16 = torch.bfloat16
+    er = erdos_renyi_csr(3001, 0.005, 60)
+    attn_case("n3001 PlanConfig(128,128,block_unroll=4)", er, PlanConfig(128, 128, block_unroll=4),
+              8, 8, 8)
+    attn_case("n3001 PlanConfig(128,128,block_unroll=4)", er, PlanConfig(128, 128, block_unroll=4),
+              8, 8, 8, pdt=bf16)
+    attn_case("n2000 PlanConfig(128,128,block_unroll=4)", erdos_renyi_csr(2000, 0.01, 61),
+              PlanConfig(128, 128, block_unroll=4), 1, 40, 40, pdt=bf16)
+    attn_case("n1500 PlanConfig(32,128)", erdos_renyi_csr(1500, 0.01, 62), PlanConfig(32, 128),
+              3, 12, 20, slope=1.0)
+    attn_case("n1200 PlanConfig(64,128) (widths not a multiple of 4)",
+              erdos_renyi_csr(1200, 0.01, 63), PlanConfig(64, 128), 3, 10, 6)
+    directed = sp.random(2000, 2000, density=0.005, format="csr",
+                         random_state=np.random.default_rng(64))
+    directed.data[:] = 1.0
+    for pdt in (None, bf16):
+        attn_case("n2000 directed, PlanConfig(32,128), A^T PlanConfig(64,128,block_unroll=2)",
+                  directed, PlanConfig(32, 128), 3, 12, 20, pdt=pdt,
+                  cfg_t=PlanConfig(64, 128, block_unroll=2))
+    attn_case("n10240 empty windows left without blocks",
+              rows_only(erdos_renyi_csr(10240, 0.002, 65), lambda r: r < 128),
+              PlanConfig(128, 128), 2, 8, 8, expect=lambda p: p.has_empty_windows)
+    attn_case("n3000 isolated rows (every 7th), tail windows of zero-bit blocks",
+              isolated(erdos_renyi_csr(3000, 0.005, 66), lambda r: r % 7 and r < 2700),
+              PlanConfig(64, 128, block_unroll=2), 3, 8, 8, pdt=bf16, expect=zero_block)
+    for heads, dk, dv, pdt in ((8, 8, 8, bf16), (1, 40, 40, None), (1, 40, 200, bf16)):
+        attn_case("n8000 power-law hub windows cut over several tasks", hub,
+                  PlanConfig(128, 128, block_unroll=4), heads, dk, dv, pdt=pdt,
+                  expect=lambda p: int(torch.diff(p.block_ptr).max()) > 16)
+    attn_case("n700 PlanConfig(48,128) (block_h not a multiple of 32)",
+              erdos_renyi_csr(700, 0.02, 67), PlanConfig(48, 128), 2, 8, 8)
+    attn_case("n3000 PlanConfig(256,128)", erdos_renyi_csr(3000, 0.01, 68), PlanConfig(256, 128),
+              2, 16, 16, pdt=bf16)
+    attn_case("n3000 PlanConfig(128,256)", erdos_renyi_csr(3000, 0.01, 69), PlanConfig(128, 256),
+              2, 16, 16)
+    attn_case("n1000 PlanConfig(2048,128) (tall windows, narrow tiles)",
+              erdos_renyi_csr(1000, 0.01, 70), PlanConfig(2048, 128), 1, 300, 300)
+
     # --- 4. + 5. the paths ------------------------------------------------
     def reset_counts():
         for wrapper, plain, *_ in kernels.values():
@@ -563,11 +699,12 @@ def main() -> None:
     def library_ms(fn):
         return cuda_ms(torch, fn, iters=10, warmup=2)
 
-    def train(label, loss_fn, step, params, g, x, y, want_launches, atol_scale):
+    def train(label, loss_fn, step, params, g, x, y, want_launches, atol_scale, **tol):
         """STEPS calls of step(params, g, x, y) (a training step over an
         optimizer that holds `params`) on the kernel path, counted; step 0's
         loss and gradients against loss_fn(..., impl="reference") from the
-        same parameters (see grads_close for atol_scale). Returns (losses,
+        same parameters (see grads_close for atol_scale and the tolerances
+        `tol` may set). Returns (losses,
         launch counts, final loss, peak GiB)."""
         pref = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         loss_ref = loss_fn(pref, g, x, y, impl="reference")
@@ -589,7 +726,7 @@ def main() -> None:
               f"per step {[round(t, 3) for t in ms]}; losses {[round(l.item(), 6) for l in losses]};"
               f" torch.cuda.max_memory_allocated {peak:.3f} GiB")
         check_counts(label, counts, plain_calls, {k: STEPS * n for k, n in want_launches.items()})
-        ok, diff, rel = grads_close(torch, calc_diff, grads0, want, atol_scale)
+        ok, diff, rel = grads_close(torch, calc_diff, grads0, want, atol_scale, **tol)
         loss_ok = torch.allclose(losses[0], loss_ref.detach(), rtol=1e-4, atol=0.0)
         print(f"  step 0 against the plain path: loss {losses[0].item():.6f} / "
               f"{loss_ref.item():.6f}, gradients worst calc_diff {diff:.3e}, worst "
@@ -1021,6 +1158,194 @@ def main() -> None:
                        **common, "per_width": per_width[name]}
                 for name in ("spmm_ell", "spmm_ell_dvals")}
 
+    def time_attn(label, plan, q, k, v, g, pdt, per_width):
+        """K13, K14 and K15 at one of path G's layers (q, k, v, dO): held
+        against their plain versions, timed in turns with them, and each
+        kernel's bound from this problem's edges."""
+        heads, n, dk = q.shape
+        dv = v.shape[2]
+        tag = f"H{heads} d{dk}"
+        print(f"  kernels at {tag}/{dv}:")
+        attn_compare(f"path {label} {tag}", plan, plan, q, k, v, g, 0.2, pdt)
+        scale = 1.0 / dk ** 0.5
+        kw = dict(negative_slope=0.2, plane_dtype=pdt)
+        with torch.no_grad():
+            out, lse = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
+            d_row = (g * out).sum(-1)
+        bwd = (q, k, v, g, lse, d_row)
+        plane = 2 if pdt is not None else 4
+        plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
+        edges = plan.num_edges * heads
+        hn = heads * n
+        fns = {
+            # reads the plan, q, k and v once; writes out and lse once
+            "attn_mh_fwd": (lambda: spmm_attention_mh(plan, q, k, v, **kw),
+                            lambda: spmm_attention_mh_reference(plan, q, k, v, **kw),
+                            plan_bytes + hn * (4 * dk + plane * (dk + dv) + 4 * dv)
+                            + lse.numel() * 4, edges * 2 * (dk + dv)),
+            # reads the plan, q, k, v, dO, lse and D once; writes dq once
+            "attn_mh_dq": (lambda: attention_mh_dq(plan, *bwd, scale=scale, **kw),
+                           lambda: attention_mh_dq_reference(plan, *bwd, scale=scale, **kw),
+                           plan_bytes + hn * (4 * dk + plane * (dk + dv) + 4 * dv + 4 + 4 * dk)
+                           + lse.numel() * 4, edges * (4 * dk + 2 * dv)),
+            # reads the plan, q, k, v, dO (all in the plane dtype), lse and D
+            # once; writes dk and dv once
+            "attn_mh_dkv": (lambda: attention_mh_dkv(plan, *bwd, scale=scale, **kw),
+                            lambda: attention_mh_dkv_reference(plan, *bwd, scale=scale, **kw),
+                            plan_bytes + hn * (plane * 2 * (dk + dv) + 4 + 4 * (dk + dv))
+                            + lse.numel() * 4, edges * 4 * (dk + dv)),
+        }
+        for name, (kernel, plain, nbytes, flops) in fns.items():
+            k_ms, p_ms, turns = in_turns(torch, kernel, plain)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            per_width[name][f"h{heads}_d{dk}"] = (k_ms, p_ms, None, b_ms, b_by)
+            print(f"  {name} {tag}: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+                  f"{turns[0]:.4f} / {turns[3]:.4f} ms, no library call, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+
+    def gat_flash_path(label, a, cfg, widths, heads):
+        """Path G: flash GAT on the binary plan of `a`, serving (K13) and
+        training (K13, K14 and K15)."""
+        in_dim, hidden, classes = widths
+        n = a.shape[0]
+        t0 = time.perf_counter()
+        g = build_graph(a.indptr, a.indices, n, cfg, symmetric=True, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        stats = plan_stats(g.plan)
+        bpw = torch.diff(g.plan.block_ptr)
+        pdt = torch.bfloat16 if n >= 65536 else None  # models/gat_flash.py's rule
+        print(f"path {label}: {n} nodes, {stats['nnz']} nnz, {cfg}: {stats['num_windows']} "
+              f"windows, {stats['total_blocks']} blocks (largest window {int(bpw.max())}, mean "
+              f"{float(bpw.float().mean()):.2f}), fill {stats['fill_ratio']:.5f}, bitmask "
+              f"{g.plan.bitmask.numel() * 4 / 2**20:.1f} MiB, planes "
+              f"{'bf16' if pdt is not None else 'f32'}; build_graph {t_build:.2f} s, host peak "
+              f"RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+        if not (g.plan.bitmask.is_cuda and g.plan_t is g.plan):
+            fail(f"path {label}: the plan is not on the card before the first request")
+
+        prng = np.random.default_rng(2)  # init_gat_flash (= init_gat_dot) layouts and scales
+        h2 = heads * hidden
+        params_np = {k: prng.standard_normal((heads, in_dim, hidden)) * (2.0 / in_dim) ** 0.5
+                     for k in ("wq1", "wk1", "wv1")}
+        params_np.update({k: prng.standard_normal((h2, classes)) * (2.0 / h2) ** 0.5
+                          for k in ("wq2", "wk2", "wv2")})
+        model = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev)).eval()
+        xs = [feat_of(n, in_dim) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+
+        reset_counts()
+        logits, wall_ms = [], []
+        with torch.no_grad():
+            for x in xs:
+                t0 = time.perf_counter()
+                logits.append(model(g, x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        serve_counts, plain_calls = read_counts()
+        print(f"  served {REQUESTS} requests: launches {serve_counts}, plain calls {plain_calls}; "
+              f"host ms per request {[round(t, 3) for t in wall_ms]}")
+        check_counts(label, serve_counts, plain_calls, {"attn_mh_fwd": 2 * REQUESTS})
+        # bf16 planes: float32 noise in layer 1's output may move a layer-2
+        # input across a bf16 rounding boundary (one bf16 ulp, 2**-8
+        # relative), so the two paths agree to the bf16 class (JAX's own bf16
+        # plane tolerance, tests/test_attention.py:468-470); the same model
+        # with float32 planes is held at the float32 tolerance
+        g32 = (g.plan, g.plan_t, torch.float32)
+        with torch.no_grad():
+            for i, (x, out) in enumerate(zip(xs, logits)):
+                ref = model(g, x, impl="reference")
+                out32, ref32 = model(g32, x), model(g32, x, impl="reference")
+                torch.cuda.synchronize()
+                diff = calc_diff(out, ref)
+                ok = (out.shape == (n, classes) and bool(torch.isfinite(out).all())
+                      and diff < 1e-4 and torch.allclose(out, ref, rtol=2e-2, atol=2e-2)
+                      and torch.allclose(out32, ref32, **TOL_LOGITS))
+                print(f"  request {i}: logits {tuple(out.shape)}, bf16 planes: calc_diff "
+                      f"{diff:.3e}, max|kernel - plain| {(out - ref).abs().max().item():.3e}; "
+                      f"float32 planes: max|kernel - plain| "
+                      f"{(out32 - ref32).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"path {label} request {i}: logits disagree with the plain forward")
+
+        # the kernels at the path's two layers, on request 0's activations
+        per_width = {"attn_mh_fwd": {}, "attn_mh_dq": {}, "attn_mh_dkv": {}}
+        p = model.params()
+        with torch.no_grad():
+            x = xs[0]
+            q1, k1, v1 = (torch.matmul(x, p[w]).contiguous() for w in ("wq1", "wk1", "wv1"))
+            heads1 = spmm_attention_mh(g.plan, q1, k1, v1, negative_slope=0.2, plane_dtype=pdt)
+            h = F.elu(heads1.permute(1, 0, 2).reshape(n, -1))
+            q2, k2, v2 = ((h @ p[w])[None].contiguous() for w in ("wq2", "wk2", "wv2"))
+        time_attn(label, g.plan, q1, k1, v1, feat_of(heads * n, hidden).view(heads, n, hidden),
+                  pdt, per_width)
+        time_attn(label, g.plan, q2, k2, v2, feat_of(n, classes)[None], pdt, per_width)
+        del q1, k1, v1, heads1, h, q2, k2, v2
+        with torch.no_grad():
+            req_ms, plain_req_ms, turns = in_turns(
+                torch, lambda: model(g, x), lambda: model(g, x, impl="reference"))
+        print(f"  request (flash GAT forward): kernel path {req_ms:.4f} ms ({turns[1]:.4f} / "
+              f"{turns[2]:.4f}), plain path {plain_req_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+        with torch.no_grad():
+            print_profile(*profile_requests(torch, lambda: model(g, x)), "request")
+
+        print(f"path {label}, training: {STEPS} Adam steps (lr 5e-3, examples/train_gat_dot.py:88) "
+              "on labels from the seed")
+        y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
+
+        def grads_of(impl):
+            leaves = {k: v.requires_grad_(True)
+                      for k, v in gat_flash_params_from_jax(params_np, dev).items()}
+            loss = gat_flash_loss(leaves, g32, xs[0], y, impl=impl)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return loss.detach(), dict(zip(leaves, grads))
+
+        (loss_k, grads_k), (loss_p, grads_p) = grads_of("auto"), grads_of("reference")
+        # atol 1e-4 x max|grad|: a hub row's dq sums ~38k terms whose
+        # coefficients ds add up to 0 by construction (D = sum p dP), so
+        # float32 rounding in another order is large against dq itself
+        # (3.3e-5 x max|grad| on wq1 in one run of this script)
+        ok, diff, rel = grads_close(torch, calc_diff, grads_k, grads_p, 1e-4)
+        ok = ok and torch.allclose(loss_k, loss_p, rtol=1e-4, atol=0.0)
+        print(f"  step-0 gradients with float32 planes against the plain path: loss "
+              f"{loss_k.item():.6f} / {loss_p.item():.6f}, worst calc_diff {diff:.3e}, worst "
+              f"max|diff|/max|grad| {rel:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path {label}: float32-plane gradients disagree with the plain path")
+        tmodel = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev))
+        # bf16 planes, the path's own: the bf16 class, as for the logits
+        losses, train_counts, final, peak = train(
+            f"{label} training", gat_flash_loss,
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_flash_loss),
+            tmodel.params(), g, xs[0], y,
+            {"attn_mh_fwd": 2, "attn_mh_dq": 2, "attn_mh_dkv": 2}, atol_scale=1e-2,
+            max_diff=1e-4, rtol=2e-2)
+        loss_fell(label, losses, final)
+        step_ms, plain_step_ms = time_steps(
+            make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_flash_loss),
+            tmodel.params(), g, xs[0], y)
+        common = {"request_ms": req_ms, "plain_request_ms": plain_req_ms,
+                  "train_step_ms": step_ms, "plain_train_step_ms": plain_step_ms,
+                  "train_peak_gib": peak}
+        del g
+        torch.cuda.empty_cache()
+        results = {}
+        for name, per in per_width.items():
+            serve = serve_counts[name]
+            counts = ({"launches": serve, "train_launches": train_counts[name]} if serve else
+                      {"launches": train_counts[name], "serve_launches": 0})
+            widest = max(per.values(), key=lambda t: t[3])
+            results[name] = {**counts, **common,
+                             "ms": sum(t[0] for t in per.values()),
+                             "plain_ms": sum(t[1] for t in per.values()),
+                             "library_ms": None,
+                             "bound_ms": sum(t[3] for t in per.values()),
+                             "bound_by": widest[4]}
+            for tag, (k_ms, p_ms, _, b_ms, _) in per.items():
+                results[name].update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
+                                      f"bound_ms_{tag}": b_ms})
+        return results
+
     def linkpred_path(label, a, cfg, widths):
         """Path F: GCN link prediction on `a`: K1 for the encoder, K7 for
         the SDDMM scores of the candidate edges, K6 in their backward."""
@@ -1170,6 +1495,10 @@ def main() -> None:
     # examples/train_gat_dot.py:54's plan geometry
     path_e = gat_ell_path("E (ogbn-arxiv proxy with self-loops, dot-product GAT, K6 and K7)",
                           loops, PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8)
+    # the same graph, geometry and widths as E (bench/bm_gat.py:174-177)
+    results.update(gat_flash_path(
+        "G (ogbn-arxiv proxy with self-loops, flash GAT, K13, K14 and K15)", loops,
+        PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
     del loops
     t0 = time.perf_counter()
     ddi = symmetrize(proxy_csr("ddi", seed=0))
@@ -1206,7 +1535,8 @@ def main() -> None:
                      "source": f"voltrix_spmm_tpu_torch/csrc/{source}",
                      "replaces": replaces, "max_abs_err": max_err[name], **results[name]})
     # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed
-    # (K6 and K7: E's d 8 and 40 and F's d 256); f_*: path F's counts and times
+    # (K6 and K7: E's d 8 and 40 and F's d 256; K13-K15: G's two layers, H 8 x d 8 and
+    # H 1 x d 40); f_*: path F's counts and times
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,0 +1,342 @@
+"""Parity of the PyTorch port's multi-head fused attention
+(voltrix_spmm_tpu_torch/ops/attention_mh.py) with the JAX package on the
+CPU.
+
+The same numpy graph and q, k, v go through both packages. The port runs
+the plain versions of kernels K13, K14 and K15 on CPU tensors; the JAX
+side runs its Pallas kernels in interpret mode, as tests/test_attention.py
+does. Tolerances: the forward and lse at rtol 1e-5 / atol 1e-6 with
+float32 planes (tests/test_attention.py:347) and rtol 1e-4 / atol 1e-5
+with bf16 planes; gradients at rtol 1e-4 / atol 1e-5 with float32 planes
+and max error over max magnitude < 1e-3 with bf16 planes
+(tests/test_attention.py:456-459), since JAX carries lse and D through its
+bf16 plane as hi/lo pairs and the port reads them in float32.
+"""
+
+import dataclasses
+import os
+import stat
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import voltrix_spmm_tpu_torch as vt
+import voltrix_spmm_tpu_torch.jit.compiler as compiler
+from voltrix_spmm_tpu.format import PlanConfig as JaxPlanConfig
+from voltrix_spmm_tpu.format import csr_preprocess as jax_csr_preprocess
+from voltrix_spmm_tpu.ops import spmm_attention_mh as jax_mh
+from voltrix_spmm_tpu.ops import spmm_attention_mh_ad as jax_mh_ad
+from voltrix_spmm_tpu_torch.ops import (
+    attention_mh_dkv,
+    attention_mh_dkv_reference,
+    attention_mh_dq,
+    attention_mh_dq_reference,
+    spmm_attention_mh,
+    spmm_attention_mh_ad,
+    spmm_attention_mh_reference,
+)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+BF16_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+PLANES = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def graph(n, density, seed, symmetric=True, empty_tail=0, isolated_every=0):
+    """A random binary graph; with empty_tail, its last rows and columns
+    are emptied (whole empty windows); with isolated_every, so is every
+    such row and column inside (rows without edges in non-empty windows)."""
+    rng = np.random.default_rng(seed)
+    a = sp.random(n, n, density=density, format="csr", random_state=rng)
+    a.data[:] = 1.0
+    if symmetric:
+        a = ((a + a.T) != 0).astype(np.float32).tocsr()
+    keep = np.ones(n)
+    if empty_tail:
+        keep[n - empty_tail:] = 0
+    if isolated_every:
+        keep[::isolated_every] = 0
+    a = (sp.diags(keep) @ a @ sp.diags(keep)).tocsr()
+    a.eliminate_zeros()
+    a.sort_indices()
+    return a
+
+
+def plans(a, cfg, cfg_t=None):
+    """((JAX plan, JAX plan_t), (port plan, port plan_t)) for A and A^T."""
+    n = a.shape[0]
+    at = a.T.tocsr()
+    cfg_t = cfg_t or cfg
+    jp = (jax_csr_preprocess(a.indptr, a.indices, n, JaxPlanConfig(*cfg)),
+          jax_csr_preprocess(at.indptr, at.indices, n, JaxPlanConfig(*cfg_t)))
+    tp = (vt.csr_preprocess(a.indptr, a.indices, n, vt.PlanConfig(*cfg)),
+          vt.csr_preprocess(at.indptr, at.indices, n, vt.PlanConfig(*cfg_t)))
+    return jp, tp
+
+
+def qkv(heads, n, dk, dv, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((heads, n, dk), (heads, n, dk), (heads, n, dv)))
+
+
+def calls():
+    return (spmm_attention_mh_reference.calls, attention_mh_dq_reference.calls,
+            attention_mh_dkv_reference.calls)
+
+
+def since(before):
+    return tuple(a - b for a, b in zip(calls(), before))
+
+
+@pytest.mark.parametrize("plane", ["f32", "bf16"])
+@pytest.mark.parametrize("heads,dk,dv", [(1, 8, 8), (3, 12, 20)], ids=["h1d8", "h3d12x20"])
+@pytest.mark.parametrize("slope", [1.0, 0.2], ids=["ident", "leaky"])
+@pytest.mark.parametrize("cfg", [(32, 128), (128, 128, 1, 2)], ids=["h32", "h128u2"])
+def test_forward_and_lse_match_jax(cfg, slope, heads, dk, dv, plane):
+    a = graph(200, 0.04, seed=1)
+    (jp, _), (tp, _) = plans(a, cfg)
+    q, k, v = qkv(heads, 200, dk, dv, seed=2)
+    jdt, tdt = PLANES[plane]
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), negative_slope=slope,
+                            plane_dtype=jdt, return_stats=True)
+    before = calls()
+    got, lse = spmm_attention_mh(tp, *map(torch.from_numpy, (q, k, v)), negative_slope=slope,
+                                 plane_dtype=tdt, return_stats=True)
+    assert since(before) == (1, 0, 0)  # a CPU tensor runs K13's plain version
+    tol = F32_TOL if plane == "f32" else BF16_TOL
+    assert got.shape == (heads, 200, dv) and lse.shape == (heads, tp.padded_nodes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+
+
+@pytest.mark.parametrize("plane", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["padded", "without_blocks"])
+def test_empty_windows_and_isolated_rows_match_jax(layout, plane):
+    """Empty tail windows (padded with zero-bit blocks when they are few,
+    left without blocks when they dominate: format/preprocess.py
+    pad_empty_windows) and rows without edges inside non-empty windows:
+    out exactly 0 and lse exactly 1e30 there."""
+    n, tail = (180, 50) if layout == "padded" else (2400, 2304)
+    a = graph(n, 0.04, seed=3, empty_tail=tail, isolated_every=9)
+    (jp, _), (tp, _) = plans(a, (32, 128))
+    assert tp.has_empty_windows == (layout == "without_blocks")
+    q, k, v = qkv(2, n, 8, 8, seed=4)
+    jdt, tdt = PLANES[plane]
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), scale=0.5, plane_dtype=jdt,
+                            return_stats=True)
+    got, lse = spmm_attention_mh(tp, *map(torch.from_numpy, (q, k, v)), scale=0.5,
+                                 plane_dtype=tdt, return_stats=True)
+    tol = F32_TOL if plane == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+    empty = np.r_[np.diff(a.indptr) == 0, np.ones(tp.padded_nodes - n, bool)]
+    assert empty[n - tail:].all() and empty[:n - tail:9].all()
+    assert (lse.numpy()[:, empty] == 1e30).all() and (lse.numpy()[:, ~empty] < 1e29).all()
+    assert (got.numpy()[:, empty[:n]] == 0.0).all()
+
+
+@pytest.mark.parametrize("plane", ["f32", "bf16"])
+@pytest.mark.parametrize("directed", [False, True], ids=["sym", "directed"])
+def test_gradients_match_jax_grad(directed, plane):
+    """jax.grad of spmm_attention_mh_ad against the port's backward, which
+    runs K14's and K15's plain versions once each and does not
+    differentiate through the plain forward. The directed graph's plan_t
+    has its own PlanConfig (tests/test_attention.py:373-384)."""
+    n, heads, dk, dv = 150, 3, 12, 20
+    a = graph(n, 0.05, seed=5, symmetric=not directed)
+    (jp, jpt), (tp, tpt) = plans(a, (32, 128), (64, 128, 1, 2))
+    q, k, v = qkv(heads, n, dk, dv, seed=6)
+    w = np.random.default_rng(7).standard_normal((heads, n, dv)).astype(np.float32)
+    jdt, tdt = PLANES[plane]
+
+    def jloss(q_, k_, v_):
+        out = jax_mh_ad(jp, q_, k_, v_, plan_t=jpt, negative_slope=0.2, plane_dtype=jdt)
+        return jnp.sum(out * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    before = calls()
+    out = spmm_attention_mh_ad(tp, *leaves, plan_t=tpt, negative_slope=0.2, plane_dtype=tdt)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert since(before) == (1, 1, 1)
+    for got, ref, name in zip(leaves, want, "qkv"):
+        ref = np.asarray(ref)
+        if plane == "f32":
+            np.testing.assert_allclose(got.grad.numpy(), ref, **GRAD_TOL, err_msg=f"d{name}")
+        else:
+            err = np.abs(got.grad.numpy() - ref).max() / np.abs(ref).max()
+            assert err < 1e-3, f"d{name}: {err:.3e}"
+
+
+def test_backward_wrappers_match_jax_kernels():
+    """attention_mh_dq and attention_mh_dkv (the K14 and K15 wrappers) on CPU
+    tensors run their plain versions, with the JAX gradient as the oracle;
+    the same answer as impl="reference"."""
+    n, heads = 120, 2
+    a = graph(n, 0.05, seed=8, symmetric=False)
+    (jp, jpt), (tp, tpt) = plans(a, (32, 128), (32, 128, 1, 2))
+    q, k, v = qkv(heads, n, 8, 8, seed=9)
+    g = np.random.default_rng(10).standard_normal((heads, n, 8)).astype(np.float32)
+    want = jax.grad(lambda *t: jnp.sum(jax_mh_ad(jp, *t, plan_t=jpt, scale=0.3) * g),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt_, gt = map(torch.from_numpy, (q, k, v, g))
+    out, lse = spmm_attention_mh(tp, qt, kt, vt_, scale=0.3, return_stats=True)
+    d_row = (gt * out).sum(-1)
+    before = calls()
+    dq = attention_mh_dq(tp, qt, kt, vt_, gt, lse, d_row, scale=0.3)
+    dk, dv = attention_mh_dkv(tpt, qt, kt, vt_, gt, lse, d_row, scale=0.3)
+    assert since(before) == (0, 1, 1)
+    for got, ref in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt_)]
+    out_ref = spmm_attention_mh_ad(tp, *leaves, plan_t=tpt, scale=0.3, impl="reference")
+    (out_ref * gt).sum().backward()
+    for got, leaf in zip((dq, dk, dv), leaves):
+        assert torch.equal(got, leaf.grad)
+
+
+def test_defaults_scale_and_out_dtype():
+    a = graph(100, 0.05, seed=11)
+    (_, _), (tp, _) = plans(a, (32, 128))
+    q, k, v = map(torch.from_numpy, qkv(2, 100, 16, 8, seed=12))
+    default = spmm_attention_mh(tp, q, k, v)
+    assert torch.equal(default, spmm_attention_mh(tp, q, k, v, scale=0.25))  # 1 / sqrt(16)
+    half = spmm_attention_mh(tp, q, k, v, out_dtype=torch.float16)
+    assert half.dtype == torch.float16 and torch.equal(half, default.to(torch.float16))
+    assert spmm_attention_mh(tp, q, k, v.double()).dtype == torch.float64
+
+
+def _weighted(tp, a):
+    return vt.csr_preprocess(a.indptr, a.indices, a.shape[0], vt.PlanConfig(32, 128),
+                             values=np.ones(a.nnz, np.float32))
+
+
+REFUSALS = {
+    "value plane": (ValueError, "value plane",
+                    lambda tp, a, x: spmm_attention_mh(_weighted(tp, a), *x)),
+    "value plane (ad)": (ValueError, "value plane",
+                         lambda tp, a, x: spmm_attention_mh_ad(_weighted(tp, a), *x, plan_t=tp)),
+    "plan_t None": (ValueError, "plan_t",
+                    lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=None)),
+    "subtile": (NotImplementedError, "item 13",
+                lambda tp, a, x: spmm_attention_mh(tp, *x, subtile=True)),
+    "subtile (ad)": (NotImplementedError, "item 13",
+                     lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=tp, subtile=True)),
+    "compute_dtype": (NotImplementedError, "item 9",
+                      lambda tp, a, x: spmm_attention_mh(tp, *x, compute_dtype=torch.bfloat16)),
+    "precision": (NotImplementedError, "item 9",
+                  lambda tp, a, x: spmm_attention_mh(tp, *x, precision="highest")),
+    "plane dtype": (ValueError, "plane_dtype",
+                    lambda tp, a, x: spmm_attention_mh(tp, *x, plane_dtype=torch.float16)),
+    "impl": (ValueError, "impl",
+             lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=tp, impl="pallas")),
+    "not the transpose": (ValueError, "transpose",
+                          lambda tp, a, x: spmm_attention_mh_ad(
+                              tp, *x, plan_t=dataclasses.replace(tp, num_cols=101))),
+    "shapes": (ValueError, "rows",
+               lambda tp, a, x: spmm_attention_mh(tp, x[0][:, :50], x[1], x[2])),
+    "meta device": (ValueError, "cuda or cpu",
+                    lambda tp, a, x: spmm_attention_mh(tp, *(t.to("meta") for t in x))),
+    "meta device (dq)": (ValueError, "cuda or cpu",
+                         lambda tp, a, x: attention_mh_dq(tp, *(t.to("meta") for t in x),
+                                                          x[2].to("meta"), None, None, scale=1.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_refusals(case):
+    exc, match, call = REFUSALS[case]
+    a = graph(100, 0.05, seed=13)
+    (_, _), (tp, _) = plans(a, (32, 128))
+    x = tuple(map(torch.from_numpy, qkv(2, 100, 8, 8, seed=14)))
+    with pytest.raises(exc, match=match):
+        call(tp, a, x)
+
+
+def test_no_edges_gives_zeros_and_empty_lse():
+    """total_blocks == 0: zeros, lse 1e30 (as JAX), and zero gradients."""
+    n = 300
+    a = sp.csr_matrix((n, n), dtype=np.float32)
+    (jp, _), (tp, tpt) = plans(a, (128, 128))
+    assert tp.total_blocks == 0
+    q, k, v = qkv(2, n, 8, 4, seed=15)
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), return_stats=True)
+    got, lse = spmm_attention_mh(tp, *map(torch.from_numpy, (q, k, v)), return_stats=True)
+    assert got.shape == (2, n, 4) and not got.any()
+    assert lse.shape == tuple(want_lse.shape) and (lse == 1e30).all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    spmm_attention_mh_ad(tp, *leaves, plan_t=tpt).sum().backward()
+    assert all(leaf.grad is not None and not leaf.grad.any() for leaf in leaves)
+
+
+def _fake_nvcc(tmp_path):
+    """An executable standing in for nvcc: answers --version, logs each
+    compile and writes the -o file."""
+    log = tmp_path / "nvcc.log"
+    path = tmp_path / "bin" / "nvcc"
+    path.parent.mkdir()
+    path.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "if '--version' in sys.argv:\n"
+        "    print('fake nvcc 0.0'); sys.exit(0)\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+    )
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path), log
+
+
+def test_attention_kernel_sources_build_for_sm90a(tmp_path, monkeypatch):
+    """K13, K14 and K15 build as K1-K7 do: one nvcc per source, for sm_90a,
+    with csrc/ on the include path for their shared header."""
+    nvcc, log = _fake_nvcc(tmp_path)
+    monkeypatch.setenv(vt.project.NVCC_FLAG, nvcc)
+    monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
+    monkeypatch.setattr(compiler, "runtime_cache", {})
+    names = ("attn_mh_fwd", "attn_mh_dq", "attn_mh_dkv")
+    for name in names:
+        assert os.path.basename(compiler.build(name, [f"{name}.cu"]).path) == f"lib{name}.so"
+        with open(os.path.join(compiler.CSRC_DIR, f"{name}.cu")) as f:
+            assert '#include "attn_mh_common.cuh"' in f.read()
+    cmds = [line.split() for line in log.read_text().splitlines()]
+    assert [c[-1] for c in cmds] == [os.path.join(compiler.CSRC_DIR, f"{s}.cu") for s in names]
+    assert all("arch=compute_90a,code=sm_90a" in c and f"-I{compiler.CSRC_DIR}" in c
+               for c in cmds)
+
+
+def test_attention_slice_matches_jax():
+    """The op as path G of chip_smoke.py uses it, at a small size: a
+    symmetric power-law graph with self-loops, PlanConfig(128, 128,
+    block_unroll=4), 8 heads of width 8 and bf16 planes: forward and
+    gradients against JAX."""
+    from voltrix_spmm_tpu.data import chung_lu_csr, symmetrize
+
+    a = symmetrize(chung_lu_csr(300, 1200, seed=16))
+    a = ((a + sp.eye(a.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
+    n = a.shape[0]
+    (jp, _), (tp, _) = plans(a, (128, 128, 1, 4))
+    q, k, v = qkv(8, n, 8, 8, seed=17)
+    w = np.random.default_rng(18).standard_normal((8, n, 8)).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = jax_mh_ad(jp, q_, k_, v_, plan_t=jp, negative_slope=0.2, plane_dtype=jnp.bfloat16)
+        return jnp.sum(out * w), out
+
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = spmm_attention_mh_ad(tp, *leaves, plan_t=tp, negative_slope=0.2,
+                               plane_dtype=torch.bfloat16)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **BF16_TOL)
+    for got, ref in zip(leaves, grads):
+        ref = np.asarray(ref)
+        assert np.abs(got.grad.numpy() - ref).max() / np.abs(ref).max() < 1e-3

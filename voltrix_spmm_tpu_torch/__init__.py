@@ -14,7 +14,9 @@ jax or voltrix_spmm_tpu.
   - ``csr_preprocess_ell`` / ``build_ell_pair -> EllPlan``: the
     edge-per-lane plan; ``spmm_ell_ad`` and ``sddmm_ell_ad`` on it
   - ``build_ell_graph`` / ``gat_dot_forward`` / ``GATDot``: dot-product
-    GAT on the ELL plan; ``build_link_candidates`` / ``link_pred_loss`` /
+    GAT on the ELL plan; ``spmm_attention_mh_ad`` / ``gat_flash_forward``
+    / ``GATFlash``: flash GAT on the fused multi-head attention;
+    ``build_link_candidates`` / ``link_pred_loss`` /
     ``make_link_pred_step``: GCN link prediction with an SDDMM decoder
 """
 
@@ -35,6 +37,7 @@ from .models import (
     GCN,
     EllGraph,
     GATDot,
+    GATFlash,
     GatGraph,
     GraphData,
     build_ell_graph,
@@ -44,6 +47,9 @@ from .models import (
     gat_dot_forward,
     gat_dot_loss,
     gat_dot_params_from_jax,
+    gat_flash_forward,
+    gat_flash_loss,
+    gat_flash_params_from_jax,
     gat_forward,
     gat_loss,
     gat_params_from_jax,
@@ -54,6 +60,7 @@ from .models import (
     link_auc,
     link_pred_loss,
     link_scores,
+    make_gat_flash_train_step,
     make_link_pred_step,
     make_train_step,
 )
@@ -63,6 +70,8 @@ from .ops import (
     sddmm_ell_ad,
     spmm,
     spmm_ad,
+    spmm_attention_mh,
+    spmm_attention_mh_ad,
     spmm_ell,
     spmm_ell_ad,
     spmm_reference,
@@ -110,6 +119,13 @@ __all__ = [
     "gat_dot_loss",
     "gat_dot_params_from_jax",
     "GATDot",
+    "spmm_attention_mh",
+    "spmm_attention_mh_ad",
+    "gat_flash_forward",
+    "gat_flash_loss",
+    "gat_flash_params_from_jax",
+    "make_gat_flash_train_step",
+    "GATFlash",
     "build_link_candidates",
     "init_link_predictor",
     "link_scores",

@@ -1,5 +1,14 @@
 import torch
 
+from .attention_mh import (
+    attention_mh_dkv,
+    attention_mh_dkv_reference,
+    attention_mh_dq,
+    attention_mh_dq_reference,
+    spmm_attention_mh,
+    spmm_attention_mh_ad,
+    spmm_attention_mh_reference,
+)
 from .autodiff import spmm_ad
 from .bitmask import expand_bitmask
 from .block_spmm import spmm_block
@@ -136,8 +145,15 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool = False, out_dtype=Non
 
 
 __all__ = [
+    "attention_mh_dkv",
+    "attention_mh_dkv_reference",
+    "attention_mh_dq",
+    "attention_mh_dq_reference",
     "spmm",
     "spmm_ad",
+    "spmm_attention_mh",
+    "spmm_attention_mh_ad",
+    "spmm_attention_mh_reference",
     "spmm_block",
     "spmm_ell",
     "spmm_ell_ad",
