@@ -224,9 +224,11 @@ REFUSALS = {
                          lambda tp, a, x: spmm_attention_mh_ad(_weighted(tp, a), *x, plan_t=tp)),
     "plan_t None": (ValueError, "plan_t",
                     lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=None)),
-    "subtile": (NotImplementedError, "item 13",
+    # subtile=True is taken (test_subtile_matches_jax) where block_h % 128 == 0,
+    # which JAX asserts (attention_mh.py:307-308); these plans have block_h 32
+    "subtile": (ValueError, "block_h % 128",
                 lambda tp, a, x: spmm_attention_mh(tp, *x, subtile=True)),
-    "subtile (ad)": (NotImplementedError, "item 13",
+    "subtile (ad)": (ValueError, "block_h % 128",
                      lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=tp, subtile=True)),
     "compute_dtype": (NotImplementedError, "item 9",
                       lambda tp, a, x: spmm_attention_mh(tp, *x, compute_dtype=torch.bfloat16)),
@@ -257,6 +259,37 @@ def test_refusals(case):
     x = tuple(map(torch.from_numpy, qkv(2, 100, 8, 8, seed=14)))
     with pytest.raises(exc, match=match):
         call(tp, a, x)
+
+
+@pytest.mark.parametrize("directed", [False, True], ids=["sym", "directed"])
+def test_subtile_matches_jax(directed):
+    """subtile=True on clustered plans (PlanConfig(256, 128,
+    cluster_cols=True)): JAX's kernels skip empty 128-row sub-windows, the
+    port's visit only set bits; forward, lse and gradients with plan_t
+    against JAX's subtile=True at the float32 tolerances."""
+    n, heads, dk, dv = 300, 2, 12, 20
+    a = graph(n, 0.03, seed=19, symmetric=not directed)
+    (jp, jpt), (tp, tpt) = plans(a, (256, 128, 1, 1, True))
+    q, k, v = qkv(heads, n, dk, dv, seed=20)
+    w = np.random.default_rng(21).standard_normal((heads, n, dv)).astype(np.float32)
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), negative_slope=0.2,
+                            return_stats=True, subtile=True)
+    got, lse = spmm_attention_mh(tp, *map(torch.from_numpy, (q, k, v)), negative_slope=0.2,
+                                 return_stats=True, subtile=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **F32_TOL)
+
+    def jloss(q_, k_, v_):
+        out = jax_mh_ad(jp, q_, k_, v_, plan_t=jpt, negative_slope=0.2, subtile=True)
+        return jnp.sum(out * w)
+
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = spmm_attention_mh_ad(tp, *leaves, plan_t=tpt, negative_slope=0.2, subtile=True)
+    (out * torch.from_numpy(w)).sum().backward()
+    for leaf, ref, name in zip(leaves, grads, "qkv"):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), **GRAD_TOL,
+                                   err_msg=f"d{name}")
 
 
 def test_no_edges_gives_zeros_and_empty_lse():

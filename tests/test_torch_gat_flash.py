@@ -2,9 +2,9 @@
 JAX package on the CPU.
 
 The same numpy graph, parameters, features and labels go through both
-packages. The port runs the plain versions of kernels K13, K14 and K15 on
-CPU tensors; the JAX side runs its multi-head Pallas kernels in interpret
-mode. Logits, losses, gradients and one optimizer step are held at
+packages. The port runs the plain versions of kernels K13, K14 and K15
+(with a transpose plan) or K9 and K10 (a bare plan, the per-head path) on
+CPU tensors; the JAX side runs its Pallas kernels in interpret mode. Logits, losses, gradients and one optimizer step are held at
 rtol/atol 1e-4 with float32 planes and with bf16 planes, where both
 packages round the same operands (the JAX package carries the backward's
 softmax statistics as hi/lo bf16 pairs, the port in float32: ~2^-16
@@ -31,9 +31,11 @@ from voltrix_spmm_tpu.format import csr_preprocess as jax_csr_preprocess
 from voltrix_spmm_tpu_torch.models import flash_attention_aggregate, make_train_step
 from voltrix_spmm_tpu_torch.models.gat_flash import BF16_PLANE_ROWS, _plane_dtype
 from voltrix_spmm_tpu_torch.ops import (
+    attention_bwd_reference,
     attention_mh_dkv_reference,
     attention_mh_dq_reference,
     spmm_attention_mh_reference,
+    spmm_attention_reference,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -218,16 +220,148 @@ def test_matches_gat_dot():
     np.testing.assert_allclose(flash.numpy(), dot.numpy(), rtol=5e-4, atol=5e-4)
 
 
-def test_single_head_path_is_refused():
-    a = gat_csr(seed=14)
+def single_calls():
+    """Calls of K9's and K10's plain versions, and of K13's."""
+    return (spmm_attention_reference.calls, attention_bwd_reference.calls,
+            spmm_attention_mh_reference.calls)
+
+
+def single_since(before):
+    return tuple(a - b for a, b in zip(single_calls(), before))
+
+
+def test_bare_plan_forward_matches_jax():
+    """A bare plan takes the per-head path (tests/test_gat_flash.py:48-59's
+    form): one K9 per head and one for layer 2, none of K13."""
+    a = gat_csr(n=160, seed=14)
+    jg, tg = plan_pairs(a)
+    p = params_np(10, 8, 5, heads=2, seed=15)
+    x = features(a.shape[0], 10, seed=16)
+    ref = jmodels.gat_flash_forward(jnp_params(p), jg[0], jnp.asarray(x))
+    model = vt.GATFlash.from_params(vt.gat_flash_params_from_jax(p, device="cpu")).eval()
+    before = single_calls()
+    with torch.no_grad():
+        out = model(tg[0], torch.from_numpy(x))
+    assert single_since(before) == (3, 0, 0)
+    assert out.shape == (a.shape[0], 5) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_plan_t_none_takes_the_float32_per_head_path():
+    """(plan, None) and (plan, None, torch.bfloat16) run what a bare plan
+    runs: the JAX package applies no plane dtype on the per-head path."""
+    a = gat_csr(n=120, seed=17)
     _, (plan, _) = plan_pairs(a)
-    p = vt.gat_flash_params_from_jax(params_np(10, 8, 4, heads=2, seed=15), device="cpu")
-    x = torch.from_numpy(features(a.shape[0], 10, seed=16))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        vt.gat_flash_forward(p, plan, x)
-    q = torch.zeros(a.shape[0], 8)
-    with pytest.raises(NotImplementedError, match="K9"):
-        flash_attention_aggregate(plan, q, q, q)
+    p = vt.gat_flash_params_from_jax(params_np(10, 8, 4, heads=3, seed=18), device="cpu")
+    x = torch.from_numpy(features(a.shape[0], 10, seed=19))
+    with torch.no_grad():
+        base = vt.gat_flash_forward(p, plan, x)
+        for g in ((plan, None), (plan, None, torch.bfloat16), (plan, None, torch.float32)):
+            before = single_calls()
+            assert torch.equal(vt.gat_flash_forward(p, g, x), base)
+            assert single_since(before) == (4, 0, 0)
+
+
+@functools.cache
+def bare_loss_problem():
+    """tests/test_gat_flash.py:62-116's training problem on a bare plan:
+    the JAX package's gat_flash_loss and gradients."""
+    a = gat_csr(n=150, seed=20)
+    jg, tg = plan_pairs(a)
+    p = params_np(10, 8, 4, heads=2, seed=21)
+    x = features(a.shape[0], 10, seed=22)
+    y = np.random.default_rng(23).integers(0, 4, size=a.shape[0])
+    loss, grads = jax.value_and_grad(jmodels.gat_flash_loss)(
+        jnp_params(p), jg[0], jnp.asarray(x), jnp.asarray(y))
+    return jg[0], tg[0], p, x, y, float(loss), {k: np.asarray(v) for k, v in grads.items()}
+
+
+def test_bare_plan_loss_gradients_match_jax():
+    """Per head K9 forward, K10 and the lane scatter backward, against
+    jax.grad at tests/test_gat_flash.py:113-116's rtol 3e-3 / atol 3e-4."""
+    _, tg, p, x, y, loss_j, grads_j = bare_loss_problem()
+    pt = {k: v.requires_grad_(True)
+          for k, v in vt.gat_flash_params_from_jax(p, device="cpu").items()}
+    before = single_calls()
+    loss = vt.gat_flash_loss(pt, tg, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    assert single_since(before) == (3, 3, 0)
+    np.testing.assert_allclose(loss.item(), loss_j, rtol=1e-5)
+    for k in pt:
+        np.testing.assert_allclose(pt[k].grad.numpy(), grads_j[k], rtol=3e-3, atol=3e-4,
+                                   err_msg=k)
+
+
+def test_bare_plan_sgd_step_matches_jax():
+    """make_gat_flash_train_step on a bare plan: the JAX package's SGD step."""
+    jplan, tplan, p, x, y, _, _ = bare_loss_problem()
+    pj_new, loss_j = jmodels.make_gat_flash_train_step(lr=5e-2)(
+        jnp_params(p), jplan, jnp.asarray(x), jnp.asarray(y))
+    pt_new, loss = vt.make_gat_flash_train_step(lr=5e-2)(
+        vt.gat_flash_params_from_jax(p, device="cpu"), tplan, torch.from_numpy(x),
+        torch.from_numpy(y))
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+    for k, v in pt_new.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(pj_new[k]), **TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("with_t", [False, True], ids=["lanes", "split"])
+def test_flash_attention_aggregate_matches_jax(with_t):
+    """One head through flash_attention_aggregate (slope 0.2 by default),
+    with the transpose plan (K11 and K12) and without (K10): out and
+    gradients against the JAX package's."""
+    a = gat_csr(n=140, density=0.04, seed=24, directed=True)
+    (jp, jpt), (tp, tpt) = plan_pairs(a, (32, 128))
+    n = a.shape[0]
+    q, k, v = (features(n, d, seed=25 + i) for i, d in enumerate((12, 12, 20)))
+    w = features(n, 20, seed=28)
+
+    def jloss(q_, k_, v_):
+        out = jmodels.flash_attention_aggregate(jp, q_, k_, v_, plan_t=jpt if with_t else None)
+        return jnp.sum(out * w), out
+
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_aggregate(tp, *leaves, plan_t=tpt if with_t else None)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
+    for leaf, ref, name in zip(leaves, grads, "qkv"):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), rtol=2e-3, atol=2e-4,
+                                   err_msg=f"d{name}")
+
+
+def test_per_head_slice_matches_jax():
+    """Path H of chip_smoke.py at a small size: a symmetric power-law
+    graph with self-loops, a bare PlanConfig(128, 128, block_unroll=4)
+    plan, 2 heads; three requests (K9 3 each; the first held against JAX),
+    then one Adam step (K9 3, K10 3) whose gradients match jax.grad at
+    tests/test_gat_flash.py:113-116's tolerance."""
+    a = symmetrize(chung_lu_csr(300, 1200, seed=29))
+    a = ((a + sp.eye(a.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
+    n = a.shape[0]
+    (jplan, _), (tplan, _) = plan_pairs(a, (128, 128), unroll=4)
+    p = params_np(16, 8, 6, heads=2, seed=30)
+    model = vt.GATFlash.from_params(vt.gat_flash_params_from_jax(p, device="cpu"))
+    for request in range(3):
+        x = features(n, 16, seed=31 + request)
+        before = single_calls()
+        with torch.no_grad():
+            out = model(tplan, torch.from_numpy(x))
+        assert single_since(before) == (3, 0, 0)
+        if request == 0:
+            ref = jmodels.gat_flash_forward(jnp_params(p), jplan, jnp.asarray(x))
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    y = np.random.default_rng(34).integers(0, 6, size=n)
+    grads_j = jax.grad(jmodels.gat_flash_loss)(jnp_params(p), jplan, jnp.asarray(x),
+                                               jnp.asarray(y))
+    step = make_train_step(torch.optim.Adam(model.parameters(), lr=5e-3), vt.gat_flash_loss)
+    before = single_calls()
+    step(model.params(), tplan, torch.from_numpy(x), torch.from_numpy(y))
+    assert single_since(before) == (3, 3, 0)
+    for k, v in model.params().items():
+        np.testing.assert_allclose(v.grad.numpy(), np.asarray(grads_j[k]), rtol=3e-3,
+                                   atol=3e-4, err_msg=k)
 
 
 def test_model_shares_gat_dot_parameters():

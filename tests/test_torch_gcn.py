@@ -125,6 +125,23 @@ def test_build_graph_matches_jax():
     assert gt.plan_t is gt.plan and gj.plan_t is gj.plan  # detected as symmetric
 
 
+def test_build_graph_default_config_matches_jax():
+    """The JAX call form build_graph(indptr, indices, n, symmetric=True)
+    (examples/train_linkpred.py:48): both default to PlanConfig() and
+    build the same plans, bit for bit."""
+    a = power_law_graph(n=700, edges=2500, seed=7)
+    n = a.shape[0]
+    gj = jmodels.build_graph(a.indptr, a.indices, n, symmetric=True)
+    gt = vt.build_graph(a.indptr, a.indices, n, symmetric=True, device="cpu")
+    assert gt.plan.config == vt.PlanConfig() and gt.plan_t is gt.plan
+    np.testing.assert_array_equal(gt.plan.bitmask.numpy().view(np.uint32),
+                                  np.asarray(gj.plan.bitmask))
+    for name in ("hind", "window_of_block", "block_ptr"):
+        np.testing.assert_array_equal(getattr(gt.plan, name).numpy(),
+                                      np.asarray(getattr(gj.plan, name)), err_msg=name)
+    np.testing.assert_array_equal(gt.inv_deg.numpy(), np.asarray(gj.inv_deg))
+
+
 def test_build_graph_moves_the_plan_once():
     a = power_law_graph(n=400, edges=1500, seed=5)
     g = vt.build_graph(a.indptr, a.indices, a.shape[0], vt.PlanConfig(128, 128),

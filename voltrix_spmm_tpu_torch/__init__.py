@@ -14,8 +14,9 @@ jax or voltrix_spmm_tpu.
   - ``csr_preprocess_ell`` / ``build_ell_pair -> EllPlan``: the
     edge-per-lane plan; ``spmm_ell_ad`` and ``sddmm_ell_ad`` on it
   - ``build_ell_graph`` / ``gat_dot_forward`` / ``GATDot``: dot-product
-    GAT on the ELL plan; ``spmm_attention_mh_ad`` / ``gat_flash_forward``
-    / ``GATFlash``: flash GAT on the fused multi-head attention;
+    GAT on the ELL plan; ``spmm_attention_ad`` (one head) /
+    ``spmm_attention_mh_ad`` (all heads) / ``gat_flash_forward`` /
+    ``GATFlash``: flash GAT on the fused attention;
     ``build_link_candidates`` / ``link_pred_loss`` /
     ``make_link_pred_step``: GCN link prediction with an SDDMM decoder
 """
@@ -70,6 +71,8 @@ from .ops import (
     sddmm_ell_ad,
     spmm,
     spmm_ad,
+    spmm_attention,
+    spmm_attention_ad,
     spmm_attention_mh,
     spmm_attention_mh_ad,
     spmm_ell,
@@ -119,6 +122,8 @@ __all__ = [
     "gat_dot_loss",
     "gat_dot_params_from_jax",
     "GATDot",
+    "spmm_attention",
+    "spmm_attention_ad",
     "spmm_attention_mh",
     "spmm_attention_mh_ad",
     "gat_flash_forward",

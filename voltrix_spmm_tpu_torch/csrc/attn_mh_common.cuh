@@ -227,12 +227,16 @@ __device__ __forceinline__ void scan_rows(const int* s_cnt, int* s_off, int n, i
 // edge with them ran at about one add per 3 cycles per SM. So the edges
 // of the run go in batches of up to kBatch, sorted by row: each edge
 // counts itself into its row with a native integer atomic, the counts are
-// scanned (s_off), and edge(r, src, slot) is called once per edge with
-// the edge's slot in row order (s_esrc[slot] = src is set for it), where
-// the kernel stores the edge's coefficients. Then reduce() runs on every
-// thread: the kernel sums each row's slots s_off[r] .. s_off[r] + s_cnt[r]
-// with a thread per (row, column), plain adds into rows it owns. s_cnt
-// (rows ints, zero on entry) is zero again on return. Ends with a barrier.
+// scanned (s_off), and edge(r, src, slot, x) is called once per edge with
+// the edge's slot in row order (s_esrc[slot] = src is set for it) and its
+// place x in the batch, where the kernel stores the edge's coefficients.
+// Then reduce(base, k0, kn) runs on every thread for the batch of edges
+// k0 .. k0 + kn of the chunk of lanes from `base` (edge k0 + x of the
+// chunk is lane l's when s_scan[l] <= k0 + x < s_scan[l + 1]): the kernel
+// sums each row's slots s_off[r] .. s_off[r] + s_cnt[r] with a thread per
+// (row, column), plain adds into rows it owns. An edge whose row lies
+// past `rows` is dropped: edge() is not called for it. s_cnt (rows ints,
+// zero on entry) is zero again on return. Ends with a barrier.
 template <typename Edge, typename Reduce>
 __device__ __forceinline__ void for_each_edge_batch(const uint32_t* __restrict__ bitmask,
                                                     const int32_t* __restrict__ hind, int b0,
@@ -246,6 +250,7 @@ __device__ __forceinline__ void for_each_edge_batch(const uint32_t* __restrict__
   for (int base = 0; base < lanes; base += nt) {
     const int total = scan_chunk(bitmask, hind, b0, base, lanes, words, block_w, src_rows, s_scan);
     for (int k0 = 0; k0 < total; k0 += kPerThread * nt) {
+      const int kn = min(kPerThread * nt, total - k0);
       int er[kPerThread], es[kPerThread], ep[kPerThread];
 #pragma unroll
       for (int j = 0; j < kPerThread; ++j) {
@@ -267,11 +272,11 @@ __device__ __forceinline__ void for_each_edge_batch(const uint32_t* __restrict__
         if (er[j] >= 0) {
           const int slot = s_off[er[j]] + ep[j];
           s_esrc[slot] = es[j];
-          edge(er[j], es[j], slot);
+          edge(er[j], es[j], slot, t + j * nt);
         }
       }
       __syncthreads();
-      reduce();
+      reduce(base, k0, kn);
       __syncthreads();
       for (int i = t; i < rows; i += nt) s_cnt[i] = 0;
       __syncthreads();

@@ -85,7 +85,7 @@ attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K
     const int rows = window_rows(row0, block_h, nk);
     for_each_edge_batch(
         bitmask, hind, b, e, words, block_w, rows, nq, s_scan, s_cnt, s_off, s_esrc,
-        [&](int r, int dst, int slot) {
+        [&](int r, int dst, int slot, int) {
           const int64_t row = row0 + r;
           for (int j = 0; j < hg; ++j) {
             const int h = h0 + j;
@@ -100,7 +100,7 @@ attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K
                 p * (dp - __ldg(&drow[(int64_t)h * nq + dst])) * act_grad(raw, slope) * scale;
           }
         },
-        [&]() {
+        [&](int, int, int) {
           for (int i = threadIdx.x; i < hg * rows * groups; i += blockDim.x) {
             const int j = i / (rows * groups);
             const int r = (i / groups) % rows;

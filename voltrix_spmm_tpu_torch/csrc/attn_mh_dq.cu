@@ -83,7 +83,7 @@ attn_mh_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
     const int rows = window_rows(row0, block_h, nq);
     for_each_edge_batch(
         bitmask, hind, b, e, words, block_w, rows, nk, s_scan, s_cnt, s_off, s_esrc,
-        [&](int r, int src, int slot) {
+        [&](int r, int src, int slot, int) {
           const int64_t row = row0 + r;
           for (int j = 0; j < hg; ++j) {
             const int h = h0 + j;
@@ -97,7 +97,7 @@ attn_mh_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
                 p * (dp - __ldg(&drow[(int64_t)h * nq + row])) * act_grad(raw, slope) * scale;
           }
         },
-        [&]() {
+        [&](int, int, int) {
           for (int i = threadIdx.x; i < hg * rows * groups; i += blockDim.x) {
             const int j = i / (rows * groups);
             const int r = (i / groups) % rows;

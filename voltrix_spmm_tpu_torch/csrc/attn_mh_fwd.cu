@@ -108,10 +108,10 @@ attn_mh_fwd_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
     };
     for_each_edge_batch(
         bitmask, hind, b, e, words, block_w, rows, nk, s_scan, s_cnt, s_off, s_esrc,
-        [&](int r, int src, int slot) {
+        [&](int r, int src, int slot, int) {
           for (int j = 0; j < hg; ++j) s_p[j * kBatch + slot] = score(h0 + j, r, src);
         },
-        [&]() {
+        [&](int, int, int) {
           // the rows' maxima, p and denominators: a thread per (head, row)
           for (int i = threadIdx.x; i < hg * rows; i += blockDim.x) {
             const int j = i / rows, r = i % rows;

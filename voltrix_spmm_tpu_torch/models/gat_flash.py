@@ -1,17 +1,23 @@
-"""Flash GAT: dot-product attention GAT on the fused multi-head op
+"""Flash GAT: dot-product attention GAT on the fused attention ops
 (counterpart of voltrix_spmm_tpu/models/gat_flash.py).
 
 The same model as models/gat_ell.py (scores leaky_relu(scale q_u . k_v,
 0.2), a softmax over each node's in-neighbours, aggregate v), but each
-layer is one `spmm_attention_mh_ad` over all its heads: kernel K13
-forward, K14 and K15 backward, over the binary plans of A and A^T. No
-O(nnz) tensor exists; the residuals are out and lse, O(n).
+head is one fused op over the binary plan. No O(nnz) tensor exists; the
+residuals are out and lse, O(n).
 
-The graph is a `GraphData` (models/graph.py) or a (plan, plan_t[,
-plane_dtype]) tuple. The plane dtype follows the JAX package's rule
-(gat_flash.py:101-113): bf16 planes when x has at least 65,536 rows,
-unless the tuple names a dtype. A bare `SpmmPlan` takes the JAX package's
-per-head single-head path (kernels K9 and K10), which is not ported.
+The graph is a `GraphData` (models/graph.py), a (plan, plan_t[,
+plane_dtype]) tuple or a bare `SpmmPlan`, and the path follows the JAX
+package's (gat_flash.py:96-151):
+
+- with a transpose plan, each layer is one `spmm_attention_mh_ad` over
+  all its heads (kernels K13 forward, K14 and K15 backward), with bf16
+  planes when x has at least 65,536 rows, unless the tuple names a dtype;
+- with plan_t None (a bare plan, or a tuple whose plan_t is None), each
+  head is one `flash_attention_aggregate` (`spmm_attention_ad`: K9
+  forward, K10 and a scatter of its lane planes by hind backward), in
+  float32: the JAX package applies neither the size rule nor a tuple's
+  plane dtype there.
 
 Parameters are those of `GATDot`, as in JAX (`init_gat_flash` is
 `init_gat_dot`).
@@ -25,31 +31,32 @@ import torch
 import torch.nn.functional as F
 
 from ..format.plan import SpmmPlan
+from ..ops.attention import spmm_attention_ad
 from ..ops.attention_mh import spmm_attention_mh_ad
 from .gat_ell import GATDot, gat_dot_params_from_jax
 
 BF16_PLANE_ROWS = 65536  # the JAX package's size rule for bf16 planes
 
-_SINGLE_HEAD = ("the single-head flash path (kernels K9 and K10, ops/attention.py) is not "
-                "ported: ROADMAP.md item 13")
 
-
-def flash_attention_aggregate(plan, q, k, v, *, plan_t=None, negative_slope: float = 0.2,
-                              scale: float | None = None):
-    """One fused attention head (the JAX package's spmm_attention_ad):
-    not ported yet."""
-    raise NotImplementedError(_SINGLE_HEAD)
+def flash_attention_aggregate(plan: SpmmPlan, q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, plan_t: SpmmPlan | None = None,
+                              negative_slope: float = 0.2, scale: float | None = None,
+                              impl: str = "auto") -> torch.Tensor:
+    """One attention head, fused: out_u = sum_v alpha_uv v_v with alpha =
+    softmax_v(leaky_relu(scale q_u . k_v)) over u's in-neighbours
+    (`spmm_attention_ad`). Differentiable in q, k and v; with the
+    transpose plan the backward is the split one (K11 and K12), without
+    it K10 and a scatter of its lane planes."""
+    return spmm_attention_ad(plan, q, k, v, plan_t=plan_t, scale=scale,
+                             negative_slope=negative_slope, impl=impl)
 
 
 def _plan_pair(g):
-    """(plan, plan_t, plane_dtype) from a GraphData or a (plan, plan_t[,
-    plane_dtype]) tuple; plane_dtype None leaves the choice to the size
-    rule."""
+    """(plan, plan_t, plane_dtype) from a GraphData, a (plan, plan_t[,
+    plane_dtype]) tuple, or a bare plan (plan_t None: the per-head path);
+    plane_dtype None leaves the choice to the size rule."""
     if isinstance(g, SpmmPlan):
-        raise NotImplementedError(
-            f"a bare SpmmPlan runs the heads one by one in the JAX package; {_SINGLE_HEAD}. "
-            "Pass (plan, plan_t) or a GraphData for the multi-head path"
-        )
+        return g, None, None
     if isinstance(g, (tuple, list)):
         if len(g) == 3:
             return g[0], g[1], g[2]
@@ -74,11 +81,20 @@ def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gat_flash_forward(params: Mapping[str, torch.Tensor], g, x: torch.Tensor, *,
                       impl: str = "auto") -> torch.Tensor:
-    """logits = head2(elu(concat_h head1_h(x))): layer 1 is one
-    `spmm_attention_mh_ad` over all heads, the heads concatenated in head
-    order; layer 2 the same op with one head; slope 0.2 throughout. impl:
-    "auto" runs K13-K15 on the card, "reference" their plain versions."""
+    """logits = head2(elu(concat_h head1_h(x))), the heads concatenated in
+    head order, slope 0.2 throughout. With a transpose plan, layer 1 is one
+    `spmm_attention_mh_ad` over all heads and layer 2 the same op with one
+    head; with plan_t None, each head is one `flash_attention_aggregate`
+    in float32. impl: "auto" runs the kernels on the card, "reference"
+    their plain versions."""
     plan, plan_t, override = _plan_pair(g)
+    if plan_t is None:
+        heads = [flash_attention_aggregate(plan, x @ params["wq1"][h], x @ params["wk1"][h],
+                                           x @ params["wv1"][h], impl=impl)
+                 for h in range(params["wq1"].shape[0])]
+        h = F.elu(torch.cat(heads, dim=1))
+        return flash_attention_aggregate(plan, h @ params["wq2"], h @ params["wk2"],
+                                         h @ params["wv2"], impl=impl)
     pdt = _plane_dtype(override, x.shape[0])
     q, k, v = (_project_heads(x, params[name]) for name in ("wq1", "wk1", "wv1"))  # (H, n, d)
     heads = spmm_attention_mh_ad(plan, q, k, v, plan_t=plan_t, negative_slope=0.2,

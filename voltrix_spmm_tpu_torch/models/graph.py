@@ -30,7 +30,7 @@ def build_graph(
     indptr,
     indices,
     num_nodes: int,
-    config: PlanConfig,
+    config: PlanConfig = PlanConfig(),
     symmetric: bool | None = None,
     stream_chunks: int | None = None,
     device="cuda",
@@ -39,10 +39,11 @@ def build_graph(
     normalisations, and move them to `device` (the card unless the caller
     asks for the CPU) once, so requests never upload the plan again.
 
-    `config` must be an explicit PlanConfig: the JAX package's "auto"
-    picks from constants measured on a TPU, and the H100 tuner is
-    ROADMAP.md item 9. Every binary config builds: the default windows
-    (kernel K1), column-clustered tall windows such as
+    `config` is a PlanConfig, by default the JAX package's PlanConfig()
+    (128-row windows of 128 lanes). A string is refused: the JAX
+    package's "auto" picks from constants measured on a TPU, and the H100
+    tuner is ROADMAP.md item 9. Every binary config builds: the default
+    windows (kernel K1), column-clustered tall windows such as
     PlanConfig(2048, 128, block_unroll=4, cluster_cols=True) (K2), and
     coverage plans such as PlanConfig(2048, 128, gather_segment=128,
     block_unroll=4) (K3); `spmm_ad` picks the kernel from each plan."""

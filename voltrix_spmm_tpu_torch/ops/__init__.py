@@ -1,5 +1,17 @@
 import torch
 
+from .attention import (
+    attention_bwd,
+    attention_bwd_reference,
+    attention_dkv,
+    attention_dkv_reference,
+    attention_dq,
+    attention_dq_reference,
+    scatter_lanes,
+    spmm_attention,
+    spmm_attention_ad,
+    spmm_attention_reference,
+)
 from .attention_mh import (
     attention_mh_dkv,
     attention_mh_dkv_reference,
@@ -145,12 +157,21 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool = False, out_dtype=Non
 
 
 __all__ = [
+    "attention_bwd",
+    "attention_bwd_reference",
+    "attention_dkv",
+    "attention_dkv_reference",
+    "attention_dq",
+    "attention_dq_reference",
     "attention_mh_dkv",
     "attention_mh_dkv_reference",
     "attention_mh_dq",
     "attention_mh_dq_reference",
     "spmm",
     "spmm_ad",
+    "spmm_attention",
+    "spmm_attention_ad",
+    "spmm_attention_reference",
     "spmm_attention_mh",
     "spmm_attention_mh_ad",
     "spmm_attention_mh_reference",
@@ -175,5 +196,6 @@ __all__ = [
     "sddmm",
     "sddmm_ell",
     "sddmm_ell_ad",
+    "scatter_lanes",
     "expand_bitmask",
 ]
