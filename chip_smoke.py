@@ -13,10 +13,10 @@ non-zero on failure (there is no CPU fallback):
    (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
    (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
    (csrc/spmm_ell_dvals.cu), K13 (csrc/attn_mh_fwd.cu), K14
-   (csrc/attn_mh_dq.cu), K15 (csrc/attn_mh_dkv.cu) and K10
-   (csrc/attn_bwd.cu), one nvcc each, all started together, into
-   build/kernels/. K9, K11 and K12 are the kernels of K13, K14 and K15
-   launched with one head and float32 planes.
+   (csrc/attn_mh_dq.cu), K15 (csrc/attn_mh_dkv.cu), K10
+   (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
+   started together, into build/kernels/. K9, K11 and K12 are the kernels
+   of K13, K14 and K15 launched with one head and float32 planes.
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K5 also exactly 0.0
@@ -25,12 +25,27 @@ non-zero on failure (there is no CPU fallback):
    allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
    exactly 0 with lse exactly 1e30. K9-K12 (out, lse, K10's dq and lane
    planes, dq, dk, dv) on head 0 of the same problems, to the same
-   tolerance; K10's lane planes exactly 0 on lanes without bits.
+   tolerance; K10's lane planes exactly 0 on lanes without bits. K8
+   (int8 rows, bf16 dequantization) on 15 geometries under the same
+   tolerance: its plain version dequantizes the same int8 rows the same
+   way, so only the order of the float32 sums differs.
 4. The paths, each driven through the entry points a user calls, with
    every count set to 0 just before and read just after:
    A. GCN serving on the ogbn-arxiv proxy (169,343 nodes),
       PlanConfig(128, 128), 128 -> 256 -> 40: K1 twice per request; then
       GCN training on the same graph, 3 SGD steps: K1 3 times per step.
+   I. On A's plan, 3 requests of spmm(plan, x, impl="int8") at d 128 and 3
+      at d 256: K8 once each; its output against a float64 host product of
+      the same bf16-dequantized features (the first and last 2,048 rows)
+      and against K1's float32 output (relative error < 2e-2,
+      tests/test_quant.py:41). K8 also runs at d 256 on path C's plan.
+   J. On A's graph: (1) build_graph(..., stream_chunks=4) with A's GCN: 3
+      requests (K1 2 x 4 each) whose logits equal path A's bit for bit,
+      step-0 loss and gradients equal to the unstreamed graph's, 3 SGD
+      steps (K1 3 x 4 each); (2) csr_preprocess_hybrid with the JAX
+      package's defaults: 3 spmm requests at d 128 and 3 at d 256 (K3 and
+      K1 once each) against K1 on A's plan and the plain path, and
+      spmm_ad's gradient against the plain path.
    B. GCN serving on the same graph, PlanConfig(2048, 128,
       block_unroll=4, cluster_cols=True): K2.
    D. GAT serving and training on the same graph with self-loops
@@ -85,7 +100,8 @@ non-zero on failure (there is no CPU fallback):
 5. Timing with CUDA events, in turns (plain, kernel, kernel, plain): each
    kernel and its plain version at its path's widths, the one PyTorch
    call that computes the same function (torch.sparse.mm on the CSR for
-   K1-K4 and K6, torch.sparse.sampled_addmm for K5 and K7; none for
+   K1-K4 and K6, and for K8 on the dequantized features, dequantized
+   outside the timed call; torch.sparse.sampled_addmm for K5 and K7; none for
    K9-K15, as no single call computes masked-softmax attention over a
    sparse pattern), the request and the training step on the kernel path
    and on the plain path; each kernel's
@@ -100,6 +116,7 @@ nvidia-smi's name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -275,10 +292,11 @@ def main() -> None:
 
     from voltrix_spmm_tpu_torch import (
         GAT, GCN, GATDot, GATFlash, PlanConfig, build_ell_graph, build_gat_graph, build_graph,
-        build_link_candidates, calc_diff, csr_preprocess, csr_preprocess_ell, gat_dot_loss,
-        gat_dot_params_from_jax, gat_flash_loss, gat_flash_params_from_jax, gat_loss,
-        gat_params_from_jax, gcn_loss, gcn_params_from_jax, lane_values, link_auc,
-        link_pred_loss, link_scores, make_link_pred_step, make_train_step,
+        build_link_candidates, calc_diff, csr_preprocess, csr_preprocess_ell,
+        csr_preprocess_hybrid, dequantize_rows, gat_dot_loss, gat_dot_params_from_jax,
+        gat_flash_loss, gat_flash_params_from_jax, gat_loss, gat_params_from_jax, gcn_loss,
+        gcn_params_from_jax, hybrid_stats, lane_values, link_auc, link_pred_loss, link_scores,
+        make_link_pred_step, make_train_step, relative_error, spmm, spmm_ad,
     )
     from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
@@ -294,8 +312,9 @@ def main() -> None:
         spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_fused,
         spmm_fused_reference, spmm_reference, spmm_subtile, spmm_subtile_reference,
         spmm_weighted, spmm_weighted_dvalues, spmm_weighted_dvalues_reference,
-        spmm_weighted_reference, subtile_spmm, weighted,
+        spmm_weighted_reference, subtile_spmm, weighted, quant, spmm_int8, spmm_int8_reference,
     )
+    from voltrix_spmm_tpu_torch.utils import gen_outlier_normal
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -343,6 +362,8 @@ def main() -> None:
                     "voltrix_spmm_tpu/ops/attention.py:430", attention_mh.load_dq_library),
         "attn_dkv": (attention_dkv, attention_dkv_reference, "attn_mh_dkv.cu",
                      "voltrix_spmm_tpu/ops/attention.py:494", attention_mh.load_dkv_library),
+        "spmm_int8": (spmm_int8, spmm_int8_reference, "spmm_int8.cu",
+                      "voltrix_spmm_tpu/ops/quant.py:37", quant.load_library),
     }
 
     # --- 2. build: one nvcc per source, all started together -----------
@@ -409,7 +430,7 @@ def main() -> None:
     def feat_of(n, d):
         return torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
 
-    def case(name, label, a, d, cfg, expect=None, drop_occ=False, off_mask=False):
+    def case(name, label, a, d, cfg, expect=None, drop_occ=False, off_mask=False, feat=None):
         n = a.shape[0]
         weighted_kernel = name in ("spmm_weighted", "spmm_dvalues")
         values = rng.standard_normal(a.nnz).astype(np.float32) if weighted_kernel else None
@@ -421,7 +442,12 @@ def main() -> None:
             plan = dataclasses.replace(plan, values=torch.from_numpy(dense))
         if expect is not None and not expect(plan):
             fail(f"{label}: the plan lacks the property this case is for")
-        args = (feat_of(n, d),) if name != "spmm_dvalues" else (feat_of(n, d), feat_of(n, d))
+        if feat is not None:
+            args = (torch.from_numpy(feat).to(dev),)
+        elif name == "spmm_dvalues":
+            args = (feat_of(n, d), feat_of(n, d))
+        else:
+            args = (feat_of(n, d),)
         compare(name, label, plan.to(dev), args)
 
     def zero_block(p):
@@ -601,6 +627,49 @@ def main() -> None:
         ell_case(name, "n2000 d40 PlanConfig(128,128), misaligned features",
                  erdos_renyi_csr(2000, 0.01, 52), 40, PlanConfig(128, 128), misaligned=True)
 
+    print("kernel K8 against its plain version (int8 rows, bf16 dequantization):")
+    k8 = "spmm_int8"
+    case(k8, "n512 d64 PlanConfig(32,128)", erdos_renyi_csr(512, 0.05, 80), 64,
+         PlanConfig(32, 128))
+    case(k8, "n300 d130 PlanConfig(32,128) (d not a multiple of 4)",
+         erdos_renyi_csr(300, 0.02, 81), 130, PlanConfig(32, 128))
+    case(k8, "n700 d1 PlanConfig(32,128)", erdos_renyi_csr(700, 0.02, 82), 1, PlanConfig(32, 128))
+    case(k8, "n3000 d300 PlanConfig(128,128), bit 31 set", erdos_renyi_csr(3000, 0.02, 83), 300,
+         PlanConfig(128, 128), expect=lambda p: bool((p.bitmask < 0).any()))
+    case(k8, "n700 d72 PlanConfig(48,128) (block_h not a multiple of 32)",
+         erdos_renyi_csr(700, 0.02, 84), 72, PlanConfig(48, 128))
+    case(k8, "n1000 d256 PlanConfig(128,256)", erdos_renyi_csr(1000, 0.01, 85), 256,
+         PlanConfig(128, 256))
+    case(k8, "n6000 d96 PlanConfig(512,128,block_unroll=4,cluster_cols=True) (occ ignored)",
+         community, 96, PlanConfig(512, 128, block_unroll=4, cluster_cols=True),
+         expect=lambda p: bool((p.occ != 15).any()))
+    case(k8, "n3001 d64 PlanConfig(128,128,gather_segment=8), tail past n",
+         erdos_renyi_csr(3001, 0.01, 86), 64, PlanConfig(128, 128, gather_segment=8),
+         expect=lambda p: int(p.hind.max()) >= 3001)
+    case(k8, "n5000 d96 PlanConfig(2048,128,gather_segment=128,block_unroll=4), tail past n",
+         erdos_renyi_csr(5000, 0.01, 87), 96,
+         PlanConfig(2048, 128, gather_segment=128, block_unroll=4),
+         expect=lambda p: int(p.hind.max()) >= 5000)
+    case(k8, "n10240 d128 empty windows left without blocks",
+         rows_only(erdos_renyi_csr(10240, 0.002, 88), lambda r: r < 128), 128,
+         PlanConfig(128, 128), expect=lambda p: p.has_empty_windows)
+    case(k8, "n2048 d96 empty windows padded with zero-bit blocks",
+         rows_only(erdos_renyi_csr(2048, 0.01, 89), lambda r: not 256 <= r < 512), 96,
+         PlanConfig(128, 128), expect=lambda p: not p.has_empty_windows and zero_block(p))
+    case(k8, "n500 d64 empty matrix", erdos_renyi_csr(500, 0.0, 90), 64, PlanConfig(128, 128),
+         expect=lambda p: p.total_blocks == 0)
+    zero_rows = rng.standard_normal((2048, 40)).astype(np.float32)
+    zero_rows[::3] = 0.0
+    case(k8, "n2048 d40 PlanConfig(64,128), every third feature row all zero",
+         erdos_renyi_csr(2048, 0.01, 91), 40, PlanConfig(64, 128), feat=zero_rows)
+    case(k8, "n3000 d64 PlanConfig(32,128), gen_outlier_normal rows",
+         erdos_renyi_csr(3000, 0.01, 92), 64, PlanConfig(32, 128),
+         feat=gen_outlier_normal((3000, 64), outlier_frac=0.02, seed=1))
+    dup_ptr, dup_idx, dup_n = with_duplicates(erdos_renyi_csr(800, 0.02, 93), 93)
+    case(k8, "n800 d40 PlanConfig(32,128), duplicate edges",
+         sp.csr_matrix((np.ones(len(dup_idx), np.float32), dup_idx, dup_ptr), shape=(dup_n, dup_n)),
+         40, PlanConfig(32, 128))
+
     def close(name, label, got, want, extra=""):
         """One K13-K15 output against its plain version: calc_diff < 1e-6 and
         |got - want| <= 1e-4 |want| + 1e-5 max|want| (float32 sums in another
@@ -764,6 +833,19 @@ def main() -> None:
     def library_ms(fn):
         return cuda_ms(torch, fn, iters=10, warmup=2)
 
+    @contextlib.contextmanager
+    def deterministic():
+        """torch's deterministic mode, for the plain path that the training
+        checks compare with: its index_add_ sums then come out the same in
+        every run, as K13's do, so an edge whose score lies within rounding
+        of leaky_relu's kink takes the same slope on each side in every run
+        and the comparison does not change from run to run."""
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
     def train(label, loss_fn, step, params, g, x, y, want_launches, atol_scale, **tol):
         """STEPS calls of step(params, g, x, y) (a training step over an
         optimizer that holds `params`) on the kernel path, counted; step 0's
@@ -772,8 +854,9 @@ def main() -> None:
         `tol` may set). Returns (losses,
         launch counts, final loss, peak GiB)."""
         pref = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-        loss_ref = loss_fn(pref, g, x, y, impl="reference")
-        want = dict(zip(pref, torch.autograd.grad(loss_ref, list(pref.values()))))
+        with deterministic():
+            loss_ref = loss_fn(pref, g, x, y, impl="reference")
+            want = dict(zip(pref, torch.autograd.grad(loss_ref, list(pref.values()))))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -816,11 +899,12 @@ def main() -> None:
         print_profile(*profile_requests(torch, lambda: step(params, g, x, y)), "training step")
         return k_ms, p_ms
 
-    def serve(label, a, cfg, name, widths, host_rows=None, train_gcn=False):
+    def serve(label, a, cfg, name, widths, host_rows=None, train_gcn=False, then=None):
         """Build the graph, serve REQUESTS requests on kernel `name`, check
         counts and logits, hold the kernel against its plain version at
         the path's widths, time both and the library call in turns, and
-        (train_gcn) train the GCN on the same graph."""
+        (train_gcn) train the GCN on the same graph. Last, then(g, model,
+        params_np, xs, logits) drives the paths that reuse the graph."""
         in_dim, hidden, classes = widths
         n = a.shape[0]
         t0 = time.perf_counter()
@@ -932,6 +1016,8 @@ def main() -> None:
                 tmodel.params(), g, xs[0], y)
             result.update(train_launches=STEPS * 3, train_step_ms=step_ms,
                           plain_train_step_ms=plain_step_ms, train_peak_gib=peak)
+        if then is not None:
+            then(g, model, params_np, xs, logits)
         del g, csr
         torch.cuda.empty_cache()
         return result
@@ -1531,6 +1617,21 @@ def main() -> None:
             h = F.elu(torch.cat([spmm_attention(plan, *qkv, negative_slope=0.2)
                                  for qkv in layer1], dim=1))
             layer2 = tuple((h @ p[w]).contiguous() for w in ("wq2", "wk2", "wv2"))
+        with torch.no_grad(), deterministic():
+            # the plain path's layer-2 q and k, for the scores near the kink
+            h_plain = F.elu(torch.cat([spmm_attention_reference(plan, *qkv, negative_slope=0.2)
+                                       for qkv in layer1], dim=1))
+            rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                           torch.from_numpy(np.diff(a.indptr)).to(dev))
+            cols = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
+            raw = [(q.double()[rows] * k.double()[cols]).sum(-1)
+                   for q, k in (layer2[:2], (h_plain @ p["wq2"], h_plain @ p["wk2"]))]
+            near = int((raw[1].abs() < 1e-5).sum())
+            flips = int(((raw[0] > 0) != (raw[1] > 0)).sum())
+            del h_plain, rows, cols, raw
+        print(f"  layer-2 scores q.k in float64 from each path's q and k: {near} within 1e-5 of "
+              f"leaky_relu's kink; {flips} edges where the kernel path's and the plain path's "
+              "differ in sign (each moves step 0's gradients by about one row's share)")
         time_attn1(label, plan, *layer1[0], feat_of(n, hidden), per_width)
         time_attn1(label, plan, *layer2, feat_of(n, classes), per_width)
         with torch.no_grad():
@@ -1748,12 +1849,292 @@ def main() -> None:
                        **common, "per_width": per_width.get(name, {})}
                 for name in ("spmm_ell", "spmm_ell_dvals", "spmm_block")}
 
+    def sum_bound_ok(got, want, deg, abs_sum):
+        """(ok, max|got - want|): |got - want| <= 1e-4 + 1e-5 |want| plus the
+        float32 summation bound (deg - 1) 2**-24 sum|a x| once for each side,
+        as compare() allows."""
+        allow = 1e-4 + 1e-5 * want.abs() + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * abs_sum
+        diff = (got - want).abs()
+        return bool((diff <= allow).all()) and bool(torch.isfinite(got).all()), diff.max().item()
+
+    path_i, path_j = {}, {}
+
+    def int8_path(label, a, g):
+        """Path I: REQUESTS calls of spmm(plan, x, impl="int8") at d 128 and at
+        d 256 on A's plan (K8 once each); K8 against its plain version under
+        the summation bound, against a float64 host product of the same
+        bf16-dequantized features (first and last 2,048 rows) and against
+        K1's float32 output (relative error < 2e-2, tests/test_quant.py:41);
+        K8 timed in turns with its plain version and with K1."""
+        plan, n = g.plan, a.shape[0]
+        widths = (128, 256)
+        xs = {d: [feat_of(n, d) for _ in range(REQUESTS)] for d in widths}
+        torch.cuda.synchronize()
+        reset_counts()
+        outs, wall_ms = {d: [] for d in widths}, []
+        for d in widths:
+            for x in xs[d]:
+                t0 = time.perf_counter()
+                outs[d].append(spmm(plan, x, impl="int8"))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, plain_calls = read_counts()
+        print(f"path {label}: {REQUESTS} requests of spmm(plan, x, impl='int8') at each of d "
+              f"{widths}: launches {counts}, plain calls {plain_calls}; host ms per request "
+              f"{[round(t, 3) for t in wall_ms]}")
+        check_counts(label, counts, plain_calls, {"spmm_int8": len(widths) * REQUESTS})
+        path_i["launches"] = counts["spmm_int8"]
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev)
+        rows = np.r_[0:2048, n - 2048:n]
+        a_rows = a[rows].astype(np.float64)
+        deg_rows = np.diff(a.indptr)[rows][:, None].astype(np.float64)
+        per_width = {}
+        for d in widths:
+            for i, out in enumerate(outs[d]):
+                if out.shape != (n, d) or not bool(torch.isfinite(out).all()):
+                    fail(f"path {label} d{d} request {i}: output {tuple(out.shape)} is not a "
+                         f"finite ({n}, {d})")
+            x, out = xs[d][0], outs[d][0]
+            compare("spmm_int8", f"path {label} d{d} (float32 summation bound)", plan, (x,), deg)
+            q, sc = quant.quantize_padded(x)
+            xq = dequantize_rows(q, sc, torch.bfloat16).float()[:, :d].contiguous()
+            xq64 = xq.double().cpu().numpy()
+            host = a_rows @ xq64
+            got = out.cpu().double().numpy()[rows]
+            allow = (1e-4 + 1e-5 * np.abs(host)
+                     + np.clip(deg_rows - 1, 0, None) * 2.0**-24 * (abs(a_rows) @ np.abs(xq64)))
+            host_err = float(np.abs(got - host).max())
+            host_ok = bool((np.abs(got - host) <= allow).all())
+            rel = relative_error(spmm_block(plan, x), out)
+            ok = host_ok and rel < 2e-2
+            print(f"  d{d} request 0: against a float64 host product of the bf16-dequantized "
+                  f"features ({len(rows)} rows) max|diff| {host_err:.3e}; against K1's float32 "
+                  f"output relative error {rel:.3e} (limit 2e-2) -> {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"path {label} d{d}: K8 disagrees with the host product or with K1")
+            k_ms, p_ms, turns = in_turns(torch, lambda: quant.launch_quantized(plan, q, sc, d),
+                                         lambda: spmm_int8_reference(plan, x))
+            w_ms, k1_ms, turns1 = in_turns(torch, lambda: spmm_int8(plan, x),
+                                           lambda: spmm_block(plan, x), plain_iters=20)
+            q_ms = cuda_ms(torch, lambda: quant.quantize_padded(x))
+            lib = library_ms(lambda: torch.sparse.mm(csr, xq))
+            # reads the bitmask, hind, the int8 rows and the scales once; writes out
+            b_ms, b_by = bound_ms(tensor_bytes(plan.bitmask, plan.hind, q, sc) + n * d * 4,
+                                  2 * a.nnz * d)
+            per_width[d] = (k_ms, p_ms, lib, b_ms, b_by)
+            path_i.update({f"wrapper_ms_d{d}": w_ms, f"k1_ms_d{d}": k1_ms,
+                           f"quantize_ms_d{d}": q_ms})
+            print(f"  K8 d={d}: kernel alone {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+                  f"{turns[0]:.4f} / {turns[3]:.4f} ms; spmm_int8 (quantize_rows and K8) "
+                  f"{turns1[1]:.4f} / {turns1[2]:.4f} ms against K1 {turns1[0]:.4f} / "
+                  f"{turns1[3]:.4f} ms on the same plan; quantize_rows alone {q_ms:.4f} ms; "
+                  f"torch.sparse.mm on the dequantized float32 features (dequantization "
+                  f"outside the timed call) {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        path_i.update(widths_summary(per_width))
+        del csr
+
+    def int8_on_c(label, a, g):
+        """K8 at d 256 on path C's coverage plan: against its plain version
+        under the summation bound and K3's float32 output (relative error <
+        2e-2), timed in turns with its plain version and with K3."""
+        plan, n, d = g.plan, a.shape[0], 256
+        x = feat_of(n, d)
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        compare("spmm_int8", f"path {label} K8 d{d} (float32 summation bound)", plan, (x,), deg)
+        rel = relative_error(spmm_fused(plan, x), spmm_int8(plan, x))
+        print(f"  K8 d{d} against K3's float32 output: relative error {rel:.3e} (limit 2e-2) -> "
+              f"{'ok' if rel < 2e-2 else 'MISMATCH'}")
+        if not rel < 2e-2:
+            fail(f"path {label}: K8 disagrees with K3")
+        q, sc = quant.quantize_padded(x)
+        xq = dequantize_rows(q, sc, torch.bfloat16).float()[:, :d].contiguous()
+        k_ms, p_ms, turns = in_turns(torch, lambda: quant.launch_quantized(plan, q, sc, d),
+                                     lambda: spmm_int8_reference(plan, x), plain_iters=2)
+        w_ms, k3_ms, turns1 = in_turns(torch, lambda: spmm_int8(plan, x),
+                                       lambda: spmm_fused(plan, x), plain_iters=20)
+        csr = csr_tensor(torch, a, dev)
+        lib = library_ms(lambda: torch.sparse.mm(csr, xq))
+        b_ms, b_by = bound_ms(tensor_bytes(plan.bitmask, plan.hind, q, sc) + n * d * 4,
+                              2 * a.nnz * d)
+        path_i.update({f"c_ms_d{d}": k_ms, f"c_plain_ms_d{d}": p_ms, f"c_wrapper_ms_d{d}": w_ms,
+                       f"c_k3_ms_d{d}": k3_ms, f"c_library_ms_d{d}": lib,
+                       f"c_bound_ms_d{d}": b_ms, "c_bound_by": b_by})
+        print(f"  K8 d={d} on C's plan: kernel alone {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms; spmm_int8 {turns1[1]:.4f} / {turns1[2]:.4f} "
+              f"ms against K3 {turns1[0]:.4f} / {turns1[3]:.4f} ms; torch.sparse.mm on the "
+              f"dequantized features {lib:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        del csr
+
+    def streamed_path(label, a, g, model, params_np, xs, logits):
+        """Path J.1: A's GCN on A's graph built with stream_chunks=4: REQUESTS
+        requests (K1 2 x 4 each) whose logits must equal path A's bit for bit
+        (K1 sums each window in the same order on a chunk as on the whole
+        plan), step-0 loss and gradients equal to the unstreamed graph's,
+        then STEPS SGD steps (K1 3 x 4 each)."""
+        n, chunks = a.shape[0], 4
+        classes = model.w2.shape[1]
+        t0 = time.perf_counter()
+        gs = build_graph(a.indptr, a.indices, n, g.plan.config, symmetric=True,
+                         stream_chunks=chunks, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        if not (isinstance(gs.plan, list) and len(gs.plan) == chunks and gs.plan_t is gs.plan
+                and all(s.bitmask.is_cuda for s in gs.plan) and gs.num_nodes == n):
+            fail(f"path {label}: build_graph(stream_chunks={chunks}) did not give {chunks} chunks "
+                 "on the card")
+        print(f"path {label}: build_graph(..., {g.plan.config}, stream_chunks={chunks}) "
+              f"{t_build:.2f} s: chunk rows {[s.num_nodes for s in gs.plan]}, blocks "
+              f"{[s.total_blocks for s in gs.plan]}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        outs, wall_ms = [], []
+        with torch.no_grad():
+            for x in xs:
+                t0 = time.perf_counter()
+                outs.append(model(gs, x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, plain_calls = read_counts()
+        serve_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  served {REQUESTS} requests: launches {counts}, plain calls {plain_calls}; host "
+              f"ms per request {[round(t, 3) for t in wall_ms]}; torch.cuda.max_memory_allocated "
+              f"{serve_peak:.3f} GiB (A's graph and this one both held)")
+        check_counts(label, counts, plain_calls, {"spmm_block": 2 * chunks * REQUESTS})
+        same = [torch.equal(o, w) for o, w in zip(outs, logits)]
+        print(f"  logits against path A's unstreamed requests: bit-identical {same}")
+        if not all(same):
+            fail(f"path {label}: streamed logits differ from path A's")
+        y = torch.from_numpy(np.random.default_rng(3).integers(0, classes, n)).to(dev)
+
+        def step0(graph):
+            leaves = {k: v.requires_grad_(True)
+                      for k, v in gcn_params_from_jax(params_np, dev).items()}
+            loss = gcn_loss(leaves, graph, xs[0], y)
+            return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+        (loss_s, grads_s), (loss_w, grads_w) = step0(gs), step0(g)
+        equal = torch.equal(loss_s, loss_w) and all(torch.equal(grads_s[k], grads_w[k])
+                                                    for k in grads_w)
+        print(f"  step-0 loss and gradients against the unstreamed graph: "
+              f"{'bit-identical' if equal else 'DIFFERENT'} (max|diff| "
+              f"{max((grads_s[k] - grads_w[k]).abs().max().item() for k in grads_w):.3e})")
+        if not equal:
+            fail(f"path {label}: streamed step-0 gradients differ from the unstreamed graph's")
+        tmodel = GCN.from_params(gcn_params_from_jax(params_np, dev))
+        _, train_counts, _, peak = train(
+            f"{label} training", gcn_loss,
+            make_train_step(torch.optim.SGD(tmodel.parameters(), lr=0.1), gcn_loss),
+            tmodel.params(), gs, xs[0], y, {"spmm_block": 3 * chunks}, atol_scale=1e-3)
+        with torch.no_grad():
+            x = xs[0]
+            s_ms, w_ms, turns = in_turns(torch, lambda: model(gs, x), lambda: model(g, x),
+                                         plain_iters=20)
+        print(f"  request: streamed {turns[1]:.4f} / {turns[2]:.4f} ms, unstreamed (path A's "
+              f"graph) {turns[0]:.4f} / {turns[3]:.4f} ms")
+        step = make_train_step(torch.optim.SGD(tmodel.parameters(), lr=0.1), gcn_loss)
+        st_ms, sw_ms, turns = in_turns(torch, lambda: step(tmodel.params(), gs, xs[0], y),
+                                       lambda: step(tmodel.params(), g, xs[0], y),
+                                       plain_iters=20)
+        print(f"  training step: streamed {turns[1]:.4f} / {turns[2]:.4f} ms, unstreamed "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms")
+        with torch.no_grad():
+            print_profile(*profile_requests(torch, lambda: model(gs, x)), "request", top=8)
+        path_j.update(j_stream_launches=counts["spmm_block"],
+                      j_stream_train_launches=train_counts["spmm_block"],
+                      j_stream_request_ms=s_ms, j_unstreamed_request_ms=w_ms,
+                      j_stream_train_step_ms=st_ms, j_unstreamed_train_step_ms=sw_ms,
+                      j_stream_serve_peak_gib=serve_peak, j_stream_train_peak_gib=peak)
+        del gs
+
+    def hybrid_path(label, a, g):
+        """Path J.2: the JAX package's default hybrid plan of A's CSR (dense
+        side PlanConfig(128, 128, 8) on K3, sparse side PlanConfig(512, 128,
+        1, block_unroll=4) on K1): REQUESTS spmm requests at d 128 and at d 256
+        (K3 and K1 once each), against K1 on A's plan and against the plain
+        path under the summation bound; spmm_ad's gradient against the plain
+        path; timed in turns with K1 on A's plan."""
+        n = a.shape[0]
+        t0 = time.perf_counter()
+        hplan = csr_preprocess_hybrid(a.indptr, a.indices, n).to(dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        st = hybrid_stats(hplan)
+        print(f"path {label}: csr_preprocess_hybrid {t_build:.2f} s; dense_frac "
+              f"{st['dense_frac']:.4f}, dense {hplan.dense.config}: {st['dense']['total_blocks']} "
+              f"blocks, {st['dense']['nnz']} nnz; sparse {hplan.sparse.config}: "
+              f"{st['sparse']['total_blocks']} blocks, {st['sparse']['nnz']} nnz; gather rows "
+              f"{st['total_gather_rows']} (A's plan {g.plan.gather_rows})")
+        if not (hplan.dense.total_blocks and hplan.sparse.total_blocks):
+            fail(f"path {label}: a side of the hybrid plan has no blocks")
+        widths = (128, 256)
+        xs = {d: [feat_of(n, d) for _ in range(REQUESTS)] for d in widths}
+        torch.cuda.synchronize()
+        reset_counts()
+        outs, wall_ms = {d: [] for d in widths}, []
+        for d in widths:
+            for x in xs[d]:
+                t0 = time.perf_counter()
+                outs[d].append(spmm(hplan, x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, plain_calls = read_counts()
+        print(f"  {REQUESTS} requests of spmm(hybrid plan, x) at each of d {widths}: launches "
+              f"{counts}, plain calls {plain_calls}; host ms per request "
+              f"{[round(t, 3) for t in wall_ms]}")
+        nreq = len(widths) * REQUESTS
+        check_counts(label, counts, plain_calls, {"spmm_fused": nreq, "spmm_block": nreq})
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        for d in widths:
+            for i, (x, out) in enumerate(zip(xs[d], outs[d])):
+                abs_sum = spmm_reference(g.plan, x.abs())
+                for what, want in (("K1 on A's plan", spmm_block(g.plan, x)),
+                                   ("the plain path", spmm(hplan, x, impl="reference"))):
+                    ok, err = sum_bound_ok(out, want, deg, abs_sum)
+                    print(f"  d{d} request {i} against {what}: max|diff| {err:.3e} -> "
+                          f"{'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail(f"path {label} d{d} request {i} disagrees with {what}")
+            x = xs[d][0]
+            h_ms, k1_ms, turns = in_turns(torch, lambda: spmm(hplan, x),
+                                          lambda: spmm_block(g.plan, x), plain_iters=20)
+            dense_ms = cuda_ms(torch, lambda: spmm_fused(hplan.dense, x))
+            sparse_ms = cuda_ms(torch, lambda: spmm_block(hplan.sparse, x))
+            path_j.update({f"j_hybrid_ms_d{d}": h_ms, f"j_k1_ms_d{d}": k1_ms,
+                           f"j_hybrid_dense_k3_ms_d{d}": dense_ms,
+                           f"j_hybrid_sparse_k1_ms_d{d}": sparse_ms})
+            print(f"  d{d}: spmm on the hybrid plan (K3 + K1) {turns[1]:.4f} / {turns[2]:.4f} ms, "
+                  f"K1 on A's plan {turns[0]:.4f} / {turns[3]:.4f} ms; the sides alone: K3 on the "
+                  f"dense side {dense_ms:.4f} ms, K1 on the sparse side {sparse_ms:.4f} ms")
+        x, w = xs[128][0], feat_of(n, 128)
+
+        def grad_of(impl):
+            leaf = x.clone().requires_grad_(True)
+            (spmm_ad(hplan, hplan, leaf, impl=impl) * w).sum().backward()
+            return leaf.grad
+
+        ok, err = sum_bound_ok(grad_of("auto"), grad_of("reference"), deg,
+                               spmm_reference(g.plan, w.abs()))
+        print(f"  spmm_ad(hybrid plan, hybrid plan, x) gradient against the plain path: "
+              f"max|diff| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path {label}: the hybrid gradient disagrees with the plain path")
+        path_j.update(j_hybrid_launches_k3=counts["spmm_fused"],
+                      j_hybrid_launches_k1=counts["spmm_block"], j_hybrid_dense_frac=st["dense_frac"])
+        del hplan
+
+    def after_a(g, model, params_np, xs, logits):
+        int8_path("I (ogbn-arxiv proxy, int8 SpMM, K8)", arxiv, g)
+        streamed_path("J.1 (ogbn-arxiv proxy, streamed GCN, K1 on 4 window chunks)", arxiv, g,
+                      model, params_np, xs, logits)
+        hybrid_path("J.2 (ogbn-arxiv proxy, hybrid plan, K3 and K1)", arxiv, g)
+
     t0 = time.perf_counter()
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
     print(f"graph: ogbn-arxiv proxy in {time.perf_counter() - t0:.2f} s")
     results = {
         "spmm_block": serve("A (ogbn-arxiv proxy, K1)", arxiv, PlanConfig(128, 128),
-                            "spmm_block", (128, 256, 40), train_gcn=True),
+                            "spmm_block", (128, 256, 40), train_gcn=True, then=after_a),
         "spmm_subtile": serve("B (ogbn-arxiv proxy clustered, K2)", arxiv,
                               PlanConfig(2048, 128, block_unroll=4, cluster_cols=True),
                               "spmm_subtile", (128, 256, 40)),
@@ -1798,7 +2179,13 @@ def main() -> None:
     results["spmm_fused"] = serve(
         "C (protein proxy, K3)", protein,
         PlanConfig(2048, 128, gather_segment=128, block_unroll=4), "spmm_fused",
-        (8, 256, 112), host_rows=np.r_[0:2048, last:n])
+        (8, 256, 112), host_rows=np.r_[0:2048, last:n],
+        then=lambda g, *_: int8_on_c("C (protein proxy)", protein, g))
+    results["spmm_int8"] = path_i
+    results["spmm_block"].update(
+        {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
+    results["spmm_fused"].update(
+        {k: v for k, v in path_j.items() if k.startswith("j_hybrid")})
 
     if "jax" in sys.modules or "voltrix_spmm_tpu" in sys.modules:
         fail("jax or the JAX package was imported")

@@ -17,6 +17,7 @@ import voltrix_spmm_tpu.models as jmodels
 import voltrix_spmm_tpu_torch as vt
 from voltrix_spmm_tpu.data import chung_lu_csr, erdos_renyi_csr, symmetrize
 from voltrix_spmm_tpu.format import PlanConfig as JaxPlanConfig
+from voltrix_spmm_tpu_torch.models.graph import aggregate
 from voltrix_spmm_tpu_torch.ops import spmm_reference
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -154,10 +155,20 @@ def test_build_graph_moves_the_plan_once():
 
 @pytest.mark.parametrize("kwargs", [dict(config="auto"), dict(stream_chunks=4)])
 def test_build_graph_refuses_unported(kwargs):
+    """config="auto" waits for the H100 tuner (item 9); stream_chunks builds
+    window chunks, which aggregate exactly as the whole plan does."""
     a = power_law_graph(n=300, edges=900, seed=6)
-    kwargs = {"config": vt.PlanConfig(), **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        vt.build_graph(a.indptr, a.indices, a.shape[0], device="cpu", **kwargs)
+    kwargs = {"config": vt.PlanConfig(32, 128), **kwargs}
+    if "stream_chunks" not in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
+            vt.build_graph(a.indptr, a.indices, a.shape[0], device="cpu", **kwargs)
+        return
+    n = a.shape[0]
+    g = vt.build_graph(a.indptr, a.indices, n, device="cpu", **kwargs)
+    assert isinstance(g.plan, list) and len(g.plan) == 4 and g.num_nodes == n
+    whole = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(32, 128), device="cpu")
+    x = torch.from_numpy(features(n, 16, seed=6))
+    assert torch.equal(aggregate(g, x), aggregate(whole, x))
 
 
 def test_serving_slice_matches_jax():

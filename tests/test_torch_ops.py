@@ -28,11 +28,13 @@ import voltrix_spmm_tpu_torch as vt
 import voltrix_spmm_tpu_torch.jit.compiler as compiler
 from voltrix_spmm_tpu.format.ell import csr_preprocess_ell
 from voltrix_spmm_tpu.format.hybrid import csr_preprocess_hybrid
+from voltrix_spmm_tpu.format.stream import slice_plan_windows
 from voltrix_spmm_tpu_torch.models.graph import aggregate
 from voltrix_spmm_tpu_torch.ops import (
     expand_bitmask,
     spmm_block,
     spmm_ell_reference,
+    spmm_fused_reference,
     spmm_reference,
     spmm_scipy,
     spmm_weighted_reference,
@@ -164,7 +166,8 @@ def _plan_kinds():
         "src_perm": dataclasses.replace(tplan, src_perm=torch.arange(n, dtype=torch.int32)),
         "ell": csr_preprocess_ell(a.indptr, a.indices, n),
         "hybrid": csr_preprocess_hybrid(a.indptr, a.indices, n, backend="numpy"),
-        "plan_list": [tplan, tplan],
+        "plan_list": slice_plan_windows(
+            jvx.csr_preprocess(a.indptr, a.indices, n, backend="numpy"), 2),
     }
 
 
@@ -179,14 +182,31 @@ def test_spmm_refuses_unported_plans(kind):
         calls = spmm_weighted_reference.calls
         out = vt.spmm(dataclasses.replace(plan, src_perm=None), x)
         assert spmm_weighted_reference.calls == calls + 1 and tuple(out.shape) == (256, 8)
+    a = random_csr(256, 0.05, seed=9)
     if kind == "ell":
         # the port's EllPlan is ported: "auto" sends it to K6 (its plain
         # version on the CPU); the JAX package's EllPlan is refused
-        a = random_csr(256, 0.05, seed=9)
         calls = spmm_ell_reference.calls
         out = vt.spmm(vt.csr_preprocess_ell(a.indptr, a.indices, 256), x)
         assert spmm_ell_reference.calls == calls + 1 and tuple(out.shape) == (256, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+    if kind == "hybrid":
+        # the port's HybridPlan runs K3 and K1 (their plain versions on the
+        # CPU); the JAX package's HybridPlan is refused
+        hplan = vt.csr_preprocess_hybrid(a.indptr, a.indices, 256, threshold=8)
+        assert hplan.dense.total_blocks and hplan.sparse.total_blocks
+        calls = spmm_fused_reference.calls, spmm_reference.calls
+        out = vt.spmm(hplan, x)
+        assert (spmm_fused_reference.calls, spmm_reference.calls) == (calls[0] + 1, calls[1] + 1)
+        assert tuple(out.shape) == (256, 8)
+    if kind == "plan_list":
+        # the port's window chunks run K1 chunk by chunk and equal the whole
+        # plan's result; a list of the JAX package's chunks is refused
+        whole = vt.csr_preprocess(a.indptr, a.indices, 256)
+        xr = torch.from_numpy(features(256, 8, seed=9))
+        assert torch.equal(vt.spmm(vt.slice_plan_windows(whole, 2), xr), vt.spmm(whole, xr))
+    foreign = kind in ("ell", "hybrid", "plan_list")
+    match = "not a plan of the port" if foreign else "ROADMAP.md item 18"
+    with pytest.raises(NotImplementedError, match=match):
         vt.spmm(plan, x)
 
 

@@ -6,7 +6,10 @@ with each TPU kernel rewritten by hand in CUDA C++. It never imports
 jax or voltrix_spmm_tpu.
 
   - ``csr_preprocess(indptr, indices, num_nodes, config) -> SpmmPlan``
-  - ``spmm(plan, feat) -> out``  with ``out = A @ feat``
+  - ``spmm(plan, feat) -> out``  with ``out = A @ feat``, on an
+    ``SpmmPlan``, a ``HybridPlan`` (``csr_preprocess_hybrid``) or a list of
+    window chunks (``slice_plan_windows``, ``csr_preprocess_streamed``);
+    ``spmm(plan, feat, impl="int8")`` on int8 rows (``quantize_rows``)
   - ``build_graph`` / ``gcn_forward`` / ``GCN`` / ``make_train_step``: the
     GCN serving and training path
   - ``build_gat_graph`` / ``gat_forward`` / ``GAT``: GAT on the weighted
@@ -24,14 +27,19 @@ jax or voltrix_spmm_tpu.
 from . import project
 from .format import (
     EllPlan,
+    HybridPlan,
     PlanConfig,
     SpmmPlan,
     build_ell_pair,
     csr_preprocess,
     csr_preprocess_ell,
+    csr_preprocess_hybrid,
+    csr_preprocess_streamed,
     csr_transpose,
     edge_slot_map,
+    hybrid_stats,
     lane_values,
+    slice_plan_windows,
 )
 from .models import (
     GAT,
@@ -66,6 +74,8 @@ from .models import (
     make_train_step,
 )
 from .ops import (
+    dequantize_rows,
+    quantize_rows,
     sddmm,
     sddmm_ell,
     sddmm_ell_ad,
@@ -77,7 +87,10 @@ from .ops import (
     spmm_attention_mh_ad,
     spmm_ell,
     spmm_ell_ad,
+    spmm_hybrid,
+    spmm_int8,
     spmm_reference,
+    spmm_streamed,
     spmm_weighted_ad,
 )
 from .utils import calc_diff, relative_error
@@ -90,8 +103,18 @@ __all__ = [
     "csr_preprocess",
     "csr_transpose",
     "edge_slot_map",
+    "HybridPlan",
+    "csr_preprocess_hybrid",
+    "hybrid_stats",
+    "slice_plan_windows",
+    "csr_preprocess_streamed",
     "spmm",
     "spmm_ad",
+    "spmm_int8",
+    "spmm_hybrid",
+    "spmm_streamed",
+    "quantize_rows",
+    "dequantize_rows",
     "spmm_reference",
     "spmm_weighted_ad",
     "sddmm",

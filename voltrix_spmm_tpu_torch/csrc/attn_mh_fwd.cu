@@ -13,7 +13,7 @@
 // an online softmax (m, l, acc) from grid step to grid step of one window.
 // Here q (H, nq, dk), k (H, nk, dk) and v (H, nk, dv) are read as they are,
 // gathered by hind inside the kernel; k and v are float or bf16 (the bf16
-// plane), q float; sums are float.
+// plane), q float; m, l and acc are float.
 //
 // Design (see attn_mh_common.cuh for the task split and the edge walks).
 // One thread block per (task, group of heads, chunk of dc <= 128 columns
@@ -23,7 +23,13 @@
 // softmax): a thread per row takes the batch's largest score m', turns
 // the row's scores into p = exp(s - m') and rescales l by exp(m - m');
 // then a thread per (head, row, four columns) rescales those columns of
-// acc likewise and adds sum p * v. No per-edge value leaves the block. A
+// acc likewise and adds sum p * v. A batch's sums over a row (of p, and
+// of p * v) are taken in double and rounded to float once: the row sort
+// places a row's edges in the order its integer atomics ran, and a float
+// sum would round differently from run to run, where the double sum's
+// float almost never changes. So the output is the same from run to run,
+// and a score within rounding of leaky_relu's kink in the next layer
+// falls on the same side every time. No per-edge value leaves the block. A
 // window wholly inside one task is finished there. A window cut over
 // several tasks leaves each task's (m, l, acc) share in a scratch slot; the
 // last of its tasks to finish (a counter per window, head group and chunk)
@@ -121,13 +127,13 @@ attn_mh_fwd_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
             const int jr = j * block_h + r;
             float m = s_m[jr];
             for (int x = e0; x < e0 + n; ++x) m = fmaxf(m, p[x]);
-            float l = 0.f;
+            double l = 0.0;
             for (int x = e0; x < e0 + n; ++x) {
               p[x] = expf(p[x] - m);
               l += p[x];
             }
             s_corr[jr] = expf(s_m[jr] - m);
-            s_l[jr] = s_l[jr] * s_corr[jr] + l;
+            s_l[jr] = s_l[jr] * s_corr[jr] + static_cast<float>(l);
             s_m[jr] = m;
           }
           __syncthreads();
@@ -143,20 +149,25 @@ attn_mh_fwd_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
             const T* vh = v + (int64_t)(h0 + j) * nk * dv + c0;
             float* tile = s_acc + ((int64_t)j * block_h + r) * stride;
             if (vec_sum) {
-              float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+              double a[4] = {0.0, 0.0, 0.0, 0.0};
               for (int x = e0; x < e0 + n; ++x) {
-                axpy4(p[x], vh + (int64_t)s_esrc[x] * dv + 4 * cg, a);
+                const float4 y = load4(vh + (int64_t)s_esrc[x] * dv + 4 * cg);
+                a[0] = fma(static_cast<double>(p[x]), static_cast<double>(y.x), a[0]);
+                a[1] = fma(static_cast<double>(p[x]), static_cast<double>(y.y), a[1]);
+                a[2] = fma(static_cast<double>(p[x]), static_cast<double>(y.z), a[2]);
+                a[3] = fma(static_cast<double>(p[x]), static_cast<double>(y.w), a[3]);
               }
-              tile[4 * cg] = fmaf(tile[4 * cg], corr, a.x);
-              tile[4 * cg + 1] = fmaf(tile[4 * cg + 1], corr, a.y);
-              tile[4 * cg + 2] = fmaf(tile[4 * cg + 2], corr, a.z);
-              tile[4 * cg + 3] = fmaf(tile[4 * cg + 3], corr, a.w);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                tile[4 * cg + c] = fmaf(tile[4 * cg + c], corr, static_cast<float>(a[c]));
+              }
             } else {
-              float a = 0.f;
+              double a = 0.0;
               for (int x = e0; x < e0 + n; ++x) {
-                a = fmaf(p[x], to_f(vh[(int64_t)s_esrc[x] * dv + cg]), a);
+                a = fma(static_cast<double>(p[x]),
+                        static_cast<double>(to_f(vh[(int64_t)s_esrc[x] * dv + cg])), a);
               }
-              tile[cg] = fmaf(tile[cg], corr, a);
+              tile[cg] = fmaf(tile[cg], corr, static_cast<float>(a));
             }
           }
         });

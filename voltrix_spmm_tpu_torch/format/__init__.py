@@ -9,6 +9,7 @@ from .ell import (
     lane_values,
     slice_ell_windows,
 )
+from .hybrid import HybridPlan, csr_preprocess_hybrid, hybrid_stats
 from .plan import PlanConfig, SpmmPlan
 from .preprocess import (
     coverage_expansion,
@@ -20,9 +21,11 @@ from .preprocess import (
     plan_stats,
     plan_to_dense,
 )
+from .stream import csr_preprocess_streamed, estimate_gather_bytes, slice_plan_windows
 
 __all__ = [
     "EllPlan",
+    "HybridPlan",
     "PlanConfig",
     "SpmmPlan",
     "build_ell_pair",
@@ -36,8 +39,13 @@ __all__ = [
     "cluster_window_columns",
     "coverage_expansion",
     "csr_preprocess",
+    "csr_preprocess_hybrid",
+    "csr_preprocess_streamed",
     "csr_transpose",
     "edge_slot_map",
+    "estimate_gather_bytes",
+    "hybrid_stats",
+    "slice_plan_windows",
     "subtile_stats",
     "expand_bitmask_np",
     "pad_empty_windows",

@@ -11,18 +11,22 @@ import torch
 
 from ..format.plan import PlanConfig, SpmmPlan
 from ..format.preprocess import csr_preprocess
+from ..format.stream import slice_plan_windows
 from ..ops.autodiff import spmm_ad
 
 
 @dataclass
 class GraphData:
-    plan: SpmmPlan  # A
-    plan_t: SpmmPlan  # A^T (the same object for symmetric graphs)
+    plan: SpmmPlan | list  # A, or its window chunks (build_graph(stream_chunks=))
+    plan_t: SpmmPlan | list  # A^T (the same object for symmetric graphs)
     inv_deg: torch.Tensor  # float32 (N, 1): 1/max(out-degree, 1)
     inv_sqrt_deg: torch.Tensor  # float32 (N, 1): max(out-degree, 1)^-1/2
 
     @property
     def num_nodes(self) -> int:
+        # window chunks partition the output rows
+        if isinstance(self.plan, (list, tuple)):
+            return sum(p.num_nodes for p in self.plan)
         return self.plan.num_nodes
 
 
@@ -46,7 +50,12 @@ def build_graph(
     windows (kernel K1), column-clustered tall windows such as
     PlanConfig(2048, 128, block_unroll=4, cluster_cols=True) (K2), and
     coverage plans such as PlanConfig(2048, 128, gather_segment=128,
-    block_unroll=4) (K3); `spmm_ad` picks the kernel from each plan."""
+    block_unroll=4) (K3); `spmm_ad` picks the kernel from each plan.
+
+    stream_chunks=k > 1 cuts the plan, and on an asymmetric graph the
+    transpose plan, into k window chunks (`format.stream.slice_plan_windows`);
+    `spmm_ad` then runs the chunks one after another, each on the kernel
+    its plan takes, and each output row is summed as on the whole plan."""
     import scipy.sparse as sp
 
     if not isinstance(config, PlanConfig):
@@ -54,10 +63,13 @@ def build_graph(
             f"config={config!r}: pass an explicit PlanConfig (the H100 tuner "
             "that would pick one is ROADMAP.md item 9)"
         )
-    if stream_chunks is not None:
-        raise NotImplementedError(
-            "stream_chunks (window-chunked plans) is ROADMAP.md item 10"
-        )
+    chunked = bool(stream_chunks and stream_chunks > 1)
+
+    def place(p):
+        if chunked:
+            return [s.to(device) for s in slice_plan_windows(p, stream_chunks)]
+        return p.to(device)
+
     plan = csr_preprocess(indptr, indices, num_nodes, config)
     a = sp.csr_matrix(
         (
@@ -71,10 +83,10 @@ def build_graph(
     if symmetric is None:
         symmetric = (a != at).nnz == 0
     if symmetric:
-        plan = plan_t = plan.to(device)
+        plan = plan_t = place(plan)
     else:
         plan_t = csr_preprocess(at.indptr, at.indices, num_nodes, config)
-        plan, plan_t = plan.to(device), plan_t.to(device)
+        plan, plan_t = place(plan), place(plan_t)
     deg = np.asarray(a.sum(axis=1)).reshape(num_nodes, 1)
     inv_deg = (1.0 / np.maximum(deg, 1.0)).astype(np.float32)
     inv_sqrt_deg = (1.0 / np.sqrt(np.maximum(deg, 1.0))).astype(np.float32)
@@ -94,7 +106,8 @@ def aggregate(g: GraphData, x: torch.Tensor, mode: str = "mean", *, impl: str = 
 
     mode: "sum" (A @ x), "mean" (D^-1 A x), "sym" (D^-1/2 A D^-1/2 x).
     impl: "auto" (the plan's kernel on the card: K1, K2 for clustered
-    plans, K3 for coverage plans) or "reference" (plain version).
+    plans, K3 for coverage plans, chunk by chunk on a streamed graph) or
+    "reference" (plain version).
     """
     if x.dim() == 3:
         b, n, d = x.shape

@@ -9,18 +9,33 @@ from __future__ import annotations
 
 import torch
 
-from ..format.plan import SpmmPlan
+from ..format.hybrid import HybridPlan
 
 
-def _dispatch(plan: SpmmPlan, feat: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """The JAX package's rule (autodiff.py:45-49): coverage plans
+def _dispatch(plan, feat: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """The JAX package's rule (autodiff.py:20-49): coverage plans
     (gather_segment >= 8) run the fused kernel K3, column-clustered plans
-    the subtile kernel K2, the rest K1. Each side of the gradient
-    dispatches on its own plan, so `plan` and `plan_t` may be of
-    different kinds. impl="reference" runs the plain version instead."""
-    from . import spmm
+    the subtile kernel K2, the rest K1; a HybridPlan runs `spmm_hybrid`;
+    a list or tuple of window chunks dispatches each chunk by this rule
+    and concatenates the rows (so a coverage chunk runs K3 here, where
+    `spmm_streamed` runs K1). Each side of the gradient dispatches on its
+    own plan, so `plan` and `plan_t` may be of different kinds.
+    impl="reference" runs the plain versions instead."""
+    from . import concat_chunks, spmm
 
+    if isinstance(plan, (list, tuple)):
+        return concat_chunks(plan, feat, lambda s: _dispatch(s, feat, impl))
+    if isinstance(plan, HybridPlan):
+        return spmm(plan, feat, impl=impl)
     return spmm(plan, feat, impl=impl, subtile=plan.config.cluster_cols)
+
+
+def _has_values(plan) -> bool:
+    if isinstance(plan, (list, tuple)):
+        return any(_has_values(s) for s in plan)
+    if isinstance(plan, HybridPlan):
+        return _has_values(plan.dense) or _has_values(plan.sparse)
+    return getattr(plan, "values", None) is not None
 
 
 class _SpmmFunction(torch.autograd.Function):
@@ -35,11 +50,12 @@ class _SpmmFunction(torch.autograd.Function):
         return _dispatch(ctx.plan_t, grad.contiguous(), ctx.impl), None, None, None
 
 
-def spmm_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *, impl: str = "auto"):
+def spmm_ad(plan, plan_t, feat: torch.Tensor, *, impl: str = "auto"):
     """SpMM with gradient support. `plan_t` must encode A^T (pass the same
-    plan for a symmetric adjacency). Binary plans only, as in JAX: a
-    weighted plan takes `spmm_weighted_ad`, which also differentiates the
-    value plane."""
-    if plan.values is not None or plan_t.values is not None:
+    plan for a symmetric adjacency). Either may be an SpmmPlan, a
+    HybridPlan or a list of window chunks (`format.stream`). Binary plans
+    only, as in JAX: a weighted plan takes `spmm_weighted_ad`, which also
+    differentiates the value plane."""
+    if _has_values(plan) or _has_values(plan_t):
         raise ValueError("plan carries a value plane; use spmm_weighted_ad")
     return _SpmmFunction.apply(feat, plan, plan_t, impl)
