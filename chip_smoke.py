@@ -19,7 +19,11 @@ non-zero on failure (there is no CPU fallback):
    of K13, K14 and K15 launched with one head and float32 planes.
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
-   (float32 sums in another order, so not bit-equal); K5 also exactly 0.0
+   (float32 sums in another order, so not bit-equal); K1 and K2 also on a
+   power-law graph whose hub window is cut into >= 16 pieces, a window of
+   exactly 2 x PIECE_BLOCKS blocks, d 130 (4-byte copies) and features 4
+   bytes past a 16-byte boundary (the hub rows under the float32
+   summation bound of their degrees); K5 also exactly 0.0
    off the bitmask, K7 exactly 0.0 on padding lanes. K13-K15 (out, lse,
    dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
    allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
@@ -34,6 +38,10 @@ non-zero on failure (there is no CPU fallback):
    A. GCN serving on the ogbn-arxiv proxy (169,343 nodes),
       PlanConfig(128, 128), 128 -> 256 -> 40: K1 twice per request; then
       GCN training on the same graph, 3 SGD steps: K1 3 times per step.
+      K1 runs twice on the same input at d 128 and must give the same bits.
+      A, B, F, J.1 and J.2 print what K1's or K2's work list gives their
+      plans: pieces, windows cut, the heaviest piece's work against the
+      mean, the workspace.
    I. On A's plan, 3 requests of spmm(plan, x, impl="int8") at d 128 and 3
       at d 256: K8 once each; its output against a float64 host product of
       the same bf16-dequantized features (the first and last 2,048 rows)
@@ -44,22 +52,27 @@ non-zero on failure (there is no CPU fallback):
       step-0 loss and gradients equal to the unstreamed graph's, 3 SGD
       steps (K1 3 x 4 each); (2) csr_preprocess_hybrid with the JAX
       package's defaults: 3 spmm requests at d 128 and 3 at d 256 (K3 and
-      K1 once each) against K1 on A's plan and the plain path, and
-      spmm_ad's gradient against the plain path.
+      K1 once each) against K1 on A's plan and the plain path, a
+      torch.profiler breakdown at d 128, and spmm_ad's gradient against
+      the plain path.
    B. GCN serving on the same graph, PlanConfig(2048, 128,
-      block_unroll=4, cluster_cols=True): K2.
+      block_unroll=4, cluster_cols=True): K2, which also runs twice on the
+      same input at d 128 and must give the same bits.
    D. GAT serving and training on the same graph with self-loops
       (2,083,571 nnz), PlanConfig(64, 128), 128 -> 8 heads x 8 (ELU) ->
       40: K4 9 times per request; K4 18 and K5 9 times per Adam step.
    E. Dot-product GAT serving and training on D's graph, ELL plans
       PlanConfig(128, 128, block_unroll=4), 128 -> 8 heads x 8 (ELU) ->
       40: K6 and K7 9 times per request; K6 36 and K7 18 times per Adam
-      step.
+      step. It prints the scores within rounding of leaky_relu's kink in
+      both layers and the edges whose sign differs between the kernel and
+      the plain path.
    F. GCN link prediction on the ogbl-ddi proxy (4,267 nodes, 2,571,386
       nnz), GCN 256 -> 256 -> 256 on PlanConfig(128, 128) (K1), SDDMM
       scores over the edges and as many sampled non-edges (ELL plan,
       PlanConfig(128, 128)): K1 2 and K7 1 per scoring request; K1 3, K7 1
-      and K6 2 per Adam step.
+      and K6 2 per Adam step. K1 is also held to its plain version and
+      timed at d 256 on F's plan.
    G. Flash GAT serving and training on D's graph, PlanConfig(128, 128,
       block_unroll=4), 128 -> 8 heads x 8 (ELU) -> 40, bf16 planes (the
       JAX package's rule at >= 65,536 nodes): K13 twice per request; K13,
@@ -302,11 +315,13 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
     from voltrix_spmm_tpu_torch.models import edge_softmax
+    from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
         attention_mh_dkv, attention_mh_dkv_reference, attention_mh_dq, attention_mh_dq_reference,
-        block_spmm, ell, expand_bitmask, fused_spmm, scatter_lanes, sddmm_ell, spmm_attention,
+        block_spmm, ell, expand_bitmask, fused_spmm, scatter_lanes, sddmm_ell, sddmm_ell_ad,
+        spmm_attention,
         spmm_attention_ad, spmm_attention_mh, spmm_attention_mh_reference,
         spmm_attention_reference, spmm_block, spmm_ell,
         spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_fused,
@@ -425,12 +440,44 @@ def main() -> None:
         if not ok:
             fail(f"kernel {name} disagrees with its plain version on {label}")
 
+    walks = {"spmm_block": lambda p: block_spmm.plan_walk(p, "spmm_block"),
+             "spmm_subtile": subtile_spmm.subtile_walk}
+
+    def most_pieces(p, name):
+        """The most pieces that one 128-row group of plan `p` is cut into."""
+        merges = walks[name](p).merges
+        return int(merges[:, 3].max()) if merges.numel() else 1
+
+    def piece_line(label, plans, name, widths):
+        """Print what K1's or K2's work list gives a path's plan (or its
+        window chunks, which run one after another): pieces, windows and
+        groups cut, the kept (lane, word) pairs and the work (pairs plus
+        their nonzero bitmask bytes, busiest warp) of the heaviest piece
+        against the mean piece, and the largest workspace at each width."""
+        st = [block_spmm.walk_stats(p, walks[name](p), 1) for p in plans]
+        pieces = sum(x["pieces"] for x in st)
+        heavy = {k: max(x[f"max_task_{k}"] for x in st) for k in ("pairs", "work")}
+        mean = {k: sum(x[f"mean_task_{k}"] * x["pieces"] for x in st) / pieces
+                for k in ("pairs", "work")}
+        ws = ", ".join(f"{max(x['workspace_mib'] for x in st) * d:.2f} MiB at d {d}"
+                       for d in widths)
+        print(f"  {label} {name} work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS[name]}, "
+              f"PIECE_WORK {block_spmm.PIECE_WORK[name]}): {pieces} pieces, "
+              f"{sum(x['cut_windows'] for x in st)} windows and "
+              f"{sum(x['cut_groups'] for x in st)} groups cut; heaviest piece "
+              f"{heavy['pairs']} kept pairs against a mean of {mean['pairs']:.1f}, "
+              f"{heavy['work']} units of work against {mean['work']:.1f}; workspace {ws}")
+
     rng = np.random.default_rng(0)
 
     def feat_of(n, d):
         return torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
 
-    def case(name, label, a, d, cfg, expect=None, drop_occ=False, off_mask=False, feat=None):
+    def case(name, label, a, d, cfg, expect=None, drop_occ=False, off_mask=False, feat=None,
+             offset=False, bound=False):
+        """`name` against its plain version on plan `cfg` of `a` at width d.
+        offset: feat is a contiguous view 4 bytes past a 16-byte boundary;
+        bound: allow the float32 summation bound of `a`'s row degrees."""
         n = a.shape[0]
         weighted_kernel = name in ("spmm_weighted", "spmm_dvalues")
         values = rng.standard_normal(a.nnz).astype(np.float32) if weighted_kernel else None
@@ -444,11 +491,20 @@ def main() -> None:
             fail(f"{label}: the plan lacks the property this case is for")
         if feat is not None:
             args = (torch.from_numpy(feat).to(dev),)
+        elif offset:
+            view = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+            view.copy_(feat_of(n, d))
+            if view.data_ptr() % 16 != 4 or not view.is_contiguous():
+                fail(f"{label}: the features are not the offset view this case is for")
+            args = (view,)
         elif name == "spmm_dvalues":
             args = (feat_of(n, d), feat_of(n, d))
         else:
             args = (feat_of(n, d),)
-        compare(name, label, plan.to(dev), args)
+        deg = None
+        if bound:
+            deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        compare(name, label, plan.to(dev), args, deg)
 
     def zero_block(p):
         return bool((p.bitmask.view(p.total_blocks, -1) == 0).all(1).any())
@@ -474,7 +530,43 @@ def main() -> None:
     case(k1, "n1001 d40 PlanConfig(128,128,gather_segment=4)", erdos_renyi_csr(1001, 0.01, 8),
          40, PlanConfig(128, 128, gather_segment=4), expect=lambda p: int(p.hind.max()) >= 1001)
 
-    print("kernel K2 against its plain version (clustered plans):")
+    def window0_of(blocks, seed):
+        """A graph whose first 128 rows reach exactly blocks x 128 distinct
+        columns (row r: columns r * blocks .. r * blocks + blocks - 1), so
+        window 0 of a PlanConfig(128, 128) plan holds exactly `blocks`
+        blocks; the other rows are random."""
+        n = blocks * 128 + 2048
+        rest = rows_only(erdos_renyi_csr(n, 0.005, seed), lambda r: r >= 128)
+        first = sp.csr_matrix((np.ones(128 * blocks, np.float32),
+                               (np.repeat(np.arange(128), blocks), np.arange(128 * blocks))),
+                              shape=(n, n))
+        return ((rest + first) != 0).astype(np.float32).tocsr()
+
+    # power-law hub windows cut into pieces; the float32 summation bound of
+    # their hub rows (degrees in the thousands)
+    hub40k = symmetrize(chung_lu_csr(40000, 400000, seed=34))
+    for name, kid, sub_cfg in (
+            (k1, "K1", {}), ("spmm_subtile", "K2", {"cluster_cols": True})):
+        pb = block_spmm.PIECE_BLOCKS[name]
+        if name != k1:
+            print(f"kernel {kid} against its plain version (clustered plans):")
+        print(f"  ({kid}'s pieces: PIECE_BLOCKS {pb}, PIECE_WORK "
+              f"{block_spmm.PIECE_WORK[name]})")
+        case(name, f"n40000 d128 block_h 128, block_w 32{', clustered' if sub_cfg else ''}, hub "
+             "window cut into >= 16 pieces", hub40k, 128, PlanConfig(128, 32, **sub_cfg),
+             expect=lambda p, name=name: most_pieces(p, name) >= 16, bound=True)
+        case(name, f"n{128 * 2 * pb + 2048} d64 window 0 of exactly 2 x {pb} blocks",
+             window0_of(2 * pb, 35), 64, PlanConfig(128, 128, **sub_cfg),
+             expect=lambda p, pb=pb: int(p.block_ptr[1]) == 2 * pb)
+        wide = PlanConfig(2048, 128, block_unroll=4, **sub_cfg) if sub_cfg else PlanConfig(128, 128)
+        wide_label = f"block_h {wide.block_h}, block_w 128{', clustered' if sub_cfg else ''}"
+        case(name, f"n40000 d256 {wide_label}, hub windows cut", hub40k, 256, wide,
+             expect=lambda p, name=name: most_pieces(p, name) >= 4, bound=True)
+        case(name, f"n40000 d130 {wide_label} (unaligned rows: 4-byte copies)", hub40k, 130,
+             wide, bound=True)
+        case(name, f"n40000 d128 {wide_label}, feat 4 bytes past a 16-byte boundary", hub40k,
+             128, wide, offset=True, bound=True)
+
     k2 = "spmm_subtile"
     community = chung_lu_csr(6000, 60000, community=128, local_frac=0.8, seed=9)
     for h in (128, 256, 512, 2048):
@@ -987,6 +1079,12 @@ def main() -> None:
             print(f"  SpMM d={d}: {name} {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.mm {lib:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})")
+        if name in walks:
+            piece_line(f"path {label}", [g.plan], name, (in_dim, hidden))
+            same = torch.equal(kernel(g.plan, xs[0]), kernel(g.plan, xs[0]))
+            print(f"  {name} twice at d{in_dim}: {'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"path {label}: two runs of {name} on the same input differ")
         with torch.no_grad():
             x = xs[0]
             req_ms, plain_req_ms, turns = in_turns(
@@ -1269,6 +1367,35 @@ def main() -> None:
                       f"{(out - ref).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"path {label} request {i}: logits disagree with the plain forward")
+
+        # scores within rounding of leaky_relu's kink, and the edges whose
+        # score has another sign on the kernel path than on the plain path
+        # (layer 1: K7 against the plain SDDMM on the same q and k; layer 2:
+        # each path's q and k, products in float64); each flip moves step
+        # 0's gradients by about one edge's share
+        with torch.no_grad():
+            x, p = xs[0], model.params()
+            near, flips, hs = [0, 0], [0, 0], {}
+            for impl in ("auto", "reference"):
+                with deterministic() if impl == "reference" else contextlib.nullcontext():
+                    hs[impl] = F.elu(torch.cat([dot_attention_aggregate(
+                        g, x @ p["wq1"][hh], x @ p["wk1"][hh], x @ p["wv1"][hh], impl=impl)
+                        for hh in range(heads)], dim=1))
+            for hh in range(heads):
+                q, k = x @ p["wq1"][hh], x @ p["wk1"][hh]
+                e_k, e_p = (sddmm_ell_ad(g.plan, g.plan_t, q, k, impl=impl)
+                            for impl in ("auto", "reference"))
+                near[0] += int((e_p.abs() < 1e-6).sum())
+                flips[0] += int(((e_k > 0) != (e_p > 0)).sum())
+            raw = [(hs[impl] @ p["wq2"]).double()[g.rows] * (hs[impl] @ p["wk2"]).double()[g.cols]
+                   for impl in ("auto", "reference")]
+            raw = [r.sum(-1) for r in raw]
+            near[1] = int((raw[1].abs() < 1e-5).sum())
+            flips[1] = int(((raw[0] > 0) != (raw[1] > 0)).sum())
+            del hs, raw
+        print(f"  scores within rounding of leaky_relu's kink (layer 1 |e| < 1e-6, layer 2 "
+              f"|q.k| < 1e-5): {near[0]} and {near[1]}; edges whose kernel-path and plain-path "
+              f"scores differ in sign: {flips[0]} in layer 1, {flips[1]} in layer 2")
 
         # the kernels at the path's widths, on head 0's attention
         with torch.no_grad():
@@ -1811,6 +1938,23 @@ def main() -> None:
         per_width = {"spmm_ell": {}, "spmm_ell_dvals": {}}
         time_ell(label, gplan, h, h, csr_w, csr_1, plan.num_edges, per_width, deg)
         del gplan, csr_w, csr_1, cand
+        # K1 at the encoder's width, under the float32 summation bound of A's rows
+        x, deg_a, csr_a = xs[0], torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(
+            dev)[:, None], csr_tensor(torch, a, dev)
+        compare("spmm_block", f"path {label} K1 d{in_dim} (float32 summation bound)", g.plan,
+                (x,), deg_a)
+        piece_line(f"path {label}", [g.plan], "spmm_block", (in_dim,))
+        k_ms, p_ms, turns = in_turns(torch, lambda: spmm_block(g.plan, x),
+                                     lambda: spmm_reference(g.plan, x))
+        lib = library_ms(lambda: torch.sparse.mm(csr_a, x))
+        b_ms, b_by = bound_ms(tensor_bytes(g.plan.bitmask, g.plan.hind, g.plan.block_ptr)
+                              + 2 * n * in_dim * 4, 2 * a.nnz * in_dim)
+        print(f"  K1 d={in_dim}: spmm_block {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        k1_times = {f"f_ms_d{in_dim}": k_ms, f"f_plain_ms_d{in_dim}": p_ms,
+                    f"f_library_ms_d{in_dim}": lib, f"f_bound_ms_d{in_dim}": b_ms}
+        del csr_a
         with torch.no_grad():
             x = xs[0]
             req_ms, plain_req_ms, turns = in_turns(torch, lambda: request(x),
@@ -1845,9 +1989,11 @@ def main() -> None:
                   "train_peak_gib": peak}
         del g, plan, plan_t
         torch.cuda.empty_cache()
-        return {name: {"launches": serve_counts[name], "train_launches": train_counts[name],
-                       **common, "per_width": per_width.get(name, {})}
-                for name in ("spmm_ell", "spmm_ell_dvals", "spmm_block")}
+        result = {name: {"launches": serve_counts[name], "train_launches": train_counts[name],
+                         **common, "per_width": per_width.get(name, {})}
+                  for name in ("spmm_ell", "spmm_ell_dvals", "spmm_block")}
+        result["spmm_block"].update(k1_times)
+        return result
 
     def sum_bound_ok(got, want, deg, abs_sum):
         """(ok, max|got - want|): |got - want| <= 1e-4 + 1e-5 |want| plus the
@@ -1986,6 +2132,7 @@ def main() -> None:
         print(f"path {label}: build_graph(..., {g.plan.config}, stream_chunks={chunks}) "
               f"{t_build:.2f} s: chunk rows {[s.num_nodes for s in gs.plan]}, blocks "
               f"{[s.total_blocks for s in gs.plan]}")
+        piece_line(f"path {label}", gs.plan, "spmm_block", (128, 256))
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         outs, wall_ms = [], []
@@ -2068,6 +2215,7 @@ def main() -> None:
         if not (hplan.dense.total_blocks and hplan.sparse.total_blocks):
             fail(f"path {label}: a side of the hybrid plan has no blocks")
         widths = (128, 256)
+        piece_line(f"path {label} sparse side", [hplan.sparse], "spmm_block", widths)
         xs = {d: [feat_of(n, d) for _ in range(REQUESTS)] for d in widths}
         torch.cuda.synchronize()
         reset_counts()
@@ -2100,6 +2248,8 @@ def main() -> None:
                                           lambda: spmm_block(g.plan, x), plain_iters=20)
             dense_ms = cuda_ms(torch, lambda: spmm_fused(hplan.dense, x))
             sparse_ms = cuda_ms(torch, lambda: spmm_block(hplan.sparse, x))
+            if d == widths[0]:
+                print_profile(*profile_requests(torch, lambda: spmm(hplan, x)), "request", top=6)
             path_j.update({f"j_hybrid_ms_d{d}": h_ms, f"j_k1_ms_d{d}": k1_ms,
                            f"j_hybrid_dense_k3_ms_d{d}": dense_ms,
                            f"j_hybrid_sparse_k1_ms_d{d}": sparse_ms})
@@ -2170,7 +2320,9 @@ def main() -> None:
         results[name] = {**path_e[name], **{f"f_{k}": v for k, v in path_f[name].items()},
                          **widths_summary(per_width)}
     results["spmm_block"].update(f_launches=path_f["spmm_block"]["launches"],
-                                 f_train_launches=path_f["spmm_block"]["train_launches"])
+                                 f_train_launches=path_f["spmm_block"]["train_launches"],
+                                 **{k: v for k, v in path_f["spmm_block"].items()
+                                    if k.startswith("f_")})
     t0 = time.perf_counter()
     protein = symmetrize(proxy_csr("protein", seed=0))
     n = protein.shape[0]

@@ -1,0 +1,299 @@
+"""The work list that kernels K1 and K2 share (ops/block_spmm.py:
+window_pieces, walk_tasks, plan_walk), on the CPU.
+
+Each window's blocks are cut into pieces of at most P consecutive blocks,
+and the pieces' float32 tiles are summed in piece order. The kernels run
+only on the card (chip_smoke.py holds them to their plain versions); here
+a plain emulation of the split (each task's blocks summed with the plain
+version of K1 or K2, then the pieces added in order) is held to the JAX
+package's `spmm_pallas` in interpret mode, to the tolerance of
+tests/test_spmm.py:51-52 (float32 sums taken in another order).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import voltrix_spmm_tpu as jvx
+import voltrix_spmm_tpu.ops as jops
+import voltrix_spmm_tpu_torch as vt
+from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
+from voltrix_spmm_tpu_torch.format.stream import slice_plan_windows
+from voltrix_spmm_tpu_torch.ops import spmm_reference, spmm_subtile_reference
+from voltrix_spmm_tpu_torch.ops.block_spmm import (
+    PIECE_BLOCKS,
+    PIECE_WORK,
+    block_work,
+    plan_walk,
+    walk_tasks,
+    window_pieces,
+)
+from voltrix_spmm_tpu_torch.ops.subtile_spmm import subtile_occupancy, subtile_walk
+
+TOL = dict(rtol=1e-5, atol=1e-4)
+N = 3000
+
+
+def power_law():
+    """A symmetrised Chung-Lu graph: its first window holds the hubs."""
+    return symmetrize(chung_lu_csr(N, 30000, seed=3))
+
+
+def csr_args(a):
+    return a.indptr, a.indices, a.shape[0]
+
+
+def both_plans(a, **cfg):
+    n = a.shape[0]
+    jplan = jvx.csr_preprocess(a.indptr, a.indices, n, jvx.PlanConfig(**cfg), backend="numpy")
+    return jplan, vt.csr_preprocess(a.indptr, a.indices, n, vt.PlanConfig(**cfg))
+
+
+def features(n, d, seed):
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+
+
+def assert_close(out, ref):
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape
+    assert vt.calc_diff(out, ref) < 1e-6
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+def groups_of(plan):
+    return -(-plan.config.words_per_col // 4)
+
+
+def occupancy(plan):
+    return plan.occ if plan.occ is not None else subtile_occupancy(plan.bitmask)
+
+
+def by_group(tasks):
+    """(window, group) -> the group's task rows in piece order."""
+    groups = {}
+    for row in tasks.tolist():
+        groups.setdefault((row[0], row[1]), []).append(row)
+    return {k: sorted(v, key=lambda r: r[4]) for k, v in groups.items()}
+
+
+def emulate(plan, x, subtile, piece_blocks, piece_work=None):
+    """The kernels' split in plain torch: each task's blocks summed by the
+    plain version of K1 (K2 with `subtile`, per-block skip) into its
+    128-row group, and each group's pieces added in piece order."""
+    cfg = plan.config
+    occ = occupancy(plan) if subtile else None
+    work = None if piece_work is None else block_work(plan).numpy()
+    tasks, _, _ = walk_tasks(plan.block_ptr.numpy(), piece_blocks, groups_of(plan),
+                             None if occ is None else occ.numpy(), work, piece_work)
+    plain = spmm_subtile_reference if subtile else spmm_reference
+    per_block = dataclasses.replace(cfg, block_unroll=1)  # K2 skips block by block
+    groups = by_group(tasks)
+    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(groups_of(plan))}
+    out = torch.zeros(plan.num_nodes, x.shape[1])
+    for (w, g), rows in groups.items():
+        assert [r[4] for r in rows] == list(range(len(rows)))
+        r0 = w * cfg.block_h + 128 * g
+        span = slice(r0, min(r0 + 128, (w + 1) * cfg.block_h, plan.num_nodes))
+        acc = None
+        for _, _, b0, b1, _, _ in rows:
+            sub = dataclasses.replace(
+                plan, config=per_block, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
+                window_of_block=plan.window_of_block[b0:b1], total_blocks=b1 - b0,
+                occ=None if occ is None else occ[b0:b1])
+            part = plain(sub, x)[span]
+            acc = part if acc is None else acc + part
+        out[span] = acc
+    return out
+
+
+@pytest.mark.parametrize("piece_blocks", [1, 2, 3, 8, 64])
+def test_pieces_cover_each_window_once_in_order(piece_blocks):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 32))
+    bp = plan.block_ptr.numpy()
+    window, begin, end, visits = window_pieces(bp, piece_blocks)
+    assert np.array_equal(visits, end - begin)
+    assert np.all(np.diff(window) >= 0)
+    assert np.all(end - begin <= piece_blocks)
+    for w in range(plan.num_windows):
+        mine = window == w
+        b, e = begin[mine], end[mine]
+        assert b[0] == bp[w] and e[-1] == bp[w + 1]
+        assert np.array_equal(b[1:], e[:-1])  # consecutive, no gap, no overlap
+        if bp[w + 1] > bp[w]:
+            assert np.all(e > b)
+
+
+def test_hub_window_splits_into_many_pieces():
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 32))
+    window, *_ = window_pieces(plan.block_ptr.numpy(), 4)
+    assert np.bincount(window)[0] >= 8
+
+
+@pytest.mark.parametrize("piece_blocks", [1, 4])
+def test_empty_window_gets_one_empty_piece(piece_blocks):
+    bp = np.array([0, 5, 5, 5, 12, 12])
+    window, begin, end, _ = window_pieces(bp, piece_blocks)
+    for w in (1, 2, 4):
+        assert np.sum(window == w) == 1
+        assert begin[window == w] == end[window == w] == bp[w]
+    assert np.sum(window == 0) == -(-5 // piece_blocks)
+
+
+@pytest.mark.parametrize("subtile", [False, True])
+def test_plan_without_blocks_gets_one_empty_piece_per_group(subtile):
+    bp = np.zeros(5, np.int64)
+    work = np.zeros((0, 2), np.int64)
+    tasks, merges, slots = walk_tasks(bp, 4, 2, np.zeros(0, np.int32) if subtile else None,
+                                      work, 100)
+    assert slots == 0 and merges.shape == (0, 4)
+    assert sorted(map(tuple, tasks[:, :2].tolist())) == [(w, g) for w in range(4) for g in (0, 1)]
+    assert np.all(tasks[:, 2:4] == 0) and np.all(tasks[:, 4:6] == [0, -1])
+
+
+@pytest.mark.parametrize("num_chunks", [2, 3, 4])
+def test_pieces_in_a_window_chunk_equal_the_whole_plans(num_chunks):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 32))
+    bp = plan.block_ptr.numpy()
+    whole = window_pieces(bp, 3)
+    w0 = 0
+    for sub in slice_plan_windows(plan, num_chunks):
+        window, begin, end, _ = window_pieces(sub.block_ptr.numpy(), 3)
+        mine = (whole[0] >= w0) & (whole[0] < w0 + sub.num_windows)
+        b_off = bp[w0]
+        assert np.array_equal(window + w0, whole[0][mine])
+        assert np.array_equal(begin + b_off, whole[1][mine])
+        assert np.array_equal(end + b_off, whole[2][mine])
+        w0 += sub.num_windows
+
+
+@pytest.mark.parametrize("piece_work", [None, 300])
+@pytest.mark.parametrize("subtile", [False, True])
+@pytest.mark.parametrize("piece_blocks", [2, 5])
+def test_walk_tasks_cover_each_group(subtile, piece_blocks, piece_work):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(256, 32, cluster_cols=subtile))
+    occ = occupancy(plan).numpy().astype(np.int64) if subtile else None
+    work = block_work(plan).numpy()
+    tasks, merges, slots = walk_tasks(plan.block_ptr.numpy(), piece_blocks, 2, occ,
+                                      None if piece_work is None else work, piece_work)
+    bp = plan.block_ptr.numpy()
+    cut = {(w, g): (first, count) for w, g, first, count in merges.tolist()}
+    used_slots = []
+    groups = by_group(tasks)
+    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(2)}
+    for (w, g), rows in groups.items():
+        mine = np.array(rows)
+        count = len(mine)
+        assert np.all(mine[:, 4] == np.arange(count))
+        assert np.all((mine[:, 2] >= bp[w]) & (mine[:, 3] <= bp[w + 1]))
+        assert np.all(mine[1:, 2] >= mine[:-1, 3])  # in block order, no overlap
+        # every block with the group's bit is walked, by exactly one task;
+        # no task walks more than piece_blocks, nor much more than piece_work
+        walked = [np.arange(b0, b1) for b0, b1 in mine[:, 2:4]]
+        if subtile:
+            walked = [b[(occ[b] >> g) & 1 == 1] for b in walked]
+        assert max(len(b) for b in walked) <= piece_blocks
+        if piece_work is not None:
+            assert all(work[b, g].sum() <= piece_work + work[b, g].max(initial=0)
+                       for b in walked)
+        want = np.arange(bp[w], bp[w + 1])
+        if subtile:
+            want = want[(occ[want] >> g) & 1 == 1]
+        assert np.array_equal(np.concatenate(walked), want)
+        if count == 1:
+            assert mine[0, 5] == -1 and (w, g) not in cut
+        else:
+            assert np.all(mine[:, 5] == mine[0, 5]) and cut[(w, g)] == (mine[0, 5], count)
+            used_slots += [mine[0, 5] + k for k in range(count - 1)]
+    assert sorted(used_slots) == list(range(slots))
+    assert len(cut) == len(merges)
+    if piece_work is not None:  # the dense hub blocks are cut by their work
+        assert slots > walk_tasks(bp, piece_blocks, 2, occ)[2]
+
+
+@pytest.mark.parametrize("subtile", [False, True])
+def test_walk_tasks_in_a_window_chunk_equal_the_whole_plans(subtile):
+    cfg = vt.PlanConfig(256, 32, cluster_cols=subtile)
+    plan = vt.csr_preprocess(*csr_args(power_law()), cfg)
+
+    def pieces(p, w_off=0, b_off=0):
+        """(window, group, rank) -> (first block, end block, pieces)."""
+        occ = occupancy(p).numpy() if subtile else None
+        tasks = walk_tasks(p.block_ptr.numpy(), 3, 2, occ, block_work(p).numpy(), 300)[0]
+        return {(w + w_off, g, r[4]): (r[2] + b_off, r[3] + b_off, len(rows))
+                for (w, g), rows in by_group(tasks).items() for r in rows}
+
+    whole, got, w0 = pieces(plan), {}, 0
+    bp = plan.block_ptr.numpy()
+    for sub in slice_plan_windows(plan, 3):
+        got.update(pieces(sub, w0, bp[w0]))
+        w0 += sub.num_windows
+    assert got == whole
+
+
+# (graph, config, d, subtile, piece size): the JAX kernel's geometries
+# (block_w % 128 == 0, block_h % 32 == 0); the power-law graph's hub
+# window splits into >= 8 pieces at piece sizes up to 2
+EMULATION_CASES = [
+    ("power_law", dict(block_h=128, block_w=128), 64, False, 2, None),
+    ("power_law", dict(block_h=128, block_w=128), 64, False, 16, 600),
+    ("power_law", dict(block_h=128, block_w=128), 130, False, 1, None),
+    ("power_law", dict(block_h=96, block_w=128), 40, False, 3, 400),
+    ("power_law", dict(block_h=512, block_w=128), 72, False, 2, None),
+    ("power_law", dict(block_h=128, block_w=128, gather_segment=4), 40, False, 2, None),
+    ("power_law", dict(block_h=128, block_w=128, cluster_cols=True), 64, True, 2, None),
+    ("power_law", dict(block_h=512, block_w=128, cluster_cols=True), 96, True, 1, None),
+    ("power_law", dict(block_h=512, block_w=128, cluster_cols=True), 96, True, 8, 500),
+    ("power_law", dict(block_h=2048, block_w=128, block_unroll=4, cluster_cols=True), 48, True,
+     3, None),
+    ("rows_left_empty", dict(block_h=128, block_w=128), 24, False, 2, None),
+    ("rows_left_empty", dict(block_h=128, block_w=128, cluster_cols=True), 24, True, 2, 300),
+]
+
+
+@pytest.mark.parametrize("graph,cfg,d,subtile,piece_blocks,piece_work", EMULATION_CASES)
+def test_piece_split_matches_jax(graph, cfg, d, subtile, piece_blocks, piece_work):
+    a = power_law()
+    if graph == "rows_left_empty":  # windows 1.. of 128 rows keep no edge
+        a = a.tolil()
+        for r in range(128, N):
+            a.rows[r], a.data[r] = [], []
+        a = a.tocsr()
+    jplan, tplan = both_plans(a, **cfg)
+    occ = occupancy(tplan).numpy() if subtile else None
+    work = None if piece_work is None else block_work(tplan).numpy()
+    groups = -(-tplan.config.words_per_col // 4)
+    tasks = walk_tasks(tplan.block_ptr.numpy(), piece_blocks, groups, occ, work, piece_work)[0]
+    if graph == "power_law":  # the hub window's first group is cut into >= 8 pieces
+        assert np.sum((tasks[:, 0] == 0) & (tasks[:, 1] == 0)) >= 8
+    x = features(N, d, seed=d)
+    out = emulate(tplan, torch.from_numpy(x), subtile, piece_blocks, piece_work)
+    ref = np.asarray(jops.spmm_pallas(jplan, jnp.asarray(x), subtile=subtile))
+    assert_close(out, ref)
+    if subtile:  # the occupancy read from the bitmask when the plan has none
+        no_occ = dataclasses.replace(tplan, occ=None)
+        assert_close(emulate(no_occ, torch.from_numpy(x), True, piece_blocks, piece_work), ref)
+
+
+def test_plan_walk_is_kept_outside_the_dataclass_fields():
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 32))
+    walk = plan_walk(plan, "spmm_block")
+    assert plan_walk(plan, "spmm_block") is walk
+    assert "_walks" not in {f.name for f in dataclasses.fields(plan)}
+    assert "_walks" not in dataclasses.replace(plan).__dict__
+    assert "_walks" not in plan.to("cpu").__dict__
+    tasks, merges, slots = walk_tasks(plan.block_ptr.numpy(), PIECE_BLOCKS["spmm_block"], 1,
+                                      None, block_work(plan).numpy(), PIECE_WORK["spmm_block"])
+    assert torch.equal(walk.tasks, torch.from_numpy(tasks))
+    assert torch.equal(walk.merges, torch.from_numpy(merges))
+    assert (walk.slots, walk.rows) == (slots, 128)
+
+
+def test_plan_walk_of_k2_keeps_the_bitmask_occupancy():
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(256, 32, cluster_cols=True))
+    no_occ = dataclasses.replace(plan, occ=None)
+    walk = subtile_walk(no_occ)
+    assert torch.equal(walk.occ, plan.occ)
+    assert torch.equal(walk.tasks, subtile_walk(plan).tasks)

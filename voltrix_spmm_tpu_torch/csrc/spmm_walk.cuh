@@ -1,0 +1,376 @@
+// The edge walk that kernels K1 (csrc/spmm_block.cu) and K2
+// (csrc/spmm_subtile.cu) share: out[num_nodes, d] = A @ feat over the binned
+// block-CSR plan, for sm_90a. K2 is the walk with the sub-window occupancy
+// test (kOcc); K1 is the walk without it.
+//
+// Work list. The wrapper cuts each 128-row group of a window into pieces
+// (ops/block_spmm.py:window_pieces, walk_tasks): block ranges that hold at
+// most PIECE_BLOCKS blocks the walk visits (every block for K1, the blocks
+// with the group's occupancy bit for K2) and at most about PIECE_WORK
+// units of work (a kept (lane, word) pair and each of its nonzero bitmask
+// bytes count one), so the dense hub blocks of a power-law graph get
+// pieces of their own. A group without a visited block gets one empty
+// piece, which writes its zeros. A task is one piece: the window, the
+// group, the block range, the piece's rank among the group's pieces and
+// the workspace slot of its tile. A group's cut depends on its window's
+// blocks alone, so a window sums the same way in a window chunk
+// (format/stream.py:slice_plan_windows) as in the whole plan.
+//
+// Walk. One thread block per (task, chunk of kCols = 128 feature columns),
+// four warps. Warp i owns word 4 * group + i of the window (32 rows) and
+// walks all of the piece's (block, 32-lane slice) units of that word; lane
+// l keeps the sums of its 32 rows and four columns in registers. A lane
+// loads its unit's bitmask word and hind kAhead units ahead; a ballot
+// compacts the lanes with a bit and a hind inside the source rows, in lane
+// order, into the warp's queue. Each queued item's X slice (lane l copies
+// columns 4l..4l+3, 16 bytes) goes through cp.async into a ring of kStages
+// slots, kStages - 1 items ahead of the one being summed; lane l then adds
+// its four columns into the rows of the item's set bits, a byte of the
+// word at a time, skipping zero bytes (the word is the same across the
+// warp, so the tests do not diverge; constant indices keep the sums in
+// registers). Each lane reads only what it copied, so the ring needs no
+// barrier. Where d % 4 != 0 or feat is not 16-byte aligned, a lane copies
+// columns l, l + 32, l + 64, l + 96 with 4-byte cp.async instead (kVec 1).
+//
+// Merge. Piece 0 of a group writes its tile to out, piece k >= 1 to its
+// workspace slot. A group cut into n > 1 pieces is then summed by a second
+// kernel, spmm_merge_kernel, in piece order, ((p0 + p1) + p2) + ..., a
+// thread per four columns of a row, its loads issued kBatch at a time, so
+// the result is the same in every run. No float atomics.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace voltrix_walk {
+
+constexpr int kWarps = 4;  // one per 32-row word of a 128-row group
+constexpr int kThreads = 32 * kWarps;
+// thread blocks an SM holds: caps the walk at 168 registers a thread (the
+// sums take 128) with no spills; more resident warps, not a deeper ring,
+// is what shortened the walk on the H100
+constexpr int kBlocksPerSm = 3;
+constexpr int kCols = 128;  // feature columns per thread block, 4 per lane
+constexpr int kStages = 16;  // X slices in flight per warp (cp.async ring)
+constexpr int kQueue = 64;   // kept items a warp holds: >= kStages - 1 + 32
+constexpr int kAhead = 4;    // units whose bitmask word and hind are loaded ahead
+constexpr int kMaxPiece = 64;  // blocks of a piece (ops/block_spmm.py MAX_PIECE_BLOCKS)
+constexpr int kBatch = 8;      // workspace tiles a merge thread loads at once
+constexpr int kTaskInts = 6;
+// a task: window, group, block range [b0, b1), rank of the piece in its
+// group, first workspace slot of the group (its piece 1; -1 if uncut)
+enum { kW, kG, kB0, kB1, kRank, kSlot };
+// a cut group: window, group, first workspace slot (its piece 1), pieces
+constexpr int kMergeInts = 4;
+enum { kMW, kMG, kMSlot, kMCount };
+constexpr int kStripRows = kThreads / 32;  // rows a merge thread block sums
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst_s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst_s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kSmemBytes = kWarps * (kStages * kCols * 4 + 2 * kQueue * 4);
+
+// rows of a workspace tile: the words of one group, 32 rows each
+__host__ __device__ inline int tile_rows(int words) {
+  return 32 * (words < kWarps ? words : kWarps);
+}
+
+// rows of group g of window w that lie inside the window and inside out
+__device__ __forceinline__ int rows_out(int w, int g, int words, int block_h, int num_nodes) {
+  const int64_t row0 = (int64_t)w * block_h + kWarps * 32 * g;
+  const int64_t left = (int64_t)num_nodes - row0;
+  const int in_window = min(tile_rows(words - kWarps * g), block_h - kWarps * 32 * g);
+  return left < in_window ? (left > 0 ? (int)left : 0) : in_window;
+}
+
+template <bool kOcc, int kVec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
+                 const int32_t* __restrict__ hind,      // (B, block_w)
+                 const uint32_t* __restrict__ occ,      // (B,) sub-window bits (kOcc)
+                 const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
+                 const float* __restrict__ feat,        // (source_rows, d)
+                 float* __restrict__ out,               // (num_nodes, d)
+                 float* __restrict__ ws,                // (slots, tile rows, d)
+                 int words, int block_h, int block_w, int num_nodes, int source_rows,
+                 int d) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_blocks[kMaxPiece];
+  __shared__ int s_nblk;
+
+  const int* task = tasks + (int64_t)blockIdx.x * kTaskInts;
+  const int w = task[kW], g = task[kG], b0 = task[kB0], b1 = task[kB1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gwords = min(kWarps, words - kWarps * g);
+  const int c0 = blockIdx.y * kCols;
+  const int cw = min(kCols, d - c0);
+  float* s_ring = smem + warp * kStages * kCols;
+  uint32_t* s_qword = reinterpret_cast<uint32_t*>(smem + kWarps * kStages * kCols) +
+                      warp * 2 * kQueue;
+  int32_t* s_qsrc = reinterpret_cast<int32_t*>(s_qword + kQueue);
+
+  // the piece's blocks, in order (K2: those with the group's occupancy bit;
+  // at most kMaxPiece by the work list's construction)
+  if (warp == 0) {
+    int n = 0;
+    for (int base = b0; base < b1; base += 32) {
+      const int b = base + lane;
+      bool keep = b < b1;
+      if (kOcc && keep) keep = (occ[b] >> g) & 1u;
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (keep) s_blocks[n + __popc(ballot & ((1u << lane) - 1u))] = b;
+      n += __popc(ballot);
+    }
+    if (lane == 0) s_nblk = n;
+  }
+  __syncthreads();
+  if (warp >= gwords) return;
+
+  // the lane's sums: row s of the warp's word, columns 4 lane .. 4 lane + 3
+  // (kVec 4) or lane + 32 k (kVec 1)
+  float acc[32][4];
+#pragma unroll
+  for (int s = 0; s < 32; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[s][k] = 0.f;
+  }
+
+  const int wi = kWarps * g + warp;
+  const int slices = (block_w + 31) / 32;
+  const int units = s_nblk * slices;
+  // unit u is lane slice u % slices of the piece's (u / slices)-th block
+  auto load_unit = [&](int u, uint32_t& word_out, int32_t& src_out) {
+    word_out = 0u;
+    src_out = -1;
+    if (u < units) {
+      const int64_t b = s_blocks[u / slices];
+      const int j = (u % slices) * 32 + lane;
+      if (j < block_w) {
+        word_out = __ldg(bitmask + (b * words + wi) * block_w + j);
+        src_out = __ldg(hind + b * block_w + j);
+      }
+    }
+  };
+  uint32_t next_word[kAhead];
+  int32_t next_src[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) load_unit(a, next_word[a], next_src[a]);
+  int u = 0, produced = 0;
+  // queue the kept lanes of the next unit, in lane order
+  auto produce = [&]() {
+    const bool keep = next_word[0] != 0u && next_src[0] >= 0 && next_src[0] < source_rows;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();  // the queue slots about to be reused have been read
+    if (keep) {
+      const int pos = (produced + __popc(ballot & ((1u << lane) - 1u))) % kQueue;
+      s_qword[pos] = next_word[0];
+      s_qsrc[pos] = next_src[0];
+    }
+    __syncwarp();
+    produced += __popc(ballot);
+#pragma unroll
+    for (int a = 0; a + 1 < kAhead; ++a) {
+      next_word[a] = next_word[a + 1];
+      next_src[a] = next_src[a + 1];
+    }
+    load_unit(u + kAhead, next_word[kAhead - 1], next_src[kAhead - 1]);
+    ++u;
+  };
+  // queue items until item i exists or the units are spent (warp-uniform)
+  auto ensure = [&](int i) {
+    while (produced <= i && u < units) produce();
+  };
+  const float* fcol = feat + c0;
+  // item i's X slice into ring slot i % kStages; one commit group per call
+  auto issue = [&](int i) {
+    if (i < produced) {
+      const float* row = fcol + (int64_t)s_qsrc[i % kQueue] * d;
+      float* slot = s_ring + (i % kStages) * kCols;
+      if (kVec == 4) {
+        if (4 * lane < cw) cp_async16(slot + 4 * lane, row + 4 * lane);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = lane + 32 * k;
+          if (c < cw) cp_async4(slot + c, row + c);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    ensure(i);
+    issue(i);
+  }
+  for (int t = 0; t < produced; ++t) {
+    ensure(t + kStages - 1);
+    issue(t + kStages - 1);
+    cp_async_wait<kStages - 1>();  // item t's slice has landed (this lane's copies)
+    const uint32_t m = s_qword[t % kQueue];
+    const float* slot = s_ring + (t % kStages) * kCols;
+    float x[4];
+    if (kVec == 4) {
+      const float4 v = 4 * lane < cw ? *reinterpret_cast<const float4*>(slot + 4 * lane)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = lane + 32 * k < cw ? slot[lane + 32 * k] : 0.f;
+    }
+#pragma unroll
+    for (int byte = 0; byte < 4; ++byte) {
+      if ((m >> (8 * byte)) & 0xffu) {
+#pragma unroll
+        for (int s = 8 * byte; s < 8 * byte + 8; ++s) {
+          if ((m >> s) & 1u) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[s][k] += x[k];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this warp's 32 rows of the tile: to out (piece 0) or the piece's slot
+  const int rows = rows_out(w, g, words, block_h, num_nodes) - 32 * warp;
+  const int rank = task[kRank];
+  const int64_t row0 = (int64_t)w * block_h + kWarps * 32 * g + 32 * warp;
+  float* dst = rank == 0 ? out + row0 * d + c0
+                         : ws + ((int64_t)(task[kSlot] + rank - 1) * tile_rows(words) +
+                                 32 * warp) * d + c0;
+#pragma unroll
+  for (int s = 0; s < 32; ++s) {
+    if (s < rows) {
+      float* r = dst + (int64_t)s * d;
+      if (kVec == 4) {
+        if (4 * lane < cw) {
+          *reinterpret_cast<float4*>(r + 4 * lane) =
+              make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (lane + 32 * k < cw) r[lane + 32 * k] = acc[s][k];
+        }
+      }
+    }
+  }
+}
+
+// The sum of each cut group's pieces, in piece order: out (piece 0) plus
+// workspace slots first .. first + count - 2. One thread block per (cut
+// group, kStripRows of its rows, column chunk); a warp per row, a lane per
+// four columns.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInts)
+                  const float* __restrict__ ws,        // (slots, tile rows, d)
+                  float* __restrict__ out,             // (num_nodes, d)
+                  int words, int block_h, int num_nodes, int d) {
+  const int strips = tile_rows(words) / kStripRows;
+  const int* mg = merges + (int64_t)(blockIdx.x / strips) * kMergeInts;
+  const int w = mg[kMW], g = mg[kMG], first = mg[kMSlot], count = mg[kMCount];
+  const int r = (blockIdx.x % strips) * kStripRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows_out(w, g, words, block_h, num_nodes)) return;
+  const int c0 = blockIdx.y * kCols;
+  const int cw = min(kCols, d - c0);
+  float* o = out + ((int64_t)w * block_h + kWarps * 32 * g + r) * d + c0;
+  const int64_t slot_stride = (int64_t)tile_rows(words) * d;
+  const float* p = ws + (int64_t)first * slot_stride + (int64_t)r * d + c0;
+  const int parts = count - 1;
+  if (kVec == 4) {
+    if (4 * lane >= cw) return;
+    float4 v = *reinterpret_cast<const float4*>(o + 4 * lane);
+    for (int k0 = 0; k0 < parts; k0 += kBatch) {
+      float4 part[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (k0 + k < parts) {
+          part[k] = __ldg(reinterpret_cast<const float4*>(p + (k0 + k) * slot_stride +
+                                                          4 * lane));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (k0 + k < parts) {
+          v.x += part[k].x;
+          v.y += part[k].y;
+          v.z += part[k].z;
+          v.w += part[k].w;
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(o + 4 * lane) = v;
+  } else {
+    for (int c = lane; c < cw; c += 32) {
+      float v = o[c];
+      for (int k0 = 0; k0 < parts; k0 += kBatch) {
+        float part[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (k0 + k < parts) part[k] = __ldg(p + (k0 + k) * slot_stride + c);
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (k0 + k < parts) v += part[k];
+        }
+      }
+      o[c] = v;
+    }
+  }
+}
+
+// Launches the walk and, when a group is cut, the merge after it on
+// `stream`; returns the first CUDA error as an int.
+template <bool kOcc>
+int launch_walk(const void* bitmask, const void* hind, const void* occ, const void* tasks,
+                const void* merges, const void* feat, void* out, void* ws, int num_tasks,
+                int num_merges, int words, int block_h, int block_w, int num_nodes,
+                int source_rows, int d, int vec, void* stream) {
+  auto walk = vec ? spmm_walk_kernel<kOcc, 4> : spmm_walk_kernel<kOcc, 1>;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (d + kCols - 1) / kCols;
+  walk<<<dim3(num_tasks, chunks), kThreads, kSmemBytes, s>>>(
+      static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
+      static_cast<const uint32_t*>(occ), static_cast<const int32_t*>(tasks),
+      static_cast<const float*>(feat), static_cast<float*>(out), static_cast<float*>(ws),
+      words, block_h, block_w, num_nodes, source_rows, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || num_merges == 0) return static_cast<int>(err);
+  auto merge = vec ? spmm_merge_kernel<4> : spmm_merge_kernel<1>;
+  const int strips = tile_rows(words) / kStripRows;
+  merge<<<dim3(num_merges * strips, chunks), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
+      static_cast<float*>(out), words, block_h, num_nodes, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace voltrix_walk

@@ -1,11 +1,20 @@
-"""Kernel K1, the block SpMM, and its wrapper.
+"""Kernel K1, the block SpMM, its wrapper, and the work list that K1 and
+K2 share.
 
 `spmm_block(plan, feat)` computes what the JAX package's
 `spmm_pallas(subtile=False)` returns, out = A @ feat, with the CUDA
 kernel in csrc/spmm_block.cu (it replaces
-voltrix_spmm_tpu/ops/pallas_spmm.py:_spmm_block_kernel; the source says
-how it is laid out and what bounds it). The library is built with nvcc
-at first use (see jit/compiler.py).
+voltrix_spmm_tpu/ops/pallas_spmm.py:_spmm_block_kernel; the source and
+csrc/spmm_walk.cuh say how it is laid out and what bounds it). The
+library is built with nvcc at first use (see jit/compiler.py).
+
+Both kernels walk a list of tasks: each 128-row group of a window cut
+into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
+`PIECE_WORK[name]` units of work (`window_pieces`, `walk_tasks`,
+`block_work`). The list is built on the host from the plan's block_ptr,
+each block's work (and K2's occupancy) at a plan's first launch, the
+only host sync, and kept on the plan object, outside its dataclass
+fields (`plan_walk`).
 
 A CPU tensor takes the plain version, `ops.reference.spmm_reference`. A
 CUDA tensor launches the kernel or raises: there is no fallback.
@@ -15,15 +24,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .reference import spmm_reference
 
-_COLS = 32  # feature columns per thread block (one per lane of a warp)
+_COLS = 32  # the grid's column unit in _check (a warp's columns in K3 and K8)
+_GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
+MAX_PIECE_BLOCKS = 64  # csrc/spmm_walk.cuh kMaxPiece
+# a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
+# work (`block_work`), by kernel:
+# python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B)
+PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64}
+PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024}
 
 
 @functools.cache
@@ -31,9 +49,7 @@ def load_library():
     """Build (or reuse) the kernel library; return (launch, error_string)."""
     rt = build("spmm_block", ["spmm_block.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = rt.function(
-        "voltrix_spmm_block_f32", [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    )
+    launch = rt.function("voltrix_spmm_block_f32", [p] * 7 + [i] * 9 + [p])
     error_string = rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
     return launch, error_string
 
@@ -86,6 +102,188 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
         raise ValueError(f"D exceeds {name}'s grid limits")
 
 
+def window_pieces(block_ptr, piece_blocks: int, visit=None, work=None, piece_work=None):
+    """Cut each window's blocks into pieces: (window, begin, end, visits)
+    int64 arrays, one entry per piece, a window's pieces in block order. A
+    piece is the block range [begin, end) that holds at most `piece_blocks`
+    of the blocks the walk visits: every block (K1), or those where the
+    bool (total_blocks,) `visit` is set (K2: the blocks with one
+    sub-window's occupancy bit), a piece then spanning its first to its
+    last. With `work` (int (total_blocks,)) a piece also ends where the
+    window's visited blocks before it reach the next multiple of
+    `piece_work`, so it holds at most piece_work plus one block's work. A
+    window without a visited block gets one empty piece. A window's cut
+    depends on its own blocks alone, so it is the same in a window chunk of
+    the plan."""
+    if piece_blocks < 1:
+        raise ValueError(f"piece_blocks must be >= 1, got {piece_blocks}")
+    bp = np.asarray(block_ptr, dtype=np.int64)
+    blocks = np.arange(bp[-1]) if visit is None else np.flatnonzero(visit)
+    window = np.searchsorted(bp, blocks, side="right") - 1
+    first = np.searchsorted(window, window)  # the window's first visited block
+    piece = (np.arange(len(blocks)) - first) // piece_blocks
+    change = np.r_[True, (window[1:] != window[:-1]) | (piece[1:] != piece[:-1])]
+    if work is not None:
+        done = np.cumsum(np.asarray(work, dtype=np.int64)[blocks])
+        done -= done[first] - np.asarray(work, dtype=np.int64)[blocks][first]
+        done -= np.asarray(work, dtype=np.int64)[blocks]  # before the block
+        share = done // piece_work
+        change[1:] |= share[1:] != share[:-1]
+    starts = np.flatnonzero(change) if len(blocks) else blocks
+    ends = np.append(starts[1:], len(blocks)) if len(blocks) else blocks
+    empty = np.setdiff1d(np.arange(len(bp) - 1), window)
+    window = np.r_[window[starts], empty]
+    begin = np.r_[blocks[starts], bp[empty]]
+    end = np.r_[blocks[ends - 1] + 1, bp[empty]]
+    visits = np.r_[ends - starts, np.zeros(len(empty), np.int64)]
+    order = np.argsort(window, kind="stable")
+    return window[order], begin[order], end[order], visits[order]
+
+
+def walk_tasks(block_ptr, piece_blocks: int, groups: int, occ=None, work=None,
+               piece_work=None):
+    """The work list of csrc/spmm_walk.cuh: int32 (tasks, 6) rows (window,
+    group, first block, end block, rank of the piece among the group's
+    pieces, the group's first workspace slot or -1), int32 (cut groups, 4)
+    rows (window, group, first workspace slot, pieces), and the number of
+    workspace slots. A task is a piece of one 128-row group of a window
+    (`window_pieces`); with `occ` (int32 (total_blocks,), K2's sub-window
+    bits) group g's pieces count the blocks with bit g, else every block;
+    `work` (int (total_blocks, groups)) is each block's work in each group.
+    A group of two or more pieces is cut: its pieces 1.. each get a
+    workspace slot. Tasks with more blocks to walk come first."""
+    parts = []
+    for g in range(groups):
+        visit = None if occ is None else (np.asarray(occ, dtype=np.int64) >> g) & 1 == 1
+        w_g = None if work is None else np.asarray(work)[:, g]
+        window, begin, end, visits = window_pieces(block_ptr, piece_blocks, visit, w_g,
+                                                   piece_work)
+        parts.append((window, np.full_like(window, g), begin, end, visits))
+    window, group, begin, end, visits = (np.concatenate(x) for x in zip(*parts))
+    key = window * groups + group
+    order = np.argsort(key, kind="stable")  # a group's pieces together, in order
+    window, group, begin, end, visits, key = (
+        x[order] for x in (window, group, begin, end, visits, key))
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    count = np.diff(np.r_[starts, len(key)])
+    rank = np.arange(len(key)) - np.repeat(starts, count)
+    cut = count > 1
+    slot = np.full(len(count), -1, np.int64)
+    slot[cut] = np.cumsum(count[cut] - 1) - (count[cut] - 1)
+    tasks = np.stack([window, group, begin, end, rank, np.repeat(slot, count)], axis=1)
+    tasks = tasks[np.argsort(-visits, kind="stable")]
+    merges = np.stack([window[starts][cut], group[starts][cut], slot[cut], count[cut]], axis=1)
+    return (tasks.astype(np.int32), merges.astype(np.int32).reshape(-1, 4),
+            int((count[cut] - 1).sum()))
+
+
+def block_work(plan: SpmmPlan) -> torch.Tensor:
+    """int64 (total_blocks, groups) on the plan's device: for each block
+    and 128-row group, the work of the group's busiest warp in the walk,
+    its kept (lane, word) pairs plus their nonzero bitmask bytes."""
+    tb, words, k = plan.bitmask.shape
+    groups = -(-words // _GROUP_WORDS)
+    valid = (plan.hind >= 0) & (plan.hind < plan.source_rows)
+    out = []
+    step = max(1, 2**22 // max(1, words * k))
+    for b0 in range(0, tb, step):
+        bm = plan.bitmask[b0:b0 + step]
+        work = (bm != 0).long()
+        for byte in range(4):
+            work += ((bm >> (8 * byte)) & 0xFF) != 0
+        work = (work * valid[b0:b0 + step, None, :]).sum(2)  # (c, words)
+        work = torch.nn.functional.pad(work, (0, groups * _GROUP_WORDS - words))
+        out.append(work.view(-1, groups, _GROUP_WORDS).amax(2))
+    if not out:
+        return torch.zeros(0, groups, dtype=torch.int64, device=plan.device)
+    return torch.cat(out)
+
+
+@dataclass
+class Walk:
+    """A plan's work list on its device, as `walk_tasks` built it."""
+
+    tasks: torch.Tensor  # int32 (num_tasks, 6)
+    merges: torch.Tensor  # int32 (cut groups, 4)
+    slots: int  # workspace tiles of cut groups
+    rows: int  # rows of a workspace tile
+    cut_windows: int  # windows with a cut group
+    occ: torch.Tensor | None  # K2's sub-window bits, on the plan's device
+
+
+def plan_walk(plan: SpmmPlan, name: str, occupancy=None) -> Walk:
+    """`plan`'s work list for kernel `name`, built at the first call (one
+    host copy of block_ptr, of each block's work and of the occupancy that
+    `occupancy()` returns for K2) and kept on the plan object, outside its
+    dataclass fields, keyed by the kernel and its piece limits."""
+    piece_blocks, piece_work = PIECE_BLOCKS[name], PIECE_WORK[name]
+    if not 1 <= piece_blocks <= MAX_PIECE_BLOCKS:
+        raise ValueError(f"PIECE_BLOCKS[{name!r}] must be in 1..{MAX_PIECE_BLOCKS}")
+    cache = plan.__dict__.setdefault("_walks", {})
+    key = (name, piece_blocks, piece_work)
+    if key not in cache:
+        occ = None if occupancy is None else occupancy()
+        words = plan.config.words_per_col
+        tasks, merges, slots = walk_tasks(
+            plan.block_ptr.cpu().numpy(), piece_blocks, -(-words // _GROUP_WORDS),
+            None if occ is None else occ.cpu().numpy(), block_work(plan).cpu().numpy(),
+            piece_work)
+        cache[key] = Walk(
+            tasks=torch.from_numpy(tasks).to(plan.device),
+            merges=torch.from_numpy(merges).to(plan.device), slots=slots,
+            rows=32 * min(words, _GROUP_WORDS),
+            cut_windows=len(np.unique(merges[:, 0])), occ=occ)
+    return cache[key]
+
+
+def walk_stats(plan: SpmmPlan, walk: Walk, d: int) -> dict:
+    """What a plan's work list gives the kernel (for chip_smoke.py and the
+    sweep): pieces (tasks), windows and groups cut, the kept (lane, word)
+    pairs and the work (`block_work`) of the heaviest piece against the
+    mean, and the workspace in MiB at width d."""
+    tb, words, _ = plan.bitmask.shape
+    groups = -(-words // _GROUP_WORDS)
+    valid = (plan.hind >= 0) & (plan.hind < plan.source_rows)
+    pairs = ((plan.bitmask != 0) & valid[:, None, :]).sum(2)  # (tb, words)
+    pairs = torch.nn.functional.pad(pairs, (0, groups * _GROUP_WORDS - words))
+    t = walk.tasks.long()
+    stats = {"pieces": int(t.shape[0]), "cut_windows": walk.cut_windows,
+             "cut_groups": int(walk.merges.shape[0]),
+             "workspace_mib": walk.slots * walk.rows * d * 4 / 2**20}
+    for name, per_block in (("pairs", pairs.view(tb, groups, _GROUP_WORDS).sum(2)),
+                            ("work", block_work(plan))):
+        if walk.occ is not None:
+            shifts = torch.arange(groups, dtype=torch.int32, device=per_block.device)
+            per_block = per_block * ((walk.occ[:, None] >> shifts) & 1)
+        cum = torch.cat([per_block.new_zeros(1, groups), per_block.cumsum(0)])
+        per_task = cum[t[:, 3], t[:, 1]] - cum[t[:, 2], t[:, 1]]
+        stats[f"max_task_{name}"] = int(per_task.max())
+        stats[f"mean_task_{name}"] = float(per_task.float().mean())
+    return stats
+
+
+def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: torch.Tensor,
+                walk: Walk) -> None:
+    """Launch K1 or K2 (`library`) over `walk` into `out`, with a
+    workspace for the cut groups' pieces 1.. (the library's second kernel
+    then sums them into out)."""
+    d = feat.shape[1]
+    if walk.tasks.shape[0] > _INT_MAX or walk.merges.shape[0] * walk.rows // 4 > _INT_MAX:
+        raise ValueError(f"{name}: more tasks than the grid takes")
+    ws = None
+    if walk.slots:
+        ws = torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=feat.device)
+    cfg = plan.config
+    occ = () if walk.occ is None else (walk.occ.data_ptr(),)
+    launch(
+        name, library, feat, plan.bitmask.data_ptr(), plan.hind.data_ptr(), *occ,
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
+        cfg.words_per_col, cfg.block_h, cfg.block_w, plan.num_nodes, plan.source_rows, d,
+        int(d % 4 == 0 and feat.data_ptr() % 16 == 0),
+    )
+
+
 def launch(name: str, library, feat: torch.Tensor, *args) -> None:
     """Call `library`'s launch function on the current stream of feat's
     device; raise with CUDA's message if the launch was refused."""
@@ -111,18 +309,10 @@ def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tens
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_block runs on cuda or cpu tensors, not {feat.device}")
     _check(plan, feat)
-    if plan.config.words_per_col > 65535:
-        raise ValueError("block_h exceeds spmm_block's grid limits")
-    d = feat.shape[1]
-    out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    out = torch.empty(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
     if out.numel():
-        launch(
-            "spmm_block", load_library(), feat,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(),
-            plan.block_ptr.data_ptr(), feat.data_ptr(), out.data_ptr(),
-            plan.num_windows, plan.config.words_per_col, plan.config.block_h,
-            plan.config.block_w, plan.num_nodes, plan.source_rows, d,
-        )
+        launch_walk("spmm_block", load_library(), plan, feat, out,
+                    plan_walk(plan, "spmm_block"))
         spmm_block.launches += 1
     return cast_out(out, out_dtype)
 

@@ -7,7 +7,8 @@ block_h % 128 == 0, with the CUDA kernel in csrc/spmm_subtile.cu (it
 replaces voltrix_spmm_tpu/ops/pallas_spmm.py:_spmm_subtiled_kernel; the
 source says how it is laid out and what bounds it). The skip bitmap is
 `plan.occ` (column-clustered plans carry it, see format/cluster.py) or,
-when the plan has none, the per-block occupancy of its bitmask.
+when the plan has none, the per-block occupancy of its bitmask, computed
+once with the plan's work list (ops/block_spmm.py:plan_walk).
 
 A CPU tensor takes the plain version, `spmm_subtile_reference`. A CUDA
 tensor launches the kernel or raises: there is no fallback.
@@ -22,7 +23,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _INT_MAX, _check, cast_out, launch
+from .block_spmm import Walk, _check, cast_out, launch_walk, plan_walk
 from .reference import CHUNK_BYTES, block_sum, check_binary, clipped_gather
 
 SUBWIN_ROWS = 128
@@ -33,7 +34,7 @@ def load_library():
     """Build (or reuse) the kernel library; return (launch, error_string)."""
     rt = build("spmm_subtile", ["spmm_subtile.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_subtile_f32", [p, p, p, p, p, p, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_subtile_f32", [p] * 8 + [i] * 9 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -100,6 +101,12 @@ def spmm_subtile_reference(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *
 spmm_subtile_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
+def subtile_walk(plan: SpmmPlan) -> Walk:
+    """K2's work list for `plan` (`block_spmm.plan_walk`), with the plan's
+    occupancy computed once."""
+    return plan_walk(plan, "spmm_subtile", lambda: _plan_occupancy(plan))
+
+
 def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = A @ feat through kernel K2 (float32 in, float32
     accumulation, cast to `out_dtype` at the end)."""
@@ -109,20 +116,9 @@ def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Te
         raise ValueError(f"spmm_subtile runs on cuda or cpu tensors, not {feat.device}")
     _check(plan, feat, "spmm_subtile")
     _check_geometry(plan)
-    cfg = plan.config
-    if plan.num_windows * cfg.words_per_col > _INT_MAX:
-        raise ValueError("num_windows * block_h / 32 exceeds spmm_subtile's grid limits")
-    occ = _plan_occupancy(plan)
-    d = feat.shape[1]
-    out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    out = torch.empty(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
     if out.numel():
-        launch(
-            "spmm_subtile", load_library(), feat,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(), plan.block_ptr.data_ptr(),
-            occ.data_ptr(), feat.data_ptr(), out.data_ptr(),
-            plan.num_windows, cfg.words_per_col, cfg.block_h, cfg.block_w,
-            plan.num_nodes, plan.source_rows, d,
-        )
+        launch_walk("spmm_subtile", load_library(), plan, feat, out, subtile_walk(plan))
         spmm_subtile.launches += 1
     return cast_out(out, out_dtype)
 
