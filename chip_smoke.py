@@ -32,7 +32,11 @@ non-zero on failure (there is no CPU fallback):
    tolerance; K10's lane planes exactly 0 on lanes without bits. K8
    (int8 rows, bf16 dequantization) on 15 geometries under the same
    tolerance: its plain version dequantizes the same int8 rows the same
-   way, so only the order of the float32 sums differs.
+   way, so only the order of the float32 sums differs; K8 also on K1's
+   cases (a power-law hub window cut into >= 16 pieces, a window of
+   exactly 2 x PIECE_BLOCKS["spmm_int8"] blocks, d 130: int8 rows of 132
+   bytes), the hub rows under the float32 summation bound, on features
+   of a generator of their own.
 4. The paths, each driven through the entry points a user calls, with
    every count set to 0 just before and read just after:
    A. GCN serving on the ogbn-arxiv proxy (169,343 nodes),
@@ -40,13 +44,15 @@ non-zero on failure (there is no CPU fallback):
       GCN training on the same graph, 3 SGD steps: K1 3 times per step.
       K1 runs twice on the same input at d 128 and must give the same bits.
       A, B, F, J.1 and J.2 print what K1's or K2's work list gives their
-      plans: pieces, windows cut, the heaviest piece's work against the
-      mean, the workspace.
+      plans, I and C K8's: pieces, windows cut, the heaviest piece's work
+      against the mean, the workspace.
    I. On A's plan, 3 requests of spmm(plan, x, impl="int8") at d 128 and 3
       at d 256: K8 once each; its output against a float64 host product of
       the same bf16-dequantized features (the first and last 2,048 rows)
       and against K1's float32 output (relative error < 2e-2,
-      tests/test_quant.py:41). K8 also runs at d 256 on path C's plan.
+      tests/test_quant.py:41). K8 also runs at d 256 on path C's plan;
+      on A's plan (d 128) and on C's, K8 runs twice on the same input and
+      must give the same bits.
    J. On A's graph: (1) build_graph(..., stream_chunks=4) with A's GCN: 3
       requests (K1 2 x 4 each) whose logits equal path A's bit for bit,
       step-0 loss and gradients equal to the unstreamed graph's, 3 SGD
@@ -66,7 +72,9 @@ non-zero on failure (there is no CPU fallback):
       40: K6 and K7 9 times per request; K6 36 and K7 18 times per Adam
       step. It prints the scores within rounding of leaky_relu's kink in
       both layers and the edges whose sign differs between the kernel and
-      the plain path.
+      the plain path. K6 runs twice on the same input at d 8 and d 40
+      (and on F's plan at d 256) and must give the same bits, and so must
+      K6 on 4 window chunks of the plan (spmm_ell_streamed).
    F. GCN link prediction on the ogbl-ddi proxy (4,267 nodes, 2,571,386
       nnz), GCN 256 -> 256 -> 256 on PlanConfig(128, 128) (K1), SDDMM
       scores over the edges and as many sampled non-edges (ELL plan,
@@ -324,7 +332,8 @@ def main() -> None:
         spmm_attention,
         spmm_attention_ad, spmm_attention_mh, spmm_attention_mh_reference,
         spmm_attention_reference, spmm_block, spmm_ell,
-        spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_fused,
+        spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_ell_streamed,
+        spmm_fused,
         spmm_fused_reference, spmm_reference, spmm_subtile, spmm_subtile_reference,
         spmm_weighted, spmm_weighted_dvalues, spmm_weighted_dvalues_reference,
         spmm_weighted_reference, subtile_spmm, weighted, quant, spmm_int8, spmm_int8_reference,
@@ -441,7 +450,8 @@ def main() -> None:
             fail(f"kernel {name} disagrees with its plain version on {label}")
 
     walks = {"spmm_block": lambda p: block_spmm.plan_walk(p, "spmm_block"),
-             "spmm_subtile": subtile_spmm.subtile_walk}
+             "spmm_subtile": subtile_spmm.subtile_walk,
+             "spmm_int8": lambda p: block_spmm.plan_walk(p, "spmm_int8")}
 
     def most_pieces(p, name):
         """The most pieces that one 128-row group of plan `p` is cut into."""
@@ -449,7 +459,7 @@ def main() -> None:
         return int(merges[:, 3].max()) if merges.numel() else 1
 
     def piece_line(label, plans, name, widths):
-        """Print what K1's or K2's work list gives a path's plan (or its
+        """Print what K1's, K2's or K8's work list gives a path's plan (or its
         window chunks, which run one after another): pieces, windows and
         groups cut, the kept (lane, word) pairs and the work (pairs plus
         their nonzero bitmask bytes, busiest warp) of the heaviest piece
@@ -761,6 +771,26 @@ def main() -> None:
     case(k8, "n800 d40 PlanConfig(32,128), duplicate edges",
          sp.csr_matrix((np.ones(len(dup_idx), np.float32), dup_idx, dup_ptr), shape=(dup_n, dup_n)),
          40, PlanConfig(32, 128))
+    # K8 on K1's walk: a power-law hub window cut into pieces, a window of
+    # exactly 2 x PIECE_BLOCKS blocks, d 130; the hub rows under the float32
+    # summation bound; features from a generator of their own, so those of
+    # the paths below stay as they were
+    pb8 = block_spmm.PIECE_BLOCKS[k8]
+    print(f"  (K8's pieces: PIECE_BLOCKS {pb8}, PIECE_WORK {block_spmm.PIECE_WORK[k8]})")
+    rng8 = np.random.default_rng(94)
+
+    def feat8(n, d):
+        return rng8.standard_normal((n, d)).astype(np.float32)
+
+    case(k8, "n40000 d128 block_h 128, block_w 32, hub window cut into >= 16 pieces", hub40k,
+         128, PlanConfig(128, 32), feat=feat8(40000, 128),
+         expect=lambda p: most_pieces(p, k8) >= 16, bound=True)
+    case(k8, f"n{128 * 2 * pb8 + 2048} d64 window 0 of exactly 2 x {pb8} blocks",
+         window0_of(2 * pb8, 95), 64, PlanConfig(128, 128), feat=feat8(128 * 2 * pb8 + 2048, 64),
+         expect=lambda p: int(p.block_ptr[1]) == 2 * pb8)
+    case(k8, "n40000 d130 block_h 128, block_w 128 (int8 rows of 132 bytes), hub window cut",
+         hub40k, 130, PlanConfig(128, 128), feat=feat8(40000, 130),
+         expect=lambda p: most_pieces(p, k8) >= 4, bound=True)
 
     def close(name, label, got, want, extra=""):
         """One K13-K15 output against its plain version: calc_diff < 1e-6 and
@@ -1291,6 +1321,23 @@ def main() -> None:
                 deg)
         compare("spmm_ell_dvals", f"path {label} K7 d{d}", wplan, (feat, grad))
         k6, k7 = kernels["spmm_ell"][:2], kernels["spmm_ell_dvals"][:2]
+        rows = ell.plan_rows(wplan)
+        lanes = (rows.items[:, 2] - rows.items[:, 1]).float()
+        print(f"  K6 row order (PIECE_LANES {ell.PIECE_LANES}): {rows.items.shape[0]} pieces, "
+              f"{rows.merges.shape[0]} rows cut (most pieces "
+              f"{int(rows.merges[:, 2].max()) if rows.merges.numel() else 1}), heaviest piece "
+              f"{int(lanes.max())} lanes against a mean of {float(lanes.mean()):.1f}; workspace "
+              f"{rows.slots * d * 4 / 2**20:.2f} MiB at d {d}")
+        whole = k6[0](wplan, feat)
+        same = torch.equal(whole, k6[0](wplan, feat))
+        print(f"  spmm_ell twice at d{d}: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of K6 on the same input differ at d {d}")
+        same = torch.equal(spmm_ell_streamed(wplan, feat, num_chunks=4), whole)
+        print(f"  spmm_ell_streamed on 4 window chunks at d{d}: "
+              f"{'bit-identical to the whole plan' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: K6 on window chunks differs from the whole plan at d {d}")
         k_ms, p_ms, turns = in_turns(torch, lambda: k6[0](wplan, feat), lambda: k6[1](wplan, feat))
         lib = library_ms(lambda: torch.sparse.mm(csr_w, feat))
         # reads hind, erow and vals, feat once; writes out once
@@ -2032,6 +2079,11 @@ def main() -> None:
         path_i["launches"] = counts["spmm_int8"]
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         csr = csr_tensor(torch, a, dev)
+        piece_line(f"path {label}", [plan], "spmm_int8", widths)
+        same = torch.equal(spmm_int8(plan, xs[128][0]), spmm_int8(plan, xs[128][0]))
+        print(f"  spmm_int8 twice at d128: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of K8 on the same input differ")
         rows = np.r_[0:2048, n - 2048:n]
         a_rows = a[rows].astype(np.float64)
         deg_rows = np.diff(a.indptr)[rows][:, None].astype(np.float64)
@@ -2088,6 +2140,11 @@ def main() -> None:
         x = feat_of(n, d)
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         compare("spmm_int8", f"path {label} K8 d{d} (float32 summation bound)", plan, (x,), deg)
+        piece_line(f"path {label}", [plan], "spmm_int8", (d,))
+        same = torch.equal(spmm_int8(plan, x), spmm_int8(plan, x))
+        print(f"  spmm_int8 twice at d{d}: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of K8 on the same input differ")
         rel = relative_error(spmm_fused(plan, x), spmm_int8(plan, x))
         print(f"  K8 d{d} against K3's float32 output: relative error {rel:.3e} (limit 2e-2) -> "
               f"{'ok' if rel < 2e-2 else 'MISMATCH'}")

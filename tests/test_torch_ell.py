@@ -35,7 +35,7 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_ell_reference,
     spmm_ell_streamed,
 )
-from voltrix_spmm_tpu_torch.ops.ell import _k6_geometry, _k6_smem, _k7_geometry
+from voltrix_spmm_tpu_torch.ops.ell import _k6_lanes, _k7_geometry, ell_row_order
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 TOL_SCIPY = dict(rtol=1e-4, atol=1e-3)
@@ -469,18 +469,35 @@ def test_sddmm_ell_matches_jax():
 
 
 @pytest.mark.parametrize("block_h,block_w,d,geometry", [
-    (128, 128, 8, (8, 8)), (128, 128, 40, (40, 8)), (128, 128, 256, (64, 8)),
-    (32, 128, 1, (1, 8)), (2048, 128, 64, (16, 8)), (8192, 128, 64, (4, 8)),
+    (128, 128, 8, (4, 2, 1)), (128, 128, 40, (4, 16, 4)), (128, 128, 256, (4, 32, 4)),
+    (32, 128, 1, (1, 1, 1)), (2048, 128, 64, (4, 16, 4)), (8192, 128, 64, (4, 16, 4)),
 ])
 def test_k6_geometry(block_h, block_w, d, geometry):
-    dc, task = _k6_geometry(block_h, block_w, d)
-    assert (dc, task) == geometry
-    assert _k6_smem(block_h, block_w, dc, task) <= 232448
+    """K6's (vec, threads an edge, edges a thread gathers at once): set by
+    d and the alignment alone, whatever the window (K6 holds no window
+    tile); a warp keeps about 8 edges in flight, and without 16-byte
+    alignment a thread takes one column."""
+    vec, tpe, unroll = _k6_lanes(d, aligned=True)
+    assert (vec, tpe, unroll) == geometry
+    assert tpe * vec >= min(d, 128) and 32 // tpe * unroll >= min(8, 32 // tpe)
+    assert _k6_lanes(d, aligned=False)[0] == 1
+    plan = vt.csr_preprocess_ell(np.zeros(301, np.int64), np.zeros(0, np.int64), 300,
+                                 vt.PlanConfig(block_h, block_w))
+    # every row of a plan without edges still gets one (empty) piece
+    assert ell_row_order(plan, 8).items.shape == (300, 4)
 
 
 def test_k6_refuses_a_window_too_tall():
-    with pytest.raises(ValueError, match="shared memory"):
-        _k6_geometry(60000, 128, 8)
+    """K6's row order indexes rows with 32-bit ints: a plan whose windows
+    reach past row 2**31 - 1 is refused (a tall window alone is not, as K6
+    holds no window tile)."""
+    indptr, indices, values, n, _, _ = plan_case("h128")
+    tall = vt.csr_preprocess_ell(indptr, indices, n, vt.PlanConfig(60000, 128), values=values)
+    rows = ell_row_order(tall, 8)
+    assert rows.lane.shape == (len(indices),) and rows.items.shape[0] >= n
+    past = dataclasses.replace(tall, num_nodes=2**31)
+    with pytest.raises(ValueError, match="32-bit"):
+        ell_row_order(past, 8)
 
 
 @pytest.mark.parametrize("d,aligned,geometry", [

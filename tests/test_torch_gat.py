@@ -113,6 +113,24 @@ def test_edge_softmax_matches_jax():
     np.testing.assert_allclose(sums, 1.0, rtol=1e-5)
 
 
+def test_edge_softmax_gradient_matches_jax():
+    """The softmax's backward sums each node's edge terms in CSR order
+    (segment sums, no float atomics), rows without edges and a hub row
+    included; its gradient is jax.grad's."""
+    a = sp.csr_matrix(symmetrize(chung_lu_csr(300, 3000, seed=4)))
+    a = (sp.diags((np.arange(300) % 7 != 3).astype(np.float32)) @ a).tocsr()
+    a.eliminate_zeros()
+    gj, gt = both_graphs(a)
+    assert int(np.diff(a.indptr).max()) > 50 and (np.diff(a.indptr) == 0).any()
+    rng = np.random.default_rng(5)
+    e = rng.standard_normal(a.nnz).astype(np.float32) * 4
+    w = rng.standard_normal(a.nnz).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(jmodels.edge_softmax(gj, x) * w))(jnp.asarray(e))
+    et = torch.from_numpy(e).requires_grad_(True)
+    (edge_softmax(gt, et) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(et.grad.numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
+
+
 @pytest.mark.parametrize("f", [8, 40])
 def test_gat_head_matches_jax(f):
     a = gat_csr(seed=4)

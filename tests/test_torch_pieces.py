@@ -1,4 +1,4 @@
-"""The work list that kernels K1 and K2 share (ops/block_spmm.py:
+"""The work list that kernels K1, K2 and K8 share (ops/block_spmm.py:
 window_pieces, walk_tasks, plan_walk), on the CPU.
 
 Each window's blocks are cut into pieces of at most P consecutive blocks,
@@ -7,7 +7,9 @@ only on the card (chip_smoke.py holds them to their plain versions); here
 a plain emulation of the split (each task's blocks summed with the plain
 version of K1 or K2, then the pieces added in order) is held to the JAX
 package's `spmm_pallas` in interpret mode, to the tolerance of
-tests/test_spmm.py:51-52 (float32 sums taken in another order).
+tests/test_spmm.py:51-52 (float32 sums taken in another order); K8's split
+likewise, on the rows that `spmm_int8_reference` dequantizes, against
+`spmm_pallas_int8` as tests/test_quant.py runs it.
 """
 
 import dataclasses
@@ -22,8 +24,9 @@ import voltrix_spmm_tpu.ops as jops
 import voltrix_spmm_tpu_torch as vt
 from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.format.stream import slice_plan_windows
-from voltrix_spmm_tpu_torch.ops import spmm_reference, spmm_subtile_reference
+from voltrix_spmm_tpu_torch.ops import spmm_int8_reference, spmm_reference, spmm_subtile_reference
 from voltrix_spmm_tpu_torch.ops.block_spmm import (
+    MAX_PIECE_BLOCKS,
     PIECE_BLOCKS,
     PIECE_WORK,
     block_work,
@@ -31,6 +34,7 @@ from voltrix_spmm_tpu_torch.ops.block_spmm import (
     walk_tasks,
     window_pieces,
 )
+from voltrix_spmm_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from voltrix_spmm_tpu_torch.ops.subtile_spmm import subtile_occupancy, subtile_walk
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -297,3 +301,74 @@ def test_plan_walk_of_k2_keeps_the_bitmask_occupancy():
     walk = subtile_walk(no_occ)
     assert torch.equal(walk.occ, plan.occ)
     assert torch.equal(walk.tasks, subtile_walk(plan).tasks)
+
+
+# K8 (the walk on int8 rows): (graph, config, d, piece size, work limit);
+# the JAX kernel's geometries; d 130 gives int8 rows of 132 bytes
+INT8_CASES = [
+    ("power_law", dict(block_h=128, block_w=128), 64, 2, None),
+    ("power_law", dict(block_h=128, block_w=128), 130, 16, 600),
+    ("power_law", dict(block_h=512, block_w=128), 40, 3, 400),
+    ("power_law", dict(block_h=128, block_w=128, gather_segment=4), 24, 2, None),
+    ("rows_left_empty", dict(block_h=128, block_w=128), 24, 2, 300),
+]
+
+
+@pytest.mark.parametrize("graph,cfg,d,piece_blocks,piece_work", INT8_CASES)
+def test_piece_split_matches_jax_int8(graph, cfg, d, piece_blocks, piece_work):
+    a = power_law()
+    if graph == "rows_left_empty":  # windows 1.. of 128 rows keep no edge
+        a = a.tolil()
+        for r in range(128, N):
+            a.rows[r], a.data[r] = [], []
+        a = a.tocsr()
+    jplan, tplan = both_plans(a, **cfg)
+    if graph == "power_law":  # the hub window's first group is cut into >= 8 pieces
+        tasks = walk_tasks(tplan.block_ptr.numpy(), piece_blocks, groups_of(tplan), None,
+                           None if piece_work is None else block_work(tplan).numpy(),
+                           piece_work)[0]
+        assert np.sum((tasks[:, 0] == 0) & (tasks[:, 1] == 0)) >= 8
+    x = features(N, d, seed=d + 1)
+    # the rows K8 sums: quantized per row, dequantized through bfloat16
+    xq = dequantize_rows(*quantize_rows(torch.from_numpy(x)), torch.bfloat16).float()
+    out = emulate(tplan, xq, False, piece_blocks, piece_work)
+    assert_close(out, np.asarray(jops.spmm_pallas_int8(jplan, jnp.asarray(x))))
+    assert_close(out, spmm_int8_reference(tplan, torch.from_numpy(x)))
+
+
+@pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=128),
+                                 dict(block_h=2048, block_w=128, gather_segment=128,
+                                      block_unroll=4)])
+def test_plan_walk_of_k8_keeps_its_own_limits(cfg):
+    """K8's work list takes PIECE_BLOCKS["spmm_int8"] and
+    PIECE_WORK["spmm_int8"], is kept beside K1's on the same plan, and
+    covers a block_h 2048 plan's 16 groups of 128 rows."""
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
+    pb, pw = PIECE_BLOCKS["spmm_int8"], PIECE_WORK["spmm_int8"]
+    assert 1 <= pb <= MAX_PIECE_BLOCKS and pw >= 1
+    walk = plan_walk(plan, "spmm_int8")
+    assert plan_walk(plan, "spmm_int8") is walk and walk.occ is None
+    groups = groups_of(plan)
+    work = block_work(plan).numpy()
+    tasks, merges, slots = walk_tasks(plan.block_ptr.numpy(), pb, groups, None, work, pw)
+    assert torch.equal(walk.tasks, torch.from_numpy(tasks))
+    assert torch.equal(walk.merges, torch.from_numpy(merges))
+    assert (walk.slots, walk.rows) == (slots, 32 * min(plan.config.words_per_col, 4))
+    assert set(map(tuple, tasks[:, :2].tolist())) == {
+        (w, g) for w in range(plan.num_windows) for g in range(groups)}
+    for w, g, b0, b1, _, _ in tasks.tolist():
+        assert b1 - b0 <= pb
+        assert work[b0:b1, g].sum() <= pw + work[b0:b1, g].max(initial=0)
+    saved = dict(PIECE_BLOCKS), dict(PIECE_WORK)
+    try:
+        PIECE_BLOCKS["spmm_int8"], PIECE_WORK["spmm_int8"] = 1, pw
+        assert plan_walk(plan, "spmm_int8").tasks.shape[0] == max(plan.total_blocks, 1) * groups
+        assert plan_walk(plan, "spmm_block") is not plan_walk(plan, "spmm_int8")
+        PIECE_BLOCKS["spmm_int8"] = MAX_PIECE_BLOCKS + 1
+        with pytest.raises(ValueError, match="PIECE_BLOCKS"):
+            plan_walk(plan, "spmm_int8")
+    finally:
+        for current, default in zip((PIECE_BLOCKS, PIECE_WORK), saved):
+            current.clear()
+            current.update(default)
+    assert plan_walk(plan, "spmm_int8") is walk

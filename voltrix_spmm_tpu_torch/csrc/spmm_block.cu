@@ -22,18 +22,18 @@
 // Lanes whose hind lies past the last source row (the tail of
 // gather_segment > 1 plans) carry no bits and are skipped.
 //
-// Resources (nvcc -Xptxas -v, sm_90a): the walk 168 registers a thread,
-// no spills, 34,816 bytes of dynamic and 272 of static shared memory a
-// thread block of 128 threads, three thread blocks an SM; the merge 40 to
-// 50 registers, no shared memory.
+// Resources (nvcc -Xptxas -v, sm_90a): the walk 162 registers a thread
+// (168 with 4-byte copies), no spills, 34,816 bytes of dynamic and 1,040
+// of static shared memory a thread block of 128 threads, three thread
+// blocks an SM; the merge 40 to 50 registers, no shared memory.
 //
 // Bound. Bytes: each kept (lane, word) pair's X slice (d floats), the
 // bitmask, hind and out. On the ogbn-arxiv proxy at PlanConfig(128, 128)
 // the 1.41M kept pairs need 722 MB of X slices at d 128, 0.22 ms at 3.35
 // TB/s if none hit the 50 MB L2; the plan's own bound (each input read
 // once) is 0.059 / 0.111 ms at d 128 / 256. On an NVIDIA H100 80GB HBM3 at
-// 700 W this kernel takes 0.450 / 0.829 ms there, torch.sparse.mm 0.259 /
-// 0.486. The earlier design (one thread block per window, 32-row word and
+// 700 W this kernel takes 0.381 / 0.697 ms there, torch.sparse.mm 0.256 /
+// 0.480. The earlier design (one thread block per window, 32-row word and
 // 32 columns, 4-byte loads, 8 in flight a warp) took 2.129 / 3.039 ms, set
 // by the one thread block that walked the hub window's first word (97,871
 // kept pairs). The hub window's first blocks are dense (hub rows against
@@ -58,9 +58,10 @@ int voltrix_spmm_block_f32(const void* bitmask, const void* hind, const void* ta
                            const void* merges, const void* feat, void* out, void* ws,
                            int num_tasks, int num_merges, int words, int block_h, int block_w,
                            int num_nodes, int source_rows, int d, int vec, void* stream) {
-  return voltrix_walk::launch_walk<false>(bitmask, hind, nullptr, tasks, merges, feat, out, ws,
-                                          num_tasks, num_merges, words, block_h, block_w,
-                                          num_nodes, source_rows, d, vec, stream);
+  namespace vw = voltrix_walk;
+  auto walk = vec ? vw::launch_walk<false, vw::kF32x4> : vw::launch_walk<false, vw::kF32x1>;
+  return walk(bitmask, hind, nullptr, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges,
+              words, block_h, block_w, num_nodes, source_rows, d, d, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -19,14 +19,14 @@
 // and a sub-window without any one empty task that writes its zeros;
 // inside a piece's block range, warp 0 lists the blocks with the bit (a
 // ballot over occ) and the four warps walk only those. Resources as K1's
-// (csrc/spmm_block.cu): 168 registers, no spills, 34,816 + 272 bytes of
-// shared memory, three thread blocks an SM.
+// (csrc/spmm_block.cu): 162 registers (168 with 4-byte copies), no spills,
+// 34,816 + 1,040 bytes of shared memory, three thread blocks an SM.
 //
 // Bound. Bytes: the kept (lane, word) pairs' X slices, the bitmask words of
 // occupied sub-windows, hind, occ and out; each input read once, 0.108 /
 // 0.160 ms at d 128 / 256 on the ogbn-arxiv proxy at PlanConfig(2048, 128,
 // block_unroll=4, cluster_cols=True). On an NVIDIA H100 80GB HBM3 at 700 W
-// this kernel takes 0.532 / 1.006 ms there, torch.sparse.mm 0.258 / 0.488.
+// this kernel takes 0.463 / 0.870 ms there, torch.sparse.mm 0.261 / 0.487.
 // The earlier design (one thread block per window, 32-row word and 32
 // columns) took 2.444 / 3.577 ms: the first window holds 1,100 of 5,696
 // blocks, and the thread block of its first word walked 4,400 units
@@ -49,9 +49,10 @@ int voltrix_spmm_subtile_f32(const void* bitmask, const void* hind, const void* 
                              void* ws, int num_tasks, int num_merges, int words, int block_h,
                              int block_w, int num_nodes, int source_rows, int d, int vec,
                              void* stream) {
-  return voltrix_walk::launch_walk<true>(bitmask, hind, occ, tasks, merges, feat, out, ws,
-                                         num_tasks, num_merges, words, block_h, block_w,
-                                         num_nodes, source_rows, d, vec, stream);
+  namespace vw = voltrix_walk;
+  auto walk = vec ? vw::launch_walk<true, vw::kF32x4> : vw::launch_walk<true, vw::kF32x1>;
+  return walk(bitmask, hind, occ, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges,
+              words, block_h, block_w, num_nodes, source_rows, d, d, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -98,19 +98,55 @@ def build_gat_graph(
     )
 
 
+class _RowsSum(torch.autograd.Function):
+    """Per-edge values (edges in CSR order) -> per-node sums over each
+    node's edges, in edge order (`torch.segment_reduce` over `offsets`),
+    so the same bits come out in every run, where `index_add_` adds them
+    with float atomics; backward, the gather of the node gradients."""
+
+    @staticmethod
+    def forward(ctx, x, rows, offsets):
+        ctx.save_for_backward(rows)
+        return torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rows,) = ctx.saved_tensors
+        return grad.index_select(0, rows), None, None
+
+
+class _RowsExpand(torch.autograd.Function):
+    """Per-node values -> per-edge values along `rows` (CSR order): a
+    gather; backward, `_RowsSum`'s segment sums in edge order, where the
+    backward of `index_select`, an `index_add_`, uses float atomics."""
+
+    @staticmethod
+    def forward(ctx, x, rows, offsets):
+        ctx.save_for_backward(offsets)
+        return x.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (offsets,) = ctx.saved_tensors
+        return torch.segment_reduce(grad, "sum", offsets=offsets, unsafe=True), None, None
+
+
 def edge_softmax(g: GatGraph, e: torch.Tensor) -> torch.Tensor:
-    """Softmax over each node's incoming edges, (nnz,) -> (nnz,).
+    """Softmax over each node's incoming edges, (nnz,) -> (nnz,); g.rows
+    lists the edges' destinations in CSR order (sorted), as
+    `build_gat_graph` and `build_ell_graph` make it.
 
     The softmax does not depend on the shift m, so no gradient is taken
-    through it (JAX's segment_max passes terms that cancel). Per-node
-    values reach the edges through `index_select`, whose backward is an
-    `index_add_`: the backward of `x[rows]` sorts the indices and
-    serialises a hub node's tens of thousands of edges."""
-    m = e.new_zeros(g.num_nodes).scatter_reduce(0, g.rows, e.detach(), "amax",
-                                                include_self=False)
-    alpha = torch.exp(e - m.index_select(0, g.rows))
-    denom = alpha.new_zeros(g.num_nodes).index_add(0, g.rows, alpha)
-    return alpha / denom.index_select(0, g.rows).clamp_min(1e-9)
+    through it (JAX's segment_max passes terms that cancel). Each node's
+    max and sum run over its edges in CSR order (`torch.segment_reduce`),
+    and so do the sums of the backward (`_RowsSum`, `_RowsExpand`), with
+    no float atomics: the same logits give the same bits in every run."""
+    rows = g.rows
+    offsets = torch.searchsorted(rows, torch.arange(g.num_nodes + 1, device=rows.device))
+    m = torch.segment_reduce(e.detach(), "max", offsets=offsets, unsafe=True)
+    alpha = torch.exp(e - m.index_select(0, rows))
+    denom = _RowsSum.apply(alpha, rows, offsets)
+    return alpha / _RowsExpand.apply(denom, rows, offsets).clamp_min(1e-9)
 
 
 def _scatter_plane(plan: SpmmPlan, slots: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Kernel K1, the block SpMM, its wrapper, and the work list that K1 and
-K2 share.
+"""Kernel K1, the block SpMM, its wrapper, and the work list that K1, K2
+and K8 share.
 
 `spmm_block(plan, feat)` computes what the JAX package's
 `spmm_pallas(subtile=False)` returns, out = A @ feat, with the CUDA
@@ -8,11 +8,12 @@ voltrix_spmm_tpu/ops/pallas_spmm.py:_spmm_block_kernel; the source and
 csrc/spmm_walk.cuh say how it is laid out and what bounds it). The
 library is built with nvcc at first use (see jit/compiler.py).
 
-Both kernels walk a list of tasks: each 128-row group of a window cut
+The three kernels walk a list of tasks: each 128-row group of a window cut
 into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
 `PIECE_WORK[name]` units of work (`window_pieces`, `walk_tasks`,
 `block_work`). The list is built on the host from the plan's block_ptr,
-each block's work (and K2's occupancy) at a plan's first launch, the
+each block's work (and K2's occupancy) at a plan's first launch for each
+kernel, the
 only host sync, and kept on the plan object, outside its dataclass
 fields (`plan_walk`).
 
@@ -36,12 +37,13 @@ from .reference import spmm_reference
 _COLS = 32  # the grid's column unit in _check (a warp's columns in K3 and K8)
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
-MAX_PIECE_BLOCKS = 64  # csrc/spmm_walk.cuh kMaxPiece
+MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`), by kernel:
-# python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B)
-PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64}
-PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024}
+# python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B;
+# K8 on paths I and C)
+PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128}
+PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048}
 
 
 @functools.cache
@@ -263,11 +265,13 @@ def walk_stats(plan: SpmmPlan, walk: Walk, d: int) -> dict:
 
 
 def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: torch.Tensor,
-                walk: Walk) -> None:
-    """Launch K1 or K2 (`library`) over `walk` into `out`, with a
-    workspace for the cut groups' pieces 1.. (the library's second kernel
-    then sums them into out)."""
-    d = feat.shape[1]
+                walk: Walk, scale: torch.Tensor | None = None) -> None:
+    """Launch K1, K2 or K8 (`library`) over `walk` into `out` (num_nodes,
+    d): `feat` is float32 (source_rows, d) rows, or with `scale` K8's int8
+    (source_rows, d4) rows and their float32 scales; with a workspace for
+    the cut groups' pieces 1.. (the library's second kernel then sums them
+    into out)."""
+    d = out.shape[1]
     if walk.tasks.shape[0] > _INT_MAX or walk.merges.shape[0] * walk.rows // 4 > _INT_MAX:
         raise ValueError(f"{name}: more tasks than the grid takes")
     ws = None
@@ -275,12 +279,15 @@ def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: tor
         ws = torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=feat.device)
     cfg = plan.config
     occ = () if walk.occ is None else (walk.occ.data_ptr(),)
+    if scale is None:  # the last int: 16-byte copies of float32 rows, or 4-byte ones
+        rows, last = (feat.data_ptr(),), int(d % 4 == 0 and feat.data_ptr() % 16 == 0)
+    else:  # the last int: the int8 rows' width d4
+        rows, last = (feat.data_ptr(), scale.data_ptr()), feat.shape[1]
     launch(
         name, library, feat, plan.bitmask.data_ptr(), plan.hind.data_ptr(), *occ,
-        walk.tasks.data_ptr(), walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), *rows, out.data_ptr(),
         None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
-        cfg.words_per_col, cfg.block_h, cfg.block_w, plan.num_nodes, plan.source_rows, d,
-        int(d % 4 == 0 and feat.data_ptr() % 16 == 0),
+        cfg.words_per_col, cfg.block_h, cfg.block_w, plan.num_nodes, plan.source_rows, d, last,
     )
 
 

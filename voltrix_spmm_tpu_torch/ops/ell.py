@@ -5,7 +5,11 @@ On an `EllPlan` (format/ell.py; one lane per edge):
 
 - `spmm_ell(plan, feat)` computes out = (A o V) @ feat through K6
   (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel). Padding lanes
-  (erow = -1) add nothing, whatever `vals` holds there.
+  (erow = -1) add nothing, whatever `vals` holds there. K6 walks the
+  plan's row order (`ell_row_order`: lanes grouped by destination row,
+  rows cut into pieces of at most PIECE_LANES lanes), built at a plan's
+  first launch and kept while its erow tensor lives (`plan_rows`), and
+  sums each row in a fixed order: two launches give the same bits.
 - `spmm_ell_dvals(plan, feat, g)` computes the lane gradient
   dval[b, l] = g[wob[b] * block_h + erow[b, l]] . feat[hind[b, l]] through
   K7 (csrc/spmm_ell_dvals.cu, replacing ell.py:_ell_dvals_kernel), exactly
@@ -22,16 +26,20 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
+from dataclasses import dataclass
 
 import torch
 
 from ..format.ell import EllPlan, edge_values, lane_values, slice_ell_windows
 from ..jit import build
-from .block_spmm import cast_out, launch
+from .block_spmm import _INT_MAX, cast_out, launch
 from .reference import CHUNK_BYTES
-from .weighted import _SMEM_LIMIT, _check_kernel_args
+from .weighted import _check_kernel_args
 
-_K6_TASK_BLOCKS = 8  # plan blocks per K6 task (see csrc/spmm_ell.cu)
+# the most lanes of one row a K6 warp sums (`ell_row_order`):
+# python3 -m voltrix_spmm_tpu_torch.tools.k6_piece_sweep (paths E and F)
+PIECE_LANES = 512
 IMPLS = ("auto", "ell", "reference")
 
 
@@ -40,7 +48,7 @@ def load_library():
     """Build (or reuse) K6's library; return (launch, error_string)."""
     rt = build("spmm_ell", ["spmm_ell.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_ell_f32", [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_ell_f32", [p] * 8 + [i] * 6 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -113,38 +121,108 @@ def spmm_ell_reference(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
 spmm_ell_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
-def _k6_smem(block_h: int, block_w: int, dc: int, task: int) -> int:
-    return (block_h * (dc | 1) + block_h + 3 * task * block_w + task) * 4
+def _k6_lanes(d: int, aligned: bool) -> tuple[int, int, int]:
+    """K6's (vec, tpe, unroll): float4 loads when d % 4 == 0 and feat is
+    16-byte aligned; tpe threads an edge, the power of two (at most 32) at
+    or above the row's vectors, so a warp has 32 / tpe edge slots; each
+    thread gathers `unroll` edges at a time, so that a warp keeps about 8
+    edges in flight (4 a thread at most)."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    tpe = 1
+    while tpe < -(-d // vec) and tpe < 32:
+        tpe *= 2
+    return vec, tpe, max(1, min(4, 8 * tpe // 32))
 
 
-def _k6_geometry(block_h: int, block_w: int, d: int) -> tuple[int, int]:
-    """K6's (dc, task_blocks): dc = min(d, 64) feature columns per thread
-    block, task_blocks = 8 plan blocks per task; dc (the window tile's
-    width), then the task, is halved until the tile and the staged lanes
-    fit in shared memory."""
-    dc, task = max(1, min(d, 64)), _K6_TASK_BLOCKS
-    while _k6_smem(block_h, block_w, dc, task) > _SMEM_LIMIT:
-        if dc > 1:
-            dc = (dc + 1) // 2
-        elif task > 1:
-            task //= 2
-        else:
-            raise ValueError(
-                f"spmm_ell: a {block_h}-row window tile does not fit one thread block's "
-                "shared memory; use a shorter block_h"
-            )
-    return dc, task
+@dataclass
+class EllRows:
+    """K6's row order of a plan (`ell_row_order`), on the plan's device."""
+
+    src: torch.Tensor  # int32 (kept lanes,) source row, clipped, in row order
+    lane: torch.Tensor  # int32 (kept lanes,) flat lane index (for vals)
+    items: torch.Tensor  # int32 (items, 4): row, first, end, workspace row or -1
+    merges: torch.Tensor  # int32 (cut rows, 3): row, workspace row of piece 1, pieces
+    slots: int  # workspace rows
+    piece_lanes: int
+
+
+def ell_row_order(plan: EllPlan, piece_lanes: int) -> EllRows:
+    """The plan's non-padding lanes (erow >= 0, row < num_nodes) grouped by
+    destination row, in lane order within a row, with each lane's source
+    row clipped into the source rows (jnp.take(mode="clip")); each row cut
+    into pieces (items) of at most `piece_lanes` lanes, an empty row into
+    one empty piece; a cut row's pieces 1.. each get a workspace row. A
+    row's pieces depend on its own lanes alone, so a window chunk of the
+    plan (`slice_ell_windows`) cuts its rows as the whole plan does. Plain
+    torch on the plan's device; the sizes cost a few host syncs, once per
+    plan (`plan_rows`)."""
+    if piece_lanes < 1:
+        raise ValueError(f"piece_lanes must be >= 1, got {piece_lanes}")
+    if max(plan.num_nodes, plan.gather_rows) > _INT_MAX:
+        raise ValueError("K6's row order indexes rows and lanes with 32-bit ints")
+    K, H, n = plan.config.block_w, plan.config.block_h, plan.num_nodes
+    dev = plan.erow.device
+    e = plan.erow.reshape(-1).long()
+    rows = plan.window_of_block.long().repeat_interleave(K) * H + e
+    lane = torch.nonzero((e >= 0) & (rows < n)).squeeze(1)
+    rows, order = torch.sort(rows[lane], stable=True)
+    lane = lane[order]
+    src = plan.hind.reshape(-1)[lane].clamp(0, plan.source_rows - 1)
+    counts = torch.bincount(rows, minlength=n)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=ptr[1:])
+    pieces = ((counts + piece_lanes - 1) // piece_lanes).clamp(min=1)
+    item_row = torch.repeat_interleave(torch.arange(n, device=dev), pieces)
+    rank = torch.arange(len(item_row), device=dev) - (pieces.cumsum(0) - pieces)[item_row]
+    first = ptr[item_row] + rank * piece_lanes
+    end = torch.minimum(first + piece_lanes, ptr[item_row + 1])
+    extra = pieces - 1
+    slot0 = extra.cumsum(0) - extra  # a cut row's first workspace row
+    slot = torch.where(rank == 0, -1, slot0[item_row] + rank - 1)
+    cut = torch.nonzero(extra).squeeze(1)
+    return EllRows(
+        src=src.int(), lane=lane.int(),
+        items=torch.stack([item_row, first, end, slot], 1).int(),
+        merges=torch.stack([cut, slot0[cut], pieces[cut]], 1).int(),
+        slots=int(extra.sum()), piece_lanes=piece_lanes)
+
+
+# a plan's row order, kept while its erow tensor lives: plans made by
+# dataclasses.replace(plan, vals=...) (a new lane plane each call in
+# GATDot, spmm_ell_ad and sddmm_ell_ad's backward) share it
+_ROW_ORDERS: dict[int, tuple] = {}
+
+
+def plan_rows(plan: EllPlan) -> EllRows:
+    """K6's row order of `plan` at PIECE_LANES, built at its first launch and
+    kept beside the plan's erow tensor (checked against its hind and
+    window_of_block tensors, rows and piece limit) until that tensor is
+    freed."""
+    key = id(plan.erow)
+    lanes = (plan.erow, plan.hind, plan.window_of_block)
+    meta = (plan.num_nodes, plan.source_rows, plan.config.block_h, PIECE_LANES)
+    hit = _ROW_ORDERS.get(key)
+    if hit is not None:
+        refs, hit_meta, rows = hit
+        if all(r() is t for r, t in zip(refs, lanes)) and hit_meta == meta:
+            return rows
+    rows = ell_row_order(plan, PIECE_LANES)
+    if hit is None:
+        weakref.finalize(plan.erow, _ROW_ORDERS.pop, key, None)
+    _ROW_ORDERS[key] = (tuple(weakref.ref(t) for t in lanes), meta, rows)
+    return rows
 
 
 def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 in,
-    float32 accumulation, cast to `out_dtype` at the end)."""
+    float32 accumulation in a fixed order, cast to `out_dtype` at the
+    end)."""
     if feat.device.type == "cpu":
         return spmm_ell_reference(plan, feat, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_ell runs on cuda or cpu tensors, not {feat.device}")
     _check_rows(plan, feat, "spmm_ell")
-    tb, H, K = plan.total_blocks, plan.config.block_h, plan.config.block_w
+    tb, K = plan.total_blocks, plan.config.block_w
     _check_kernel_args(plan, "spmm_ell", {
         "hind": (torch.int32, (tb, K)),
         "erow": (torch.int32, (tb, K)),
@@ -152,16 +230,21 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
         "window_of_block": (torch.int32, (tb,)),
     }, feat)
     d = feat.shape[1]
-    dc, task = _k6_geometry(H, K, d)
-    if -(-d // dc) > 65535:
+    vec, tpe, unroll = _k6_lanes(d, feat.data_ptr() % 16 == 0)
+    if -(-d // (tpe * vec)) > 65535:
         raise ValueError("D exceeds spmm_ell's grid limits")
-    out = torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
-    if out.numel() and tb:
+    out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    if out.numel():
+        rows = plan_rows(plan)
+        ws = None
+        if rows.slots:
+            ws = torch.empty(rows.slots * d, dtype=torch.float32, device=feat.device)
         launch(
             "spmm_ell", load_library(), feat,
-            plan.hind.data_ptr(), plan.erow.data_ptr(), plan.vals.data_ptr(),
-            plan.window_of_block.data_ptr(), feat.data_ptr(), out.data_ptr(),
-            tb, H, K, plan.num_nodes, plan.source_rows, d, dc, task,
+            rows.items.data_ptr(), rows.src.data_ptr(), rows.lane.data_ptr(),
+            plan.vals.data_ptr(), rows.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), rows.items.shape[0], rows.merges.shape[0],
+            d, vec, tpe, unroll,
         )
         spmm_ell.launches += 1
     return cast_out(out, out_dtype)

@@ -8,9 +8,11 @@ int8 with one float32 scale (`quantize_rows`), and out = A @ X' where
 each gathered value of X' is bf16(bf16(q) * bf16(scale)), summed in
 float32 (the TPU kernel's own arithmetic, quant.py:47-50). The CUDA kernel
 is csrc/spmm_int8.cu (it replaces
-voltrix_spmm_tpu/ops/quant.py:_quant_kernel; the source says how it is
-laid out). The quantization is plain torch, as in JAX, where it runs
-outside the Pallas kernel.
+voltrix_spmm_tpu/ops/quant.py:_quant_kernel): the edge walk of
+csrc/spmm_walk.cuh that K1 runs, on int8 rows, over the plan's work list
+for "spmm_int8" (`block_spmm.plan_walk`, with K8's own piece limits). The
+quantization is plain torch, as in JAX, where it runs outside the Pallas
+kernel.
 
 A CPU tensor takes the plain version, `spmm_int8_reference`. A CUDA
 tensor launches the kernel or raises: there is no fallback.
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _check, cast_out, launch
+from .block_spmm import _check, cast_out, launch_walk, plan_walk
 from .reference import CHUNK_BYTES, block_sum, check_binary, clipped_gather
 
 
@@ -49,7 +51,7 @@ def load_library():
     """Build (or reuse) the kernel library; return (launch, error_string)."""
     rt = build("spmm_int8", ["spmm_int8.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_int8", [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_int8", [p] * 8 + [i] * 9 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -90,7 +92,7 @@ spmm_int8_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 def quantize_padded(feat: torch.Tensor):
     """quantize_rows of feat with zero columns added up to a multiple of 4:
-    K8's lane reads 4 int8 columns as one 32-bit word, and a zero column
+    K8's lane copies 4 int8 columns as one 4-byte word, and a zero column
     changes no row's absmax."""
     d = feat.shape[1]
     return quantize_rows(feat if d % 4 == 0 else F.pad(feat, (0, -d % 4)))
@@ -101,17 +103,10 @@ def launch_quantized(plan: SpmmPlan, q: torch.Tensor, scale: torch.Tensor, d: in
     """Kernel K8 alone on CUDA rows that `quantize_padded` made (q int8
     (source_rows, d4), scale float32 (source_rows, 1)): out[num_nodes, d].
     `spmm_int8` checks the plan and the features, then calls this."""
-    d4 = q.shape[1]
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=q.device)
     if out.numel():
-        cfg = plan.config
-        launch(
-            "spmm_int8", load_library(), q,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(), plan.block_ptr.data_ptr(),
-            q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            plan.num_windows, cfg.words_per_col, cfg.block_h, cfg.block_w,
-            plan.num_nodes, plan.source_rows, d, d4,
-        )
+        launch_walk("spmm_int8", load_library(), plan, q, out, plan_walk(plan, "spmm_int8"),
+                    scale)
         spmm_int8.launches += 1
     return cast_out(out, out_dtype)
 
@@ -125,8 +120,6 @@ def spmm_int8(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tenso
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_int8 runs on cuda or cpu tensors, not {feat.device}")
     _check(plan, feat, "spmm_int8")  # K1's checks: the JAX package's refusals and float32
-    if 4 * plan.config.words_per_col > 65535:
-        raise ValueError("block_h exceeds spmm_int8's grid limits")
     return launch_quantized(plan, *quantize_padded(feat), feat.shape[1], out_dtype)
 
 

@@ -36,7 +36,7 @@ from ..ops import (
     spmm_attention,
     spmm_attention_mh,
 )
-from .k6_task_sweep import cuda_ms
+from .k6_piece_sweep import cuda_ms
 
 TASKS = (1, 2, 4, 8, 16)
 GROUPS = (1, 8)

@@ -1,13 +1,15 @@
-"""Kernel K6's time against its task size (plan blocks per thread block)
-at the shapes of chip_smoke.py's paths E (the ogbn-arxiv proxy with
-self-loops, PlanConfig(128, 128, block_unroll=4), d = 8 and 40) and F
-(the ogbl-ddi proxy's link candidates, PlanConfig(128, 128), d = 256).
+"""Kernel K6's time against its piece limit (PIECE_LANES, the most lanes of
+one row a warp sums) at the shapes of chip_smoke.py's paths E (the
+ogbn-arxiv proxy with self-loops, PlanConfig(128, 128, block_unroll=4),
+d = 8 and 40) and F (the ogbl-ddi proxy's link candidates,
+PlanConfig(128, 128), d = 256).
 
-    python3 -m voltrix_spmm_tpu_torch.tools.k6_task_sweep
+    python3 -m voltrix_spmm_tpu_torch.tools.k6_piece_sweep
 
-Needs one CUDA device. Each (path, width, task size) is timed twice with
-CUDA events (mean of 20 launches after 3 warm-up), the sizes in turns:
-up, then down.
+Needs one CUDA device. Each (path, width, limit) is timed twice with CUDA
+events (mean of 20 launches after 3 warm-up), the limits in turns: up,
+then down. Beside each: the row order's pieces, its cut rows and the
+workspace.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import torch
 from .. import PlanConfig, build_ell_graph, build_link_candidates, lane_values
 from ..data import proxy_csr, symmetrize
 from ..ops import ell, spmm_ell
+from ..ops.ell import plan_rows
 
-TASKS = (2, 4, 8, 16, 32, 64)
+LIMITS = (16, 32, 64, 128, 256, 512, 1024)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -41,7 +44,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def main() -> None:
     if not torch.cuda.is_available():
-        raise SystemExit("k6_task_sweep needs a CUDA device")
+        raise SystemExit("k6_piece_sweep needs a CUDA device")
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -59,18 +62,23 @@ def main() -> None:
     cases = [("E", plan_e, 8), ("E", plan_e, 40), ("F", plan_f, 256)]
     feats = {d: torch.randn(p.source_rows, d, device=dev) for _, p, d in cases}
     times: dict = {}
-    default = ell._K6_TASK_BLOCKS
+    default = ell.PIECE_LANES
     try:
-        for order in (TASKS, TASKS[::-1]):
-            for task in order:
-                ell._K6_TASK_BLOCKS = task
+        for order in (LIMITS, LIMITS[::-1]):
+            for limit in order:
+                ell.PIECE_LANES = limit
                 for name, p, d in cases:
                     ms = cuda_ms(lambda: spmm_ell(p, feats[d]))
-                    times.setdefault((name, d, task), []).append(ms)
+                    rows = plan_rows(p)
+                    entry = times.setdefault((name, d, limit), {"ms": [], "rows": rows})
+                    entry["ms"].append(ms)
     finally:
-        ell._K6_TASK_BLOCKS = default
-    for (name, d, task), ms in sorted(times.items()):
-        print(f"K6 path {name} d{d} task {task}: {ms[0]:.4f} / {ms[1]:.4f} ms")
+        ell.PIECE_LANES = default
+    for (name, d, limit), t in sorted(times.items()):
+        rows = t["rows"]
+        print(f"K6 path {name} d{d} PIECE_LANES {limit}: {t['ms'][0]:.4f} / {t['ms'][1]:.4f} ms; "
+              f"{rows.items.shape[0]} pieces, {rows.merges.shape[0]} rows cut, workspace "
+              f"{rows.slots * d * 4 / 2**20:.2f} MiB")
 
 
 if __name__ == "__main__":

@@ -1,20 +1,24 @@
-"""Repeats chip_smoke.py's path H step-0 check (per-head flash GAT on the
-ogbn-arxiv proxy with self-loops, PlanConfig(128, 128, block_unroll=4),
-widths 128 -> 8 heads x 8 -> 40, parameters drawn as chip_smoke.py draws
-them, features and labels from seeds of their own, so the edges near the
-kink are not path H's) and counts what moves it from run to run.
+"""Repeats a step-0 check of chip_smoke.py on the ogbn-arxiv proxy with
+self-loops and counts what moves it from run to run: path H (per-head
+flash GAT, K9 and K10, on PlanConfig(128, 128, block_unroll=4)) or path E
+(dot-product GAT, K6 and K7, on ELL plans of the same geometry). Widths
+128 -> 8 heads x 8 -> 40, parameters drawn as chip_smoke.py draws them,
+features and labels from seeds of their own, so the edges near the kink
+are not the path's own.
 
-    python3 -m voltrix_spmm_tpu_torch.tools.kink_flips [--repeats 50]
+    python3 -m voltrix_spmm_tpu_torch.tools.kink_flips [--path H|E] [--repeats 50]
 
 Needs one CUDA device. leaky_relu's slope jumps from 0.2 to 1 at a score
 of 0, so an edge whose layer-2 score lies within rounding of 0 on one path
 and across it on the other changes the gradients by about one row's share
-(~2e-3 x max|grad| here, far past the check's 1e-4). The plain path is
-taken once in torch's deterministic mode. For each repeat the tool takes
-the kernel path's layer-2 q and k (K9 per head, ELU, the products) and its
-step-0 gradients, and counts repeats whose q or k differ in any bit from
-the first repeat's, whose scores differ in sign from the plain path's on
-some edge (float64 dot products), and whose gradients fail the check.
+(~2e-3 x max|grad| on H, far past its check's 1e-4; E's check is 1e-5). The
+plain path is taken once in torch's deterministic mode. For each repeat
+the tool takes the kernel path's layer-2 q and k (the first layer's heads
+through the kernels, ELU, the products) and its step-0 gradients, and
+counts repeats whose q or k differ in any bit from the first repeat's,
+whose scores differ in sign from the plain path's on some edge (float64
+dot products), and whose gradients fail the path's check (calc_diff <
+1e-6 and allclose(rtol 1e-4, atol x max|grad|)).
 """
 
 from __future__ import annotations
@@ -27,16 +31,61 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from .. import GATFlash, PlanConfig, calc_diff, csr_preprocess, gat_flash_loss
-from .. import gat_flash_params_from_jax
+from .. import (GATDot, GATFlash, PlanConfig, build_ell_graph, calc_diff, csr_preprocess,
+                gat_dot_loss, gat_dot_params_from_jax, gat_flash_loss, gat_flash_params_from_jax)
 from ..data import proxy_csr, symmetrize
+from ..models.gat_ell import dot_attention_aggregate
 from ..ops import spmm_attention, spmm_attention_reference
+
+CFG = PlanConfig(128, 128, block_unroll=4)
+ATOL = {"H": 1e-4, "E": 1e-5}  # chip_smoke.py's step-0 limits, x max|grad|
+
+
+def path_h(a, params_np, heads, dev):
+    """(layer-2 q and k of an impl, step-0 gradients of an impl) on path H."""
+    n = a.shape[0]
+    plan = csr_preprocess(a.indptr, a.indices, n, CFG).to(dev)
+    p = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev)).params()
+    attend = {"auto": spmm_attention, "reference": spmm_attention_reference}
+
+    def layer2_qk(x, impl):
+        h = F.elu(torch.cat([attend[impl](plan, x @ p["wq1"][i], x @ p["wk1"][i],
+                                          x @ p["wv1"][i], negative_slope=0.2)
+                             for i in range(heads)], dim=1))
+        return h @ p["wq2"], h @ p["wk2"]
+
+    def grads(x, y, impl):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        loss = gat_flash_loss(leaves, plan, x, y, impl=impl)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    return layer2_qk, grads
+
+
+def path_e(a, params_np, heads, dev):
+    """(layer-2 q and k of an impl, step-0 gradients of an impl) on path E."""
+    g = build_ell_graph(a.indptr, a.indices, a.shape[0], CFG, device=dev)
+    p = GATDot.from_params(gat_dot_params_from_jax(params_np, dev)).params()
+
+    def layer2_qk(x, impl):
+        h = F.elu(torch.cat([dot_attention_aggregate(g, x @ p["wq1"][i], x @ p["wk1"][i],
+                                                     x @ p["wv1"][i], impl=impl)
+                             for i in range(heads)], dim=1))
+        return h @ p["wq2"], h @ p["wk2"]
+
+    def grads(x, y, impl):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        loss = gat_dot_loss(leaves, g, x, y, impl=impl)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    return layer2_qk, grads
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--path", choices=("H", "E"), default="H")
     parser.add_argument("--repeats", type=int, default=50)
-    repeats = parser.parse_args().repeats
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kink_flips needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -47,13 +96,12 @@ def main() -> None:
     a = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     a.sort_indices()
     n, (in_dim, hidden, classes), heads = a.shape[0], (128, 8, 40), 8
-    plan = csr_preprocess(a.indptr, a.indices, n, PlanConfig(128, 128, block_unroll=4)).to(dev)
-    prng = np.random.default_rng(2)  # chip_smoke.py's path H parameters
+    prng = np.random.default_rng(2)  # chip_smoke.py's path E and H parameters
     params_np = {k: prng.standard_normal((heads, in_dim, hidden)) * (2.0 / in_dim) ** 0.5
                  for k in ("wq1", "wk1", "wv1")}
     params_np.update({k: prng.standard_normal((heads * hidden, classes))
                       * (2.0 / (heads * hidden)) ** 0.5 for k in ("wq2", "wk2", "wv2")})
-    p = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev)).params()
+    layer2_qk, grads = (path_h if args.path == "H" else path_e)(a, params_np, heads, dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, in_dim)).astype(np.float32))
     x = x.to(dev)
     y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
@@ -61,35 +109,33 @@ def main() -> None:
                                    torch.from_numpy(np.diff(a.indptr)).to(dev))
     cols = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
 
-    def layer2_qk(attend):
-        with torch.no_grad():
-            h = F.elu(torch.cat([attend(plan, x @ p["wq1"][i], x @ p["wk1"][i], x @ p["wv1"][i],
-                                        negative_slope=0.2) for i in range(heads)], dim=1))
-            return h @ p["wq2"], h @ p["wk2"]
-
     def scores(q, k):
         return (q.double()[rows] * k.double()[cols]).sum(-1)
 
-    def grads(impl):
-        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
-        loss = gat_flash_loss(leaves, plan, x, y, impl=impl)
-        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-
     torch.use_deterministic_algorithms(True, warn_only=True)
-    plain_scores = scores(*layer2_qk(spmm_attention_reference))
-    want = grads("reference")
+    with torch.no_grad():
+        plain_scores = scores(*layer2_qk(x, "reference"))
+    want = grads(x, y, "reference")
     torch.use_deterministic_algorithms(False)
-    print(f"{rows.numel()} edges; plain layer-2 scores within 1e-6 / 1e-5 / 1e-4 of the kink: "
+    print(f"path {args.path}: {rows.numel()} edges; plain layer-2 scores within 1e-6 / 1e-5 / "
+          "1e-4 of the kink: "
           + " / ".join(str(int((plain_scores.abs() < t).sum())) for t in (1e-6, 1e-5, 1e-4)))
-    first = layer2_qk(spmm_attention)
+    with torch.no_grad():
+        first = layer2_qk(x, "auto")
     counts = {"qk_differ": 0, "sign_flips": 0, "check_fails": 0}
-    for i in range(repeats):
-        q, k = layer2_qk(spmm_attention)
+    worst = 0.0
+    for i in range(args.repeats):
+        with torch.no_grad():
+            q, k = layer2_qk(x, "auto")
         flips = int(((scores(q, k) > 0) != (plain_scores > 0)).sum())
-        got = grads("auto")
-        fails = [name for name, w in want.items()
-                 if not (calc_diff(got[name], w) < 1e-6 and torch.allclose(
-                     got[name], w, rtol=1e-4, atol=1e-4 * w.abs().max().item()))]
+        got = grads(x, y, "auto")
+        fails = []
+        for name, w in want.items():
+            scale = w.abs().max().item()
+            worst = max(worst, (got[name] - w).abs().max().item() / max(scale, 1e-30))
+            if not (calc_diff(got[name], w) < 1e-6 and torch.allclose(
+                    got[name], w, rtol=1e-4, atol=ATOL[args.path] * scale)):
+                fails.append(name)
         differ = not (torch.equal(q, first[0]) and torch.equal(k, first[1]))
         counts["qk_differ"] += differ
         counts["sign_flips"] += flips > 0
@@ -97,7 +143,9 @@ def main() -> None:
         if differ or flips or fails:
             print(f"repeat {i}: layer-2 q, k differ from the first repeat's: {differ}; edges "
                   f"with a flipped sign {flips}; gradients failing the check {fails}")
-    print(f"{repeats} repeats: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print(f"path {args.path}, {args.repeats} repeats: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; worst max|diff| / max|grad| {worst:.3e} (limit {ATOL[args.path]:.0e})")
 
 
 if __name__ == "__main__":

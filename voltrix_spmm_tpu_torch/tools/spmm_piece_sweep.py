@@ -1,13 +1,15 @@
-"""Kernels K1 and K2 against their piece limits (PIECE_BLOCKS, the most
+"""Kernels K1, K2 and K8 against their piece limits (PIECE_BLOCKS, the most
 blocks of one window a thread block walks, and PIECE_WORK, about the most
 work), at the shapes of chip_smoke.py's paths A (K1: the ogbn-arxiv
 proxy, PlanConfig(128, 128)) and B (K2: the same graph,
 PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at d 128 and
-256.
+256, and I (K8 alone on A's plan at d 128 and 256, and on path C's plan:
+the protein proxy, PlanConfig(2048, 128, gather_segment=128,
+block_unroll=4), at d 256).
 
-    python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep
+    python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep [--kernels spmm_int8 ...]
 
-Needs one CUDA device. Each (kernel, width, limits) is timed twice with
+Needs one CUDA device; K8's cases build C's plan (~40 s of host time). Each (kernel, width, limits) is timed twice with
 CUDA events (mean of 20 launches after 3 warm-up), the settings in turns:
 up, then down. Beside each: the workspace, and the time of the plan cut
 to its heaviest window alone (the hub window's pieces, the path that one
@@ -17,6 +19,7 @@ yardstick. Features are random normal, made from a seed.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import subprocess
 
@@ -24,12 +27,18 @@ import torch
 
 from .. import PlanConfig, csr_preprocess
 from ..data import proxy_csr, symmetrize
-from ..ops import block_spmm, spmm_block, spmm_subtile
+from ..ops import block_spmm, quant, spmm_block, spmm_subtile
 from ..ops.subtile_spmm import subtile_walk
-from .k6_task_sweep import cuda_ms
+from .k6_piece_sweep import cuda_ms
 
-BLOCKS = (8, 16, 32, 64)
-WORK = (512, 1024, 2048, 4096, 8192)
+KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8")
+# the limits swept, by kernel: K8 also walks C's 64-word windows, where
+# small pieces cost gigabytes of workspace
+BLOCKS = {"spmm_block": (8, 16, 32, 64), "spmm_subtile": (8, 16, 32, 64),
+          "spmm_int8": (16, 32, 64, 128, 256)}
+WORK = {"spmm_block": (512, 1024, 2048, 4096, 8192),
+        "spmm_subtile": (512, 1024, 2048, 4096, 8192),
+        "spmm_int8": (1024, 2048, 4096, 8192, 16384)}
 WIDTHS = (128, 256)
 
 
@@ -49,54 +58,87 @@ def heaviest_window(plan):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    kernels = parser.parse_args().kernels
     if not torch.cuda.is_available():
         raise SystemExit("spmm_piece_sweep needs a CUDA device")
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
-    n = arxiv.shape[0]
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(arxiv.indptr).long(), torch.from_numpy(arxiv.indices).long(),
-        torch.ones(arxiv.nnz), size=arxiv.shape).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+
+    def add(name, label, plan, d, run):
+        """Time `run(plan)` whole and on the plan's heaviest window alone."""
+        w, hub = heaviest_window(plan)
+        print(f"{name} {label} d{d}: {plan.config}, {plan.total_blocks} blocks; heaviest window "
+              f"{w}: {hub.total_blocks} blocks")
+        walk = (subtile_walk if name == "spmm_subtile"
+                else lambda p, name=name: block_spmm.plan_walk(p, name))
+        cases.append((name, label, d, lambda: run(plan), lambda: run(hub), plan, walk))
+
+    def sparse_mm(a, x, label):
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(a.indptr).long(), torch.from_numpy(a.indices).long(),
+            torch.ones(a.nnz), size=a.shape).to(dev)
+        print(f"torch.sparse.mm on {label} d {x.shape[1]}: "
+              f"{cuda_ms(lambda: torch.sparse.mm(csr, x)):.4f} ms")
+        del csr
+
+    n = arxiv.shape[0]
     feats = {d: torch.randn(n, d, device=dev, generator=gen) for d in WIDTHS}
     for d, x in feats.items():
-        print(f"torch.sparse.mm d {d}: {cuda_ms(lambda x=x: torch.sparse.mm(csr, x)):.4f} ms")
-    cases = []
-    for name, kernel, cfg, walk in (
-            ("spmm_block", spmm_block, PlanConfig(128, 128),
-             lambda p: block_spmm.plan_walk(p, "spmm_block")),
+        sparse_mm(arxiv, x, "A")
+    for name, kernel, cfg in (
+            ("spmm_block", spmm_block, PlanConfig(128, 128)),
             ("spmm_subtile", spmm_subtile,
-             PlanConfig(2048, 128, block_unroll=4, cluster_cols=True), subtile_walk)):
-        plan = csr_preprocess(arxiv.indptr, arxiv.indices, n, cfg).to(dev)
-        w, hub = heaviest_window(plan)
-        print(f"{name}: {cfg}, {plan.total_blocks} blocks; heaviest window {w}: "
-              f"{hub.total_blocks} blocks")
+             PlanConfig(2048, 128, block_unroll=4, cluster_cols=True))):
+        if name in kernels:
+            plan = csr_preprocess(arxiv.indptr, arxiv.indices, n, cfg).to(dev)
+            for d, x in feats.items():
+                add(name, "A's graph", plan, d, lambda p, k=kernel, x=x: k(p, x))
+    if "spmm_int8" in kernels:
+        plan = csr_preprocess(arxiv.indptr, arxiv.indices, n, PlanConfig(128, 128)).to(dev)
         for d, x in feats.items():
-            cases.append((name, d, lambda k=kernel, p=plan, x=x: k(p, x),
-                          lambda k=kernel, p=hub, x=x: k(p, x), plan, walk))
+            q, sc = quant.quantize_padded(x)
+            add("spmm_int8", "I (A's plan)", plan, d,
+                lambda p, q=q, sc=sc, d=d: quant.launch_quantized(p, q, sc, d))
+        protein = symmetrize(proxy_csr("protein", seed=0))
+        xc = torch.randn(protein.shape[0], 256, device=dev, generator=gen)
+        sparse_mm(protein, xc, "C")
+        plan_c = csr_preprocess(protein.indptr, protein.indices, protein.shape[0],
+                                PlanConfig(2048, 128, gather_segment=128, block_unroll=4)).to(dev)
+        del protein
+        q, sc = quant.quantize_padded(xc)
+        add("spmm_int8", "C's plan", plan_c, 256,
+            lambda p, q=q, sc=sc: quant.launch_quantized(p, q, sc, 256))
     defaults = dict(block_spmm.PIECE_BLOCKS), dict(block_spmm.PIECE_WORK)
-    settings = [(pb, pw) for pb in BLOCKS for pw in WORK]
     times: dict = {}
     try:
-        for order in (settings, settings[::-1]):
-            for pb, pw in order:
-                for name, d, whole, alone, plan, walk in cases:
+        for name in kernels:
+            settings = [(pb, pw) for pb in BLOCKS[name] for pw in WORK[name]]
+            for order in (settings, settings[::-1]):
+                for pb, pw in order:
                     block_spmm.PIECE_BLOCKS[name], block_spmm.PIECE_WORK[name] = pb, pw
-                    key = (name, d, pb, pw)
-                    if key not in times:
-                        st = block_spmm.walk_stats(plan, walk(plan), d)
-                        times[key] = {"stats": st, "ms": [], "hub_ms": []}
-                    times[key]["ms"].append(cuda_ms(whole))
-                    times[key]["hub_ms"].append(cuda_ms(alone))
+                    for kname, label, d, whole, alone, plan, walk in cases:
+                        if kname != name:
+                            continue
+                        key = (name, label, d, pb, pw)
+                        if key not in times:
+                            st = block_spmm.walk_stats(plan, walk(plan), d)
+                            times[key] = {"stats": st, "ms": [], "hub_ms": []}
+                        times[key]["ms"].append(cuda_ms(whole))
+                        times[key]["hub_ms"].append(cuda_ms(alone))
+                    torch.cuda.empty_cache()  # the last setting's workspace
     finally:
         for current, default in zip((block_spmm.PIECE_BLOCKS, block_spmm.PIECE_WORK), defaults):
             current.clear()
             current.update(default)
-    for (name, d, pb, pw), t in sorted(times.items()):
+    for (name, label, d, pb, pw), t in sorted(times.items()):
         st = t["stats"]
-        print(f"{name} d{d} PIECE_BLOCKS {pb} PIECE_WORK {pw}: {t['ms'][0]:.4f} / "
+        print(f"{name} {label} d{d} PIECE_BLOCKS {pb} PIECE_WORK {pw}: {t['ms'][0]:.4f} / "
               f"{t['ms'][1]:.4f} ms; heaviest window alone {t['hub_ms'][0]:.4f} / "
               f"{t['hub_ms'][1]:.4f} ms; {st['pieces']} pieces, heaviest {st['max_task_work']} "
               f"units of work (mean {st['mean_task_work']:.1f}); workspace "
