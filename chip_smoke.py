@@ -23,8 +23,11 @@ non-zero on failure (there is no CPU fallback):
    power-law graph whose hub window is cut into >= 16 pieces, a window of
    exactly 2 x PIECE_BLOCKS blocks, d 130 (4-byte copies) and features 4
    bytes past a 16-byte boundary (the hub rows under the float32
-   summation bound of their degrees); K5 also exactly 0.0
-   off the bitmask, K7 exactly 0.0 on padding lanes. K13-K15 (out, lse,
+   summation bound of their degrees); K4 also on its work list (a
+   power-law hub window cut into >= 16 pieces, a window of exactly 2 x
+   PIECE_BLOCKS["spmm_weighted"] blocks, d 130, values off the bitmask on
+   cut windows; values and features from a generator of their own); K5
+   also exactly 0.0 off the bitmask, K7 exactly 0.0 on padding lanes. K13-K15 (out, lse,
    dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
    allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
    exactly 0 with lse exactly 1e30. K9-K12 (out, lse, K10's dq and lane
@@ -66,7 +69,13 @@ non-zero on failure (there is no CPU fallback):
       same input at d 128 and must give the same bits.
    D. GAT serving and training on the same graph with self-loops
       (2,083,571 nnz), PlanConfig(64, 128), 128 -> 8 heads x 8 (ELU) ->
-      40: K4 9 times per request; K4 18 and K5 9 times per Adam step.
+      40: K4 9 times per request; K4 18 and K5 9 times per Adam step. It
+      prints the set-up cost of the edges' orders (edge_orders), K4's work
+      list (pieces, windows cut, workspace) and the layer-2 scores within
+      rounding of leaky_relu's kink and the edges whose sign differs
+      between the kernel and the plain path. K4 runs twice on the same
+      input at d 8 and d 40, and on A^T's plan at d 40, and must give the
+      same bits; so must step 0's kernel-path gradients, taken twice.
    E. Dot-product GAT serving and training on D's graph, ELL plans
       PlanConfig(128, 128, block_unroll=4), 128 -> 8 heads x 8 (ELU) ->
       40: K6 and K7 9 times per request; K6 36 and K7 18 times per Adam
@@ -111,7 +120,8 @@ non-zero on failure (there is no CPU fallback):
    must their AUC. A training step 0's loss and gradients must match the
    plain path's (calc_diff < 1e-6, allclose rtol 1e-4, atol 1e-5 x
    max|grad| for GAT, 5e-5 x max|grad| on D, where the plain path's own
-   gradients differ from run to run by up to 1.5e-5 x max|grad|
+   gradients differed from run to run by up to 1.5e-5 x max|grad| while
+   both paths summed with float atomics
    (voltrix_spmm_tpu_torch/tools/grad_spread.py), 1e-3 x max|grad| for
    GCN, whose ReLU may switch on an input within float32 noise of 0); the
    loss after 3 steps must be
@@ -322,7 +332,8 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
-    from voltrix_spmm_tpu_torch.models import edge_softmax
+    from voltrix_spmm_tpu_torch.models import edge_softmax, gat_attention_aggregate
+    from voltrix_spmm_tpu_torch.models.gat import edge_orders
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_dkv,
@@ -449,9 +460,17 @@ def main() -> None:
         if not ok:
             fail(f"kernel {name} disagrees with its plain version on {label}")
 
+    def twice(label, kernel, plan, feat):
+        """The kernel twice on the same input: the same bits, or fail."""
+        same = torch.equal(kernel(plan, feat), kernel(plan, feat))
+        print(f"  {label} twice: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{label}: two runs of the kernel on the same input differ")
+
     walks = {"spmm_block": lambda p: block_spmm.plan_walk(p, "spmm_block"),
              "spmm_subtile": subtile_spmm.subtile_walk,
-             "spmm_int8": lambda p: block_spmm.plan_walk(p, "spmm_int8")}
+             "spmm_int8": lambda p: block_spmm.plan_walk(p, "spmm_int8"),
+             "spmm_weighted": lambda p: block_spmm.plan_walk(p, "spmm_weighted")}
 
     def most_pieces(p, name):
         """The most pieces that one 128-row group of plan `p` is cut into."""
@@ -484,19 +503,23 @@ def main() -> None:
         return torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
 
     def case(name, label, a, d, cfg, expect=None, drop_occ=False, off_mask=False, feat=None,
-             offset=False, bound=False):
+             offset=False, bound=False, gen=None):
         """`name` against its plain version on plan `cfg` of `a` at width d.
         offset: feat is a contiguous view 4 bytes past a 16-byte boundary;
-        bound: allow the float32 summation bound of `a`'s row degrees."""
+        bound: allow the float32 summation bound of `a`'s row degrees; gen:
+        the generator of the values and features (the shared one if None)."""
         n = a.shape[0]
+        draw = rng if gen is None else gen
         weighted_kernel = name in ("spmm_weighted", "spmm_dvalues")
-        values = rng.standard_normal(a.nnz).astype(np.float32) if weighted_kernel else None
+        values = draw.standard_normal(a.nnz).astype(np.float32) if weighted_kernel else None
         plan = csr_preprocess(a.indptr, a.indices, n, cfg, values=values)
         if drop_occ:
             plan = dataclasses.replace(plan, occ=None)
         if off_mask:  # values in every slot, off the bitmask too: K4 reads them all
-            dense = rng.standard_normal(tuple(plan.values.shape)).astype(np.float32)
+            dense = draw.standard_normal(tuple(plan.values.shape)).astype(np.float32)
             plan = dataclasses.replace(plan, values=torch.from_numpy(dense))
+        if gen is not None and feat is None:
+            feat = gen.standard_normal((n, d)).astype(np.float32)
         if expect is not None and not expect(plan):
             fail(f"{label}: the plan lacks the property this case is for")
         if feat is not None:
@@ -512,7 +535,11 @@ def main() -> None:
         else:
             args = (feat_of(n, d),)
         deg = None
-        if bound:
+        if bound and off_mask:  # every slot of the row's window counts
+            bpw = torch.diff(plan.block_ptr).float()
+            deg = (bpw.repeat_interleave(plan.config.block_h)[:n] * plan.config.block_w)
+            deg = deg.to(dev)[:, None]
+        elif bound:
             deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         compare(name, label, plan.to(dev), args, deg)
 
@@ -629,7 +656,7 @@ def main() -> None:
          erdos_renyi_csr(3000, 0.02, 22), 300,
          PlanConfig(256, 128, gather_segment=64, block_unroll=2))
 
-    hub = symmetrize(chung_lu_csr(8000, 80000, seed=23))  # hub windows span many K4 tasks
+    hub = symmetrize(chung_lu_csr(8000, 80000, seed=23))  # hub windows cut into K4 pieces
     for name, kid in (("spmm_weighted", "K4"), ("spmm_dvalues", "K5")):
         print(f"kernel {kid} against its plain version (weighted plans):")
         case(name, "n3000 d8 PlanConfig(64,128)", erdos_renyi_csr(3000, 0.01, 24), 8,
@@ -656,6 +683,26 @@ def main() -> None:
              PlanConfig(64, 128), expect=lambda p: p.total_blocks == 0)
         case(name, "n2000 d40 PlanConfig(64,128), values off the bitmask",
              erdos_renyi_csr(2000, 0.01, 32), 40, PlanConfig(64, 128), off_mask=True)
+
+    # K4's work list: hub windows cut into pieces of at most PIECE_BLOCKS
+    # blocks, merged in piece order; the float32 summation bound of the rows'
+    # terms (their degrees, or every slot of their window's blocks); values
+    # and features from a generator of their own, as K8's cases, so those of
+    # the paths below stay as they were
+    k4, pb = "spmm_weighted", block_spmm.PIECE_BLOCKS["spmm_weighted"]
+    print(f"kernel K4 on its work list (PIECE_BLOCKS {pb}):")
+    rng4 = np.random.default_rng(96)
+    case(k4, "n40000 d40 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k, 40,
+         PlanConfig(64, 128), expect=lambda p: most_pieces(p, k4) >= 16, bound=True, gen=rng4)
+    case(k4, f"n{128 * 2 * pb + 2048} d40 PlanConfig(128,128), window 0 of exactly 2 x {pb} "
+         "blocks", window0_of(2 * pb, 36), 40, PlanConfig(128, 128),
+         expect=lambda p: int(p.block_ptr[1]) == 2 * pb, gen=rng4)
+    case(k4, "n40000 d130 PlanConfig(64,128), hub windows cut (unaligned rows: 4-byte copies)",
+         hub40k, 130, PlanConfig(64, 128), expect=lambda p: most_pieces(p, k4) >= 16,
+         bound=True, gen=rng4)
+    case(k4, "n8000 d40 PlanConfig(64,128), values off the bitmask on cut windows", hub, 40,
+         PlanConfig(64, 128), expect=lambda p: most_pieces(p, k4) >= 4, off_mask=True,
+         bound=True, gen=rng4)
 
     def with_duplicates(a, seed):
         """(indptr, indices, n) of `a` with a fifth of its edges repeated:
@@ -1111,10 +1158,7 @@ def main() -> None:
                   f"bound {b_ms:.4f} ms ({b_by})")
         if name in walks:
             piece_line(f"path {label}", [g.plan], name, (in_dim, hidden))
-            same = torch.equal(kernel(g.plan, xs[0]), kernel(g.plan, xs[0]))
-            print(f"  {name} twice at d{in_dim}: {'bit-identical' if same else 'DIFFERENT'}")
-            if not same:
-                fail(f"path {label}: two runs of {name} on the same input differ")
+            twice(f"path {label} {name} d{in_dim}", kernel, g.plan, xs[0])
         with torch.no_grad():
             x = xs[0]
             req_ms, plain_req_ms, turns = in_turns(
@@ -1177,6 +1221,12 @@ def main() -> None:
         g = build_gat_graph(a.indptr, a.indices, n, cfg, device=dev)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
+        # the edges' orders by destination and by source (each node's sums in
+        # the softmax and the logits' backward), built once per graph
+        t0 = time.perf_counter()
+        by_rows, by_cols = edge_orders(g)
+        torch.cuda.synchronize()
+        t_orders = time.perf_counter() - t0
         stats, stats_t = plan_stats(g.plan), plan_stats(g.plan_t)
         bpw = torch.diff(g.plan.block_ptr)
         plane_mib = stats["expanded_slots"] * 4 / 2**20
@@ -1184,7 +1234,9 @@ def main() -> None:
               f"windows, {stats['total_blocks']} blocks for A and {stats_t['total_blocks']} for "
               f"A^T (largest window {int(bpw.max())}, mean {float(bpw.float().mean()):.2f}), "
               f"value plane {plane_mib:.1f} MiB, largest slot {int(g.slots.max())}; "
-              f"build_gat_graph {t_build:.2f} s, host peak RSS "
+              f"build_gat_graph {t_build:.2f} s, edge orders by rows and cols {t_orders:.3f} s "
+              f"(rows {'sorted' if by_rows.perm is None else 'permuted'}, cols "
+              f"{'sorted' if by_cols.perm is None else 'permuted'}), host peak RSS "
               f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
         if not (g.plan.hind.is_cuda and g.plan_t.bitmask.is_cuda and g.slots.is_cuda):
             fail(f"path {label}: the graph is not on the card before the first request")
@@ -1227,6 +1279,25 @@ def main() -> None:
                 if not ok:
                     fail(f"path {label} request {i}: logits disagree with the plain forward")
 
+        # layer 2's scores within rounding of leaky_relu's kink, and the edges
+        # whose score has another sign on the kernel path than on the plain
+        # path (layer 1's scores come from the same dense products on both);
+        # each flip moves step 0's gradients by about one edge's share
+        with torch.no_grad():
+            x, raw = xs[0], []
+            for impl in ("auto", "reference"):
+                with deterministic() if impl == "reference" else contextlib.nullcontext():
+                    h2 = F.elu(torch.cat([gat_attention_aggregate(
+                        g, x @ model.w1[hh], model.a1_src[hh], model.a1_dst[hh], impl=impl)
+                        for hh in range(heads)], dim=1)) @ model.w2
+                raw.append((h2 @ model.a2_src).double()[g.rows]
+                           + (h2 @ model.a2_dst).double()[g.cols])
+            near = int((raw[1].abs() < 1e-5).sum())
+            flips = int(((raw[0] > 0) != (raw[1] > 0)).sum())
+            del raw, h2
+        print(f"  layer-2 scores within rounding of leaky_relu's kink (|s + t| < 1e-5): {near}; "
+              f"edges whose kernel-path and plain-path scores differ in sign: {flips}")
+
         # the kernels at the path's widths, on head 0's attention plane
         with torch.no_grad():
             h0 = (xs[0] @ model.w1[0]).contiguous()
@@ -1258,6 +1329,7 @@ def main() -> None:
             print(f"  K4 d={d}: spmm_weighted {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by})")
+            twice(f"path {label} K4 d{d}", k4[0], wplan, feat)
             k_ms, p_ms, turns = in_turns(torch, lambda: k5[0](wplan, feat, grad),
                                          lambda: k5[1](wplan, feat, grad))
             feat_t = feat.t().contiguous()
@@ -1270,7 +1342,22 @@ def main() -> None:
             print(f"  K5 d={d}: spmm_dvalues {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.sampled_addmm {lib:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})")
-        del wplan, plane, csr_w, csr_1
+        with torch.no_grad():  # A^T's plane, which the feature gradient reads
+            plane_t = torch.zeros(g.plan_t.total_blocks * H * K, device=dev).index_add_(
+                0, g.slots_t, alpha)
+            wplan_t = dataclasses.replace(g.plan_t, values=plane_t.view(-1, H, K))
+            compare("spmm_weighted", f"path {label} K4 on A^T d{classes} (float32 summation "
+                    "bound)", wplan_t, (feat,), deg)
+        twice(f"path {label} K4 on A^T d{classes}", k4[0], wplan_t, feat)
+        for side, p in (("A", wplan), ("A^T", wplan_t)):
+            walk = block_spmm.plan_walk(p, "spmm_weighted")
+            most = int(walk.merges[:, 3].max()) if walk.merges.numel() else 1
+            print(f"  path {label} K4 work list of {side} (PIECE_BLOCKS "
+                  f"{block_spmm.PIECE_BLOCKS['spmm_weighted']}): {walk.tasks.shape[0]} pieces, "
+                  f"{walk.cut_windows} windows cut (most pieces {most}); workspace "
+                  + ", ".join(f"{walk.slots * walk.rows * d * 4 / 2**20:.2f} MiB at d {d}"
+                              for d in (hidden, classes)))
+        del wplan, plane, wplan_t, plane_t, csr_w, csr_1
         with torch.no_grad():
             x = xs[0]
             req_ms, plain_req_ms, turns = in_turns(
@@ -1285,16 +1372,31 @@ def main() -> None:
         tmodel = GAT.from_params(gat_params_from_jax(params_np, dev))
         y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
         # atol 5e-5 x max|grad|: a1_src's gradient sums edge terms that cancel
-        # through float atomics on both paths, so it moves from run to run;
-        # python3 -m voltrix_spmm_tpu_torch.tools.grad_spread needed up to
-        # 1.3e-5 (kernel path) and 1.5e-5 (plain path against itself) at
-        # these shapes, and one run of this check 2.1e-5
+        # (a softmax is blind to a shift of a row's logits), so its error is
+        # set by the terms; python3 -m voltrix_spmm_tpu_torch.tools.grad_spread
+        # needed up to 1.3e-5 (kernel path) and 1.5e-5 (plain path against
+        # itself) at these shapes while both summed with float atomics, and
+        # one run of this check 2.1e-5
         losses, train_counts, final, peak = train(
             f"{label} training", gat_loss,
             make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_loss),
             tmodel.params(), g, xs[0], y,
             {"spmm_weighted": 2 * per_request, "spmm_dvalues": per_request}, atol_scale=5e-5)
         loss_fell(label, losses, final)
+        # step 0's gradients on the kernel path, twice from the same parameters
+        p0 = GAT.from_params(gat_params_from_jax(params_np, dev)).params()
+
+        def kernel_grads():
+            leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+            loss = gat_loss(leaves, g, xs[0], y)
+            return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+        first, again = kernel_grads(), kernel_grads()
+        same = all(torch.equal(first[k], again[k]) for k in first)
+        print(f"  step 0's kernel-path gradients twice: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of step 0 on the kernel path give different gradients")
+        del p0, first, again
         step_ms, plain_step_ms = time_steps(
             make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_loss),
             tmodel.params(), g, xs[0], y)
@@ -2080,10 +2182,7 @@ def main() -> None:
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         csr = csr_tensor(torch, a, dev)
         piece_line(f"path {label}", [plan], "spmm_int8", widths)
-        same = torch.equal(spmm_int8(plan, xs[128][0]), spmm_int8(plan, xs[128][0]))
-        print(f"  spmm_int8 twice at d128: {'bit-identical' if same else 'DIFFERENT'}")
-        if not same:
-            fail(f"path {label}: two runs of K8 on the same input differ")
+        twice(f"path {label} spmm_int8 d128", spmm_int8, plan, xs[128][0])
         rows = np.r_[0:2048, n - 2048:n]
         a_rows = a[rows].astype(np.float64)
         deg_rows = np.diff(a.indptr)[rows][:, None].astype(np.float64)
@@ -2141,10 +2240,7 @@ def main() -> None:
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         compare("spmm_int8", f"path {label} K8 d{d} (float32 summation bound)", plan, (x,), deg)
         piece_line(f"path {label}", [plan], "spmm_int8", (d,))
-        same = torch.equal(spmm_int8(plan, x), spmm_int8(plan, x))
-        print(f"  spmm_int8 twice at d{d}: {'bit-identical' if same else 'DIFFERENT'}")
-        if not same:
-            fail(f"path {label}: two runs of K8 on the same input differ")
+        twice(f"path {label} spmm_int8 d{d}", spmm_int8, plan, x)
         rel = relative_error(spmm_fused(plan, x), spmm_int8(plan, x))
         print(f"  K8 d{d} against K3's float32 output: relative error {rel:.3e} (limit 2e-2) -> "
               f"{'ok' if rel < 2e-2 else 'MISMATCH'}")

@@ -23,6 +23,7 @@ import voltrix_spmm_tpu.format as jfmt
 import voltrix_spmm_tpu.ops as jops
 import voltrix_spmm_tpu_torch as vt
 import voltrix_spmm_tpu_torch.format as tfmt
+from voltrix_spmm_tpu_torch import utils
 from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.ops import ell
 from voltrix_spmm_tpu_torch.ops.ell import ell_row_order, plan_rows
@@ -209,6 +210,6 @@ def test_plan_rows_is_kept_beside_the_lanes():
         ell.PIECE_LANES = default
     assert plan_rows(plan).piece_lanes == default
     key = id(plan.erow)
-    assert key in ell._ROW_ORDERS
+    assert key in utils._KEPT
     del plan, rows
-    assert key not in ell._ROW_ORDERS
+    assert key not in utils._KEPT

@@ -9,6 +9,7 @@ tests/test_gat.py:69 does (edge softmax, two weighted SpMMs and dense
 products summed in another order).
 """
 
+import dataclasses
 import inspect
 
 import jax
@@ -29,6 +30,7 @@ from voltrix_spmm_tpu_torch.models import (
     gcn_loss,
     make_train_step,
 )
+from voltrix_spmm_tpu_torch.models.gat import edge_order, edge_orders
 from voltrix_spmm_tpu_torch.ops import (
     spmm_reference,
     spmm_weighted_dvalues_reference,
@@ -266,6 +268,140 @@ def test_gat_slice_matches_jax():
             spmm_weighted_dvalues_reference.calls - calls[1]) == (6, 3)
     for k, v in model.params().items():
         np.testing.assert_allclose(v.grad.numpy(), np.asarray(grads_j[k]), **TOL, err_msg=k)
+
+
+def hub_graph():
+    """300 nodes, power-law with self-loops: a hub row of > 50 edges and
+    rows 3, 10, 17, ... left without any edge."""
+    a = sp.csr_matrix(symmetrize(chung_lu_csr(300, 3000, seed=4)))
+    a = ((a + sp.eye(300, format="csr")) != 0).astype(np.float32)
+    keep = sp.diags((np.arange(300) % 7 != 3).astype(np.float32))
+    a = (keep @ a @ keep).tocsr()
+    a.eliminate_zeros()
+    assert int(np.diff(a.indptr).max()) > 50 and (np.diff(a.indptr) == 0).any()
+    return a
+
+
+def permuted(gj, gt, seed):
+    """Both packages' graphs with the edge arrays (rows, cols, slots,
+    slots_t) permuted by one permutation, and the permutation."""
+    perm = np.random.default_rng(seed).permutation(gt.rows.numel())
+    edges = ("rows", "cols", "slots", "slots_t")
+    gj_p = dataclasses.replace(gj, **{k: getattr(gj, k)[jnp.asarray(perm)] for k in edges})
+    gt_p = dataclasses.replace(gt, **{k: getattr(gt, k)[torch.from_numpy(perm)] for k in edges})
+    return gj_p, gt_p, perm
+
+
+def test_edge_order_is_built_once_per_tensor():
+    """Sorted rows keep the edges where they are (no gather); unsorted
+    ones get a stable argsort. The order is kept beside its tensor: a
+    graph copy sharing it finds it, a copy with new rows builds its own."""
+    gj, gt = both_graphs(hub_graph(), (64, 128))
+    by_rows, by_cols = edge_orders(gt)
+    assert by_rows.perm is None and by_cols.perm is not None
+    assert edge_orders(dataclasses.replace(gt, slots=gt.slots.clone()))[0] is by_rows
+    assert edge_order(gt.cols, gt.num_nodes) is by_cols
+    np.testing.assert_array_equal(by_cols.perm.numpy(),
+                                  np.argsort(gt.cols.numpy(), kind="stable"))
+    counts = np.bincount(gt.cols.numpy(), minlength=gt.num_nodes)
+    np.testing.assert_array_equal(np.diff(by_cols.offsets.numpy()), counts)
+    _, gt_p, _ = permuted(gj, gt, seed=1)
+    mine = edge_orders(gt_p)[0]
+    assert mine is not by_rows and mine.perm is not None
+    np.testing.assert_array_equal(np.diff(mine.offsets.numpy()), np.diff(by_rows.offsets.numpy()))
+
+
+def test_edge_softmax_on_sorted_rows_keeps_its_bits():
+    """On CSR-ordered rows the softmax runs the same reductions as before
+    the edge order existed (offsets by searchsorted, segment max and sums
+    in CSR order), bit for bit."""
+    a = hub_graph()
+    _, gt = both_graphs(a, (64, 128))
+    e = torch.from_numpy(np.random.default_rng(6).standard_normal(a.nnz).astype(np.float32) * 4)
+    rows = gt.rows
+    offsets = torch.searchsorted(rows, torch.arange(gt.num_nodes + 1))
+    m = torch.segment_reduce(e, "max", offsets=offsets, unsafe=True)
+    alpha = torch.exp(e - m.index_select(0, rows))
+    denom = torch.segment_reduce(alpha, "sum", offsets=offsets, unsafe=True)
+    assert torch.equal(edge_softmax(gt, e), alpha / denom.index_select(0, rows).clamp_min(1e-9))
+
+
+def test_edge_softmax_on_permuted_edges_matches_jax():
+    """Edges out of CSR order: JAX's softmax, forward and gradient, on the
+    same permuted graph, and the sorted graph's softmax permuted."""
+    a = hub_graph()
+    gj, gt = both_graphs(a, (64, 128))
+    gj_p, gt_p, perm = permuted(gj, gt, seed=7)
+    rng = np.random.default_rng(8)
+    e = rng.standard_normal(a.nnz).astype(np.float32) * 4
+    w = rng.standard_normal(a.nnz).astype(np.float32)
+    e_p, w_p = e[perm], w[perm]
+    et = torch.from_numpy(e_p).requires_grad_(True)
+    out = edge_softmax(gt_p, et)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jmodels.edge_softmax(gj_p, jnp.asarray(e_p))),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               edge_softmax(gt, torch.from_numpy(e)).numpy()[perm],
+                               rtol=1e-5, atol=1e-6)
+    (out * torch.from_numpy(w_p)).sum().backward()
+    want = jax.grad(lambda x: jnp.sum(jmodels.edge_softmax(gj_p, x) * w_p))(jnp.asarray(e_p))
+    np.testing.assert_allclose(et.grad.numpy(), np.asarray(want), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("order", ["sorted", "permuted"])
+def test_gat_head_gradients_match_jax(order):
+    """One attention head on the hub graph, its edges in CSR order or
+    permuted: the output and the gradients of h, a_src and a_dst (through
+    the logits' gathers, whose backward sums in each node's edge order)
+    against jax.grad."""
+    a = hub_graph()
+    gj, gt = both_graphs(a, (64, 128))
+    if order == "permuted":
+        gj, gt, _ = permuted(gj, gt, seed=9)
+    n, f = a.shape[0], 8
+    h, w = features(n, f, seed=10), features(n, f, seed=11)
+    a_src, a_dst = features(1, f, seed=12)[0], features(1, f, seed=13)[0]
+
+    def jloss(h, a_src, a_dst):
+        return jnp.sum(jmodels.gat_attention_aggregate(gj, h, a_src, a_dst) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(h), jnp.asarray(a_src),
+                                             jnp.asarray(a_dst))
+    leaves = [torch.from_numpy(v).requires_grad_(True) for v in (h, a_src, a_dst)]
+    out = gat_attention_aggregate(gt, *leaves)
+    ref = jmodels.gat_attention_aggregate(gj, jnp.asarray(h), jnp.asarray(a_src),
+                                          jnp.asarray(a_dst))
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, leaf, g in zip(("h", "a_src", "a_dst"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), **TOL, err_msg=name)
+
+
+def test_gat_on_permuted_edges_matches_jax():
+    """gat_forward and gat_loss's gradients on the permuted hub graph
+    against the JAX package on the same permuted graph."""
+    a = hub_graph()
+    gj, gt = both_graphs(a, (64, 128))
+    gj, gt, _ = permuted(gj, gt, seed=14)
+    n = a.shape[0]
+    p = gat_params(12, 8, 4, heads=2, seed=15)
+    x = features(n, 12, seed=16)
+    y = np.random.default_rng(17).integers(0, 4, size=n)
+    ref = np.asarray(jmodels.gat_forward(jnp_params(p), gj, jnp.asarray(x)))
+    pt = {k: v.requires_grad_(True) for k, v in vt.gat_params_from_jax(p, device="cpu").items()}
+    out = vt.gat_forward(pt, gt, torch.from_numpy(x))
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.detach().numpy(), ref, **TOL)
+    loss_j, grads_j = jax.value_and_grad(jmodels.gat_loss)(jnp_params(p), gj, jnp.asarray(x),
+                                                           jnp.asarray(y))
+    loss = vt.gat_loss(pt, gt, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+    for k in pt:
+        np.testing.assert_allclose(pt[k].grad.numpy(), np.asarray(grads_j[k]), **TOL, err_msg=k)
 
 
 def gcn_problem(seed):

@@ -1,4 +1,4 @@
-"""The work list that kernels K1, K2 and K8 share (ops/block_spmm.py:
+"""The work list that kernels K1, K2, K4 and K8 share (ops/block_spmm.py:
 window_pieces, walk_tasks, plan_walk), on the CPU.
 
 Each window's blocks are cut into pieces of at most P consecutive blocks,
@@ -9,7 +9,9 @@ version of K1 or K2, then the pieces added in order) is held to the JAX
 package's `spmm_pallas` in interpret mode, to the tolerance of
 tests/test_spmm.py:51-52 (float32 sums taken in another order); K8's split
 likewise, on the rows that `spmm_int8_reference` dequantizes, against
-`spmm_pallas_int8` as tests/test_quant.py runs it.
+`spmm_pallas_int8` as tests/test_quant.py runs it; K4's (pieces of whole
+value tiles, no work limit) with the plain version of K4 against
+`spmm_pallas_weighted` as tests/test_weighted.py runs it.
 """
 
 import dataclasses
@@ -20,11 +22,17 @@ import pytest
 import torch
 
 import voltrix_spmm_tpu as jvx
+import voltrix_spmm_tpu.format as jfmt
 import voltrix_spmm_tpu.ops as jops
 import voltrix_spmm_tpu_torch as vt
 from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.format.stream import slice_plan_windows
-from voltrix_spmm_tpu_torch.ops import spmm_int8_reference, spmm_reference, spmm_subtile_reference
+from voltrix_spmm_tpu_torch.ops import (
+    spmm_int8_reference,
+    spmm_reference,
+    spmm_subtile_reference,
+    spmm_weighted_reference,
+)
 from voltrix_spmm_tpu_torch.ops.block_spmm import (
     MAX_PIECE_BLOCKS,
     PIECE_BLOCKS,
@@ -85,14 +93,17 @@ def by_group(tasks):
 
 def emulate(plan, x, subtile, piece_blocks, piece_work=None):
     """The kernels' split in plain torch: each task's blocks summed by the
-    plain version of K1 (K2 with `subtile`, per-block skip) into its
-    128-row group, and each group's pieces added in piece order."""
+    plain version of K1 (K2 with `subtile`, per-block skip; K4 on a plan
+    with a value plane) into its 128-row group, and each group's pieces
+    added in piece order."""
     cfg = plan.config
     occ = occupancy(plan) if subtile else None
     work = None if piece_work is None else block_work(plan).numpy()
     tasks, _, _ = walk_tasks(plan.block_ptr.numpy(), piece_blocks, groups_of(plan),
                              None if occ is None else occ.numpy(), work, piece_work)
     plain = spmm_subtile_reference if subtile else spmm_reference
+    if plan.values is not None:
+        plain = spmm_weighted_reference
     per_block = dataclasses.replace(cfg, block_unroll=1)  # K2 skips block by block
     groups = by_group(tasks)
     assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(groups_of(plan))}
@@ -106,7 +117,8 @@ def emulate(plan, x, subtile, piece_blocks, piece_work=None):
             sub = dataclasses.replace(
                 plan, config=per_block, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
                 window_of_block=plan.window_of_block[b0:b1], total_blocks=b1 - b0,
-                occ=None if occ is None else occ[b0:b1])
+                occ=None if occ is None else occ[b0:b1],
+                values=None if plan.values is None else plan.values[b0:b1])
             part = plain(sub, x)[span]
             acc = part if acc is None else acc + part
         out[span] = acc
@@ -372,3 +384,83 @@ def test_plan_walk_of_k8_keeps_its_own_limits(cfg):
             current.clear()
             current.update(default)
     assert plan_walk(plan, "spmm_int8") is walk
+
+
+# K4 (whole value tiles, a block limit alone): (graph, config, d, piece
+# size, values); the JAX kernel's geometries (block_h % 8, block_w % 128);
+# "off_mask": a random value in every slot of the plane, off the bitmask too
+WEIGHTED_CASES = [
+    ("power_law", dict(block_h=64, block_w=128), 40, 2, "edges"),
+    ("power_law", dict(block_h=32, block_w=128), 8, 1, "edges"),
+    ("power_law", dict(block_h=128, block_w=128), 130, 2, "edges"),
+    ("power_law", dict(block_h=64, block_w=256), 16, 1, "edges"),
+    ("power_law", dict(block_h=64, block_w=128), 40, 3, "off_mask"),
+    ("rows_left_empty", dict(block_h=32, block_w=128), 24, 2, "edges"),
+]
+
+
+@pytest.mark.parametrize("graph,cfg,d,piece_blocks,values", WEIGHTED_CASES)
+def test_piece_split_matches_jax_weighted(graph, cfg, d, piece_blocks, values):
+    """K4's split: each piece of a group's blocks summed alone with K4's
+    plain version, then added in piece order, against JAX's
+    `spmm_pallas_weighted` in interpret mode; empty windows give zero rows."""
+    a = power_law()
+    h = cfg["block_h"]
+    if graph == "rows_left_empty":  # windows 1.. keep no edge, and no block
+        a = a.tolil()
+        for r in range(h, N):
+            a.rows[r], a.data[r] = [], []
+        a = a.tocsr()
+    rng = np.random.default_rng(d + piece_blocks)
+    vals = rng.standard_normal(a.nnz).astype(np.float32)
+    jplan = jfmt.csr_preprocess(a.indptr, a.indices, N, jfmt.PlanConfig(**cfg), backend="numpy",
+                                values=vals)
+    tplan = vt.csr_preprocess(a.indptr, a.indices, N, vt.PlanConfig(**cfg), values=vals)
+    if values == "off_mask":
+        dense = rng.standard_normal(tuple(tplan.values.shape)).astype(np.float32)
+        jplan = dataclasses.replace(jplan, values=jnp.asarray(dense))
+        tplan = dataclasses.replace(tplan, values=torch.from_numpy(dense))
+    tasks = walk_tasks(tplan.block_ptr.numpy(), piece_blocks, groups_of(tplan))[0]
+    if graph == "power_law":  # the hub window's first group is cut into >= 8 pieces
+        assert np.sum((tasks[:, 0] == 0) & (tasks[:, 1] == 0)) >= 8
+    else:
+        assert tplan.has_empty_windows and tplan.total_blocks == int(tplan.block_ptr[1])
+    x = features(N, d, seed=d + 2)
+    out = emulate(tplan, torch.from_numpy(x), False, piece_blocks)
+    ref = np.asarray(jops.spmm_pallas_weighted(jplan, jnp.asarray(x)))
+    assert_close(out, ref)
+    if graph == "rows_left_empty":
+        assert not out[h:].any()
+
+
+def test_plan_walk_of_k4_keeps_its_own_limit():
+    """K4's work list takes PIECE_BLOCKS["spmm_weighted"] and no work limit,
+    is kept beside K1's and K8's on one plan, and is found again by a copy
+    of the plan with another value plane (each GAT head makes one)."""
+    vals = np.random.default_rng(5).standard_normal(power_law().nnz).astype(np.float32)
+    a = power_law()
+    plan = vt.csr_preprocess(a.indptr, a.indices, N, vt.PlanConfig(64, 128), values=vals)
+    pb = PIECE_BLOCKS["spmm_weighted"]
+    assert 1 <= pb <= MAX_PIECE_BLOCKS and PIECE_WORK["spmm_weighted"] is None
+    walk = plan_walk(plan, "spmm_weighted")
+    k1, k8 = plan_walk(plan, "spmm_block"), plan_walk(plan, "spmm_int8")
+    assert len({id(walk), id(k1), id(k8)}) == 3
+    assert plan_walk(plan, "spmm_weighted") is walk and plan_walk(plan, "spmm_block") is k1
+    other = dataclasses.replace(plan, values=plan.values * 2)
+    assert plan_walk(other, "spmm_weighted") is walk and plan_walk(other, "spmm_int8") is k8
+    moved = dataclasses.replace(plan, block_ptr=plan.block_ptr.clone())
+    assert plan_walk(moved, "spmm_weighted") is not walk
+    tasks, merges, slots = walk_tasks(plan.block_ptr.numpy(), pb, 1)
+    assert torch.equal(walk.tasks, torch.from_numpy(tasks))
+    assert torch.equal(walk.merges, torch.from_numpy(merges))
+    assert (walk.slots, walk.rows, walk.occ) == (slots, 64, None)
+    assert np.all(tasks[:, 3] - tasks[:, 2] <= pb)
+    assert walk.merges.shape[0] > 0  # the hub windows are cut
+    saved = PIECE_BLOCKS["spmm_weighted"]
+    try:
+        PIECE_BLOCKS["spmm_weighted"] = 1
+        assert plan_walk(plan, "spmm_weighted").tasks.shape[0] == plan.total_blocks + int(
+            (np.diff(plan.block_ptr.numpy()) == 0).sum())
+    finally:
+        PIECE_BLOCKS["spmm_weighted"] = saved
+    assert plan_walk(plan, "spmm_weighted") is walk

@@ -31,7 +31,7 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_weighted_dvalues_reference,
     spmm_weighted_reference,
 )
-from voltrix_spmm_tpu_torch.ops.weighted import _check_kernel_args, _k4_geometry
+from voltrix_spmm_tpu_torch.ops.weighted import _SMEM_LIMIT, _check_kernel_args, k4_tiling
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -423,21 +423,35 @@ def test_learned_edge_weights_match_jax():
     assert_close(out.detach(), a @ x)
 
 
-@pytest.mark.parametrize("block_h,block_w,d,geometry", [
-    (64, 128, 8, (8, 32)), (64, 128, 40, (40, 4)), (64, 128, 300, (64, 4)),
-    (32, 128, 3, (3, 32)), (96, 128, 40, (40, 4)), (128, 128, 40, (40, 4)),
-    (256, 128, 100, (32, 8)), (128, 256, 64, (64, 4)), (416, 128, 8, (8, 32)),
+@pytest.mark.parametrize("block_h,block_w,d,tiling", [
+    (64, 128, 8, (8, 2, 1)), (64, 128, 40, (40, 4, 1)), (64, 128, 300, (60, 4, 5)),
+    (32, 128, 3, (4, 2, 1)), (96, 128, 40, (40, 4, 1)), (128, 128, 40, (40, 8, 1)),
+    (256, 128, 100, (52, 8, 2)), (128, 256, 64, (64, 8, 1)), (416, 128, 8, (8, 2, 1)),
+    (512, 128, 8, (8, 2, 1)), (2048, 256, 130, (44, 8, 3)),
 ])
-def test_k4_geometry(block_h, block_w, d, geometry):
-    dc, rg = _k4_geometry(block_h, block_w, d)
-    assert (dc, rg) == geometry
-    assert dc * rg <= 256 and block_h % rg == 0 and block_h // rg <= 32
-    assert (block_h * (block_w + 4) + block_w * dc + 2 * block_w) * 4 <= 232448
+def test_k4_tiling(block_h, block_w, d, tiling):
+    """K4's chunks of dc columns cover d, dc a multiple of 4 up to 64; a
+    group's rows (at most 128) x dc / 4 quads fit 256 threads at tr rows a
+    thread; its 3-stage ring (csrc/spmm_weighted.cu kStages) of value rows
+    (36 floats apart) and feature rows fits shared memory at every
+    block_h, the tall tiles the old kernel refused too."""
+    dc, tr, chunks = k4_tiling(block_h, block_w, d)
+    assert (dc, tr, chunks) == tiling
+    rows = min(block_h, 128)
+    assert dc % 4 == 0 and dc <= 64 and (chunks - 1) * dc < d <= chunks * dc
+    assert rows % tr == 0 and rows // tr * dc // 4 <= 256
+    assert 3 * 4 * (rows * 36 + 32 * dc) <= _SMEM_LIMIT
 
 
-def test_k4_refuses_a_tile_too_tall_for_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        _k4_geometry(512, 128, 8)
+@pytest.mark.parametrize("block_h,block_w,d,match", [
+    (48, 128, 8, "multiples of 32"), (64, 100, 8, "multiples of 32"),
+    (64, 128, 64 * 65536, "grid limits"),
+])
+def test_k4_refuses_what_it_does_not_take(block_h, block_w, d, match):
+    """K4's limits: whole 32-row bitmask words and 32-lane slices, and at
+    most 65,535 column chunks."""
+    with pytest.raises(ValueError, match=match):
+        k4_tiling(block_h, block_w, d)
 
 
 def test_kernel_arguments_are_checked():

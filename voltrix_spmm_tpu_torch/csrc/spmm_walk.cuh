@@ -45,7 +45,8 @@
 // is then summed by a second kernel, spmm_merge_kernel, in piece order,
 // ((p0 + p1) + p2) + ..., a thread per four columns of a row, its loads
 // issued kBatch at a time, so the result is the same in every run. No float
-// atomics.
+// atomics. Kernel K4 (csrc/spmm_weighted.cu) takes the same work list
+// layout and merge (launch_merge) for its own dense tile product.
 
 #pragma once
 
@@ -414,6 +415,22 @@ spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInt
   }
 }
 
+// Launches spmm_merge_kernel on `stream` when a group is cut: float4 loads
+// and stores where `vec` (the rows are whole float4s; out and ws are fresh
+// allocations, so 16-byte aligned then). Kernel K4 (csrc/spmm_weighted.cu)
+// calls it after its own product, on the same work list layout.
+inline cudaError_t launch_merge(const void* merges, const void* ws, void* out, int num_merges,
+                                int words, int block_h, int num_nodes, int d, bool vec,
+                                cudaStream_t s) {
+  if (num_merges == 0) return cudaSuccess;
+  auto merge = vec ? spmm_merge_kernel<4> : spmm_merge_kernel<1>;
+  const int strips = tile_rows(words) / kStripRows;
+  merge<<<dim3(num_merges * strips, (d + kCols - 1) / kCols), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
+      static_cast<float*>(out), words, block_h, num_nodes, d);
+  return cudaGetLastError();
+}
+
 // Launches the walk over `feat` (kSrc: float32 rows of width ld = d, or
 // int8 rows of width ld = d4 with `scale`) and, when a group is cut, the
 // merge after it on `stream`; returns the first CUDA error as an int.
@@ -434,16 +451,9 @@ int launch_walk(const void* bitmask, const void* hind, const void* occ, const vo
       static_cast<const float*>(scale), static_cast<float*>(out), static_cast<float*>(ws),
       words, block_h, block_w, num_nodes, source_rows, d, ld);
   err = cudaGetLastError();
-  if (err != cudaSuccess || num_merges == 0) return static_cast<int>(err);
-  // float4 loads and stores where the rows are whole float4s (out and ws are
-  // fresh allocations, so 16-byte aligned then)
-  const bool vec = kSrc == kF32x4 || (kSrc == kI8 && d % 4 == 0);
-  auto merge = vec ? spmm_merge_kernel<4> : spmm_merge_kernel<1>;
-  const int strips = tile_rows(words) / kStripRows;
-  merge<<<dim3(num_merges * strips, chunks), kThreads, 0, s>>>(
-      static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
-      static_cast<float*>(out), words, block_h, num_nodes, d);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_merge(merges, ws, out, num_merges, words, block_h, num_nodes,
+                                       d, kSrc == kF32x4 || (kSrc == kI8 && d % 4 == 0), s));
 }
 
 }  // namespace voltrix_walk

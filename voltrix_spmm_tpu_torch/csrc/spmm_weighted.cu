@@ -5,187 +5,299 @@
 // Replaces voltrix_spmm_tpu/ops/weighted.py:_spmm_weighted_kernel together
 // with the row gather it consumes there (a jnp.take with mode="clip"). As on
 // the TPU, the whole value tile multiplies the gathered rows and the bitmask
-// is not read: a value placed off the bitmask counts.
+// is not read: a value placed off the bitmask counts, zeros multiply too (0 *
+// inf is NaN, as in JAX), and every lane's source row is clipped into
+// [0, source_rows).
 //
-// Design. The TPU walks the blocks in order and revisits a window's output
-// tile while the window is unchanged. Here the block list is cut into tasks
-// of kTaskBlocks consecutive blocks; one thread block per (task, chunk of dc
-// feature columns) walks its blocks in order, keeps the window's partial
-// sums in registers and flushes them with atomicAdd into an output the
-// wrapper zero-filled, whenever the window changes and at the end of the
-// task. A window that lies inside one task is flushed once onto zeros, so
-// its rows are exact and deterministic; only a window cut by a task
-// boundary (the hub windows) adds a few partial sums in a run-dependent
-// order. Rows of empty windows stay zero.
+// Work list. The wrapper cuts each 128-row group of a window into pieces of
+// at most PIECE_BLOCKS["spmm_weighted"] consecutive blocks
+// (ops/block_spmm.py:window_pieces, walk_tasks, plan_walk: every block costs
+// the same here, so there is no work limit), in the layout of
+// csrc/spmm_walk.cuh. A window without blocks gets one empty piece, which
+// writes its zeros, so every row of out is written. Piece 0 of a group
+// writes out, piece k >= 1 its workspace slot, and spmm_walk.cuh's
+// spmm_merge_kernel then sums a cut group's pieces in piece order. No float
+// atomics, in global or shared memory: two launches on one input give the
+// same bits.
 //
-// A thread block has dc x rg threads (at most 256): dc = min(d, 64) columns,
-// so no thread idles at d = 40, and rg row groups. Per plan block it stages
-// the block_h x block_w value tile (float4 loads, rows padded by 4 floats so
-// the float4 reads of distinct rows hit distinct banks) and the block_w
-// gathered rows' dc columns in shared memory; the lanes' source rows were
-// staged one block ahead, so the tile and the gather are independent loads,
-// all in flight at once. Thread t then sums column t % dc of rows t / dc +
-// i * rg, i < nr = block_h / rg, reading 4 values of a row at once. The
-// register array is sized by NR, the power of two at or above nr.
+// Product. One thread block per (piece, chunk of dc <= 64 feature columns,
+// a multiple of 4). The piece's blocks are walked in units of kLanes = 32
+// lanes: a unit is the group's rows x 32 lanes of one value tile (rows 144
+// bytes apart in shared memory, so the 16-byte reads of 8 consecutive rows
+// hit distinct banks) and the 32 lanes' source rows, dc columns each. Each
+// unit is copied with cp.async into a ring of kStages slots, kStages - 1
+// units ahead of the one being multiplied, so block b + 1's tile and rows
+// are in flight while block b is multiplied; the value rows with an L2
+// evict-first hint, the feature rows with 16-byte copies where d % 4 == 0
+// and feat is 16-byte aligned, 4-byte copies otherwise. Thread (rt, ct)
+// sums rows rt + RT * i, i < TR (RT = rows / TR; TR 2, 4 or 8) of columns
+// 4 ct .. 4 ct + 3 in registers: per four lanes it reads TR float4 values and
+// four float4 rows of features and makes 16 TR fused multiply-adds, so a
+// value is read once per four columns and a feature once per TR rows (the
+// old kernel read each value once per column). Each sum runs over the
+// piece's blocks in order and the lanes in order. Every thread copies: the
+// value rows 16 bytes a thread, and the feature rows a whole row per warp
+// request (a warp's lanes in groups of dc / 4, one row each), the rows'
+// indices loaded one unit ahead by one lane each and passed by shuffle
+// (a lane per source row, a request per row, was much slower at d 40).
 //
-// Bound. At the GAT widths (d = 8 and 40, block 64 x 128) the kernel must
-// read the value plane, 32 KB per block (416 MB on the ogbn-arxiv proxy),
-// against 2 * 64 * 128 * d flops: 4 flops per byte at d = 8, so it is bound
-// by device memory. At d = 40 the 16 rows a thread sums from shared memory
-// cost more than the plane's bytes. The task cut spreads the hub window
-// (837 blocks) over ~210 thread blocks instead of one, so no SM walks more
-// than 4 tiles.
+// Bound. Every value tile is read once: at the GAT widths (d = 8 and 40,
+// block 64 x 128) that is 32 KB per block (396.8 MiB on the ogbn-arxiv proxy,
+// 0.124 ms at 3.35 TB/s) against 2 * 64 * 128 * d flops, so the kernel is
+// bound by device memory at d = 8; at d = 40 the 4.2 GFMA of the dense tile
+// products take ~0.14 ms on the float32 pipes (128 a clock on each of 132
+// SMs), about the plane's time. What holds it on path D's plan (H100): at d
+// 8 the value copies; at d 40 the product's 16-byte shared reads and the
+// copies, which overlap only in part.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "spmm_walk.cuh"
+
 namespace {
 
+using voltrix_walk::cp_async16;
+using voltrix_walk::cp_async4;
+using voltrix_walk::cp_async_commit;
+using voltrix_walk::cp_async_wait;
+
+constexpr int kLanes = 32;          // lanes of a value tile per unit
+constexpr int kPitch = kLanes + 4;  // floats between value rows in shared memory
+constexpr int kStages = 3;          // units in the cp.async ring (4 timed alike, 6 slower)
 constexpr int kMaxThreads = 256;
-constexpr int kTaskBlocks = 4;  // consecutive plan blocks per thread block
+constexpr int kGroupRows = 32 * voltrix_walk::kWarps;  // rows of a work-list group
 
-template <int NR>
-__global__ void __launch_bounds__(kMaxThreads, NR <= 2 ? 5 : 1)
-spmm_weighted_kernel(const float* __restrict__ values,       // (B, H, K)
-                     const int32_t* __restrict__ hind,       // (B, K)
-                     const int32_t* __restrict__ wob,        // (B,)
-                     const float* __restrict__ feat,         // (source_rows, d)
-                     float* __restrict__ out,                // (num_nodes, d), zeroed
-                     int total_blocks, int block_h, int block_w, int num_nodes,
-                     int source_rows, int d, int dc, int rg) {
-  extern __shared__ float4 smem4[];
-  const int vstride = block_w + 4;
-  float* s_v = reinterpret_cast<float*>(smem4);           // (block_h, block_w + 4)
-  float* s_x = s_v + block_h * vstride;                   // (block_w, dc)
-  int* s_h = reinterpret_cast<int*>(s_x + block_w * dc);  // (2, block_w) source rows
+__host__ __device__ constexpr int stage_floats(int rmax, int dc) {
+  return rmax * kPitch + kLanes * dc;
+}
 
-  const int nthreads = dc * rg;
-  const int t = threadIdx.x;
-  const int c = t % dc;
-  const int r0 = t / dc;
-  const int nr = block_h / rg;
+// A 16-byte cp.async whose line L2 evicts first (`policy`): the value plane
+// streams through once, and would otherwise push the feature rows, read
+// again by other blocks, out of L2 (faster at d 8 on path D's plan).
+__device__ __forceinline__ void cp_async16_stream(void* dst, const void* src, uint64_t policy) {
+  const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(dst_s),
+               "l"(src), "l"(policy)
+               : "memory");
+}
+
+template <int TR, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+spmm_weighted_kernel(const float* __restrict__ values,   // (B, block_h, block_w)
+                     const int32_t* __restrict__ hind,   // (B, block_w)
+                     const int32_t* __restrict__ tasks,  // (num_tasks, kTaskInts)
+                     const float* __restrict__ feat,     // (source_rows, d)
+                     float* __restrict__ out,            // (num_nodes, d)
+                     float* __restrict__ ws,             // (slots, rmax, d)
+                     int block_h, int block_w, int num_nodes, int source_rows, int d,
+                     int dc) {
+  using namespace voltrix_walk;
+  extern __shared__ __align__(16) float smem[];
+  const int rmax = min(block_h, kGroupRows);  // rows of a group's tile
+  const int ct_n = dc / 4, rt_n = rmax / TR;
+  const int t = threadIdx.x, nthreads = blockDim.x;  // a multiple of 32
+  const int sfloats = stage_floats(rmax, dc);
+
+  const int* task = tasks + (int64_t)blockIdx.x * kTaskInts;
+  const int w = task[kW], g = task[kG], b0 = task[kB0], b1 = task[kB1];
+  const int rows = min(kGroupRows, block_h - kGroupRows * g);  // rows of this group
   const int c0 = blockIdx.y * dc;
-  const bool col_ok = c0 + c < d;
-  const int k4 = block_w / 4;  // a power of two (the wrapper checks)
-  const int k4_shift = __ffs(k4) - 1;
+  const int cw = min(dc, d - c0);  // columns of this chunk; those past it are not stored
+  const int slices = block_w / kLanes;
+  const int units = (b1 - b0) * slices;
+  // the feature rows of a unit's lanes: warp w copies lanes w * rpw ..
+  // w * rpw + rpw - 1, whole rows, rpi rows a warp instruction of epr
+  // copies each (so a row's bytes go in one coalesced request); the
+  // warp's lane m holds the source row of its m-th lane
+  const int wl = t % 32, warp = t / 32;
+  const int rpw = (kLanes + nthreads / 32 - 1) / (nthreads / 32);
+  const int epr = kVec ? dc / 4 : dc;  // copies of a row
+  const int rpi = epr >= 32 ? 1 : 32 / epr;
+  const int lane0 = warp * rpw;
 
-  const int b_begin = blockIdx.x * kTaskBlocks;
-  const int b_end = min(b_begin + kTaskBlocks, total_blocks);
-
-  auto load_rows = [&](int b, int* dst) {
-    for (int l = t; l < block_w; l += nthreads) {
-      const int src = hind[(int64_t)b * block_w + l];
-      dst[l] = min(max(src, 0), source_rows - 1);  // jnp.take(mode="clip")
-    }
+  // the source row of this warp's wl-th lane in unit u, clipped as
+  // jnp.take(mode="clip")
+  auto src_of = [&](int u) -> int {
+    const int l = lane0 + wl;
+    if (u >= units || wl >= rpw || l >= kLanes) return 0;
+    const int64_t b = b0 + u / slices;
+    const int src = __ldg(hind + b * block_w + (u % slices) * kLanes + l);
+    return min(max(src, 0), source_rows - 1);
   };
-  load_rows(b_begin, s_h);
-  __syncthreads();
-
-  float acc[NR];
-#pragma unroll
-  for (int i = 0; i < NR; ++i) acc[i] = 0.f;
-
-  auto flush = [&](int w) {
-    if (!col_ok) return;
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const int64_t row = (int64_t)w * block_h + r0 + i * rg;
-      if (i < nr && row < num_nodes) atomicAdd(&out[row * d + c0 + c], acc[i]);
-      acc[i] = 0.f;
-    }
-  };
-
-  const int tile4 = block_h * k4;
-  for (int b = b_begin, buf = 0; b < b_end; ++b, buf ^= 1) {
-    const int* rows = s_h + buf * block_w;
-    // The next block's source rows go to the other buffer, last read
-    // before the previous iteration's barriers; every load below is
-    // independent of the others, so they are all in flight at once.
-    if (b + 1 < b_end) load_rows(b + 1, s_h + (buf ^ 1) * block_w);
-    const float4* v4 = reinterpret_cast<const float4*>(values + (int64_t)b * block_h * block_w);
-#pragma unroll 4
-    for (int i = t; i < tile4; i += nthreads) {
-      const int r = i >> k4_shift, l4 = i & (k4 - 1);
-      *reinterpret_cast<float4*>(&s_v[r * vstride + 4 * l4]) = v4[i];
-    }
-#pragma unroll 4
-    for (int l = r0; l < block_w; l += rg) {
-      s_x[l * dc + c] = col_ok ? feat[(int64_t)rows[l] * d + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int l = 0; l < block_w; l += 4) {
-      const float x0 = s_x[(l + 0) * dc + c];
-      const float x1 = s_x[(l + 1) * dc + c];
-      const float x2 = s_x[(l + 2) * dc + c];
-      const float x3 = s_x[(l + 3) * dc + c];
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        if (i >= nr) break;
-        const float4 v = *reinterpret_cast<const float4*>(&s_v[(r0 + i * rg) * vstride + l]);
-        acc[i] += v.x * x0;
-        acc[i] += v.y * x1;
-        acc[i] += v.z * x2;
-        acc[i] += v.w * x3;
+  uint64_t evict_first;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(evict_first));
+  // unit u's value rows and feature rows into ring slot u % kStages; one
+  // commit group per call. src: src_of(u) (the same call in every lane)
+  auto issue = [&](int u, int src) {
+    if (u < units) {
+      float* sv = smem + (u % kStages) * sfloats;
+      float* sx = sv + rmax * kPitch;
+      const float* v = values + ((int64_t)(b0 + u / slices) * block_h + kGroupRows * g) *
+                                    block_w + (u % slices) * kLanes;
+      for (int i = t; i < rows * (kLanes / 4); i += nthreads) {
+        const int r = i / (kLanes / 4), q = i % (kLanes / 4);
+        cp_async16_stream(sv + r * kPitch + 4 * q, v + (int64_t)r * block_w + 4 * q,
+                          evict_first);
+      }
+      for (int k = 0; k < rpw; k += rpi) {
+        const int m = k + (epr >= 32 ? 0 : wl / epr);  // the warp's lane this lane copies
+        const int row = __shfl_sync(0xffffffffu, src, m < 32 ? m : 0);
+        const int l = lane0 + m;
+        if (m >= rpw || l >= kLanes || (epr < 32 && wl >= rpi * epr)) continue;
+        const float* x = feat + (int64_t)row * d + c0;
+        float* dst = sx + l * dc;
+        for (int e = epr >= 32 ? wl : wl % epr; e < epr; e += 32) {
+          if (kVec) {
+            if (4 * e < cw) cp_async16(dst + 4 * e, x + 4 * e);
+          } else if (e < cw) {
+            cp_async4(dst + e, x + e);
+          }
+        }
       }
     }
-    __syncthreads();  // s_v, s_x and this buffer of s_h are refilled
-    const int w = wob[b];
-    if (b + 1 == b_end || wob[b + 1] != w) flush(w);
+    cp_async_commit();
+  };
+
+  // the ring's first kStages - 1 units, their source rows loaded together
+  int src0[kStages - 1];
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) src0[k] = src_of(k);
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(k, src0[k]);
+  int src_ahead = src_of(kStages - 1);
+
+  const bool computes = t < rt_n * ct_n;
+  const int ct = t % ct_n, rt = t / ct_n;
+  float acc[TR][4];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
+  }
+
+  for (int u = 0; u < units; ++u) {
+    const int src = src_ahead;
+    src_ahead = src_of(u + kStages);  // used at the next step, after this product
+    cp_async_wait<kStages - 2>();     // unit u's copies of this thread have landed
+    __syncthreads();                  // and everyone's; slot (u - 1) % kStages is free
+    issue(u + kStages - 1, src);
+    if (computes) {
+      const float* sv = smem + (u % kStages) * sfloats;
+      const float* sx = sv + rmax * kPitch;
+#pragma unroll
+      for (int l = 0; l < kLanes; l += 4) {
+        float4 x[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x[j] = *reinterpret_cast<const float4*>(sx + (l + j) * dc + 4 * ct);
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(sv + (rt + rt_n * i) * kPitch + l);
+          const float vl[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][0] = fmaf(vl[j], x[j].x, acc[i][0]);
+            acc[i][1] = fmaf(vl[j], x[j].y, acc[i][1]);
+            acc[i][2] = fmaf(vl[j], x[j].z, acc[i][2]);
+            acc[i][3] = fmaf(vl[j], x[j].w, acc[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!computes || 4 * ct >= cw) return;
+
+  // the piece's tile: to out (piece 0) or the piece's workspace slot
+  const int rank = task[kRank];
+  const int64_t row0 = (int64_t)w * block_h + kGroupRows * g;
+  float* dst = rank == 0 ? out + row0 * d
+                         : ws + (int64_t)(task[kSlot] + rank - 1) * rmax * d;
+  const int nrows = rows_out(w, g, block_h / 32, block_h, num_nodes);
+  const int c = c0 + 4 * ct;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = rt + rt_n * i;
+    if (r >= nrows) continue;
+    float* o = dst + (int64_t)r * d + c;
+    if (kVec) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (4 * ct + k < cw) o[k] = acc[i][k];
+      }
+    }
   }
 }
 
-template <int NR>
-int launch(const float* values, const int32_t* hind, const int32_t* wob,
-           const float* feat, float* out, int total_blocks, int block_h,
-           int block_w, int num_nodes, int source_rows, int d, int dc, int rg,
-           cudaStream_t stream) {
-  const int smem = (block_h * (block_w + 4) + block_w * dc + 2 * block_w) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      spmm_weighted_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int TR, bool kVec>
+int launch(const float* values, const int32_t* hind, const int32_t* tasks,
+           const int32_t* merges, const float* feat, float* out, float* ws, int num_tasks,
+           int num_merges, int block_h, int block_w, int num_nodes, int source_rows, int d,
+           int dc, cudaStream_t stream) {
+  auto kernel = spmm_weighted_kernel<TR, kVec>;
+  const int rmax = block_h < kGroupRows ? block_h : kGroupRows;
+  const int smem = kStages * stage_floats(rmax, dc) * 4;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((total_blocks + kTaskBlocks - 1) / kTaskBlocks, (d + dc - 1) / dc);
-  spmm_weighted_kernel<NR><<<grid, dc * rg, smem, stream>>>(
-      values, hind, wob, feat, out, total_blocks, block_h, block_w, num_nodes,
-      source_rows, d, dc, rg);
-  return static_cast<int>(cudaGetLastError());
+  const int threads = (rmax / TR * (dc / 4) + 31) / 32 * 32;
+  kernel<<<dim3(num_tasks, (d + dc - 1) / dc), threads, smem, stream>>>(
+      values, hind, tasks, feat, out, ws, block_h, block_w, num_nodes, source_rows, d, dc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(voltrix_walk::launch_merge(merges, ws, out, num_merges, block_h / 32,
+                                                     block_h, num_nodes, d, kVec, stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K4 on `stream` and returns cudaGetLastError() as an int (0 on
-// success; cudaErrorInvalidValue for a geometry it does not take). `out`
-// must be zero-filled. The wrapper picks dc feature columns and rg row
-// groups per thread block: dc * rg <= 256 threads, rg divides block_h, and
-// each thread sums nr = block_h / rg <= 32 rows.
-int voltrix_spmm_weighted_f32(const void* values, const void* hind,
-                              const void* wob, const void* feat, void* out,
-                              int total_blocks, int block_h, int block_w,
-                              int num_nodes, int source_rows, int d, int dc,
-                              int rg, void* stream) {
+// Launches K4 over the work list (tasks, merges: ops/block_spmm.py:plan_walk
+// for "spmm_weighted") and, when a group is cut, the merge after it on
+// `stream`; returns cudaGetLastError() as an int (0 on success;
+// cudaErrorInvalidValue for a geometry it does not take). The wrapper
+// (ops/weighted.py:k4_tiling) picks dc feature columns per chunk (a multiple
+// of 4, at most 64) and tr rows per thread (2, 4 or 8, with at most 256
+// threads); vec: 16-byte copies and stores
+// (d % 4 == 0 and feat 16-byte aligned). `ws` holds the cut groups' pieces
+// 1.. (slots x min(block_h, 128) x d floats), or is null when none is cut.
+int voltrix_spmm_weighted_f32(const void* values, const void* hind, const void* tasks,
+                              const void* merges, const void* feat, void* out, void* ws,
+                              int num_tasks, int num_merges, int block_h, int block_w,
+                              int num_nodes, int source_rows, int d, int dc, int tr, int vec,
+                              void* stream) {
   const auto* v = static_cast<const float*>(values);
   const auto* h = static_cast<const int32_t*>(hind);
-  const auto* wb = static_cast<const int32_t*>(wob);
+  const auto* tk = static_cast<const int32_t*>(tasks);
+  const auto* mg = static_cast<const int32_t*>(merges);
   const auto* x = static_cast<const float*>(feat);
   auto* o = static_cast<float*>(out);
+  auto* wsp = static_cast<float*>(ws);
   auto s = static_cast<cudaStream_t>(stream);
-  const int k4 = block_w / 4;
-  if (dc <= 0 || rg <= 0 || dc * rg > kMaxThreads || block_h % rg || block_w % 4 ||
-      k4 <= 0 || (k4 & (k4 - 1))) {
+  const int rmax = block_h < kGroupRows ? block_h : kGroupRows;
+  if (block_h <= 0 || block_h % 32 || block_w <= 0 || block_w % kLanes || dc < 4 ||
+      dc > 64 || dc % 4 || tr <= 0 || rmax % tr || rmax / tr * (dc / 4) > kMaxThreads ||
+      num_tasks <= 0 || d <= 0 || (vec && d % 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nr = block_h / rg;
-  switch (nr <= 1 ? 1 : nr <= 2 ? 2 : nr <= 4 ? 4 : nr <= 8 ? 8 : nr <= 16 ? 16 : nr <= 32 ? 32 : 0) {
-    case 1: return launch<1>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
-    case 2: return launch<2>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
-    case 4: return launch<4>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
-    case 8: return launch<8>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
-    case 16: return launch<16>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
-    case 32: return launch<32>(v, h, wb, x, o, total_blocks, block_h, block_w, num_nodes, source_rows, d, dc, rg, s);
+#define VOLTRIX_K4(TR)                                                                   \
+  return vec ? launch<TR, true>(v, h, tk, mg, x, o, wsp, num_tasks, num_merges, block_h, \
+                                block_w, num_nodes, source_rows, d, dc, s)               \
+             : launch<TR, false>(v, h, tk, mg, x, o, wsp, num_tasks, num_merges, block_h, \
+                                 block_w, num_nodes, source_rows, d, dc, s)
+  switch (tr) {
+    case 2: VOLTRIX_K4(2);
+    case 4: VOLTRIX_K4(4);
+    case 8: VOLTRIX_K4(8);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef VOLTRIX_K4
 }
 
 const char* voltrix_cuda_error_string(int code) {

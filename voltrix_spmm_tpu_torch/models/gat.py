@@ -5,13 +5,20 @@ Per head:
 
 1. edge logits e_uv = leaky_relu(a_src . h_u + a_dst . h_v, 0.2) and a
    softmax over each node's incoming edges (`edge_softmax`): O(nnz) work
-   in plain torch;
+   in plain torch. The node logits reach the edges by gathers whose
+   backward, like the softmax's max and sums, adds each node's edge terms
+   in the fixed order of `edge_order` (segment sums, no float atomics);
+   the edges may come in any order;
 2. the (nnz,) attention vector is scattered into the value planes of A
    and A^T through the static maps of `format.edge_slot_map`
-   (`index_add_`, so gradients flow back to the edges);
+   (`index_add_` onto zeros, each slot written once, so the plane repeats
+   bit for bit; its backward is a gather);
 3. the aggregation runs `spmm_weighted_ad`: kernel K4 forward, and in the
    backward K4 over the transpose plane for the features and K5 for the
    attention.
+
+On the card (K4 and K5) the same inputs give the same bits in every run,
+forward and backward.
 
 Parameters keep the JAX package's layouts: w1 (heads, in, hidden), a1_src
 and a1_dst (heads, hidden), w2 (heads * hidden, classes), a2_src and
@@ -34,6 +41,7 @@ from torch import nn
 from ..format.plan import PlanConfig, SpmmPlan
 from ..format.preprocess import csr_preprocess, csr_transpose, edge_slot_map
 from ..ops.weighted import spmm_weighted_ad
+from ..utils import kept_beside
 
 PARAM_NAMES = ("w1", "a1_src", "a1_dst", "w2", "a2_src", "a2_dst")
 
@@ -98,55 +106,98 @@ def build_gat_graph(
     )
 
 
+@dataclass
+class EdgeOrder:
+    """The edges grouped by one endpoint, the order in which the per-node
+    sums run: `perm` is a stable argsort of the endpoints (None where they
+    are sorted already, as `build_gat_graph` and `build_ell_graph` make
+    g.rows), `offsets` (num_nodes + 1,) each node's range in that order."""
+
+    perm: torch.Tensor | None
+    offsets: torch.Tensor
+
+    def sort(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-edge values in edge order -> in this order (a gather, or x)."""
+        return x if self.perm is None else x.index_select(0, self.perm)
+
+
+def edge_order(keys: torch.Tensor, num_nodes: int) -> EdgeOrder:
+    """The `EdgeOrder` of the edge endpoints `keys` (int64 (nnz,), each in
+    [0, num_nodes)), built at the first call (one host sync to test whether
+    they are sorted) and kept beside the tensor (`utils.kept_beside`), so a
+    graph built with `dataclasses.replace(g, rows=...)` gets its own."""
+
+    def build():
+        perm = None
+        if keys.numel() > 1 and not bool((keys[1:] >= keys[:-1]).all()):
+            perm = torch.argsort(keys, stable=True)
+        grouped = keys if perm is None else keys.index_select(0, perm)
+        nodes = torch.arange(num_nodes + 1, device=keys.device)
+        return EdgeOrder(perm, torch.searchsorted(grouped, nodes))
+
+    return kept_beside(keys, ("edge_order", num_nodes), build)
+
+
+def edge_orders(g: GatGraph) -> tuple[EdgeOrder, EdgeOrder]:
+    """The orders of g's edges by destination (g.rows) and by source
+    (g.cols), built once per graph."""
+    return edge_order(g.rows, g.num_nodes), edge_order(g.cols, g.num_nodes)
+
+
 class _RowsSum(torch.autograd.Function):
-    """Per-edge values (edges in CSR order) -> per-node sums over each
-    node's edges, in edge order (`torch.segment_reduce` over `offsets`),
-    so the same bits come out in every run, where `index_add_` adds them
-    with float atomics; backward, the gather of the node gradients."""
+    """Per-edge values -> per-node sums over each node's edges along `keys`
+    (g.rows or g.cols): the values gathered into `order` where the keys
+    are not sorted, then summed in that order (`torch.segment_reduce`), so
+    the same bits come out in every run, where `index_add_` adds them with
+    float atomics; backward, the gather of the node gradients."""
 
     @staticmethod
-    def forward(ctx, x, rows, offsets):
-        ctx.save_for_backward(rows)
-        return torch.segment_reduce(x, "sum", offsets=offsets, unsafe=True)
+    def forward(ctx, x, keys, order):
+        ctx.save_for_backward(keys)
+        return torch.segment_reduce(order.sort(x), "sum", offsets=order.offsets, unsafe=True)
 
     @staticmethod
     def backward(ctx, grad):
-        (rows,) = ctx.saved_tensors
-        return grad.index_select(0, rows), None, None
+        (keys,) = ctx.saved_tensors
+        return grad.index_select(0, keys), None, None
 
 
 class _RowsExpand(torch.autograd.Function):
-    """Per-node values -> per-edge values along `rows` (CSR order): a
-    gather; backward, `_RowsSum`'s segment sums in edge order, where the
-    backward of `index_select`, an `index_add_`, uses float atomics."""
+    """Per-node values -> per-edge values along `keys`: a gather; backward,
+    `_RowsSum`'s sums in `order`, where the backward of `index_select`, an
+    `index_add_`, uses float atomics."""
 
     @staticmethod
-    def forward(ctx, x, rows, offsets):
-        ctx.save_for_backward(offsets)
-        return x.index_select(0, rows)
+    def forward(ctx, x, keys, order):
+        ctx.order = order
+        return x.index_select(0, keys)
 
     @staticmethod
     def backward(ctx, grad):
-        (offsets,) = ctx.saved_tensors
-        return torch.segment_reduce(grad, "sum", offsets=offsets, unsafe=True), None, None
+        order = ctx.order
+        return (torch.segment_reduce(order.sort(grad), "sum", offsets=order.offsets, unsafe=True),
+                None, None)
 
 
 def edge_softmax(g: GatGraph, e: torch.Tensor) -> torch.Tensor:
-    """Softmax over each node's incoming edges, (nnz,) -> (nnz,); g.rows
-    lists the edges' destinations in CSR order (sorted), as
-    `build_gat_graph` and `build_ell_graph` make it.
+    """Softmax over each node's incoming edges, (nnz,) -> (nnz,), with
+    the edges in any order, as JAX's segment_max and segment_sum take them.
 
     The softmax does not depend on the shift m, so no gradient is taken
     through it (JAX's segment_max passes terms that cancel). Each node's
-    max and sum run over its edges in CSR order (`torch.segment_reduce`),
-    and so do the sums of the backward (`_RowsSum`, `_RowsExpand`), with
-    no float atomics: the same logits give the same bits in every run."""
+    max and sum run over its edges in the order of `edge_order(g.rows)`
+    (`torch.segment_reduce`), and so do the sums of the backward
+    (`_RowsSum`, `_RowsExpand`), with no float atomics: the same logits
+    give the same bits in every run. Where g.rows is sorted (CSR order),
+    that order is the edges' own and no edge is moved; otherwise each sum
+    gathers its terms into that order, and the per-node results go back to
+    the edges by a gather along g.rows."""
     rows = g.rows
-    offsets = torch.searchsorted(rows, torch.arange(g.num_nodes + 1, device=rows.device))
-    m = torch.segment_reduce(e.detach(), "max", offsets=offsets, unsafe=True)
+    order = edge_order(rows, g.num_nodes)
+    m = torch.segment_reduce(order.sort(e.detach()), "max", offsets=order.offsets, unsafe=True)
     alpha = torch.exp(e - m.index_select(0, rows))
-    denom = _RowsSum.apply(alpha, rows, offsets)
-    return alpha / _RowsExpand.apply(denom, rows, offsets).clamp_min(1e-9)
+    denom = _RowsSum.apply(alpha, rows, order)
+    return alpha / _RowsExpand.apply(denom, rows, order).clamp_min(1e-9)
 
 
 def _scatter_plane(plan: SpmmPlan, slots: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -165,7 +216,10 @@ def gat_attention_aggregate(g: GatGraph, h: torch.Tensor, a_src: torch.Tensor,
     torch.no_grad()) the logits are the same."""
     s = h @ a_src  # (N,) destination-side logits
     t = h @ a_dst  # (N,) source-side logits
-    e = F.leaky_relu(s.index_select(0, g.rows) + t.index_select(0, g.cols), negative_slope=0.2)
+    # gathers whose backward sums each node's edges in a fixed order
+    by_rows, by_cols = edge_orders(g)
+    e = F.leaky_relu(_RowsExpand.apply(s, g.rows, by_rows)
+                     + _RowsExpand.apply(t, g.cols, by_cols), negative_slope=0.2)
     alpha = edge_softmax(g, e)
     plane = _scatter_plane(g.plan, g.slots, alpha)
     plane_t = _scatter_plane(g.plan_t, g.slots_t, alpha) if torch.is_grad_enabled() else None

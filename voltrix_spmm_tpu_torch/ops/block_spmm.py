@@ -11,10 +11,11 @@ library is built with nvcc at first use (see jit/compiler.py).
 The three kernels walk a list of tasks: each 128-row group of a window cut
 into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
 `PIECE_WORK[name]` units of work (`window_pieces`, `walk_tasks`,
-`block_work`). The list is built on the host from the plan's block_ptr,
-each block's work (and K2's occupancy) at a plan's first launch for each
-kernel, the
-only host sync, and kept on the plan object, outside its dataclass
+`block_work`). Kernel K4 (ops/weighted.py) takes the same list with a
+block limit alone, as its blocks all cost the same. The list is built on
+the host from the plan's block_ptr, each block's work (and K2's
+occupancy) at a plan's first launch for each kernel, the only host sync,
+and kept beside the plan's block_ptr tensor, outside its dataclass
 fields (`plan_walk`).
 
 A CPU tensor takes the plain version, `ops.reference.spmm_reference`. A
@@ -32,6 +33,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
+from ..utils import kept_beside
 from .reference import spmm_reference
 
 _COLS = 32  # the grid's column unit in _check (a warp's columns in K3 and K8)
@@ -39,11 +41,12 @@ _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
-# work (`block_work`), by kernel:
+# work (`block_work`; None: no work limit), by kernel:
 # python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B;
-# K8 on paths I and C)
-PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128}
-PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048}
+# K8 on paths I and C; K4 on path D's plans)
+PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128, "spmm_weighted": 8}
+PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048,
+              "spmm_weighted": None}
 
 
 @functools.cache
@@ -215,27 +218,31 @@ class Walk:
 
 def plan_walk(plan: SpmmPlan, name: str, occupancy=None) -> Walk:
     """`plan`'s work list for kernel `name`, built at the first call (one
-    host copy of block_ptr, of each block's work and of the occupancy that
-    `occupancy()` returns for K2) and kept on the plan object, outside its
-    dataclass fields, keyed by the kernel and its piece limits."""
+    host copy of block_ptr, of each block's work where the kernel has a
+    work limit, and of the occupancy that `occupancy()` returns for K2) and
+    kept beside the plan's block_ptr tensor (`utils.kept_beside`, checked
+    against its bitmask, hind and occ tensors), keyed by the kernel and its
+    piece limits: a copy of the plan that shares these tensors, such as the
+    `dataclasses.replace(plan, values=...)` of every GAT head, finds it."""
     piece_blocks, piece_work = PIECE_BLOCKS[name], PIECE_WORK[name]
     if not 1 <= piece_blocks <= MAX_PIECE_BLOCKS:
         raise ValueError(f"PIECE_BLOCKS[{name!r}] must be in 1..{MAX_PIECE_BLOCKS}")
-    cache = plan.__dict__.setdefault("_walks", {})
-    key = (name, piece_blocks, piece_work)
-    if key not in cache:
+    words = plan.config.words_per_col
+
+    def build():
         occ = None if occupancy is None else occupancy()
-        words = plan.config.words_per_col
+        work = None if piece_work is None else block_work(plan).cpu().numpy()
         tasks, merges, slots = walk_tasks(
             plan.block_ptr.cpu().numpy(), piece_blocks, -(-words // _GROUP_WORDS),
-            None if occ is None else occ.cpu().numpy(), block_work(plan).cpu().numpy(),
-            piece_work)
-        cache[key] = Walk(
+            None if occ is None else occ.cpu().numpy(), work, piece_work)
+        return Walk(
             tasks=torch.from_numpy(tasks).to(plan.device),
             merges=torch.from_numpy(merges).to(plan.device), slots=slots,
             rows=32 * min(words, _GROUP_WORDS),
             cut_windows=len(np.unique(merges[:, 0])), occ=occ)
-    return cache[key]
+
+    key = ("walk", name, piece_blocks, piece_work, words, plan.source_rows)
+    return kept_beside(plan.block_ptr, key, build, plan.bitmask, plan.hind, plan.occ)
 
 
 def walk_stats(plan: SpmmPlan, walk: Walk, d: int) -> dict:
@@ -264,6 +271,16 @@ def walk_stats(plan: SpmmPlan, walk: Walk, d: int) -> dict:
     return stats
 
 
+def walk_workspace(name: str, walk: Walk, d: int, device) -> torch.Tensor | None:
+    """The workspace of `walk`'s cut groups' pieces 1.. at width d (None if
+    no group is cut); raises if the list outgrows the grid."""
+    if walk.tasks.shape[0] > _INT_MAX or walk.merges.shape[0] * walk.rows // 4 > _INT_MAX:
+        raise ValueError(f"{name}: more tasks than the grid takes")
+    if not walk.slots:
+        return None
+    return torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=device)
+
+
 def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: torch.Tensor,
                 walk: Walk, scale: torch.Tensor | None = None) -> None:
     """Launch K1, K2 or K8 (`library`) over `walk` into `out` (num_nodes,
@@ -272,11 +289,7 @@ def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: tor
     the cut groups' pieces 1.. (the library's second kernel then sums them
     into out)."""
     d = out.shape[1]
-    if walk.tasks.shape[0] > _INT_MAX or walk.merges.shape[0] * walk.rows // 4 > _INT_MAX:
-        raise ValueError(f"{name}: more tasks than the grid takes")
-    ws = None
-    if walk.slots:
-        ws = torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=feat.device)
+    ws = walk_workspace(name, walk, d, feat.device)
     cfg = plan.config
     occ = () if walk.occ is None else (walk.occ.data_ptr(),)
     if scale is None:  # the last int: 16-byte copies of float32 rows, or 4-byte ones

@@ -26,13 +26,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import weakref
 from dataclasses import dataclass
 
 import torch
 
 from ..format.ell import EllPlan, edge_values, lane_values, slice_ell_windows
 from ..jit import build
+from ..utils import kept_beside
 from .block_spmm import _INT_MAX, cast_out, launch
 from .reference import CHUNK_BYTES
 from .weighted import _check_kernel_args
@@ -187,30 +187,15 @@ def ell_row_order(plan: EllPlan, piece_lanes: int) -> EllRows:
         slots=int(extra.sum()), piece_lanes=piece_lanes)
 
 
-# a plan's row order, kept while its erow tensor lives: plans made by
-# dataclasses.replace(plan, vals=...) (a new lane plane each call in
-# GATDot, spmm_ell_ad and sddmm_ell_ad's backward) share it
-_ROW_ORDERS: dict[int, tuple] = {}
-
-
 def plan_rows(plan: EllPlan) -> EllRows:
     """K6's row order of `plan` at PIECE_LANES, built at its first launch and
-    kept beside the plan's erow tensor (checked against its hind and
-    window_of_block tensors, rows and piece limit) until that tensor is
-    freed."""
-    key = id(plan.erow)
-    lanes = (plan.erow, plan.hind, plan.window_of_block)
-    meta = (plan.num_nodes, plan.source_rows, plan.config.block_h, PIECE_LANES)
-    hit = _ROW_ORDERS.get(key)
-    if hit is not None:
-        refs, hit_meta, rows = hit
-        if all(r() is t for r, t in zip(refs, lanes)) and hit_meta == meta:
-            return rows
-    rows = ell_row_order(plan, PIECE_LANES)
-    if hit is None:
-        weakref.finalize(plan.erow, _ROW_ORDERS.pop, key, None)
-    _ROW_ORDERS[key] = (tuple(weakref.ref(t) for t in lanes), meta, rows)
-    return rows
+    kept beside the plan's erow tensor (`utils.kept_beside`, checked against
+    its hind and window_of_block tensors) until that tensor is freed: plans
+    made by dataclasses.replace(plan, vals=...) (a new lane plane each call
+    in GATDot, spmm_ell_ad and sddmm_ell_ad's backward) share it."""
+    key = ("rows", plan.num_nodes, plan.source_rows, plan.config.block_h, PIECE_LANES)
+    return kept_beside(plan.erow, key, lambda: ell_row_order(plan, PIECE_LANES), plan.hind,
+                       plan.window_of_block)
 
 
 def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:

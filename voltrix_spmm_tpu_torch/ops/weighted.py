@@ -8,7 +8,11 @@ with the bitmask.
 - `spmm_weighted(plan, feat)` computes out = (A o V) @ feat through K4
   (csrc/spmm_weighted.cu, replacing weighted.py:_spmm_weighted_kernel). As
   in JAX, the whole value tile multiplies the gathered rows: the bitmask
-  is not read, and a value placed off it counts.
+  is not read, and a value placed off it counts. K4 walks the work list
+  of `block_spmm.plan_walk(plan, "spmm_weighted")` (each 128-row group of
+  a window cut into pieces of at most PIECE_BLOCKS["spmm_weighted"]
+  blocks, cut groups merged in piece order), so its sums run in a fixed
+  order: two launches on one input give the same bits.
 - `spmm_weighted_dvalues(plan, feat, g)` computes the value gradient
   dV[b] = mask[b] o (g_window @ feat[hind[b]]^T) through K5
   (csrc/spmm_dvalues.cu, replacing weighted.py:_dvalues_kernel); it is
@@ -31,7 +35,7 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .bitmask import expand_bitmask
-from .block_spmm import _INT_MAX, cast_out, launch
+from .block_spmm import _GROUP_WORDS, _INT_MAX, cast_out, launch, plan_walk, walk_workspace
 from .reference import CHUNK_BYTES, block_sum, clipped_gather
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a thread block may use on sm_90
@@ -42,7 +46,7 @@ def load_library():
     """Build (or reuse) K4's library; return (launch, error_string)."""
     rt = build("spmm_weighted", ["spmm_weighted.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_weighted_f32", [p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_weighted_f32", [p] * 7 + [i] * 10 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -117,31 +121,37 @@ def spmm_weighted_reference(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, 
 spmm_weighted_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
-def _k4_geometry(block_h: int, block_w: int, d: int) -> tuple[int, int]:
-    """K4's thread block, (dc, rg): dc = min(d, 64) feature columns (wider
-    d in chunks) by rg row groups, rg the largest power of two that
-    divides block_h with dc * rg <= 256 threads. dc is halved until a
-    thread sums at most 32 rows (block_h / rg) and the tiles fit in shared
-    memory."""
-    dc = max(1, min(d, 64))
-    while True:
-        rg = 1
-        while 2 * rg * dc <= 256 and block_h % (2 * rg) == 0:
-            rg *= 2
-        smem = (block_h * (block_w + 4) + block_w * dc + 2 * block_w) * 4
-        if block_h // rg <= 32 and smem <= _SMEM_LIMIT:
-            return dc, rg
-        if dc == 1:
-            raise ValueError(
-                f"spmm_weighted: a {block_h} x {block_w} value tile does not fit one "
-                "thread block's shared memory; use a shorter block_h"
-            )
-        dc = (dc + 1) // 2
+K4_MAX_THREADS = 256  # csrc/spmm_weighted.cu kMaxThreads
+
+
+def k4_tiling(block_h: int, block_w: int, d: int) -> tuple[int, int, int]:
+    """K4's thread block for a plan geometry and width: (dc, tr, chunks).
+    feat's d columns go in `chunks` chunks of dc columns (a multiple of 4,
+    at most 64, as even as the multiple of 4 allows); a thread sums tr
+    rows (2, 4 or 8) of four columns, tr the smallest that keeps a
+    group's min(block_h, 128) rows x dc / 4 column quads within 256
+    threads (tr 2 timed a little faster than 1 at d 8, 4 than 8 at d 40
+    on path D's plan). K4 takes block_h and block_w in whole 32-row
+    bitmask words and 32-lane slices; no tile is too tall, as the rows go
+    in groups of 128."""
+    if block_h <= 0 or block_h % 32 or block_w <= 0 or block_w % 32:
+        raise ValueError(f"spmm_weighted needs block_h and block_w that are multiples of 32 "
+                         f"(whole bitmask words and 32-lane slices), got {block_h}x{block_w}")
+    quads = -(-d // 4)
+    chunks = -(-quads // 16)
+    if chunks > 65535:
+        raise ValueError("D exceeds spmm_weighted's grid limits")
+    dc = 4 * -(-quads // chunks)
+    rows = min(block_h, 32 * _GROUP_WORDS)  # a work-list group's rows
+    tr = next(t for t in (2, 4, 8) if rows // t * dc // 4 <= K4_MAX_THREADS)
+    return dc, tr, chunks
 
 
 def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 in,
-    float32 accumulation, cast to `out_dtype` at the end)."""
+    float32 accumulation in a fixed order, cast to `out_dtype` at the
+    end). Every row of out is written (rows of windows without blocks are
+    zero)."""
     if feat.device.type == "cpu":
         return spmm_weighted_reference(plan, feat, out_dtype)
     if feat.device.type != "cuda":
@@ -154,25 +164,24 @@ def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.T
     _check_kernel_args(plan, "spmm_weighted", {
         "values": (torch.float32, (tb, H, K)),
         "hind": (torch.int32, (tb, K)),
-        "window_of_block": (torch.int32, (tb,)),
+        "block_ptr": (torch.int32, (plan.num_windows + 1,)),
     }, feat)
-    if H % 32 or K % 128 or K & (K - 1):
-        raise ValueError(f"spmm_weighted needs block_h % 32 == 0 and a power of two "
-                         f"block_w >= 128, got {H}x{K}")
     if plan.values.data_ptr() % 16:
         raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
                          "it must start 16-byte aligned")
     d = feat.shape[1]
-    dc, rg = _k4_geometry(H, K, d)
-    if -(-d // dc) > 65535:
-        raise ValueError("D exceeds spmm_weighted's grid limits")
-    out = torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
-    if out.numel() and tb:
+    dc, tr, _ = k4_tiling(H, K, d)
+    out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
+    if out.numel():
+        walk = plan_walk(plan, "spmm_weighted")
+        ws = walk_workspace("spmm_weighted", walk, d, feat.device)
         launch(
             "spmm_weighted", load_library(), feat,
-            plan.values.data_ptr(), plan.hind.data_ptr(), plan.window_of_block.data_ptr(),
-            feat.data_ptr(), out.data_ptr(),
-            tb, H, K, plan.num_nodes, plan.source_rows, d, dc, rg,
+            plan.values.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
+            walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
+            H, K, plan.num_nodes, plan.source_rows, d, dc, tr,
+            int(d % 4 == 0 and feat.data_ptr() % 16 == 0),
         )
         spmm_weighted.launches += 1
     return cast_out(out, out_dtype)

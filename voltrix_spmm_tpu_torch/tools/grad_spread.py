@@ -5,15 +5,18 @@ chip_smoke.py draws them, features and labels from seeds.
 
     python3 -m voltrix_spmm_tpu_torch.tools.grad_spread [--repeats 16]
 
-Needs one CUDA device. Both paths sum edge terms with float atomics (the
-`index_add_` of the edge softmax and of the logits' gradients, the
-kernels' cross-task flushes), so their order, and the rounding, changes
-from run to run. The gradient of a1_src sums terms that cancel (a
-softmax is blind to a shift of a row's logits), so its error is set by
-the terms, not by the small sum. For each repeat the tool prints, per
-gradient, the atol (as a multiple of max|grad|) at which chip_smoke.py's
-check, allclose(rtol=1e-4), would just pass: kernel path against the
-plain path, and the plain path against itself.
+Needs one CUDA device. The kernel path sums every edge term in a fixed
+order (K4 and K5 merge pieces in order, the softmax and the logits'
+gathers sum each node's edges with segment sums), so it gives the same
+bits in every run; the plain path's K4 adds each block's product into its
+window with `index_add_` (float atomics), so its rounding changes from
+run to run. The gradient of a1_src sums terms that cancel (a softmax is
+blind to a shift of a row's logits), so its error is set by the terms,
+not by the small sum. For each repeat the tool prints, per gradient, the
+atol (as a multiple of max|grad|) at which chip_smoke.py's check,
+allclose(rtol=1e-4), would just pass: kernel path against the plain
+path, the plain path against itself, and the kernel path against its
+first repeat (0 where it repeats bit for bit).
 """
 
 from __future__ import annotations
@@ -70,10 +73,13 @@ def main() -> None:
         loss = gat_loss(leaves, g, x, y, impl=impl)
         return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
-    worst = {"kernel vs plain": 0.0, "plain vs plain": 0.0}
+    worst = {"kernel vs plain": 0.0, "plain vs plain": 0.0, "kernel vs kernel": 0.0}
+    first = None
     for i in range(repeats):
         kern, plain, plain2 = grads("auto"), grads("reference"), grads("reference")
-        for label, a, b in (("kernel vs plain", kern, plain), ("plain vs plain", plain2, plain)):
+        first = kern if first is None else first
+        for label, a, b in (("kernel vs plain", kern, plain), ("plain vs plain", plain2, plain),
+                            ("kernel vs kernel", kern, first)):
             need = {k: needed_atol(a[k], b[k]) for k in b}
             top = max(need, key=need.get)
             worst[label] = max(worst[label], need[top])

@@ -1,20 +1,22 @@
-"""Kernels K1, K2 and K8 against their piece limits (PIECE_BLOCKS, the most
-blocks of one window a thread block walks, and PIECE_WORK, about the most
-work), at the shapes of chip_smoke.py's paths A (K1: the ogbn-arxiv
-proxy, PlanConfig(128, 128)) and B (K2: the same graph,
-PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at d 128 and
-256, and I (K8 alone on A's plan at d 128 and 256, and on path C's plan:
-the protein proxy, PlanConfig(2048, 128, gather_segment=128,
-block_unroll=4), at d 256).
+"""Kernels K1, K2, K4 and K8 against their piece limits (PIECE_BLOCKS, the
+most blocks of one window a thread block walks, and PIECE_WORK, about the
+most work; K4 has no work limit), at the shapes of chip_smoke.py's paths A
+(K1: the ogbn-arxiv proxy, PlanConfig(128, 128)) and B (K2: the same
+graph, PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at d 128
+and 256, D (K4: the same graph with self-loops, PlanConfig(64, 128), value
+planes of A and A^T from one attention vector, at d 8 and 40) and I (K8
+alone on A's plan at d 128 and 256, and on path C's plan: the protein
+proxy, PlanConfig(2048, 128, gather_segment=128, block_unroll=4), at
+d 256).
 
-    python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep [--kernels spmm_int8 ...]
+    python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep [--kernels spmm_weighted ...]
 
 Needs one CUDA device; K8's cases build C's plan (~40 s of host time). Each (kernel, width, limits) is timed twice with
 CUDA events (mean of 20 launches after 3 warm-up), the settings in turns:
 up, then down. Beside each: the workspace, and the time of the plan cut
 to its heaviest window alone (the hub window's pieces, the path that one
 window sets). torch.sparse.mm on the CSR is timed once per width as the
-yardstick. Features are random normal, made from a seed.
+yardstick. Features and attention values are random, made from a seed.
 """
 
 from __future__ import annotations
@@ -23,22 +25,24 @@ import argparse
 import dataclasses
 import subprocess
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
-from .. import PlanConfig, csr_preprocess
+from .. import PlanConfig, build_gat_graph, csr_preprocess
 from ..data import proxy_csr, symmetrize
-from ..ops import block_spmm, quant, spmm_block, spmm_subtile
+from ..ops import block_spmm, quant, spmm_block, spmm_subtile, spmm_weighted
 from ..ops.subtile_spmm import subtile_walk
 from .k6_piece_sweep import cuda_ms
 
-KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8")
+KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8", "spmm_weighted")
 # the limits swept, by kernel: K8 also walks C's 64-word windows, where
-# small pieces cost gigabytes of workspace
+# small pieces cost gigabytes of workspace; K4 has a block limit alone
 BLOCKS = {"spmm_block": (8, 16, 32, 64), "spmm_subtile": (8, 16, 32, 64),
-          "spmm_int8": (16, 32, 64, 128, 256)}
+          "spmm_int8": (16, 32, 64, 128, 256), "spmm_weighted": (2, 4, 8, 16, 32, 64)}
 WORK = {"spmm_block": (512, 1024, 2048, 4096, 8192),
         "spmm_subtile": (512, 1024, 2048, 4096, 8192),
-        "spmm_int8": (1024, 2048, 4096, 8192, 16384)}
+        "spmm_int8": (1024, 2048, 4096, 8192, 16384), "spmm_weighted": (None,)}
 WIDTHS = (128, 256)
 
 
@@ -53,6 +57,7 @@ def heaviest_window(plan):
         window_of_block=plan.window_of_block[b0:b1] - w,
         block_ptr=torch.tensor([0, b1 - b0], dtype=torch.int32, device=plan.device),
         occ=None if plan.occ is None else plan.occ[b0:b1],
+        values=None if plan.values is None else plan.values[b0:b1],
         num_nodes=min((w + 1) * h, plan.num_nodes) - w * h, num_edges=0, num_windows=1,
         total_blocks=b1 - b0, has_empty_windows=False, num_cols=plan.source_rows)
 
@@ -114,6 +119,19 @@ def main() -> None:
         q, sc = quant.quantize_padded(xc)
         add("spmm_int8", "C's plan", plan_c, 256,
             lambda p, q=q, sc=sc: quant.launch_quantized(p, q, sc, 256))
+    if "spmm_weighted" in kernels:
+        loops = ((arxiv + sp.eye(n, format="csr")) != 0).astype(np.float32).tocsr()
+        loops.sort_indices()
+        g = build_gat_graph(loops.indptr, loops.indices, n, PlanConfig(64, 128), device=dev)
+        alpha = torch.rand(loops.nnz, device=dev, generator=gen)
+        for side, p, slots in (("D's A", g.plan, g.slots), ("D's A^T", g.plan_t, g.slots_t)):
+            H, K = p.config.block_h, p.config.block_w
+            plane = torch.zeros(p.total_blocks * H * K, device=dev).index_add_(0, slots, alpha)
+            wplan = dataclasses.replace(p, values=plane.view(-1, H, K))
+            for d in (8, 40):
+                x = torch.randn(n, d, device=dev, generator=gen)
+                add("spmm_weighted", side, wplan, d, lambda p, x=x: spmm_weighted(p, x))
+        del g, loops
     defaults = dict(block_spmm.PIECE_BLOCKS), dict(block_spmm.PIECE_WORK)
     times: dict = {}
     try:

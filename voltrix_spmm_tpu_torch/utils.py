@@ -1,5 +1,6 @@
 """Accuracy utilities, test data and fp8 helpers (counterpart of
-voltrix_spmm_tpu/utils.py:28-47 and :291-368).
+voltrix_spmm_tpu/utils.py:28-47 and :291-368), and `kept_beside`, the
+cache of what is built once per tensor (work lists, edge orders).
 
 Both metrics are taken in float64 on the host, so a tensor on the card
 is copied back first.
@@ -8,11 +9,36 @@ is copied back first.
 from __future__ import annotations
 
 import logging
+import weakref
 
 import numpy as np
 import torch
 
 logger = logging.getLogger("voltrix_torch")
+
+_KEPT: dict[int, dict] = {}  # id(anchor) -> {key: (weak refs to the tensors read, value)}
+
+
+def kept_beside(anchor: torch.Tensor, key, build, *tensors):
+    """What `build()` returns, built at the first call and kept beside the
+    tensor `anchor` until it is freed, under `key` and checked against the
+    identity of `tensors` (the other tensors it was built from; None
+    allowed). A dataclass copy that shares these tensors, such as
+    `dataclasses.replace(plan, values=...)`, finds the same value; a copy
+    with a new tensor in their place builds its own. The value must not
+    hold `anchor` itself, or the two are never freed."""
+    cache = _KEPT.get(id(anchor))
+    if cache is None:
+        cache = _KEPT[id(anchor)] = {}
+        weakref.finalize(anchor, _KEPT.pop, id(anchor), None)
+    read = (anchor, *tensors)
+    hit = cache.get(key)
+    if hit is not None and all((r is None) if t is None else (r is not None and r() is t)
+                               for r, t in zip(hit[0], read)):
+        return hit[1]
+    value = build()
+    cache[key] = (tuple(None if t is None else weakref.ref(t) for t in read), value)
+    return value
 
 
 def _to_numpy(x) -> np.ndarray:
