@@ -27,7 +27,16 @@ non-zero on failure (there is no CPU fallback):
    power-law hub window cut into >= 16 pieces, a window of exactly 2 x
    PIECE_BLOCKS["spmm_weighted"] blocks, d 130, values off the bitmask on
    cut windows; values and features from a generator of their own); K5
-   also exactly 0.0 off the bitmask, K7 exactly 0.0 on padding lanes. K13-K15 (out, lse,
+   also exactly 0.0 off the bitmask, K7 exactly 0.0 on padding lanes; K3
+   also on its work list and both its walks (a power-law hub window cut
+   into >= 16 pieces on J.2's geometry PlanConfig(128, 128, 8) at d 128 and
+   256, d 8, 130 and 300, features 4 bytes past a 16-byte boundary, a tail
+   run past n at d 8 and 256, empty windows of both kinds at d 8 and 256,
+   runs across the 128-lane tiles on PlanConfig(128, 384) at seg 12-192;
+   features from a generator of their own), K7 also at d 256 and 300 on
+   its wide kernel, on misaligned features at d 256 and on power-law hub
+   windows with padding lanes cut into pieces (from a generator of their
+   own). K13-K15 (out, lse,
    dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
    allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
    exactly 0 with lse exactly 1e30. K9-K12 (out, lse, K10's dq and lane
@@ -63,7 +72,10 @@ non-zero on failure (there is no CPU fallback):
       package's defaults: 3 spmm requests at d 128 and 3 at d 256 (K3 and
       K1 once each) against K1 on A's plan and the plain path, a
       torch.profiler breakdown at d 128, and spmm_ad's gradient against
-      the plain path.
+      the plain path; K3 alone on the dense side against its plain
+      version, twice on one input (the same bits), timed beside
+      torch.sparse.mm on the dense side's CSR, with its bound and work
+      list.
    B. GCN serving on the same graph, PlanConfig(2048, 128,
       block_unroll=4, cluster_cols=True): K2, which also runs twice on the
       same input at d 128 and must give the same bits.
@@ -83,7 +95,8 @@ non-zero on failure (there is no CPU fallback):
       both layers and the edges whose sign differs between the kernel and
       the plain path. K6 runs twice on the same input at d 8 and d 40
       (and on F's plan at d 256) and must give the same bits, and so must
-      K6 on 4 window chunks of the plan (spmm_ell_streamed).
+      K6 on 4 window chunks of the plan (spmm_ell_streamed); K7 likewise
+      at d 8 and 40 (and on F's plan at d 256, its wide kernel).
    F. GCN link prediction on the ogbl-ddi proxy (4,267 nodes, 2,571,386
       nnz), GCN 256 -> 256 -> 256 on PlanConfig(128, 128) (K1), SDDMM
       scores over the edges and as many sampled non-edges (ELL plan,
@@ -111,7 +124,9 @@ non-zero on failure (there is no CPU fallback):
       gradients against the plain ones and against K10's.
    C. GCN serving on the protein proxy (132,534 nodes, 79.0M nnz),
       PlanConfig(2048, 128, gather_segment=128, block_unroll=4),
-      8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3.
+      8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3, which runs
+      twice on the same input at d 8 and at d 256 and must give the same
+      bits; its work list and workspace are printed.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -227,6 +242,21 @@ def csr_tensor(torch, a, dev, values=None):
     return torch.sparse_csr_tensor(
         torch.from_numpy(a.indptr.astype(np.int64)), torch.from_numpy(a.indices.astype(np.int64)),
         vals.float().cpu(), size=a.shape).to(dev)
+
+
+def plan_csr(plan):
+    """The binary CSR (num_nodes x source_rows, scipy) of a plan's bits:
+    row w * block_h + 32 * word + bit, column hind of the bit's lane."""
+    import torch
+
+    shifts = torch.arange(32, dtype=torch.int32, device=plan.bitmask.device)
+    b, wi, j, bit = torch.nonzero((plan.bitmask.unsqueeze(-1) >> shifts) & 1, as_tuple=True)
+    rows = plan.window_of_block[b].long() * plan.config.block_h + 32 * wi + bit
+    cols = plan.hind[b, j].long()
+    a = sp.csr_matrix((np.ones(len(rows), np.float32), (rows.cpu().numpy(), cols.cpu().numpy())),
+                      shape=(plan.num_nodes, plan.source_rows))
+    a.sum_duplicates()
+    return a
 
 
 def grads_close(torch, calc_diff, got: dict, want: dict, atol_scale: float,
@@ -470,7 +500,8 @@ def main() -> None:
     walks = {"spmm_block": lambda p: block_spmm.plan_walk(p, "spmm_block"),
              "spmm_subtile": subtile_spmm.subtile_walk,
              "spmm_int8": lambda p: block_spmm.plan_walk(p, "spmm_int8"),
-             "spmm_weighted": lambda p: block_spmm.plan_walk(p, "spmm_weighted")}
+             "spmm_weighted": lambda p: block_spmm.plan_walk(p, "spmm_weighted"),
+             "spmm_fused": lambda p: block_spmm.plan_walk(p, "spmm_fused")}
 
     def most_pieces(p, name):
         """The most pieces that one 128-row group of plan `p` is cut into."""
@@ -522,14 +553,14 @@ def main() -> None:
             feat = gen.standard_normal((n, d)).astype(np.float32)
         if expect is not None and not expect(plan):
             fail(f"{label}: the plan lacks the property this case is for")
-        if feat is not None:
-            args = (torch.from_numpy(feat).to(dev),)
-        elif offset:
+        if offset:
             view = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
-            view.copy_(feat_of(n, d))
+            view.copy_(feat_of(n, d) if feat is None else torch.from_numpy(feat).to(dev))
             if view.data_ptr() % 16 != 4 or not view.is_contiguous():
                 fail(f"{label}: the features are not the offset view this case is for")
             args = (view,)
+        elif feat is not None:
+            args = (torch.from_numpy(feat).to(dev),)
         elif name == "spmm_dvalues":
             args = (feat_of(n, d), feat_of(n, d))
         else:
@@ -655,6 +686,46 @@ def main() -> None:
     case(k3, "n3000 d300 PlanConfig(256,128,gather_segment=64,block_unroll=2)",
          erdos_renyi_csr(3000, 0.02, 22), 300,
          PlanConfig(256, 128, gather_segment=64, block_unroll=2))
+    # K3's work list and both its walks: hub windows cut into pieces (J.2's
+    # geometry and C's), the narrow walk (d <= 32), 4-byte copies (d 130,
+    # features off a 16-byte boundary), tensor-map boxes (d > 128) past n
+    # and empty windows; features from a generator of their own, so those
+    # of the paths below stay as they were
+    rng3 = np.random.default_rng(97)
+    j2_geometry = PlanConfig(128, 128, gather_segment=8)
+    c_geometry = PlanConfig(2048, 128, gather_segment=128, block_unroll=4)
+    print(f"  (K3's pieces: PIECE_BLOCKS {block_spmm.PIECE_BLOCKS[k3]}, PIECE_WORK "
+          f"{block_spmm.PIECE_WORK[k3]})")
+    hub1m = symmetrize(chung_lu_csr(40000, 1000000, seed=36))
+    for d in (128, 256, 8):
+        case(k3, f"n40000 {hub1m.nnz} nnz d{d} PlanConfig(128,128,gather_segment=8), hub window "
+             "cut into >= 16 pieces", hub1m, d, j2_geometry,
+             expect=lambda p: most_pieces(p, k3) >= 16, bound=True, gen=rng3)
+    case(k3, "n40000 d130 PlanConfig(2048,128,gather_segment=128,block_unroll=4) (unaligned "
+         "rows: 4-byte copies)", hub40k, 130, c_geometry, bound=True, gen=rng3)
+    case(k3, "n40000 d300 PlanConfig(2048,128,gather_segment=128,block_unroll=4) (boxes, a "
+         "partial column chunk)", hub40k, 300, c_geometry, bound=True, gen=rng3)
+    for d in (128, 8):
+        case(k3, f"n40000 d{d} PlanConfig(512,128,gather_segment=8), feat 4 bytes past a 16-byte "
+             "boundary", hub40k, d, PlanConfig(512, 128, gather_segment=8), offset=True,
+             bound=True, gen=rng3)
+    for d in (256, 8):
+        case(k3, f"n5000 d{d} PlanConfig(2048,128,gather_segment=128,block_unroll=4), tail past n",
+             erdos_renyi_csr(5000, 0.01, 17), d, c_geometry,
+             expect=lambda p: int(p.hind.max()) >= 5000, gen=rng3)
+        case(k3, f"n2048 d{d} empty windows padded with zero-bit blocks",
+             rows_only(erdos_renyi_csr(2048, 0.01, 18), lambda r: not 256 <= r < 512), d,
+             PlanConfig(128, 128, gather_segment=8), expect=lambda p: not p.has_empty_windows,
+             gen=rng3)
+        case(k3, f"n40960 d{d} empty windows left without blocks (tall windows)",
+             rows_only(erdos_renyi_csr(40960, 0.0005, 19), lambda r: r < 2048), d, c_geometry,
+             expect=lambda p: p.has_empty_windows, gen=rng3)
+    # runs that cross the 128-lane tiles the producer stages (block_w 384):
+    # tensor-map boxes of 8-64 rows (seg 24, 48, 96, 192), and 4-byte copies
+    # where a box would be under 8 rows (seg 12)
+    for d, seg in ((128, 48), (256, 48), (256, 24), (128, 96), (256, 192), (8, 48), (128, 12)):
+        case(k3, f"n40000 d{d} PlanConfig(128,384,gather_segment={seg}), runs across tiles",
+             hub40k, d, PlanConfig(128, 384, gather_segment=seg), bound=True, gen=rng3)
 
     hub = symmetrize(chung_lu_csr(8000, 80000, seed=23))  # hub windows cut into K4 pieces
     for name, kid in (("spmm_weighted", "K4"), ("spmm_dvalues", "K5")):
@@ -716,26 +787,34 @@ def main() -> None:
         return indptr, np.concatenate([coo.col, coo.col[pick]])[order], a.shape[0]
 
     def ell_case(name, label, a, d, cfg, num_cols=None, expect=None, pad_vals=False,
-                 misaligned=False):
+                 misaligned=False, gen=None):
         """K6 or K7 against its plain version on an ELL plan of `a` (a CSR,
-        or (indptr, indices, n)) with random edge values."""
+        or (indptr, indices, n)) with random edge values; gen: the generator
+        of the values and features (the shared one if None)."""
+        draw = rng if gen is None else gen
         indptr, indices, n = (a.indptr, a.indices, a.shape[0]) if sp.issparse(a) else a
-        values = rng.standard_normal(len(indices)).astype(np.float32)
+        values = draw.standard_normal(len(indices)).astype(np.float32)
         plan = csr_preprocess_ell(indptr, indices, n, cfg, values=values, num_cols=num_cols)
         if pad_vals:  # values on padding lanes: K6 must ignore them
             pad = plan.erow < 0
             vals = plan.vals.clone()
-            vals[pad] = torch.from_numpy(rng.standard_normal(int(pad.sum())).astype(np.float32))
+            vals[pad] = torch.from_numpy(draw.standard_normal(int(pad.sum())).astype(np.float32))
             plan = dataclasses.replace(plan, vals=vals)
         if expect is not None and not expect(plan):
             fail(f"{label}: the plan lacks the property this case is for")
         src = num_cols or n
-        feat = feat_of(src, d)
+
+        def draw_feat(rows):
+            if gen is None:
+                return feat_of(rows, d)
+            return torch.from_numpy(gen.standard_normal((rows, d)).astype(np.float32)).to(dev)
+
+        feat = draw_feat(src)
         if misaligned:  # 4 bytes past a 16-byte boundary: K7 takes scalar loads
             buf = torch.empty(src * d + 1, device=dev)
             buf[1:] = feat.reshape(-1)
             feat = buf[1:].view(src, d)
-        args = (feat,) if name == "spmm_ell" else (feat, feat_of(n, d))
+        args = (feat,) if name == "spmm_ell" else (feat, draw_feat(n))
         compare(name, label, plan.to(dev), args)
 
     for name, kid in (("spmm_ell", "K6"), ("spmm_ell_dvals", "K7")):
@@ -775,6 +854,31 @@ def main() -> None:
                  erdos_renyi_csr(6000, 0.005, 51), 64, PlanConfig(2048, 128))
         ell_case(name, "n2000 d40 PlanConfig(128,128), misaligned features",
                  erdos_renyi_csr(2000, 0.01, 52), 40, PlanConfig(128, 128), misaligned=True)
+    # K7's wide kernel (rows of at least DVALS_WIDE_MIN_D floats) and its
+    # source order cut into pieces; values and features from a generator of
+    # their own, so those of the paths below stay as they were
+    rng7 = np.random.default_rng(98)
+    print(f"  (K7's wide kernel from d {ell.DVALS_WIDE_MIN_D}, pieces of at most "
+          f"{ell.DVALS_PIECE_LANES} lanes)")
+
+    def cut_sources(p):
+        """Some window's lanes are cut into two or more wide pieces."""
+        w = ell.ell_source_order(p, ell.DVALS_PIECE_LANES).pieces[:, 0]
+        return w.numel() > 0 and int(torch.bincount(w).max()) >= 2
+
+    k7 = "spmm_ell_dvals"
+    ell_case(k7, "n2000 d300 PlanConfig(128,128,block_unroll=4) (wide, 3 float4 a lane)",
+             erdos_renyi_csr(2000, 0.02, 53), 300, PlanConfig(128, 128, block_unroll=4),
+             gen=rng7)
+    ell_case(k7, "n2000 d256 PlanConfig(128,128), misaligned features (sub-group kernel)",
+             erdos_renyi_csr(2000, 0.02, 54), 256, PlanConfig(128, 128), misaligned=True,
+             gen=rng7)
+    hub_cand = symmetrize(chung_lu_csr(8000, 400000, seed=55))
+    for d in (256, ell.DVALS_WIDE_MIN_D):
+        ell_case(k7, f"n8000 d{d} PlanConfig(128,128,block_unroll=4), power-law hub windows "
+                 "with padding lanes, cut into pieces", hub_cand, d,
+                 PlanConfig(128, 128, block_unroll=4),
+                 expect=lambda p: bool((p.erow < 0).any()) and cut_sources(p), gen=rng7)
 
     print("kernel K8 against its plain version (int8 rows, bf16 dequantization):")
     k8 = "spmm_int8"
@@ -1159,6 +1263,8 @@ def main() -> None:
         if name in walks:
             piece_line(f"path {label}", [g.plan], name, (in_dim, hidden))
             twice(f"path {label} {name} d{in_dim}", kernel, g.plan, xs[0])
+        if name == "spmm_fused":
+            twice(f"path {label} {name} d{hidden}", kernel, g.plan, feat_of(n, hidden))
         with torch.no_grad():
             x = xs[0]
             req_ms, plain_req_ms, turns = in_turns(
@@ -1448,6 +1554,7 @@ def main() -> None:
         per_width["spmm_ell"][d] = (k_ms, p_ms, lib, b_ms, b_by)
         print(f"  K6 d={d}: spmm_ell {turns[1]:.4f} / {turns[2]:.4f} ms, plain {turns[0]:.4f} / "
               f"{turns[3]:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        twice(f"path {label} spmm_ell_dvals d{d}", lambda p, f: k7[0](p, f, grad), wplan, feat)
         k_ms, p_ms, turns = in_turns(torch, lambda: k7[0](wplan, feat, grad),
                                      lambda: k7[1](wplan, feat, grad))
         feat_t = feat.t().contiguous()
@@ -2369,6 +2476,7 @@ def main() -> None:
             fail(f"path {label}: a side of the hybrid plan has no blocks")
         widths = (128, 256)
         piece_line(f"path {label} sparse side", [hplan.sparse], "spmm_block", widths)
+        piece_line(f"path {label} dense side", [hplan.dense], "spmm_fused", widths)
         xs = {d: [feat_of(n, d) for _ in range(REQUESTS)] for d in widths}
         torch.cuda.synchronize()
         reset_counts()
@@ -2386,6 +2494,12 @@ def main() -> None:
         nreq = len(widths) * REQUESTS
         check_counts(label, counts, plain_calls, {"spmm_fused": nreq, "spmm_block": nreq})
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        dense_a = plan_csr(hplan.dense)
+        if dense_a.nnz != hplan.dense.num_edges:
+            fail(f"path {label}: the dense side's bits give {dense_a.nnz} edges, not "
+                 f"{hplan.dense.num_edges}")
+        csr_dense = csr_tensor(torch, dense_a, dev)
+        deg_dense = torch.from_numpy(np.diff(dense_a.indptr).astype(np.float32)).to(dev)[:, None]
         for d in widths:
             for i, (x, out) in enumerate(zip(xs[d], outs[d])):
                 abs_sum = spmm_reference(g.plan, x.abs())
@@ -2397,6 +2511,27 @@ def main() -> None:
                     if not ok:
                         fail(f"path {label} d{d} request {i} disagrees with {what}")
             x = xs[d][0]
+            # K3 alone on the dense side: against its plain version under the
+            # summation bound of the side's rows, twice for the same bits,
+            # timed in turns with its plain version, beside torch.sparse.mm on
+            # the side's CSR and its bound
+            compare("spmm_fused", f"path {label} dense side K3 d{d} (float32 summation bound)",
+                    hplan.dense, (x,), deg_dense)
+            twice(f"path {label} dense side spmm_fused d{d}", spmm_fused, hplan.dense, x)
+            k3_ms, k3_plain_ms, k3_turns = in_turns(
+                torch, lambda: spmm_fused(hplan.dense, x),
+                lambda: spmm_fused_reference(hplan.dense, x))
+            dense_lib = library_ms(lambda: torch.sparse.mm(csr_dense, x))
+            b_ms, b_by = bound_ms(tensor_bytes(hplan.dense.bitmask, hplan.dense.hind,
+                                               hplan.dense.block_ptr) + 2 * n * d * 4,
+                                  2 * hplan.dense.num_edges * d)
+            print(f"  K3 d={d} on the dense side: spmm_fused {k3_turns[1]:.4f} / "
+                  f"{k3_turns[2]:.4f} ms, plain {k3_turns[0]:.4f} / {k3_turns[3]:.4f} ms, "
+                  f"torch.sparse.mm on the side's CSR {dense_lib:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+            path_j.update({f"j_hybrid_dense_plain_ms_d{d}": k3_plain_ms,
+                           f"j_hybrid_dense_library_ms_d{d}": dense_lib,
+                           f"j_hybrid_dense_bound_ms_d{d}": b_ms})
             h_ms, k1_ms, turns = in_turns(torch, lambda: spmm(hplan, x),
                                           lambda: spmm_block(g.plan, x), plain_iters=20)
             dense_ms = cuda_ms(torch, lambda: spmm_fused(hplan.dense, x))
@@ -2424,7 +2559,7 @@ def main() -> None:
             fail(f"path {label}: the hybrid gradient disagrees with the plain path")
         path_j.update(j_hybrid_launches_k3=counts["spmm_fused"],
                       j_hybrid_launches_k1=counts["spmm_block"], j_hybrid_dense_frac=st["dense_frac"])
-        del hplan
+        del hplan, csr_dense
 
     def after_a(g, model, params_np, xs, logits):
         int8_path("I (ogbn-arxiv proxy, int8 SpMM, K8)", arxiv, g)

@@ -4,7 +4,10 @@
 across the packages; the plain versions of kernels K6 (`spmm_ell`) and
 K7 (`spmm_ell_dvals`) against the JAX package's Pallas kernels in
 interpret mode; `spmm_ell_streamed`, the `spmm` dispatch of an EllPlan;
-and the gradients of `spmm_ell_ad` and `sddmm_ell_ad` against `jax.grad`.
+and the gradients of `spmm_ell_ad` and `sddmm_ell_ad` against `jax.grad`;
+K7's source order (`ell_source_order`: each real lane once, grouped by
+window and source row, in lane order within a source) and its wide
+kernel's arithmetic over it, piece by piece, against `spmm_ell_dvals`.
 
 The kernels run only on the card and are checked against the same plain
 versions there by chip_smoke.py. Outputs use tests/test_spmm.py:51-52's
@@ -35,7 +38,15 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_ell_reference,
     spmm_ell_streamed,
 )
-from voltrix_spmm_tpu_torch.ops.ell import _k6_lanes, _k7_geometry, ell_row_order
+from voltrix_spmm_tpu_torch.ops import ell as tell
+from voltrix_spmm_tpu_torch.ops.ell import (
+    _k6_lanes,
+    _k7_geometry,
+    _k7_wide,
+    ell_row_order,
+    ell_source_order,
+    plan_sources,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 TOL_SCIPY = dict(rtol=1e-4, atol=1e-3)
@@ -506,3 +517,80 @@ def test_k6_refuses_a_window_too_tall():
 ])
 def test_k7_geometry(d, aligned, geometry):
     assert _k7_geometry(d, aligned) == geometry
+
+
+def window_of_lanes(plan):
+    return plan.window_of_block.long().repeat_interleave(plan.config.block_w)
+
+
+@pytest.mark.parametrize("piece_lanes", [1, 7, 64, 4096])
+@pytest.mark.parametrize("case", ["h128", "h128_unroll4", "duplicates", "padded_empty_windows",
+                                  "left_empty_windows", "rectangular", "empty_matrix"])
+def test_source_order_groups_each_lane_once_by_source(case, piece_lanes):
+    _, tplan = both_ell(case)
+    H = tplan.config.block_h
+    order = ell_source_order(tplan, piece_lanes)
+    erow = tplan.erow.reshape(-1).long()
+    win = window_of_lanes(tplan)
+    real = torch.nonzero((erow >= 0) & (win * H + erow < tplan.num_nodes)).squeeze(1)
+    lane, src, w = order.lane.long(), order.src.long(), win[order.lane.long()]
+    assert sorted(lane.tolist()) == real.tolist()  # each non-padding lane once
+    key = w * tplan.source_rows + src
+    assert bool((key[1:] >= key[:-1]).all())  # grouped by window, then source
+    same = key[1:] == key[:-1]
+    assert bool((lane[1:][same] > lane[:-1][same]).all())  # lane order within a source
+    clipped = tplan.hind.reshape(-1)[lane].long().clamp(0, tplan.source_rows - 1)
+    assert torch.equal(src, clipped) and torch.equal(order.row.long(), erow[lane])
+    pieces = order.pieces.long()
+    if not len(lane):
+        assert pieces.shape == (0, 3)
+        return
+    assert pieces[0, 1] == 0 and pieces[-1, 2] == len(lane)
+    assert torch.equal(pieces[1:, 1], pieces[:-1, 2])  # consecutive, no gap or overlap
+    sizes = pieces[:, 2] - pieces[:, 1]
+    assert bool((sizes >= 1).all()) and bool((sizes <= piece_lanes).all())
+    assert torch.equal(w[pieces[:, 1]], pieces[:, 0]) and torch.equal(w[pieces[:, 2] - 1],
+                                                                       pieces[:, 0])
+
+
+@pytest.mark.parametrize("d", [128, 256, 300])
+@pytest.mark.parametrize("case", ["h128_unroll4", "duplicates", "left_empty_windows",
+                                  "rectangular"])
+def test_source_order_dots_match_jax(d, case):
+    """K7's wide kernel in plain torch: each piece's lanes, in source order,
+    dotted with their window's g rows and scattered to their lanes, the
+    rest 0.0, against JAX's `spmm_ell_dvals` in interpret mode."""
+    jplan, tplan = both_ell(case)
+    n, num_cols = plan_case(case)[3:5]
+    feat, g = features(num_cols or n, d, seed=17), features(n, d, seed=18)
+    H = tplan.config.block_h
+    order = ell_source_order(tplan, 64)
+    ft, gt = torch.from_numpy(feat), torch.from_numpy(g)
+    out = torch.zeros(tplan.gather_rows)
+    for w, f0, f1 in order.pieces.tolist():
+        rows = w * H + order.row[f0:f1].long()
+        out[order.lane[f0:f1].long()] = (gt[rows] * ft[order.src[f0:f1].long()]).sum(1)
+    ref = np.asarray(jops.spmm_ell_dvals(jplan, jnp.asarray(feat), jnp.asarray(g)))
+    assert_close(out.view(tplan.total_blocks, -1), ref)
+    assert_close(out.view(tplan.total_blocks, -1),
+                 spmm_ell_dvals_reference(tplan, ft, gt))
+
+
+@pytest.mark.parametrize("case", [
+    (tell.DVALS_WIDE_MIN_D, 128, True, True), (256, 128, True, True), (300, 128, True, True),
+    (tell.DVALS_WIDE_MIN_D - 4, 128, True, False), (8, 128, True, False),
+    (40, 128, True, False), (256, 128, False, False), (130, 128, True, False),
+    (512, 64, True, True), (516, 64, True, False), (256, 2048, True, False),
+])
+def test_k7_wide_rule(case):
+    d, block_h, aligned, wide = case
+    assert _k7_wide(d, block_h, aligned) == wide
+
+
+def test_plan_sources_is_kept_beside_the_lanes():
+    _, tplan = both_ell("duplicates")
+    order = plan_sources(tplan)
+    assert plan_sources(tplan) is order and order.piece_lanes == tell.DVALS_PIECE_LANES
+    assert plan_sources(dataclasses.replace(tplan, vals=tplan.vals * 2)) is order
+    assert plan_sources(dataclasses.replace(tplan, erow=tplan.erow.clone())) is not order
+    assert "_sources" not in {f.name for f in dataclasses.fields(tplan)}

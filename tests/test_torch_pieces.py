@@ -11,7 +11,10 @@ tests/test_spmm.py:51-52 (float32 sums taken in another order); K8's split
 likewise, on the rows that `spmm_int8_reference` dequantizes, against
 `spmm_pallas_int8` as tests/test_quant.py runs it; K4's (pieces of whole
 value tiles, no work limit) with the plain version of K4 against
-`spmm_pallas_weighted` as tests/test_weighted.py runs it.
+`spmm_pallas_weighted` as tests/test_weighted.py runs it; K3's (slabs of
+256 rows on windows taller than 128 rows, `group_words`) with the plain
+version of K3 against `spmm_pallas_fused` as tests/test_torch_fused.py runs
+it.
 """
 
 import dataclasses
@@ -19,6 +22,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import voltrix_spmm_tpu as jvx
@@ -28,6 +32,7 @@ import voltrix_spmm_tpu_torch as vt
 from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.format.stream import slice_plan_windows
 from voltrix_spmm_tpu_torch.ops import (
+    spmm_fused_reference,
     spmm_int8_reference,
     spmm_reference,
     spmm_subtile_reference,
@@ -38,10 +43,12 @@ from voltrix_spmm_tpu_torch.ops.block_spmm import (
     PIECE_BLOCKS,
     PIECE_WORK,
     block_work,
+    group_words,
     plan_walk,
     walk_tasks,
     window_pieces,
 )
+from voltrix_spmm_tpu_torch.ops.fused_spmm import box_rows
 from voltrix_spmm_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from voltrix_spmm_tpu_torch.ops.subtile_spmm import subtile_occupancy, subtile_walk
 
@@ -91,27 +98,29 @@ def by_group(tasks):
     return {k: sorted(v, key=lambda r: r[4]) for k, v in groups.items()}
 
 
-def emulate(plan, x, subtile, piece_blocks, piece_work=None):
+def emulate(plan, x, subtile, piece_blocks, piece_work=None, gw=4, plain=None):
     """The kernels' split in plain torch: each task's blocks summed by the
     plain version of K1 (K2 with `subtile`, per-block skip; K4 on a plan
-    with a value plane) into its 128-row group, and each group's pieces
-    added in piece order."""
+    with a value plane; `plain` if given, K3's) into its group of `gw`
+    32-row words, and each group's pieces added in piece order."""
     cfg = plan.config
     occ = occupancy(plan) if subtile else None
-    work = None if piece_work is None else block_work(plan).numpy()
-    tasks, _, _ = walk_tasks(plan.block_ptr.numpy(), piece_blocks, groups_of(plan),
+    work = None if piece_work is None else block_work(plan, gw).numpy()
+    groups_n = -(-cfg.words_per_col // gw)
+    tasks, _, _ = walk_tasks(plan.block_ptr.numpy(), piece_blocks, groups_n,
                              None if occ is None else occ.numpy(), work, piece_work)
-    plain = spmm_subtile_reference if subtile else spmm_reference
-    if plan.values is not None:
-        plain = spmm_weighted_reference
+    if plain is None:
+        plain = spmm_subtile_reference if subtile else spmm_reference
+        if plan.values is not None:
+            plain = spmm_weighted_reference
     per_block = dataclasses.replace(cfg, block_unroll=1)  # K2 skips block by block
     groups = by_group(tasks)
-    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(groups_of(plan))}
+    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(groups_n)}
     out = torch.zeros(plan.num_nodes, x.shape[1])
     for (w, g), rows in groups.items():
         assert [r[4] for r in rows] == list(range(len(rows)))
-        r0 = w * cfg.block_h + 128 * g
-        span = slice(r0, min(r0 + 128, (w + 1) * cfg.block_h, plan.num_nodes))
+        r0 = w * cfg.block_h + 32 * gw * g
+        span = slice(r0, min(r0 + 32 * gw, (w + 1) * cfg.block_h, plan.num_nodes))
         acc = None
         for _, _, b0, b1, _, _ in rows:
             sub = dataclasses.replace(
@@ -464,3 +473,156 @@ def test_plan_walk_of_k4_keeps_its_own_limit():
     finally:
         PIECE_BLOCKS["spmm_weighted"] = saved
     assert plan_walk(plan, "spmm_weighted") is walk
+
+
+# K3 (the coverage-fused SpMM): the work list in slabs of `group_words`
+# words, 8 (256 rows) on windows taller than 128 rows
+FUSED_CONFIGS = [dict(block_h=128, block_w=128, gather_segment=8),
+                 dict(block_h=512, block_w=128, gather_segment=8),
+                 dict(block_h=2048, block_w=128, gather_segment=128, block_unroll=4),
+                 dict(block_h=96, block_w=256, gather_segment=32),
+                 dict(block_h=128, block_w=384, gather_segment=48)]
+
+
+def fused_walk(plan, piece_blocks, piece_work=None):
+    """plan_walk(plan, "spmm_fused") at the given limits (restored after)."""
+    saved = PIECE_BLOCKS["spmm_fused"], PIECE_WORK["spmm_fused"]
+    try:
+        PIECE_BLOCKS["spmm_fused"], PIECE_WORK["spmm_fused"] = piece_blocks, piece_work
+        return plan_walk(plan, "spmm_fused")
+    finally:
+        PIECE_BLOCKS["spmm_fused"], PIECE_WORK["spmm_fused"] = saved
+
+
+@pytest.mark.parametrize("piece_blocks", [1, 3, 16])
+@pytest.mark.parametrize("cfg", FUSED_CONFIGS)
+def test_fused_pieces_cover_each_slab_once_in_order(cfg, piece_blocks):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
+    words = plan.config.words_per_col
+    walk = fused_walk(plan, piece_blocks)
+    gw = walk.group_words
+    assert gw == group_words("spmm_fused", words) == (8 if words > 4 else 4)
+    assert walk.rows == 32 * min(words, gw)
+    bp = plan.block_ptr.numpy()
+    groups = by_group(walk.tasks.numpy())
+    slabs = -(-words // gw)
+    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(slabs)}
+    for (w, g), rows in groups.items():
+        mine = np.array(rows)
+        assert np.array_equal(mine[:, 4], np.arange(len(mine)))  # ranks in order
+        assert mine[0, 2] == bp[w] and mine[-1, 3] == bp[w + 1]
+        assert np.array_equal(mine[1:, 2], mine[:-1, 3])  # consecutive, no gap or overlap
+        assert np.all(mine[:, 3] - mine[:, 2] <= piece_blocks)
+        if bp[w + 1] > bp[w]:
+            assert np.all(mine[:, 3] > mine[:, 2])
+
+
+@pytest.mark.parametrize("limits", [(2, None), (256, 300)])
+def test_fused_hub_window_splits_into_many_pieces(limits):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, gather_segment=8))
+    tasks = fused_walk(plan, *limits).tasks.numpy()
+    per_window = np.bincount(tasks[:, 0])
+    assert per_window[0] >= 8 and per_window.argmax() == 0  # window 0 holds the hubs
+
+
+@pytest.mark.parametrize("cfg", FUSED_CONFIGS[:3])
+def test_fused_empty_windows_get_one_empty_piece(cfg):
+    h = cfg["block_h"]
+    n = 80 * h  # window 0 alone keeps edges: the empty windows dominate, left without blocks
+    rng = np.random.default_rng(7)
+    rows, cols = rng.integers(0, h, 4000), rng.integers(0, n, 4000)
+    a = sp.csr_matrix((np.ones(4000, np.float32), (rows, cols)), shape=(n, n))
+    a.sum_duplicates()
+    plan = vt.csr_preprocess(*csr_args(a), vt.PlanConfig(**cfg))
+    bp = plan.block_ptr.numpy()
+    empty = [w for w in range(plan.num_windows) if bp[w + 1] == bp[w]]
+    assert plan.has_empty_windows and len(empty) == plan.num_windows - 1
+    walk = fused_walk(plan, 2)
+    groups = by_group(walk.tasks.numpy())
+    slabs = -(-plan.config.words_per_col // walk.group_words)
+    for w in empty:
+        for g in range(slabs):
+            (row,) = groups[(w, g)]
+            assert row[2] == row[3] == bp[w] and row[4:] == [0, -1]
+    none = vt.csr_preprocess(np.zeros(N + 1, np.int64), np.zeros(0, np.int64), N,
+                             vt.PlanConfig(**cfg))
+    walk = fused_walk(none, 2)
+    assert none.total_blocks == 0 and walk.slots == 0 and walk.merges.shape == (0, 4)
+    slabs = -(-none.config.words_per_col // walk.group_words)
+    assert walk.tasks.shape[0] == none.num_windows * slabs
+    assert np.all(walk.tasks[:, 2:4].numpy() == 0)
+
+
+@pytest.mark.parametrize("num_chunks", [2, 3])
+@pytest.mark.parametrize("cfg", FUSED_CONFIGS[1:3])
+def test_fused_pieces_in_a_window_chunk_equal_the_whole_plans(cfg, num_chunks):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
+
+    def pieces(p, w_off=0, b_off=0):
+        """(window, slab, rank) -> (first block, end block, pieces)."""
+        tasks = fused_walk(p, 3, 200).tasks.numpy()
+        return {(w + w_off, g, r[4]): (r[2] + b_off, r[3] + b_off, len(rows))
+                for (w, g), rows in by_group(tasks).items() for r in rows}
+
+    whole, got, w0 = pieces(plan), {}, 0
+    bp = plan.block_ptr.numpy()
+    for sub in slice_plan_windows(plan, num_chunks):
+        got.update(pieces(sub, w0, bp[w0]))
+        w0 += sub.num_windows
+    assert got == whole
+
+
+# (graph, config, d, piece size, work limit): the JAX kernel's coverage
+# geometries (gather_segment >= 8, block_w % 128 == 0, block_h % 32 == 0)
+FUSED_CASES = [
+    ("power_law", dict(block_h=128, block_w=128, gather_segment=8), 64, 2, None),
+    ("power_law", dict(block_h=512, block_w=128, gather_segment=8), 40, 3, 300),
+    ("power_law", dict(block_h=2048, block_w=128, gather_segment=128, block_unroll=4), 24, 2,
+     None),
+    ("power_law", dict(block_h=96, block_w=256, gather_segment=32), 130, 1, None),
+    ("rows_left_empty", dict(block_h=256, block_w=128, gather_segment=16), 8, 2, 200),
+    # runs that cross the 128-lane tiles the kernel stages
+    ("power_law", dict(block_h=128, block_w=384, gather_segment=48), 128, 2, None),
+    ("power_law", dict(block_h=256, block_w=384, gather_segment=24), 256, 3, 300),
+]
+
+
+@pytest.mark.parametrize("graph,cfg,d,piece_blocks,piece_work", FUSED_CASES)
+def test_piece_split_matches_jax_fused(graph, cfg, d, piece_blocks, piece_work):
+    """K3's split: each piece of a slab's blocks summed alone with K3's plain
+    version, then added in piece order, against JAX's `spmm_pallas_fused`
+    in interpret mode."""
+    a = power_law()
+    if graph == "rows_left_empty":  # windows 1.. keep no edge
+        a = a.tolil()
+        for r in range(cfg["block_h"], N):
+            a.rows[r], a.data[r] = [], []
+        a = a.tocsr()
+    jplan, tplan = both_plans(a, **cfg)
+    gw = group_words("spmm_fused", tplan.config.words_per_col)
+    if graph == "power_law":  # the hub window's first slab is cut into >= 4 pieces
+        tasks = fused_walk(tplan, piece_blocks, piece_work).tasks.numpy()
+        assert np.sum((tasks[:, 0] == 0) & (tasks[:, 1] == 0)) >= 4
+    x = features(N, d, seed=d + 3)
+    out = emulate(tplan, torch.from_numpy(x), False, piece_blocks, piece_work, gw=gw,
+                  plain=spmm_fused_reference)
+    assert_close(out, np.asarray(jops.spmm_pallas_fused(jplan, jnp.asarray(x))))
+    if graph == "rows_left_empty":
+        assert not out[cfg["block_h"]:].any()
+
+
+@pytest.mark.parametrize("block_w,seg", [(128, 8), (128, 128), (256, 256), (384, 12), (384, 24),
+                                         (384, 48), (384, 96), (384, 192), (384, 384),
+                                         (1152, 9)])
+def test_fused_boxes_stay_within_a_run_and_a_tile(block_w, seg):
+    """K3's bulk copies stage each 128-lane tile in boxes of `box_rows(seg)`
+    rows at the multiples of it: the boxes cover each tile once, none
+    crosses a run's edge, and the kernel takes them only where a box is
+    8 rows or more."""
+    box = box_rows(seg)
+    assert 128 % box == 0 and seg % box == 0
+    for lane0 in range(0, block_w, 128):
+        starts = np.arange(lane0, lane0 + 128, box)
+        assert np.array_equal(np.repeat(starts, box), np.arange(lane0, lane0 + 128) // box * box)
+        assert np.all(starts // seg == (starts + box - 1) // seg)
+    assert (box >= 8) == (seg % 8 == 0)

@@ -45,8 +45,9 @@
 // is then summed by a second kernel, spmm_merge_kernel, in piece order,
 // ((p0 + p1) + p2) + ..., a thread per four columns of a row, its loads
 // issued kBatch at a time, so the result is the same in every run. No float
-// atomics. Kernel K4 (csrc/spmm_weighted.cu) takes the same work list
-// layout and merge (launch_merge) for its own dense tile product.
+// atomics. Kernels K4 (csrc/spmm_weighted.cu) and K3 (csrc/spmm_fused.cu)
+// take the same work list layout and merge (launch_merge) for their own
+// products.
 
 #pragma once
 
@@ -110,6 +111,54 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// mbarriers and bulk copies (K3, csrc/spmm_fused.cu; K7's wide kernel,
+// csrc/spmm_ell_dvals.cu)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// an arrival on `bar` that also expects `bytes` of copies to complete on it
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -119,16 +168,18 @@ __host__ __device__ constexpr int smem_bytes() {
   return kWarps * (stages<kSrc>() * slot_words<kSrc>() + queue_arrays<kSrc>() * kQueue) * 4;
 }
 
-// rows of a workspace tile: the words of one group, 32 rows each
-__host__ __device__ inline int tile_rows(int words) {
-  return 32 * (words < kWarps ? words : kWarps);
+// rows of a workspace tile: the words of one group, 32 rows each (a group
+// holds gw words: kWarps for the walk and K4, 8 for K3's tall windows)
+__host__ __device__ inline int tile_rows(int words, int gw = kWarps) {
+  return 32 * (words < gw ? words : gw);
 }
 
 // rows of group g of window w that lie inside the window and inside out
-__device__ __forceinline__ int rows_out(int w, int g, int words, int block_h, int num_nodes) {
-  const int64_t row0 = (int64_t)w * block_h + kWarps * 32 * g;
+__device__ __forceinline__ int rows_out(int w, int g, int words, int block_h, int num_nodes,
+                                        int gw = kWarps) {
+  const int64_t row0 = (int64_t)w * block_h + gw * 32 * g;
   const int64_t left = (int64_t)num_nodes - row0;
-  const int in_window = min(tile_rows(words - kWarps * g), block_h - kWarps * 32 * g);
+  const int in_window = min(tile_rows(words - gw * g, gw), block_h - gw * 32 * g);
   return left < in_window ? (left > 0 ? (int)left : 0) : in_window;
 }
 
@@ -360,17 +411,17 @@ __global__ void __launch_bounds__(kThreads)
 spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInts)
                   const float* __restrict__ ws,        // (slots, tile rows, d)
                   float* __restrict__ out,             // (num_nodes, d)
-                  int words, int block_h, int num_nodes, int d) {
-  const int strips = tile_rows(words) / kStripRows;
+                  int words, int block_h, int num_nodes, int d, int gw) {
+  const int strips = tile_rows(words, gw) / kStripRows;
   const int* mg = merges + (int64_t)(blockIdx.x / strips) * kMergeInts;
   const int w = mg[kMW], g = mg[kMG], first = mg[kMSlot], count = mg[kMCount];
   const int r = (blockIdx.x % strips) * kStripRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (r >= rows_out(w, g, words, block_h, num_nodes)) return;
+  if (r >= rows_out(w, g, words, block_h, num_nodes, gw)) return;
   const int c0 = blockIdx.y * kCols;
   const int cw = min(kCols, d - c0);
-  float* o = out + ((int64_t)w * block_h + kWarps * 32 * g + r) * d + c0;
-  const int64_t slot_stride = (int64_t)tile_rows(words) * d;
+  float* o = out + ((int64_t)w * block_h + gw * 32 * g + r) * d + c0;
+  const int64_t slot_stride = (int64_t)tile_rows(words, gw) * d;
   const float* p = ws + (int64_t)first * slot_stride + (int64_t)r * d + c0;
   const int parts = count - 1;
   if (kVec == 4) {
@@ -417,17 +468,18 @@ spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInt
 
 // Launches spmm_merge_kernel on `stream` when a group is cut: float4 loads
 // and stores where `vec` (the rows are whole float4s; out and ws are fresh
-// allocations, so 16-byte aligned then). Kernel K4 (csrc/spmm_weighted.cu)
-// calls it after its own product, on the same work list layout.
+// allocations, so 16-byte aligned then); a group holds gw words. Kernels K4
+// (csrc/spmm_weighted.cu) and K3 (csrc/spmm_fused.cu, gw 8 on tall windows)
+// call it after their own products, on the same work list layout.
 inline cudaError_t launch_merge(const void* merges, const void* ws, void* out, int num_merges,
                                 int words, int block_h, int num_nodes, int d, bool vec,
-                                cudaStream_t s) {
+                                cudaStream_t s, int gw = kWarps) {
   if (num_merges == 0) return cudaSuccess;
   auto merge = vec ? spmm_merge_kernel<4> : spmm_merge_kernel<1>;
-  const int strips = tile_rows(words) / kStripRows;
+  const int strips = tile_rows(words, gw) / kStripRows;
   merge<<<dim3(num_merges * strips, (d + kCols - 1) / kCols), kThreads, 0, s>>>(
       static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
-      static_cast<float*>(out), words, block_h, num_nodes, d);
+      static_cast<float*>(out), words, block_h, num_nodes, d, gw);
   return cudaGetLastError();
 }
 

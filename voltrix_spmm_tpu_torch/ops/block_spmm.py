@@ -12,7 +12,9 @@ The three kernels walk a list of tasks: each 128-row group of a window cut
 into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
 `PIECE_WORK[name]` units of work (`window_pieces`, `walk_tasks`,
 `block_work`). Kernel K4 (ops/weighted.py) takes the same list with a
-block limit alone, as its blocks all cost the same. The list is built on
+block limit alone, as its blocks all cost the same; kernel K3
+(ops/fused_spmm.py) takes it with groups of 256 rows on windows taller
+than 128 rows (`group_words`). The list is built on
 the host from the plan's block_ptr, each block's work (and K2's
 occupancy) at a plan's first launch for each kernel, the only host sync,
 and kept beside the plan's block_ptr tensor, outside its dataclass
@@ -36,17 +38,25 @@ from ..jit import build
 from ..utils import kept_beside
 from .reference import spmm_reference
 
-_COLS = 32  # the grid's column unit in _check (a warp's columns in K3 and K8)
+_COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`; None: no work limit), by kernel:
 # python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B;
-# K8 on paths I and C; K4 on path D's plans)
-PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128, "spmm_weighted": 8}
+# K8 on paths I and C; K4 on path D's plans; K3 on paths C and J.2)
+PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128, "spmm_weighted": 8,
+                "spmm_fused": 4096}
 PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048,
-              "spmm_weighted": None}
+              "spmm_weighted": None, "spmm_fused": 8192}
+# the most blocks a piece may hold (csrc/spmm_walk.cuh kMaxPiece), by kernel:
+# K3 walks a piece's block range in order and holds no list of its blocks
+PIECE_BLOCKS_CAP = {"spmm_fused": None}
+# 32-row words of a work-list group on windows taller than four words, by
+# kernel (default _GROUP_WORDS): K3 stages a block's X rows once for a slab
+# of 256 rows (csrc/spmm_fused.cu)
+TALL_GROUP_WORDS = {"spmm_fused": 8}
 
 
 @functools.cache
@@ -182,12 +192,20 @@ def walk_tasks(block_ptr, piece_blocks: int, groups: int, occ=None, work=None,
             int((count[cut] - 1).sum()))
 
 
-def block_work(plan: SpmmPlan) -> torch.Tensor:
+def group_words(name: str, words: int) -> int:
+    """32-row words of one work-list group of kernel `name` on windows of
+    `words` words: 4 (a thread block of four warps), or on windows taller
+    than 128 rows the kernel's TALL_GROUP_WORDS (K3: 8)."""
+    return TALL_GROUP_WORDS.get(name, _GROUP_WORDS) if words > _GROUP_WORDS else _GROUP_WORDS
+
+
+def block_work(plan: SpmmPlan, gw: int = _GROUP_WORDS) -> torch.Tensor:
     """int64 (total_blocks, groups) on the plan's device: for each block
-    and 128-row group, the work of the group's busiest warp in the walk,
-    its kept (lane, word) pairs plus their nonzero bitmask bytes."""
+    and group of `gw` 32-row words, the work of the group's busiest warp in
+    the walk, its kept (lane, word) pairs plus their nonzero bitmask
+    bytes."""
     tb, words, k = plan.bitmask.shape
-    groups = -(-words // _GROUP_WORDS)
+    groups = -(-words // gw)
     valid = (plan.hind >= 0) & (plan.hind < plan.source_rows)
     out = []
     step = max(1, 2**22 // max(1, words * k))
@@ -197,8 +215,8 @@ def block_work(plan: SpmmPlan) -> torch.Tensor:
         for byte in range(4):
             work += ((bm >> (8 * byte)) & 0xFF) != 0
         work = (work * valid[b0:b0 + step, None, :]).sum(2)  # (c, words)
-        work = torch.nn.functional.pad(work, (0, groups * _GROUP_WORDS - words))
-        out.append(work.view(-1, groups, _GROUP_WORDS).amax(2))
+        work = torch.nn.functional.pad(work, (0, groups * gw - words))
+        out.append(work.view(-1, groups, gw).amax(2))
     if not out:
         return torch.zeros(0, groups, dtype=torch.int64, device=plan.device)
     return torch.cat(out)
@@ -214,6 +232,7 @@ class Walk:
     rows: int  # rows of a workspace tile
     cut_windows: int  # windows with a cut group
     occ: torch.Tensor | None  # K2's sub-window bits, on the plan's device
+    group_words: int = _GROUP_WORDS  # 32-row words of a group (`group_words`)
 
 
 def plan_walk(plan: SpmmPlan, name: str, occupancy=None) -> Walk:
@@ -225,21 +244,23 @@ def plan_walk(plan: SpmmPlan, name: str, occupancy=None) -> Walk:
     piece limits: a copy of the plan that shares these tensors, such as the
     `dataclasses.replace(plan, values=...)` of every GAT head, finds it."""
     piece_blocks, piece_work = PIECE_BLOCKS[name], PIECE_WORK[name]
-    if not 1 <= piece_blocks <= MAX_PIECE_BLOCKS:
-        raise ValueError(f"PIECE_BLOCKS[{name!r}] must be in 1..{MAX_PIECE_BLOCKS}")
+    cap = PIECE_BLOCKS_CAP.get(name, MAX_PIECE_BLOCKS)
+    if piece_blocks < 1 or (cap is not None and piece_blocks > cap):
+        raise ValueError(f"PIECE_BLOCKS[{name!r}] must be in 1..{cap}")
     words = plan.config.words_per_col
+    gw = group_words(name, words)
 
     def build():
         occ = None if occupancy is None else occupancy()
-        work = None if piece_work is None else block_work(plan).cpu().numpy()
+        work = None if piece_work is None else block_work(plan, gw).cpu().numpy()
         tasks, merges, slots = walk_tasks(
-            plan.block_ptr.cpu().numpy(), piece_blocks, -(-words // _GROUP_WORDS),
+            plan.block_ptr.cpu().numpy(), piece_blocks, -(-words // gw),
             None if occ is None else occ.cpu().numpy(), work, piece_work)
         return Walk(
             tasks=torch.from_numpy(tasks).to(plan.device),
             merges=torch.from_numpy(merges).to(plan.device), slots=slots,
-            rows=32 * min(words, _GROUP_WORDS),
-            cut_windows=len(np.unique(merges[:, 0])), occ=occ)
+            rows=32 * min(words, gw),
+            cut_windows=len(np.unique(merges[:, 0])), occ=occ, group_words=gw)
 
     key = ("walk", name, piece_blocks, piece_work, words, plan.source_rows)
     return kept_beside(plan.block_ptr, key, build, plan.bitmask, plan.hind, plan.occ)
@@ -251,16 +272,17 @@ def walk_stats(plan: SpmmPlan, walk: Walk, d: int) -> dict:
     pairs and the work (`block_work`) of the heaviest piece against the
     mean, and the workspace in MiB at width d."""
     tb, words, _ = plan.bitmask.shape
-    groups = -(-words // _GROUP_WORDS)
+    gw = walk.group_words
+    groups = -(-words // gw)
     valid = (plan.hind >= 0) & (plan.hind < plan.source_rows)
     pairs = ((plan.bitmask != 0) & valid[:, None, :]).sum(2)  # (tb, words)
-    pairs = torch.nn.functional.pad(pairs, (0, groups * _GROUP_WORDS - words))
+    pairs = torch.nn.functional.pad(pairs, (0, groups * gw - words))
     t = walk.tasks.long()
     stats = {"pieces": int(t.shape[0]), "cut_windows": walk.cut_windows,
              "cut_groups": int(walk.merges.shape[0]),
              "workspace_mib": walk.slots * walk.rows * d * 4 / 2**20}
-    for name, per_block in (("pairs", pairs.view(tb, groups, _GROUP_WORDS).sum(2)),
-                            ("work", block_work(plan))):
+    for name, per_block in (("pairs", pairs.view(tb, groups, gw).sum(2)),
+                            ("work", block_work(plan, gw))):
         if walk.occ is not None:
             shifts = torch.arange(groups, dtype=torch.int32, device=per_block.device)
             per_block = per_block * ((walk.occ[:, None] >> shifts) & 1)

@@ -13,7 +13,12 @@ On an `EllPlan` (format/ell.py; one lane per edge):
 - `spmm_ell_dvals(plan, feat, g)` computes the lane gradient
   dval[b, l] = g[wob[b] * block_h + erow[b, l]] . feat[hind[b, l]] through
   K7 (csrc/spmm_ell_dvals.cu, replacing ell.py:_ell_dvals_kernel), exactly
-  0.0 on padding lanes; with g = x and feat = y it is the SDDMM.
+  0.0 on padding lanes; with g = x and feat = y it is the SDDMM. Rows of at
+  least DVALS_WIDE_MIN_D floats take K7's wide kernel (`_k7_wide`), which
+  walks the plan's lanes grouped by source row (`ell_source_order`, cut
+  into pieces of at most DVALS_PIECE_LANES lanes of one window, built at a
+  plan's first launch and kept while its erow tensor lives:
+  `plan_sources`); narrower rows take the sub-group kernel.
 - `spmm_ell_ad`, `sddmm_ell` and `sddmm_ell_ad` are built on the two.
 
 A CPU tensor takes the plain versions, `spmm_ell_reference` and
@@ -40,6 +45,15 @@ from .weighted import _check_kernel_args
 # the most lanes of one row a K6 warp sums (`ell_row_order`):
 # python3 -m voltrix_spmm_tpu_torch.tools.k6_piece_sweep (paths E and F)
 PIECE_LANES = 512
+# K7's wide kernel: the narrowest rows it takes, and the most lanes of one
+# window a thread block of it walks (`ell_source_order`):
+# python3 -m voltrix_spmm_tpu_torch.tools.k7_sweep (paths E and F)
+DVALS_WIDE_MIN_D = 128
+DVALS_PIECE_LANES = 8192
+# the wide kernel holds a window's g rows in shared memory (bytes), and a
+# lane's feat row in at most 4 float4 a thread (csrc/spmm_ell_dvals.cu)
+_WIDE_SMEM = 192 * 1024
+_WIDE_MAX_D = 512
 IMPLS = ("auto", "ell", "reference")
 
 
@@ -54,12 +68,15 @@ def load_library():
 
 @functools.cache
 def load_dvals_library():
-    """Build (or reuse) K7's library; return (launch, error_string)."""
+    """Build (or reuse) K7's library; return (launch, wide_launch,
+    error_string): its sub-group kernel, its wide kernel and CUDA's error
+    message."""
     rt = build("spmm_ell_dvals", ["spmm_ell_dvals.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = rt.function("voltrix_spmm_ell_dvals_f32",
                      [p, p, p, p, p, p, ctypes.c_int64, i, i, i, i, i, i, i, p])
-    return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+    wide = rt.function("voltrix_spmm_ell_dvals_wide_f32", [p] * 7 + [i] * 4 + [p])
+    return fn, wide, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
 def _check_rows(plan: EllPlan, feat: torch.Tensor, name: str) -> None:
@@ -267,6 +284,67 @@ def spmm_ell_dvals_reference(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor,
 spmm_ell_dvals_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
+@dataclass
+class EllSources:
+    """K7's source order of a plan (`ell_source_order`), on its device."""
+
+    lane: torch.Tensor  # int32 (kept lanes,) flat lane index, by window then source
+    src: torch.Tensor  # int32 (kept lanes,) source row, clipped
+    row: torch.Tensor  # int32 (kept lanes,) destination row in the window (erow)
+    pieces: torch.Tensor  # int32 (pieces, 3): window, first, end
+    piece_lanes: int
+
+
+def ell_source_order(plan: EllPlan, piece_lanes: int) -> EllSources:
+    """The plan's non-padding lanes (erow >= 0, row < num_nodes) grouped by
+    window, then by source row (clipped into the source rows as
+    jnp.take(mode="clip") does), in lane order within a source; each
+    window's lanes cut into pieces of at most `piece_lanes` (a window
+    without such lanes gets none). A window's pieces depend on its own
+    lanes alone. Plain torch on the plan's device; the sizes cost a host
+    sync, once per plan (`plan_sources`)."""
+    if piece_lanes < 1:
+        raise ValueError(f"piece_lanes must be >= 1, got {piece_lanes}")
+    if max(plan.num_nodes, plan.gather_rows) > _INT_MAX:
+        raise ValueError("K7's source order indexes rows and lanes with 32-bit ints")
+    K, H, n = plan.config.block_w, plan.config.block_h, plan.num_nodes
+    dev = plan.erow.device
+    e = plan.erow.reshape(-1).long()
+    win = plan.window_of_block.long().repeat_interleave(K)
+    lane = torch.nonzero((e >= 0) & (win * H + e < n)).squeeze(1)
+    src = plan.hind.reshape(-1)[lane].long().clamp(0, plan.source_rows - 1)
+    win = win[lane]
+    _, order = torch.sort(win * plan.source_rows + src, stable=True)
+    lane, src, win = lane[order], src[order], win[order]
+    counts = torch.bincount(win, minlength=plan.num_windows)
+    ptr = torch.zeros(plan.num_windows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=ptr[1:])
+    npieces = (counts + piece_lanes - 1) // piece_lanes
+    piece_win = torch.repeat_interleave(torch.arange(plan.num_windows, device=dev), npieces)
+    rank = torch.arange(len(piece_win), device=dev) - (npieces.cumsum(0) - npieces)[piece_win]
+    first = ptr[piece_win] + rank * piece_lanes
+    end = torch.minimum(first + piece_lanes, ptr[piece_win + 1])
+    return EllSources(lane=lane.int(), src=src.int(), row=e[lane].int(),
+                      pieces=torch.stack([piece_win, first, end], 1).int(),
+                      piece_lanes=piece_lanes)
+
+
+def plan_sources(plan: EllPlan) -> EllSources:
+    """K7's source order of `plan` at DVALS_PIECE_LANES, built at its first
+    wide launch and kept beside the plan's erow tensor, as `plan_rows`."""
+    key = ("sources", plan.num_nodes, plan.source_rows, plan.config.block_h, DVALS_PIECE_LANES)
+    return kept_beside(plan.erow, key, lambda: ell_source_order(plan, DVALS_PIECE_LANES),
+                       plan.hind, plan.window_of_block)
+
+
+def _k7_wide(d: int, block_h: int, aligned: bool) -> bool:
+    """Whether K7 takes its wide kernel: rows of at least DVALS_WIDE_MIN_D
+    and at most 512 floats, whole float4s (d % 4 == 0, feat and g 16-byte
+    aligned), and a window's g rows within the kernel's shared memory."""
+    return (aligned and d % 4 == 0 and DVALS_WIDE_MIN_D <= d <= _WIDE_MAX_D
+            and block_h * d * 4 <= _WIDE_SMEM)
+
+
 def _k7_geometry(d: int, aligned: bool) -> tuple[int, int]:
     """K7's (vec, sub): float4 loads when d % 4 == 0 and both tensors are
     16-byte aligned, and sub threads per lane, the power of two (at most
@@ -296,11 +374,26 @@ def spmm_ell_dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.
     d = feat.shape[1]
     if d == 0:
         return torch.zeros(tb, K, dtype=torch.float32, device=feat.device)
+    aligned = feat.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    if tb and _k7_wide(d, H, aligned):
+        out = torch.zeros(tb, K, dtype=torch.float32, device=feat.device)
+        order = plan_sources(plan)
+        if order.pieces.shape[0]:
+            _, wide, error_string = load_dvals_library()
+            launch(
+                "spmm_ell_dvals", (wide, error_string), feat,
+                order.pieces.data_ptr(), order.lane.data_ptr(), order.src.data_ptr(),
+                order.row.data_ptr(), feat.data_ptr(), g.data_ptr(), out.data_ptr(),
+                order.pieces.shape[0], H, plan.num_nodes, d,
+            )
+            spmm_ell_dvals.launches += 1
+        return out
     out = torch.empty(tb, K, dtype=torch.float32, device=feat.device)
     if tb:
-        vec, sub = _k7_geometry(d, feat.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+        vec, sub = _k7_geometry(d, aligned)
+        fn, _, error_string = load_dvals_library()
         launch(
-            "spmm_ell_dvals", load_dvals_library(), feat,
+            "spmm_ell_dvals", (fn, error_string), feat,
             plan.hind.data_ptr(), plan.erow.data_ptr(), plan.window_of_block.data_ptr(),
             feat.data_ptr(), g.data_ptr(), out.data_ptr(),
             tb * K, H, K, plan.num_nodes, plan.source_rows, d, vec, sub,

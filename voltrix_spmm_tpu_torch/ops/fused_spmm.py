@@ -8,6 +8,13 @@ source says how it is laid out and what bounds it). X arrives in runs of
 `gather_segment` consecutive rows that start at the run heads
 hind[:, ::seg]; rows past the last source row read as zero.
 
+The kernel walks the work list of ops/block_spmm.py (`plan_walk(plan,
+"spmm_fused")`): each slab of a window (`group_words`: 256 rows on
+windows taller than 128 rows) cut into pieces of at most
+PIECE_BLOCKS["spmm_fused"] blocks and about PIECE_WORK["spmm_fused"]
+units of work, the pieces summed in piece order, so two launches give the
+same bits.
+
 A CPU tensor takes the plain version, `spmm_fused_reference`. A CUDA
 tensor launches the kernel or raises: there is no fallback.
 """
@@ -21,10 +28,11 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _INT_MAX, _check, cast_out, launch
+from .block_spmm import _INT_MAX, _check, cast_out, launch, plan_walk, walk_workspace
 from .reference import CHUNK_BYTES, block_sum, check_binary
 
-_WARPS = 16  # 32-row words a thread block of the kernel owns
+_COLS = 128  # feature columns a thread block of the kernel sums (csrc/spmm_fused.cu kCols)
+_TILE_LANES = 128  # lanes of a block staged at once (csrc/spmm_fused.cu kTileLanes)
 
 
 @functools.cache
@@ -32,8 +40,15 @@ def load_library():
     """Build (or reuse) the kernel library; return (launch, error_string)."""
     rt = build("spmm_fused", ["spmm_fused.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_fused_f32", [p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_fused_f32", [p] * 7 + [i] * 11 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+def box_rows(seg: int) -> int:
+    """Rows of one tensor-map box of K3's bulk copies (csrc/spmm_fused.cu
+    box_rows): the largest power of two that divides both `seg` and a
+    tile's 128 lanes, so that no box crosses a run's or a tile's edge."""
+    return min(seg & -seg, _TILE_LANES)
 
 
 def _check_geometry(plan: SpmmPlan) -> None:
@@ -93,17 +108,24 @@ def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tens
     _check(plan, feat, "spmm_fused")
     _check_geometry(plan)
     cfg = plan.config
-    if plan.num_windows * -(-cfg.words_per_col // _WARPS) > _INT_MAX:
-        raise ValueError("num_windows * block_h / 512 exceeds spmm_fused's grid limits")
     d = feat.shape[1]
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
+        walk = plan_walk(plan, "spmm_fused")
+        if walk.tasks.shape[0] * -(-d // _COLS) > _INT_MAX:
+            raise ValueError("pieces x column chunks exceed spmm_fused's grid limits")
+        ws = walk_workspace("spmm_fused", walk, d, feat.device)
+        # the last int: bulk copies of 16-byte aligned rows in boxes of at
+        # least 8 rows, or 4-byte cp.async
+        bulk = int(d % 4 == 0 and feat.data_ptr() % 16 == 0
+                   and box_rows(cfg.gather_segment) >= 8)
         launch(
             "spmm_fused", load_library(), feat,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(), plan.block_ptr.data_ptr(),
-            feat.data_ptr(), out.data_ptr(),
-            plan.num_windows, cfg.words_per_col, cfg.block_h, cfg.block_w,
-            cfg.gather_segment, plan.num_nodes, plan.source_rows, d,
+            plan.bitmask.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
+            walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
+            cfg.words_per_col, walk.group_words, cfg.block_h, cfg.block_w, cfg.gather_segment,
+            plan.num_nodes, plan.source_rows, d, bulk,
         )
         spmm_fused.launches += 1
     return cast_out(out, out_dtype)

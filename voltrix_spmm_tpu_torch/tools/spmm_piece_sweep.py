@@ -1,17 +1,20 @@
-"""Kernels K1, K2, K4 and K8 against their piece limits (PIECE_BLOCKS, the
-most blocks of one window a thread block walks, and PIECE_WORK, about the
-most work; K4 has no work limit), at the shapes of chip_smoke.py's paths A
-(K1: the ogbn-arxiv proxy, PlanConfig(128, 128)) and B (K2: the same
-graph, PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at d 128
-and 256, D (K4: the same graph with self-loops, PlanConfig(64, 128), value
-planes of A and A^T from one attention vector, at d 8 and 40) and I (K8
+"""Kernels K1, K2, K3, K4 and K8 against their piece limits (PIECE_BLOCKS,
+the most blocks of one window a thread block walks, and PIECE_WORK, about
+the most work; K4 has no work limit), at the shapes of chip_smoke.py's
+paths A (K1: the ogbn-arxiv proxy, PlanConfig(128, 128)) and B (K2: the
+same graph, PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at
+d 128 and 256, D (K4: the same graph with self-loops, PlanConfig(64, 128),
+value planes of A and A^T from one attention vector, at d 8 and 40), I (K8
 alone on A's plan at d 128 and 256, and on path C's plan: the protein
 proxy, PlanConfig(2048, 128, gather_segment=128, block_unroll=4), at
-d 256).
+d 256), C (K3 on C's plan at d 8 and 256) and J.2 (K3 on the dense side of
+the JAX package's default hybrid plan of A's graph, PlanConfig(128, 128,
+8), at d 128 and 256).
 
     python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep [--kernels spmm_weighted ...]
 
-Needs one CUDA device; K8's cases build C's plan (~40 s of host time). Each (kernel, width, limits) is timed twice with
+Needs one CUDA device; K8's and K3's cases build C's plan (~40 s of host
+time). Each (kernel, width, limits) is timed twice with
 CUDA events (mean of 20 launches after 3 warm-up), the settings in turns:
 up, then down. Beside each: the workspace, and the time of the plan cut
 to its heaviest window alone (the hub window's pieces, the path that one
@@ -29,20 +32,23 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .. import PlanConfig, build_gat_graph, csr_preprocess
+from .. import PlanConfig, build_gat_graph, csr_preprocess, csr_preprocess_hybrid
 from ..data import proxy_csr, symmetrize
-from ..ops import block_spmm, quant, spmm_block, spmm_subtile, spmm_weighted
+from ..ops import block_spmm, quant, spmm_block, spmm_fused, spmm_subtile, spmm_weighted
 from ..ops.subtile_spmm import subtile_walk
 from .k6_piece_sweep import cuda_ms
 
-KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8", "spmm_weighted")
-# the limits swept, by kernel: K8 also walks C's 64-word windows, where
-# small pieces cost gigabytes of workspace; K4 has a block limit alone
+KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8", "spmm_weighted", "spmm_fused")
+# the limits swept, by kernel: K8 and K3 also walk C's 64-word windows,
+# where small pieces cost gigabytes of workspace (K3's pieces may pass
+# MAX_PIECE_BLOCKS: 4096 leaves C's windows uncut); K4 has a block limit alone
 BLOCKS = {"spmm_block": (8, 16, 32, 64), "spmm_subtile": (8, 16, 32, 64),
-          "spmm_int8": (16, 32, 64, 128, 256), "spmm_weighted": (2, 4, 8, 16, 32, 64)}
+          "spmm_int8": (16, 32, 64, 128, 256), "spmm_weighted": (2, 4, 8, 16, 32, 64),
+          "spmm_fused": (256, 1024, 4096)}
 WORK = {"spmm_block": (512, 1024, 2048, 4096, 8192),
         "spmm_subtile": (512, 1024, 2048, 4096, 8192),
-        "spmm_int8": (1024, 2048, 4096, 8192, 16384), "spmm_weighted": (None,)}
+        "spmm_int8": (1024, 2048, 4096, 8192, 16384), "spmm_weighted": (None,),
+        "spmm_fused": (None, 4096, 8192, 16384, 32768, 65536)}
 WIDTHS = (128, 256)
 
 
@@ -110,15 +116,25 @@ def main() -> None:
             q, sc = quant.quantize_padded(x)
             add("spmm_int8", "I (A's plan)", plan, d,
                 lambda p, q=q, sc=sc, d=d: quant.launch_quantized(p, q, sc, d))
+    if "spmm_fused" in kernels:
+        dense = csr_preprocess_hybrid(arxiv.indptr, arxiv.indices, n).dense.to(dev)
+        for d, x in feats.items():
+            add("spmm_fused", "J.2 (the hybrid plan's dense side)", dense, d,
+                lambda p, x=x: spmm_fused(p, x))
+    if "spmm_int8" in kernels or "spmm_fused" in kernels:
         protein = symmetrize(proxy_csr("protein", seed=0))
-        xc = torch.randn(protein.shape[0], 256, device=dev, generator=gen)
-        sparse_mm(protein, xc, "C")
+        xc = {d: torch.randn(protein.shape[0], d, device=dev, generator=gen) for d in (8, 256)}
+        sparse_mm(protein, xc[256], "C")
         plan_c = csr_preprocess(protein.indptr, protein.indices, protein.shape[0],
                                 PlanConfig(2048, 128, gather_segment=128, block_unroll=4)).to(dev)
         del protein
-        q, sc = quant.quantize_padded(xc)
-        add("spmm_int8", "C's plan", plan_c, 256,
-            lambda p, q=q, sc=sc: quant.launch_quantized(p, q, sc, 256))
+        if "spmm_int8" in kernels:
+            q, sc = quant.quantize_padded(xc[256])
+            add("spmm_int8", "C's plan", plan_c, 256,
+                lambda p, q=q, sc=sc: quant.launch_quantized(p, q, sc, 256))
+        if "spmm_fused" in kernels:
+            for d, x in xc.items():
+                add("spmm_fused", "C's plan", plan_c, d, lambda p, x=x: spmm_fused(p, x))
     if "spmm_weighted" in kernels:
         loops = ((arxiv + sp.eye(n, format="csr")) != 0).astype(np.float32).tocsr()
         loops.sort_indices()
@@ -154,7 +170,8 @@ def main() -> None:
         for current, default in zip((block_spmm.PIECE_BLOCKS, block_spmm.PIECE_WORK), defaults):
             current.clear()
             current.update(default)
-    for (name, label, d, pb, pw), t in sorted(times.items()):
+    for (name, label, d, pb, pw), t in sorted(times.items(),
+                                              key=lambda kv: (*kv[0][:4], kv[0][4] or 0)):
         st = t["stats"]
         print(f"{name} {label} d{d} PIECE_BLOCKS {pb} PIECE_WORK {pw}: {t['ms'][0]:.4f} / "
               f"{t['ms'][1]:.4f} ms; heaviest window alone {t['hub_ms'][0]:.4f} / "
