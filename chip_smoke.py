@@ -13,10 +13,11 @@ non-zero on failure (there is no CPU fallback):
    (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
    (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
    (csrc/spmm_ell_dvals.cu), K13 (csrc/attn_mh_fwd.cu), K14
-   (csrc/attn_mh_dq.cu), K15 (csrc/attn_mh_dkv.cu), K10
-   (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
-   started together, into build/kernels/. K9, K11 and K12 are the kernels
-   of K13, K14 and K15 launched with one head and float32 planes.
+   (csrc/attn_mh_dq.cu), K15 (csrc/attn_mh_dkv.cu), K9
+   (csrc/attn_fwd.cu), K10 (csrc/attn_bwd.cu) and K8
+   (csrc/spmm_int8.cu), one nvcc each, all started together, into
+   build/kernels/. K11 and K12 are the kernels of K14 and K15 launched
+   with one head and float32 planes.
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K1 and K2 also on a
@@ -40,8 +41,14 @@ non-zero on failure (there is no CPU fallback):
    dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
    allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
    exactly 0 with lse exactly 1e30. K9-K12 (out, lse, K10's dq and lane
-   planes, dq, dk, dv) on head 0 of the same problems, to the same
-   tolerance; K10's lane planes exactly 0 on lanes without bits. K8
+   planes, K10 with its fixed-order sum against the plain backward and
+   scatter_lanes, dq, dk, dv) on head 0 of the same problems, to the same
+   tolerance; K10's lane planes exactly 0 on lanes without bits. K9 and K10
+   also on their work list (from a generator of their own): a power-law
+   hub window cut into >= 16 pieces at d 8, 12 and 40 and at d 40 with
+   rows 4 bytes past a 16-byte boundary, a tail window past n at d 12
+   likewise, empty windows of both kinds at d 40; and twice on each of
+   these inputs, bit-identical (out, lse, dq, summed dk and dv). K8
    (int8 rows, bf16 dequantization) on 15 geometries under the same
    tolerance: its plain version dequantizes the same int8 rows the same
    way, so only the order of the float32 sums differs; K8 also on K1's
@@ -116,9 +123,14 @@ non-zero on failure (there is no CPU fallback):
    H. Flash GAT on a bare plan, G's graph, plan geometry and widths, one
       head at a time in float32 (the JAX package's per-head path): K9 9
       times per request; K9 and K10 9 times each per Adam step (K10's lane
-      planes summed into source rows by index_add_); logits and step-0
-      gradients against the plain path to rtol / atol 1e-4 (gradients
-      1e-4 x max|grad|, G's float32 rule). Then the split backward,
+      planes summed into source rows in a fixed order inside K10, no
+      index_add_); logits and step-0 gradients against the plain path to
+      rtol / atol 1e-4 (gradients 1e-4 x max|grad|, G's float32 rule), and
+      step 0's kernel-path gradients twice, bit-identical; K9 (out, lse)
+      and K10 (dq, summed dk and dv) twice on one input at d 8 and 40,
+      bit-identical; K9 timed in turns beside K13's kernel at one head
+      (the kernel K9 was before), K10 beside K11 + K12, and scatter_lanes
+      (index_add_) on K10's planes. Then the split backward,
       spmm_attention_ad(plan, q, k, v, plan_t=plan) at a layer-1 head (d 8)
       and at layer 2 (d 40): K9, K11 and K12 once each per width, its
       gradients against the plain ones and against K10's.
@@ -366,7 +378,7 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.models.gat import edge_orders
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.ops import (
-        attention, attention_bwd, attention_bwd_reference, attention_dkv,
+        attention, attention_bwd, attention_bwd_reference, attention_bwd_summed, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
         attention_mh_dkv, attention_mh_dkv_reference, attention_mh_dq, attention_mh_dq_reference,
         block_spmm, ell, expand_bitmask, fused_spmm, scatter_lanes, sddmm_ell, sddmm_ell_ad,
@@ -418,9 +430,9 @@ def main() -> None:
         "attn_mh_dkv": (attention_mh_dkv, attention_mh_dkv_reference, "attn_mh_dkv.cu",
                         "voltrix_spmm_tpu/ops/attention_mh.py:499",
                         attention_mh.load_dkv_library),
-        # K9, K11 and K12: K13's, K14's and K15's kernels at H = 1
-        "attn_fwd": (spmm_attention, spmm_attention_reference, "attn_mh_fwd.cu",
-                     "voltrix_spmm_tpu/ops/attention.py:75", attention_mh.load_fwd_library),
+        "attn_fwd": (spmm_attention, spmm_attention_reference, "attn_fwd.cu",
+                     "voltrix_spmm_tpu/ops/attention.py:75", attention.load_fwd_library),
+        # K11 and K12: K14's and K15's kernels at H = 1
         "attn_bwd": (attention_bwd, attention_bwd_reference, "attn_bwd.cu",
                      "voltrix_spmm_tpu/ops/attention.py:344", attention.load_bwd_library),
         "attn_dq": (attention_dq, attention_dq_reference, "attn_mh_dq.cu",
@@ -437,7 +449,7 @@ def main() -> None:
         loader()
         return time.perf_counter() - t0
 
-    sources = {k[2]: k[4] for k in kernels.values()}  # K9, K11, K12 share K13-K15's builds
+    sources = {k[2]: k[4] for k in kernels.values()}  # K11 and K12 share K14's and K15's builds
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(timed_build, sources.values())))
@@ -995,6 +1007,12 @@ def main() -> None:
             close("attn_bwd", f"{label} {part}", a, b, extra if part != "dq" else "")
         if not zero:
             fail(f"kernel attn_bwd writes lanes without bits on {label}")
+        # K10 with its fixed-order sum against the plain planes summed by scatter_lanes
+        summed = attention_bwd_summed(plan, q, k, v, out_p, lse_p, g, **kw)
+        nk = k.shape[0]
+        plain = (want[0], scatter_lanes(plan, want[1], nk), scatter_lanes(plan, want[2], nk))
+        for part, a, b in zip(("dq", "dk", "dv"), summed, plain):
+            close("attn_bwd", f"{label} summed {part}", a, b)
         bwd = (q, k, v, g, lse_p, (g * out_p).sum(-1))
         close("attn_dq", f"{label} dq", attention_dq(plan, *bwd, **kw),
               attention_dq_reference(plan, *bwd, **kw))
@@ -1086,6 +1104,83 @@ def main() -> None:
               2, 16, 16)
     attn_case("n1000 PlanConfig(2048,128) (tall windows, narrow tiles)",
               erdos_renyi_csr(1000, 0.01, 70), PlanConfig(2048, 128), 1, 300, 300)
+
+    def attn_pieces(plan, d):
+        """What K9's work list gives `plan`: pieces, windows cut, the most
+        pieces of one window, the heaviest piece's work against the mean,
+        the workspace at width d."""
+        st = attention.attention_walk_stats(plan, "spmm_attention", d)
+        most = int(torch.bincount(
+            attention.attention_walk(plan, "spmm_attention").tasks[:, 0].long()).max())
+        return (f"K9's work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS['spmm_attention']}, "
+                f"PIECE_WORK {block_spmm.PIECE_WORK['spmm_attention']}): {st['pieces']} pieces, "
+                f"{st['cut_windows']} windows cut, at most {most} in one window, heaviest "
+                f"{st['max_task_work']} units of work against a mean of "
+                f"{st['mean_task_work']:.1f}, workspace {st['workspace_mib']:.2f} MiB at d {d}")
+
+    def attn_twice(label, plan, q, k, v, g):
+        """K9 (out, lse) and K10 with its fixed-order sum (dq, dk, dv) twice
+        on the same input: the same bits, or fail."""
+        a1 = spmm_attention(plan, q, k, v, return_stats=True, negative_slope=0.2)
+        a2 = spmm_attention(plan, q, k, v, return_stats=True, negative_slope=0.2)
+        kw = dict(scale=1.0 / q.shape[1] ** 0.5, negative_slope=0.2)
+        b1 = attention_bwd_summed(plan, q, k, v, *a1, g, **kw)
+        b2 = attention_bwd_summed(plan, q, k, v, *a1, g, **kw)
+        same = all(torch.equal(x, y) for x, y in zip((*a1, *b1), (*a2, *b2)))
+        print(f"    K9 (out, lse) and K10 (dq, summed dk and dv) twice on {label}: "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{label}: two runs of K9 or K10 on the same input differ")
+
+    rng9 = np.random.default_rng(96)
+
+    def attn1_case(label, a, cfg, d, offset=False, expect=None):
+        """K9, K10 and K10's fixed-order sum (and K11, K12) against their plain
+        versions on one head of width d, q, k, v and dO from a generator of
+        their own (with `offset`, views 4 bytes past a 16-byte boundary), then
+        K9 and K10 twice on the same input."""
+        n = a.shape[0]
+        at = a.T.tocsr()
+        plan = csr_preprocess(a.indptr, a.indices, n, cfg).to(dev)
+        plan_t = csr_preprocess(at.indptr, at.indices, n, cfg).to(dev)
+        if expect is not None and not expect(plan):
+            fail(f"{label}: the plan lacks the property this case is for")
+
+        def rows():
+            x = torch.from_numpy(rng9.standard_normal((n, d)).astype(np.float32)).to(dev)
+            if not offset:
+                return x
+            buf = torch.empty(n * d + 1, device=dev)
+            buf[1:] = x.reshape(-1)
+            return buf[1:].view(n, d)
+
+        q, k, v, g = rows(), rows(), rows(), rows()
+        print(f"  {label}, d {d}{', rows 4 bytes past a 16-byte boundary' if offset else ''}: "
+              f"{attn_pieces(plan, d)}")
+        attn1_compare(label, plan, plan_t, q, k, v, g, 0.2)
+        attn_twice(label, plan, q, k, v, g)
+
+    def k9_most_pieces(p):
+        return int(torch.bincount(
+            attention.attention_walk(p, "spmm_attention").tasks[:, 0].long()).max())
+
+    print("kernels K9 and K10 (and K10's fixed-order sum) on their work list:")
+    for d in (8, 12, 40):
+        attn1_case("n8000 power-law hub window cut into >= 16 pieces", hub,
+                   PlanConfig(128, 128, block_unroll=4), d,
+                   expect=lambda p: k9_most_pieces(p) >= 16)
+    attn1_case("n8000 power-law hub window cut into >= 16 pieces", hub,
+               PlanConfig(128, 128, block_unroll=4), 40, offset=True,
+               expect=lambda p: k9_most_pieces(p) >= 16)
+    attn1_case("n3001 PlanConfig(128,128,block_unroll=4), a tail window past n", er,
+               PlanConfig(128, 128, block_unroll=4), 12, offset=True,
+               expect=lambda p: p.num_nodes % 128 != 0)
+    attn1_case("n10240 empty windows left without blocks",
+               rows_only(erdos_renyi_csr(10240, 0.002, 65), lambda r: r < 128),
+               PlanConfig(128, 128), 40, expect=lambda p: p.has_empty_windows)
+    attn1_case("n3000 isolated rows (every 7th), tail windows of zero-bit blocks",
+               isolated(erdos_renyi_csr(3000, 0.005, 66), lambda r: r % 7 and r < 2700),
+               PlanConfig(64, 128, block_unroll=2), 40, expect=zero_block)
 
     # --- 4. + 5. the paths ------------------------------------------------
     def reset_counts():
@@ -1887,14 +1982,17 @@ def main() -> None:
 
     def time_attn1(label, plan, q, k, v, g, per_width):
         """K9, K10, K11 and K12 at one of path H's layers (one head: q, k, v,
-        dO): held against their plain versions, timed in turns with them,
-        each kernel's bound from this problem's edges; and the scatter of
-        K10's lane planes."""
+        dO): held against their plain versions, K9 and K10 twice on one input,
+        timed in turns with their plain versions, each kernel's bound from
+        this problem's edges; K9 beside K13's kernel at one head (the kernel
+        K9 was before), K10 (with its fixed-order sum, as the step runs it)
+        beside K10's lane planes and scatter_lanes (index_add_) on them."""
         n, dk = q.shape
         dv = v.shape[1]
         tag = f"d{dk}"
-        print(f"  kernels at one head of width {dk}/{dv}:")
+        print(f"  kernels at one head of width {dk}/{dv}: {attn_pieces(plan, dv)}")
         attn1_compare(f"path {label} {tag}", plan, plan, q, k, v, g, 0.2)
+        attn_twice(f"path {label} {tag}", plan, q, k, v, g)
         kw = dict(scale=1.0 / dk ** 0.5, negative_slope=0.2)
         with torch.no_grad():
             out, lse = spmm_attention(plan, q, k, v, return_stats=True, negative_slope=0.2)
@@ -1902,18 +2000,23 @@ def main() -> None:
             _, dk_lane, dv_lane = attention_bwd(plan, q, k, v, out, lse, g, **kw)
         plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
         edges, lanes = plan.num_edges, plan.total_blocks * plan.config.block_w
+
+        def plain_bwd():
+            dq, dkl, dvl = attention_bwd_reference(plan, q, k, v, out, lse, g, **kw)
+            return dq, scatter_lanes(plan, dkl, n), scatter_lanes(plan, dvl, n)
+
         fns = {
             # reads the plan, q, k and v once; writes out and lse once
             "attn_fwd": (lambda: spmm_attention(plan, q, k, v, negative_slope=0.2),
                          lambda: spmm_attention_reference(plan, q, k, v, negative_slope=0.2),
                          plan_bytes + n * 4 * (2 * dk + 2 * dv) + lse.numel() * 4,
                          edges * 2 * (dk + dv)),
-            # reads the plan, q, k, v, out, dO and lse once; writes dq and the
-            # two lane planes once
-            "attn_bwd": (lambda: attention_bwd(plan, q, k, v, out, lse, g, **kw),
-                         lambda: attention_bwd_reference(plan, q, k, v, out, lse, g, **kw),
+            # K10 and its fixed-order sum: reads the plan, q, k, v, out, dO and
+            # lse once; writes dq, dk and dv once
+            "attn_bwd": (lambda: attention_bwd_summed(plan, q, k, v, out, lse, g, **kw),
+                         plain_bwd,
                          plan_bytes + n * 4 * (3 * dk + 3 * dv) + lse.numel() * 4
-                         + lanes * 4 * (dk + dv), edges * (6 * dk + 4 * dv) + 2 * n * dv),
+                         + n * 4 * (dk + dv), edges * (6 * dk + 4 * dv) + 2 * n * dv),
             # reads the plan, q, k, v, dO, lse and D once; writes dq once
             "attn_dq": (lambda: attention_dq(plan, *bwd, **kw),
                         lambda: attention_dq_reference(plan, *bwd, **kw),
@@ -1932,12 +2035,22 @@ def main() -> None:
             print(f"  {name} {tag}: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, no library call, bound {b_ms:.4f} ms "
                   f"({b_by})")
+        # K9 beside the kernel it was before (K13's at one head), in turns
+        new_ms, old_ms, turns = in_turns(
+            torch, fns["attn_fwd"][0],
+            lambda: spmm_attention_mh(plan, q[None], k[None], v[None], negative_slope=0.2),
+            plain_iters=20)
+        print(f"  attn_fwd {tag}: K9 {turns[1]:.4f} / {turns[2]:.4f} ms against K13's kernel at "
+              f"one head {turns[0]:.4f} / {turns[3]:.4f} ms")
+        lanes_ms = cuda_ms(torch, lambda: attention_bwd(plan, q, k, v, out, lse, g, **kw))
         s_ms = cuda_ms(torch, lambda: (scatter_lanes(plan, dk_lane, n),
                                        scatter_lanes(plan, dv_lane, n)))
         s_bound, s_by = bound_ms(lanes * 4 * (dk + dv + 2) + n * 4 * (dk + dv), lanes * (dk + dv))
-        per_width["scatter"][tag] = (s_ms, s_bound)
-        print(f"  scatter_lanes of K10's dk and dv planes {tag}: index_add_ {s_ms:.4f} ms, "
-              f"bound {s_bound:.4f} ms ({s_by})")
+        per_width["scatter"][tag] = (s_ms, s_bound, old_ms, lanes_ms)
+        print(f"  attn_bwd {tag}: K10 with its fixed-order sum {per_width['attn_bwd'][tag][0]:.4f}"
+              f" ms; K10's lane planes {lanes_ms:.4f} ms; scatter_lanes of those planes: "
+              f"index_add_ {s_ms:.4f} ms, bound {s_bound:.4f} ms ({s_by}); K11 + K12 "
+              f"{per_width['attn_dq'][tag][0] + per_width['attn_dkv'][tag][0]:.4f} ms")
 
     def flash_head_path(label, a, cfg, widths, heads):
         """Path H: flash GAT on a bare plan of `a`, one head at a time in
@@ -1950,9 +2063,15 @@ def main() -> None:
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
         lanes = plan.total_blocks * cfg.block_w
+        t0 = time.perf_counter()
+        held = attention.plan_lane_sources(plan).lane.numel()
+        torch.cuda.synchronize()
+        t_order = time.perf_counter() - t0
         print(f"path {label}: {n} nodes, {plan.num_edges} edges, {cfg}: {plan.total_blocks} "
-              f"blocks, {lanes} lane slots (K10's lane planes {lanes * 4 * 2 * hidden / 1e6:.1f} "
-              f"MB per layer-1 head, {lanes * 4 * 2 * classes / 1e6:.1f} MB at layer 2); "
+              f"blocks, {lanes} lane slots, {held} with bits (K10's slots in the source order "
+              f"{held * 4 * 2 * hidden / 1e6:.1f} MB per layer-1 head, "
+              f"{held * 4 * 2 * classes / 1e6:.1f} MB at layer 2; the order built in "
+              f"{t_order:.2f} s, {(held * 2 + lanes + n + 1) * 4 / 1e6:.1f} MB of int32); "
               f"float32, the per-head path applies no plane rule; csr_preprocess {t_build:.2f} s")
         prng = np.random.default_rng(2)  # G's parameters
         h2 = heads * hidden
@@ -2038,6 +2157,20 @@ def main() -> None:
             tmodel.params(), plan, xs[0], y,
             {"attn_fwd": per_request, "attn_bwd": per_request}, atol_scale=1e-4)
         loss_fell(label, losses, final)
+        # step 0's gradients on the kernel path, twice from the same parameters
+        p0 = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev)).params()
+
+        def kernel_grads():
+            leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+            loss = gat_flash_loss(leaves, plan, xs[0], y)
+            return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+        first, again = kernel_grads(), kernel_grads()
+        same = all(torch.equal(first[k], again[k]) for k in first)
+        print(f"  step 0's kernel-path gradients twice: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of step 0 on the kernel path give different gradients")
+        del p0, first, again
         step_ms, plain_step_ms = time_steps(
             make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_flash_loss),
             tmodel.params(), plan, xs[0], y)
@@ -2093,14 +2226,16 @@ def main() -> None:
             results[name] = {**c, "ms": sum(t[0] for t in per.values()),
                              "plain_ms": sum(t[1] for t in per.values()), "library_ms": None,
                              "bound_ms": sum(t[3] for t in per.values()), "bound_by": widest[4],
-                             "note": ("K13's, K14's or K15's kernel at H = 1"
-                                      if name != "attn_bwd" else "its own kernel")}
+                             "note": ("K14's or K15's kernel at H = 1"
+                                      if name in ("attn_dq", "attn_dkv") else "its own kernel")}
             for tag, (k_ms, p_ms, _, b_ms, _) in per.items():
                 results[name].update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
                                       f"bound_ms_{tag}": b_ms})
-        for tag, (s_ms, s_bound) in per_width["scatter"].items():
+        for tag, (s_ms, s_bound, old_ms, lanes_ms) in per_width["scatter"].items():
             results["attn_bwd"].update({f"scatter_ms_{tag}": s_ms,
-                                        f"scatter_bound_ms_{tag}": s_bound})
+                                        f"scatter_bound_ms_{tag}": s_bound,
+                                        f"lane_planes_ms_{tag}": lanes_ms})
+            results["attn_fwd"][f"k13_one_head_ms_{tag}"] = old_ms
         return results
 
     def linkpred_path(label, a, cfg, widths):

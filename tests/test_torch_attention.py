@@ -29,9 +29,11 @@ from voltrix_spmm_tpu.format import csr_preprocess as jax_csr_preprocess
 from voltrix_spmm_tpu.ops import spmm_attention as jax_attention
 from voltrix_spmm_tpu.ops import spmm_attention_ad as jax_attention_ad
 from voltrix_spmm_tpu.ops.attention import _attn_bwd as jax_attn_bwd
+from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.ops import (
     attention_bwd,
     attention_bwd_reference,
+    attention_bwd_summed,
     attention_dkv,
     attention_dkv_reference,
     attention_dq,
@@ -42,6 +44,14 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_attention_mh_reference,
     spmm_attention_reference,
 )
+from voltrix_spmm_tpu_torch.ops._attn_core import _act, _edges
+from voltrix_spmm_tpu_torch.ops.attention import (
+    attention_walk,
+    lane_source_order,
+    plan_lane_sources,
+    sum_slots_reference,
+)
+from voltrix_spmm_tpu_torch.ops.block_spmm import PIECE_BLOCKS, PIECE_WORK
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -116,7 +126,10 @@ def test_forward_and_lse_match_jax(geometry, slope):
 
 
 def test_forward_is_the_multi_head_op_at_one_head():
-    """K9 is K13 at H = 1: the plain versions agree bit for bit."""
+    """K9's plain version is K13's at H = 1, bit for bit. The kernels are no
+    longer one: K9 has its own row walk (csrc/attn_fwd.cu), K13 its task
+    walk (csrc/attn_mh_fwd.cu), and chip_smoke.py holds each to its plain
+    version on the card."""
     a = random_graph(seed=3, n=200)
     _, (tp, _) = plans(a, GEOMETRIES["h128u2"])
     q, k, v = map(torch.from_numpy, qkv(200, 8, 12, seed=4))
@@ -299,6 +312,13 @@ def test_scatter_lanes_sums_by_hind():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="plane"):
         scatter_lanes(tp, torch.zeros(hind.size - 1, 3), n)
+    # K10's fixed-order sum of the lanes that hold bits (the others are 0)
+    sources = plan_lane_sources(tp)
+    plane[~(tp.bitmask != 0).any(1).reshape(-1).numpy()] = 0.0
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(plane), jnp.asarray(hind),
+                                          num_segments=n))
+    fixed = sum_slots_reference(sources, torch.from_numpy(plane)[sources.slot_lane.long()], n)
+    np.testing.assert_allclose(fixed.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_backward_wrappers_match_the_reference_path():
@@ -426,3 +446,201 @@ def test_lane_kernel_source_builds_for_sm90a(tmp_path, monkeypatch):
     (cmd,) = [line.split() for line in log.read_text().splitlines()]
     assert cmd[-1] == os.path.join(compiler.CSRC_DIR, "attn_bwd.cu")
     assert "arch=compute_90a,code=sm_90a" in cmd and f"-I{compiler.CSRC_DIR}" in cmd
+
+
+def test_attn_fwd_source_builds_for_sm90a(tmp_path, monkeypatch):
+    """K9 builds from its own source: one nvcc for csrc/attn_fwd.cu, for
+    sm_90a, with csrc/ on the include path for the row walk it shares with
+    K10 (csrc/attn_walk.cuh)."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "if '--version' in sys.argv:\n"
+        "    print('fake nvcc 0.0'); sys.exit(0)\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+    )
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv(vt.project.NVCC_FLAG, str(nvcc))
+    monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
+    monkeypatch.setattr(compiler, "runtime_cache", {})
+    assert os.path.basename(compiler.build("attn_fwd", ["attn_fwd.cu"]).path) == "libattn_fwd.so"
+    for source in ("attn_fwd.cu", "attn_bwd.cu"):
+        with open(os.path.join(compiler.CSRC_DIR, source)) as f:
+            text = f.read()
+        assert '#include "attn_walk.cuh"' in text
+        assert "atomicAdd" not in text  # sums in a fixed order
+    (cmd,) = [line.split() for line in log.read_text().splitlines()]
+    assert cmd[-1] == os.path.join(compiler.CSRC_DIR, "attn_fwd.cu")
+    assert "arch=compute_90a,code=sm_90a" in cmd and f"-I{compiler.CSRC_DIR}" in cmd
+
+
+# --- K9's pieces and K10's source order --------------------------------------
+
+def power_law(n=1500, edges=15000, seed=3):
+    """A symmetrised Chung-Lu graph: its first window holds the hubs."""
+    return symmetrize(chung_lu_csr(n, edges, seed=seed))
+
+
+def k9_walk(plan, piece_blocks, piece_work):
+    """attention_walk(plan, "spmm_attention") at the given limits."""
+    saved = PIECE_BLOCKS["spmm_attention"], PIECE_WORK["spmm_attention"]
+    try:
+        PIECE_BLOCKS["spmm_attention"], PIECE_WORK["spmm_attention"] = piece_blocks, piece_work
+        return attention_walk(plan, "spmm_attention")
+    finally:
+        PIECE_BLOCKS["spmm_attention"], PIECE_WORK["spmm_attention"] = saved
+
+
+def emulate_k9(plan, q, k, v, scale, slope, piece_blocks, piece_work):
+    """K9's split in plain torch: each piece of a 128-row group runs the
+    online softmax over its own edges alone, leaving its share (m, l,
+    acc); a group's shares merge in piece order, each rescaled by exp(m -
+    M) with M the row's largest share maximum. Returns out and lse."""
+    cfg = plan.config
+    n, dv = q.shape[0], v.shape[1]
+    out = torch.zeros(n, dv)
+    lse = torch.full((plan.padded_nodes,), 1e30)
+    groups = {}
+    for row in k9_walk(plan, piece_blocks, piece_work).tasks.tolist():
+        groups.setdefault((row[0], row[1]), []).append(row)
+    for (w, g), rows in groups.items():
+        r0 = w * cfg.block_h + 128 * g
+        r1 = min(r0 + 128, (w + 1) * cfg.block_h)
+        shares = []
+        for _, _, b0, b1, _, _ in sorted(rows, key=lambda r: r[4]):
+            sub = dataclasses.replace(plan, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
+                                      window_of_block=plan.window_of_block[b0:b1],
+                                      total_blocks=b1 - b0)
+            er, ec, _ = _edges(sub)
+            keep = (er >= r0) & (er < min(r1, n))
+            er, ec = er[keep] - r0, ec[keep]
+            s = _act((q[er + r0] * k[ec]).sum(-1), scale, slope)
+            m = torch.full((r1 - r0,), -1e30).scatter_reduce(0, er, s, "amax")
+            p = torch.exp(s - m[er])
+            shares.append((m, torch.zeros(r1 - r0).index_add_(0, er, p),
+                           torch.zeros(r1 - r0, dv).index_add_(0, er, p[:, None] * v[ec])))
+        big = torch.stack([m for m, _, _ in shares]).amax(0)
+        den, acc = torch.zeros(r1 - r0), torch.zeros(r1 - r0, dv)
+        for m, l, a in shares:  # in piece order
+            f = torch.exp(m - big)
+            den, acc = den + l * f, acc + a * f[:, None]
+        live = slice(r0, min(r1, n))
+        out[live] = (acc / den.clamp_min(1e-30)[:, None])[:live.stop - r0]
+        lse[r0:r1] = torch.where(den > 0, big + torch.log(den.clamp_min(1e-30)), 1e30)
+    return out, lse
+
+
+K9_CASES = {
+    # a hub window cut into many pieces, by the block limit and by the work limit
+    "hub-blocks": (power_law, dict(block_h=128, block_w=128), (1, None)),
+    "hub-work": (power_law, dict(block_h=128, block_w=128, block_unroll=2), (16, 40)),
+    "tall-windows": (power_law, dict(block_h=256, block_w=128), (1, None)),
+    # windows left without blocks, and windows of zero-bit blocks
+    "empty-without-blocks": (lambda: random_graph(seed=5, n=2560, density=0.004, empty_tail=2200),
+                             dict(block_h=32, block_w=128), (1, None)),
+    "empty-padded": (lambda: random_graph(seed=5, n=300, density=0.02, empty_tail=170),
+                     dict(block_h=64, block_w=128), (1, None)),
+}
+
+
+@pytest.mark.parametrize("case", list(K9_CASES))
+def test_piece_emulation_of_k9_matches_jax(case):
+    """K9's pieces, each an online softmax over its own edges, merged in
+    piece order, against JAX's spmm_attention (its Pallas kernel, as the
+    file runs it) at FWD_TOL; rows without edges 0 with lse 1e30."""
+    graph, cfg, limits = K9_CASES[case]
+    a = graph()
+    n = a.shape[0]
+    (jp, _), (tp, _) = plans(a, cfg)
+    tasks = k9_walk(tp, *limits).tasks.numpy()
+    if case.startswith("hub") or case == "tall-windows":
+        assert np.bincount(tasks[:, 0])[0] >= 8  # the hub window, cut into many pieces
+    else:
+        assert (tp.has_empty_windows if case == "empty-without-blocks"
+                else not tp.has_empty_windows and (tp.bitmask == 0).all(2).all(1).any())
+    q, k, v = qkv(n, 12, 20, seed=31)
+    scale = 1.0 / 12 ** 0.5
+    want, want_lse = jax_attention(jp, *map(jnp.asarray, (q, k, v)), scale=scale,
+                                   negative_slope=0.2, return_stats=True)
+    got, lse = emulate_k9(tp, *map(torch.from_numpy, (q, k, v)), scale, 0.2, *limits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    empty = np.r_[np.diff(a.indptr) == 0, np.ones(tp.padded_nodes - n, bool)]
+    assert (got.numpy()[empty[:n]] == 0.0).all() and (lse.numpy()[empty] == 1e30).all()
+    np.testing.assert_allclose(lse.numpy()[~empty], np.asarray(want_lse)[~empty], **FWD_TOL)
+
+
+@pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=128, gather_segment=4),
+                                 dict(block_h=64, block_w=128, block_unroll=2),
+                                 dict(block_h=256, block_w=128, cluster_cols=True)])
+def test_k10_source_order(cfg):
+    """Each lane that holds a bit once; the lanes whose hind lies in [0, n)
+    grouped by hind (source s's slots offsets[s] .. offsets[s + 1]), in
+    lane order within a source; the lanes whose hind lies outside after
+    them, dropped from the sums; the order the same as the kept one."""
+    a = random_graph(seed=32, n=1001, density=0.01)
+    n = a.shape[0]
+    _, (tp, _) = plans(a, cfg)
+    held = (tp.bitmask != 0).any(1).reshape(-1).numpy()
+    if cfg.get("gather_segment"):  # lanes with bits whose hind lies outside [0, n)
+        hind = tp.hind.reshape(-1).clone()
+        out = np.flatnonzero(held)[::7]
+        hind[out[::2]], hind[out[1::2]] = n + 3, -2
+        tp = dataclasses.replace(tp, hind=hind.view(tp.hind.shape))
+    src = lane_source_order(tp)
+    lane, lane_slot, slot_lane = (t.numpy() for t in (src.lane, src.lane_slot, src.slot_lane))
+    offsets = src.offsets.numpy()
+    assert np.array_equal(lane, np.flatnonzero(held))  # each once, in lane order
+    assert np.array_equal(np.flatnonzero(lane_slot >= 0), lane)
+    assert np.array_equal(np.sort(lane_slot[lane]), np.arange(len(lane)))
+    assert np.array_equal(slot_lane[lane_slot[lane]], lane)
+    hind = tp.hind.reshape(-1).numpy()[slot_lane]
+    inside = (hind >= 0) & (hind < n)
+    assert offsets.shape == (n + 1,) and offsets[0] == 0 and offsets[-1] == inside.sum()
+    assert inside[:offsets[-1]].all() and not inside[offsets[-1]:].any()
+    for s in range(n):
+        mine = slot_lane[offsets[s]:offsets[s + 1]]
+        assert (hind[offsets[s]:offsets[s + 1]] == s).all() and np.all(np.diff(mine) > 0)
+    if cfg.get("gather_segment"):
+        assert (~inside).sum() == len(out)
+        plane = torch.from_numpy(np.random.default_rng(35).standard_normal(
+            (held.size, 3)).astype(np.float32)) * torch.from_numpy(held)[:, None]
+        want = np.asarray(jax.ops.segment_sum(jnp.asarray(plane.numpy()),
+                                              jnp.asarray(tp.hind.reshape(-1).numpy()),
+                                              num_segments=n))
+        got = sum_slots_reference(src, plane[src.slot_lane.long()], n)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert plan_lane_sources(tp) is plan_lane_sources(dataclasses.replace(tp, num_cols=n))
+
+
+@pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=128, block_unroll=2),
+                                 dict(block_h=128, block_w=128, gather_segment=4)])
+def test_gradients_without_plan_t_take_the_card_path(cfg):
+    """spmm_attention_ad without plan_t on CPU tensors runs the card path's
+    Python code with the plain kernels: K10's plain version once, its lane
+    planes in the source order, summed in that order; against jax.grad on
+    a hub graph and on lanes past the source rows, and close to the plain
+    path's scatter_lanes sums."""
+    a = power_law(n=1001, edges=12000)
+    n, dk, dv = a.shape[0], 12, 20
+    (jp, _), (tp, _) = plans(a, cfg)
+    q, k, v = qkv(n, dk, dv, seed=33)
+    w = np.random.default_rng(34).standard_normal((n, dv)).astype(np.float32)
+    kw = dict(scale=1.0 / dk ** 0.5, negative_slope=0.2)
+    want = _jax_grads(jp, None, q, k, v, w, **kw)
+    before = calls()
+    got = _port_grads(tp, None, q, k, v, w, **kw)
+    assert since(before) == (1, 1, 0, 0)
+    for g, ref, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, ref, **GRAD_TOL, err_msg=f"d{name}")
+    out, lse = spmm_attention(tp, *map(torch.from_numpy, (q, k, v)), return_stats=True,
+                              negative_slope=0.2)
+    args = (tp, *map(torch.from_numpy, (q, k, v)), out, lse, torch.from_numpy(w))
+    dq, dk_sum, dv_sum = attention_bwd_summed(*args, **kw)
+    dq_l, dk_lane, dv_lane = attention_bwd_reference(*args, **kw)
+    assert torch.equal(dq, dq_l)
+    for fixed, plane in ((dk_sum, dk_lane), (dv_sum, dv_lane)):
+        np.testing.assert_allclose(fixed.numpy(), scatter_lanes(tp, plane, n).numpy(), **PAIR_TOL)

@@ -1,5 +1,7 @@
 """The work list that kernels K1, K2, K4 and K8 share (ops/block_spmm.py:
-window_pieces, walk_tasks, plan_walk), on the CPU.
+window_pieces, walk_tasks, plan_walk), on the CPU; K3's slabs of it, and
+K9's and K10's (ops/attention.py:attention_walk), whose piece emulation
+against the JAX package is in tests/test_torch_attention.py.
 
 Each window's blocks are cut into pieces of at most P consecutive blocks,
 and the pieces' float32 tiles are summed in piece order. The kernels run
@@ -38,6 +40,7 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_subtile_reference,
     spmm_weighted_reference,
 )
+from voltrix_spmm_tpu_torch.ops.attention import attention_walk
 from voltrix_spmm_tpu_torch.ops.block_spmm import (
     MAX_PIECE_BLOCKS,
     PIECE_BLOCKS,
@@ -626,3 +629,106 @@ def test_fused_boxes_stay_within_a_run_and_a_tile(block_w, seg):
         assert np.array_equal(np.repeat(starts, box), np.arange(lane0, lane0 + 128) // box * box)
         assert np.all(starts // seg == (starts + box - 1) // seg)
     assert (box >= 8) == (seg % 8 == 0)
+
+
+# --- K9's and K10's work list (ops/attention.py:attention_walk) --------------
+
+def attn_walk(plan, name, piece_blocks, piece_work):
+    """attention_walk(plan, name) at the given limits (restored after)."""
+    saved = PIECE_BLOCKS[name], PIECE_WORK[name]
+    try:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = piece_blocks, piece_work
+        return attention_walk(plan, name)
+    finally:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = saved
+
+
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd"])
+@pytest.mark.parametrize("limits", [(1, None), (3, 200), (16, 1024)])
+@pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=32), dict(block_h=256, block_w=128),
+                                 dict(block_h=48, block_w=128)])
+def test_attention_pieces_cover_each_window_once_in_order(cfg, limits, name):
+    """K9's and K10's pieces cover every block of every 128-row group once,
+    in order; K9 gives every piece of a cut group a share slot of its own
+    (the merge's first slot and count), K10 its pieces 1.. (the walk's)."""
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
+    walk = attn_walk(plan, name, *limits)
+    bp = plan.block_ptr.numpy()
+    groups = by_group(walk.tasks.numpy())
+    assert set(groups) == {(w, g) for w in range(plan.num_windows) for g in range(groups_of(plan))}
+    merges = {(m[0], m[1]): (m[2], m[3]) for m in walk.merges.tolist()}
+    slots = []
+    for (w, g), rows in groups.items():
+        mine = np.array(rows)
+        assert np.array_equal(mine[:, 4], np.arange(len(mine)))
+        assert mine[0, 2] == bp[w] and mine[-1, 3] == bp[w + 1]
+        assert np.array_equal(mine[1:, 2], mine[:-1, 3])
+        assert np.all(mine[:, 3] - mine[:, 2] <= limits[0])
+        if len(mine) == 1:
+            assert mine[0, 5] == -1 and (w, g) not in merges
+            continue
+        first, count = merges[(w, g)]
+        assert count == len(mine) and np.all(mine[:, 5] == first)
+        mine_slots = first + mine[:, 4] if name == "spmm_attention" else first + mine[1:, 4] - 1
+        slots.extend(mine_slots.tolist())
+    assert sorted(slots) == list(range(walk.slots))  # every slot once
+
+
+@pytest.mark.parametrize("limits", [(2, None), (16, 300)])
+def test_attention_hub_window_splits_into_many_pieces(limits):
+    """The hub window of a power-law graph becomes many pieces of bounded
+    work: none holds more than the work limit and one block's work."""
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, block_unroll=4))
+    walk = attn_walk(plan, "spmm_attention", *limits)
+    per_window = np.bincount(walk.tasks[:, 0].numpy())
+    assert per_window[0] >= 8 and per_window.argmax() == 0
+    if limits[1] is not None:
+        work = block_work(plan)[:, 0]
+        tasks = walk.tasks.long()
+        cum = torch.cat([work.new_zeros(1), work.cumsum(0)])
+        per_task = cum[tasks[:, 3]] - cum[tasks[:, 2]]
+        assert int(per_task.max()) <= limits[1] + int(work.max())
+
+
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd"])
+def test_attention_empty_windows_get_one_empty_piece(name):
+    """A window without blocks, and every window of a plan without blocks,
+    gets one empty piece, which writes its rows."""
+    h = 128
+    n = 80 * h  # window 0 alone keeps edges: the empty windows are left without blocks
+    rng = np.random.default_rng(8)
+    rows, cols = rng.integers(0, h, 4000), rng.integers(0, n, 4000)
+    a = sp.csr_matrix((np.ones(4000, np.float32), (rows, cols)), shape=(n, n))
+    a.sum_duplicates()
+    plan = vt.csr_preprocess(*csr_args(a), vt.PlanConfig(h, 128))
+    bp = plan.block_ptr.numpy()
+    empty = [w for w in range(plan.num_windows) if bp[w + 1] == bp[w]]
+    assert plan.has_empty_windows and len(empty) == plan.num_windows - 1
+    groups = by_group(attn_walk(plan, name, 2, 100).tasks.numpy())
+    for w in empty:
+        (row,) = groups[(w, 0)]
+        assert row[2] == row[3] == bp[w] and row[4:] == [0, -1]
+    none = vt.csr_preprocess(np.zeros(N + 1, np.int64), np.zeros(0, np.int64), N,
+                             vt.PlanConfig(256, 128))
+    walk = attn_walk(none, name, 2, 100)
+    assert none.total_blocks == 0 and walk.slots == 0 and walk.merges.shape == (0, 4)
+    assert walk.tasks.shape[0] == none.num_windows * groups_of(none)
+    assert np.all(walk.tasks[:, 2:4].numpy() == 0) and np.all(walk.tasks[:, 5].numpy() == -1)
+
+
+@pytest.mark.parametrize("num_chunks", [2, 3])
+def test_attention_pieces_in_a_window_chunk_equal_the_whole_plans(num_chunks):
+    plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, block_unroll=4))
+
+    def pieces(p, w_off=0, b_off=0):
+        """(window, group, rank) -> (first block, end block, pieces)."""
+        tasks = attn_walk(p, "spmm_attention", 3, 200).tasks.numpy()
+        return {(w + w_off, g, r[4]): (r[2] + b_off, r[3] + b_off, len(rows))
+                for (w, g), rows in by_group(tasks).items() for r in rows}
+
+    whole, got, w0 = pieces(plan), {}, 0
+    bp = plan.block_ptr.numpy()
+    for sub in slice_plan_windows(plan, num_chunks):
+        got.update(pieces(sub, w0, bp[w0]))
+        w0 += sub.num_windows
+    assert got == whole

@@ -8,192 +8,336 @@
 //   dk_lane[b, j] = sum_r ds * q[r],  dv_lane[b, j] = sum_r p * dO[r]
 //                                               (over the lane's bits)
 //
-// with lse from the forward (K9) and D = rowsum(dO o out). The caller sums
-// the lane planes into source rows by hind (ops/attention.py:scatter_lanes,
-// the JAX package's segment_sum).
+// with lse from the forward (K9) and D = rowsum(dO o out); then, as the
+// JAX package's _attn_bwd sums the lane planes into source rows with
+// segment_sum over hind, dk[s] = sum of dk_lane over the lanes whose hind
+// is s (dv likewise), lanes with hind outside [0, nk) dropped.
 //
 // Replaces voltrix_spmm_tpu/ops/attention.py:_attn_bwd_kernel together with
 // its [k || v] gather. The TPU forms the (block_h, U*K) p and ds tiles on
 // the MXU per grid step, accumulates dq into the window's revisited output
 // block and writes the (U*K, d) lane planes as two transposed products.
 // Here q, dO (the window's rows) and k, v (gathered by hind) are read as
-// float (n, d) matrices inside the kernel.
+// float32 (n, d) matrices inside the kernels.
 //
-// Design (see attn_mh_common.cuh for the task split and the edge walk).
-// One thread block per (task of task_blocks plan blocks, chunk of dc <=
-// 128 columns of [dq / dk_lane || dv_lane]). The walk K13-K15 share
-// (for_each_edge_batch) deals a chunk of lanes' edges out in batches of up
-// to kBatch; each edge computes raw, p, dP and ds in registers and keeps
-// them twice in shared memory:
-// - in row order (the walk's slot, as K14 keeps ds): a thread per (row,
-//   four columns) adds sum ds * k into a (block_h x dc) dq tile with plain
-//   adds; the tile goes to dq when the window's run ends, stored when the
-//   task holds the whole window, else added with global atomicAdd (order
-//   changes from run to run);
-// - in edge order (the walk's place in the batch), which is lane order,
-//   since the scan numbers each lane's bits consecutively: in the walk's
-//   reduce step a thread per (lane, four columns) sums its lane's
-//   edges of the batch and adds them to the lane planes, which only this
-//   thread block writes (a lane lies in one block, a block in one task),
-//   so no atomics and a fixed order.
-// Lanes without bits are never touched: the wrapper zero-fills the planes.
+// Design: three passes, no float atomics, every sum in a fixed order.
+// - dq: the row walk of attn_walk.cuh on K1's work list (a lane per row,
+//   its dq columns in registers, each staged item bringing k[src] and
+//   v[src]); piece 0 of a group writes dq's rows, pieces 1.. workspace
+//   tiles that spmm_walk.cuh's merge adds in piece order.
+// - the lanes: a thread per lane that holds a bit (in lane order, the
+//   wrapper's list), walking its bits in row order with q, dO of the
+//   window's rows and k[src], v[src] its own; it writes the lane's sums to
+//   the lane's slot in the source order (ops/attention.py:
+//   lane_source_order: the lanes grouped by hind, in lane order within a
+//   source), one chunk of kAcc columns of dk and of dv per thread, so the
+//   two dots of an edge are taken once a chunk. Only lanes with bits are
+//   written.
+// - the sums (when asked): a warp per source row adds its slots in a fixed
+//   order (sum_slots_kernel).
+// So dq, dk and dv are the same in every run.
 //
 // Bound. Per edge 6 * dk + 4 * dv flops and an exp; the bytes are the
-// plan, q, k, v, dO, lse, D and dq once each, and the lane planes
-// (total_blocks * block_w * (dk + dv) floats, mostly zero lanes: 1.3 bits
-// a lane on the arxiv proxy) written once. The per-edge gathers of k and v
-// rows separate the kernel from it, as in K14.
+// plan, q, k, v, dO, lse, D, dq, dk and dv once each. The gathers of k
+// and v rows (one per queued lane in the dq walk, one per lane in the
+// lane pass), a hub row's edges taken one a step in the dq walk, and the
+// slots (lanes with bits x (dk + dv) floats, written and read once)
+// separate the kernels from it.
 
 #include "attn_mh_common.cuh"
+#include "attn_walk.cuh"
 
 namespace {
 
-using namespace voltrix_attn;
+using voltrix_attn::act;
+using voltrix_attn::act_grad;
+using voltrix_attn::load4;
+using voltrix_attn::window_rows;
+using namespace voltrix_attn_walk;
+using voltrix_walk::kB0;
+using voltrix_walk::kB1;
+using voltrix_walk::kG;
+using voltrix_walk::kRank;
+using voltrix_walk::kSlot;
+using voltrix_walk::kTaskInts;
+using voltrix_walk::kW;
+using voltrix_walk::tile_rows;
 
-// The lane (within the scanned chunk) that edge `e` of the chunk falls in:
-// s_pre[lane] <= e < s_pre[lane + 1].
-__device__ __forceinline__ int edge_lane(const int* s_pre, int e) {
-  int lo = 0, hi = blockDim.x;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (s_pre[mid] <= e) lo = mid; else hi = mid;
-  }
-  return lo;
-}
+constexpr int kSumCols = 128;  // columns of a sum thread block's warp: four a lane
+constexpr int kSumBatch = 8;   // slots a sum lane loads at once
 
-// a[0..gw) += coef * row[0..gw), gw 4 (16-byte aligned row) or 1.
-__device__ __forceinline__ void axpy_group(float coef, const float* row, bool vec, float4& a) {
-  if (vec) {
-    axpy4(coef, row, a);
-  } else {
-    a.x = fmaf(coef, __ldg(row), a.x);
-  }
-}
-
+// dq through the row walk; piece 0 of a group into dq, pieces 1.. into
+// their workspace tiles.
+template <int kAcc>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
-                const int32_t* __restrict__ hind,      // (B, K)
-                const int32_t* __restrict__ wob,       // (B,)
-                const int32_t* __restrict__ block_ptr, // (W + 1,)
-                const float* __restrict__ q,           // (nq, dk)
-                const float* __restrict__ k,           // (nk, dk)
-                const float* __restrict__ v,           // (nk, dv)
-                const float* __restrict__ g,           // dO, (nq, dv)
-                const float* __restrict__ lse,         // (>= nq,)
-                const float* __restrict__ drow,        // D, (nq,)
-                float* __restrict__ dq,                // (nq, dk), zeroed
-                float* __restrict__ dk_lane,           // (B * K, dk), zeroed
-                float* __restrict__ dv_lane,           // (B * K, dv), zeroed
-                int total_blocks, int words, int block_h, int block_w, int nq, int nk, int dk,
-                int dv, int dc, int task_blocks, float scale, float slope, int vec_k,
-                int vec_v) {
-  extern __shared__ float smem[];
-  __shared__ int s_scan[kScanInts];
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int stride = dc | 1;
-  float* s_acc = smem;                                 // (block_h, stride): the dq columns
-  float* s_ds = s_acc + (int64_t)block_h * stride;     // (kBatch,) ds in row order
-  float* s_lp = s_ds + kBatch;                         // (kBatch,) p in edge order
-  float* s_lds = s_lp + kBatch;                        // (kBatch,) ds in edge order
-  int* s_lrow = reinterpret_cast<int*>(s_lds + kBatch);  // (kBatch,) row in edge order, or -1
-  int* s_cnt = s_lrow + kBatch;                          // (block_h,)
-  int* s_off = s_cnt + block_h;                          // (block_h + 1,)
-  int* s_esrc = s_off + block_h + 1;                     // (kBatch,) source row in row order
-  const int* s_pre = s_scan;                             // the chunk's bit-count scan
-  const int c0 = blockIdx.y * dc;
-  const int cw = min(dc, dk + dv - c0);  // columns of [dk || dv] in this chunk
-  const int cq = max(0, min(cw, dk - c0));  // of which dq / dk_lane columns
-  // four columns at a time: whole groups of 4 that stay on one side of dk
-  const bool vec = vec_k && vec_v && dc % 4 == 0 && cw % 4 == 0;
-  const int gw = vec ? 4 : 1;
+attn_bwd_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
+                   const int32_t* __restrict__ hind,      // (B, K)
+                   const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
+                   const float* __restrict__ q,           // (nq, dk)
+                   const float* __restrict__ k,           // (nk, dk)
+                   const float* __restrict__ v,           // (nk, dv)
+                   const float* __restrict__ g,           // dO, (nq, dv)
+                   const float* __restrict__ lse,         // (>= nq,)
+                   const float* __restrict__ drow,        // D, (nq,)
+                   float* __restrict__ dq,                // (nq, dk)
+                   float* __restrict__ ws,                // (slots, tile rows, dk)
+                   int words, int block_h, int block_w, int nq, int nk, int dk, int dv,
+                   float scale, float slope, int vec_k, int vec_v, int nb, int nbuf) {
+  extern __shared__ __align__(16) float smem[];
+  const int* task = tasks + (int64_t)blockIdx.x * kTaskInts;
+  const int w = task[kW], gr = task[kG];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= min(kWarps, words - kWarps * gr)) return;
+  const int c0 = blockIdx.y * kAcc;
+  const int cw = min(kAcc, dk - c0);
+  const int sf = slot_floats(dk, dv);
+  float* ring = smem + warp * nbuf * nb * sf;
+  uint32_t* q_word = reinterpret_cast<uint32_t*>(smem + kWarps * nbuf * nb * sf) + warp * 2 * kQueue;
+  int32_t* q_src = reinterpret_cast<int32_t*>(q_word + kQueue);
 
-  for (int i = t; i < block_h * stride; i += nt) s_acc[i] = 0.f;
-  for (int i = t; i < block_h; i += nt) s_cnt[i] = 0;
-  for (int i = t; i < kBatch; i += nt) s_lrow[i] = -1;
-  __syncthreads();
+  const int r = 32 * warp + lane;
+  const bool in_window = r < group_rows(gr, words, block_h);
+  const int64_t row = (int64_t)w * block_h + kWarps * 32 * gr + r;
+  const bool has_row = in_window && row < nq;
+  const int64_t rr = has_row ? row : 0;
+  const float lse_r = has_row ? __ldg(lse + rr) : 0.f;
+  const float d_r = has_row ? __ldg(drow + rr) : 0.f;
+  const int kpad = (dk + 3) & ~3;
+  const float* q_row = q + rr * dk;
+  const float* g_row = g + rr * dv;
+  float acc[kAcc];
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) acc[c] = 0.f;
 
-  const int b_lo = blockIdx.x * task_blocks;
-  const int b_hi = min(total_blocks, b_lo + task_blocks);
-  for (int b = b_lo; b < b_hi;) {
-    const int w = __ldg(&wob[b]);
-    const int w_lo = __ldg(&block_ptr[w]);
-    const int w_hi = __ldg(&block_ptr[w + 1]);
-    const int e = min(b_hi, w_hi);
-    const int64_t row0 = (int64_t)w * block_h;
-    const int rows = window_rows(row0, block_h, nq);
-    for_each_edge_batch(
-        bitmask, hind, b, e, words, block_w, rows, nk, s_scan, s_cnt, s_off, s_esrc,
-        [&](int r, int src, int slot, int x) {
-          const int64_t row = row0 + r;
-          const float raw = dot(q + row * dk, k + (int64_t)src * dk, dk, vec_k);
-          const float p = expf(act(raw, scale, slope) - __ldg(&lse[row]));
-          const float dp = dot(g + row * dv, v + (int64_t)src * dv, dv, vec_v);
-          const float ds = p * (dp - __ldg(&drow[row])) * act_grad(raw, slope) * scale;
-          s_ds[slot] = ds;
-          s_lp[x] = p;
-          s_lds[x] = ds;
-          s_lrow[x] = r;
-        },
-        [&](int base, int k0, int kn) {
-          // dq: a thread per (row, group of dq columns) sums the row's slots
-          const int gq = cq / gw;
-          for (int i = t; i < rows * gq; i += nt) {
-            const int r = i / gq;
-            const int n = s_cnt[r], x0 = s_off[r];
-            if (n == 0) continue;
-            const int col = c0 + (i % gq) * gw;
-            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int x = x0; x < x0 + n; ++x) {
-              axpy_group(s_ds[x], k + (int64_t)s_esrc[x] * dk + col, vec, a);
-            }
-            float* tile = s_acc + (int64_t)r * stride + (col - c0);
-            tile[0] += a.x;
-            if (vec) {
-              tile[1] += a.y;
-              tile[2] += a.z;
-              tile[3] += a.w;
-            }
-          }
-          // the lanes: a thread per (lane, group of columns) sums the lane's
-          // edges of this batch, which are consecutive in edge order
-          const int l_lo = edge_lane(s_pre, k0), l_hi = edge_lane(s_pre, k0 + kn - 1);
-          const int groups = cw / gw;
-          for (int i = t; i < (l_hi - l_lo + 1) * groups; i += nt) {
-            const int l = l_lo + i / groups;
-            const int x0 = max(s_pre[l], k0) - k0, x1 = min(s_pre[l + 1], k0 + kn) - k0;
-            if (x0 >= x1) continue;
-            const int col = c0 + (i % groups) * gw;
-            const bool kcol = col < dk;  // dk_lane (sum ds * q) or dv_lane (sum p * dO)
-            const float* coef = kcol ? s_lds : s_lp;
-            const int ld = kcol ? dk : dv;
-            const float* rows_base = kcol ? q + row0 * dk + col : g + row0 * dv + (col - dk);
-            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int x = x0; x < x1; ++x) {
-              if (s_lrow[x] >= 0) axpy_group(coef[x], rows_base + (int64_t)s_lrow[x] * ld, vec, a);
-            }
-            const int64_t lane = (int64_t)b * block_w + base + l;
-            float* dst = kcol ? dk_lane + lane * dk + col : dv_lane + lane * dv + (col - dk);
-            if (vec) {
-              float4* d4 = reinterpret_cast<float4*>(dst);
-              float4 cur = *d4;
-              cur.x += a.x;
-              cur.y += a.y;
-              cur.z += a.z;
-              cur.w += a.w;
-              *d4 = cur;
-            } else {
-              dst[0] += a.x;
-            }
-          }
-          __syncthreads();
-          // an edge the walk drops (a row past the window's) leaves -1 here
-          for (int x = t; x < kn; x += nt) s_lrow[x] = -1;
-        });
-    flush_add(s_acc, stride, block_h, 1, rows, cq, w_lo >= b_lo && w_hi <= b_hi,
-              [&](int, int r, int c) { return dq + (row0 + r) * dk + c0 + c; });
-    __syncthreads();
-    b = e;
+  walk_word(bitmask, hind, task[kB0], task[kB1], words, kWarps * gr + warp, block_w, nk, k, v,
+            dk, dv, 0, dv, vec_k && vec_v, nb, nbuf, ring, q_word, q_src, has_row,
+            [&](const float* s) {
+              const float raw = dot4<true>(q_row, s, dk, vec_k);
+              const float p = expf(act(raw, scale, slope) - lse_r);
+              const float dp = dot4<true>(g_row, s + kpad, dv, vec_v);
+              const float ds = p * (dp - d_r) * act_grad(raw, slope) * scale;
+              axpy_staged<kAcc>(ds, s + c0, cw, acc);
+            });
+
+  const bool vec_out = vec_k && cw % 4 == 0;
+  const int rank = task[kRank];
+  if (rank == 0) {
+    if (has_row) store_row<kAcc>(dq + row * dk + c0, acc, cw, 1.f, vec_out);
+  } else if (in_window) {
+    const int64_t tr = (int64_t)(task[kSlot] + rank - 1) * tile_rows(words) + r;
+    store_row<kAcc>(ws + tr * dk + c0, acc, cw, 1.f, vec_out);
   }
+}
+
+// acc[c] += coef * row[c] for c < cw, row in global memory (16-byte
+// aligned when vec)
+template <int kAcc>
+__device__ __forceinline__ void axpy_row(float coef, const float* __restrict__ row, int cw,
+                                         bool vec, float* acc) {
+#pragma unroll
+  for (int c = 0; c < kAcc; c += 4) {
+    if (c < cw) {
+      if (vec) {
+        const float4 x = load4(row + c);
+        acc[c] = fmaf(coef, x.x, acc[c]);
+        acc[c + 1] = fmaf(coef, x.y, acc[c + 1]);
+        acc[c + 2] = fmaf(coef, x.z, acc[c + 2]);
+        acc[c + 3] = fmaf(coef, x.w, acc[c + 3]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (c + t < cw) acc[c + t] = fmaf(coef, __ldg(row + c + t), acc[c + t]);
+        }
+      }
+    }
+  }
+}
+
+// The lane planes: thread i takes the i-th lane that holds a bit (lanes, in
+// lane order), walks its bits in row order and writes its sums, columns
+// [y kAcc, (y + 1) kAcc) of dk and of dv for chunk y, to its slot
+// lane_slot[lane] of slot_k and slot_v.
+template <int kAcc>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_lane_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
+                     const int32_t* __restrict__ hind,      // (B, K)
+                     const int32_t* __restrict__ wob,       // (B,)
+                     const int32_t* __restrict__ lanes,     // (n,) lanes with bits, in order
+                     const int32_t* __restrict__ lane_slot, // (B * K,) slot of a lane
+                     const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
+                     const float* __restrict__ lse, const float* __restrict__ drow,
+                     float* __restrict__ slot_k,  // (n, dk)
+                     float* __restrict__ slot_v,  // (n, dv)
+                     int n, int words, int block_h, int block_w, int nq, int nk, int dk, int dv,
+                     float scale, float slope, int vec_k, int vec_v) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c0 = blockIdx.y * kAcc;
+  const int cwk = max(0, min(kAcc, dk - c0)), cwv = max(0, min(kAcc, dv - c0));
+  const int64_t lane = __ldg(lanes + i);
+  const int64_t b = lane / block_w;
+  const int j = static_cast<int>(lane % block_w);
+  const int64_t row0 = (int64_t)__ldg(wob + b) * block_h;
+  const int rows = window_rows(row0, block_h, nq);
+  const int64_t src = min(max(__ldg(hind + lane), 0), nk - 1);
+  const float* k_src = k + src * dk;
+  const float* v_src = v + src * dv;
+  float acc_k[kAcc], acc_v[kAcc];
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) acc_k[c] = acc_v[c] = 0.f;
+  // the lane's bits in row order, one edge a step: each lane moves on to
+  // its next word by itself, so a warp takes as many steps as its busiest
+  // lane has bits
+  const int wend = min(words, (rows + 31) / 32);
+  const uint32_t* wp = bitmask + b * words * block_w + j;
+  int wd = 0;
+  uint32_t word = wend > 0 ? __ldg(wp) : 0u;
+  while (true) {
+    while (word == 0u && ++wd < wend) word = __ldg(wp + (int64_t)wd * block_w);
+    if (word == 0u) break;
+    const int r = 32 * wd + __ffs(static_cast<int>(word)) - 1;
+    word &= word - 1;
+    if (r >= rows) break;
+    const int64_t row = row0 + r;
+    const float* q_row = q + row * dk;
+    const float* g_row = g + row * dv;
+    const float raw = dot4<false>(k_src, q_row, dk, vec_k);
+    const float p = expf(act(raw, scale, slope) - __ldg(lse + row));
+    if (cwk > 0) {
+      const float dp = dot4<false>(v_src, g_row, dv, vec_v);
+      const float ds = p * (dp - __ldg(drow + row)) * act_grad(raw, slope) * scale;
+      axpy_row<kAcc>(ds, q_row + c0, cwk, vec_k, acc_k);
+    }
+    axpy_row<kAcc>(p, g_row + c0, cwv, vec_v, acc_v);
+  }
+  const int64_t slot = __ldg(lane_slot + lane);
+  if (cwk > 0) store_row<kAcc>(slot_k + slot * dk + c0, acc_k, cwk, 1.f, vec_k);
+  if (cwv > 0) store_row<kAcc>(slot_v + slot * dv + c0, acc_v, cwv, 1.f, vec_v);
+}
+
+// out[s] = the sum of slots offsets[s] .. offsets[s + 1] - 1 (0 for none).
+// One warp per row s and chunk of kSumCols columns: cl lanes cover the
+// chunk's columns four at a time and the warp's 32 / cl groups of them take
+// every (32 / cl)-th slot, each group in order, kSumBatch loads at once;
+// the groups' sums then add up by a shuffle tree. The order is fixed, so
+// the sums are the same in every run, and a hub source's slots spread over
+// the warp.
+__global__ void __launch_bounds__(kThreads)
+sum_slots_kernel(const float* __restrict__ slot, const int32_t* __restrict__ offsets,
+                 float* __restrict__ out, int rows, int d, int cl) {
+  const int s = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (s >= rows) return;
+  const int c0 = blockIdx.y * kSumCols;
+  const int cw = min(kSumCols, d - c0);
+  const int groups = 32 / cl, grp = lane / cl, c = c0 + 4 * (lane % cl);
+  const int x0 = __ldg(offsets + s), x1 = __ldg(offsets + s + 1);
+  const bool vec = d % 4 == 0;
+  auto load = [&](int64_t x) {  // columns c .. c + 3 of slot x
+    if (vec) return __ldg(reinterpret_cast<const float4*>(slot + x * d + c));
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p = slot + x * d + c;
+    if (c < c0 + cw) y.x = __ldg(p);
+    if (c + 1 < c0 + cw) y.y = __ldg(p + 1);
+    if (c + 2 < c0 + cw) y.z = __ldg(p + 2);
+    if (c + 3 < c0 + cw) y.w = __ldg(p + 3);
+    return y;
+  };
+  const bool mine = c < c0 + cw;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int x = x0 + grp; x < x1; x += kSumBatch * groups) {
+    float4 part[kSumBatch];
+#pragma unroll
+    for (int t = 0; t < kSumBatch; ++t) {
+      if (mine && x + t * groups < x1) part[t] = load(x + t * groups);
+    }
+#pragma unroll
+    for (int t = 0; t < kSumBatch; ++t) {
+      if (mine && x + t * groups < x1) {
+        a.x += part[t].x;
+        a.y += part[t].y;
+        a.z += part[t].z;
+        a.w += part[t].w;
+      }
+    }
+  }
+  for (int o = cl; o < 32; o <<= 1) {  // the groups' sums, a fixed tree
+    a.x += __shfl_xor_sync(0xffffffffu, a.x, o);
+    a.y += __shfl_xor_sync(0xffffffffu, a.y, o);
+    a.z += __shfl_xor_sync(0xffffffffu, a.z, o);
+    a.w += __shfl_xor_sync(0xffffffffu, a.w, o);
+  }
+  if (grp == 0 && mine) {
+    float* o = out + (int64_t)s * d + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = a;
+    } else {
+      o[0] = a.x;
+      if (c + 1 < c0 + cw) o[1] = a.y;
+      if (c + 2 < c0 + cw) o[2] = a.z;
+      if (c + 3 < c0 + cw) o[3] = a.w;
+    }
+  }
+}
+
+cudaError_t launch_sum(const void* slot, const void* offsets, void* out, int rows, int d,
+                       cudaStream_t s) {
+  if (d == 0) return cudaSuccess;
+  int cl = 1;  // lanes a chunk's columns take, four columns a lane
+  while (cl < 32 && 4 * cl < min(d, kSumCols)) cl *= 2;
+  sum_slots_kernel<<<dim3((rows + kWarps - 1) / kWarps, (d + kSumCols - 1) / kSumCols), kThreads,
+                     0, s>>>(static_cast<const float*>(slot),
+                             static_cast<const int32_t*>(offsets), static_cast<float*>(out),
+                             rows, d, cl);
+  return cudaGetLastError();
+}
+
+template <int kAcc>
+int launch(const void* bitmask, const void* hind, const void* wob, const void* tasks,
+           const void* merges, const void* lanes, const void* lane_slot, const void* offsets,
+           const void* q, const void* k, const void* v, const void* g, const void* lse,
+           const void* drow, void* dq, void* ws, void* slot_k, void* slot_v, void* dk_out,
+           void* dv_out, int num_tasks, int num_merges, int n, int words, int block_h,
+           int block_w, int nq, int nk, int dk, int dv, float scale, float slope, int vec_k,
+           int vec_v, cudaStream_t s) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err = cudaSuccess;
+  if (dk > 0) {  // dq, and its cut groups' merge
+    auto walk = attn_bwd_dq_kernel<kAcc>;
+    int nb, nbuf;
+    walk_geometry(dk, dv, &nb, &nbuf);
+    if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = smem_bytes(dk, dv, nb, nbuf);
+    err = allow_smem(walk, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    walk<<<dim3(num_tasks, (dk + kAcc - 1) / kAcc), kThreads, smem, s>>>(
+        static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
+        static_cast<const int32_t*>(tasks), f(q), f(k), f(v), f(g), f(lse), f(drow),
+        static_cast<float*>(dq), static_cast<float*>(ws), words, block_h, block_w, nq, nk, dk,
+        dv, scale, slope, vec_k, vec_v, nb, nbuf);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = voltrix_walk::launch_merge(merges, ws, dq, num_merges, words, block_h, nq, dk,
+                                     dk % 4 == 0, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n > 0) {  // the lanes with bits, into their source-order slots
+    attn_bwd_lane_kernel<kAcc><<<dim3((n + kThreads - 1) / kThreads,
+                                      (max(dk, dv) + kAcc - 1) / kAcc), kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
+        static_cast<const int32_t*>(wob), static_cast<const int32_t*>(lanes),
+        static_cast<const int32_t*>(lane_slot), f(q), f(k), f(v), f(g), f(lse), f(drow),
+        static_cast<float*>(slot_k), static_cast<float*>(slot_v), n, words, block_h, block_w,
+        nq, nk, dk, dv, scale, slope, vec_k, vec_v);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (offsets) {  // the slots summed by source row
+    err = launch_sum(slot_k, offsets, dk_out, nk, dk, s);
+    if (err == cudaSuccess) err = launch_sum(slot_v, offsets, dv_out, nk, dv, s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -201,30 +345,48 @@ attn_bwd_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
 extern "C" {
 
 // Launches K10 on `stream` and returns cudaGetLastError() as an int (0 on
-// success; cudaErrorInvalidValue for a geometry it does not take). `dq`,
-// `dk_lane` and `dv_lane` must be zero-filled. All tensors are float.
+// success; cudaErrorInvalidValue for a geometry it does not take): the dq
+// walk over `tasks` and, when a group is cut, its merge (`ws`: the cut
+// groups' pieces 1.., tile_rows(words) x dk floats each), into dq; the
+// lane pass over the n lanes that hold a bit (`lanes`, in lane order),
+// each into row lane_slot[lane] of slot_k (n, dk) and slot_v (n, dv);
+// and, with `offsets` (nk + 1 ints: source s's
+// slots offsets[s] .. offsets[s + 1]), the sums of the slots into dk_out
+// (nk, dk) and dv_out (nk, dv). Every row of dq, of the n slots and of
+// dk_out and dv_out is written. acc is the column chunk a thread keeps (8,
+// 16, 32, 40 or 64). vec_k: dk % 4 == 0 with q and k 16-byte aligned;
+// vec_v: dv % 4 == 0 with v and dO aligned.
 int voltrix_attn_bwd(const void* bitmask, const void* hind, const void* wob,
-                     const void* block_ptr, const void* q, const void* k, const void* v,
-                     const void* g, const void* lse, const void* drow, void* dq, void* dk_lane,
-                     void* dv_lane, int total_blocks, int words, int block_h, int block_w, int nq,
-                     int nk, int dk, int dv, int dc, int task_blocks, float scale, float slope,
-                     int vec_k, int vec_v, void* stream) {
-  if (total_blocks <= 0 || words <= 0 || words * 32 < block_h || block_h <= 0 || block_w <= 0 ||
-      nq <= 0 || nk <= 0 || dk < 0 || dv < 0 || dk + dv <= 0 || dc <= 0 ||
-      (dk + dv + dc - 1) / dc > 65535 || task_blocks <= 0 || (vec_k && dk % 4) ||
-      (vec_v && dv % 4)) {
+                     const void* tasks, const void* merges, const void* lanes,
+                     const void* lane_slot, const void* offsets,
+                     const void* q, const void* k, const void* v, const void* g, const void* lse,
+                     const void* drow, void* dq, void* ws, void* slot_k, void* slot_v,
+                     void* dk_out, void* dv_out, int num_tasks, int num_merges, int n, int words,
+                     int block_h, int block_w, int nq, int nk, int dk, int dv, int acc,
+                     float scale, float slope, int vec_k, int vec_v, void* stream) {
+  if (num_tasks <= 0 || num_merges < 0 || n < 0 || words <= 0 || words * 32 < block_h ||
+      block_h <= 0 || block_w <= 0 || nq <= 0 || nk <= 0 || dk < 0 || dv < 0 || dk + dv <= 0 ||
+      (vec_k && dk % 4) || (vec_v && dv % 4) || (max(dk, dv) + acc - 1) / acc > 65535 ||
+      (num_merges && !ws) || (offsets && (!dk_out || !dv_out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t smem = ((int64_t)block_h * (dc | 1) + 2 * block_h + 1 + 5 * kBatch) * 4;
-  const dim3 grid((total_blocks + task_blocks - 1) / task_blocks, (dk + dv + dc - 1) / dc);
-  return launch_kernel(
-      attn_bwd_kernel, grid, smem, stream, static_cast<const uint32_t*>(bitmask),
-      static_cast<const int32_t*>(hind), static_cast<const int32_t*>(wob),
-      static_cast<const int32_t*>(block_ptr), static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<const float*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(drow), static_cast<float*>(dq),
-      static_cast<float*>(dk_lane), static_cast<float*>(dv_lane), total_blocks, words, block_h,
-      block_w, nq, nk, dk, dv, dc, task_blocks, scale, slope, vec_k, vec_v);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VOLTRIX_BWD(N)                                                                     \
+  case N:                                                                                  \
+    return launch<N>(bitmask, hind, wob, tasks, merges, lanes, lane_slot, offsets, q, k, v, \
+                     g, lse, drow, dq, ws, slot_k, slot_v, dk_out, dv_out, num_tasks,        \
+                     num_merges, n, words, block_h, block_w, nq, nk, dk, dv, scale, slope,   \
+                     vec_k, vec_v, s);
+  switch (acc) {
+    VOLTRIX_BWD(8)
+    VOLTRIX_BWD(16)
+    VOLTRIX_BWD(32)
+    VOLTRIX_BWD(40)
+    VOLTRIX_BWD(64)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VOLTRIX_BWD
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -3,6 +3,7 @@ import torch
 from .attention import (
     attention_bwd,
     attention_bwd_reference,
+    attention_bwd_summed,
     attention_dkv,
     attention_dkv_reference,
     attention_dq,
@@ -237,6 +238,7 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
 __all__ = [
     "attention_bwd",
     "attention_bwd_reference",
+    "attention_bwd_summed",
     "attention_dkv",
     "attention_dkv_reference",
     "attention_dq",

@@ -3,12 +3,13 @@ plain versions' arithmetic, the argument checks and the launches of the
 kernels of K13, K14 and K15 (csrc/attn_mh_*.cu).
 
 ops/attention_mh.py launches them over H heads with float32 or bf16
-planes; ops/attention.py launches them with H = 1 and float32 planes as
-K9, K11 and K12 (the JAX package keeps a single-head and a multi-head copy
-of each Pallas kernel only because the TPU pays one gather call per head).
-The launch functions take the entry point that calls them: its name keys
-the task size, the head group and the messages, and its `launches` count
-goes up by one where the kernel launches, and nowhere else.
+planes; ops/attention.py launches K14's and K15's with H = 1 and float32
+planes as K11 and K12 (the JAX package keeps a single-head and a
+multi-head copy of each Pallas kernel only because the TPU pays one gather
+call per head), and K9 and K10 from kernels of their own. The launch
+functions take the entry point that calls them: its name keys the task
+size, the head group and the messages, and its `launches` count goes up by
+one where the kernel launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ _NEG = -1e30  # finite -inf stand-in: exp(_NEG - m) underflows to 0
 _EMPTY_LSE = 1e30  # lse of a row with no edges: exp(s - 1e30) = 0
 # plan blocks per thread block, by entry point: the fastest of
 # python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep at path G's
-# shapes (the multi-head entry points) and path H's (the single-head ones)
+# shapes (the multi-head entry points) and path H's (K11, K12; K9 and K10
+# take PIECE_BLOCKS and PIECE_WORK of ops/block_spmm.py instead)
 _TASK_BLOCKS = {"spmm_attention_mh": 8, "attention_mh_dq": 1, "attention_mh_dkv": 2,
-                "spmm_attention": 8, "attention_dq": 1, "attention_dkv": 1, "attention_bwd": 1}
+                "attention_dq": 1, "attention_dkv": 1}
 # heads per thread block of the multi-head entry points (the sweep, path G)
 _HEAD_GROUP = {"spmm_attention_mh": 1, "attention_mh_dq": 8, "attention_mh_dkv": 1}
 _MAX_TILE_COLS = 128  # widest column chunk of a kernel's shared-memory row tile

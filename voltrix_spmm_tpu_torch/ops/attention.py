@@ -1,8 +1,8 @@
 """Fused graph attention on the binned plan, one head at a time: kernels
 K9, K10, K11 and K12, their wrappers, plain versions and gradient
 (counterpart of voltrix_spmm_tpu/ops/attention.py). The arithmetic and
-the launches it shares with the multi-head op (ops/attention_mh.py) are
-in ops/_attn_core.py.
+the launches K11 and K12 share with the multi-head op (ops/attention_mh.py)
+are in ops/_attn_core.py.
 
 For destination row r and its in-neighbours l (the plan's set bits;
 duplicate CSR edges collapse):
@@ -16,19 +16,26 @@ out_r and ds = p (dO_r . v_l - D_r) act'(raw) scale:
 
     dq[r] = sum_l ds k[l],  dk[l] = sum_r ds q[r],  dv[l] = sum_r p dO[r]
 
-- `spmm_attention` runs K9 (replacing attention.py:_attn_fwd_kernel),
-  `attention_dq` K11 (_attn_bwd_dq_kernel: dq over `plan`) and
+- `spmm_attention` runs K9 (csrc/attn_fwd.cu, replacing
+  attention.py:_attn_fwd_kernel): the row walk of csrc/attn_walk.cuh over
+  K1's work list (`attention_walk`), each 128-row group of a window cut
+  into pieces of at most PIECE_BLOCKS["spmm_attention"] blocks and about
+  PIECE_WORK["spmm_attention"] units of work (ops/block_spmm.py), the
+  pieces' (m, l, acc) shares of a cut group merged in piece order.
+- `attention_dq` runs K11 (_attn_bwd_dq_kernel: dq over `plan`) and
   `attention_dkv` K12 (_attn_bwd_dkv_kernel: dk, dv over the transpose
-  plan). These are the kernels of K13, K14 and K15 (csrc/attn_mh_*.cu)
-  launched with H = 1 and float32 planes: the JAX package keeps a
-  single-head and a multi-head copy of each only because the TPU pays one
-  gather call per head.
+  plan): the kernels of K14 and K15 (csrc/attn_mh_*.cu) launched with H =
+  1 and float32 planes.
 - `attention_bwd` runs K10 (csrc/attn_bwd.cu, replacing _attn_bwd_kernel):
-  dq over the forward plan and the per-lane planes dk_lane and dv_lane,
-  where lane (b, j) sums the set bits of column j of block b;
-  `scatter_lanes` sums such a plane into source rows by `hind`.
+  dq over the forward plan (the same row walk, on its own work list) and
+  the per-lane planes dk_lane and dv_lane, where lane (b, j) sums the set
+  bits of column j of block b. `attention_bwd_summed` runs K10 with the
+  planes summed into source rows by hind in a fixed order: the lanes that
+  hold bits, grouped by hind (`lane_source_order`), summed in lane order
+  within a source, with no atomics. `scatter_lanes` is the plain version's
+  sum (index_add_).
 - `spmm_attention_ad` is the autograd Function: forward K9; backward K11
-  and K12 when given the transpose plan, else K10 and `scatter_lanes`.
+  and K12 when given the transpose plan, else `attention_bwd_summed`.
 
 A CPU tensor takes the plain versions, which take the edges from the
 bitmask, compute scores by gather, the row maxima and denominators by
@@ -39,14 +46,15 @@ launches the kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from dataclasses import dataclass
 
 import torch
 
 from ..format.plan import SpmmPlan
+from ..utils import kept_beside
 from ._attn_core import (
-    _BATCH,
     _EMPTY_LSE,
-    _TASK_BLOCKS,
     IMPLS,
     _act,
     _check_bwd,
@@ -59,9 +67,7 @@ from ._attn_core import (
     _ds,
     _edge_chunks,
     _edges,
-    _fwd_kernel,
     _fwd_plain,
-    _geometry,
     _loader,
     _on_cuda,
     _plan_args,
@@ -69,13 +75,118 @@ from ._attn_core import (
     _tensors,
     _vec4,
 )
-from .block_spmm import launch
+from .block_spmm import _INT_MAX, PIECE_BLOCKS, PIECE_WORK, launch, plan_walk, walk_stats
 from .reference import CHUNK_BYTES
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# bitmask hind wob block_ptr, the kernel's tensors, then the geometry
+# the plan's arrays and the work list, the kernel's tensors, then the geometry
+load_fwd_library = _loader("attn_fwd", "voltrix_attn_fwd",
+                           [_p] * 11 + [_i] * 10 + [_f, _f, _i, _i, _p])
 load_bwd_library = _loader("attn_bwd", "voltrix_attn_bwd",
-                           [_p] * 13 + [_i] * 10 + [_f, _f, _i, _i, _p])
+                           [_p] * 20 + [_i] * 11 + [_f, _f, _i, _i, _p])
+# column chunks a kernel lane keeps in registers (the kernels' template
+# widths): the narrowest that holds d, else chunks of 64
+_ACC_WIDTHS = (8, 16, 32, 40, 64)
+
+
+def _acc_width(d: int) -> int:
+    return next((w for w in _ACC_WIDTHS if w >= d), _ACC_WIDTHS[-1])
+
+
+# --- the work list of K9 and K10 ---------------------------------------------------
+
+def attention_walk(plan: SpmmPlan, name: str):
+    """K9's (name "spmm_attention") or K10's ("attention_bwd") work list of
+    `plan`: ops/block_spmm.py's `plan_walk` at the kernel's PIECE_BLOCKS
+    and PIECE_WORK. K10 adds a cut group's pieces 1.. into workspace tiles
+    (the walk's layout); K9 keeps every piece's (m, l, acc) share of a cut
+    group, so its slots are renumbered: piece p of a group whose first
+    slot is s takes slot s + p, and the merges' first slots move likewise.
+    Built once per plan and kept beside its block_ptr (`utils.kept_beside`)."""
+    walk = plan_walk(plan, name)
+    if name != "spmm_attention":
+        return walk
+
+    def build():
+        merges = walk.merges.long()
+        tasks = walk.tasks.long().clone()
+        cut = tasks[:, 5] >= 0
+        # the group's place among the cut groups: one more slot before it each
+        tasks[cut, 5] += torch.searchsorted(merges[:, 2].contiguous(), tasks[cut, 5])
+        merges[:, 2] += torch.arange(len(merges), device=merges.device)
+        return dataclasses.replace(walk, tasks=tasks.int(), merges=merges.int(),
+                                   slots=walk.slots + len(merges))
+
+    key = ("shares", name, PIECE_BLOCKS[name], PIECE_WORK[name], plan.config.words_per_col,
+           plan.source_rows)
+    return kept_beside(plan.block_ptr, key, build, plan.bitmask, plan.hind, plan.occ)
+
+
+def attention_walk_stats(plan: SpmmPlan, name: str, d: int) -> dict:
+    """`walk_stats` of K9's or K10's work list at width d, with the
+    kernel's own workspace: K9 keeps m, l and d columns a row of every
+    piece of a cut group, K10 d columns of its pieces 1.. (MiB)."""
+    walk = attention_walk(plan, name)
+    stats = walk_stats(plan, walk, d)
+    width = d + 2 if name == "spmm_attention" else d
+    stats["workspace_mib"] = walk.slots * walk.rows * width * 4 / 2**20
+    return stats
+
+
+# --- K10's source order --------------------------------------------------------------
+
+@dataclass
+class LaneSources:
+    """K10's source order of a plan (`lane_source_order`), on its device."""
+
+    lane: torch.Tensor  # int32 (n,) the flat lanes b * block_w + j that hold a bit, ascending
+    lane_slot: torch.Tensor  # int32 (total_blocks * block_w,) a lane's slot, -1 without bits
+    slot_lane: torch.Tensor  # int32 (n,) the lane of each slot
+    offsets: torch.Tensor  # int32 (source_rows + 1,) source s's slots offsets[s] .. offsets[s + 1]
+
+
+def lane_source_order(plan: SpmmPlan) -> LaneSources:
+    """The plan's lanes that hold a bit, each once, and their order by
+    source: the lanes whose hind lies in [0, source_rows) grouped by hind,
+    in lane order within a source (source s's slots are offsets[s] ..
+    offsets[s + 1]), then the lanes whose hind lies outside, which the sum
+    drops, as segment_sum drops them. Plain torch on the plan's device; the
+    sizes cost a host sync, once per plan (`plan_lane_sources`)."""
+    k, nk = plan.config.block_w, plan.source_rows
+    if plan.total_blocks * k > _INT_MAX:
+        raise ValueError("K10's source order indexes lanes with 32-bit ints")
+    lane = torch.nonzero((plan.bitmask != 0).any(1).reshape(-1)).squeeze(1)
+    hind = plan.hind.reshape(-1)[lane].long()
+    key = torch.where((hind >= 0) & (hind < nk), hind, nk)
+    _, order = torch.sort(key, stable=True)
+    lane_slot = torch.full((plan.total_blocks * k,), -1, dtype=torch.int32, device=lane.device)
+    lane_slot[lane[order]] = torch.arange(len(order), dtype=torch.int32, device=lane.device)
+    offsets = torch.zeros(nk + 1, dtype=torch.int64, device=lane.device)
+    torch.cumsum(torch.bincount(key, minlength=nk + 1)[:nk], 0, out=offsets[1:])
+    return LaneSources(lane=lane.int(), lane_slot=lane_slot, slot_lane=lane[order].int(),
+                       offsets=offsets.int())
+
+
+def plan_lane_sources(plan: SpmmPlan) -> LaneSources:
+    """`lane_source_order(plan)`, built at its first use and kept beside
+    the plan's hind tensor (checked against its bitmask)."""
+    key = ("lane_sources", plan.source_rows, plan.config.block_w)
+    return kept_beside(plan.hind, key, lambda: lane_source_order(plan), plan.bitmask)
+
+
+def sum_slots_reference(sources: LaneSources, slots: torch.Tensor,
+                        num_rows: int) -> torch.Tensor:
+    """The plain version of K10's sum: (num_rows, d) rows, row s the sum of
+    `slots` (a plane in the source order) over s's slots, in order
+    (`torch.segment_reduce`); slots past the in-range sources are dropped."""
+    offsets = sources.offsets.long()
+    if offsets.numel() != num_rows + 1:
+        raise ValueError(f"sum_slots_reference: the order has {offsets.numel() - 1} source rows, "
+                         f"not {num_rows}")
+    kept = slots[:int(offsets[-1])]
+    if kept.shape[0] == 0:
+        return slots.new_zeros(num_rows, slots.shape[1])
+    return torch.segment_reduce(kept, "sum", offsets=offsets, unsafe=True)
 
 
 def _one_head(name: str, *tensors):
@@ -115,8 +226,8 @@ spmm_attention_reference.calls = 0  # plain-int call count, read by chip_smoke.p
 def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                    negative_slope: float = 1.0, block_d=None, compute_dtype=None,
                    precision=None, return_stats: bool = False, interpret=None, out_dtype=None):
-    """Fused attention aggregation of one head through kernel K9 (K13's
-    kernel at H = 1): out[r] = softmax over r's in-neighbours l of
+    """Fused attention aggregation of one head through kernel K9
+    (csrc/attn_fwd.cu): out[r] = softmax over r's in-neighbours l of
     act(scale q[r] . k[l]), applied to v. q (num_nodes, dk), k (source_rows,
     dk), v (source_rows, dv); returns (num_nodes, dv) in `out_dtype`
     (default v's) and, with return_stats, lse (padded_nodes,) float32.
@@ -138,13 +249,47 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
         return spmm_attention_reference(plan, q, k, v, scale=scale,
                                         negative_slope=negative_slope,
                                         return_stats=return_stats, out_dtype=out_dtype)
-    out, lse = _fwd_kernel(spmm_attention, plan, q[None], k[None], v[None], scale,
-                           negative_slope, None)
-    out = out[0].to(out_dtype)
-    return (out, lse[0]) if return_stats else out
+    out, lse = _fwd_kernel(plan, q, k, v, scale, negative_slope)
+    out = out.to(out_dtype)
+    return (out, lse) if return_stats else out
 
 
 spmm_attention.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float):
+    """out (num_nodes, dv) and lse (padded_nodes,), float32, through K9:
+    the walk over `attention_walk(plan, "spmm_attention")` and, when a
+    group is cut, the merge of its shares. Every row is written."""
+    name = "spmm_attention"
+    dev = q.device
+    _plan_args(plan, dev, name)
+    f32 = torch.float32
+    qc, kc, vc = _tensors(name, dev, (q, f32), (k, f32), (v, f32))
+    (nq, dk), (nk, dv) = qc.shape, vc.shape
+    cfg = plan.config
+    out = torch.empty(nq, dv, dtype=f32, device=dev)
+    lse = torch.empty(plan.padded_nodes, dtype=f32, device=dev)
+    if dv == 0:
+        return out, lse.fill_(_EMPTY_LSE)
+    walk = attention_walk(plan, name)
+    acc = _acc_width(dv)
+    if walk.tasks.shape[0] > _INT_MAX or -(-dv // acc) > 65535:
+        raise ValueError(f"{name}: more tasks or columns than the grid takes")
+    ws_ml = ws_acc = None
+    if walk.slots:
+        ws_ml = torch.empty(walk.slots * walk.rows * 2, dtype=f32, device=dev)
+        ws_acc = torch.empty(walk.slots * walk.rows * dv, dtype=f32, device=dev)
+    launch(
+        name, load_fwd_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), qc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), None if ws_acc is None else ws_acc.data_ptr(),
+        walk.tasks.shape[0], walk.merges.shape[0], cfg.words_per_col, cfg.block_h, cfg.block_w,
+        nq, nk, dk, dv, acc, float(scale), float(slope), _vec4(dk, qc, kc), _vec4(dv, vc, out),
+    )
+    spmm_attention.launches += 1
+    return out, lse
 
 
 # --- K11 and K12: the split backward ----------------------------------------------
@@ -254,44 +399,89 @@ attention_bwd_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 def attention_bwd(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
                   negative_slope: float = 1.0):
     """(dq, dk_lane, dv_lane) float32 through kernel K10 (csrc/attn_bwd.cu);
-    see the plain version. D = rowsum(dO o out) is one PyTorch reduction
-    before the launch."""
+    see the plain version. K10 writes the lanes that hold bits in the
+    source order (`plan_lane_sources`); their rows go to their lanes of
+    planes that are zero elsewhere. D = rowsum(dO o out) is one PyTorch
+    reduction before the launch."""
     if not _on_cuda(q, "attention_bwd"):
         return attention_bwd_reference(plan, q, k, v, out, lse, g, scale=scale,
                                        negative_slope=negative_slope)
+    dq, slot_k, slot_v = _bwd_kernel(plan, q, k, v, out, lse, g, scale, negative_slope, False)
+    lanes = plan.total_blocks * plan.config.block_w
+    idx = plan_lane_sources(plan).slot_lane.long()
+    planes = [torch.zeros(lanes, t.shape[1], dtype=t.dtype, device=t.device).index_copy_(0, idx, t)
+              for t in (slot_k, slot_v)]
+    return dq, *planes
+
+
+attention_bwd.launches = 0  # plain-int launch count, read by chip_smoke.py
+
+
+def attention_bwd_summed(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
+                         negative_slope: float = 1.0):
+    """(dq, dk, dv) float32: K10 with its lane planes summed into source
+    rows by hind in a fixed order, with no atomics (what `segment_sum`
+    gives in the JAX package's _attn_bwd). A CUDA tensor launches K10 once
+    (csrc/attn_bwd.cu: its dq walk, its lane pass into the source order of
+    `plan_lane_sources`, and its sum, a warp per source row adding its
+    slots in order); a CPU tensor runs the plain version of K10, takes its
+    lane planes in the same order and sums them with
+    `sum_slots_reference`."""
+    nk = k.shape[0]
+    if _on_cuda(q, "attention_bwd"):
+        return _bwd_kernel(plan, q, k, v, out, lse, g, scale, negative_slope, True)
+    dq, dk_lane, dv_lane = attention_bwd_reference(plan, q, k, v, out, lse, g, scale=scale,
+                                                   negative_slope=negative_slope)
+    sources = plan_lane_sources(plan)
+    idx = sources.slot_lane.long()
+    return (dq, *(sum_slots_reference(sources, t.index_select(0, idx), nk)
+                  for t in (dk_lane, dv_lane)))
+
+
+def _bwd_kernel(plan: SpmmPlan, q, k, v, out, lse, g, scale: float, slope: float, summed: bool):
+    """K10 on the card: dq and either the lanes' rows in the source order
+    (slot_k, slot_v: one row for each lane that holds a bit) or, `summed`,
+    dk and dv (source_rows rows). Counts one launch of attention_bwd."""
     name = "attention_bwd"
     nq, nk, dk, dv = _check_lanes(plan, q, k, v, out, lse, g, name)
     dev = q.device
-    plan_ptrs = _plan_args(plan, dev, name)
+    _plan_args(plan, dev, name)
     f32 = torch.float32
     qc, kc, vc, gc, lc = _tensors(name, dev, (q, f32), (k, f32), (v, f32), (g, f32), (lse, f32))
     d_row = (gc * out.float()).sum(-1)
     cfg = plan.config
-    lanes = plan.total_blocks * cfg.block_w
-    dq = torch.zeros(nq, dk, dtype=f32, device=dev)
-    dk_lane = torch.zeros(lanes, dk, dtype=f32, device=dev)
-    dv_lane = torch.zeros(lanes, dv, dtype=f32, device=dev)
+    sources = plan_lane_sources(plan)
+    n = sources.lane.shape[0]
     if plan.total_blocks == 0 or dk + dv == 0:
-        return dq, dk_lane, dv_lane
-    bh = cfg.block_h
-    # ds in row order, p, ds and the row in edge order, the row sort's
-    # counts and offsets, the source row in row order
-    _, dc = _geometry(bh, 1, dk + dv, lambda g: 2 * bh + 1 + 5 * _BATCH, name)
-    if -(-(dk + dv) // dc) > 65535:
-        raise ValueError(f"{name}: dk + dv exceed the grid's limits")
+        sides = (torch.zeros(nk if summed else n, d, dtype=f32, device=dev) for d in (dk, dv))
+        return torch.zeros(nq, dk, dtype=f32, device=dev), *sides
+    walk = attention_walk(plan, name)
+    acc = _acc_width(max(dk, dv))
+    if walk.tasks.shape[0] > _INT_MAX or -(-max(dk, dv) // acc) > 65535:
+        raise ValueError(f"{name}: more tasks or columns than the grid takes")
+    dq = torch.empty(nq, dk, dtype=f32, device=dev)
+    ws = (torch.empty(walk.slots * walk.rows * dk, dtype=f32, device=dev)
+          if walk.slots and dk else None)
+    slot_k = torch.empty(n, dk, dtype=f32, device=dev)
+    slot_v = torch.empty(n, dv, dtype=f32, device=dev)
+    dk_out = torch.empty(nk, dk, dtype=f32, device=dev) if summed else None
+    dv_out = torch.empty(nk, dv, dtype=f32, device=dev) if summed else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     launch(
-        name, load_bwd_library(), q,
-        *plan_ptrs, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
-        lc.data_ptr(), d_row.data_ptr(), dq.data_ptr(), dk_lane.data_ptr(), dv_lane.data_ptr(),
-        plan.total_blocks, cfg.words_per_col, bh, cfg.block_w, nq, nk, dk, dv, dc,
-        _TASK_BLOCKS[name], float(scale), float(negative_slope), _vec4(dk, qc, kc),
-        _vec4(dv, gc, vc),
+        name, load_bwd_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        plan.window_of_block.data_ptr(), walk.tasks.data_ptr(), walk.merges.data_ptr(),
+        sources.lane.data_ptr(), sources.lane_slot.data_ptr(),
+        sources.offsets.data_ptr() if summed else None, qc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), gc.data_ptr(), lc.data_ptr(), d_row.data_ptr(), dq.data_ptr(), ptr(ws),
+        slot_k.data_ptr(), slot_v.data_ptr(), ptr(dk_out), ptr(dv_out), walk.tasks.shape[0],
+        walk.merges.shape[0], n, cfg.words_per_col, cfg.block_h, cfg.block_w, nq, nk, dk, dv,
+        acc, float(scale), float(slope), _vec4(dk, qc, kc), _vec4(dv, vc, gc),
     )
     attention_bwd.launches += 1
-    return dq, dk_lane, dv_lane
-
-
-attention_bwd.launches = 0  # plain-int launch count, read by chip_smoke.py
+    return (dq, dk_out, dv_out) if summed else (dq, slot_k, slot_v)
 
 
 def scatter_lanes(plan: SpmmPlan, lane_plane: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -328,11 +518,12 @@ class _AttentionFunction(torch.autograd.Function):
         kw = dict(scale=ctx.scale, negative_slope=ctx.slope)
         ref = ctx.impl == "reference"
         dq = dk = dv = None
-        if ctx.plan_t is None:
-            bwd = attention_bwd_reference if ref else attention_bwd
-            dq, dk_lane, dv_lane = bwd(ctx.plan, q, k, v, out, lse, g, **kw)
+        if ctx.plan_t is None and ref:
+            dq, dk_lane, dv_lane = attention_bwd_reference(ctx.plan, q, k, v, out, lse, g, **kw)
             dk = scatter_lanes(ctx.plan, dk_lane, k.shape[0])
             dv = scatter_lanes(ctx.plan, dv_lane, v.shape[0])
+        elif ctx.plan_t is None:
+            dq, dk, dv = attention_bwd_summed(ctx.plan, q, k, v, out, lse, g, **kw)
         else:
             d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
             if ctx.needs_input_grad[0]:
@@ -352,8 +543,10 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
     v): exactly `spmm_attention` forward (K9), saving out and lse, never a
     per-edge tensor. With plan_t (csr_preprocess of A^T; the same object
     for a symmetric graph) the backward is split: K11 over `plan` for dq
-    and K12 over `plan_t` for dk and dv. Without it, K10 emits dq and the
-    per-lane dk and dv planes, which `scatter_lanes` sums by hind. impl:
+    and K12 over `plan_t` for dk and dv. Without it, K10 emits dq and sums
+    its per-lane dk and dv planes by hind in a fixed order
+    (`attention_bwd_summed`); impl="reference" sums the plain version's
+    planes with `scatter_lanes`. impl:
     "auto" (the kernels on the card, the plain versions on the CPU) or
     "reference" (the plain versions)."""
     if impl not in IMPLS:

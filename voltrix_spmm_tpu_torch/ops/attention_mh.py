@@ -24,7 +24,7 @@ lse exactly 1e30.
 
 The launches, the plain versions' arithmetic and the argument checks
 live in ops/_attn_core.py, which the single-head op (ops/attention.py)
-shares: its kernels K9, K11 and K12 are these three at H = 1. This module
+shares: its kernels K11 and K12 are K14 and K15 at H = 1. This module
 adds the head stacks' entry points, the plane dtype, the subtile flag and
 its own counts.
 

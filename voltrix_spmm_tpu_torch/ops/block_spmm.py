@@ -14,7 +14,8 @@ into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
 `block_work`). Kernel K4 (ops/weighted.py) takes the same list with a
 block limit alone, as its blocks all cost the same; kernel K3
 (ops/fused_spmm.py) takes it with groups of 256 rows on windows taller
-than 128 rows (`group_words`). The list is built on
+than 128 rows (`group_words`); kernels K9 and K10 (ops/attention.py:
+attention_walk) take it for their row walks. The list is built on
 the host from the plan's block_ptr, each block's work (and K2's
 occupancy) at a plan's first launch for each kernel, the only host sync,
 and kept beside the plan's block_ptr tensor, outside its dataclass
@@ -45,14 +46,18 @@ MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`; None: no work limit), by kernel:
 # python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B;
-# K8 on paths I and C; K4 on path D's plans; K3 on paths C and J.2)
+# K8 on paths I and C; K4 on path D's plans; K3 on paths C and J.2) and, for
+# K9 ("spmm_attention") and K10 ("attention_bwd", its dq walk),
+# python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep (path H)
 PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128, "spmm_weighted": 8,
-                "spmm_fused": 4096}
+                "spmm_fused": 4096, "spmm_attention": 32, "attention_bwd": 32}
 PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048,
-              "spmm_weighted": None, "spmm_fused": 8192}
+              "spmm_weighted": None, "spmm_fused": 8192, "spmm_attention": 512,
+              "attention_bwd": 512}
 # the most blocks a piece may hold (csrc/spmm_walk.cuh kMaxPiece), by kernel:
-# K3 walks a piece's block range in order and holds no list of its blocks
-PIECE_BLOCKS_CAP = {"spmm_fused": None}
+# K3, K9 and K10 walk a piece's block range in order and hold no list of its
+# blocks
+PIECE_BLOCKS_CAP = {"spmm_fused": None, "spmm_attention": None, "attention_bwd": None}
 # 32-row words of a work-list group on windows taller than four words, by
 # kernel (default _GROUP_WORDS): K3 stages a block's X rows once for a slab
 # of 256 rows (csrc/spmm_fused.cu)
