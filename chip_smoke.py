@@ -12,12 +12,12 @@ non-zero on failure (there is no CPU fallback):
 2. Build: kernels K1 (csrc/spmm_block.cu), K2 (csrc/spmm_subtile.cu), K3
    (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
    (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
-   (csrc/spmm_ell_dvals.cu), K13 (csrc/attn_mh_fwd.cu), K14
-   (csrc/attn_mh_dq.cu), K15 (csrc/attn_mh_dkv.cu), K9
-   (csrc/attn_fwd.cu), K10 (csrc/attn_bwd.cu) and K8
-   (csrc/spmm_int8.cu), one nvcc each, all started together, into
-   build/kernels/. K11 and K12 are the kernels of K14 and K15 launched
-   with one head and float32 planes.
+   (csrc/spmm_ell_dvals.cu), K14 (csrc/attn_mh_dq.cu), K15
+   (csrc/attn_mh_dkv.cu), K9 and K13 (csrc/attn_fwd.cu), K10
+   (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
+   started together, into build/kernels/. K11 and K12 are the kernels of
+   K14 and K15 launched with one head and float32 planes. The SASS of K5
+   and of K9 and K13 holds no atomic instruction (tools/sass_atomics.py).
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K1 and K2 also on a
@@ -28,7 +28,12 @@ non-zero on failure (there is no CPU fallback):
    power-law hub window cut into >= 16 pieces, a window of exactly 2 x
    PIECE_BLOCKS["spmm_weighted"] blocks, d 130, values off the bitmask on
    cut windows; values and features from a generator of their own); K5
-   also exactly 0.0 off the bitmask, K7 exactly 0.0 on padding lanes; K3
+   also exactly 0.0 off the bitmask, and on its work list twice on one
+   input, bit-identical (block_w 256, bits on rows at num_nodes and beyond,
+   0.0 there, hind outside the source rows, hub windows cut into pieces,
+   two 128-row groups, three words a group, d 8-100 and 13, empty windows;
+   features and dO from a generator of their own); K7 exactly 0.0 on
+   padding lanes; K3
    also on its work list and both its walks (a power-law hub window cut
    into >= 16 pieces on J.2's geometry PlanConfig(128, 128, 8) at d 128 and
    256, d 8, 130 and 300, features 4 bytes past a 16-byte boundary, a tail
@@ -37,10 +42,10 @@ non-zero on failure (there is no CPU fallback):
    features from a generator of their own), K7 also at d 256 and 300 on
    its wide kernel, on misaligned features at d 256 and on power-law hub
    windows with padding lanes cut into pieces (from a generator of their
-   own). K13-K15 (out, lse,
-   dq, dk, dv) with float32 and bf16 planes: calc_diff < 1e-6 and
-   allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows without edges
-   exactly 0 with lse exactly 1e30. K9-K12 (out, lse, K10's dq and lane
+   own). K13-K15 (out, lse, dq, dk, dv) with float32 and bf16 planes:
+   calc_diff < 1e-6 and allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows
+   without edges exactly 0 with lse exactly 1e30; K13 twice on each
+   input, bit-identical. K9-K12 (out, lse, K10's dq and lane
    planes, K10 with its fixed-order sum against the plain backward and
    scatter_lanes, dq, dk, dv) on head 0 of the same problems, to the same
    tolerance; K10's lane planes exactly 0 on lanes without bits. K9 and K10
@@ -94,7 +99,8 @@ non-zero on failure (there is no CPU fallback):
       rounding of leaky_relu's kink and the edges whose sign differs
       between the kernel and the plain path. K4 runs twice on the same
       input at d 8 and d 40, and on A^T's plan at d 40, and must give the
-      same bits; so must step 0's kernel-path gradients, taken twice.
+      same bits, and so must K5 at d 8 and 40; so must step 0's kernel-path
+      gradients, taken twice. K5's work list is printed.
    E. Dot-product GAT serving and training on D's graph, ELL plans
       PlanConfig(128, 128, block_unroll=4), 128 -> 8 heads x 8 (ELU) ->
       40: K6 and K7 9 times per request; K6 36 and K7 18 times per Adam
@@ -119,7 +125,13 @@ non-zero on failure (there is no CPU fallback):
       rtol and atol 2e-2, gradients 1e-2 x max|grad|); the same model
       with float32 planes is held to rtol and atol 1e-4 (gradients 1e-4 x
       max|grad|: a hub row's dq sums ~38k terms whose coefficients add up
-      to 0).
+      to 0; the gradients also vary in their last bits from run to run,
+      as K14's and K15's cut-window flushes add with float atomics).
+      Request 0's logits twice, bit-identical. At each layer, on the
+      node-major projections the model passes: K13's work list (pieces,
+      windows cut, the heaviest piece against the mean, workspace), K13
+      twice on one input, bit-identical, and K13 timed in turns beside
+      head-major copies of q, k and v made in the call and K13 on those.
    H. Flash GAT on a bare plan, G's graph, plan geometry and widths, one
       head at a time in float32 (the JAX package's per-head path): K9 9
       times per request; K9 and K10 9 times each per Adam step (K10's lane
@@ -128,9 +140,9 @@ non-zero on failure (there is no CPU fallback):
       rtol / atol 1e-4 (gradients 1e-4 x max|grad|, G's float32 rule), and
       step 0's kernel-path gradients twice, bit-identical; K9 (out, lse)
       and K10 (dq, summed dk and dv) twice on one input at d 8 and 40,
-      bit-identical; K9 timed in turns beside K13's kernel at one head
-      (the kernel K9 was before), K10 beside K11 + K12, and scatter_lanes
-      (index_add_) on K10's planes. Then the split backward,
+      bit-identical; K9 timed in turns beside K13 at one head (float32
+      planes), K10 beside K11 + K12, and scatter_lanes (index_add_) on
+      K10's planes. Then the split backward,
       spmm_attention_ad(plan, q, k, v, plan_t=plan) at a layer-1 head (d 8)
       and at layer 2 (d 40): K9, K11 and K12 once each per width, its
       gradients against the plain ones and against K10's.
@@ -374,9 +386,11 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
+    from voltrix_spmm_tpu_torch.tools import sass_atomics
     from voltrix_spmm_tpu_torch.models import edge_softmax, gat_attention_aggregate
     from voltrix_spmm_tpu_torch.models.gat import edge_orders
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
+    from voltrix_spmm_tpu_torch.models.gat_flash import _project_heads
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_bwd_summed, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
@@ -421,9 +435,10 @@ def main() -> None:
                      "voltrix_spmm_tpu/ops/ell.py:35", ell.load_library),
         "spmm_ell_dvals": (spmm_ell_dvals, spmm_ell_dvals_reference, "spmm_ell_dvals.cu",
                            "voltrix_spmm_tpu/ops/ell.py:190", ell.load_dvals_library),
-        "attn_mh_fwd": (spmm_attention_mh, spmm_attention_mh_reference, "attn_mh_fwd.cu",
+        # K13: beside K9 in attn_fwd.cu, on K9's row walk with a head group
+        "attn_mh_fwd": (spmm_attention_mh, spmm_attention_mh_reference, "attn_fwd.cu",
                         "voltrix_spmm_tpu/ops/attention_mh.py:126",
-                        attention_mh.load_fwd_library),
+                        attention.load_mh_fwd_library),
         "attn_mh_dq": (attention_mh_dq, attention_mh_dq_reference, "attn_mh_dq.cu",
                        "voltrix_spmm_tpu/ops/attention_mh.py:411",
                        attention_mh.load_dq_library),
@@ -449,13 +464,21 @@ def main() -> None:
         loader()
         return time.perf_counter() - t0
 
-    sources = {k[2]: k[4] for k in kernels.values()}  # K11 and K12 share K14's and K15's builds
+    # K11 and K12 share K14's and K15's builds, K13 K9's
+    sources = {k[2]: k[4] for k in kernels.values()}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(timed_build, sources.values())))
     t_nvcc = time.perf_counter() - t0
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"{t_nvcc:.2f} s in all, into {get_build_dir()}")
+    # K5 and K13 (and K9 beside it) sum in a fixed order: no atomic of any
+    # kind in their SASS
+    for src in ("spmm_dvalues.cu", "attn_fwd.cu"):
+        ops = sass_atomics.atomics(src)
+        print(f"sass_atomics {src}: {dict(sorted(ops.items())) or 'no atomics'}")
+        if ops:
+            fail(f"{src} compiled to atomics {dict(ops)}: its sums must run in a fixed order")
 
     # --- 3. kernels against their plain versions --------------------------
     max_err = dict.fromkeys(kernels, 0.0)
@@ -787,6 +810,70 @@ def main() -> None:
          PlanConfig(64, 128), expect=lambda p: most_pieces(p, k4) >= 4, off_mask=True,
          bound=True, gen=rng4)
 
+    # K5 at set bits only, over its work list (PIECE_BLOCKS["spmm_dvalues"]):
+    # each case twice on one input, the same bits; block_w 256, bits on rows
+    # at num_nodes and beyond (0.0 there), hind outside the source rows
+    # (clipped), hub windows cut into pieces, two 128-row groups, three
+    # words a group; features and dO from a generator of their own
+    print(f"kernel K5 on its work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS['spmm_dvalues']}), "
+          "each case twice:")
+    rng5 = np.random.default_rng(92)
+
+    def k5_case(label, a, d, cfg, edit=None, expect=None):
+        n = a.shape[0]
+        plan = csr_preprocess(a.indptr, a.indices, n, cfg)
+        last = (plan.window_of_block == plan.num_windows - 1).numpy()
+        if edit == "rows_past_n":  # bits on the last window's rows n .. padded_nodes - 1
+            if not last.any():
+                fail(f"{label}: the last window has no blocks")
+            bm = plan.bitmask.numpy().copy()
+            r0 = n - (plan.num_windows - 1) * cfg.block_h
+            for r in range(r0, cfg.block_h):
+                bm[last, r // 32, ::3] |= np.int32(np.uint32(1 << (r % 32)).view(np.int32))
+            plan = dataclasses.replace(plan, bitmask=torch.from_numpy(bm))
+        if edit == "clipped":  # a fifth of the lanes with bits gather past the source rows
+            hind = plan.hind.numpy().copy().reshape(-1)
+            held = np.flatnonzero((plan.bitmask.numpy() != 0).any(1).reshape(-1))
+            hind[held[::10]], hind[held[5::10]] = n + 11, -4
+            plan = dataclasses.replace(plan, hind=torch.from_numpy(hind.reshape(plan.hind.shape)))
+        if expect is not None and not expect(plan):
+            fail(f"{label}: the plan lacks the property this case is for")
+        plan = plan.to(dev)
+        feat, grad = (torch.from_numpy(rng5.standard_normal((n, d)).astype(np.float32)).to(dev)
+                      for _ in range(2))
+        compare("spmm_dvalues", label, plan, (feat, grad))
+        out = spmm_weighted_dvalues(plan, feat, grad)
+        twice(f"  K5 {label}", lambda p, f: spmm_weighted_dvalues(p, f, grad), plan, feat)
+        if edit == "rows_past_n":
+            past = out[torch.from_numpy(last).to(dev)][:, r0:]
+            if not bool((past == 0).all()):
+                fail(f"K5 {label}: rows past num_nodes are not 0.0")
+            print(f"    rows past num_nodes: {past.numel()} values, all 0.0")
+
+    k5_case("n3000 d8 PlanConfig(64,128)", erdos_renyi_csr(3000, 0.01, 24), 8, PlanConfig(64, 128))
+    k5_case("n3000 d40 PlanConfig(64,128,block_unroll=2)", erdos_renyi_csr(3000, 0.01, 25), 40,
+            PlanConfig(64, 128, block_unroll=2))
+    k5_case("n1000 d100 PlanConfig(32,128) (two column chunks, unaligned d)",
+            erdos_renyi_csr(1000, 0.02, 26), 100, PlanConfig(32, 128))
+    k5_case("n1000 d13 PlanConfig(64,128) (4-byte copies)", erdos_renyi_csr(1000, 0.02, 27), 13,
+            PlanConfig(64, 128))
+    k5_case("n700 d64 PlanConfig(32,256) (block_w 256)", erdos_renyi_csr(700, 0.02, 28), 64,
+            PlanConfig(32, 256))
+    k5_case("n300 d40 PlanConfig(64,128), bits on rows 300-319 past num_nodes",
+            erdos_renyi_csr(300, 0.03, 29), 40, PlanConfig(64, 128), edit="rows_past_n")
+    k5_case("n1000 d40 PlanConfig(64,128), hind outside [0, n) on a fifth of the lanes "
+            "with bits", erdos_renyi_csr(1000, 0.02, 30), 40, PlanConfig(64, 128), edit="clipped")
+    k5_case("n8000 d40 PlanConfig(64,128), power-law hub windows cut into pieces", hub, 40,
+            PlanConfig(64, 128), expect=lambda p: int(torch.diff(p.block_ptr).max())
+            > 2 * block_spmm.PIECE_BLOCKS["spmm_dvalues"])
+    k5_case("n3000 d40 PlanConfig(256,128) (two 128-row groups)", erdos_renyi_csr(3000, 0.01, 31),
+            40, PlanConfig(256, 128))
+    k5_case("n1500 d24 PlanConfig(96,128) (three words a group)",
+            erdos_renyi_csr(1500, 0.01, 33), 24, PlanConfig(96, 128))
+    k5_case("n10240 d8 empty windows left without blocks",
+            rows_only(erdos_renyi_csr(10240, 0.002, 30), lambda r: r < 64), 8,
+            PlanConfig(64, 128), expect=lambda p: p.has_empty_windows)
+
     def with_duplicates(a, seed):
         """(indptr, indices, n) of `a` with a fifth of its edges repeated:
         duplicate edges keep separate ELL lanes and sum."""
@@ -1023,13 +1110,20 @@ def main() -> None:
     def attn_compare(label, plan, plan_t, q, k, v, g, slope, pdt):
         """K13, K14 and K15 against their plain versions on one problem; the
         backward takes the plain forward's lse and D. Rows without edges
-        must come out exactly 0 with lse exactly 1e30."""
+        must come out exactly 0 with lse exactly 1e30, and K13 twice on the
+        same input the same bits."""
         kw = dict(negative_slope=slope, plane_dtype=pdt)
         scale = 1.0 / q.shape[2] ** 0.5
         out_k, lse_k = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
         out_p, lse_p = spmm_attention_mh_reference(plan, q, k, v, return_stats=True, **kw)
         torch.cuda.synchronize()
         fwd_close("attn_mh_fwd", label, plan.num_nodes, out_k, lse_k, out_p, lse_p)
+        again = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
+        same = torch.equal(again[0], out_k) and torch.equal(again[1], lse_k)
+        print(f"    attn_mh_fwd {label}: K13 (out, lse) twice "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{label}: two runs of K13 on the same input differ")
         d_row = (g * out_p).sum(-1)
         bwd = (q, k, v, g, lse_p, d_row)
         kw["scale"] = scale
@@ -1543,6 +1637,7 @@ def main() -> None:
             print(f"  K5 d={d}: spmm_dvalues {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, torch.sparse.sampled_addmm {lib:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})")
+            twice(f"path {label} K5 d{d}", lambda p, f, grad=grad: k5[0](p, f, grad), wplan, feat)
         with torch.no_grad():  # A^T's plane, which the feature gradient reads
             plane_t = torch.zeros(g.plan_t.total_blocks * H * K, device=dev).index_add_(
                 0, g.slots_t, alpha)
@@ -1550,6 +1645,10 @@ def main() -> None:
             compare("spmm_weighted", f"path {label} K4 on A^T d{classes} (float32 summation "
                     "bound)", wplan_t, (feat,), deg)
         twice(f"path {label} K4 on A^T d{classes}", k4[0], wplan_t, feat)
+        walk = block_spmm.plan_walk(wplan, "spmm_dvalues")
+        print(f"  path {label} K5 work list of A (PIECE_BLOCKS "
+              f"{block_spmm.PIECE_BLOCKS['spmm_dvalues']}, no workspace): "
+              f"{walk.tasks.shape[0]} pieces, {walk.cut_windows} windows cut")
         for side, p in (("A", wplan), ("A^T", wplan_t)):
             walk = block_spmm.plan_walk(p, "spmm_weighted")
             most = int(walk.merges[:, 3].max()) if walk.merges.numel() else 1
@@ -1792,21 +1891,39 @@ def main() -> None:
                        **common, "per_width": per_width[name]}
                 for name in ("spmm_ell", "spmm_ell_dvals")}
 
+    def mh_pieces(plan, d, heads):
+        """What K13's work list gives `plan`, in the form of attn_pieces."""
+        name = "spmm_attention_mh"
+        st = attention.attention_walk_stats(plan, name, d, heads)
+        most = int(torch.bincount(attention.attention_walk(plan, name).tasks[:, 0].long()).max())
+        return (f"K13's work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS[name]}, PIECE_WORK "
+                f"{block_spmm.PIECE_WORK[name]}, head group "
+                f"{attention_mh.mh_geometry(heads, d)[0]} of HEAD_GROUP "
+                f"{attention_mh.HEAD_GROUP}): {st['pieces']} pieces, {st['cut_windows']} "
+                f"windows cut, at most {most} in one window, heaviest {st['max_task_work']} units "
+                f"of work against a mean of {st['mean_task_work']:.1f}, workspace "
+                f"{st['workspace_mib']:.2f} MiB at H {heads} x d {d}")
+
     def time_attn(label, plan, q, k, v, g, pdt, per_width):
-        """K13, K14 and K15 at one of path G's layers (q, k, v, dO): held
-        against their plain versions, timed in turns with them, and each
-        kernel's bound from this problem's edges."""
+        """K13, K14 and K15 at one of path G's layers (q, k, v as the model
+        projects them, dO): held against their plain versions, K13 twice on
+        one input, timed in turns with them, and each kernel's bound from
+        this problem's edges; K13 also after head-major copies of q, k and
+        v made in the call (what reading through strides saves). K14 and
+        K15 take head-major copies made beforehand, as they copy their
+        inputs. Returns the time of the copies and K13 on them."""
         heads, n, dk = q.shape
         dv = v.shape[2]
         tag = f"H{heads} d{dk}"
-        print(f"  kernels at {tag}/{dv}:")
+        print(f"  kernels at {tag}/{dv}: {mh_pieces(plan, dv, heads)}")
         attn_compare(f"path {label} {tag}", plan, plan, q, k, v, g, 0.2, pdt)
         scale = 1.0 / dk ** 0.5
         kw = dict(negative_slope=0.2, plane_dtype=pdt)
         with torch.no_grad():
             out, lse = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
             d_row = (g * out).sum(-1)
-        bwd = (q, k, v, g, lse, d_row)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        bwd = (qc, kc, vc, g, lse, d_row)
         plane = 2 if pdt is not None else 4
         plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
         edges = plan.num_edges * heads
@@ -1836,6 +1953,16 @@ def main() -> None:
             print(f"  {name} {tag}: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, no library call, bound {b_ms:.4f} ms "
                   f"({b_by})")
+        # the alternative to reading through strides: head-major copies made
+        # in the call, as K13's launcher made them before
+        strided_ms, copies_ms, turns = in_turns(
+            torch, fns["attn_mh_fwd"][0],
+            lambda: spmm_attention_mh(plan, q.contiguous(), k.contiguous(), v.contiguous(), **kw),
+            plain_iters=20)
+        print(f"  attn_mh_fwd {tag}: K13 on the model's projections {turns[1]:.4f} / "
+              f"{turns[2]:.4f} ms, head-major copies of them and K13 on those {turns[0]:.4f} / "
+              f"{turns[3]:.4f} ms")
+        return copies_ms
 
     def gat_flash_path(label, a, cfg, widths, heads):
         """Path G: flash GAT on the binary plan of `a`, serving (K13) and
@@ -1880,6 +2007,11 @@ def main() -> None:
         print(f"  served {REQUESTS} requests: launches {serve_counts}, plain calls {plain_calls}; "
               f"host ms per request {[round(t, 3) for t in wall_ms]}")
         check_counts(label, serve_counts, plain_calls, {"attn_mh_fwd": 2 * REQUESTS})
+        with torch.no_grad():
+            same = torch.equal(model(g, xs[0]), logits[0])
+        print(f"  request 0's logits again: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"path {label}: two runs of request 0 give different logits")
         # bf16 planes: float32 noise in layer 1's output may move a layer-2
         # input across a bf16 rounding boundary (one bf16 ulp, 2**-8
         # relative), so the two paths agree to the bf16 class (JAX's own bf16
@@ -1907,13 +2039,16 @@ def main() -> None:
         p = model.params()
         with torch.no_grad():
             x = xs[0]
-            q1, k1, v1 = (torch.matmul(x, p[w]).contiguous() for w in ("wq1", "wk1", "wv1"))
+            # the layouts the model passes: node-major projections, viewed (H, n, d)
+            q1, k1, v1 = (_project_heads(x, p[w]) for w in ("wq1", "wk1", "wv1"))
             heads1 = spmm_attention_mh(g.plan, q1, k1, v1, negative_slope=0.2, plane_dtype=pdt)
             h = F.elu(heads1.permute(1, 0, 2).reshape(n, -1))
-            q2, k2, v2 = ((h @ p[w])[None].contiguous() for w in ("wq2", "wk2", "wv2"))
-        time_attn(label, g.plan, q1, k1, v1, feat_of(heads * n, hidden).view(heads, n, hidden),
-                  pdt, per_width)
-        time_attn(label, g.plan, q2, k2, v2, feat_of(n, classes)[None], pdt, per_width)
+            q2, k2, v2 = ((h @ p[w])[None] for w in ("wq2", "wk2", "wv2"))
+        copies_ms = {
+            "h8_d8": time_attn(label, g.plan, q1, k1, v1,
+                               feat_of(heads * n, hidden).view(heads, n, hidden), pdt, per_width),
+            "h1_d40": time_attn(label, g.plan, q2, k2, v2, feat_of(n, classes)[None], pdt,
+                                per_width)}
         del q1, k1, v1, heads1, h, q2, k2, v2
         with torch.no_grad():
             req_ms, plain_req_ms, turns = in_turns(
@@ -1978,15 +2113,18 @@ def main() -> None:
             for tag, (k_ms, p_ms, _, b_ms, _) in per.items():
                 results[name].update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
                                       f"bound_ms_{tag}": b_ms})
+        results["attn_mh_fwd"].update({f"copies_and_k13_ms_{tag}": t
+                                       for tag, t in copies_ms.items()})
         return results
 
     def time_attn1(label, plan, q, k, v, g, per_width):
         """K9, K10, K11 and K12 at one of path H's layers (one head: q, k, v,
         dO): held against their plain versions, K9 and K10 twice on one input,
         timed in turns with their plain versions, each kernel's bound from
-        this problem's edges; K9 beside K13's kernel at one head (the kernel
-        K9 was before), K10 (with its fixed-order sum, as the step runs it)
-        beside K10's lane planes and scatter_lanes (index_add_) on them."""
+        this problem's edges; K9 beside K13 at one head (K13's walk with a
+        group of one head on float32 planes), K10 (with its fixed-order sum,
+        as the step runs it) beside K10's lane planes and scatter_lanes
+        (index_add_) on them."""
         n, dk = q.shape
         dv = v.shape[1]
         tag = f"d{dk}"
@@ -2035,18 +2173,18 @@ def main() -> None:
             print(f"  {name} {tag}: kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, no library call, bound {b_ms:.4f} ms "
                   f"({b_by})")
-        # K9 beside the kernel it was before (K13's at one head), in turns
-        new_ms, old_ms, turns = in_turns(
+        # K9 beside K13 at one head, in turns
+        new_ms, k13_ms, turns = in_turns(
             torch, fns["attn_fwd"][0],
             lambda: spmm_attention_mh(plan, q[None], k[None], v[None], negative_slope=0.2),
             plain_iters=20)
-        print(f"  attn_fwd {tag}: K9 {turns[1]:.4f} / {turns[2]:.4f} ms against K13's kernel at "
-              f"one head {turns[0]:.4f} / {turns[3]:.4f} ms")
+        print(f"  attn_fwd {tag}: K9 {turns[1]:.4f} / {turns[2]:.4f} ms against K13 at one head "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms")
         lanes_ms = cuda_ms(torch, lambda: attention_bwd(plan, q, k, v, out, lse, g, **kw))
         s_ms = cuda_ms(torch, lambda: (scatter_lanes(plan, dk_lane, n),
                                        scatter_lanes(plan, dv_lane, n)))
         s_bound, s_by = bound_ms(lanes * 4 * (dk + dv + 2) + n * 4 * (dk + dv), lanes * (dk + dv))
-        per_width["scatter"][tag] = (s_ms, s_bound, old_ms, lanes_ms)
+        per_width["scatter"][tag] = (s_ms, s_bound, k13_ms, lanes_ms)
         print(f"  attn_bwd {tag}: K10 with its fixed-order sum {per_width['attn_bwd'][tag][0]:.4f}"
               f" ms; K10's lane planes {lanes_ms:.4f} ms; scatter_lanes of those planes: "
               f"index_add_ {s_ms:.4f} ms, bound {s_bound:.4f} ms ({s_by}); K11 + K12 "
@@ -2231,11 +2369,11 @@ def main() -> None:
             for tag, (k_ms, p_ms, _, b_ms, _) in per.items():
                 results[name].update({f"ms_{tag}": k_ms, f"plain_ms_{tag}": p_ms,
                                       f"bound_ms_{tag}": b_ms})
-        for tag, (s_ms, s_bound, old_ms, lanes_ms) in per_width["scatter"].items():
+        for tag, (s_ms, s_bound, k13_ms, lanes_ms) in per_width["scatter"].items():
             results["attn_bwd"].update({f"scatter_ms_{tag}": s_ms,
                                         f"scatter_bound_ms_{tag}": s_bound,
                                         f"lane_planes_ms_{tag}": lanes_ms})
-            results["attn_fwd"][f"k13_one_head_ms_{tag}"] = old_ms
+            results["attn_fwd"][f"k13_one_head_ms_{tag}"] = k13_ms
         return results
 
     def linkpred_path(label, a, cfg, widths):

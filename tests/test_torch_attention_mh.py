@@ -11,10 +11,16 @@ with bf16 planes; gradients at rtol 1e-4 / atol 1e-5 with float32 planes
 and max error over max magnitude < 1e-3 with bf16 planes
 (tests/test_attention.py:456-459), since JAX carries lse and D through its
 bf16 plane as hi/lo pairs and the port reads them in float32.
+
+K13's split (its work list, `attention_walk(plan, "spmm_attention_mh")`:
+each piece an online softmax per head over its own edges, a cut group's
+shares merged per head in piece order) is emulated in plain torch and held
+to JAX's `spmm_attention_mh` at the same tolerances.
 """
 
 import dataclasses
 import os
+import re
 import stat
 import sys
 
@@ -31,6 +37,8 @@ from voltrix_spmm_tpu.format import PlanConfig as JaxPlanConfig
 from voltrix_spmm_tpu.format import csr_preprocess as jax_csr_preprocess
 from voltrix_spmm_tpu.ops import spmm_attention_mh as jax_mh
 from voltrix_spmm_tpu.ops import spmm_attention_mh_ad as jax_mh_ad
+from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
+from voltrix_spmm_tpu_torch.format.stream import slice_plan_windows
 from voltrix_spmm_tpu_torch.ops import (
     attention_mh_dkv,
     attention_mh_dkv_reference,
@@ -40,6 +48,11 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_attention_mh_ad,
     spmm_attention_mh_reference,
 )
+from voltrix_spmm_tpu_torch.ops._attn_core import _act, _edges, _rounded
+from voltrix_spmm_tpu_torch.ops.attention import attention_walk
+import voltrix_spmm_tpu_torch.ops.attention_mh as attention_mh_module
+from voltrix_spmm_tpu_torch.ops.attention_mh import MH_ACC_WIDTHS, mh_geometry
+from voltrix_spmm_tpu_torch.ops.block_spmm import PIECE_BLOCKS, PIECE_WORK
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -329,16 +342,25 @@ def _fake_nvcc(tmp_path):
 
 def test_attention_kernel_sources_build_for_sm90a(tmp_path, monkeypatch):
     """K13, K14 and K15 build as K1-K7 do: one nvcc per source, for sm_90a,
-    with csrc/ on the include path for their shared header."""
+    with csrc/ on the include path for their shared headers. K13 lives in
+    K9's source, csrc/attn_fwd.cu, on the row walk of csrc/attn_walk.cuh,
+    with no atomics; K14 and K15 walk with csrc/attn_mh_common.cuh. The
+    old source of K13 is gone."""
     nvcc, log = _fake_nvcc(tmp_path)
     monkeypatch.setenv(vt.project.NVCC_FLAG, nvcc)
     monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
     monkeypatch.setattr(compiler, "runtime_cache", {})
-    names = ("attn_mh_fwd", "attn_mh_dq", "attn_mh_dkv")
+    names = ("attn_fwd", "attn_mh_dq", "attn_mh_dkv")
     for name in names:
         assert os.path.basename(compiler.build(name, [f"{name}.cu"]).path) == f"lib{name}.so"
         with open(os.path.join(compiler.CSRC_DIR, f"{name}.cu")) as f:
-            assert '#include "attn_mh_common.cuh"' in f.read()
+            text = f.read()
+        if name == "attn_fwd":
+            assert '#include "attn_walk.cuh"' in text and "voltrix_attn_mh_fwd" in text
+            assert not re.search(r"\batomic\w*\s*\(", text)  # sums in a fixed order
+        else:
+            assert '#include "attn_mh_common.cuh"' in text
+    assert not os.path.exists(os.path.join(compiler.CSRC_DIR, "attn_mh_fwd.cu"))
     cmds = [line.split() for line in log.read_text().splitlines()]
     assert [c[-1] for c in cmds] == [os.path.join(compiler.CSRC_DIR, f"{s}.cu") for s in names]
     assert all("arch=compute_90a,code=sm_90a" in c and f"-I{compiler.CSRC_DIR}" in c
@@ -373,3 +395,147 @@ def test_attention_slice_matches_jax():
     for got, ref in zip(leaves, grads):
         ref = np.asarray(ref)
         assert np.abs(got.grad.numpy() - ref).max() / np.abs(ref).max() < 1e-3
+
+
+# --- K13's pieces -----------------------------------------------------------
+
+def k13_walk(plan, piece_blocks, piece_work):
+    """attention_walk(plan, "spmm_attention_mh") at the given limits."""
+    name = "spmm_attention_mh"
+    saved = PIECE_BLOCKS[name], PIECE_WORK[name]
+    try:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = piece_blocks, piece_work
+        return attention_walk(plan, name)
+    finally:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = saved
+
+
+def emulate_k13(plan, q, k, v, scale, slope, plane, limits):
+    """K13's split in plain torch, for H heads: k and v rounded through the
+    plane's dtype; each piece of a 128-row group runs, for every head, the
+    online softmax over its own edges alone, leaving its share (m, l,
+    acc); a group's shares merge per head in piece order, each rescaled by
+    exp(m - M) with M the row's largest share maximum. Returns out (H, n,
+    dv) and lse (H, padded_nodes)."""
+    cfg = plan.config
+    heads, n, dv = q.shape[0], q.shape[1], v.shape[2]
+    kf, vf = _rounded(k, plane), _rounded(v, plane)
+    out = torch.zeros(heads, n, dv)
+    lse = torch.full((heads, plan.padded_nodes), 1e30)
+    groups = {}
+    for row in k13_walk(plan, *limits).tasks.tolist():
+        groups.setdefault((row[0], row[1]), []).append(row)
+    for (w, g), rows in groups.items():
+        r0 = w * cfg.block_h + 128 * g
+        r1 = min(r0 + 128, (w + 1) * cfg.block_h)
+        shares = []
+        for _, _, b0, b1, _, _ in sorted(rows, key=lambda r: r[4]):
+            sub = dataclasses.replace(plan, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
+                                      window_of_block=plan.window_of_block[b0:b1],
+                                      total_blocks=b1 - b0)
+            er, ec, _ = _edges(sub)
+            keep = (er >= r0) & (er < min(r1, n))
+            er, ec = er[keep] - r0, ec[keep]
+            s = _act((q[:, er + r0] * kf[:, ec]).sum(-1), scale, slope)  # (H, E)
+            idx = er.expand(heads, -1)
+            m = torch.full((heads, r1 - r0), -1e30).scatter_reduce(1, idx, s, "amax")
+            p = torch.exp(s - m.gather(1, idx))
+            shares.append((m, torch.zeros(heads, r1 - r0).index_add_(1, er, p),
+                           torch.zeros(heads, r1 - r0, dv).index_add_(1, er,
+                                                                      p[..., None] * vf[:, ec])))
+        big = torch.stack([m for m, _, _ in shares]).amax(0)
+        den, acc = torch.zeros(heads, r1 - r0), torch.zeros(heads, r1 - r0, dv)
+        for m, l, a in shares:  # in piece order, per head
+            f = torch.exp(m - big)
+            den, acc = den + l * f, acc + a * f[..., None]
+        live = min(r1, n) - r0
+        out[:, r0:r0 + live] = (acc / den.clamp_min(1e-30)[..., None])[:, :live]
+        lse[:, r0:r1] = torch.where(den > 0, big + torch.log(den.clamp_min(1e-30)), 1e30)
+    return out, lse
+
+
+def power_law(n=1500, edges=15000, seed=3):
+    """A symmetrised Chung-Lu graph: its first window holds the hubs."""
+    return symmetrize(chung_lu_csr(n, edges, seed=seed))
+
+
+K13_CASES = {  # graph, plan config, (heads, dk, dv), plane, piece limits
+    # a hub window cut into many pieces, by the block limit and by the work limit
+    "hub-blocks-h8-bf16": (power_law, (128, 128), (8, 8, 8), "bf16", (1, None)),
+    "hub-work-h1-f32": (power_law, (128, 128, 1, 2), (1, 12, 20), "f32", (16, 40)),
+    "hub-work-h8-f32": (power_law, (128, 128, 1, 4), (8, 8, 8), "f32", (4, 60)),
+    "tall-windows-h1-bf16": (power_law, (256, 128), (1, 40, 40), "bf16", (1, None)),
+    # windows left without blocks, and windows of zero-bit blocks
+    "empty-without-blocks-h8": (lambda: graph(2560, 0.004, seed=5, empty_tail=2200),
+                                (32, 128), (8, 8, 8), "bf16", (1, None)),
+    "empty-padded-h1": (lambda: graph(300, 0.02, seed=5, empty_tail=170), (64, 128),
+                        (1, 12, 20), "f32", (1, None)),
+}
+
+
+@pytest.mark.parametrize("case", list(K13_CASES))
+def test_piece_emulation_of_k13_matches_jax(case):
+    """K13's pieces, each a per-head online softmax over its own edges,
+    merged per head in piece order, against JAX's spmm_attention_mh (its
+    Pallas kernel in interpret mode) with float32 or bf16 planes; rows
+    without edges 0 with lse 1e30."""
+    make, cfg, (heads, dk, dv), plane, limits = K13_CASES[case]
+    a = make()
+    n = a.shape[0]
+    (jp, _), (tp, _) = plans(a, cfg)
+    tasks = k13_walk(tp, *limits).tasks.numpy()
+    if case.startswith(("hub", "tall")):
+        assert np.bincount(tasks[:, 0])[0] >= 8  # the hub window, cut into many pieces
+    else:
+        assert (tp.has_empty_windows if "without" in case
+                else not tp.has_empty_windows and (tp.bitmask == 0).all(2).all(1).any())
+    q, k, v = qkv(heads, n, dk, dv, seed=31)
+    scale = 1.0 / dk ** 0.5
+    jdt, tdt = PLANES[plane]
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), scale=scale, negative_slope=0.2,
+                            plane_dtype=jdt, return_stats=True)
+    got, lse = emulate_k13(tp, *map(torch.from_numpy, (q, k, v)), scale, 0.2, tdt, limits)
+    tol = F32_TOL if plane == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    empty = np.r_[np.diff(a.indptr) == 0, np.ones(tp.padded_nodes - n, bool)]
+    assert (got.numpy()[:, empty[:n]] == 0.0).all() and (lse.numpy()[:, empty] == 1e30).all()
+    np.testing.assert_allclose(lse.numpy()[:, ~empty], np.asarray(want_lse)[:, ~empty], **tol)
+
+
+@pytest.mark.parametrize("num_chunks", [2, 3])
+def test_piece_emulation_of_k13_on_window_chunks_matches_jax(num_chunks):
+    """K13 on the window chunks of a plan (format/stream.py:
+    slice_plan_windows; the hub window is cut the same way in its chunk),
+    each chunk's rows from its own split, against JAX on the whole plan:
+    8 heads on bf16 planes."""
+    a = power_law()
+    n = a.shape[0]
+    (jp, _), (tp, _) = plans(a, (128, 128, 1, 4))
+    q, k, v = qkv(8, n, 8, 8, seed=32)
+    want, want_lse = jax_mh(jp, *map(jnp.asarray, (q, k, v)), negative_slope=0.2,
+                            plane_dtype=jnp.bfloat16, return_stats=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    outs, lses, r0 = [], [], 0
+    for sub in slice_plan_windows(tp, num_chunks):
+        out, lse = emulate_k13(sub, tq[:, r0:r0 + sub.num_nodes], tk, tv, 1.0 / 8 ** 0.5, 0.2,
+                               torch.bfloat16, (2, 100))
+        outs.append(out)
+        lses.append(lse)
+        r0 += sub.num_nodes
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), np.asarray(want), **BF16_TOL)
+    np.testing.assert_allclose(torch.cat(lses, 1).numpy(), np.asarray(want_lse), **BF16_TOL)
+
+
+@pytest.mark.parametrize("heads,dv,want", [
+    (8, 8, (8, 8)), (1, 40, (1, 40)), (3, 20, (2, 40)), (2, 16, (2, 16)), (1, 300, (1, 64)),
+    (8, 200, (1, 64)), (5, 8, (8, 8)), (4, 12, (4, 16)),
+])
+def test_k13_head_group_and_column_chunk(heads, dv, want, monkeypatch):
+    """K13's head group is the smallest power of two holding min(H,
+    HEAD_GROUP) heads, halved until a chunk of its registers holds dv (or
+    one head is left); its chunk is the narrowest that holds dv, else the
+    widest. Every pair it picks is one that csrc/attn_fwd.cu instantiates."""
+    monkeypatch.setattr(attention_mh_module, "HEAD_GROUP", 8)
+    got = mh_geometry(heads, dv)
+    assert got == want
+    assert got[1] in MH_ACC_WIDTHS[got[0]]

@@ -1,7 +1,9 @@
 """The work list that kernels K1, K2, K4 and K8 share (ops/block_spmm.py:
 window_pieces, walk_tasks, plan_walk), on the CPU; K3's slabs of it, and
-K9's and K10's (ops/attention.py:attention_walk), whose piece emulation
-against the JAX package is in tests/test_torch_attention.py.
+K9's, K10's and K13's (ops/attention.py:attention_walk), whose piece
+emulations against the JAX package are in tests/test_torch_attention.py
+and tests/test_torch_attention_mh.py; K5's (a block limit alone), whose
+emulation is in tests/test_torch_weighted.py.
 
 Each window's blocks are cut into pieces of at most P consecutive blocks,
 and the pieces' float32 tiles are summed in piece order. The kernels run
@@ -40,7 +42,7 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_subtile_reference,
     spmm_weighted_reference,
 )
-from voltrix_spmm_tpu_torch.ops.attention import attention_walk
+from voltrix_spmm_tpu_torch.ops.attention import SHARE_KERNELS, attention_walk
 from voltrix_spmm_tpu_torch.ops.block_spmm import (
     MAX_PIECE_BLOCKS,
     PIECE_BLOCKS,
@@ -398,6 +400,28 @@ def test_plan_walk_of_k8_keeps_its_own_limits(cfg):
     assert plan_walk(plan, "spmm_int8") is walk
 
 
+def test_plan_walk_of_k5_keeps_its_own_limit():
+    """K5's work list takes PIECE_BLOCKS["spmm_dvalues"] and no work limit
+    (a block's plane costs the same wherever its bits lie), is kept beside
+    K4's on one plan and found again by a copy of the plan with another
+    value plane; the hub window is cut into pieces of at most that many
+    blocks (each piece's blocks written once: tests/test_torch_weighted.py)."""
+    a = power_law()
+    vals = np.random.default_rng(6).standard_normal(a.nnz).astype(np.float32)
+    plan = vt.csr_preprocess(a.indptr, a.indices, N, vt.PlanConfig(64, 128), values=vals)
+    pb = PIECE_BLOCKS["spmm_dvalues"]
+    assert pb >= 1 and PIECE_WORK["spmm_dvalues"] is None
+    walk = plan_walk(plan, "spmm_dvalues")
+    assert plan_walk(plan, "spmm_weighted") is not walk
+    other = dataclasses.replace(plan, values=plan.values * 2)
+    assert plan_walk(other, "spmm_dvalues") is walk
+    tasks, _, _ = walk_tasks(plan.block_ptr.numpy(), pb, 1)
+    assert torch.equal(walk.tasks, torch.from_numpy(tasks))
+    assert np.all(tasks[:, 3] - tasks[:, 2] <= pb)
+    bp = plan.block_ptr.numpy()
+    assert np.sum(tasks[:, 0] == 0) == -(-int(bp[1]) // pb) > 1
+
+
 # K4 (whole value tiles, a block limit alone): (graph, config, d, piece
 # size, values); the JAX kernel's geometries (block_h % 8, block_w % 128);
 # "off_mask": a random value in every slot of the plane, off the bitmask too
@@ -643,14 +667,15 @@ def attn_walk(plan, name, piece_blocks, piece_work):
         PIECE_BLOCKS[name], PIECE_WORK[name] = saved
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd"])
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh"])
 @pytest.mark.parametrize("limits", [(1, None), (3, 200), (16, 1024)])
 @pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=32), dict(block_h=256, block_w=128),
                                  dict(block_h=48, block_w=128)])
 def test_attention_pieces_cover_each_window_once_in_order(cfg, limits, name):
-    """K9's and K10's pieces cover every block of every 128-row group once,
-    in order; K9 gives every piece of a cut group a share slot of its own
-    (the merge's first slot and count), K10 its pieces 1.. (the walk's)."""
+    """K9's, K10's and K13's pieces cover every block of every 128-row
+    group once, in order; K9 and K13 give every piece of a cut group a
+    share slot of its own (the merge's first slot and count), K10 its
+    pieces 1.. (the walk's)."""
     plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
     walk = attn_walk(plan, name, *limits)
     bp = plan.block_ptr.numpy()
@@ -669,17 +694,18 @@ def test_attention_pieces_cover_each_window_once_in_order(cfg, limits, name):
             continue
         first, count = merges[(w, g)]
         assert count == len(mine) and np.all(mine[:, 5] == first)
-        mine_slots = first + mine[:, 4] if name == "spmm_attention" else first + mine[1:, 4] - 1
+        mine_slots = first + mine[:, 4] if name in SHARE_KERNELS else first + mine[1:, 4] - 1
         slots.extend(mine_slots.tolist())
     assert sorted(slots) == list(range(walk.slots))  # every slot once
 
 
+@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh"])
 @pytest.mark.parametrize("limits", [(2, None), (16, 300)])
-def test_attention_hub_window_splits_into_many_pieces(limits):
+def test_attention_hub_window_splits_into_many_pieces(limits, name):
     """The hub window of a power-law graph becomes many pieces of bounded
     work: none holds more than the work limit and one block's work."""
     plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, block_unroll=4))
-    walk = attn_walk(plan, "spmm_attention", *limits)
+    walk = attn_walk(plan, name, *limits)
     per_window = np.bincount(walk.tasks[:, 0].numpy())
     assert per_window[0] >= 8 and per_window.argmax() == 0
     if limits[1] is not None:
@@ -690,7 +716,7 @@ def test_attention_hub_window_splits_into_many_pieces(limits):
         assert int(per_task.max()) <= limits[1] + int(work.max())
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd"])
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh"])
 def test_attention_empty_windows_get_one_empty_piece(name):
     """A window without blocks, and every window of a plan without blocks,
     gets one empty piece, which writes its rows."""
@@ -716,13 +742,14 @@ def test_attention_empty_windows_get_one_empty_piece(name):
     assert np.all(walk.tasks[:, 2:4].numpy() == 0) and np.all(walk.tasks[:, 5].numpy() == -1)
 
 
+@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh"])
 @pytest.mark.parametrize("num_chunks", [2, 3])
-def test_attention_pieces_in_a_window_chunk_equal_the_whole_plans(num_chunks):
+def test_attention_pieces_in_a_window_chunk_equal_the_whole_plans(num_chunks, name):
     plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, block_unroll=4))
 
     def pieces(p, w_off=0, b_off=0):
         """(window, group, rank) -> (first block, end block, pieces)."""
-        tasks = attn_walk(p, "spmm_attention", 3, 200).tasks.numpy()
+        tasks = attn_walk(p, name, 3, 200).tasks.numpy()
         return {(w + w_off, g, r[4]): (r[2] + b_off, r[3] + b_off, len(rows))
                 for (w, g), rows in by_group(tasks).items() for r in rows}
 

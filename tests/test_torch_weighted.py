@@ -2,8 +2,10 @@
 CPU: weighted plans, `csr_transpose` and `edge_slot_map` bit for bit; the
 plain versions of kernels K4 (`spmm_weighted`) and K5
 (`spmm_weighted_dvalues`) against `spmm_pallas_weighted` and
-`spmm_weighted_dvalues` in interpret mode; `sddmm`; and the gradients of
-`spmm_weighted_ad` against `jax.grad`.
+`spmm_weighted_dvalues` in interpret mode; `sddmm`; the gradients of
+`spmm_weighted_ad` against `jax.grad`; and K5's work list (each block's
+plane written once, by the piece that holds it) with its edge cases
+(block_w 256, bits on rows past num_nodes, clipped hind) against JAX.
 
 The kernels run only on the card and are checked against the same plain
 versions there by chip_smoke.py. SpMM outputs use tests/test_spmm.py:51-52's
@@ -11,6 +13,10 @@ tolerance (float32 sums in another order).
 """
 
 import dataclasses
+import os
+import re
+import stat
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,8 @@ import voltrix_spmm_tpu.format as jfmt
 import voltrix_spmm_tpu.ops as jops
 import voltrix_spmm_tpu_torch as vt
 import voltrix_spmm_tpu_torch.format as tfmt
+import voltrix_spmm_tpu_torch.jit.compiler as compiler
+from voltrix_spmm_tpu_torch.data import chung_lu_csr, symmetrize
 from voltrix_spmm_tpu_torch.ops import (
     sddmm,
     spmm_reference,
@@ -31,6 +39,7 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_weighted_dvalues_reference,
     spmm_weighted_reference,
 )
+from voltrix_spmm_tpu_torch.ops.block_spmm import PIECE_BLOCKS, PIECE_WORK, plan_walk
 from voltrix_spmm_tpu_torch.ops.weighted import _SMEM_LIMIT, _check_kernel_args, k4_tiling
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -273,7 +282,7 @@ def dvalues_numpy(plan, feat, g):
     g_pad = np.zeros((plan.padded_nodes, feat.shape[1]))
     g_pad[: plan.num_nodes] = g
     want = np.einsum("brd,bld->brl", g_pad.reshape(plan.num_windows, H, -1)[wob],
-                     feat.astype(np.float64)[np.minimum(hind, feat.shape[0] - 1)])
+                     feat.astype(np.float64)[np.clip(hind, 0, feat.shape[0] - 1)])
     return np.where(bits, want, 0.0), bits
 
 
@@ -474,3 +483,150 @@ def test_kernel_arguments_are_checked():
                            fields, x)
     with pytest.raises(ValueError, match="is None"):
         _check_kernel_args(dataclasses.replace(tplan, values=None), "k", fields, x)
+
+
+# --- K5: its work list and its edge cases -------------------------------------
+
+def k5_walk(plan, piece_blocks):
+    """plan_walk(plan, "spmm_dvalues") at `piece_blocks` (restored after)."""
+    saved = PIECE_BLOCKS["spmm_dvalues"]
+    try:
+        PIECE_BLOCKS["spmm_dvalues"] = piece_blocks
+        return plan_walk(plan, "spmm_dvalues")
+    finally:
+        PIECE_BLOCKS["spmm_dvalues"] = saved
+
+
+def emulate_k5(plan, feat, g, piece_blocks):
+    """K5's order in plain torch: for each piece of its work list, in task
+    order, the plane rows of the piece's 128-row group on the piece's
+    blocks, from the plain version on those blocks alone. Returns the plane
+    (NaN where nothing wrote) and how often each (block, row) was written."""
+    cfg = plan.config
+    h = cfg.block_h
+    out = torch.full((plan.total_blocks, h, cfg.block_w), float("nan"))
+    writes = torch.zeros(plan.total_blocks, h, dtype=torch.int64)
+    for _, grp, b0, b1, _, _ in k5_walk(plan, piece_blocks).tasks.tolist():
+        sub = dataclasses.replace(plan, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
+                                  window_of_block=plan.window_of_block[b0:b1],
+                                  total_blocks=b1 - b0, values=None)
+        rows = slice(128 * grp, min(128 * grp + 128, h))
+        out[b0:b1, rows] = spmm_weighted_dvalues_reference(sub, feat, g)[:, rows]
+        writes[b0:b1, rows] += 1
+    return out, writes
+
+
+K5_CASES = [  # (config, piece_blocks, d)
+    (dict(block_h=64, block_w=128), 1, 40),
+    (dict(block_h=64, block_w=128), 8, 8),
+    (dict(block_h=32, block_w=256), 3, 40),
+    (dict(block_h=96, block_w=128), 2, 24),   # three words: one a warp
+    (dict(block_h=256, block_w=128), 4, 100),  # two 128-row groups, two column chunks
+]
+
+
+@pytest.mark.parametrize("cfg,piece_blocks,d", K5_CASES)
+def test_k5_work_list_writes_each_block_once(cfg, piece_blocks, d):
+    """K5's pieces cover each 128-row group's blocks once, in order, at most
+    PIECE_BLOCKS["spmm_dvalues"] a piece, with no work limit; written piece
+    by piece, every plane row of every block is written exactly once, the
+    plane agrees with JAX's spmm_weighted_dvalues in interpret mode, and
+    it is exactly 0.0 off the bitmask."""
+    a = symmetrize(chung_lu_csr(1500, 15000, seed=3))
+    n = a.shape[0]
+    vals = np.random.default_rng(11).standard_normal(a.nnz).astype(np.float32)
+    jplan, tplan = both_weighted(a.indptr, a.indices, vals, n, **cfg)
+    walk = k5_walk(tplan, piece_blocks)
+    assert PIECE_WORK["spmm_dvalues"] is None  # a block limit alone
+    bp = tplan.block_ptr.numpy()
+    tasks = walk.tasks.numpy()
+    for w in range(tplan.num_windows):
+        for grp in range(-(-tplan.config.words_per_col // 4)):
+            mine = tasks[(tasks[:, 0] == w) & (tasks[:, 1] == grp)]
+            mine = mine[np.argsort(mine[:, 4])]
+            assert mine[0, 2] == bp[w] and mine[-1, 3] == bp[w + 1]
+            assert np.array_equal(mine[1:, 2], mine[:-1, 3])
+            assert np.all(mine[:, 3] - mine[:, 2] <= piece_blocks)
+    assert np.sum(tasks[:, 0] == 0) >= 2  # the hub window is cut
+    feat, g = features(n, d, seed=12), features(n, d, seed=13)
+    out, writes = emulate_k5(tplan, torch.from_numpy(feat), torch.from_numpy(g), piece_blocks)
+    assert (writes == 1).all()
+    ref = np.asarray(jops.spmm_weighted_dvalues(jplan, jnp.asarray(feat), jnp.asarray(g)))
+    assert_close(out, ref)
+    _, bits = dvalues_numpy(tplan, feat, g)
+    assert (out.numpy()[~bits] == 0.0).all()
+
+
+def _edit_plans(jplan, tplan, bitmask=None, hind=None):
+    """Both plans with the same bitmask and hind put in."""
+    fields = {k: v for k, v in (("bitmask", bitmask), ("hind", hind)) if v is not None}
+    return (dataclasses.replace(jplan, **{k: jnp.asarray(v) for k, v in fields.items()}),
+            dataclasses.replace(tplan, **{k: torch.from_numpy(v) for k, v in fields.items()}))
+
+
+@pytest.mark.parametrize("case", ["block_w256", "rows_past_n", "clipped_hind"])
+def test_dvalues_edge_cases_match_jax(case):
+    """K5's plain version against JAX on what K5 must take: block_w 256,
+    bits on rows at num_nodes and beyond (g is zero there, so the plane
+    is 0.0), and lanes with bits whose hind lies outside [0, source_rows)
+    (clipped, as jnp.take(mode="clip") clips)."""
+    if case == "block_w256":
+        indptr, indices, values, n, _, cfg = plan_case("block_w256")
+    else:
+        a = weighted_csr(300, 0.03, 21)  # 300 rows: the last 64-row window ends at 320
+        indptr, indices, values, n, cfg = a.indptr, a.indices, a.data, 300, dict(block_h=64)
+    jplan, tplan = both_weighted(indptr, indices, values, n, **cfg)
+    bitmask, hind = tplan.bitmask.numpy().copy(), tplan.hind.numpy().copy()
+    last = tplan.window_of_block.numpy() == tplan.num_windows - 1
+    if case == "rows_past_n":  # rows 300..319: bits 12..31 of the last window's word 1
+        bitmask[last, 1, :] |= np.int32(np.uint32(0xFFFFF000).view(np.int32))
+        jplan, tplan = _edit_plans(jplan, tplan, bitmask=bitmask)
+    if case == "clipped_hind":
+        held = np.flatnonzero((bitmask != 0).any(1).reshape(-1))
+        flat = hind.reshape(-1)
+        flat[held[::5]], flat[held[2::5]] = n + 7, -3
+        jplan, tplan = _edit_plans(jplan, tplan, hind=hind)
+    d = 40
+    feat, g = features(n, d, seed=22), features(n, d, seed=23)
+    ref = np.asarray(jops.spmm_weighted_dvalues(jplan, jnp.asarray(feat), jnp.asarray(g)))
+    out = spmm_weighted_dvalues(tplan, torch.from_numpy(feat), torch.from_numpy(g))
+    assert_close(out, ref)
+    want, bits = dvalues_numpy(tplan, feat, g)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    assert (out.numpy()[~bits] == 0.0).all()
+    if case == "rows_past_n":
+        past = out.numpy()[last][:, n % 64:]
+        assert bits[last][:, n % 64:].any() and (past == 0.0).all()
+    if case == "block_w256":
+        assert tplan.config.block_w == 256
+
+
+def test_k5_source_builds_for_sm90a(tmp_path, monkeypatch):
+    """K5 builds from csrc/spmm_dvalues.cu with one nvcc for sm_90a, with
+    csrc/ on the include path for the work list layout of
+    csrc/spmm_walk.cuh, and calls no atomic: every value of the plane is
+    written once."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "if '--version' in sys.argv:\n"
+        "    print('fake nvcc 0.0'); sys.exit(0)\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+    )
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv(vt.project.NVCC_FLAG, str(nvcc))
+    monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
+    monkeypatch.setattr(compiler, "runtime_cache", {})
+    path = compiler.build("spmm_dvalues", ["spmm_dvalues.cu"]).path
+    assert os.path.basename(path) == "libspmm_dvalues.so"
+    with open(os.path.join(compiler.CSRC_DIR, "spmm_dvalues.cu")) as f:
+        text = f.read()
+    assert '#include "spmm_walk.cuh"' in text
+    assert not re.search(r"\batomic\w*\s*\(", text)
+    (cmd,) = [line.split() for line in log.read_text().splitlines()]
+    assert cmd[-1] == os.path.join(compiler.CSRC_DIR, "spmm_dvalues.cu")
+    assert "arch=compute_90a,code=sm_90a" in cmd and f"-I{compiler.CSRC_DIR}" in cmd

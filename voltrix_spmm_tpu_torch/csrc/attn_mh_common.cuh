@@ -1,22 +1,21 @@
-// Pieces shared by kernels K13-K15, the multi-head fused graph attention
-// (attn_mh_fwd.cu, attn_mh_dq.cu, attn_mh_dkv.cu): typed row loads, the
-// activation, the row-sorted walk over a run's set bits and the flush of
-// an additive row tile.
+// Pieces shared by kernels K14 and K15, the backward of the multi-head
+// fused graph attention (attn_mh_dq.cu, attn_mh_dkv.cu; at one head K11
+// and K12), and by the row walk of K9, K10 and K13 (attn_walk.cuh): typed
+// row loads, the activation, the row-sorted walk over a run's set bits and
+// the flush of an additive row tile.
 //
-// Work split, common to the three. The TPU walks each window's block list
-// in order with a (block_h, K) score tile per step. Here the plan's block
+// Work split of K14 and K15. The TPU walks each window's block list in
+// order with a (block_h, K) score tile per step. Here the plan's block
 // list is cut into tasks of task_blocks consecutive blocks, one thread
-// block per (task, group of up to 8 heads, column chunk), as K6 does, so the hub window (904
-// blocks on the ogbn-arxiv proxy at h128u4) spreads over ~113 thread
-// blocks instead of one. A task walks its runs (the blocks of one window)
-// and, within a run, deals the set bits out to its threads (for_each_edge):
-// only the edges are visited, about 1% of the (block_h x K) slots on the
-// arxiv proxy, where a dense score tile would spend ~99% of its exps on
-// masked slots. The edges' sums go into a (heads x block_h x dc) row tile
-// in shared memory (for_each_edge_batch), which goes to the output when
-// the run ends.
-
-
+// block per (task, group of up to 8 heads, column chunk), as K6 did, so the
+// hub window (904 blocks on the ogbn-arxiv proxy at h128u4) spreads over
+// ~113 thread blocks instead of one. A task walks its runs (the blocks of
+// one window) and, within a run, deals the set bits out to its threads
+// (for_each_edge): only the edges are visited, about 1% of the (block_h x
+// K) slots on the arxiv proxy, where a dense score tile would spend ~99% of
+// its exps on masked slots. The edges' sums go into a (heads x block_h x
+// dc) row tile in shared memory (for_each_edge_batch), which goes to the
+// output when the run ends.
 
 #pragma once
 

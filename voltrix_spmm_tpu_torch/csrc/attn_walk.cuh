@@ -1,6 +1,8 @@
-// The row walk that kernel K9 (csrc/attn_fwd.cu) and the dq pass of kernel
-// K10 (csrc/attn_bwd.cu) share: single-head fused graph attention over the
-// binned block-CSR plan, for sm_90a.
+// The row walk that kernels K9 and K13 (csrc/attn_fwd.cu) and the dq pass
+// of kernel K10 (csrc/attn_bwd.cu) share: fused graph attention over the
+// binned block-CSR plan, for sm_90a. K13 walks once for a group of heads,
+// its ring slots holding each head's rows in the plane's type
+// (walk_items with a stage of its own).
 //
 // Work list. The wrapper cuts each 128-row group of a window into pieces
 // of at most PIECE_BLOCKS blocks and about PIECE_WORK units of work (a kept
@@ -12,9 +14,10 @@
 // whole plan. The hub window of the ogbn-arxiv proxy (904 blocks) becomes
 // many pieces of bounded work instead of one thread block's serial walk.
 //
-// Walk. One thread block per (task, column chunk), four warps; warp i owns
-// word 4 * group + i of the window (32 rows) and lane l row 32 * i + l of
-// it, whose state (K9: m, l and the output columns; K10: the dq columns)
+// Walk. One thread block per (task, column chunk; K13: and head group),
+// four warps; warp i owns word 4 * group + i of the window (32 rows) and
+// lane l row 32 * i + l of it, whose state (K9: m, l and the output
+// columns; K13: the same for each head of its group; K10: the dq columns)
 // stays in registers. The warp walks the piece's kept lanes of its word in
 // lane order, with no barrier: each lane loads its unit's bitmask word and
 // hind kAhead units ahead and a ballot queues the lanes with a bit. The
@@ -50,6 +53,9 @@ constexpr int kAhead = 4;      // units whose bitmask word and hind are loaded a
 // shared memory a walk's thread block takes at most (walk_geometry): four
 // thread blocks an SM
 constexpr int kWalkSmem = 56 * 1024;
+// the same for K13's walks of 4 or 8 heads, whose registers hold three
+// thread blocks an SM
+constexpr int kWideWalkSmem = 72 * 1024;
 constexpr int kSmemMax = 232448;  // a thread block's shared memory on sm_90
 
 // floats of a ring slot: k's row (padded to a multiple of 4), then vw
@@ -60,9 +66,13 @@ __host__ __device__ inline int slot_floats(int dk, int vw) {
   return (sf / 4) % 2 ? sf : sf + 4;
 }
 
-// the warps' rings (nbuf batches of nb slots each) and queues
+// the warps' rings (nbuf batches of nb slots of sf floats each) and queues
+__host__ __device__ inline int ring_smem_bytes(int sf, int nb, int nbuf) {
+  return kWarps * (nbuf * nb * sf + 2 * kQueue) * 4;
+}
+
 __host__ __device__ inline int smem_bytes(int dk, int vw, int nb, int nbuf) {
-  return kWarps * (nbuf * nb * slot_floats(dk, vw) + 2 * kQueue) * 4;
+  return ring_smem_bytes(slot_floats(dk, vw), nb, nbuf);
 }
 
 // rows of group g of a window that lie inside the window (block_h rows)
@@ -132,29 +142,25 @@ __device__ __forceinline__ void store_row(float* dst, const float* acc, int cw, 
 }
 
 // The walk of one warp over word `wi` of blocks [b0, b1). For each kept
-// lane (a bit in the word), in lane order, the warp stages k[src] (dk
-// floats) and v[src][v0, v0 + vw) into a ring slot (slot_floats(dk, vw)
-// floats; nbuf batches of nb slots) and calls edge(slot) on each lane
-// whose row has a bit in the item (none where `active` is false), a lane's
-// items in order; src is the lane's hind clipped into [0, nk), as the JAX
-// gather clips it. vec: 16-byte copies (dk, v0 and vw multiples of 4, k
-// and v 16-byte aligned), else 4-byte ones. q_word and q_src hold kQueue
-// entries each.
-template <typename Edge>
-__device__ __forceinline__ void walk_word(const uint32_t* __restrict__ bitmask,
-                                          const int32_t* __restrict__ hind, int b0, int b1,
-                                          int words, int wi, int block_w, int nk,
-                                          const float* __restrict__ k,
-                                          const float* __restrict__ v, int dk, int dv, int v0,
-                                          int vw, bool vec, int nb, int nbuf, float* ring,
-                                          uint32_t* q_word, int32_t* q_src, bool active,
-                                          Edge&& edge) {
+// lane (a bit in the word), in lane order, lane i of the warp calls
+// stage(slot, src) to copy item i's rows into a ring slot of `sf` floats
+// (nbuf batches of nb slots; the copies go by cp.async or by plain shared
+// stores, and land before the batch is read), then the warp calls
+// edge(slot) on each lane whose row has a bit in the item (none where
+// `active` is false), a lane's items in order; src is the lane's hind
+// clipped into [0, nk), as the JAX gather clips it. q_word and q_src hold
+// kQueue entries each.
+template <typename Stage, typename Edge>
+__device__ __forceinline__ void walk_items(const uint32_t* __restrict__ bitmask,
+                                           const int32_t* __restrict__ hind, int b0, int b1,
+                                           int words, int wi, int block_w, int nk, int sf,
+                                           int nb, int nbuf, float* ring, uint32_t* q_word,
+                                           int32_t* q_src, bool active, Stage&& stage,
+                                           Edge&& edge) {
   using namespace voltrix_walk;
   const int lane = threadIdx.x % 32;
   const int slices = (block_w + 31) / 32;
   const int units = (b1 - b0) * slices;
-  const int kpad = (dk + 3) & ~3;
-  const int sf = slot_floats(dk, vw);
   // unit u is lane slice u % slices of block b0 + u / slices
   auto load_unit = [&](int u, uint32_t& word, int32_t& src) {
     word = 0u;
@@ -200,19 +206,7 @@ __device__ __forceinline__ void walk_word(const uint32_t* __restrict__ bitmask,
   // commit group per call
   auto issue = [&](int first, int buf) {
     const int i = first + lane;
-    if (lane < nb && i < produced) {
-      const int64_t src = q_src[i % kQueue];
-      float* slot = ring + (buf * nb + lane) * sf;
-      const float* krow = k + src * dk;
-      const float* vrow = v + src * dv + v0;
-      if (vec) {
-        for (int c = 0; c < dk; c += 4) cp_async16(slot + c, krow + c);
-        for (int c = 0; c < vw; c += 4) cp_async16(slot + kpad + c, vrow + c);
-      } else {
-        for (int c = 0; c < dk; ++c) cp_async4(slot + c, krow + c);
-        for (int c = 0; c < vw; ++c) cp_async4(slot + kpad + c, vrow + c);
-      }
-    }
+    if (lane < nb && i < produced) stage(ring + (buf * nb + lane) * sf, (int64_t)q_src[i % kQueue]);
     cp_async_commit();
   };
   ensure(nb - 1);
@@ -251,20 +245,54 @@ __device__ __forceinline__ void walk_word(const uint32_t* __restrict__ bitmask,
   cp_async_wait<0>();
 }
 
+// walk_items with slots of k[src] (dk floats) and v[src][v0, v0 + vw)
+// (slot_floats(dk, vw) floats), for K9 and K10. vec: 16-byte copies (dk,
+// v0 and vw multiples of 4, k and v 16-byte aligned), else 4-byte ones.
+template <typename Edge>
+__device__ __forceinline__ void walk_word(const uint32_t* __restrict__ bitmask,
+                                          const int32_t* __restrict__ hind, int b0, int b1,
+                                          int words, int wi, int block_w, int nk,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v, int dk, int dv, int v0,
+                                          int vw, bool vec, int nb, int nbuf, float* ring,
+                                          uint32_t* q_word, int32_t* q_src, bool active,
+                                          Edge&& edge) {
+  using namespace voltrix_walk;
+  const int kpad = (dk + 3) & ~3;
+  walk_items(bitmask, hind, b0, b1, words, wi, block_w, nk, slot_floats(dk, vw), nb, nbuf, ring,
+             q_word, q_src, active,
+             [&](float* slot, int64_t src) {
+               const float* krow = k + src * dk;
+               const float* vrow = v + src * dv + v0;
+               if (vec) {
+                 for (int c = 0; c < dk; c += 4) cp_async16(slot + c, krow + c);
+                 for (int c = 0; c < vw; c += 4) cp_async16(slot + kpad + c, vrow + c);
+               } else {
+                 for (int c = 0; c < dk; ++c) cp_async4(slot + c, krow + c);
+                 for (int c = 0; c < vw; ++c) cp_async4(slot + kpad + c, vrow + c);
+               }
+             },
+             edge);
+}
+
 // The batch (nb items, at most kMaxBatch) and buffers (nbuf, 1 or 2) of a
-// walk whose slots hold slot_floats(dk, vw) floats: the largest batch
-// whose two buffers fit kWalkSmem bytes with the queues, else one buffer,
-// else the same within all of a thread block's shared memory; nb 0 when
-// nothing fits.
-inline void walk_geometry(int dk, int vw, int* nb, int* nbuf) {
-  for (const int budget : {kWalkSmem, kSmemMax}) {
+// walk whose slots hold sf floats: the largest batch whose two buffers fit
+// `budget` bytes with the queues, else one buffer, else the same within
+// all of a thread block's shared memory; nb 0 when nothing fits.
+inline void walk_geometry_sf(int sf, int budget, int* nb, int* nbuf) {
+  for (const int cap : {budget, kSmemMax}) {
     for (*nbuf = 2; *nbuf >= 1; --*nbuf) {
       for (*nb = kMaxBatch; *nb >= 1; *nb /= 2) {
-        if (smem_bytes(dk, vw, *nb, *nbuf) <= budget) return;
+        if (ring_smem_bytes(sf, *nb, *nbuf) <= cap) return;
       }
     }
   }
   *nb = 0;
+}
+
+// walk_geometry_sf for slots of slot_floats(dk, vw) floats within kWalkSmem
+inline void walk_geometry(int dk, int vw, int* nb, int* nbuf) {
+  walk_geometry_sf(slot_floats(dk, vw), kWalkSmem, nb, nbuf);
 }
 
 // Raises the kernel's dynamic shared memory limit to `smem` bytes.

@@ -1,12 +1,13 @@
 """The pieces the fused-attention ops share over (H, n, d) stacks: the
 plain versions' arithmetic, the argument checks and the launches of the
-kernels of K13, K14 and K15 (csrc/attn_mh_*.cu).
+kernels of K14 and K15 (csrc/attn_mh_dq.cu, csrc/attn_mh_dkv.cu).
 
 ops/attention_mh.py launches them over H heads with float32 or bf16
-planes; ops/attention.py launches K14's and K15's with H = 1 and float32
-planes as K11 and K12 (the JAX package keeps a single-head and a
-multi-head copy of each Pallas kernel only because the TPU pays one gather
-call per head), and K9 and K10 from kernels of their own. The launch
+planes; ops/attention.py launches them with H = 1 and float32 planes as
+K11 and K12 (the JAX package keeps a single-head and a multi-head copy of
+each Pallas kernel only because the TPU pays one gather call per head).
+K9, K10 and K13 walk rows with csrc/attn_walk.cuh and are launched by
+ops/attention.py (K9, K10) and ops/attention_mh.py (K13). The launch
 functions take the entry point that calls them: its name keys the task
 size, the head group and the messages, and its `launches` count goes up by
 one where the kernel launches, and nowhere else.
@@ -31,12 +32,12 @@ _NEG = -1e30  # finite -inf stand-in: exp(_NEG - m) underflows to 0
 _EMPTY_LSE = 1e30  # lse of a row with no edges: exp(s - 1e30) = 0
 # plan blocks per thread block, by entry point: the fastest of
 # python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep at path G's
-# shapes (the multi-head entry points) and path H's (K11, K12; K9 and K10
-# take PIECE_BLOCKS and PIECE_WORK of ops/block_spmm.py instead)
-_TASK_BLOCKS = {"spmm_attention_mh": 8, "attention_mh_dq": 1, "attention_mh_dkv": 2,
-                "attention_dq": 1, "attention_dkv": 1}
-# heads per thread block of the multi-head entry points (the sweep, path G)
-_HEAD_GROUP = {"spmm_attention_mh": 1, "attention_mh_dq": 8, "attention_mh_dkv": 1}
+# shapes (K14, K15) and path H's (K11, K12; K9, K10 and K13 take
+# PIECE_BLOCKS and PIECE_WORK of ops/block_spmm.py instead)
+_TASK_BLOCKS = {"attention_mh_dq": 1, "attention_mh_dkv": 2, "attention_dq": 1,
+                "attention_dkv": 1}
+# heads per thread block of K14 and K15 (the sweep, path G)
+_HEAD_GROUP = {"attention_mh_dq": 8, "attention_mh_dkv": 1}
 _MAX_TILE_COLS = 128  # widest column chunk of a kernel's shared-memory row tile
 _BATCH = 512  # edges a kernel sorts by row at once (kBatch in csrc/attn_mh_common.cuh)
 # dynamic shared memory left beside the edge walks' static scratch (kSmemLimit there)
@@ -57,8 +58,6 @@ def _loader(name: str, symbol: str, argtypes):
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # bitmask hind wob block_ptr, then the kernel's tensors, then the geometry
-load_fwd_library = _loader("attn_mh_fwd", "voltrix_attn_mh_fwd",
-                           [_p] * 11 + [_i] * 13 + [_f, _f, _i, _i, _i, _p])
 load_dq_library = _loader("attn_mh_dq", "voltrix_attn_mh_dq",
                           [_p] * 11 + [_i] * 13 + [_f, _f, _i, _i, _i, _p])
 load_dkv_library = _loader("attn_mh_dkv", "voltrix_attn_mh_dkv",
@@ -266,7 +265,7 @@ def _dkv_plain(plan_t: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chun
     return dk_out, dv_out
 
 
-# --- the kernels of K13, K14 and K15, over (H, n, d) stacks ------------------
+# --- the kernels of K14 and K15, over (H, n, d) stacks -----------------------
 
 def _plan_args(plan: SpmmPlan, device, name: str):
     """The plan's arrays as pointers, after checking what the kernels read."""
@@ -331,44 +330,6 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {t.device}")
     return True
-
-
-def _fwd_kernel(entry, plan, q, k, v, scale, slope, pdt):
-    """out (H, nq, dv) and lse (H, padded_nodes), float32, through the
-    kernel of K13 (csrc/attn_mh_fwd.cu)."""
-    name = entry.__name__
-    heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
-    dev = q.device
-    plan_ptrs = _plan_args(plan, dev, name)
-    tdt = pdt or torch.float32
-    qc, kc, vc = _tensors(name, dev, (q, torch.float32), (k, tdt), (v, tdt))
-    cfg = plan.config
-    out = torch.zeros(heads, nq, dv, dtype=torch.float32, device=dev)
-    lse = torch.full((heads, plan.padded_nodes), _EMPTY_LSE, dtype=torch.float32, device=dev)
-    if plan.total_blocks == 0 or dv == 0:
-        return out, lse
-    # m, l and a rescale per head, row counts and offsets; p per head and
-    # the source row of a batch's edges
-    bh = cfg.block_h
-    hg, dc = _geometry(bh, heads, dv, lambda g: 3 * g * bh + 2 * bh + 1 + (g + 1) * _BATCH,
-                       name)
-    nchunks, ngroups = -(-dv // dc), -(-heads // hg)
-    tasks = -(-plan.total_blocks // _TASK_BLOCKS[name])
-    if ngroups > 65535 or nchunks > 65535:
-        raise ValueError(f"{name}: heads or dv exceed the grid's limits")
-    part = torch.empty(2 * tasks * heads * nchunks * bh * (dc + 2),
-                       dtype=torch.float32, device=dev)
-    count = torch.zeros(plan.num_windows * ngroups * nchunks, dtype=torch.int32, device=dev)
-    launch(
-        name, load_fwd_library(), q,
-        *plan_ptrs, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), part.data_ptr(), count.data_ptr(),
-        plan.total_blocks, cfg.words_per_col, bh, cfg.block_w, plan.num_windows,
-        heads, hg, nq, nk, dk, dv, dc, _TASK_BLOCKS[name], float(scale),
-        float(slope), _vec4(dk, qc, kc), _vec4(dv, vc), int(pdt is not None),
-    )
-    entry.launches += 1
-    return out, lse
 
 
 def _dq_kernel(entry, plan, q, k, v, g, lse, d_row, scale, slope, pdt):

@@ -75,7 +75,15 @@ from ._attn_core import (
     _tensors,
     _vec4,
 )
-from .block_spmm import _INT_MAX, PIECE_BLOCKS, PIECE_WORK, launch, plan_walk, walk_stats
+from .block_spmm import (
+    _INT_MAX,
+    PIECE_BLOCKS,
+    PIECE_WORK,
+    acc_width,
+    launch,
+    plan_walk,
+    walk_stats,
+)
 from .reference import CHUNK_BYTES
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -84,27 +92,29 @@ load_fwd_library = _loader("attn_fwd", "voltrix_attn_fwd",
                            [_p] * 11 + [_i] * 10 + [_f, _f, _i, _i, _p])
 load_bwd_library = _loader("attn_bwd", "voltrix_attn_bwd",
                            [_p] * 20 + [_i] * 11 + [_f, _f, _i, _i, _p])
-# column chunks a kernel lane keeps in registers (the kernels' template
-# widths): the narrowest that holds d, else chunks of 64
-_ACC_WIDTHS = (8, 16, 32, 40, 64)
-
-
-def _acc_width(d: int) -> int:
-    return next((w for w in _ACC_WIDTHS if w >= d), _ACC_WIDTHS[-1])
+# K13 (ops/attention_mh.py) from the same library as K9: the plan's arrays
+# and the work list, the tensors, then the geometry, the plane, the
+# alignment flags and the (head, row) strides of q, k and v
+load_mh_fwd_library = _loader("attn_fwd", "voltrix_attn_mh_fwd",
+                              [_p] * 11 + [_i] * 14 + [_f, _f, _i, _i, _i]
+                              + [ctypes.c_longlong] * 6 + [_p])
+# the kernels whose cut groups keep each piece's (m, l, acc) share
+SHARE_KERNELS = ("spmm_attention", "spmm_attention_mh")
 
 
 # --- the work list of K9 and K10 ---------------------------------------------------
 
 def attention_walk(plan: SpmmPlan, name: str):
-    """K9's (name "spmm_attention") or K10's ("attention_bwd") work list of
-    `plan`: ops/block_spmm.py's `plan_walk` at the kernel's PIECE_BLOCKS
-    and PIECE_WORK. K10 adds a cut group's pieces 1.. into workspace tiles
-    (the walk's layout); K9 keeps every piece's (m, l, acc) share of a cut
-    group, so its slots are renumbered: piece p of a group whose first
-    slot is s takes slot s + p, and the merges' first slots move likewise.
-    Built once per plan and kept beside its block_ptr (`utils.kept_beside`)."""
+    """K9's (name "spmm_attention"), K13's ("spmm_attention_mh") or K10's
+    ("attention_bwd") work list of `plan`: ops/block_spmm.py's `plan_walk`
+    at the kernel's PIECE_BLOCKS and PIECE_WORK. K10 adds a cut group's
+    pieces 1.. into workspace tiles (the walk's layout); K9 and K13 keep
+    every piece's (m, l, acc) share of a cut group, so their slots are
+    renumbered: piece p of a group whose first slot is s takes slot s + p,
+    and the merges' first slots move likewise. Built once per plan and kept
+    beside its block_ptr (`utils.kept_beside`)."""
     walk = plan_walk(plan, name)
-    if name != "spmm_attention":
+    if name not in SHARE_KERNELS:
         return walk
 
     def build():
@@ -122,14 +132,15 @@ def attention_walk(plan: SpmmPlan, name: str):
     return kept_beside(plan.block_ptr, key, build, plan.bitmask, plan.hind, plan.occ)
 
 
-def attention_walk_stats(plan: SpmmPlan, name: str, d: int) -> dict:
-    """`walk_stats` of K9's or K10's work list at width d, with the
-    kernel's own workspace: K9 keeps m, l and d columns a row of every
-    piece of a cut group, K10 d columns of its pieces 1.. (MiB)."""
+def attention_walk_stats(plan: SpmmPlan, name: str, d: int, heads: int = 1) -> dict:
+    """`walk_stats` of K9's, K13's or K10's work list at width d, with the
+    kernel's own workspace: K9 and K13 keep m, l and d columns a row (and
+    a head) of every piece of a cut group, K10 d columns of its pieces
+    1.. (MiB)."""
     walk = attention_walk(plan, name)
     stats = walk_stats(plan, walk, d)
-    width = d + 2 if name == "spmm_attention" else d
-    stats["workspace_mib"] = walk.slots * walk.rows * width * 4 / 2**20
+    width = d + 2 if name in SHARE_KERNELS else d
+    stats["workspace_mib"] = walk.slots * heads * walk.rows * width * 4 / 2**20
     return stats
 
 
@@ -273,7 +284,7 @@ def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float):
     if dv == 0:
         return out, lse.fill_(_EMPTY_LSE)
     walk = attention_walk(plan, name)
-    acc = _acc_width(dv)
+    acc = acc_width(dv)
     if walk.tasks.shape[0] > _INT_MAX or -(-dv // acc) > 65535:
         raise ValueError(f"{name}: more tasks or columns than the grid takes")
     ws_ml = ws_acc = None
@@ -456,7 +467,7 @@ def _bwd_kernel(plan: SpmmPlan, q, k, v, out, lse, g, scale: float, slope: float
         sides = (torch.zeros(nk if summed else n, d, dtype=f32, device=dev) for d in (dk, dv))
         return torch.zeros(nq, dk, dtype=f32, device=dev), *sides
     walk = attention_walk(plan, name)
-    acc = _acc_width(max(dk, dv))
+    acc = acc_width(max(dk, dv))
     if walk.tasks.shape[0] > _INT_MAX or -(-max(dk, dv) // acc) > 65535:
         raise ValueError(f"{name}: more tasks or columns than the grid takes")
     dq = torch.empty(nq, dk, dtype=f32, device=dev)

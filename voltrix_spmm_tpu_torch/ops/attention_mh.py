@@ -11,8 +11,11 @@ bits; duplicate CSR edges collapse):
 A row with no edges, and every row of an empty window, gets out 0 and
 lse exactly 1e30.
 
-- `spmm_attention_mh(plan, q, k, v)` runs K13 (csrc/attn_mh_fwd.cu,
-  replacing attention_mh.py:_attn_fwd_mh_kernel).
+- `spmm_attention_mh(plan, q, k, v)` runs K13 (csrc/attn_fwd.cu, beside
+  K9, replacing attention_mh.py:_attn_fwd_mh_kernel): K9's row walk over
+  K13's work list (`ops/attention.py:attention_walk`), a group of
+  HEAD_GROUP heads sharing each walk of the bitmask, the pieces' (m, l,
+  acc) shares of a cut group merged per head in piece order.
 - `attention_mh_dq` runs K14 (csrc/attn_mh_dq.cu, replacing
   _attn_bwd_dq_mh_kernel): dq[h, r] = sum_l ds k[h, l] over `plan`, with
   p = exp(s - lse_r), ds = p (dO_r . v_l - D_r) act'(raw) scale and
@@ -22,11 +25,11 @@ lse exactly 1e30.
   q[h, r] and dv[h, l] = sum_r p dO[h, r].
 - `spmm_attention_mh_ad` is the autograd Function over the three.
 
-The launches, the plain versions' arithmetic and the argument checks
-live in ops/_attn_core.py, which the single-head op (ops/attention.py)
-shares: its kernels K11 and K12 are K14 and K15 at H = 1. This module
-adds the head stacks' entry points, the plane dtype, the subtile flag and
-its own counts.
+K14's and K15's launches, the plain versions' arithmetic and the
+argument checks live in ops/_attn_core.py, which the single-head op
+(ops/attention.py) shares: its kernels K11 and K12 are K14 and K15 at H =
+1. This module adds K13's launch, the head stacks' entry points, the
+plane dtype, the subtile flag and its own counts.
 
 plane_dtype=torch.bfloat16 rounds exactly the operands the JAX package
 streams in bf16: k and v everywhere, q and dO where K15 gathers them.
@@ -59,16 +62,97 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     _dkv_plain,
     _dq_kernel,
     _dq_plain,
-    _fwd_kernel,
     _fwd_plain,
     _on_cuda,
+    _plan_args,
     _plane,
     _refuse_knobs,
     load_dkv_library,
     load_dq_library,
-    load_fwd_library,
 )
+from .attention import attention_walk, load_mh_fwd_library
+from .block_spmm import _INT_MAX, launch
 from .reference import CHUNK_BYTES
+
+# heads whose walk K13 shares (1, 2, 4 or 8): the fastest of
+# python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep --kernels
+# spmm_attention_mh at path G's two layers
+HEAD_GROUP = 4
+# K13's column chunks (a lane's acc columns of each head) by head group:
+# the template pairs of csrc/attn_fwd.cu:dispatch_mh, whose registers fit
+# a lane
+MH_ACC_WIDTHS = {1: (8, 16, 32, 40, 64), 2: (8, 16, 40), 4: (8, 16), 8: (8,)}
+
+
+def mh_geometry(heads: int, dv: int) -> tuple[int, int]:
+    """(head group, column chunk) of K13 for `heads` heads of width dv: the
+    smallest power of two that holds min(heads, HEAD_GROUP) heads, halved
+    while its widest chunk is narrower than dv; the narrowest chunk that
+    holds dv, else the widest (dv in several chunks)."""
+    hg = 1
+    while hg < min(heads, HEAD_GROUP):
+        hg *= 2
+    while hg > 1 and MH_ACC_WIDTHS[hg][-1] < dv:
+        hg //= 2
+    widths = MH_ACC_WIDTHS[hg]
+    return hg, next((w for w in widths if w >= dv), widths[-1])
+
+
+def _head_rows(name: str, device, t: torch.Tensor, dtype) -> torch.Tensor:
+    """t (H, n, d) in `dtype` on `device` with each row's values contiguous,
+    in whatever head and row strides it has: the node-major (n, H, d)
+    projections of models/gat_flash.py as they are (no copy where the dtype
+    is already right), a head-major stack likewise."""
+    if t.device != device:
+        raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    t = t.to(dtype)
+    return t.contiguous() if t.shape[2] > 1 and t.stride(2) != 1 else t
+
+
+def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float, pdt):
+    """out (H, nq, dv) and lse (H, padded_nodes), float32, through K13:
+    the walk over `attention_walk(plan, "spmm_attention_mh")` for each
+    head group and, when a group of rows is cut, the merge of each head's
+    shares. q, k and v are read through their head and row strides
+    (`_head_rows`). Every row is written."""
+    name = "spmm_attention_mh"
+    heads, nq, dk = q.shape
+    nk, dv = k.shape[1], v.shape[2]
+    dev = q.device
+    _plan_args(plan, dev, name)
+    f32, tdt = torch.float32, pdt or torch.float32
+    qc, kc, vc = (_head_rows(name, dev, t, dt) for t, dt in ((q, f32), (k, tdt), (v, tdt)))
+    cfg = plan.config
+    out = torch.empty(heads, nq, dv, dtype=f32, device=dev)
+    lse = torch.empty(heads, plan.padded_nodes, dtype=f32, device=dev)
+    if dv == 0:
+        return out, lse.fill_(_EMPTY_LSE)
+    walk = attention_walk(plan, name)
+    hg, acc = mh_geometry(heads, dv)
+    if walk.tasks.shape[0] * -(-heads // hg) > _INT_MAX or -(-dv // acc) > 65535:
+        raise ValueError(f"{name}: more tasks, heads or columns than the grid takes")
+    ws_ml = ws_acc = None
+    if walk.slots:
+        ws_ml = torch.empty(walk.slots * heads * walk.rows * 2, dtype=f32, device=dev)
+        ws_acc = torch.empty(walk.slots * heads * walk.rows * dv, dtype=f32, device=dev)
+
+    def rows16(t, per16):  # rows read 16 bytes at a time: aligned, whole 16-byte units
+        return int(t.shape[2] % per16 == 0 and t.data_ptr() % 16 == 0
+                   and t.stride(0) % per16 == 0 and t.stride(1) % per16 == 0)
+
+    launch(
+        name, load_mh_fwd_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), qc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), None if ws_acc is None else ws_acc.data_ptr(),
+        walk.tasks.shape[0], walk.merges.shape[0], heads, hg, cfg.words_per_col, cfg.block_h,
+        cfg.block_w, nq, nk, dk, dv, plan.padded_nodes, acc, int(pdt is not None),
+        float(scale), float(slope), rows16(qc, 4), rows16(kc, 16 // kc.element_size()),
+        rows16(vc, 16 // vc.element_size()), *qc.stride()[:2], *kc.stride()[:2],
+        *vc.stride()[:2],
+    )
+    spmm_attention_mh.launches += 1
+    return out, lse
 
 
 def _check_subtile(subtile: bool, *plans: SpmmPlan) -> None:
@@ -159,7 +243,7 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
         return spmm_attention_mh_reference(plan, q, k, v, scale=scale,
                                            negative_slope=negative_slope, plane_dtype=pdt,
                                            return_stats=return_stats, out_dtype=out_dtype)
-    out, lse = _fwd_kernel(spmm_attention_mh, plan, q, k, v, scale, negative_slope, pdt)
+    out, lse = _fwd_kernel(plan, q, k, v, scale, negative_slope, pdt)
     out = out.to(out_dtype)
     return (out, lse) if return_stats else out
 

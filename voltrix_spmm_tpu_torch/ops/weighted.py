@@ -15,8 +15,12 @@ with the bitmask.
   order: two launches on one input give the same bits.
 - `spmm_weighted_dvalues(plan, feat, g)` computes the value gradient
   dV[b] = mask[b] o (g_window @ feat[hind[b]]^T) through K5
-  (csrc/spmm_dvalues.cu, replacing weighted.py:_dvalues_kernel); it is
-  exactly 0.0 off the bitmask.
+  (csrc/spmm_dvalues.cu, replacing weighted.py:_dvalues_kernel): a dot
+  product at each set bit only, over the work list of
+  `block_spmm.plan_walk(plan, "spmm_dvalues")` (pieces of at most
+  PIECE_BLOCKS["spmm_dvalues"] blocks of one window, whose g rows a thread
+  block takes once), each block's plane written once; it is exactly 0.0
+  off the bitmask, and two launches on one input give the same bits.
 - `sddmm` and `spmm_weighted_ad` are built on the two.
 
 A CPU tensor takes the plain versions, `spmm_weighted_reference` and
@@ -35,7 +39,15 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .bitmask import expand_bitmask
-from .block_spmm import _GROUP_WORDS, _INT_MAX, cast_out, launch, plan_walk, walk_workspace
+from .block_spmm import (
+    _GROUP_WORDS,
+    _INT_MAX,
+    acc_width,
+    cast_out,
+    launch,
+    plan_walk,
+    walk_workspace,
+)
 from .reference import CHUNK_BYTES, block_sum, clipped_gather
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a thread block may use on sm_90
@@ -55,7 +67,7 @@ def load_dvalues_library():
     """Build (or reuse) K5's library; return (launch, error_string)."""
     rt = build("spmm_dvalues", ["spmm_dvalues.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_dvalues_f32", [p, p, p, p, p, p, i, i, i, i, i, i, i, p])
+    fn = rt.function("voltrix_spmm_dvalues_f32", [p] * 6 + [i] * 9 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -235,7 +247,8 @@ spmm_weighted_dvalues_reference.calls = 0  # plain-int call count, read by chip_
 def spmm_weighted_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The value gradient plane through kernel K5 (see the plain version
     for the definition). The plan's value plane is not read: any plan with
-    exact lanes, binary or weighted, takes it."""
+    exact lanes, binary or weighted, takes it; block_h and block_w must be
+    multiples of 32 (whole bitmask words and lane slices)."""
     if feat.device.type == "cpu":
         return spmm_weighted_dvalues_reference(plan, feat, g)
     if feat.device.type != "cuda":
@@ -246,17 +259,25 @@ def spmm_weighted_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor) -
     _check_kernel_args(plan, "spmm_weighted_dvalues", {
         "bitmask": (torch.int32, (tb, cfg.words_per_col, K)),
         "hind": (torch.int32, (tb, K)),
-        "window_of_block": (torch.int32, (tb,)),
+        "block_ptr": (torch.int32, (plan.num_windows + 1,)),
     }, feat, g)
-    if K not in (128, 256):
-        raise ValueError(f"spmm_weighted_dvalues takes block_w 128 or 256, got {K}")
+    if K % 32:
+        raise ValueError(f"spmm_weighted_dvalues takes block_w in whole 32-lane slices, got {K}")
+    d = feat.shape[1]
     out = torch.empty(tb, H, K, dtype=torch.float32, device=feat.device)
+    if tb and d == 0:
+        return out.zero_()
     if tb:
+        walk = plan_walk(plan, "spmm_dvalues")
+        if walk.tasks.shape[0] > _INT_MAX:
+            raise ValueError("spmm_weighted_dvalues: more tasks than the grid takes")
         launch(
             "spmm_dvalues", load_dvalues_library(), feat,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(), plan.window_of_block.data_ptr(),
-            feat.data_ptr(), g.data_ptr(), out.data_ptr(),
-            tb, cfg.words_per_col, H, K, plan.num_nodes, plan.source_rows, feat.shape[1],
+            plan.bitmask.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
+            feat.data_ptr(), g.data_ptr(), out.data_ptr(), walk.tasks.shape[0],
+            cfg.words_per_col, H, K, plan.num_nodes, plan.source_rows, d,
+            acc_width(d),
+            int(d % 4 == 0 and feat.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0),
         )
         spmm_weighted_dvalues.launches += 1
     return out

@@ -4,10 +4,16 @@ PlanConfig(128, 128, block_unroll=4).
 
 - `--kernels tasks`: the task size (plan blocks per thread block) and head
   group (heads per thread block) of the entry points that take them
-  (ops/_attn_core.py:_TASK_BLOCKS, _HEAD_GROUP). Path G, the multi-head
-  entry points (K13, K14, K15): bf16 planes, layer 1 (8 heads of width 8)
-  and layer 2 (1 head of width 40); path H, K11 and K12: float32, one head
-  of width 8 (a layer-1 head) and of width 40 (layer 2).
+  (ops/_attn_core.py:_TASK_BLOCKS, _HEAD_GROUP). Path G, K14 and K15: bf16
+  planes, layer 1 (8 heads of width 8) and layer 2 (1 head of width 40);
+  path H, K11 and K12: float32, one head of width 8 (a layer-1 head) and of
+  width 40 (layer 2).
+- `--kernels spmm_attention_mh`: K13's piece limits
+  (ops/block_spmm.py:PIECE_BLOCKS, PIECE_WORK) and head group
+  (ops/attention_mh.py:HEAD_GROUP) at path G's two layers, bf16 planes, q,
+  k and v the node-major projections the model passes, timed on the whole
+  plan and on its hub window alone, with what the work list gives and the
+  workspace.
 - `--kernels spmm_attention attention_bwd`: the piece limits of K9 and of
   K10 (ops/block_spmm.py:PIECE_BLOCKS, PIECE_WORK; K10 as the training
   step runs it, with its lane planes summed by source,
@@ -37,6 +43,7 @@ from ..data import proxy_csr, symmetrize
 from ..ops import (
     _attn_core,
     attention_bwd_summed,
+    attention_mh,
     attention_dkv,
     attention_dq,
     attention_mh_dkv,
@@ -51,9 +58,12 @@ from .spmm_piece_sweep import heaviest_window
 
 TASKS = (1, 2, 4, 8, 16)
 GROUPS = (1, 8)
-KERNELS = ("tasks", "spmm_attention", "attention_bwd")
+KERNELS = ("tasks", "spmm_attention", "attention_bwd", "spmm_attention_mh")
 BLOCKS = (8, 16, 32, 64)  # K9's and K10's PIECE_BLOCKS swept
 WORK = (512, 1024, 2048, 4096, None)  # and PIECE_WORK
+MH_BLOCKS = (16, 32, 64)  # K13's PIECE_BLOCKS swept
+MH_WORK = (256, 512, 1024, 2048)  # its PIECE_WORK
+MH_GROUPS = (1, 2, 4, 8)  # its HEAD_GROUP
 
 
 def _path_g(plan, n, dev, gen):
@@ -65,8 +75,6 @@ def _path_g(plan, n, dev, gen):
         bwd = (q, k, v, g, lse, (g * out).sum(-1))
         scale = 1.0 / d ** 0.5
         cases += [
-            ("spmm_attention_mh", heads, d,
-             lambda q=q, k=k, v=v: spmm_attention_mh(plan, q, k, v, **kw)),
             ("attention_mh_dq", heads, d,
              lambda bwd=bwd, s=scale: attention_mh_dq(plan, *bwd, scale=s, **kw)),
             ("attention_mh_dkv", heads, d,
@@ -168,6 +176,55 @@ def sweep_pieces(plan, n, dev, gen, kernels) -> None:
               f"{st['mean_task_work']:.1f}); workspace {st['workspace_mib']:.2f} MiB")
 
 
+def sweep_mh(plan, n, dev, gen) -> None:
+    """K13 over MH_BLOCKS x MH_WORK x MH_GROUPS at path G's two layers."""
+    name = "spmm_attention_mh"
+    w, hub = heaviest_window(plan)
+    rows = slice(w * plan.config.block_h, w * plan.config.block_h + hub.num_nodes)
+    print(f"hub window {w}: {hub.total_blocks} blocks of {plan.total_blocks}")
+    kw = dict(negative_slope=0.2, plane_dtype=torch.bfloat16)
+    cases = []
+    for heads, d in ((8, 8), (1, 40)):
+        # the model's node-major projections: (n, H * d) viewed as (H, n, d)
+        q, k, v = (torch.randn(n, heads * d, device=dev, generator=gen)
+                   .view(n, heads, d).permute(1, 0, 2) for _ in range(3))
+        qh = q[:, rows]
+        cases.append((heads, d, lambda q=q, k=k, v=v: spmm_attention_mh(plan, q, k, v, **kw),
+                      lambda q=qh, k=k, v=v: spmm_attention_mh(hub, q, k, v, **kw)))
+    settings = [(pb, pw, hg) for pb in MH_BLOCKS for pw in MH_WORK for hg in MH_GROUPS]
+    defaults = (dict(block_spmm.PIECE_BLOCKS), dict(block_spmm.PIECE_WORK),
+                attention_mh.HEAD_GROUP)
+    times: dict = {}
+    try:
+        for order in (settings, settings[::-1]):
+            for pb, pw, hg in order:
+                block_spmm.PIECE_BLOCKS[name], block_spmm.PIECE_WORK[name] = pb, pw
+                attention_mh.HEAD_GROUP = hg
+                for heads, d, whole, alone in cases:
+                    if heads == 1 and hg > 1:
+                        continue  # one head takes a group of one
+                    key = (heads, d, pb, pw, hg)
+                    if key not in times:
+                        times[key] = {"stats": attention_walk_stats(plan, name, d, heads),
+                                      "ms": [], "hub_ms": []}
+                    times[key]["ms"].append(cuda_ms(whole))
+                    times[key]["hub_ms"].append(cuda_ms(alone))
+                torch.cuda.empty_cache()
+    finally:
+        block_spmm.PIECE_BLOCKS.clear()
+        block_spmm.PIECE_BLOCKS.update(defaults[0])
+        block_spmm.PIECE_WORK.clear()
+        block_spmm.PIECE_WORK.update(defaults[1])
+        attention_mh.HEAD_GROUP = defaults[2]
+    for (heads, d, pb, pw, hg), t in sorted(times.items()):
+        st = t["stats"]
+        print(f"{name} H{heads} d{d} PIECE_BLOCKS {pb} PIECE_WORK {pw} HEAD_GROUP {hg}: "
+              f"{t['ms'][0]:.4f} / {t['ms'][1]:.4f} ms; hub window alone "
+              f"{t['hub_ms'][0]:.4f} / {t['hub_ms'][1]:.4f} ms; {st['pieces']} pieces, "
+              f"{st['cut_windows']} windows cut, heaviest {st['max_task_work']} units of work "
+              f"(mean {st['mean_task_work']:.1f}); workspace {st['workspace_mib']:.2f} MiB")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
@@ -185,7 +242,9 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     if "tasks" in kernels:
         sweep_tasks(plan, n, dev, gen)
-    pieces = [k for k in kernels if k != "tasks"]
+    if "spmm_attention_mh" in kernels:
+        sweep_mh(plan, n, dev, gen)
+    pieces = [k for k in kernels if k in ("spmm_attention", "attention_bwd")]
     if pieces:
         sweep_pieces(plan, n, dev, gen, pieces)
 

@@ -1,18 +1,20 @@
 """Repeats a step-0 check of chip_smoke.py on the ogbn-arxiv proxy with
 self-loops and counts what moves it from run to run: path H (per-head
-flash GAT, K9 and K10, on PlanConfig(128, 128, block_unroll=4)), path E
-(dot-product GAT, K6 and K7, on ELL plans of the same geometry) or path D
-(GAT, K4 and K5, on PlanConfig(64, 128)). Widths 128 -> 8 heads x 8 -> 40,
+flash GAT, K9 and K10, on PlanConfig(128, 128, block_unroll=4)), path G
+(flash GAT over all heads, K13, K14 and K15, on the same plan, float32
+planes as G's check takes them), path E (dot-product GAT, K6 and K7, on
+ELL plans of the same geometry) or path D (GAT, K4 and K5, on
+PlanConfig(64, 128)). Widths 128 -> 8 heads x 8 -> 40,
 parameters drawn as chip_smoke.py draws them, features and labels from
 seeds of their own, so the edges near the kink are not the path's own.
 
-    python3 -m voltrix_spmm_tpu_torch.tools.kink_flips [--path H|E|D] [--repeats 50]
+    python3 -m voltrix_spmm_tpu_torch.tools.kink_flips [--path H|G|E|D] [--repeats 50]
 
 Needs one CUDA device. leaky_relu's slope jumps from 0.2 to 1 at a score
 of 0, so an edge whose layer-2 score lies within rounding of 0 on one path
 and across it on the other changes the gradients by about one row's share
-(~2e-3 x max|grad| on H, far past its check's 1e-4; E's check is 1e-5, D's
-5e-5). The plain path is taken once in torch's deterministic mode. For each
+(~2e-3 x max|grad| on H, far past its check's 1e-4; G's is 1e-4 too, E's
+1e-5, D's 5e-5). The plain path is taken once in torch's deterministic mode. For each
 repeat the tool takes the kernel path's layer-2 inputs (the first layer's
 heads through the kernels, ELU, the products: q and k, or D's node logits
 s and t) and its step-0 gradients, and counts repeats whose layer-2 inputs
@@ -38,10 +40,12 @@ from .. import (GAT, GATDot, GATFlash, PlanConfig, build_ell_graph, build_gat_gr
 from ..data import proxy_csr, symmetrize
 from ..models.gat import gat_attention_aggregate
 from ..models.gat_ell import dot_attention_aggregate
-from ..ops import spmm_attention, spmm_attention_reference
+from ..models.gat_flash import _project_heads
+from ..ops import (spmm_attention, spmm_attention_mh, spmm_attention_mh_reference,
+                   spmm_attention_reference)
 
 CFG = PlanConfig(128, 128, block_unroll=4)
-ATOL = {"H": 1e-4, "E": 1e-5, "D": 5e-5}  # chip_smoke.py's step-0 limits, x max|grad|
+ATOL = {"H": 1e-4, "G": 1e-4, "E": 1e-5, "D": 5e-5}  # chip_smoke.py's step-0 limits, x max|grad|
 
 
 def path_h(a, params_np, heads, dev):
@@ -60,6 +64,30 @@ def path_h(a, params_np, heads, dev):
     def grads(x, y, impl):
         leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
         loss = gat_flash_loss(leaves, plan, x, y, impl=impl)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    return layer2_qk, grads
+
+
+def path_g(a, params_np, heads, dev):
+    """(layer-2 q and k of an impl, step-0 gradients of an impl) on path G
+    with float32 planes (G's step-0 check): the symmetric graph's plan is
+    its own transpose."""
+    n = a.shape[0]
+    plan = csr_preprocess(a.indptr, a.indices, n, CFG).to(dev)
+    g32 = (plan, plan, torch.float32)
+    p = GATFlash.from_params(gat_flash_params_from_jax(params_np, dev)).params()
+    attend = {"auto": spmm_attention_mh, "reference": spmm_attention_mh_reference}
+
+    def layer2_qk(x, impl):
+        q, k, v = (_project_heads(x, p[w]) for w in ("wq1", "wk1", "wv1"))
+        out = attend[impl](plan, q, k, v, negative_slope=0.2, plane_dtype=torch.float32)
+        h = F.elu(out.permute(1, 0, 2).reshape(n, -1))
+        return h @ p["wq2"], h @ p["wk2"]
+
+    def grads(x, y, impl):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        loss = gat_flash_loss(leaves, g32, x, y, impl=impl)
         return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
     return layer2_qk, grads
@@ -106,7 +134,7 @@ def path_d(a, params_np, heads, dev):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=("H", "E", "D"), default="H")
+    parser.add_argument("--path", choices=("H", "G", "E", "D"), default="H")
     parser.add_argument("--repeats", type=int, default=50)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -119,7 +147,7 @@ def main() -> None:
     a = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     a.sort_indices()
     n, (in_dim, hidden, classes), heads = a.shape[0], (128, 8, 40), 8
-    prng = np.random.default_rng(2)  # chip_smoke.py's path D, E and H parameters
+    prng = np.random.default_rng(2)  # chip_smoke.py's path D, E, G and H parameters
     if args.path == "D":
         params_np = {
             "w1": prng.standard_normal((heads, in_dim, hidden)) * (2.0 / in_dim) ** 0.5,
@@ -135,7 +163,7 @@ def main() -> None:
                      for k in ("wq1", "wk1", "wv1")}
         params_np.update({k: prng.standard_normal((heads * hidden, classes))
                           * (2.0 / (heads * hidden)) ** 0.5 for k in ("wq2", "wk2", "wv2")})
-    path = {"H": path_h, "E": path_e, "D": path_d}[args.path]
+    path = {"H": path_h, "G": path_g, "E": path_e, "D": path_d}[args.path]
     layer2, grads = path(a, params_np, heads, dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, in_dim)).astype(np.float32))
     x = x.to(dev)

@@ -24,19 +24,23 @@ def cuobjdump() -> str:
     return path
 
 
+def atomics(fname: str) -> collections.Counter:
+    """The atomic and reduction instructions in the SASS of the library
+    built from csrc/`fname`, by opcode."""
+    lib = build(fname[:-3], [fname]).path
+    sass = subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    return collections.Counter(
+        tok.rstrip(";") for line in sass.splitlines() for tok in line.split()
+        if tok.startswith(("ATOM", "RED"))
+    )
+
+
 def main() -> None:
-    tool = cuobjdump()
     for fname in sorted(os.listdir(CSRC_DIR)):
-        if not fname.endswith(".cu"):
-            continue
-        lib = build(fname[:-3], [fname]).path
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
-                              check=True).stdout
-        ops = collections.Counter(
-            tok.rstrip(";") for line in sass.splitlines() for tok in line.split()
-            if tok.startswith(("ATOM", "RED"))
-        )
-        print(f"{fname}: {dict(sorted(ops.items())) or 'no atomics'}")
+        if fname.endswith(".cu"):
+            ops = atomics(fname)
+            print(f"{fname}: {dict(sorted(ops.items())) or 'no atomics'}")
 
 
 if __name__ == "__main__":

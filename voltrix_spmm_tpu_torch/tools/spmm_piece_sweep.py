@@ -1,10 +1,11 @@
-"""Kernels K1, K2, K3, K4 and K8 against their piece limits (PIECE_BLOCKS,
-the most blocks of one window a thread block walks, and PIECE_WORK, about
-the most work; K4 has no work limit), at the shapes of chip_smoke.py's
-paths A (K1: the ogbn-arxiv proxy, PlanConfig(128, 128)) and B (K2: the
-same graph, PlanConfig(2048, 128, block_unroll=4, cluster_cols=True)), at
-d 128 and 256, D (K4: the same graph with self-loops, PlanConfig(64, 128),
-value planes of A and A^T from one attention vector, at d 8 and 40), I (K8
+"""Kernels K1, K2, K3, K4, K5 and K8 against their piece limits
+(PIECE_BLOCKS, the most blocks of one window a thread block walks, and
+PIECE_WORK, about the most work; K4 and K5 have no work limit), at the
+shapes of chip_smoke.py's paths A (K1: the ogbn-arxiv proxy,
+PlanConfig(128, 128)) and B (K2: the same graph, PlanConfig(2048, 128,
+block_unroll=4, cluster_cols=True)), at d 128 and 256, D (K4: the same
+graph with self-loops, PlanConfig(64, 128), value planes of A and A^T from
+one attention vector, at d 8 and 40; K5 on A's plan at d 8 and 40), I (K8
 alone on A's plan at d 128 and 256, and on path C's plan: the protein
 proxy, PlanConfig(2048, 128, gather_segment=128, block_unroll=4), at
 d 256), C (K3 on C's plan at d 8 and 256) and J.2 (K3 on the dense side of
@@ -34,21 +35,25 @@ import torch
 
 from .. import PlanConfig, build_gat_graph, csr_preprocess, csr_preprocess_hybrid
 from ..data import proxy_csr, symmetrize
-from ..ops import block_spmm, quant, spmm_block, spmm_fused, spmm_subtile, spmm_weighted
+from ..ops import (block_spmm, quant, spmm_block, spmm_fused, spmm_subtile, spmm_weighted,
+                   spmm_weighted_dvalues)
 from ..ops.subtile_spmm import subtile_walk
 from .k6_piece_sweep import cuda_ms
 
-KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8", "spmm_weighted", "spmm_fused")
+KERNELS = ("spmm_block", "spmm_subtile", "spmm_int8", "spmm_weighted", "spmm_fused",
+           "spmm_dvalues")
 # the limits swept, by kernel: K8 and K3 also walk C's 64-word windows,
 # where small pieces cost gigabytes of workspace (K3's pieces may pass
-# MAX_PIECE_BLOCKS: 4096 leaves C's windows uncut); K4 has a block limit alone
+# MAX_PIECE_BLOCKS: 4096 leaves C's windows uncut); K4 and K5 have a block
+# limit alone
 BLOCKS = {"spmm_block": (8, 16, 32, 64), "spmm_subtile": (8, 16, 32, 64),
           "spmm_int8": (16, 32, 64, 128, 256), "spmm_weighted": (2, 4, 8, 16, 32, 64),
-          "spmm_fused": (256, 1024, 4096)}
+          "spmm_fused": (256, 1024, 4096), "spmm_dvalues": (1, 2, 4, 8, 16)}
 WORK = {"spmm_block": (512, 1024, 2048, 4096, 8192),
         "spmm_subtile": (512, 1024, 2048, 4096, 8192),
         "spmm_int8": (1024, 2048, 4096, 8192, 16384), "spmm_weighted": (None,),
-        "spmm_fused": (None, 4096, 8192, 16384, 32768, 65536)}
+        "spmm_fused": (None, 4096, 8192, 16384, 32768, 65536), "spmm_dvalues": (None,)}
+NO_WORKSPACE = ("spmm_dvalues",)  # K5 writes every block's plane once, with no merge
 WIDTHS = (128, 256)
 
 
@@ -135,7 +140,7 @@ def main() -> None:
         if "spmm_fused" in kernels:
             for d, x in xc.items():
                 add("spmm_fused", "C's plan", plan_c, d, lambda p, x=x: spmm_fused(p, x))
-    if "spmm_weighted" in kernels:
+    if "spmm_weighted" in kernels or "spmm_dvalues" in kernels:
         loops = ((arxiv + sp.eye(n, format="csr")) != 0).astype(np.float32).tocsr()
         loops.sort_indices()
         g = build_gat_graph(loops.indptr, loops.indices, n, PlanConfig(64, 128), device=dev)
@@ -146,7 +151,13 @@ def main() -> None:
             wplan = dataclasses.replace(p, values=plane.view(-1, H, K))
             for d in (8, 40):
                 x = torch.randn(n, d, device=dev, generator=gen)
-                add("spmm_weighted", side, wplan, d, lambda p, x=x: spmm_weighted(p, x))
+                if "spmm_weighted" in kernels:
+                    add("spmm_weighted", side, wplan, d, lambda p, x=x: spmm_weighted(p, x))
+                if "spmm_dvalues" in kernels and side == "D's A":
+                    # the hub window alone takes the first rows of dO (timing only)
+                    dout = torch.randn(n, d, device=dev, generator=gen)
+                    add("spmm_dvalues", side, wplan, d,
+                        lambda p, x=x, dout=dout: spmm_weighted_dvalues(p, x, dout[:p.num_nodes]))
         del g, loops
     defaults = dict(block_spmm.PIECE_BLOCKS), dict(block_spmm.PIECE_WORK)
     times: dict = {}
@@ -173,6 +184,8 @@ def main() -> None:
     for (name, label, d, pb, pw), t in sorted(times.items(),
                                               key=lambda kv: (*kv[0][:4], kv[0][4] or 0)):
         st = t["stats"]
+        if name in NO_WORKSPACE:
+            st["workspace_mib"] = 0.0
         print(f"{name} {label} d{d} PIECE_BLOCKS {pb} PIECE_WORK {pw}: {t['ms'][0]:.4f} / "
               f"{t['ms'][1]:.4f} ms; heaviest window alone {t['hub_ms'][0]:.4f} / "
               f"{t['hub_ms'][1]:.4f} ms; {st['pieces']} pieces, heaviest {st['max_task_work']} "
