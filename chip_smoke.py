@@ -16,8 +16,9 @@ non-zero on failure (there is no CPU fallback):
    (csrc/attn_mh_dkv.cu), K9 and K13 (csrc/attn_fwd.cu), K10
    (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
    started together, into build/kernels/. K11 and K12 are the kernels of
-   K14 and K15 launched with one head and float32 planes. The SASS of K5
-   and of K9 and K13 holds no atomic instruction (tools/sass_atomics.py).
+   K14 and K15 launched with one head and float32 planes. The SASS of K5,
+   of K9 and K13, and of K14 and K15 holds no atomic instruction
+   (tools/sass_atomics.py).
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
    (float32 sums in another order, so not bit-equal); K1 and K2 also on a
@@ -44,11 +45,12 @@ non-zero on failure (there is no CPU fallback):
    windows with padding lanes cut into pieces (from a generator of their
    own). K13-K15 (out, lse, dq, dk, dv) with float32 and bf16 planes:
    calc_diff < 1e-6 and allclose(rtol=1e-4, atol=1e-5 x max|plain|); rows
-   without edges exactly 0 with lse exactly 1e30; K13 twice on each
-   input, bit-identical. K9-K12 (out, lse, K10's dq and lane
+   without edges exactly 0 with lse exactly 1e30; K13, K14 and K15 twice
+   on each input, bit-identical. K9-K12 (out, lse, K10's dq and lane
    planes, K10 with its fixed-order sum against the plain backward and
    scatter_lanes, dq, dk, dv) on head 0 of the same problems, to the same
-   tolerance; K10's lane planes exactly 0 on lanes without bits. K9 and K10
+   tolerance; K10's lane planes exactly 0 on lanes without bits; K11 and
+   K12 twice on each input, bit-identical. K9 and K10
    also on their work list (from a generator of their own): a power-law
    hub window cut into >= 16 pieces at d 8, 12 and 40 and at d 40 with
    rows 4 bytes past a 16-byte boundary, a tail window past n at d 12
@@ -125,11 +127,12 @@ non-zero on failure (there is no CPU fallback):
       rtol and atol 2e-2, gradients 1e-2 x max|grad|); the same model
       with float32 planes is held to rtol and atol 1e-4 (gradients 1e-4 x
       max|grad|: a hub row's dq sums ~38k terms whose coefficients add up
-      to 0; the gradients also vary in their last bits from run to run,
-      as K14's and K15's cut-window flushes add with float atomics).
-      Request 0's logits twice, bit-identical. At each layer, on the
-      node-major projections the model passes: K13's work list (pieces,
-      windows cut, the heaviest piece against the mean, workspace), K13
+      to 0). Request 0's logits twice, bit-identical; step 0's
+      kernel-path gradients twice, bit-identical, with bf16 and with
+      float32 planes. At each layer, on the node-major projections the
+      model passes: K13's, K14's and K15's work lists (pieces, windows
+      cut, the heaviest piece against the mean, workspace; three lists,
+      each under its own name, though plan_t is plan), K13, K14 and K15
       twice on one input, bit-identical, and K13 timed in turns beside
       head-major copies of q, k and v made in the call and K13 on those.
    H. Flash GAT on a bare plan, G's graph, plan geometry and widths, one
@@ -140,9 +143,9 @@ non-zero on failure (there is no CPU fallback):
       rtol / atol 1e-4 (gradients 1e-4 x max|grad|, G's float32 rule), and
       step 0's kernel-path gradients twice, bit-identical; K9 (out, lse)
       and K10 (dq, summed dk and dv) twice on one input at d 8 and 40,
-      bit-identical; K9 timed in turns beside K13 at one head (float32
-      planes), K10 beside K11 + K12, and scatter_lanes (index_add_) on
-      K10's planes. Then the split backward,
+      bit-identical, and K11 and K12 likewise; K9 timed in turns beside
+      K13 at one head (float32 planes), K10 beside K11 + K12, and
+      scatter_lanes (index_add_) on K10's planes. Then the split backward,
       spmm_attention_ad(plan, q, k, v, plan_t=plan) at a layer-1 head (d 8)
       and at layer 2 (d 40): K9, K11 and K12 once each per width, its
       gradients against the plain ones and against K10's.
@@ -391,6 +394,7 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.models.gat import edge_orders
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.models.gat_flash import _project_heads
+    from voltrix_spmm_tpu_torch.ops._attn_core import BWD_HEAD_GROUP, bwd_geometry
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_bwd_summed, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
@@ -472,9 +476,9 @@ def main() -> None:
     t_nvcc = time.perf_counter() - t0
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"{t_nvcc:.2f} s in all, into {get_build_dir()}")
-    # K5 and K13 (and K9 beside it) sum in a fixed order: no atomic of any
-    # kind in their SASS
-    for src in ("spmm_dvalues.cu", "attn_fwd.cu"):
+    # K5, K13 (and K9 beside it), K14 and K15 (and K11, K12 at one head) sum
+    # in a fixed order: no atomic of any kind in their SASS
+    for src in ("spmm_dvalues.cu", "attn_fwd.cu", "attn_mh_dq.cu", "attn_mh_dkv.cu"):
         ops = sass_atomics.atomics(src)
         print(f"sass_atomics {src}: {dict(sorted(ops.items())) or 'no atomics'}")
         if ops:
@@ -1075,10 +1079,19 @@ def main() -> None:
         if not lse_ok:
             fail(f"kernel {name}'s lse disagrees with its plain version on {label}")
 
+    def bwd_twice(label, what, first, again):
+        """A backward kernel's outputs from two launches on one input: the
+        same bits, or fail (K11, K12, K14 and K15 sum in a fixed order)."""
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"    {what} twice on {label}: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{label}: two runs of {what} on the same input differ")
+
     def attn1_compare(label, plan, plan_t, q, k, v, g, slope):
         """K9, K10, K11 and K12 against their plain versions on one head (q
         (n, dk) etc.); the backward takes the plain forward's out and lse.
-        K10's lane planes must be exactly 0 on lanes without bits."""
+        K10's lane planes must be exactly 0 on lanes without bits; K11 and
+        K12 twice on the same input the same bits."""
         kw = dict(negative_slope=slope)
         out_k, lse_k = spmm_attention(plan, q, k, v, return_stats=True, **kw)
         out_p, lse_p = spmm_attention_reference(plan, q, k, v, return_stats=True, **kw)
@@ -1101,17 +1114,19 @@ def main() -> None:
         for part, a, b in zip(("dq", "dk", "dv"), summed, plain):
             close("attn_bwd", f"{label} summed {part}", a, b)
         bwd = (q, k, v, g, lse_p, (g * out_p).sum(-1))
-        close("attn_dq", f"{label} dq", attention_dq(plan, *bwd, **kw),
-              attention_dq_reference(plan, *bwd, **kw))
-        for part, a, b in zip(("dk", "dv"), attention_dkv(plan_t, *bwd, **kw),
-                              attention_dkv_reference(plan_t, *bwd, **kw)):
+        dq = attention_dq(plan, *bwd, **kw)
+        close("attn_dq", f"{label} dq", dq, attention_dq_reference(plan, *bwd, **kw))
+        dkv = attention_dkv(plan_t, *bwd, **kw)
+        for part, a, b in zip(("dk", "dv"), dkv, attention_dkv_reference(plan_t, *bwd, **kw)):
             close("attn_dkv", f"{label} {part}", a, b)
+        bwd_twice(label, "K11 (dq) and K12 (dk, dv)", (dq, *dkv),
+                  (attention_dq(plan, *bwd, **kw), *attention_dkv(plan_t, *bwd, **kw)))
 
     def attn_compare(label, plan, plan_t, q, k, v, g, slope, pdt):
         """K13, K14 and K15 against their plain versions on one problem; the
         backward takes the plain forward's lse and D. Rows without edges
-        must come out exactly 0 with lse exactly 1e30, and K13 twice on the
-        same input the same bits."""
+        must come out exactly 0 with lse exactly 1e30, and K13, K14 and K15
+        twice on the same input the same bits."""
         kw = dict(negative_slope=slope, plane_dtype=pdt)
         scale = 1.0 / q.shape[2] ** 0.5
         out_k, lse_k = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
@@ -1127,12 +1142,14 @@ def main() -> None:
         d_row = (g * out_p).sum(-1)
         bwd = (q, k, v, g, lse_p, d_row)
         kw["scale"] = scale
-        close("attn_mh_dq", f"{label} dq", attention_mh_dq(plan, *bwd, **kw),
-              attention_mh_dq_reference(plan, *bwd, **kw))
+        dq_k = attention_mh_dq(plan, *bwd, **kw)
+        close("attn_mh_dq", f"{label} dq", dq_k, attention_mh_dq_reference(plan, *bwd, **kw))
         dk_k, dv_k = attention_mh_dkv(plan_t, *bwd, **kw)
         dk_p, dv_p = attention_mh_dkv_reference(plan_t, *bwd, **kw)
         close("attn_mh_dkv", f"{label} dk", dk_k, dk_p)
         close("attn_mh_dkv", f"{label} dv", dv_k, dv_p)
+        bwd_twice(label, "K14 (dq) and K15 (dk, dv)", (dq_k, dk_k, dv_k),
+                  (attention_mh_dq(plan, *bwd, **kw), *attention_mh_dkv(plan_t, *bwd, **kw)))
 
     def attn_case(label, a, cfg, heads, dk, dv, slope=0.2, pdt=None, cfg_t=None, expect=None):
         """K13-K15 on plans of `a` and of its transpose (`cfg_t`, default
@@ -1891,39 +1908,53 @@ def main() -> None:
                        **common, "per_width": per_width[name]}
                 for name in ("spmm_ell", "spmm_ell_dvals")}
 
-    def mh_pieces(plan, d, heads):
-        """What K13's work list gives `plan`, in the form of attn_pieces."""
-        name = "spmm_attention_mh"
-        st = attention.attention_walk_stats(plan, name, d, heads)
+    def mh_pieces(plan, d, heads, name="spmm_attention_mh"):
+        """What K13's, K14's or K15's work list gives `plan` (K15: the
+        transpose plan), in the form of attn_pieces: d is the kernel's
+        width (K15: dk = dv; its two workspaces)."""
+        st = attention.attention_walk_stats(plan, name, 2 * d if name == "attention_mh_dkv" else d,
+                                            heads)
         most = int(torch.bincount(attention.attention_walk(plan, name).tasks[:, 0].long()).max())
-        return (f"K13's work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS[name]}, PIECE_WORK "
-                f"{block_spmm.PIECE_WORK[name]}, head group "
-                f"{attention_mh.mh_geometry(heads, d)[0]} of HEAD_GROUP "
-                f"{attention_mh.HEAD_GROUP}): {st['pieces']} pieces, {st['cut_windows']} "
-                f"windows cut, at most {most} in one window, heaviest {st['max_task_work']} units "
-                f"of work against a mean of {st['mean_task_work']:.1f}, workspace "
-                f"{st['workspace_mib']:.2f} MiB at H {heads} x d {d}")
+        if name == "spmm_attention_mh":
+            kernel, group = "K13", (f"head group {attention_mh.mh_geometry(heads, d)[0]} of "
+                                    f"HEAD_GROUP {attention_mh.HEAD_GROUP}")
+        else:
+            kernel = "K14" if name == "attention_mh_dq" else "K15"
+            group = (f"head group {bwd_geometry(name, heads, d)[0]} of BWD_HEAD_GROUP "
+                     f"{BWD_HEAD_GROUP[name]}")
+        return (f"{kernel}'s work list (PIECE_BLOCKS {block_spmm.PIECE_BLOCKS[name]}, PIECE_WORK "
+                f"{block_spmm.PIECE_WORK[name]}, {group}): {st['pieces']} pieces, "
+                f"{st['cut_windows']} windows cut, at most {most} in one window, heaviest "
+                f"{st['max_task_work']} units of work against a mean of "
+                f"{st['mean_task_work']:.1f}, workspace {st['workspace_mib']:.2f} MiB at H "
+                f"{heads} x d {d}")
 
     def time_attn(label, plan, q, k, v, g, pdt, per_width):
         """K13, K14 and K15 at one of path G's layers (q, k, v as the model
-        projects them, dO): held against their plain versions, K13 twice on
+        projects them, dO): held against their plain versions, each twice on
         one input, timed in turns with them, and each kernel's bound from
         this problem's edges; K13 also after head-major copies of q, k and
         v made in the call (what reading through strides saves). K14 and
-        K15 take head-major copies made beforehand, as they copy their
-        inputs. Returns the time of the copies and K13 on them."""
+        K15 read the model's projections through their strides too, k and v
+        cast to the plane's type once beforehand, as the backward casts
+        them. Returns the time of the copies and K13 on them."""
         heads, n, dk = q.shape
         dv = v.shape[2]
         tag = f"H{heads} d{dk}"
-        print(f"  kernels at {tag}/{dv}: {mh_pieces(plan, dv, heads)}")
+        for name in ("spmm_attention_mh", "attention_mh_dq", "attention_mh_dkv"):
+            print(f"  kernels at {tag}/{dv}: {mh_pieces(plan, dv, heads, name)}")
+        lists = [attention.attention_walk(plan, x)
+                 for x in ("spmm_attention_mh", "attention_mh_dq", "attention_mh_dkv")]
+        if len({id(x) for x in lists}) != 3:
+            fail(f"path {label}: K13, K14 and K15 share a work list")
         attn_compare(f"path {label} {tag}", plan, plan, q, k, v, g, 0.2, pdt)
         scale = 1.0 / dk ** 0.5
         kw = dict(negative_slope=0.2, plane_dtype=pdt)
         with torch.no_grad():
             out, lse = spmm_attention_mh(plan, q, k, v, return_stats=True, **kw)
             d_row = (g * out).sum(-1)
-        qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        bwd = (qc, kc, vc, g, lse, d_row)
+        kp, vp = (t if pdt is None else t.to(pdt) for t in (k, v))
+        bwd = (q, kp, vp, g, lse, d_row)
         plane = 2 if pdt is not None else 4
         plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
         edges = plan.num_edges * heads
@@ -2062,10 +2093,10 @@ def main() -> None:
               "on labels from the seed")
         y = torch.from_numpy(np.random.default_rng(4).integers(0, classes, n)).to(dev)
 
-        def grads_of(impl):
+        def grads_of(impl, graph=g32):
             leaves = {k: v.requires_grad_(True)
                       for k, v in gat_flash_params_from_jax(params_np, dev).items()}
-            loss = gat_flash_loss(leaves, g32, xs[0], y, impl=impl)
+            loss = gat_flash_loss(leaves, graph, xs[0], y, impl=impl)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             return loss.detach(), dict(zip(leaves, grads))
 
@@ -2090,6 +2121,17 @@ def main() -> None:
             {"attn_mh_fwd": 2, "attn_mh_dq": 2, "attn_mh_dkv": 2}, atol_scale=1e-2,
             max_diff=1e-4, rtol=2e-2)
         loss_fell(label, losses, final)
+        # step 0's gradients on the kernel path, twice from the same
+        # parameters, with the path's bf16 planes and with float32 planes
+        for graph, planes in ((g, "bf16"), (g32, "float32")):
+            first, again = (grads_of("auto", graph)[1] for _ in range(2))
+            same = all(torch.equal(first[k], again[k]) for k in first)
+            print(f"  step 0's kernel-path gradients twice, {planes} planes: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"path {label}: two runs of step 0 on the kernel path give different "
+                     f"gradients ({planes} planes)")
+        del first, again
         step_ms, plain_step_ms = time_steps(
             make_train_step(torch.optim.Adam(tmodel.parameters(), lr=5e-3), gat_flash_loss),
             tmodel.params(), g, xs[0], y)

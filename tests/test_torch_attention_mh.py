@@ -15,7 +15,11 @@ bf16 plane as hi/lo pairs and the port reads them in float32.
 K13's split (its work list, `attention_walk(plan, "spmm_attention_mh")`:
 each piece an online softmax per head over its own edges, a cut group's
 shares merged per head in piece order) is emulated in plain torch and held
-to JAX's `spmm_attention_mh` at the same tolerances.
+to JAX's `spmm_attention_mh` at the same tolerances. So are K14's and
+K15's (`attention_walk(plan, "attention_mh_dq")`, and over the transpose
+plan "attention_mh_dkv": each piece's partial dq, or dk and dv, over its
+own blocks, the partials added in piece order), held to `jax.grad` of
+`spmm_attention_mh_ad` at the gradients' tolerances.
 """
 
 import dataclasses
@@ -48,7 +52,15 @@ from voltrix_spmm_tpu_torch.ops import (
     spmm_attention_mh_ad,
     spmm_attention_mh_reference,
 )
-from voltrix_spmm_tpu_torch.ops._attn_core import _act, _edges, _rounded
+from voltrix_spmm_tpu_torch.ops._attn_core import (
+    BWD_ACC_WIDTHS,
+    _act,
+    _ds,
+    _edges,
+    _rounded,
+    bwd_geometry,
+)
+import voltrix_spmm_tpu_torch.ops._attn_core as attn_core_module
 from voltrix_spmm_tpu_torch.ops.attention import attention_walk
 import voltrix_spmm_tpu_torch.ops.attention_mh as attention_mh_module
 from voltrix_spmm_tpu_torch.ops.attention_mh import MH_ACC_WIDTHS, mh_geometry
@@ -343,9 +355,8 @@ def _fake_nvcc(tmp_path):
 def test_attention_kernel_sources_build_for_sm90a(tmp_path, monkeypatch):
     """K13, K14 and K15 build as K1-K7 do: one nvcc per source, for sm_90a,
     with csrc/ on the include path for their shared headers. K13 lives in
-    K9's source, csrc/attn_fwd.cu, on the row walk of csrc/attn_walk.cuh,
-    with no atomics; K14 and K15 walk with csrc/attn_mh_common.cuh. The
-    old source of K13 is gone."""
+    K9's source, csrc/attn_fwd.cu; all three walk rows with
+    csrc/attn_walk.cuh, with no atomics. The old source of K13 is gone."""
     nvcc, log = _fake_nvcc(tmp_path)
     monkeypatch.setenv(vt.project.NVCC_FLAG, nvcc)
     monkeypatch.setenv(vt.project.BUILD_DIR_FLAG, str(tmp_path / "kernels"))
@@ -355,11 +366,10 @@ def test_attention_kernel_sources_build_for_sm90a(tmp_path, monkeypatch):
         assert os.path.basename(compiler.build(name, [f"{name}.cu"]).path) == f"lib{name}.so"
         with open(os.path.join(compiler.CSRC_DIR, f"{name}.cu")) as f:
             text = f.read()
+        assert '#include "attn_walk.cuh"' in text
+        assert not re.search(r"\batomic\w*\s*\(", text)  # sums in a fixed order
         if name == "attn_fwd":
-            assert '#include "attn_walk.cuh"' in text and "voltrix_attn_mh_fwd" in text
-            assert not re.search(r"\batomic\w*\s*\(", text)  # sums in a fixed order
-        else:
-            assert '#include "attn_mh_common.cuh"' in text
+            assert "voltrix_attn_mh_fwd" in text
     assert not os.path.exists(os.path.join(compiler.CSRC_DIR, "attn_mh_fwd.cu"))
     cmds = [line.split() for line in log.read_text().splitlines()]
     assert [c[-1] for c in cmds] == [os.path.join(compiler.CSRC_DIR, f"{s}.cu") for s in names]
@@ -539,3 +549,224 @@ def test_k13_head_group_and_column_chunk(heads, dv, want, monkeypatch):
     got = mh_geometry(heads, dv)
     assert got == want
     assert got[1] in MH_ACC_WIDTHS[got[0]]
+
+
+# --- K14's and K15's pieces --------------------------------------------------
+
+def bwd_walk(plan, name, piece_blocks, piece_work):
+    """attention_walk(plan, name) of K14 or K15 at the given limits."""
+    saved = PIECE_BLOCKS[name], PIECE_WORK[name]
+    try:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = piece_blocks, piece_work
+        return attention_walk(plan, name)
+    finally:
+        PIECE_BLOCKS[name], PIECE_WORK[name] = saved
+
+
+def emulate_pieces(plan, name, limits, heads, widths, part):
+    """The split of K14 (name "attention_mh_dq") or K15 ("attention_mh_dkv",
+    `plan` the transpose plan) in plain torch: each piece of a 128-row
+    group takes the edges of its own blocks whose row lies in the group and
+    gives its partial rows (`part(rows, cols)`: each edge's terms, one
+    tensor (H, edges, d) per output of width d in `widths`); a group's
+    partials are added in piece order. Rows without edges come out 0."""
+    cfg = plan.config
+    n = plan.num_nodes
+    outs = [torch.zeros(heads, n, d) for d in widths]
+    groups = {}
+    for row in bwd_walk(plan, name, *limits).tasks.tolist():
+        groups.setdefault((row[0], row[1]), []).append(row)
+    for (w, g), rows in groups.items():
+        r0 = w * cfg.block_h + 128 * g
+        r1 = min(r0 + 128, (w + 1) * cfg.block_h, n)
+        if r1 <= r0:
+            continue
+        total = None
+        for _, _, b0, b1, _, _ in sorted(rows, key=lambda r: r[4]):
+            sub = dataclasses.replace(plan, bitmask=plan.bitmask[b0:b1], hind=plan.hind[b0:b1],
+                                      window_of_block=plan.window_of_block[b0:b1],
+                                      total_blocks=b1 - b0)
+            er, ec, _ = _edges(sub)
+            keep = (er >= r0) & (er < r1)
+            er, ec = er[keep], ec[keep]
+            parts = [torch.zeros(heads, r1 - r0, d).index_add_(1, er - r0, x)
+                     for d, x in zip(widths, part(er, ec))]
+            total = parts if total is None else [a + b for a, b in zip(total, parts)]
+        for out, t in zip(outs, total):
+            out[:, r0:r1] = t
+    return outs
+
+
+def emulate_k14(plan, q, k, v, g, lse, d_row, scale, slope, plane, limits):
+    """K14's pieces: dq (H, n, dk), each piece's ds k[src] over its edges;
+    k and v rounded through the plane's dtype, q and dO float32."""
+    kf, vf = _rounded(k, plane), _rounded(v, plane)
+
+    def part(r, c):
+        raw = (q[:, r] * kf[:, c]).sum(-1)
+        p = torch.exp(_act(raw, scale, slope) - lse[:, r])
+        ds = _ds(p, (g[:, r] * vf[:, c]).sum(-1), d_row[:, r], raw, scale, slope)
+        return [ds[..., None] * kf[:, c]]
+
+    return emulate_pieces(plan, "attention_mh_dq", limits, q.shape[0], [q.shape[2]], part)[0]
+
+
+def emulate_k15(plan_t, q, k, v, g, lse, d_row, scale, slope, plane, limits):
+    """K15's pieces over the transpose plan: (dk, dv), each piece's ds q[dst]
+    and p dO[dst] over its edges; q, k, v and dO rounded through the plane's
+    dtype."""
+    qf, kf, vf, gf = (_rounded(t, plane) for t in (q, k, v, g))
+
+    def part(r, c):  # r: rows of k and v, c: rows of q and dO
+        raw = (kf[:, r] * qf[:, c]).sum(-1)
+        p = torch.exp(_act(raw, scale, slope) - lse[:, c])
+        ds = _ds(p, (vf[:, r] * gf[:, c]).sum(-1), d_row[:, c], raw, scale, slope)
+        return [ds[..., None] * qf[:, c], p[..., None] * gf[:, c]]
+
+    return emulate_pieces(plan_t, "attention_mh_dkv", limits, q.shape[0],
+                          [k.shape[2], v.shape[2]], part)
+
+
+def jax_grads(jp, jpt, q, k, v, w, plane):
+    """dq, dk and dv of sum(spmm_attention_mh_ad(...) * w) by jax.grad."""
+    def jloss(q_, k_, v_):
+        out = jax_mh_ad(jp, q_, k_, v_, plan_t=jpt, negative_slope=0.2,
+                        plane_dtype=PLANES[plane][0])
+        return jnp.sum(out * w)
+
+    return [np.asarray(x) for x in jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))]
+
+
+def bwd_inputs(tp, q, k, v, w, plane):
+    """The backward's inputs on the port's side: q, k, v and dO as tensors,
+    the plain forward's lse and D = rowsum(dO o out)."""
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, w))
+    out, lse = spmm_attention_mh_reference(tp, tq, tk, tv, return_stats=True,
+                                           negative_slope=0.2, plane_dtype=PLANES[plane][1])
+    return tq, tk, tv, tg, lse, (tg * out).sum(-1)
+
+
+def assert_grads(got, want, plane, what):
+    """GRAD_TOL with float32 planes; max error over max magnitude < 1e-3
+    with bf16 planes (test_gradients_match_jax_grad's rules)."""
+    for x, ref, name in zip(got, want, what):
+        if plane == "f32":
+            np.testing.assert_allclose(x.numpy(), ref, **GRAD_TOL, err_msg=name)
+        else:
+            err = np.abs(x.numpy() - ref).max() / np.abs(ref).max()
+            assert err < 1e-3, f"{name}: {err:.3e}"
+
+
+BWD_CASES = {  # graph, plan config, transpose plan config, (heads, dk, dv), plane, piece limits
+    # a hub window cut into many pieces, by the block limit and by the work limit
+    "hub-blocks-h8-bf16": (power_law, (128, 128), None, (8, 8, 8), "bf16", (1, None)),
+    "hub-work-h1-f32": (power_law, (128, 128, 1, 2), None, (1, 12, 20), "f32", (16, 40)),
+    "hub-work-h3-f32": (power_law, (128, 128, 1, 4), None, (3, 8, 8), "f32", (4, 60)),
+    # windows left without blocks and isolated rows: dq, dk and dv exactly 0 there
+    "empty-isolated-h8-bf16": (lambda: graph(2560, 0.004, seed=5, empty_tail=2200,
+                                             isolated_every=7),
+                               (32, 128), None, (8, 8, 8), "bf16", (1, None)),
+    "empty-isolated-h1-f32": (lambda: graph(300, 0.02, seed=5, empty_tail=170, isolated_every=5),
+                              (64, 128), None, (1, 12, 20), "f32", (1, None)),
+    # a directed graph: plan_t is not plan, with a geometry of its own
+    "directed-h3-f32": (lambda: graph(300, 0.03, seed=9, symmetric=False), (32, 128),
+                        (64, 128, 1, 2), (3, 12, 20), "f32", (2, 100)),
+    "directed-h3-bf16": (lambda: graph(300, 0.03, seed=9, symmetric=False), (32, 128),
+                         (64, 128, 1, 2), (3, 12, 20), "bf16", (2, 100)),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_piece_emulation_of_k14_and_k15_matches_jax_grad(case):
+    """K14's pieces (dq over the plan) and K15's (dk, dv over the transpose
+    plan), each piece's partial rows over its own blocks added in piece
+    order, against jax.grad of JAX's spmm_attention_mh_ad (its Pallas
+    kernels in interpret mode) with float32 or bf16 planes; rows without
+    edges exactly 0."""
+    make, cfg, cfg_t, (heads, dk, dv), plane, limits = BWD_CASES[case]
+    a = make()
+    n = a.shape[0]
+    (jp, jpt), (tp, tpt) = plans(a, cfg, cfg_t)
+    if case.startswith("hub"):
+        for p, name in ((tp, "attention_mh_dq"), (tpt, "attention_mh_dkv")):
+            assert np.bincount(bwd_walk(p, name, *limits).tasks[:, 0].numpy())[0] >= 8
+    elif case.startswith("empty"):
+        assert tp.has_empty_windows or (tp.bitmask == 0).all(2).all(1).any()
+    else:
+        assert tpt is not tp and (tpt.config.block_h, tpt.config.block_unroll) == (64, 2)
+    q, k, v = qkv(heads, n, dk, dv, seed=33)
+    w = np.random.default_rng(34).standard_normal((heads, n, dv)).astype(np.float32)
+    want = jax_grads(jp, jpt, q, k, v, w, plane)
+    bwd = bwd_inputs(tp, q, k, v, w, plane)
+    args = (1.0 / dk ** 0.5, 0.2, PLANES[plane][1], limits)
+    got = [emulate_k14(tp, *bwd, *args), *emulate_k15(tpt, *bwd, *args)]
+    assert_grads(got, want, plane, ("dq", "dk", "dv"))
+    no_in = np.diff(a.indptr) == 0  # rows of dq without edges
+    no_out = np.diff(a.tocsc().indptr) == 0  # rows of dk and dv without edges
+    assert (got[0].numpy()[:, no_in] == 0.0).all()
+    assert all((x.numpy()[:, no_out] == 0.0).all() for x in got[1:])
+    if case.startswith("empty"):
+        assert no_in.any() and no_out.any()
+
+
+@pytest.mark.parametrize("num_chunks", [2, 3])
+def test_piece_emulation_of_k14_and_k15_on_window_chunks_matches_jax_grad(num_chunks):
+    """K14 and K15 on the window chunks of their plans (format/stream.py:
+    slice_plan_windows; the hub window is cut the same way in its chunk),
+    each chunk's rows from its own split, against jax.grad on the whole
+    plans: 8 heads on bf16 planes."""
+    a = power_law()
+    n = a.shape[0]
+    (jp, jpt), (tp, tpt) = plans(a, (128, 128, 1, 4))
+    q, k, v = qkv(8, n, 8, 8, seed=35)
+    w = np.random.default_rng(36).standard_normal((8, n, 8)).astype(np.float32)
+    want = jax_grads(jp, jpt, q, k, v, w, "bf16")
+    tq, tk, tv, tg, lse, d_row = bwd_inputs(tp, q, k, v, w, "bf16")
+    args = (1.0 / 8 ** 0.5, 0.2, torch.bfloat16, (2, 100))
+    dq, r0 = [], 0
+    for sub in slice_plan_windows(tp, num_chunks):  # rows of q, dO, lse and D
+        rows = slice(r0, r0 + sub.num_nodes)
+        dq.append(emulate_k14(sub, tq[:, rows], tk, tv, tg[:, rows], lse[:, rows],
+                              d_row[:, rows], *args))
+        r0 += sub.num_nodes
+    dk, dv, r0 = [], [], 0
+    for sub in slice_plan_windows(tpt, num_chunks):  # rows of k and v
+        rows = slice(r0, r0 + sub.num_nodes)
+        part = emulate_k15(sub, tq, tk[:, rows], tv[:, rows], tg, lse, d_row, *args)
+        dk.append(part[0])
+        dv.append(part[1])
+        r0 += sub.num_nodes
+    got = [torch.cat(x, 1) for x in (dq, dk, dv)]
+    assert_grads(got, want, "bf16", ("dq", "dk", "dv"))
+
+
+def _instantiated(source, macro):
+    """The (head group, column chunk) pairs that `source` dispatches to."""
+    with open(os.path.join(compiler.CSRC_DIR, source)) as f:
+        return {tuple(map(int, m)) for m in re.findall(rf"^  {macro}\((\d+), (\d+)\)$",
+                                                        f.read(), re.M)}
+
+
+@pytest.mark.parametrize("name,heads,d,want", [
+    ("attention_mh_dq", 8, 8, (4, 8)), ("attention_mh_dq", 1, 40, (1, 40)),
+    ("attention_mh_dkv", 3, 20, (1, 32)), ("attention_mh_dkv", 2, 16, (2, 16)),
+    ("attention_mh_dq", 1, 300, (1, 64)), ("attention_mh_dkv", 8, 200, (1, 64)),
+    ("attention_mh_dq", 3, 8, (4, 8)), ("attention_mh_dkv", 4, 12, (2, 16)),
+    ("attention_dq", 8, 8, (1, 8)), ("attention_dkv", 1, 40, (1, 40)),
+])
+def test_k14_k15_head_group_and_column_chunk(name, heads, d, want, monkeypatch):
+    """K14's and K15's head group is the smallest power of two holding
+    min(H, BWD_HEAD_GROUP[name]) heads (one for K11 and K12), halved until a
+    chunk of its registers holds d (or one head is left); its chunk is the
+    narrowest that holds d, else the widest. Every pair it picks is one
+    that csrc/attn_mh_dq.cu and csrc/attn_mh_dkv.cu both instantiate, and
+    they instantiate exactly BWD_ACC_WIDTHS."""
+    monkeypatch.setattr(attn_core_module, "BWD_HEAD_GROUP",
+                        {"attention_mh_dq": 4, "attention_mh_dkv": 4})
+    got = bwd_geometry(name, heads, d)
+    assert got == want
+    pairs = {(hg, w) for hg, widths in BWD_ACC_WIDTHS.items() for w in widths}
+    assert _instantiated("attn_mh_dq.cu", "VOLTRIX_DQ") == pairs
+    assert _instantiated("attn_mh_dkv.cu", "VOLTRIX_DKV") == pairs
+    assert got in pairs

@@ -1,9 +1,9 @@
 """The work list that kernels K1, K2, K4 and K8 share (ops/block_spmm.py:
 window_pieces, walk_tasks, plan_walk), on the CPU; K3's slabs of it, and
-K9's, K10's and K13's (ops/attention.py:attention_walk), whose piece
-emulations against the JAX package are in tests/test_torch_attention.py
-and tests/test_torch_attention_mh.py; K5's (a block limit alone), whose
-emulation is in tests/test_torch_weighted.py.
+K9's, K10's, K13's, K14's and K15's (ops/attention.py:attention_walk),
+whose piece emulations against the JAX package are in
+tests/test_torch_attention.py and tests/test_torch_attention_mh.py; K5's
+(a block limit alone), whose emulation is in tests/test_torch_weighted.py.
 
 Each window's blocks are cut into pieces of at most P consecutive blocks,
 and the pieces' float32 tiles are summed in piece order. The kernels run
@@ -655,7 +655,7 @@ def test_fused_boxes_stay_within_a_run_and_a_tile(block_w, seg):
     assert (box >= 8) == (seg % 8 == 0)
 
 
-# --- K9's and K10's work list (ops/attention.py:attention_walk) --------------
+# --- K9-K15's work lists (ops/attention.py:attention_walk) -------------------
 
 def attn_walk(plan, name, piece_blocks, piece_work):
     """attention_walk(plan, name) at the given limits (restored after)."""
@@ -667,15 +667,16 @@ def attn_walk(plan, name, piece_blocks, piece_work):
         PIECE_BLOCKS[name], PIECE_WORK[name] = saved
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh"])
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh",
+                                  "attention_mh_dq", "attention_mh_dkv"])
 @pytest.mark.parametrize("limits", [(1, None), (3, 200), (16, 1024)])
 @pytest.mark.parametrize("cfg", [dict(block_h=128, block_w=32), dict(block_h=256, block_w=128),
                                  dict(block_h=48, block_w=128)])
 def test_attention_pieces_cover_each_window_once_in_order(cfg, limits, name):
-    """K9's, K10's and K13's pieces cover every block of every 128-row
-    group once, in order; K9 and K13 give every piece of a cut group a
-    share slot of its own (the merge's first slot and count), K10 its
-    pieces 1.. (the walk's)."""
+    """K9's, K10's, K13's, K14's and K15's pieces cover every block of every
+    128-row group once, in order; K9 and K13 give every piece of a cut
+    group a share slot of its own (the merge's first slot and count), K10,
+    K14 and K15 its pieces 1.. (the walk's)."""
     plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(**cfg))
     walk = attn_walk(plan, name, *limits)
     bp = plan.block_ptr.numpy()
@@ -699,7 +700,8 @@ def test_attention_pieces_cover_each_window_once_in_order(cfg, limits, name):
     assert sorted(slots) == list(range(walk.slots))  # every slot once
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh"])
+@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh", "attention_mh_dq",
+                                  "attention_mh_dkv"])
 @pytest.mark.parametrize("limits", [(2, None), (16, 300)])
 def test_attention_hub_window_splits_into_many_pieces(limits, name):
     """The hub window of a power-law graph becomes many pieces of bounded
@@ -716,7 +718,8 @@ def test_attention_hub_window_splits_into_many_pieces(limits, name):
         assert int(per_task.max()) <= limits[1] + int(work.max())
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh"])
+@pytest.mark.parametrize("name", ["spmm_attention", "attention_bwd", "spmm_attention_mh",
+                                  "attention_mh_dq", "attention_mh_dkv"])
 def test_attention_empty_windows_get_one_empty_piece(name):
     """A window without blocks, and every window of a plan without blocks,
     gets one empty piece, which writes its rows."""
@@ -742,7 +745,8 @@ def test_attention_empty_windows_get_one_empty_piece(name):
     assert np.all(walk.tasks[:, 2:4].numpy() == 0) and np.all(walk.tasks[:, 5].numpy() == -1)
 
 
-@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh"])
+@pytest.mark.parametrize("name", ["spmm_attention", "spmm_attention_mh", "attention_mh_dq",
+                                  "attention_mh_dkv"])
 @pytest.mark.parametrize("num_chunks", [2, 3])
 def test_attention_pieces_in_a_window_chunk_equal_the_whole_plans(num_chunks, name):
     plan = vt.csr_preprocess(*csr_args(power_law()), vt.PlanConfig(128, 128, block_unroll=4))

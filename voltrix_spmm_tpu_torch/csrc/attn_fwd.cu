@@ -288,103 +288,6 @@ int launch(const void* bitmask, const void* hind, const void* tasks, const void*
 
 // --- K13: the same walk for a group of heads, on float32 or bf16 planes ----
 
-// elements of a row of n values of `esize` bytes, padded to 16 bytes
-__host__ __device__ inline int pad16(int n, int esize) {
-  const int per = 16 / esize;
-  return (n + per - 1) / per * per;
-}
-
-// a head stack's strides in elements: head h's row r starts at h * head +
-// r * row (the projections' node-major views, or a contiguous stack)
-struct Strides {
-  int64_t head, row;
-};
-
-// floats of a K13 ring slot: the k rows of hg heads, then their columns
-// [v0, v0 + vw) of v, each padded to 16 bytes, padded to an odd number of
-// 16-byte units (lanes reading the same place of different slots fall in
-// different banks)
-__host__ __device__ inline int mh_slot_floats(int dk, int vw, int hg, int esize) {
-  const int units = hg * (pad16(dk, esize) + pad16(vw, esize)) * esize / 16;
-  return 4 * (units % 2 ? units : units + 1);
-}
-
-// four staged values as floats (p 16-byte aligned for float, 8 for bf16)
-__device__ __forceinline__ float4 staged4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 staged4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, sizeof(lo));
-  memcpy(&hi, &u.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// a row of n values into a slot: 16-byte cp.async when vec (n a multiple
-// of 16 bytes, src 16-byte aligned), else 4-byte cp.async (float) or plain
-// shared stores (bf16), which land before the warp's next __syncwarp
-__device__ __forceinline__ void stage_row(float* dst, const float* src, int n, bool vec) {
-  if (vec) {
-    for (int c = 0; c < n; c += 4) voltrix_walk::cp_async16(dst + c, src + c);
-  } else {
-    for (int c = 0; c < n; ++c) voltrix_walk::cp_async4(dst + c, src + c);
-  }
-}
-__device__ __forceinline__ void stage_row(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
-                                          bool vec) {
-  if (vec) {
-    for (int c = 0; c < n; c += 8) voltrix_walk::cp_async16(dst + c, src + c);
-  } else {
-    for (int c = 0; c < n; ++c) dst[c] = src[c];
-  }
-}
-
-// q[0..dk) (registers, zero past dk) . s[0..dk) (staged): four partial
-// sums, one a column of each group of four, added at the end
-template <int kQ, typename T>
-__device__ __forceinline__ float dot_regs(const float* qr, const T* s, int dk) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int c = 0; c < kQ; c += 4) {
-    if (c < dk) {
-      const float4 y = staged4(s + c);
-      s0 = fmaf(qr[c], y.x, s0);
-      if (c + 1 < dk) s1 = fmaf(qr[c + 1], y.y, s1);
-      if (c + 2 < dk) s2 = fmaf(qr[c + 2], y.z, s2);
-      if (c + 3 < dk) s3 = fmaf(qr[c + 3], y.w, s3);
-    }
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// q[0..dk) read through __ldg (16-byte loads when vec) . s[0..dk) (staged),
-// summed in the order of dot_regs
-template <typename T>
-__device__ __forceinline__ float dot_ldg(const float* __restrict__ q, const T* s, int dk,
-                                         bool vec) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-  for (int c = 0; c < dk; c += 4) {
-    float4 x;
-    if (vec) {
-      x = __ldg(reinterpret_cast<const float4*>(q + c));
-    } else {
-      x.x = __ldg(q + c);
-      x.y = c + 1 < dk ? __ldg(q + c + 1) : 0.f;
-      x.z = c + 2 < dk ? __ldg(q + c + 2) : 0.f;
-      x.w = c + 3 < dk ? __ldg(q + c + 3) : 0.f;
-    }
-    const float4 y = staged4(s + c);
-    s0 = fmaf(x.x, y.x, s0);
-    if (c + 1 < dk) s1 = fmaf(x.y, y.y, s1);
-    if (c + 2 < dk) s2 = fmaf(x.z, y.z, s2);
-    if (c + 3 < dk) s3 = fmaf(x.w, y.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
 // acc[c] = acc[c] * corr + coef * s[c] for c < cw (s staged, padded to 16
 // bytes); corr is 1 unless the row's maximum moved
 template <int kAcc, typename T>
@@ -400,14 +303,6 @@ __device__ __forceinline__ void axpy_rescaled(float coef, float corr, const T* s
       acc[c + 3] = fmaf(coef, y.w, acc[c + 3] * corr);
     }
   }
-}
-
-// thread blocks an SM holds at least, by head group of two or more:
-// registers capped to fit them, which timed faster at path G's layer 1 on
-// the H100 than the registers the sums ask for; 8 heads keep all they need
-// (a group of one head is left to ptxas, whose choice timed faster still)
-__host__ __device__ constexpr int mh_min_blocks(int hg) {
-  return hg >= 8 ? 2 : hg == 4 ? 3 : 4;
 }
 
 // the walk's parameters, as K13's two kernels below take and pass them

@@ -7,196 +7,307 @@
 //   ds  = p * (v[h, l] . dO[h, r] - D[h, r]) * (raw > 0 ? 1 : slope) * scale
 //   dk[h, l] = sum_r ds * q[h, r],   dv[h, l] = sum_r p * dO[h, r]
 //
+// At one head with float32 planes it is K12 (ops/attention.py:
+// attention_dkv).
+//
 // Replaces voltrix_spmm_tpu/ops/attention_mh.py:_attn_bwd_dkv_mh_kernel
 // together with its gathered [q || dO || stats] plane. The TPU packs lse and
 // D into the gathered plane (as hi/lo bf16 pairs when the plane is bf16) and
 // selects each head's lane with a masked reduce. Here k, v (the window's own
-// rows) and q, dO (gathered by hind) are read as (H, n, d) tensors, float or
-// bf16 (the bf16 plane rounds all four, as the TPU's kvw and qdo planes do);
-// lse and D are read from their own float arrays.
+// rows) and q, dO (gathered by hind) are read through their head and row
+// strides, float or bf16 (the bf16 plane rounds all four, as the TPU's kvw
+// and qdo planes do); lse and D are read from their own float arrays.
 //
-// Design (see attn_mh_common.cuh for the task split and the edge walks).
-// One thread block per (task, group of up to 8 heads, chunk of dc <= 128
-// columns of [dk || dv]). One pass: each edge computes raw, p, dP and ds
-// for each head of the group in registers and stores p and ds in row order
-// (for_each_edge_batch); a thread per (head, source row, four columns) then
-// adds sum ds * q (the dk columns) or sum p * dO (the dv columns) into a
-// (heads x block_h x dc) tile. A window wholly inside the task is stored;
-// a window cut over several tasks is added to the zeroed outputs with
-// global atomicAdd, whose order changes from run to run.
+// Design. The row walk of attn_walk.cuh over the transpose plan, on K15's
+// own work list (ops/block_spmm.py: PIECE_BLOCKS and
+// PIECE_WORK["attention_mh_dkv"]), a thread block per (task and group of HG
+// heads, chunk of kAcc columns of dk and of dv), the head group the fastest
+// of the grid's indices. A lane owns source row l: for each head of its
+// group it keeps kAcc columns of dk and of dv in registers, and k[h, l] and
+// v[h, l] too where they fit (dk, dv <= kAcc and HG x kAcc <= 32; read
+// through __ldg otherwise). Each staged item brings, for the group's heads,
+// q[h, dst] and dO[h, dst] in the plane's type and lse[h, dst] and D[h,
+// dst] as float32; every lane takes its own edges in lane order and, for
+// each head, computes raw and p once, adds p * dO to its dv and ds * q to
+// its dk; raw is one chain of fmas in column order and p = __expf, as in
+// K14. A chunk of columns past dk (dv wider) skips dP. The registers are
+// left to ptxas: capped at four thread blocks an SM, a group of two heads
+// spilled and timed slower at path G's layer 1. Cut groups: piece
+// 0 writes dk's and dv's rows, pieces 1.. workspace tiles (one each for dk
+// and dv per head) that spmm_walk.cuh's merge adds in piece order. Every
+// row of dk and dv is written. No slots a lane, no scatter, no atomics:
+// every sum runs in a fixed order, so two launches give the same bits.
 //
 // Bound. Per edge and head 4 * (dk + dv) flops and an exp; the bytes are
 // the transpose plan, q, k, v, dO, lse, D, dk and dv once each. The
-// per-edge gathers of q and dO rows and of lse and D separate the kernel
-// from it.
+// per-item gathers of q and dO rows and of lse and D, and a hub source's
+// edges, one a step, separate the kernel from it.
 
-#include "attn_mh_common.cuh"
+#include "attn_walk.cuh"
 
 namespace {
 
-using namespace voltrix_attn;
+using voltrix_attn::act;
+using voltrix_attn::act_grad;
+using voltrix_attn::to_f;
+using namespace voltrix_attn_walk;
+using voltrix_walk::kB0;
+using voltrix_walk::kB1;
+using voltrix_walk::kG;
+using voltrix_walk::kRank;
+using voltrix_walk::kSlot;
+using voltrix_walk::kTaskInts;
+using voltrix_walk::kW;
+using voltrix_walk::tile_rows;
 
-template <typename T>
+template <typename T, int HG, int kAcc>
 __global__ void __launch_bounds__(kThreads)
 attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K)
                    const int32_t* __restrict__ hind,      // (B, K): destination rows
-                   const int32_t* __restrict__ wob,       // (B,)
-                   const int32_t* __restrict__ block_ptr, // (W + 1,)
-                   const T* __restrict__ k,               // (H, nk, dk)
-                   const T* __restrict__ v,               // (H, nk, dv)
-                   const T* __restrict__ q,               // (H, nq, dk)
-                   const T* __restrict__ g,               // dO, (H, nq, dv)
+                   const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
+                   const T* __restrict__ k,               // (H, nk, dk), strides ks
+                   const T* __restrict__ v,               // (H, nk, dv), strides vs
+                   const T* __restrict__ q,               // (H, nq, dk), strides qs
+                   const T* __restrict__ g,               // dO, (H, nq, dv), strides gs
                    const float* __restrict__ lse,         // (H, lse_stride)
                    const float* __restrict__ drow,        // D, (H, nq)
-                   float* __restrict__ dk_out,            // (H, nk, dk), zeroed
-                   float* __restrict__ dv_out,            // (H, nk, dv), zeroed
-                   int total_blocks, int words, int block_h, int block_w, int heads,
-                   int head_group, int nk, int nq, int lse_stride, int dk, int dv, int dc,
-                   int task_blocks, float scale, float slope, int vec_k, int vec_v) {
-  extern __shared__ float smem[];
-  __shared__ int s_scan[kScanInts];
-  const int h0 = blockIdx.y * head_group;
-  const int hg = min(head_group, heads - h0);  // this block's heads
-  const int stride = dc | 1;
-  float* s_acc = smem;                                 // (hg, block_h, stride)
-  float* s_p = s_acc + (int64_t)hg * block_h * stride;  // (hg, kBatch), in row order
-  float* s_ds = s_p + hg * kBatch;                      // (hg, kBatch)
-  int* s_cnt = reinterpret_cast<int*>(s_ds + hg * kBatch);  // (block_h,)
-  int* s_off = s_cnt + block_h;                             // (block_h + 1,)
-  int* s_esrc = s_off + block_h + 1;                        // (kBatch,) destination rows
-  const int c0 = blockIdx.z * dc;
-  const int cw = min(dc, dk + dv - c0);
-  // four columns at a time: whole groups of 4 that stay on one side of dk
-  const bool vec_sum = vec_k && vec_v && dc % 4 == 0 && cw % 4 == 0;
-  const int groups = vec_sum ? cw / 4 : cw;
+                   float* __restrict__ dk_out,            // (H, nk, dk)
+                   float* __restrict__ dv_out,            // (H, nk, dv)
+                   float* __restrict__ ws_k,              // (H, slots, tile rows, dk)
+                   float* __restrict__ ws_v,              // (H, slots, tile rows, dv)
+                   int heads, int words, int block_h, int block_w, int nk, int nq, int dk, int dv,
+                   int lse_stride, int slots, float scale, float slope, int vec_k, int vec_v,
+                   int vec_q, int vec_g, Strides ks, Strides vs, Strides qs, Strides gs, int nb,
+                   int nbuf) {
+  // k and v values a lane keeps in registers per head where HG x kAcc <=
+  // 32 and the rows fit (dk, dv <= kAcc); else the rows are read through
+  // __ldg, and the register path is not compiled
+  constexpr bool kRegs = HG * kAcc <= 32;
+  constexpr int kQ = kRegs ? kAcc : 4;
+  extern __shared__ __align__(16) float smem[];
+  const int ngroups = (heads + HG - 1) / HG;
+  const int* task = tasks + (int64_t)(blockIdx.x / ngroups) * kTaskInts;
+  const int w = task[kW], grp = task[kG];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= min(kWarps, words - kWarps * grp)) return;
+  const int h0 = (blockIdx.x % ngroups) * HG;
+  const int hg = min(HG, heads - h0);  // this block's heads
+  const int hgl = min(HG, heads);      // the heads a slot has room for
+  const int c0 = blockIdx.y * kAcc;
+  const int cwk = max(0, min(kAcc, dk - c0)), cwv = max(0, min(kAcc, dv - c0));
+  constexpr int esize = sizeof(T);
+  const int kpad = pad16(dk, esize), vpad = pad16(dv, esize);
+  // a slot: q rows of the group's heads, their dO rows, then lse and D of each
+  const int stats = hgl * (kpad + vpad) * esize / 4;  // floats before lse
+  const int sf = mh_slot_floats(dk, dv, hgl, esize, 2 * hgl);
+  const int ring_floats = nbuf * nb * sf;
+  float* ring = smem + warp * ring_floats;
+  uint32_t* q_word = reinterpret_cast<uint32_t*>(smem + kWarps * ring_floats) + warp * 2 * kQueue;
+  int32_t* q_src = reinterpret_cast<int32_t*>(q_word + kQueue);
 
-  for (int i = threadIdx.x; i < hg * block_h * stride; i += blockDim.x) s_acc[i] = 0.f;
-  for (int i = threadIdx.x; i < block_h; i += blockDim.x) s_cnt[i] = 0;
-  __syncthreads();
+  const int r = 32 * warp + lane;  // the lane's row in the group's tile
+  const bool in_window = r < group_rows(grp, words, block_h);
+  const int64_t row = (int64_t)w * block_h + kWarps * 32 * grp + r;
+  const bool has_row = in_window && row < nk;
+  const int64_t rr = has_row ? row : 0;
+  const bool regs = kRegs && dk <= kQ && dv <= kQ;
+  float kr[HG][kQ], vr[HG][kQ], acc_k[HG][kAcc], acc_v[HG][kAcc];
+#pragma unroll
+  for (int j = 0; j < HG; ++j) {
+    const int64_t h = h0 + min(j, hg - 1);
+    const T* kh = k + h * ks.head + rr * ks.row;
+    const T* vh = v + h * vs.head + rr * vs.row;
+#pragma unroll
+    for (int c = 0; c < kQ; ++c) {
+      kr[j][c] = regs && c < dk ? to_f(__ldg(kh + c)) : 0.f;
+      vr[j][c] = regs && c < dv ? to_f(__ldg(vh + c)) : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
+  }
 
-  const int b_lo = blockIdx.x * task_blocks;
-  const int b_hi = min(total_blocks, b_lo + task_blocks);
-  for (int b = b_lo; b < b_hi;) {
-    const int w = __ldg(&wob[b]);
-    const int w_lo = __ldg(&block_ptr[w]);
-    const int w_hi = __ldg(&block_ptr[w + 1]);
-    const int e = min(b_hi, w_hi);
-    const int64_t row0 = (int64_t)w * block_h;
-    const int rows = window_rows(row0, block_h, nk);
-    for_each_edge_batch(
-        bitmask, hind, b, e, words, block_w, rows, nq, s_scan, s_cnt, s_off, s_esrc,
-        [&](int r, int dst, int slot, int) {
-          const int64_t row = row0 + r;
-          for (int j = 0; j < hg; ++j) {
-            const int h = h0 + j;
-            const float raw = dot(k + ((int64_t)h * nk + row) * dk,
-                                  q + ((int64_t)h * nq + dst) * dk, dk, vec_k);
-            const float p =
-                expf(act(raw, scale, slope) - __ldg(&lse[(int64_t)h * lse_stride + dst]));
-            const float dp = dot(v + ((int64_t)h * nk + row) * dv,
-                                 g + ((int64_t)h * nq + dst) * dv, dv, vec_v);
-            s_p[j * kBatch + slot] = p;
-            s_ds[j * kBatch + slot] =
-                p * (dp - __ldg(&drow[(int64_t)h * nq + dst])) * act_grad(raw, slope) * scale;
+  walk_items(
+      bitmask, hind, task[kB0], task[kB1], words, kWarps * grp + warp, block_w, nq, sf, nb, nbuf,
+      ring, q_word, q_src, has_row,
+      [&](float* slot, int64_t dst) {
+        T* st = reinterpret_cast<T*>(slot);
+        for (int j = 0; j < hg; ++j) {
+          const int64_t h = h0 + j;
+          stage_row(st + j * kpad, q + h * qs.head + dst * qs.row, dk, vec_q);
+          stage_row(st + hgl * kpad + j * vpad, g + h * gs.head + dst * gs.row, dv, vec_g);
+          voltrix_walk::cp_async4(slot + stats + j, lse + h * lse_stride + dst);
+          voltrix_walk::cp_async4(slot + stats + hgl + j, drow + h * nq + dst);
+        }
+      },
+      [&](const float* s) {
+        // every head's score first, then every head's sums, so the heads'
+        // dependent chains interleave (a group's missing heads repeat its
+        // last one and are never stored)
+        const T* st = reinterpret_cast<const T*>(s);
+        float raw[HG];
+#pragma unroll
+        for (int j = 0; j < HG; ++j) {
+          const int jj = min(j, hg - 1);
+          const T* qst = st + jj * kpad;
+          const T* kh = k + (h0 + jj) * ks.head + rr * ks.row;
+          raw[j] = regs ? bwd_dot_regs<kQ, 1>(kr[j], qst, dk) : bwd_dot_ldg<1>(kh, qst, dk, vec_k);
+        }
+#pragma unroll
+        for (int j = 0; j < HG; ++j) {
+          const int jj = min(j, hg - 1);
+          const T* gst = st + hgl * kpad + jj * vpad;
+          const float p = __expf(act(raw[j], scale, slope) - s[stats + jj]);
+          axpy_typed<kAcc>(p, gst + c0, cwv, acc_v[j]);
+          if (cwk > 0) {
+            const T* vh = v + (h0 + jj) * vs.head + rr * vs.row;
+            const float dp =
+                regs ? bwd_dot_regs<kQ, 4>(vr[j], gst, dv) : bwd_dot_ldg<4>(vh, gst, dv, vec_v);
+            const float ds = p * (dp - s[stats + hgl + jj]) * act_grad(raw[j], slope) * scale;
+            axpy_typed<kAcc>(ds, st + jj * kpad + c0, cwk, acc_k[j]);
           }
-        },
-        [&](int, int, int) {
-          for (int i = threadIdx.x; i < hg * rows * groups; i += blockDim.x) {
-            const int j = i / (rows * groups);
-            const int r = (i / groups) % rows;
-            const int cg = i % groups;
-            const int n = s_cnt[r], e0 = s_off[r];
-            if (n == 0) continue;
-            const int h = h0 + j;
-            const int col = c0 + (vec_sum ? 4 * cg : cg);
-            // the dk columns sum ds * q, the dv columns p * dO
-            const bool kcol = col < dk;
-            const float* coef = (kcol ? s_ds : s_p) + j * kBatch;
-            const T* base = kcol ? q + (int64_t)h * nq * dk + col
-                                 : g + (int64_t)h * nq * dv + (col - dk);
-            const int ld = kcol ? dk : dv;
-            float* tile = s_acc + ((int64_t)j * block_h + r) * stride + (col - c0);
-            if (vec_sum) {
-              float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-              for (int x = e0; x < e0 + n; ++x) axpy4(coef[x], base + (int64_t)s_esrc[x] * ld, a);
-              tile[0] += a.x;
-              tile[1] += a.y;
-              tile[2] += a.z;
-              tile[3] += a.w;
-            } else {
-              float a = 0.f;
-              for (int x = e0; x < e0 + n; ++x) {
-                a = fmaf(coef[x], to_f(base[(int64_t)s_esrc[x] * ld]), a);
-              }
-              tile[0] += a;
-            }
-          }
-        });
-    flush_add(s_acc, stride, block_h, hg, rows, cw, w_lo >= b_lo && w_hi <= b_hi,
-              [&](int j, int r, int c) {
-                const int col = c0 + c;
-                const int64_t row = (int64_t)(h0 + j) * nk + row0 + r;
-                return col < dk ? dk_out + row * dk + col : dv_out + row * dv + (col - dk);
-              });
-    __syncthreads();
-    b = e;
+        }
+      });
+
+  const bool vk = dk % 4 == 0 && cwk % 4 == 0, vv = dv % 4 == 0 && cwv % 4 == 0;
+  const int rank = task[kRank];
+  const int tile = tile_rows(words);
+#pragma unroll
+  for (int j = 0; j < HG; ++j) {
+    if (j < hg) {
+      const int64_t h = h0 + j;
+      float *ok = nullptr, *ov = nullptr;
+      if (rank == 0 && has_row) {  // piece 0 (or the group's only piece): the rows
+        ok = dk_out + (h * nk + row) * dk + c0;
+        ov = dv_out + (h * nk + row) * dv + c0;
+      } else if (rank > 0 && in_window) {  // piece rank of a cut group: its tiles
+        const int64_t t = (h * slots + task[kSlot] + rank - 1) * tile + r;
+        ok = ws_k + t * dk + c0;
+        ov = ws_v + t * dv + c0;
+      }
+      if (ok != nullptr) {
+        if (cwk > 0) store_row<kAcc>(ok, acc_k[j], cwk, 1.f, vk);
+        if (cwv > 0) store_row<kAcc>(ov, acc_v[j], cwv, 1.f, vv);
+      }
+    }
   }
 }
 
-template <typename T>
-int launch(const void* bitmask, const void* hind, const void* wob, const void* block_ptr,
+template <typename T, int HG, int kAcc>
+int launch(const void* bitmask, const void* hind, const void* tasks, const void* merges,
            const void* k, const void* v, const void* q, const void* g, const void* lse,
-           const void* drow, void* dk_out, void* dv_out, int total_blocks, int words,
-           int block_h, int block_w, int heads, int head_group, int nk, int nq, int lse_stride,
-           int dk, int dv, int dc, int task_blocks, float scale, float slope, int vec_k,
-           int vec_v, void* stream) {
-  const int hg = min(head_group, heads);
-  const int64_t smem =
-      ((int64_t)hg * block_h * (dc | 1) + 2 * block_h + 1 + (int64_t)(2 * hg + 1) * kBatch) * 4;
-  const dim3 grid((total_blocks + task_blocks - 1) / task_blocks,
-                  (heads + head_group - 1) / head_group, (dk + dv + dc - 1) / dc);
-  return launch_kernel(
-      attn_mh_dkv_kernel<T>, grid, smem, stream, static_cast<const uint32_t*>(bitmask),
-      static_cast<const int32_t*>(hind), static_cast<const int32_t*>(wob),
-      static_cast<const int32_t*>(block_ptr), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(q), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(drow),
-      static_cast<float*>(dk_out), static_cast<float*>(dv_out), total_blocks, words, block_h,
-      block_w, heads, head_group, nk, nq, lse_stride, dk, dv, dc, task_blocks, scale, slope,
-      vec_k, vec_v);
+           const void* drow, void* dk_out, void* dv_out, void* ws_k, void* ws_v, int num_tasks,
+           int num_merges, int slots, int heads, int words, int block_h, int block_w, int nk,
+           int nq, int dk, int dv, int lse_stride, float scale, float slope, int vec_k,
+           int vec_v, int vec_q, int vec_g, Strides ks, Strides vs, Strides qs, Strides gs,
+           cudaStream_t s) {
+  auto walk = attn_mh_dkv_kernel<T, HG, kAcc>;
+  const int hgl = min(HG, heads);
+  const int sf = mh_slot_floats(dk, dv, hgl, sizeof(T), 2 * hgl);
+  int nb, nbuf;
+  walk_geometry_sf(sf, kWalkSmem, &nb, &nbuf);
+  if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ring_smem_bytes(sf, nb, nbuf);
+  cudaError_t err = allow_smem(walk, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  walk<<<dim3(num_tasks * ((heads + HG - 1) / HG), (max(dk, dv) + kAcc - 1) / kAcc), kThreads,
+         smem, s>>>(
+      static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
+      static_cast<const int32_t*>(tasks), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(q), static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<float*>(dk_out), static_cast<float*>(dv_out),
+      static_cast<float*>(ws_k), static_cast<float*>(ws_v), heads, words, block_h, block_w, nk,
+      nq, dk, dv, lse_stride, slots, scale, slope, vec_k, vec_v, vec_q, vec_g, ks, vs, qs, gs, nb,
+      nbuf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the cut groups of dk, then of dv
+  auto merge = [&](void* ws, void* out, int d) {
+    return voltrix_walk::launch_merge(merges, ws, out, num_merges, words, block_h, nk, d,
+                                      d % 4 == 0, s, voltrix_walk::kWarps, heads,
+                                      (int64_t)nk * d, (int64_t)slots * tile_rows(words) * d);
+  };
+  err = merge(ws_k, dk_out, dk);
+  if (err == cudaSuccess) err = merge(ws_v, dv_out, dv);
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int dispatch(int hg, int acc, const void* bitmask, const void* hind, const void* tasks,
+             const void* merges, const void* k, const void* v, const void* q, const void* g,
+             const void* lse, const void* drow, void* dk_out, void* dv_out, void* ws_k,
+             void* ws_v, int num_tasks, int num_merges, int slots, int heads, int words,
+             int block_h, int block_w, int nk, int nq, int dk, int dv, int lse_stride,
+             float scale, float slope, int vec_k, int vec_v, int vec_q, int vec_g, Strides ks,
+             Strides vs, Strides qs, Strides gs, cudaStream_t s) {
+#define VOLTRIX_DKV(HG, N)                                                                     \
+  if (hg == HG && acc == N) {                                                                  \
+    return launch<T, HG, N>(bitmask, hind, tasks, merges, k, v, q, g, lse, drow, dk_out,       \
+                            dv_out, ws_k, ws_v, num_tasks, num_merges, slots, heads, words,    \
+                            block_h, block_w, nk, nq, dk, dv, lse_stride, scale, slope, vec_k, \
+                            vec_v, vec_q, vec_g, ks, vs, qs, gs, s);                           \
+  }
+  // the (head group, column chunk) pairs of ops/_attn_core.py:BWD_ACC_WIDTHS
+  // (the same in attn_mh_dq.cu)
+  VOLTRIX_DKV(1, 8)
+  VOLTRIX_DKV(1, 16)
+  VOLTRIX_DKV(1, 32)
+  VOLTRIX_DKV(1, 40)
+  VOLTRIX_DKV(1, 64)
+  VOLTRIX_DKV(2, 8)
+  VOLTRIX_DKV(2, 16)
+  VOLTRIX_DKV(4, 8)
+#undef VOLTRIX_DKV
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K15 on `stream` and returns cudaGetLastError() as an int (0 on
-// success; cudaErrorInvalidValue for a geometry it does not take). `dk_out`
-// and `dv_out` must be zero-filled. One thread block serves head_group
-// heads (at most 8). k, v, q and dO are bf16 when bf16 != 0, else float.
-int voltrix_attn_mh_dkv(const void* bitmask, const void* hind, const void* wob,
-                        const void* block_ptr, const void* k, const void* v, const void* q,
+// Launches K15 on `stream` (the walk over the transpose plan's `tasks` for
+// every head group and, when a group of rows is cut, the merges of each
+// head's pieces of dk and of dv) and returns cudaGetLastError() as an int
+// (0 on success; cudaErrorInvalidValue for a geometry it does not take).
+// Every row of dk_out (heads, nk, dk) and dv_out (heads, nk, dv) is
+// written. The workspaces hold, for each head, `slots` tiles of
+// tile_rows(words) rows, dk floats a row (ws_k) and dv (ws_v). hg heads
+// share a thread block's walk and acc columns of dk and of dv a lane's
+// registers: the pairs of dispatch. k, v, q and dO are bf16 when bf16 !=
+// 0, else float; lse and D are float. Head h's row r of k starts at k +
+// h * k_head + r * k_row (elements; a row's values contiguous), and
+// likewise for v, q and dO. vec_k, vec_v: rows of k and v read four values
+// at a time (d % 4 == 0, rows aligned to four values); vec_q, vec_g: rows
+// of q and dO a multiple of 16 bytes, 16-byte aligned (staged by 16-byte
+// copies).
+int voltrix_attn_mh_dkv(const void* bitmask, const void* hind, const void* tasks,
+                        const void* merges, const void* k, const void* v, const void* q,
                         const void* g, const void* lse, const void* drow, void* dk_out,
-                        void* dv_out, int total_blocks, int words, int block_h, int block_w,
-                        int heads, int head_group, int nk, int nq, int lse_stride, int dk, int dv,
-                        int dc, int task_blocks, float scale, float slope, int vec_k, int vec_v,
-                        int bf16, void* stream) {
-  if (total_blocks <= 0 || words <= 0 || words * 32 < block_h || block_h <= 0 || block_w <= 0 ||
-      heads <= 0 || head_group <= 0 || head_group > kMaxHeadGroup ||
-      (heads + head_group - 1) / head_group > 65535 || nk <= 0 || nq <= 0 ||
-      lse_stride < nq || dk < 0 || dv < 0 || dk + dv <= 0 || dc <= 0 ||
-      (dk + dv + dc - 1) / dc > 65535 || task_blocks <= 0 || (vec_k && dk % 4) ||
-      (vec_v && dv % 4)) {
+                        void* dv_out, void* ws_k, void* ws_v, int num_tasks, int num_merges,
+                        int slots, int heads, int hg, int words, int block_h, int block_w, int nk,
+                        int nq, int dk, int dv, int lse_stride, int acc, int bf16, float scale,
+                        float slope, int vec_k, int vec_v, int vec_q, int vec_g, long long k_head,
+                        long long k_row, long long v_head, long long v_row, long long q_head,
+                        long long q_row, long long g_head, long long g_row, void* stream) {
+  if (num_tasks <= 0 || num_merges < 0 || slots < 0 || heads <= 0 || hg <= 0 ||
+      (int64_t)num_tasks * ((heads + hg - 1) / hg) > INT32_MAX || heads > 65535 || words <= 0 ||
+      words * 32 < block_h || block_h <= 0 || block_w <= 0 || nk <= 0 || nq <= 0 || dk < 0 ||
+      dv < 0 || dk + dv <= 0 || lse_stride < nq || acc <= 0 ||
+      (max(dk, dv) + acc - 1) / acc > 65535 || (num_merges && (!ws_k || !ws_v)) ||
+      (vec_k && dk % 4) || (vec_v && dv % 4) || k_head < 0 || k_row < 0 || v_head < 0 ||
+      v_row < 0 || q_head < 0 || q_row < 0 || g_head < 0 || g_row < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return bf16 ? launch<__nv_bfloat16>(bitmask, hind, wob, block_ptr, k, v, q, g, lse, drow,
-                                      dk_out, dv_out, total_blocks, words, block_h, block_w,
-                                      heads, head_group, nk, nq, lse_stride, dk, dv, dc,
-                                      task_blocks, scale, slope, vec_k, vec_v, stream)
-              : launch<float>(bitmask, hind, wob, block_ptr, k, v, q, g, lse, drow, dk_out,
-                              dv_out, total_blocks, words, block_h, block_w, heads, head_group,
-                              nk, nq, lse_stride, dk, dv, dc, task_blocks, scale, slope, vec_k,
-                              vec_v, stream);
+  const Strides ks{k_head, k_row}, vs{v_head, v_row}, qs{q_head, q_row}, gs{g_head, g_row};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch<__nv_bfloat16>(hg, acc, bitmask, hind, tasks, merges, k, v, q, g, lse,
+                                        drow, dk_out, dv_out, ws_k, ws_v, num_tasks, num_merges,
+                                        slots, heads, words, block_h, block_w, nk, nq, dk, dv,
+                                        lse_stride, scale, slope, vec_k, vec_v, vec_q, vec_g, ks,
+                                        vs, qs, gs, s)
+              : dispatch<float>(hg, acc, bitmask, hind, tasks, merges, k, v, q, g, lse, drow,
+                                dk_out, dv_out, ws_k, ws_v, num_tasks, num_merges, slots, heads,
+                                words, block_h, block_w, nk, nq, dk, dv, lse_stride, scale, slope,
+                                vec_k, vec_v, vec_q, vec_g, ks, vs, qs, gs, s);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -295,6 +295,183 @@ inline void walk_geometry(int dk, int vw, int* nb, int* nbuf) {
   walk_geometry_sf(slot_floats(dk, vw), kWalkSmem, nb, nbuf);
 }
 
+// --- the slots of the multi-head walks (K13, K14, K15) ----------------------
+
+// elements of a row of n values of `esize` bytes, padded to 16 bytes
+__host__ __device__ inline int pad16(int n, int esize) {
+  const int per = 16 / esize;
+  return (n + per - 1) / per * per;
+}
+
+// a head stack's strides in elements: head h's row r starts at h * head +
+// r * row (the projections' node-major views, or a contiguous stack)
+struct Strides {
+  int64_t head, row;
+};
+
+// floats of a multi-head ring slot: a row of da values of each of hg heads,
+// then a row of db values of each, each row padded to 16 bytes (K13: k and
+// a column chunk of v; K14: k and v; K15: q and dO), then `extra` floats
+// (K15: lse and D of each head), padded to an odd number of 16-byte units
+// (lanes reading the same place of different slots fall in different banks)
+__host__ __device__ inline int mh_slot_floats(int da, int db, int hg, int esize, int extra = 0) {
+  const int units = hg * (pad16(da, esize) + pad16(db, esize)) * esize / 16 + (extra + 3) / 4;
+  return 4 * (units % 2 ? units : units + 1);
+}
+
+// four staged values as floats (p 16-byte aligned for float, 8 for bf16)
+__device__ __forceinline__ float4 staged4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 staged4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, sizeof(lo));
+  memcpy(&hi, &u.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// a row of n values into a slot: 16-byte cp.async when vec (n a multiple
+// of 16 bytes, src 16-byte aligned), else 4-byte cp.async (float) or plain
+// shared stores (bf16), which land before the warp's next __syncwarp
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n, bool vec) {
+  if (vec) {
+    for (int c = 0; c < n; c += 4) voltrix_walk::cp_async16(dst + c, src + c);
+  } else {
+    for (int c = 0; c < n; ++c) voltrix_walk::cp_async4(dst + c, src + c);
+  }
+}
+__device__ __forceinline__ void stage_row(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
+                                          bool vec) {
+  if (vec) {
+    for (int c = 0; c < n; c += 8) voltrix_walk::cp_async16(dst + c, src + c);
+  } else {
+    for (int c = 0; c < n; ++c) dst[c] = src[c];
+  }
+}
+
+// q[0..dk) (registers, zero past dk) . s[0..dk) (staged): four partial
+// sums, one a column of each group of four, added at the end (K13's scores)
+template <int kQ, typename T>
+__device__ __forceinline__ float dot_regs(const float* qr, const T* s, int dk) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int c = 0; c < kQ; c += 4) {
+    if (c < dk) {
+      const float4 y = staged4(s + c);
+      s0 = fmaf(qr[c], y.x, s0);
+      if (c + 1 < dk) s1 = fmaf(qr[c + 1], y.y, s1);
+      if (c + 2 < dk) s2 = fmaf(qr[c + 2], y.z, s2);
+      if (c + 3 < dk) s3 = fmaf(qr[c + 3], y.w, s3);
+    }
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// q[0..dk) read through __ldg (16-byte loads when vec) . s[0..dk) (staged),
+// summed in the order of dot_regs
+template <typename T>
+__device__ __forceinline__ float dot_ldg(const float* __restrict__ q, const T* s, int dk,
+                                         bool vec) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  for (int c = 0; c < dk; c += 4) {
+    float4 x;
+    if (vec) {
+      x = __ldg(reinterpret_cast<const float4*>(q + c));
+    } else {
+      x.x = __ldg(q + c);
+      x.y = c + 1 < dk ? __ldg(q + c + 1) : 0.f;
+      x.z = c + 2 < dk ? __ldg(q + c + 2) : 0.f;
+      x.w = c + 3 < dk ? __ldg(q + c + 3) : 0.f;
+    }
+    const float4 y = staged4(s + c);
+    s0 = fmaf(x.x, y.x, s0);
+    if (c + 1 < dk) s1 = fmaf(x.y, y.y, s1);
+    if (c + 2 < dk) s2 = fmaf(x.z, y.z, s2);
+    if (c + 3 < dk) s3 = fmaf(x.w, y.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// K14's and K15's dots. x[0..d) (registers, zero past d) . s[0..d)
+// (staged): four partial sums, one a column of each group of four, added
+// at the end (dP); with kChains 1 one chain of fmas in column order (the
+// scores: a score within rounding of 0 takes the slope of leaky_relu that
+// the sum in that order gives it, as K14's and K15's first kernels did)
+template <int kQ, int kChains, typename T>
+__device__ __forceinline__ float bwd_dot_regs(const float* x, const T* s, int d) {
+  constexpr int k1 = kChains > 1 ? 1 : 0, k2 = kChains > 1 ? 2 : 0, k3 = kChains > 1 ? 3 : 0;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kQ; c += 4) {
+    if (c < d) {
+      const float4 y = staged4(s + c);
+      a[0] = fmaf(x[c], y.x, a[0]);
+      if (c + 1 < d) a[k1] = fmaf(x[c + 1], y.y, a[k1]);
+      if (c + 2 < d) a[k2] = fmaf(x[c + 2], y.z, a[k2]);
+      if (c + 3 < d) a[k3] = fmaf(x[c + 3], y.w, a[k3]);
+    }
+  }
+  return kChains > 1 ? (a[0] + a[1]) + (a[2] + a[3]) : a[0];
+}
+
+// x[0..d) read through __ldg (float or bf16; four values a load when vec:
+// d % 4 == 0, x 16-byte aligned for float, 8 for bf16) . s[0..d) (staged),
+// summed in the order of bwd_dot_regs<kQ, kChains>
+template <int kChains, typename U, typename T>
+__device__ __forceinline__ float bwd_dot_ldg(const U* __restrict__ x, const T* s, int d, bool vec) {
+  using voltrix_attn::to_f;
+  constexpr int k1 = kChains > 1 ? 1 : 0, k2 = kChains > 1 ? 2 : 0, k3 = kChains > 1 ? 3 : 0;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  if (vec) {  // whole groups of four: no test per value
+    for (int c = 0; c < d; c += 4) {
+      const float4 b = voltrix_attn::load4(x + c);
+      const float4 y = staged4(s + c);
+      a[0] = fmaf(b.x, y.x, a[0]);
+      a[k1] = fmaf(b.y, y.y, a[k1]);
+      a[k2] = fmaf(b.z, y.z, a[k2]);
+      a[k3] = fmaf(b.w, y.w, a[k3]);
+    }
+  } else {
+    for (int c = 0; c < d; c += 4) {
+      const float4 y = staged4(s + c);
+      a[0] = fmaf(to_f(__ldg(x + c)), y.x, a[0]);
+      if (c + 1 < d) a[k1] = fmaf(to_f(__ldg(x + c + 1)), y.y, a[k1]);
+      if (c + 2 < d) a[k2] = fmaf(to_f(__ldg(x + c + 2)), y.z, a[k2]);
+      if (c + 3 < d) a[k3] = fmaf(to_f(__ldg(x + c + 3)), y.w, a[k3]);
+    }
+  }
+  return kChains > 1 ? (a[0] + a[1]) + (a[2] + a[3]) : a[0];
+}
+
+// acc[c] += coef * s[c] for the groups of four c < cw (s staged, padded to
+// 16 bytes; columns of the last group past cw take what the padding holds
+// and are never stored)
+template <int kAcc, typename T>
+__device__ __forceinline__ void axpy_typed(float coef, const T* s, int cw, float* acc) {
+#pragma unroll
+  for (int c = 0; c < kAcc; c += 4) {
+    if (c < cw) {
+      const float4 y = staged4(s + c);
+      acc[c] = fmaf(coef, y.x, acc[c]);
+      acc[c + 1] = fmaf(coef, y.y, acc[c + 1]);
+      acc[c + 2] = fmaf(coef, y.z, acc[c + 2]);
+      acc[c + 3] = fmaf(coef, y.w, acc[c + 3]);
+    }
+  }
+}
+
+// thread blocks an SM holds at least, by head group of two or more:
+// registers capped to fit them, which timed faster at path G's layer 1 on
+// the H100 than the registers the sums ask for (K13 in attn_fwd.cu, K14 in
+// attn_mh_dq.cu); 8 heads keep all they need (a group of one head is left
+// to ptxas, whose choice timed faster still: a kernel with no minimum)
+__host__ __device__ constexpr int mh_min_blocks(int hg) {
+  return hg >= 8 ? 2 : hg == 4 ? 3 : 4;
+}
+
 // Raises the kernel's dynamic shared memory limit to `smem` bytes.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem) {

@@ -404,14 +404,18 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
 
 // The sum of each cut group's pieces, in piece order: out (piece 0) plus
 // workspace slots first .. first + count - 2. One thread block per (cut
-// group, kStripRows of its rows, column chunk); a warp per row, a lane per
-// four columns.
+// group, kStripRows of its rows, column chunk, head); a warp per row, a
+// lane per four columns. Head h's out and workspace start out_head and
+// ws_head floats after head 0's (K14 and K15: one workspace per head).
 template <int kVec>
 __global__ void __launch_bounds__(kThreads)
 spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInts)
-                  const float* __restrict__ ws,        // (slots, tile rows, d)
-                  float* __restrict__ out,             // (num_nodes, d)
-                  int words, int block_h, int num_nodes, int d, int gw) {
+                  const float* __restrict__ ws,        // (heads, slots, tile rows, d)
+                  float* __restrict__ out,             // (heads, num_nodes, d)
+                  int words, int block_h, int num_nodes, int d, int gw, int64_t out_head,
+                  int64_t ws_head) {
+  out += blockIdx.z * out_head;
+  ws += blockIdx.z * ws_head;
   const int strips = tile_rows(words, gw) / kStripRows;
   const int* mg = merges + (int64_t)(blockIdx.x / strips) * kMergeInts;
   const int w = mg[kMW], g = mg[kMG], first = mg[kMSlot], count = mg[kMCount];
@@ -470,16 +474,19 @@ spmm_merge_kernel(const int32_t* __restrict__ merges,  // (cut groups, kMergeInt
 // and stores where `vec` (the rows are whole float4s; out and ws are fresh
 // allocations, so 16-byte aligned then); a group holds gw words. Kernels K4
 // (csrc/spmm_weighted.cu) and K3 (csrc/spmm_fused.cu, gw 8 on tall windows)
-// call it after their own products, on the same work list layout.
+// call it after their own products, on the same work list layout; K14 and
+// K15 (csrc/attn_mh_dq.cu, attn_mh_dkv.cu) for `heads` heads, head h's out
+// and workspace out_head and ws_head floats on.
 inline cudaError_t launch_merge(const void* merges, const void* ws, void* out, int num_merges,
                                 int words, int block_h, int num_nodes, int d, bool vec,
-                                cudaStream_t s, int gw = kWarps) {
-  if (num_merges == 0) return cudaSuccess;
+                                cudaStream_t s, int gw = kWarps, int heads = 1,
+                                int64_t out_head = 0, int64_t ws_head = 0) {
+  if (num_merges == 0 || d == 0) return cudaSuccess;
   auto merge = vec ? spmm_merge_kernel<4> : spmm_merge_kernel<1>;
   const int strips = tile_rows(words, gw) / kStripRows;
-  merge<<<dim3(num_merges * strips, (d + kCols - 1) / kCols), kThreads, 0, s>>>(
+  merge<<<dim3(num_merges * strips, (d + kCols - 1) / kCols, heads), kThreads, 0, s>>>(
       static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
-      static_cast<float*>(out), words, block_h, num_nodes, d, gw);
+      static_cast<float*>(out), words, block_h, num_nodes, d, gw, out_head, ws_head);
   return cudaGetLastError();
 }
 

@@ -6,11 +6,12 @@ ops/attention_mh.py launches them over H heads with float32 or bf16
 planes; ops/attention.py launches them with H = 1 and float32 planes as
 K11 and K12 (the JAX package keeps a single-head and a multi-head copy of
 each Pallas kernel only because the TPU pays one gather call per head).
-K9, K10 and K13 walk rows with csrc/attn_walk.cuh and are launched by
-ops/attention.py (K9, K10) and ops/attention_mh.py (K13). The launch
-functions take the entry point that calls them: its name keys the task
-size, the head group and the messages, and its `launches` count goes up by
-one where the kernel launches, and nowhere else.
+All of K9-K15 walk rows with csrc/attn_walk.cuh; K9 and K10 are launched
+by ops/attention.py, K13 by ops/attention_mh.py. The launch functions
+take the entry point that calls them: its name keys the work list
+(ops/block_spmm.py: PIECE_BLOCKS, PIECE_WORK), the head group and the
+messages, and its `launches` count goes up by one where the kernel
+launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -23,25 +24,20 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .bitmask import expand_bitmask
-from .block_spmm import _INT_MAX, launch
+from .block_spmm import _INT_MAX, launch, plan_walk
 from .reference import CHUNK_BYTES
-from .weighted import _SMEM_LIMIT
 
 
 _NEG = -1e30  # finite -inf stand-in: exp(_NEG - m) underflows to 0
 _EMPTY_LSE = 1e30  # lse of a row with no edges: exp(s - 1e30) = 0
-# plan blocks per thread block, by entry point: the fastest of
-# python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep at path G's
-# shapes (K14, K15) and path H's (K11, K12; K9, K10 and K13 take
-# PIECE_BLOCKS and PIECE_WORK of ops/block_spmm.py instead)
-_TASK_BLOCKS = {"attention_mh_dq": 1, "attention_mh_dkv": 2, "attention_dq": 1,
-                "attention_dkv": 1}
-# heads per thread block of K14 and K15 (the sweep, path G)
-_HEAD_GROUP = {"attention_mh_dq": 8, "attention_mh_dkv": 1}
-_MAX_TILE_COLS = 128  # widest column chunk of a kernel's shared-memory row tile
-_BATCH = 512  # edges a kernel sorts by row at once (kBatch in csrc/attn_mh_common.cuh)
-# dynamic shared memory left beside the edge walks' static scratch (kSmemLimit there)
-_SMEM = _SMEM_LIMIT - 4 * (2 * 256 + 33) - 16
+# heads whose walk K14 and K15 share (1, 2 or 4): the fastest of
+# python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep --kernels backward
+# at path G's layer 1 (the one-head entry points K11 and K12 take 1)
+BWD_HEAD_GROUP = {"attention_mh_dq": 2, "attention_mh_dkv": 2}
+# K14's and K15's column chunks (a lane's columns of dq, or of dk and of
+# dv, per head) by head group: the template pairs of csrc/attn_mh_dq.cu
+# and csrc/attn_mh_dkv.cu, whose registers fit a lane
+BWD_ACC_WIDTHS = {1: (8, 16, 32, 40, 64), 2: (8, 16), 4: (8,)}
 IMPLS = ("auto", "reference")
 
 
@@ -57,11 +53,13 @@ def _loader(name: str, symbol: str, argtypes):
 
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# bitmask hind wob block_ptr, then the kernel's tensors, then the geometry
+_ll = ctypes.c_longlong
+# the plan's arrays and the work list, the kernel's tensors, the geometry,
+# the alignment flags, then the (head, row) strides of the four stacks
 load_dq_library = _loader("attn_mh_dq", "voltrix_attn_mh_dq",
-                          [_p] * 11 + [_i] * 13 + [_f, _f, _i, _i, _i, _p])
+                          [_p] * 12 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 load_dkv_library = _loader("attn_mh_dkv", "voltrix_attn_mh_dkv",
-                           [_p] * 12 + [_i] * 13 + [_f, _f, _i, _i, _i, _p])
+                           [_p] * 14 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 
 
 # --- arguments -----------------------------------------------------------
@@ -300,23 +298,53 @@ def _tensors(name: str, device, *pairs):
     return out
 
 
-def _geometry(block_h: int, heads: int, width: int, fixed, name: str) -> tuple[int, int]:
-    """(head_group, dc) of a kernel: up to _HEAD_GROUP[name] heads (at
-    most 8; 1 for the single-head entry points) per thread block and dc <=
-    _MAX_TILE_COLS columns of its (head_group x block_h x dc) shared-memory
-    tile, dc halved (then the group) until the tile and fixed(head_group)
-    other floats fit."""
-    hg = max(1, min(heads, _HEAD_GROUP.get(name, 1)))
-    while True:
-        dc = max(1, min(width, _MAX_TILE_COLS))
-        while (hg * block_h * (dc | 1) + fixed(hg)) * 4 > _SMEM and dc > 1:
-            dc = (dc + 1) // 2
-        if (hg * block_h * (dc | 1) + fixed(hg)) * 4 <= _SMEM:
-            return hg, dc
-        if hg == 1:
-            raise ValueError(f"{name}: a {block_h}-row tile does not fit one thread block's "
-                             "shared memory; use a shorter block_h")
+def _head_rows(name: str, device, t: torch.Tensor, dtype) -> torch.Tensor:
+    """t (H, n, d) in `dtype` on `device` with each row's values contiguous,
+    in whatever head and row strides it has: the node-major (n, H, d)
+    projections of models/gat_flash.py as they are (no copy where the dtype
+    is already right), a head-major stack likewise."""
+    if t.device != device:
+        raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    t = t.to(dtype)
+    return t.contiguous() if t.shape[2] > 1 and t.stride(2) != 1 else t
+
+
+def _rows_by(t: torch.Tensor, per: int) -> int:
+    """1 when every row of the (H, n, d) stack t starts on a boundary of
+    `per` values and holds whole runs of `per` values."""
+    align = per * t.element_size()
+    return int(t.shape[2] % per == 0 and t.data_ptr() % align == 0
+               and t.stride(0) % per == 0 and t.stride(1) % per == 0)
+
+
+def _rows16(t: torch.Tensor) -> int:
+    """1 when t's rows may be staged by 16-byte copies."""
+    return _rows_by(t, 16 // t.element_size())
+
+
+def _rows4(t: torch.Tensor) -> int:
+    """1 when t's rows may be read four values a load."""
+    return _rows_by(t, 4)
+
+
+def group_and_chunk(heads: int, d: int, group: int, widths: dict) -> tuple[int, int]:
+    """(head group, column chunk) of a multi-head walk for `heads` heads of
+    width d: the smallest power of two that holds min(heads, group) heads,
+    halved while its widest chunk in `widths` is narrower than d; the
+    narrowest chunk that holds d, else the widest (d in several chunks)."""
+    hg = 1
+    while hg < min(heads, group):
+        hg *= 2
+    while hg > 1 and widths[hg][-1] < d:
         hg //= 2
+    return hg, next((w for w in widths[hg] if w >= d), widths[hg][-1])
+
+
+def bwd_geometry(name: str, heads: int, d: int) -> tuple[int, int]:
+    """(head group, column chunk) of K14 (d = dk) or K15 (d = max(dk, dv))
+    for entry point `name`: `group_and_chunk` over BWD_ACC_WIDTHS, with
+    BWD_HEAD_GROUP[name] heads at most (one for K11 and K12)."""
+    return group_and_chunk(heads, d, BWD_HEAD_GROUP.get(name, 1), BWD_ACC_WIDTHS)
 
 
 def _vec4(d: int, *tensors) -> int:
@@ -332,63 +360,91 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     return True
 
 
+def _walk_of(name: str, plan: SpmmPlan, heads: int, d: int):
+    """The kernel's work list and (head group, column chunk), after
+    checking that the grid takes them."""
+    walk = plan_walk(plan, name)
+    hg, acc = bwd_geometry(name, heads, d)
+    if walk.tasks.shape[0] * -(-heads // hg) > _INT_MAX or -(-d // acc) > 65535 or heads > 65535:
+        raise ValueError(f"{name}: more tasks, heads or columns than the grid takes")
+    return walk, hg, acc
+
+
+def _workspace(walk, heads: int, d: int, device):
+    """A cut group's pieces 1.. for each head at width d (None if no group
+    is cut)."""
+    if not walk.slots:
+        return None
+    return torch.empty(max(1, heads * walk.slots * walk.rows * d), dtype=torch.float32,
+                       device=device)
+
+
+def _strides(*stacks):
+    return [x for t in stacks for x in t.stride()[:2]]
+
+
 def _dq_kernel(entry, plan, q, k, v, g, lse, d_row, scale, slope, pdt):
-    """dq (H, nq, dk) float32 through the kernel of K14 (csrc/attn_mh_dq.cu)."""
+    """dq (H, nq, dk) float32 through K14 (csrc/attn_mh_dq.cu): the walk
+    over `plan_walk(plan, name)` for each head group and, when a group of
+    rows is cut, the merge of each head's pieces. q, k, v and dO are read
+    through their head and row strides (`_head_rows`). Every row is
+    written."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
-    plan_ptrs = _plan_args(plan, dev, name)
-    tdt = pdt or torch.float32
-    f32 = torch.float32
-    qc, kc, vc, gc, lc, dc_row = _tensors(name, dev, (q, f32), (k, tdt), (v, tdt), (g, f32),
-                                          (lse, f32), (d_row, f32))
-    cfg = plan.config
-    dq = torch.zeros(heads, nq, dk, dtype=torch.float32, device=dev)
+    _plan_args(plan, dev, name)
+    f32, tdt = torch.float32, pdt or torch.float32
+    qc, kc, vc, gc = (_head_rows(name, dev, t, dt)
+                      for t, dt in ((q, f32), (k, tdt), (v, tdt), (g, f32)))
+    lc, dc_row = _tensors(name, dev, (lse, f32), (d_row, f32))
+    dq = torch.empty(heads, nq, dk, dtype=f32, device=dev)
     if plan.total_blocks == 0 or dk == 0:
-        return dq
-    bh = cfg.block_h
-    hg, dc = _geometry(bh, heads, dk, lambda g: 2 * bh + 1 + (g + 1) * _BATCH, name)
-    if -(-heads // hg) > 65535 or -(-dk // dc) > 65535:
-        raise ValueError(f"{name}: heads or dk exceed the grid's limits")
+        return dq.zero_()
+    walk, hg, acc = _walk_of(name, plan, heads, dk)
+    ws = _workspace(walk, heads, dk, dev)
+    cfg = plan.config
     launch(
-        name, load_dq_library(), q,
-        *plan_ptrs, qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
-        lc.data_ptr(), dc_row.data_ptr(), dq.data_ptr(),
-        plan.total_blocks, cfg.words_per_col, bh, cfg.block_w, heads, hg, nq, nk,
-        lc.shape[1], dk, dv, dc, _TASK_BLOCKS[name], float(scale),
-        float(slope), _vec4(dk, qc, kc), _vec4(dv, gc, vc), int(pdt is not None),
+        name, load_dq_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), qc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), gc.data_ptr(), lc.data_ptr(), dc_row.data_ptr(), dq.data_ptr(),
+        None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
+        walk.slots, heads, hg, cfg.words_per_col, cfg.block_h, cfg.block_w, nq, nk, dk, dv,
+        lc.shape[1], acc, int(pdt is not None), float(scale), float(slope), _rows4(qc),
+        _rows4(gc), _rows16(kc), _rows16(vc), *_strides(qc, kc, vc, gc),
     )
     entry.launches += 1
     return dq
 
 
 def _dkv_kernel(entry, plan_t, q, k, v, g, lse, d_row, scale, slope, pdt):
-    """(dk, dv) float32 through the kernel of K15 (csrc/attn_mh_dkv.cu)
-    over the transpose plan."""
+    """(dk, dv) float32 through K15 (csrc/attn_mh_dkv.cu) over the
+    transpose plan: the walk over `plan_walk(plan_t, name)` for each head
+    group and, when a group of rows is cut, the merges of each head's
+    pieces of dk and of dv. q, k, v and dO are read in the plane's type
+    through their head and row strides. Every row is written."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
-    plan_ptrs = _plan_args(plan_t, dev, name)
-    tdt = pdt or torch.float32
-    f32 = torch.float32
-    qc, kc, vc, gc, lc, dc_row = _tensors(name, dev, (q, tdt), (k, tdt), (v, tdt), (g, tdt),
-                                          (lse, f32), (d_row, f32))
-    cfg = plan_t.config
-    dk_out = torch.zeros(heads, nk, dk, dtype=torch.float32, device=dev)
-    dv_out = torch.zeros(heads, nk, dv, dtype=torch.float32, device=dev)
+    _plan_args(plan_t, dev, name)
+    f32, tdt = torch.float32, pdt or torch.float32
+    qc, kc, vc, gc = (_head_rows(name, dev, t, tdt) for t in (q, k, v, g))
+    lc, dc_row = _tensors(name, dev, (lse, f32), (d_row, f32))
+    dk_out = torch.empty(heads, nk, dk, dtype=f32, device=dev)
+    dv_out = torch.empty(heads, nk, dv, dtype=f32, device=dev)
     if plan_t.total_blocks == 0 or dk + dv == 0:
-        return dk_out, dv_out
-    bh = cfg.block_h
-    hg, dc = _geometry(bh, heads, dk + dv, lambda g: 2 * bh + 1 + (2 * g + 1) * _BATCH, name)
-    if -(-heads // hg) > 65535 or -(-(dk + dv) // dc) > 65535:
-        raise ValueError(f"{name}: heads or dk + dv exceed the grid's limits")
+        return dk_out.zero_(), dv_out.zero_()
+    walk, hg, acc = _walk_of(name, plan_t, heads, max(dk, dv))
+    ws_k, ws_v = (_workspace(walk, heads, d, dev) for d in (dk, dv))
+    cfg = plan_t.config
     launch(
-        name, load_dkv_library(), q,
-        *plan_ptrs, kc.data_ptr(), vc.data_ptr(), qc.data_ptr(), gc.data_ptr(),
-        lc.data_ptr(), dc_row.data_ptr(), dk_out.data_ptr(), dv_out.data_ptr(),
-        plan_t.total_blocks, cfg.words_per_col, bh, cfg.block_w, heads, hg, nk, nq,
-        lc.shape[1], dk, dv, dc, _TASK_BLOCKS[name], float(scale),
-        float(slope), _vec4(dk, kc, qc), _vec4(dv, vc, gc), int(pdt is not None),
+        name, load_dkv_library(), q, plan_t.bitmask.data_ptr(), plan_t.hind.data_ptr(),
+        walk.tasks.data_ptr(), walk.merges.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        qc.data_ptr(), gc.data_ptr(), lc.data_ptr(), dc_row.data_ptr(), dk_out.data_ptr(),
+        dv_out.data_ptr(), *(None if w is None else w.data_ptr() for w in (ws_k, ws_v)),
+        walk.tasks.shape[0], walk.merges.shape[0], walk.slots, heads, hg, cfg.words_per_col,
+        cfg.block_h, cfg.block_w, nk, nq, dk, dv, lc.shape[1], acc, int(pdt is not None),
+        float(scale), float(slope), _rows4(kc), _rows4(vc), _rows16(qc), _rows16(gc),
+        *_strides(kc, vc, qc, gc),
     )
     entry.launches += 1
     return dk_out, dv_out

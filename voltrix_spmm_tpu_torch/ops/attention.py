@@ -24,8 +24,8 @@ out_r and ds = p (dO_r . v_l - D_r) act'(raw) scale:
   pieces' (m, l, acc) shares of a cut group merged in piece order.
 - `attention_dq` runs K11 (_attn_bwd_dq_kernel: dq over `plan`) and
   `attention_dkv` K12 (_attn_bwd_dkv_kernel: dk, dv over the transpose
-  plan): the kernels of K14 and K15 (csrc/attn_mh_*.cu) launched with H =
-  1 and float32 planes.
+  plan): the kernels of K14 and K15 (csrc/attn_mh_*.cu, the same row walk,
+  each on its own work list) launched with H = 1 and float32 planes.
 - `attention_bwd` runs K10 (csrc/attn_bwd.cu, replacing _attn_bwd_kernel):
   dq over the forward plan (the same row walk, on its own work list) and
   the per-lane planes dk_lane and dv_lane, where lane (b, j) sums the set
@@ -102,13 +102,17 @@ load_mh_fwd_library = _loader("attn_fwd", "voltrix_attn_mh_fwd",
 SHARE_KERNELS = ("spmm_attention", "spmm_attention_mh")
 
 
-# --- the work list of K9 and K10 ---------------------------------------------------
+# --- the work list of K9-K15 ---------------------------------------------------------
 
 def attention_walk(plan: SpmmPlan, name: str):
-    """K9's (name "spmm_attention"), K13's ("spmm_attention_mh") or K10's
-    ("attention_bwd") work list of `plan`: ops/block_spmm.py's `plan_walk`
-    at the kernel's PIECE_BLOCKS and PIECE_WORK. K10 adds a cut group's
-    pieces 1.. into workspace tiles (the walk's layout); K9 and K13 keep
+    """K9's (name "spmm_attention"), K13's ("spmm_attention_mh"), K10's
+    ("attention_bwd"), K14's ("attention_mh_dq"), K15's ("attention_mh_dkv",
+    on a transpose plan), K11's ("attention_dq") or K12's ("attention_dkv")
+    work list of `plan`: ops/block_spmm.py's `plan_walk` at the kernel's
+    PIECE_BLOCKS and PIECE_WORK, kept under the kernel's own name. K10-K12,
+    K14 and K15 add a cut group's pieces 1.. into workspace tiles (the
+    walk's layout; K14 and K15 launch it as ops/_attn_core.py's `plan_walk`
+    call); K9 and K13 keep
     every piece's (m, l, acc) share of a cut group, so their slots are
     renumbered: piece p of a group whose first slot is s takes slot s + p,
     and the merges' first slots move likewise. Built once per plan and kept
@@ -133,10 +137,11 @@ def attention_walk(plan: SpmmPlan, name: str):
 
 
 def attention_walk_stats(plan: SpmmPlan, name: str, d: int, heads: int = 1) -> dict:
-    """`walk_stats` of K9's, K13's or K10's work list at width d, with the
-    kernel's own workspace: K9 and K13 keep m, l and d columns a row (and
-    a head) of every piece of a cut group, K10 d columns of its pieces
-    1.. (MiB)."""
+    """`walk_stats` of a work list of `attention_walk` at width d, with
+    the kernel's own workspace: K9 and K13 keep m, l and d columns a row
+    (and a head) of every piece of a cut group, K10-K12, K14 and K15 d
+    columns of its pieces 1.. (K14: d = dk; K15: d = dk + dv, its two
+    workspaces) (MiB)."""
     walk = attention_walk(plan, name)
     stats = walk_stats(plan, walk, d)
     width = d + 2 if name in SHARE_KERNELS else d

@@ -19,10 +19,14 @@ lse exactly 1e30.
 - `attention_mh_dq` runs K14 (csrc/attn_mh_dq.cu, replacing
   _attn_bwd_dq_mh_kernel): dq[h, r] = sum_l ds k[h, l] over `plan`, with
   p = exp(s - lse_r), ds = p (dO_r . v_l - D_r) act'(raw) scale and
-  D_r = dO_r . out_r.
+  D_r = dO_r . out_r; the same row walk on its own work list, a lane per
+  row of dq for a group of heads, cut groups merged in piece order.
 - `attention_mh_dkv` runs K15 (csrc/attn_mh_dkv.cu, replacing
   _attn_bwd_dkv_mh_kernel) over the transpose plan: dk[h, l] = sum_r ds
-  q[h, r] and dv[h, l] = sum_r p dO[h, r].
+  q[h, r] and dv[h, l] = sum_r p dO[h, r]; the row walk over the
+  transpose plan's own work list (`plan_walk(plan_t,
+  "attention_mh_dkv")`, kept apart from K13's and K14's even where
+  plan_t is plan), a lane per row of dk and dv.
 - `spmm_attention_mh_ad` is the autograd Function over the three.
 
 K14's and K15's launches, the plain versions' arithmetic and the
@@ -33,7 +37,8 @@ plane dtype, the subtile flag and its own counts.
 
 plane_dtype=torch.bfloat16 rounds exactly the operands the JAX package
 streams in bf16: k and v everywhere, q and dO where K15 gathers them.
-K13's q and K14's q and dO stay float32; all sums are float32.
+K13's q and K14's q and dO stay float32; all sums are float32. The
+backward casts k and v to the plane's type once for K14 and K15.
 
 subtile=True is accepted, as in JAX, for plans with block_h % 128 == 0.
 The JAX kernels' subtile branch skips a block's empty 128-row sub-windows;
@@ -63,10 +68,14 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     _dq_kernel,
     _dq_plain,
     _fwd_plain,
+    _head_rows,
     _on_cuda,
     _plan_args,
     _plane,
     _refuse_knobs,
+    _rows16,
+    _strides,
+    group_and_chunk,
     load_dkv_library,
     load_dq_library,
 )
@@ -85,28 +94,9 @@ MH_ACC_WIDTHS = {1: (8, 16, 32, 40, 64), 2: (8, 16, 40), 4: (8, 16), 8: (8,)}
 
 
 def mh_geometry(heads: int, dv: int) -> tuple[int, int]:
-    """(head group, column chunk) of K13 for `heads` heads of width dv: the
-    smallest power of two that holds min(heads, HEAD_GROUP) heads, halved
-    while its widest chunk is narrower than dv; the narrowest chunk that
-    holds dv, else the widest (dv in several chunks)."""
-    hg = 1
-    while hg < min(heads, HEAD_GROUP):
-        hg *= 2
-    while hg > 1 and MH_ACC_WIDTHS[hg][-1] < dv:
-        hg //= 2
-    widths = MH_ACC_WIDTHS[hg]
-    return hg, next((w for w in widths if w >= dv), widths[-1])
-
-
-def _head_rows(name: str, device, t: torch.Tensor, dtype) -> torch.Tensor:
-    """t (H, n, d) in `dtype` on `device` with each row's values contiguous,
-    in whatever head and row strides it has: the node-major (n, H, d)
-    projections of models/gat_flash.py as they are (no copy where the dtype
-    is already right), a head-major stack likewise."""
-    if t.device != device:
-        raise ValueError(f"{name}: tensors on {t.device} and {device}")
-    t = t.to(dtype)
-    return t.contiguous() if t.shape[2] > 1 and t.stride(2) != 1 else t
+    """(head group, column chunk) of K13 for `heads` heads of width dv:
+    `group_and_chunk` over MH_ACC_WIDTHS with HEAD_GROUP heads at most."""
+    return group_and_chunk(heads, dv, HEAD_GROUP, MH_ACC_WIDTHS)
 
 
 def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float, pdt):
@@ -135,11 +125,6 @@ def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float, pdt):
     if walk.slots:
         ws_ml = torch.empty(walk.slots * heads * walk.rows * 2, dtype=f32, device=dev)
         ws_acc = torch.empty(walk.slots * heads * walk.rows * dv, dtype=f32, device=dev)
-
-    def rows16(t, per16):  # rows read 16 bytes at a time: aligned, whole 16-byte units
-        return int(t.shape[2] % per16 == 0 and t.data_ptr() % 16 == 0
-                   and t.stride(0) % per16 == 0 and t.stride(1) % per16 == 0)
-
     launch(
         name, load_mh_fwd_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
         walk.tasks.data_ptr(), walk.merges.data_ptr(), qc.data_ptr(), kc.data_ptr(),
@@ -147,9 +132,8 @@ def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float, pdt):
         None if ws_ml is None else ws_ml.data_ptr(), None if ws_acc is None else ws_acc.data_ptr(),
         walk.tasks.shape[0], walk.merges.shape[0], heads, hg, cfg.words_per_col, cfg.block_h,
         cfg.block_w, nq, nk, dk, dv, plan.padded_nodes, acc, int(pdt is not None),
-        float(scale), float(slope), rows16(qc, 4), rows16(kc, 16 // kc.element_size()),
-        rows16(vc, 16 // vc.element_size()), *qc.stride()[:2], *kc.stride()[:2],
-        *vc.stride()[:2],
+        float(scale), float(slope), _rows16(qc), _rows16(kc), _rows16(vc),
+        *_strides(qc, kc, vc),
     )
     spmm_attention_mh.launches += 1
     return out, lse
@@ -303,13 +287,16 @@ class _AttentionMHFunction(torch.autograd.Function):
         d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
         kw = dict(scale=ctx.scale, negative_slope=ctx.slope, plane_dtype=ctx.pdt)
         ref = ctx.impl == "reference"
+        # k and v in the plane's type once, for both kernels (a no-op for
+        # float32 planes; the plain versions round them the same way)
+        kp, vp = (t if ctx.pdt is None else t.to(ctx.pdt) for t in (k, v))
         dq = dk = dv = None
         if ctx.needs_input_grad[0]:
             dq_fn = attention_mh_dq_reference if ref else attention_mh_dq
-            dq = dq_fn(ctx.plan, q, k, v, g, lse, d_row, **kw).to(q.dtype)
+            dq = dq_fn(ctx.plan, q, kp, vp, g, lse, d_row, **kw).to(q.dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dkv_fn = attention_mh_dkv_reference if ref else attention_mh_dkv
-            dk, dv = dkv_fn(ctx.plan_t, q, k, v, g, lse, d_row, **kw)
+            dk, dv = dkv_fn(ctx.plan_t, q, kp, vp, g, lse, d_row, **kw)
             dk, dv = dk.to(k.dtype), dv.to(v.dtype)
         return dq, dk, dv, None, None, None, None, None, None
 

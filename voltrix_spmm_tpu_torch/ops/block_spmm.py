@@ -14,9 +14,9 @@ into pieces of at most `PIECE_BLOCKS[name]` visited blocks and about
 `block_work`). Kernels K4 and K5 (ops/weighted.py) take the same list with
 a block limit alone, as their blocks cost about the same; kernel K3
 (ops/fused_spmm.py) takes it with groups of 256 rows on windows taller
-than 128 rows (`group_words`); kernels K9, K10 and K13 (ops/attention.py:
-attention_walk) take it for their row walks. The list is built on
-the host from the plan's block_ptr, each block's work (and K2's
+than 128 rows (`group_words`); kernels K9-K15 (ops/attention.py:
+attention_walk) take it for their row walks. The list is built on the
+host from the plan's block_ptr, each block's work (and K2's
 occupancy) at a plan's first launch for each kernel, the only host sync,
 and kept beside the plan's block_ptr tensor, outside its dataclass
 fields (`plan_walk`).
@@ -47,20 +47,26 @@ MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # work (`block_work`; None: no work limit), by kernel:
 # python3 -m voltrix_spmm_tpu_torch.tools.spmm_piece_sweep (paths A and B;
 # K8 on paths I and C; K4 and K5 on path D's plans; K3 on paths C and J.2)
-# and, for K9 ("spmm_attention"), K10 ("attention_bwd", its dq walk) and K13
-# ("spmm_attention_mh"), python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep
+# and, for K9 ("spmm_attention"), K10 ("attention_bwd", its dq walk), K13
+# ("spmm_attention_mh"), K14 ("attention_mh_dq"), K15 ("attention_mh_dkv", on
+# the transpose plan) and their one-head launches K11 ("attention_dq") and
+# K12 ("attention_dkv"), python3 -m voltrix_spmm_tpu_torch.tools.attn_task_sweep
 # (paths H and G)
 PIECE_BLOCKS = {"spmm_block": 32, "spmm_subtile": 64, "spmm_int8": 128, "spmm_weighted": 8,
                 "spmm_fused": 4096, "spmm_attention": 32, "attention_bwd": 32,
-                "spmm_attention_mh": 32, "spmm_dvalues": 2}
+                "spmm_attention_mh": 32, "spmm_dvalues": 2, "attention_mh_dq": 32,
+                "attention_mh_dkv": 32, "attention_dq": 32, "attention_dkv": 32}
 PIECE_WORK = {"spmm_block": 2048, "spmm_subtile": 1024, "spmm_int8": 2048,
               "spmm_weighted": None, "spmm_fused": 8192, "spmm_attention": 512,
-              "attention_bwd": 512, "spmm_attention_mh": 1024, "spmm_dvalues": None}
+              "attention_bwd": 512, "spmm_attention_mh": 1024, "spmm_dvalues": None,
+              "attention_mh_dq": 1024, "attention_mh_dkv": 1024, "attention_dq": 512,
+              "attention_dkv": 512}
 # the most blocks a piece may hold (csrc/spmm_walk.cuh kMaxPiece), by kernel:
-# K3, K5, K9, K10 and K13 walk a piece's block range in order and hold no
-# list of its blocks
+# K3, K5 and K9-K15 walk a piece's block range in order and hold no list of
+# its blocks
 PIECE_BLOCKS_CAP = {"spmm_fused": None, "spmm_attention": None, "attention_bwd": None,
-                    "spmm_attention_mh": None, "spmm_dvalues": None}
+                    "spmm_attention_mh": None, "spmm_dvalues": None, "attention_mh_dq": None,
+                    "attention_mh_dkv": None, "attention_dq": None, "attention_dkv": None}
 # 32-row words of a work-list group on windows taller than four words, by
 # kernel (default _GROUP_WORDS): K3 stages a block's X rows once for a slab
 # of 256 rows (csrc/spmm_fused.cu)
