@@ -16,8 +16,8 @@ non-zero on failure (there is no CPU fallback):
    (csrc/attn_mh_dkv.cu), K9 and K13 (csrc/attn_fwd.cu), K10
    (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
    started together, into build/kernels/. K11 and K12 are the kernels of
-   K14 and K15 launched with one head and float32 planes. The SASS of K5,
-   of K9 and K13, and of K14 and K15 holds no atomic instruction
+   K14 and K15 launched with one head and float32 planes. The SASS of
+   every .cu source under csrc/ holds no atomic instruction
    (tools/sass_atomics.py).
 3. Each kernel against its plain version on the card, on several plan
    geometries: calc_diff < 1e-6 and allclose(rtol=1e-5, atol=1e-4)
@@ -25,7 +25,11 @@ non-zero on failure (there is no CPU fallback):
    power-law graph whose hub window is cut into >= 16 pieces, a window of
    exactly 2 x PIECE_BLOCKS blocks, d 130 (4-byte copies) and features 4
    bytes past a 16-byte boundary (the hub rows under the float32
-   summation bound of their degrees); K4 also on its work list (a
+   summation bound of their degrees); K1 also on a padded, rectangular
+   sampled hop (data.sample_block: 512 seeds, fanout 25, PlanConfig(32,
+   128)) at d 128 and its transpose at d 256, whose padding blocks fill
+   the last window, cut into >= 16 empty pieces, each twice
+   bit-identical; K4 also on its work list (a
    power-law hub window cut into >= 16 pieces, a window of exactly 2 x
    PIECE_BLOCKS["spmm_weighted"] blocks, d 130, values off the bitmask on
    cut windows; values and features from a generator of their own); K5
@@ -149,6 +153,35 @@ non-zero on failure (there is no CPU fallback):
       spmm_attention_ad(plan, q, k, v, plan_t=plan) at a layer-1 head (d 8)
       and at layer 2 (d 40): K9, K11 and K12 once each per width, its
       gradients against the plain ones and against K10's.
+   K. On A's graph and plan, OGB's arxiv widths 128 -> 256 -> 40, each
+      model 3 requests and 3 Adam steps (lr 5e-3): SAGE (mean; K1 2 a
+      request, 3 a step), GIN (sum, learnable eps; 2 and 3), APPNP (K 10,
+      alpha 0.1; 10 and 20), an 8-layer residual GCN (mean; 8 and 15, with
+      remat=True 8 and 21: the backward recomputes the 6 hidden layers;
+      both forwards bit-identical, both steps' time and peak memory),
+      R-GCN (4 relations drawn by a seeded rng over A's CSR entries, each
+      directed with its own transpose plan, 2 bases; 8 and 12); then
+      DropEdge on build_dropedge_graph(A) (PlanConfig(64, 128)) at d 128
+      and 256, keep_prob 0.8: the training call and its backward (K4
+      twice) and the eval call (K1 once), each against the plain path on
+      the same mask (the CUDA generator's state replayed) and twice
+      bit-identical. Logits against the plain path at calc_diff < 1e-6,
+      rtol 1e-4 and atol 1e-4 x max(1, max|plain|) (sum aggregations
+      scale logits by degrees in the thousands).
+   L. Neighbour-sampled GraphSAGE on A: 3 Adam steps (lr 1e-2,
+      examples/train_sage_minibatch.py) on batches of 512 seeds drawn by a
+      seeded rng, sample_blocks with fanouts [10, 25] on PlanConfig(32,
+      128), SAGE 128 -> 256 -> 40: K1 3 a step (each hop's plan, the seed
+      hop's transpose; the deep hop's transpose stays on the host);
+      sampling, plan building, the move to the card, the work lists and
+      the step timed apart, sample_blocks against its two timed halves,
+      the plans' work lists printed; step 0's gradients and batch 0's
+      logits (twice bit-identical) against the plain path; then
+      sage_inference over A's graph on PlanConfig(32, 128), K1 2 a request.
+   M. GIN graph classification on examples/train_graph_classify.py's
+      corpus: 128 graphs of 30-80 nodes (dense or rings) in one
+      block-diagonal batch, PlanConfig(128, 128), 16 -> 64 -> 2, sum
+      readout: 1 request (K1 2) and 3 Adam steps (K1 3 each).
    C. GCN serving on the protein proxy (132,534 nodes, 79.0M nnz),
       PlanConfig(2048, 128, gather_segment=128, block_unroll=4),
       8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3, which runs
@@ -386,7 +419,20 @@ def main() -> None:
         gcn_params_from_jax, hybrid_stats, lane_values, link_auc, link_pred_loss, link_scores,
         make_link_pred_step, make_train_step, relative_error, spmm, spmm_ad,
     )
-    from voltrix_spmm_tpu_torch.data import chung_lu_csr, erdos_renyi_csr, proxy_csr, symmetrize
+    from voltrix_spmm_tpu_torch.data import (
+        block_diagonal, chung_lu_csr, erdos_renyi_csr, gather_features, node_graph_ids, proxy_csr,
+        sample_block, sample_blocks, symmetrize,
+    )
+    from voltrix_spmm_tpu_torch.data.sampling import _block_plans, _sample_edges
+    from voltrix_spmm_tpu_torch.models import (
+        APPNP, GIN, RGCN, SAGE, DeepGCN, GINClassifier, SageMinibatch, appnp_forward, appnp_loss,
+        blocks_args, build_dropedge_graph, deep_gcn_forward, deep_gcn_loss, dropedge_aggregate,
+        dropedge_weights,
+        gin_classifier_forward, gin_classifier_loss, gin_forward, make_classifier_train_step,
+        make_deep_train_step, make_rgcn_train_step, make_sage_minibatch_step, rgcn_forward,
+        rgcn_loss, sage_forward, sage_inference,
+    )
+    from voltrix_spmm_tpu_torch.models.sage_minibatch import _forward as sage_blocks_forward
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
     from voltrix_spmm_tpu_torch.tools import sass_atomics
@@ -476,9 +522,13 @@ def main() -> None:
     t_nvcc = time.perf_counter() - t0
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"{t_nvcc:.2f} s in all, into {get_build_dir()}")
-    # K5, K13 (and K9 beside it), K14 and K15 (and K11, K12 at one head) sum
-    # in a fixed order: no atomic of any kind in their SASS
-    for src in ("spmm_dvalues.cu", "attn_fwd.cu", "attn_mh_dq.cu", "attn_mh_dkv.cu"):
+    # every kernel sums in a fixed order: no atomic of any kind in the SASS
+    # of any source
+    cu_sources = sorted(f for f in os.listdir(os.path.join(ROOT, "voltrix_spmm_tpu_torch", "csrc"))
+                        if f.endswith(".cu"))
+    if sorted(sources) != cu_sources:
+        fail(f"the kernels' sources {sorted(sources)} are not csrc's {cu_sources}")
+    for src in cu_sources:
         ops = sass_atomics.atomics(src)
         print(f"sass_atomics {src}: {dict(sorted(ops.items())) or 'no atomics'}")
         if ops:
@@ -673,6 +723,29 @@ def main() -> None:
              wide, bound=True)
         case(name, f"n40000 d128 {wide_label}, feat 4 bytes past a 16-byte boundary", hub40k,
              128, wide, offset=True, bound=True)
+
+    # a padded, rectangular sampled hop (path L's seed hop at a small size,
+    # PlanConfig(32, 128)): the padding blocks sit in the last window, which
+    # the walk cuts into empty pieces and merges in order; the hop at d 128
+    # and its transpose at d 256, as path L's step launches them
+    print("  (a sampled hop: data.sample_block, 512 seeds, fanout 25, padded to block_caps)")
+    hop = sample_block(hub40k.indptr, hub40k.indices,
+                       np.random.default_rng(36).choice(40000, 512, replace=False), 25,
+                       np.random.default_rng(37))
+    hop_rng = np.random.default_rng(38)
+    for side, p, d in (("plan", hop.plan, 128), ("plan_t", hop.plan_t, 256)):
+        pd = p.to(dev)
+        real = int((pd.bitmask.view(p.total_blocks, -1) != 0).any(1).sum())
+        last = int(p.block_ptr[-1] - p.block_ptr[-2])
+        pieces = most_pieces(pd, k1)
+        if p.num_cols is None or (side == "plan_t" and not (real < p.total_blocks and pieces >= 16)):
+            fail(f"sampled hop {side}: not the padded rectangular plan this case is for")
+        feat = torch.from_numpy(hop_rng.standard_normal((p.source_rows, d)).astype(np.float32))
+        feat = feat.to(dev)
+        compare(k1, f"sampled hop {side} {p.num_nodes} x {p.source_rows} d{d}: {p.total_blocks} "
+                f"blocks ({real} with bits), last window {last} blocks in {pieces} pieces", pd,
+                (feat,))
+        twice(f"sampled hop {side} K1 d{d}", spmm_block, pd, feat)
 
     k2 = "spmm_subtile"
     community = chung_lu_csr(6000, 60000, community=128, local_frac=0.8, seed=9)
@@ -2876,6 +2949,475 @@ def main() -> None:
                       j_hybrid_launches_k1=counts["spmm_block"], j_hybrid_dense_frac=st["dense_frac"])
         del hplan, csr_dense
 
+    # --- paths K, L and M: the other model families -----------------------
+    TOL_MODEL = 1e-4  # logits: rtol, and atol x max(1, max|plain|)
+    # paths K, L and M draw their features from a generator of their own, so
+    # those of the paths after them stay as they were (an edge at leaky_relu's
+    # kink on path E moves with them)
+    klm_rng = np.random.default_rng(16)
+
+    def klm_feat(n, d):
+        return torch.from_numpy(klm_rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+
+    def flat_params(model):
+        return dict(model.named_parameters())
+
+    def model_path(label, forward, loss_fn, make_step, model, g, x, y, per_request, per_step,
+                   requests=REQUESTS):
+        """Serve `requests` requests of forward(params, g, x) on the kernel
+        path, counted (per_request launches each); the logits against the
+        plain path, in torch's deterministic mode (calc_diff < 1e-6, allclose
+        rtol 1e-4, atol 1e-4 x max(1, max|plain|): sum aggregations scale the
+        logits by degrees of thousands); the request twice on one input,
+        bit-identical; request and step timed in turns with the plain path,
+        profiled; then, unless make_step is None, STEPS Adam steps (per_step
+        launches each) through `train`, step 0's gradients against the plain
+        path's at atol 1e-3 x max|grad| (train()'s GCN rule: a ReLU input
+        within float32 noise of 0 may switch). forward, loss_fn and the step
+        take the flat parameters."""
+        params = flat_params(model)
+        reset_counts()
+        logits, wall_ms = [], []
+        with torch.no_grad():
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                logits.append(forward(params, g, x))
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, plain_calls = read_counts()
+        print(f"  served {requests} requests: launches {counts}, plain calls {plain_calls}; host "
+              f"ms per request {[round(t, 3) for t in wall_ms]}")
+        check_counts(label, counts, plain_calls, {k: requests * v for k, v in per_request.items()})
+        with torch.no_grad():
+            with deterministic():
+                ref = forward(params, g, x, impl="reference")
+            out = logits[0]
+            scale = max(1.0, ref.abs().max().item())
+            diff = calc_diff(out, ref)
+            ok = (out.shape == ref.shape and bool(torch.isfinite(out).all()) and diff < 1e-6
+                  and torch.allclose(out, ref, rtol=TOL_MODEL, atol=TOL_MODEL * scale))
+            print(f"  request 0: logits {tuple(out.shape)}, calc_diff {diff:.3e}, max|kernel - "
+                  f"plain| {(out - ref).abs().max().item():.3e}, max|plain| {scale:.3e} -> "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"path {label}: logits disagree with the plain forward")
+            same = torch.equal(forward(params, g, x), forward(params, g, x))
+            print(f"  request twice on one input: {'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"path {label}: two requests on the same input differ")
+            req_ms, plain_req_ms, turns = in_turns(
+                torch, lambda: forward(params, g, x), lambda: forward(params, g, x,
+                                                                      impl="reference"))
+            print(f"  request: kernel path {req_ms:.4f} ms ({turns[1]:.4f} / {turns[2]:.4f}), "
+                  f"plain path {plain_req_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+            print_profile(*profile_requests(torch, lambda: forward(params, g, x)), "request",
+                          top=6)
+        res = {"request_ms": req_ms, "plain_request_ms": plain_req_ms,
+               "launches_request": per_request}
+        if make_step is None:
+            return res
+        step = make_step(torch.optim.Adam(model.parameters(), lr=5e-3))
+        _, _, _, peak = train(f"{label} training", loss_fn, step, params, g, x, y, per_step,
+                              atol_scale=1e-3)
+        step_ms, plain_step_ms = time_steps(step, params, g, x, y)
+        res.update(step_ms=step_ms, plain_step_ms=plain_step_ms, peak_gib=peak,
+                   launches_step=per_step)
+        return res
+
+    def full_graph_models(label, a):
+        """Path K: SAGE, GIN, APPNP, deep GCN (recomputed layers off and on)
+        and R-GCN on `a` (PlanConfig(128, 128)), OGB's arxiv widths 128 ->
+        256 -> 40; DropEdge's aggregation on build_dropedge_graph(a)."""
+        n = a.shape[0]
+        in_dim, hidden, classes = 128, 256, 40
+        t0 = time.perf_counter()
+        g = build_graph(a.indptr, a.indices, n, PlanConfig(128, 128), symmetric=True, device=dev)
+        torch.cuda.synchronize()
+        print(f"path {label}: {n} nodes, {a.nnz} nnz, PlanConfig(128, 128), {in_dim} -> "
+              f"{hidden} -> {classes}; build_graph {time.perf_counter() - t0:.2f} s")
+        x = klm_feat(n, in_dim)
+        y = torch.from_numpy(np.random.default_rng(22).integers(0, classes, n)).to(dev)
+        out = {}
+
+        def gen(seed):
+            return torch.Generator().manual_seed(seed)
+
+        def adapt(model, fn, **kw):
+            """fn(tree, g, x, ...) as a function of the flat parameters."""
+            return lambda p, *args, **kws: fn(model.tree(p), *args, **kw, **kws)
+
+        def stepper(model, make, **kw):
+            return lambda opt: adapt(model, make(opt, **kw) if kw else make(opt))
+
+        def ce_of(forward):
+            return lambda p, g, x, y, impl="auto": F.cross_entropy(forward(p, g, x, impl=impl), y)
+
+        for key, cls, fwd, what in (
+                ("sage", SAGE, sage_forward, "1: SAGE, mean aggregation"),
+                ("gin", GIN, gin_forward, "2: GIN, sum aggregation, learnable eps")):
+            model = cls(in_dim, hidden, classes, generator=gen(30 + len(out)), device=dev)
+            print(f"path {label}.{what}")
+            out[key] = model_path(
+                f"{label}.{what[0]} {cls.__name__}", adapt(model, fwd), adapt(model, ce_of(fwd)),
+                lambda opt, model=model, fwd=fwd: adapt(model, make_train_step(opt, ce_of(fwd))),
+                model, g, x, y, {"spmm_block": 2}, {"spmm_block": 3})
+
+        appnp = APPNP(in_dim, hidden, classes, generator=gen(32), device=dev)
+        print(f"path {label}.3: APPNP, K 10, alpha 0.1 (Klicpera et al., ICLR 2019)")
+        out["appnp"] = model_path(
+            f"{label}.3 APPNP", adapt(appnp, appnp_forward), adapt(appnp, appnp_loss),
+            lambda opt: adapt(appnp, make_train_step(opt, appnp_loss)), appnp, g, x, y,
+            {"spmm_block": 10}, {"spmm_block": 20})
+
+        deep = DeepGCN(in_dim, hidden, classes, 8, generator=gen(33), device=dev)
+        p0 = {k: v.detach().clone() for k, v in flat_params(deep).items()}
+        for remat in (False, True):
+            # 8 aggregations forward; backward 7 (x needs none) and, with
+            # remat, the 6 hidden layers' again
+            print(f"path {label}.4: deep GCN, 8 layers, residual, mean, remat={remat}")
+            with torch.no_grad():
+                for k, v in flat_params(deep).items():
+                    v.copy_(p0[k])
+            out[f"deep_remat_{remat}"] = model_path(
+                f"{label}.4 deep GCN remat={remat}", adapt(deep, deep_gcn_forward, remat=remat),
+                adapt(deep, deep_gcn_loss, remat=remat),
+                stepper(deep, make_deep_train_step, remat=remat), deep, g, x, y,
+                {"spmm_block": 8}, {"spmm_block": 21 if remat else 15})
+        with torch.no_grad():
+            for k, v in flat_params(deep).items():
+                v.copy_(p0[k])
+        fwd = [deep_gcn_forward(deep.params(), g, x, remat=remat) for remat in (False, True)]
+        same = torch.equal(*fwd)
+        print(f"  deep GCN forward with remat=False and remat=True (autograd on): "
+              f"{'bit-identical' if same else 'DIFFERENT'}; step ms "
+              f"{out['deep_remat_False']['step_ms']:.4f} / {out['deep_remat_True']['step_ms']:.4f},"
+              f" peak {out['deep_remat_False']['peak_gib']:.3f} / "
+              f"{out['deep_remat_True']['peak_gib']:.3f} GiB")
+        if not same:
+            fail(f"path {label}.4: the recomputed deep GCN's forward differs")
+        del fwd, g
+        torch.cuda.empty_cache()
+
+        # R-GCN: each directed CSR entry of `a` takes one of 4 relations
+        rel = np.random.default_rng(23).integers(0, 4, a.nnz)
+        t0 = time.perf_counter()
+        rel_graphs = []
+        for r in range(4):
+            m = a.copy()
+            m.data = (rel == r).astype(np.float32)
+            m.eliminate_zeros()
+            rel_graphs.append(build_graph(m.indptr, m.indices, n, PlanConfig(128, 128),
+                                          symmetric=False, device=dev))
+        torch.cuda.synchronize()
+        print(f"path {label}.5: R-GCN, 4 relations ({[int((rel == r).sum()) for r in range(4)]} "
+              f"edges, each directed with its own transpose plan), num_bases 2; build_graph x 4 "
+              f"{time.perf_counter() - t0:.2f} s")
+        if any(rg.plan_t is rg.plan for rg in rel_graphs):
+            fail(f"path {label}.5: a relation graph has no transpose plan of its own")
+        rgcn = RGCN(in_dim, hidden, classes, 4, num_bases=2, generator=gen(34), device=dev)
+        out["rgcn"] = model_path(
+            f"{label}.5 R-GCN", adapt(rgcn, rgcn_forward), adapt(rgcn, rgcn_loss),
+            stepper(rgcn, make_rgcn_train_step), rgcn, rel_graphs, x, y,
+            {"spmm_block": 8}, {"spmm_block": 12})
+        del rel_graphs
+        torch.cuda.empty_cache()
+        out["dropedge"] = dropedge_path(f"{label}.6 DropEdge", a)
+        return out
+
+    def dropedge_path(label, a):
+        """DropEdge's training call and its backward (K4 twice: the kept
+        edges' plane, then the transpose plane for the features' gradient)
+        and its eval call (K1 once), at d 128 and 256, against the plain path
+        on the same mask (the CUDA generator's state replayed)."""
+        n, keep_prob = a.shape[0], 0.8
+        t0 = time.perf_counter()
+        g = build_dropedge_graph(a.indptr, a.indices, n, device=dev)
+        torch.cuda.synchronize()
+        print(f"path {label}: build_dropedge_graph {time.perf_counter() - t0:.2f} s, "
+              f"{g.plan.config}: {g.plan.total_blocks} blocks for A and {g.plan_t.total_blocks} "
+              f"for A^T, duplicate edges {g.has_duplicate_edges}, keep_prob {keep_prob}")
+        res = {}
+        for d in (128, 256):
+            x = klm_feat(n, d).requires_grad_(True)
+            g_out = klm_feat(n, d)
+            gen = torch.Generator(device=dev).manual_seed(40 + d)
+            state = gen.get_state()
+
+            def train_call(impl="auto"):
+                x.grad = None
+                o = dropedge_aggregate(g, x, gen, keep_prob, impl=impl)
+                o.backward(g_out)
+                return o.detach(), x.grad
+
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out_k, dx_k = train_call()
+            torch.cuda.synchronize()
+            counts, plain_calls = read_counts()
+            check_counts(label, counts, plain_calls, {"spmm_weighted": 2})
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            gen.set_state(state)
+            with deterministic():
+                out_p, dx_p = train_call("reference")
+            gen.set_state(state)
+            out_k2, dx_k2 = train_call()
+            same = torch.equal(out_k, out_k2) and torch.equal(dx_k, dx_k2)
+            kept = int(torch.count_nonzero(dropedge_weights_of(gen, state, g, keep_prob)))
+            ok = True
+            for what, k, p in (("out", out_k, out_p), ("dx", dx_k, dx_p)):
+                scale = p.abs().max().item()
+                diff = calc_diff(k, p)
+                good = diff < 1e-6 and torch.allclose(k, p, rtol=1e-4, atol=1e-4 * scale)
+                ok = ok and good
+                print(f"  d{d} training call {what}: calc_diff {diff:.3e}, max|kernel - plain| "
+                      f"{(k - p).abs().max().item():.3e}, max|plain| {scale:.3e}")
+            print(f"  d{d} training call and backward: launches {counts}, {kept} of {g.num_edges} "
+                  f"edges kept; twice on one mask {'bit-identical' if same else 'DIFFERENT'}; "
+                  f"peak {peak:.3f} GiB -> {'ok' if ok and same else 'MISMATCH'}")
+            if not (ok and same):
+                fail(f"path {label} d{d}: the training call disagrees with the plain path or "
+                     "with itself")
+            xe = x.detach()
+            reset_counts()
+            with torch.no_grad():
+                ev = dropedge_aggregate(g, xe, deterministic=True)
+                torch.cuda.synchronize()
+                counts, plain_calls = read_counts()
+                check_counts(label, counts, plain_calls, {"spmm_block": 1})
+                with deterministic():
+                    ev_p = dropedge_aggregate(g, xe, deterministic=True, impl="reference")
+                scale = ev_p.abs().max().item()
+                ok = calc_diff(ev, ev_p) < 1e-6 and torch.allclose(ev, ev_p, rtol=1e-4,
+                                                                   atol=1e-4 * scale)
+                same = torch.equal(ev, dropedge_aggregate(g, xe, deterministic=True))
+            print(f"  d{d} eval call (K1 fast path): max|kernel - plain| "
+                  f"{(ev - ev_p).abs().max().item():.3e}, twice "
+                  f"{'bit-identical' if same else 'DIFFERENT'} -> "
+                  f"{'ok' if ok and same else 'MISMATCH'}")
+            if not (ok and same):
+                fail(f"path {label} d{d}: the eval call disagrees")
+            t_ms, tp_ms, turns = in_turns(torch, train_call, lambda: train_call("reference"))
+            print(f"  d{d} training call and backward: kernel path {t_ms:.4f} ms ({turns[1]:.4f} "
+                  f"/ {turns[2]:.4f}), plain path {tp_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+            with torch.no_grad():
+                e_ms, ep_ms, turns = in_turns(
+                    torch, lambda: dropedge_aggregate(g, xe, deterministic=True),
+                    lambda: dropedge_aggregate(g, xe, deterministic=True, impl="reference"))
+            print(f"  d{d} eval call: kernel path {e_ms:.4f} ms ({turns[1]:.4f} / {turns[2]:.4f}), "
+                  f"plain path {ep_ms:.4f} ms ({turns[0]:.4f} / {turns[3]:.4f})")
+            print_profile(*profile_requests(torch, train_call), "training call", top=6)
+            res[d] = {"train_ms": t_ms, "plain_train_ms": tp_ms, "eval_ms": e_ms,
+                      "plain_eval_ms": ep_ms, "peak_gib": peak}
+            del x, g_out, out_k, dx_k, out_p, dx_p, out_k2, dx_k2, ev, ev_p
+        del g
+        torch.cuda.empty_cache()
+        return res
+
+    def dropedge_weights_of(gen, state, g, keep_prob):
+        """The weights the training call drew from `state` (replayed)."""
+        now = gen.get_state()
+        gen.set_state(state)
+        w = dropedge_weights(g.num_edges, keep_prob, gen, device=dev)
+        gen.set_state(now)
+        return w
+
+    def sampled_sage_path(label, a):
+        """Path L: neighbour-sampled GraphSAGE at full width on `a`: STEPS
+        Adam steps (lr 1e-2) on batches of 512 seeds, each sampled anew,
+        sampling, plan building, the move to the card, the work lists and
+        the step timed apart; then sage_inference over a's graph on
+        PlanConfig(32, 128)."""
+        n = a.shape[0]
+        cfg = PlanConfig(32, 128)
+        batch, fanouts, dims = 512, [10, 25], (128, 256, 40)
+        x_full = klm_feat(n, dims[0])
+        y_full = torch.from_numpy(np.random.default_rng(24).integers(0, dims[-1], n)).to(dev)
+        srng = np.random.default_rng(25)
+        # the entry point against the two timed halves, from one seed
+        seeds = srng.choice(n, size=batch, replace=False)
+
+        def sample(seeds, rng):
+            """sample_blocks, as its two halves, each timed."""
+            t_s = t_p = 0.0
+            blocks, dst = [], np.asarray(seeds, np.int64)
+            for f in reversed(fanouts):
+                t0 = time.perf_counter()
+                edges = _sample_edges(a.indptr, a.indices, dst, f, rng)
+                t1 = time.perf_counter()
+                blk = _block_plans(*edges, f, cfg)
+                t_s, t_p = t_s + t1 - t0, t_p + time.perf_counter() - t1
+                blocks.append(blk)
+                dst = blk.src_ids.astype(np.int64)
+            return blocks[::-1], t_s, t_p
+
+        whole = sample_blocks(a.indptr, a.indices, seeds, fanouts, np.random.default_rng(26), cfg)
+        halves = sample(seeds, np.random.default_rng(26))[0]
+        for hop, (b1, b2) in enumerate(zip(whole, halves)):
+            for side in ("plan", "plan_t"):
+                p1, p2 = getattr(b1, side), getattr(b2, side)
+                if not all(torch.equal(getattr(p1, f), getattr(p2, f))
+                           for f in ("bitmask", "hind", "block_ptr", "window_of_block")):
+                    fail(f"path {label}: sample_blocks and its halves differ at hop {hop} {side}")
+        del whole, halves
+        print(f"path {label}: {n} nodes, batches of {batch} seeds, fanouts {fanouts} "
+              f"(fanouts[-1] samples the seed hop), {cfg}, SAGE {' -> '.join(map(str, dims))}; "
+              "sample_blocks equals its two timed halves")
+        model = SageMinibatch(list(dims), generator=torch.Generator().manual_seed(35), device=dev)
+        params = flat_params(model)
+        step_fn = make_sage_minibatch_step(torch.optim.Adam(model.parameters(), lr=1e-2))
+
+        def step(p, gp, x, y, impl="auto"):
+            return step_fn(model.tree(p), gp[0], gp[1], x, y, impl=impl)
+
+        def loss_fn(p, gp, x, y, impl="auto"):
+            return F.cross_entropy(sage_blocks_forward(model.tree(p), gp[0], gp[1], x, impl), y)
+
+        rows, launched = [], None
+        for i in range(STEPS):
+            seeds = srng.choice(n, size=batch, replace=False)
+            t_start = time.perf_counter()
+            blocks, t_sample, t_plan = sample(seeds, srng)
+            t0 = time.perf_counter()
+            plans, inv_degs = blocks_args(blocks, dev)
+            torch.cuda.synchronize()
+            t_move = time.perf_counter() - t0
+            # the plans the step launches: each hop's plan, and the seed hop's
+            # transpose (blocks[0].plan_t, read only by x_src's gradient,
+            # stays on the host)
+            launched = [plans[0][0], plans[1][0], plans[1][1]]
+            t0 = time.perf_counter()
+            for p in launched:
+                block_spmm.plan_walk(p, "spmm_block")
+            torch.cuda.synchronize()
+            t_walk = time.perf_counter() - t0
+            x_src = gather_features(x_full, blocks[0].src_ids)
+            y = y_full[torch.from_numpy(seeds).to(dev)]
+            torch.cuda.synchronize()
+            t_host = time.perf_counter() - t_start  # step 0's plain reference not counted
+            if i == 0:
+                if plans[0][1].bitmask.is_cuda:
+                    fail(f"path {label}: the deep hop's transpose plan was moved to the card")
+                for hop, blk in enumerate(blocks):
+                    print(f"  hop {hop}: {blk.num_dst} -> {blk.num_src} source slots; plan "
+                          f"{blk.plan.total_blocks} blocks, transpose {blk.plan_t.total_blocks} "
+                          f"({tensor_bytes(blk.plan_t.bitmask, blk.plan_t.hind) / 2**20:.1f} MiB "
+                          f"on the host{'' if hop else ', never moved'})")
+                for name, p in zip(("hop 0 plan", "hop 1 plan", "hop 1 transpose"), launched):
+                    piece_line(f"path {label} {name}", [p], "spmm_block", dims[:2])
+                pref = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+                with deterministic():
+                    loss_ref = loss_fn(pref, (plans, inv_degs), x_src, y, impl="reference")
+                    want = dict(zip(pref, torch.autograd.grad(loss_ref, list(pref.values()))))
+                batch0 = (plans, inv_degs, x_src, y)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+            t0 = time.perf_counter()
+            loss = step(params, (plans, inv_degs), x_src, y)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t0
+            if i == 0:
+                grads0 = {k: v.grad.detach().clone() for k, v in params.items()}
+                loss0 = loss
+            wall = t_host + t_step
+            rows.append((t_sample, t_plan, t_move, t_walk, t_step, wall))
+            print(f"  step {i}: loss {loss.item():.6f}; sampling {t_sample * 1e3:.1f} ms, plans "
+                  f"{t_plan * 1e3:.1f} ms, move {t_move * 1e3:.1f} ms, work lists "
+                  f"{t_walk * 1e3:.1f} ms, step {t_step * 1e3:.3f} ms; {wall * 1e3:.1f} ms in all "
+                  f"(host share {(wall - t_step) / wall:.3f})")
+        counts, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {STEPS} steps: launches {counts}, plain calls {plain_calls}; "
+              f"torch.cuda.max_memory_allocated {peak:.3f} GiB")
+        check_counts(label, counts, plain_calls, {"spmm_block": 3 * STEPS})
+        ok, diff, rel = grads_close(torch, calc_diff, grads0, want, 1e-3)
+        loss_ok = torch.allclose(loss0, loss_ref.detach(), rtol=1e-4, atol=0.0)
+        print(f"  step 0 against the plain path: loss {loss0.item():.6f} / {loss_ref.item():.6f}, "
+              f"gradients worst calc_diff {diff:.3e}, worst max|diff|/max|grad| {rel:.3e} -> "
+              f"{'ok' if ok and loss_ok else 'MISMATCH'}")
+        if not (ok and loss_ok):
+            fail(f"path {label}: step 0 disagrees with the plain path")
+        plans, inv_degs, x_src, y = batch0
+        with torch.no_grad():
+            tree = model.params()
+            out = sage_blocks_forward(tree, plans, inv_degs, x_src, "auto")
+            same = torch.equal(out, sage_blocks_forward(tree, plans, inv_degs, x_src, "auto"))
+            with deterministic():
+                ref = sage_blocks_forward(tree, plans, inv_degs, x_src, "reference")
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(out, ref, **TOL_LOGITS)
+        print(f"  batch 0 after training: logits {tuple(out.shape)}, max|kernel - plain| "
+              f"{(out - ref).abs().max().item():.3e}; twice on one input "
+              f"{'bit-identical' if same else 'DIFFERENT'} -> {'ok' if ok and same else 'MISMATCH'}")
+        if not (ok and same):
+            fail(f"path {label}: the sampled forward disagrees with the plain path or itself")
+        step_ms, plain_step_ms = time_steps(step, params, (plans, inv_degs), x_src, y)
+        med = [sorted(r[j] for r in rows)[len(rows) // 2] * 1e3 for j in range(6)]
+        res = {"sample_ms": med[0], "plan_ms": med[1], "move_ms": med[2], "walk_ms": med[3],
+               "step_wall_ms": med[4], "wall_ms": med[5], "step_ms": step_ms,
+               "plain_step_ms": plain_step_ms, "peak_gib": peak}
+        del plans, inv_degs, x_src, batch0, blocks, launched
+        torch.cuda.empty_cache()
+
+        # full-graph inference with the trained weights (the serving request)
+        t0 = time.perf_counter()
+        g = build_graph(a.indptr, a.indices, n, cfg, symmetric=True, device=dev)
+        torch.cuda.synchronize()
+        print(f"path {label}, inference: sage_inference over the whole graph, {cfg} "
+              f"({g.plan.total_blocks} blocks); build_graph {time.perf_counter() - t0:.2f} s")
+        inf = model_path(f"{label} inference", lambda p, g, x, impl="auto":
+                         sage_inference(model.tree(p), g, x, impl=impl),
+                         None, None, model, g, x_full, None, {"spmm_block": 2}, None)
+        res.update(request_ms=inf["request_ms"], plain_request_ms=inf["plain_request_ms"])
+        del g
+        torch.cuda.empty_cache()
+        return res
+
+    def classify_path(label):
+        """Path M: GIN graph classification on examples/train_graph_classify.py's
+        corpus (graphs of 30-80 nodes, dense or rings), 128 graphs in one
+        block-diagonal batch (Xu et al., ICLR 2019: batches of 128), sum
+        readout: one request and STEPS Adam steps."""
+        count, feat_dim, hidden = 128, 16, 64
+        rng = np.random.default_rng(0)
+        graphs, labels = [], []
+        for i in range(count):
+            m = int(rng.integers(30, 80))
+            if i % 2 == 0:
+                a = sp.random(m, m, density=0.25, format="csr", random_state=rng)
+            else:
+                ii = np.arange(m)
+                a = sp.csr_matrix((np.ones(m, np.float32), (ii, (ii + 1) % m)), shape=(m, m))
+            graphs.append(((a + a.T) != 0).astype(np.float32).tocsr())
+            labels.append(0 if i % 2 == 0 else 1)
+        big, offs = block_diagonal(graphs)
+        n = big.shape[0]
+        g = build_graph(big.indptr, big.indices, n, PlanConfig(128, 128), symmetric=True,
+                        device=dev)
+        ids = torch.from_numpy(node_graph_ids(offs).astype(np.int64)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((n, feat_dim)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
+        print(f"path {label}: {count} graphs, {n} nodes, {big.nnz} nnz in one block-diagonal "
+              f"batch, PlanConfig(128, 128) ({g.plan.total_blocks} blocks); GIN classifier "
+              f"{feat_dim} -> {hidden} -> 2, sum readout")
+        model = GINClassifier(feat_dim, hidden, 2, generator=torch.Generator().manual_seed(36),
+                              device=dev)
+
+        def forward(p, g, x, impl="auto"):
+            return gin_classifier_forward(model.tree(p), g, x, ids, count, impl=impl)
+
+        def loss_fn(p, g, x, y, impl="auto"):
+            return gin_classifier_loss(model.tree(p), g, x, ids, count, y, impl=impl)
+
+        def make_step(opt):
+            inner = make_classifier_train_step(opt)
+            return lambda p, g, x, y, impl="auto": inner(model.tree(p), g, x, ids, y, impl=impl)
+
+        res = model_path(label, forward, loss_fn, make_step, model, g, x, y, {"spmm_block": 2},
+                         {"spmm_block": 3}, requests=1)
+        del g
+        torch.cuda.empty_cache()
+        return res
+
     def after_a(g, model, params_np, xs, logits):
         int8_path("I (ogbn-arxiv proxy, int8 SpMM, K8)", arxiv, g)
         streamed_path("J.1 (ogbn-arxiv proxy, streamed GCN, K1 on 4 window chunks)", arxiv, g,
@@ -2892,6 +3434,10 @@ def main() -> None:
                               PlanConfig(2048, 128, block_unroll=4, cluster_cols=True),
                               "spmm_subtile", (128, 256, 40)),
     }
+    path_k = full_graph_models("K (ogbn-arxiv proxy, SAGE, GIN, APPNP, deep GCN, R-GCN on K1; "
+                               "DropEdge on K4)", arxiv)
+    path_l = sampled_sage_path("L (ogbn-arxiv proxy, neighbour-sampled GraphSAGE, K1)", arxiv)
+    path_m = classify_path("M (GIN graph classification, 128 graphs, K1)")
     # self-loops, the GAT convention (examples/train_gat.py:46-47)
     loops = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     loops.sort_indices()
@@ -2941,6 +3487,24 @@ def main() -> None:
         {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
     results["spmm_fused"].update(
         {k: v for k, v in path_j.items() if k.startswith("j_hybrid")})
+
+    # paths K, L and M: K1's launches a request and a step on each model, K4's
+    # a DropEdge training call and its backward; their times in ms
+    results["spmm_block"]["klm"] = {
+        **{f"k_{m}": {"request": r["launches_request"]["spmm_block"],
+                      "step": r["launches_step"]["spmm_block"], "request_ms": r["request_ms"],
+                      "step_ms": r["step_ms"]}
+           for m, r in path_k.items() if m != "dropedge"},
+        "k_dropedge_eval": {"request": 1, **{f"eval_ms_d{d}": v["eval_ms"]
+                                             for d, v in path_k["dropedge"].items()}},
+        "l_sage_minibatch": {"request": 2, "step": 3, **path_l},
+        "m_gin_classifier": {"request": path_m["launches_request"]["spmm_block"],
+                             "step": path_m["launches_step"]["spmm_block"],
+                             "request_ms": path_m["request_ms"], "step_ms": path_m["step_ms"]},
+    }
+    results["spmm_weighted"]["k_dropedge"] = {
+        "train_call_and_backward": 2, **{f"train_ms_d{d}": v["train_ms"]
+                                         for d, v in path_k["dropedge"].items()}}
 
     if "jax" in sys.modules or "voltrix_spmm_tpu" in sys.modules:
         fail("jax or the JAX package was imported")

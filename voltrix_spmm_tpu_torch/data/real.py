@@ -4,16 +4,23 @@
 `proxy_csr(name)` draws a Chung-Lu graph (plus community rewiring where
 the dataset has it) with the published node and edge counts, from a
 seed, so nothing is downloaded. It matches scale and skew, not the real
-adjacency. `load_tcgnn_npz` reads the real files when a user has them.
+adjacency. `load_tcgnn_npz` reads the real files when a user has them, and
+`load_graph` takes the real file where it is found and the proxy otherwise.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import zlib
 from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
+
+logger = logging.getLogger("voltrix_torch")
+
+DATASETS_DIR_FLAG = "VOLTRIX_TPU_DATASETS"  # the JAX package's variable, one directory for both
 
 
 def load_tcgnn_npz(path: str) -> sp.csr_matrix:
@@ -140,3 +147,22 @@ def proxy_csr(name: str, seed: int = 0) -> sp.csr_matrix:
         st.num_nodes, st.num_edges, alpha=2.1,
         community=comm, local_frac=local, seed=rng_seed,
     )
+
+
+def load_graph(name: str, data_dir: str | None = None) -> tuple[sp.csr_matrix, str]:
+    """The graph `<data_dir>/<name>.npz` (TC-GNN or this repo's layout) if
+    the file is there, else `proxy_csr(name)`; returns (csr, label), the
+    label `name` for the real file and `<name>-proxy` for the stand-in.
+    data_dir defaults to $VOLTRIX_TPU_DATASETS, else ./datasets. Nothing
+    is downloaded; a name without a file or PUBLISHED stats raises."""
+    data_dir = data_dir or os.environ.get(DATASETS_DIR_FLAG, "datasets")
+    path = os.path.join(data_dir, f"{name}.npz")
+    if os.path.exists(path):
+        return load_tcgnn_npz(path), name
+    if name not in PUBLISHED:
+        raise FileNotFoundError(
+            f"{path} not found and no published stats for {name!r} (put the .npz "
+            f"in ${DATASETS_DIR_FLAG} or pass data_dir)"
+        )
+    logger.warning("%s: %s not found; using the published-stats proxy", name, path)
+    return proxy_csr(name), f"{name}-proxy"
