@@ -9,7 +9,8 @@ non-zero on failure (there is no CPU fallback):
 
 1. Device: the card's name and count, and nvidia-smi's name and power
    limit. No CUDA device -> exit 1 before anything else.
-2. Build: kernels K1 (csrc/spmm_block.cu), K2 (csrc/spmm_subtile.cu), K3
+2. Build: the native preprocess (csrc/voltrix_preprocess.hpp, g++),
+   kernels K1 (csrc/spmm_block.cu), K2 (csrc/spmm_subtile.cu), K3
    (csrc/spmm_fused.cu), K4 (csrc/spmm_weighted.cu), K5
    (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
    (csrc/spmm_ell_dvals.cu), K14 (csrc/attn_mh_dq.cu), K15
@@ -178,6 +179,28 @@ non-zero on failure (there is no CPU fallback):
       the plans' work lists printed; step 0's gradients and batch 0's
       logits (twice bit-identical) against the plain path; then
       sage_inference over A's graph on PlanConfig(32, 128), K1 2 a request.
+   N. The deployment path on A's graph and widths (128 -> 256 -> 40): A's
+      plan by the native preprocess and by the numpy path, timed, bit for
+      bit (and C's, beside path C); A's plan saved dense and packed,
+      loaded back bit for bit and validated (validate_plan, and the CLI in
+      a process of its own); the CLI's info, preprocess (--backend native
+      --packed, A's plan bit for bit), validate and spmm (on the card,
+      against scipy) each in a process of its own; export_servable and
+      save_bundle of the GCN request on A's plan (K1) and on B's (K2) and
+      of spmm on J.2's hybrid plan (K3 + K1); two fresh processes that
+      import only voltrix_spmm_tpu_torch.serve (chip_smoke.py
+      --serve-bundles) load the bundles, answer 3 requests each (logits
+      bit for bit the eager path's, and within the path's limit of the
+      plain path), show K1, K2 and K3 launched from the loaded programs
+      (counts and torch.profiler's kernel names) and the bundle's plan
+      among the program's constants, and time the cold start (load, plan
+      to the card, first request) without and with aot_compile's warm
+      call; the loaded programs timed in turns against the eager path;
+      compiled_stats of A's request (flops exact), a checkpoint round trip
+      of A's trained parameters (logits bit for bit), spmm_tuple on the
+      card against the plain version, profile_op and attribute_spmm on A's
+      request, and the host microseconds of a K1 call: the wrapper, the
+      registered op alone, and the bare launch, in turns.
    M. GIN graph classification on examples/train_graph_classify.py's
       corpus: 128 graphs of 30-80 nodes (dense or rings) in one
       block-diagonal batch, PlanConfig(128, 128), 16 -> 64 -> 2, sum
@@ -242,6 +265,7 @@ REQUESTS = 3
 STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory peak rate
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+REGISTERED = ("spmm_block", "spmm_subtile", "spmm_fused")  # K1-K3's torch.library ops
 
 
 def fail(msg: str):
@@ -435,6 +459,7 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.models.sage_minibatch import _forward as sage_blocks_forward
     from voltrix_spmm_tpu_torch.format import ell_stats, plan_stats, subtile_stats
     from voltrix_spmm_tpu_torch.jit import get_build_dir
+    from voltrix_spmm_tpu_torch.runtime.native import build_libraries as native_build_libraries
     from voltrix_spmm_tpu_torch.tools import sass_atomics
     from voltrix_spmm_tpu_torch.models import edge_softmax, gat_attention_aggregate
     from voltrix_spmm_tpu_torch.models.gat import edge_orders
@@ -514,14 +539,18 @@ def main() -> None:
         loader()
         return time.perf_counter() - t0
 
-    # K11 and K12 share K14's and K15's builds, K13 K9's
+    # K11 and K12 share K14's and K15's builds, K13 K9's; beside them g++
+    # builds the native preprocess (csrc/voltrix_preprocess.hpp)
     sources = {k[2]: k[4] for k in kernels.values()}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host_build = pool.submit(timed_build, native_build_libraries)
         builds = dict(zip(sources, pool.map(timed_build, sources.values())))
+        t_gxx = host_build.result()
     t_nvcc = time.perf_counter() - t0
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
-          f"{t_nvcc:.2f} s in all, into {get_build_dir()}")
+          f"g++ voltrix_preprocess.hpp {t_gxx:.2f} s; {t_nvcc:.2f} s in all, into "
+          f"{get_build_dir()}")
     # every kernel sums in a fixed order: no atomic of any kind in the SASS
     # of any source
     cu_sources = sorted(f for f in os.listdir(os.path.join(ROOT, "voltrix_spmm_tpu_torch", "csrc"))
@@ -1556,6 +1585,7 @@ def main() -> None:
                   "plain_request_ms": plain_req_ms}
         result.update(widths_summary(per_width))
 
+        trained = None
         if train_gcn:
             print(f"path {label}, training: GCN {in_dim} -> {hidden} -> {classes}, "
                   f"{STEPS} SGD steps (lr 0.1) on labels from the seed")
@@ -1573,8 +1603,9 @@ def main() -> None:
                 tmodel.params(), g, xs[0], y)
             result.update(train_launches=STEPS * 3, train_step_ms=step_ms,
                           plain_train_step_ms=plain_step_ms, train_peak_gib=peak)
+            trained = tmodel.params()
         if then is not None:
-            then(g, model, params_np, xs, logits)
+            then(g, model, params_np, xs, logits, trained)
         del g, csr
         torch.cuda.empty_cache()
         return result
@@ -2647,7 +2678,7 @@ def main() -> None:
         diff = (got - want).abs()
         return bool((diff <= allow).all()) and bool(torch.isfinite(got).all()), diff.max().item()
 
-    path_i, path_j = {}, {}
+    path_i, path_j, path_n = {}, {}, {}
 
     def int8_path(label, a, g):
         """Path I: REQUESTS calls of spmm(plan, x, impl="int8") at d 128 and at
@@ -3418,7 +3449,332 @@ def main() -> None:
         torch.cuda.empty_cache()
         return res
 
-    def after_a(g, model, params_np, xs, logits):
+    def same_plan(p, q):
+        """Two plans of the port with the same tensors (bit for bit) and metadata."""
+        return all((getattr(p, f) is None and getattr(q, f) is None)
+                   or torch.equal(getattr(p, f), getattr(q, f))
+                   for f in ("bitmask", "hind", "window_of_block", "block_ptr", "occ")) and \
+            all(getattr(p, f) == getattr(q, f) for f in
+                ("config", "num_nodes", "num_edges", "num_windows", "total_blocks",
+                 "has_empty_windows", "num_cols"))
+
+    def plan_builds(label, a, cfg):
+        """csr_preprocess of `a` by the native preprocess and by the numpy path,
+        each timed by the host clock; the two plans must be bit-identical."""
+        built, secs = {}, {}
+        for backend in ("native", "numpy"):
+            t0 = time.perf_counter()
+            built[backend] = csr_preprocess(a.indptr, a.indices, a.shape[0], cfg, backend=backend)
+            secs[backend] = time.perf_counter() - t0
+        ok = same_plan(built["native"], built["numpy"])
+        print(f"path {label}: {cfg} by csr_preprocess(backend='native') {secs['native']:.3f} s, "
+              f"backend='numpy' {secs['numpy']:.3f} s; bit-identical -> "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path {label}: the native and numpy plans differ")
+        return built["native"], secs
+
+    def deploy_path(label, a, g, params_np, xs, logits, trained):
+        """Path N: the deployment path on A's graph at 128 -> 256 -> 40. The
+        native and numpy plan builds timed and held bit for bit; A's plan
+        saved dense and packed, loaded back bit for bit and validated; the
+        CLI's info, preprocess (native, packed), validate and spmm run each
+        in a process of its own; the GCN request on A's plan (K1) and on B's
+        (K2) and spmm on J.2's hybrid plan (K3 + K1) exported and bundled;
+        the bundles served from fresh processes that import only
+        voltrix_spmm_tpu_torch.serve (their logits bit for bit the eager
+        path's, the kernels launched from the loaded programs, the plans
+        among the programs' constants, cold start with and without
+        aot_compile's warm call); the loaded programs timed in turns against
+        the eager path; compiled_stats, a checkpoint round trip of A's
+        trained parameters, spmm_tuple and profile_op on the card; and the
+        host time a call of a registered op takes."""
+        import shutil
+
+        from voltrix_spmm_tpu_torch import (SpmmPlan, csr_preprocess_tuple, load_checkpoint,
+                                            save_checkpoint, spmm_tuple, validate_plan)
+        from voltrix_spmm_tpu_torch.data import save_npz_graph
+        from voltrix_spmm_tpu_torch.format import packed_stats
+        from voltrix_spmm_tpu_torch.models import gcn_forward
+        from voltrix_spmm_tpu_torch.ops import library
+        from voltrix_spmm_tpu_torch.profiling import attribute_spmm, profile_op
+        from voltrix_spmm_tpu_torch.serve import compiled_stats, export_servable, save_bundle
+        from voltrix_spmm_tpu_torch.serve import load_servable
+
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        work = os.path.join(ROOT, "build", "deploy")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        res = {}
+
+        deg_a = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        # 1. the plan, built by the native preprocess and by the numpy path
+        plan, secs = plan_builds(label, a, PlanConfig(128, 128))
+        res.update(native_build_s=secs["native"], numpy_build_s=secs["numpy"])
+        if not same_plan(plan, g.plan.to("cpu")):
+            fail(f"path {label}: the native plan is not path A's plan")
+
+        # 2. plan files, dense and packed
+        stats = packed_stats(plan.bitmask)
+        for packed in (False, True):
+            path = plan.save(os.path.join(work, f"plan_{'packed' if packed else 'dense'}.npz"),
+                             packed=packed)
+            t0 = time.perf_counter()
+            back = SpmmPlan.load(path)
+            t_load = time.perf_counter() - t0
+            validate_plan(back)
+            ok = same_plan(back, plan)
+            size = os.path.getsize(path)
+            res[f"plan_file_bytes_{'packed' if packed else 'dense'}"] = size
+            print(f"  SpmmPlan.save(packed={packed}): {size} bytes; load {t_load:.3f} s, "
+                  f"bit-identical {ok}, validate_plan ok")
+            if not ok:
+                fail(f"path {label}: the plan file (packed={packed}) did not load back bit for bit")
+        print(f"  packed_stats: dense bitmask {stats['dense_bytes']} bytes, packed "
+              f"{stats['packed_bytes']} bytes, saving {stats['saving']:.4f}")
+        res["packed_saving"] = stats["saving"]
+
+        # the CLI, each command in a process of its own, the four side by side
+        # and beside the exports
+        graph_path = save_npz_graph(os.path.join(work, "a.npz"), a)
+        cli = [sys.executable, "-m", "voltrix_spmm_tpu_torch"]
+        cli_plan = os.path.join(work, "cli_plan.npz")
+        commands = [cli + ["info"],
+                    cli + ["preprocess", graph_path, "--backend", "native", "--packed",
+                           "-o", cli_plan],
+                    cli + ["validate", os.path.join(work, "plan_packed.npz")],
+                    cli + ["spmm", graph_path, "-d", "128", "--time"]]
+
+        def run_cli(cmd):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+            return cmd, r, time.perf_counter() - t0
+
+        cli_pool = ThreadPoolExecutor(len(commands))
+        cli_futures = [cli_pool.submit(run_cli, cmd) for cmd in commands]
+
+        # 3. exports and bundles: the GCN request on A's plan (K1) and on B's
+        # (K2), spmm on J.2's hybrid plan (K3 + K1)
+        params = {k: v.to(dev) for k, v in gcn_params_from_jax(params_np, dev).items()}
+        t0 = time.perf_counter()
+        g_b = build_graph(a.indptr, a.indices, n,
+                          PlanConfig(2048, 128, block_unroll=4, cluster_cols=True),
+                          symmetric=True, device=dev)
+        hplan = csr_preprocess_hybrid(a.indptr, a.indices, n).to(dev)
+        torch.cuda.synchronize()
+        print(f"  B's graph and J.2's hybrid plan built in {time.perf_counter() - t0:.2f} s")
+        requests = {
+            "A": (lambda x: gcn_forward(params, g, x), g.plan, "spmm_block",
+                  lambda x: gcn_forward(params, g, x, impl="reference")),
+            "B": (lambda x: gcn_forward(params, g_b, x), g_b.plan, "spmm_subtile",
+                  lambda x: gcn_forward(params, g_b, x, impl="reference")),
+            "J.2": (lambda x: spmm(hplan, x), None, None,
+                    lambda x: spmm(hplan, x, impl="reference")),
+        }
+        blobs, bundles = {}, {}
+        for name, (fn, bplan, _, _) in requests.items():
+            t0 = time.perf_counter()
+            blobs[name] = export_servable(fn, xs[0])
+            t_export = time.perf_counter() - t0
+            bundles[name] = os.path.join(work, f"bundle_{name}")
+            save_bundle(bundles[name], blobs[name], plan=bplan, meta={"path": name})
+            size = sum(os.path.getsize(os.path.join(bundles[name], f))
+                       for f in os.listdir(bundles[name]))
+            res[f"export_s_{name}"], res[f"bundle_bytes_{name}"] = t_export, size
+            print(f"  export_servable({name}) {t_export:.2f} s, program {len(blobs[name])} bytes, "
+                  f"bundle {size} bytes ({', '.join(sorted(os.listdir(bundles[name])))})")
+        for i, x in enumerate(xs):
+            torch.save(x.cpu(), os.path.join(work, f"x{i}.pt"))
+
+        cli_out = [f.result() for f in cli_futures]
+        cli_pool.shutdown()
+        for cmd, r, secs in cli_out:
+            shown = " ".join(c if not c.startswith(work) else os.path.basename(c) for c in cmd[1:])
+            last = (r.stdout.strip().splitlines() or [""])[-1]
+            print(f"  {shown}: rc {r.returncode}, {secs:.1f} s; {last[:200]}")
+            if r.returncode:
+                fail(f"path {label}: `{shown}` exited {r.returncode}: {r.stderr[-2000:]}")
+        info = json.loads(cli_out[0][1].stdout)
+        rec = json.loads(cli_out[1][1].stdout)
+        spmm_rec = json.loads(cli_out[3][1].stdout)
+        if not cli_out[2][1].stdout.startswith("ok:"):
+            fail(f"path {label}: validate printed {cli_out[2][1].stdout!r}")
+        if not (info["nvcc"] and info["cxx"] and info["native_runtime"] and
+                info["device"] == kind and "packed" in rec and spmm_rec["device"] == "cuda"
+                and spmm_rec["difference_rate"] < 1e-4):
+            fail(f"path {label}: the CLI's records disagree: {info} {rec} {spmm_rec}")
+        if not same_plan(SpmmPlan.load(cli_plan), plan):
+            fail(f"path {label}: the CLI's packed plan is not A's plan bit for bit")
+        print(f"  the CLI's packed plan equals A's plan bit for bit; its spmm on the card: "
+              f"difference rate {spmm_rec['difference_rate']:.3e}, {spmm_rec['ms']:.4f} ms")
+
+        # 4. fresh processes: cold start without and with aot_compile's warm
+        # call, the requests, the profiler, the constants
+        spec = [{"name": "A", "path": bundles["A"], "kernel": "spmm_block", "warm": False},
+                {"name": "B", "path": bundles["B"], "kernel": "spmm_subtile", "warm": False},
+                {"name": "A", "path": bundles["A"], "kernel": "spmm_block", "warm": True,
+                 "process": 1},
+                {"name": "J.2", "path": bundles["J.2"], "kernel": "spmm_fused", "warm": False,
+                 "process": 1}]
+        served, procs = {}, []
+        for proc in (0, 1):  # the two processes side by side
+            mine = [s for s in spec if s.get("process", 0) == proc]
+            spec_path = os.path.join(work, f"serve{proc}.json")
+            with open(spec_path, "w") as f:
+                json.dump({"bundles": mine, "xs": [os.path.join(work, f"x{i}.pt")
+                                                   for i in range(REQUESTS)]}, f)
+            procs.append((mine, time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--serve-bundles",
+                 spec_path], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for proc, (mine, t0, p) in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            for line in stdout.strip().splitlines()[:-1]:
+                print(f"  [serving process {proc}] {line}")
+            if p.returncode:
+                fail(f"path {label}: serving process {proc} exited {p.returncode}: "
+                     f"{stderr[-3000:]}")
+            out = json.loads(stdout.strip().splitlines()[-1])
+            print(f"  serving process {proc}: {secs:.1f} s in all")
+            res[f"serving{proc}_import_s"] = out["import_s"]
+            res[f"serving{proc}_context_s"] = out["context_s"]
+            for entry, o in zip(mine, out["bundles"]):
+                served[(entry["name"], entry["warm"])] = o
+        for (name, warm), o in served.items():
+            fn, _, _, plain_fn = requests[name]
+            for i, x in enumerate(xs):
+                got = torch.load(os.path.join(work, f"y_{o['tag']}_{i}.pt")).to(dev)
+                with torch.no_grad():
+                    eager, plain = fn(x), plain_fn(x)
+                if name == "J.2":
+                    ok, err = sum_bound_ok(got, plain, deg_a, spmm_reference(g.plan, x.abs()))
+                else:
+                    ok, err = bool(torch.allclose(got, plain, **TOL_LOGITS)), \
+                        (got - plain).abs().max().item()
+                same = torch.equal(got, eager)
+                print(f"  bundle {o['tag']} request {i} from the fresh process: bit-identical to the "
+                      f"eager path {same}; max|loaded - plain| {err:.3e} -> "
+                      f"{'ok' if same and ok else 'MISMATCH'}")
+                if not (same and ok):
+                    fail(f"path {label}: bundle {o['tag']} request {i} disagrees")
+        for key, o in served.items():
+            res.update({f"cold_{k}_{key[0]}{'_aot' if key[1] else ''}": v
+                        for k, v in o.items() if k.endswith("_s")})
+
+        # the loaded programs against the eager path, in turns
+        for name, (fn, _, _, _) in requests.items():
+            loaded = load_servable(blobs[name])
+            x = xs[0]
+            with torch.no_grad():
+                l_ms, e_ms, turns = in_turns(torch, lambda: loaded(x), lambda: fn(x),
+                                             plain_iters=20)
+            res[f"loaded_request_ms_{name}"], res[f"eager_request_ms_{name}"] = l_ms, e_ms
+            print(f"  request {name}: loaded program {turns[1]:.4f} / {turns[2]:.4f} ms, eager "
+                  f"path {turns[0]:.4f} / {turns[3]:.4f} ms (CUDA events, 20 calls after 3)")
+            del loaded
+        del blobs
+
+        # 5. the smaller pieces
+        st = compiled_stats(requests["A"][0], xs[0])
+        print(f"  compiled_stats(A's request): {st['flops']} flops, arguments "
+              f"{st['argument_size_in_bytes']} bytes, output {st['output_size_in_bytes']} bytes, "
+              f"peak {st['peak_device_bytes']} bytes beyond what was allocated")
+        want_flops = 2 * plan.num_edges * (128 + 256) + 2 * n * (128 * 256 + 256 * 40)
+        if st["flops"] != want_flops:
+            fail(f"path {label}: compiled_stats counts {st['flops']} flops, not {want_flops}")
+        res.update(flops=st["flops"], peak_bytes=st["peak_device_bytes"])
+
+        ckpt = save_checkpoint(os.path.join(work, "ckpt", "gcn.pt"),
+                               {k: v.detach() for k, v in trained.items()})
+        restored = load_checkpoint(ckpt, map_location=dev)
+        with torch.no_grad():
+            same = torch.equal(gcn_forward(restored, g, xs[0]),
+                               gcn_forward({k: v.detach() for k, v in trained.items()}, g, xs[0]))
+        print(f"  save_checkpoint / load_checkpoint of A's parameters after its {STEPS} SGD "
+              f"steps: logits bit-identical {same}")
+        if not same:
+            fail(f"path {label}: the restored parameters give other logits")
+
+        blk, hspa, hind = csr_preprocess_tuple(a.indptr, a.indices, n, device=dev)
+        out = spmm_tuple(blk, hspa, hind, n, a.nnz, xs[0])
+        foreign = spmm_tuple(blk.clone(), hspa.clone(), hind.clone(), n, a.nnz, xs[0])
+        ok, err = sum_bound_ok(out, spmm_reference(g.plan, xs[0]), deg_a,
+                               spmm_reference(g.plan, xs[0].abs()))
+        ok = ok and torch.equal(out, foreign)
+        print(f"  spmm_tuple on the card: against the plain version max|diff| {err:.3e} "
+              f"(float32 summation bound), rebuilt from copied arrays bit-identical "
+              f"{torch.equal(out, foreign)} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path {label}: spmm_tuple disagrees")
+        del blk, hspa, hind
+
+        table = profile_op(requests["A"][0], xs[0])
+        split = attribute_spmm(table, g.plan)
+        res["k1_share"] = split["kernel_frac"]
+        print(f"  profile_op(A's request): {len(table)} kernels, {split['total_ms']:.4f} ms a "
+              f"request; SpMM kernels {split['kernel_ms']:.4f} ms (share "
+              f"{split['kernel_frac']:.4f}), gathers {split['gather_ms']:.4f} ms, other "
+              f"{split['other_ms']:.4f} ms")
+
+        # the host time of one registered op call, on a plan small enough that
+        # the launch is the cost: the wrapper, the op alone, and the launch as
+        # the wrapper made it before the op (check, output, launch)
+        small = erdos_renyi_csr(256, 0.02, seed=0)
+        sp_plan = csr_preprocess(small.indptr, small.indices, 256).to(dev)
+        x8 = torch.from_numpy(np.random.default_rng(71).standard_normal((256, 8)).astype(
+            np.float32)).to(dev)
+        ops_, geom = library.operands(sp_plan, "spmm_block", x8.device)
+        ops_t, geom_t = library.no_plan(ops_, geom)
+        walk = block_spmm.plan_walk(sp_plan, "spmm_block")
+        lib = block_spmm.load_library()
+
+        def bare():
+            block_spmm._check(sp_plan, x8)
+            o = torch.empty(256, 8, dtype=torch.float32, device=dev)
+            block_spmm.launch_walk("spmm_block", lib, sp_plan, x8, o, walk)
+            return o
+
+        def host_us(fn, calls=2000):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / calls * 1e6
+
+        if not torch.equal(spmm_block(sp_plan, x8), bare()):
+            fail(f"path {label}: the op and the bare launch differ")
+        host = {}
+        for _ in range(2):  # in turns: bare, op, wrapper, wrapper, op, bare
+            for what, fn in (("bare launch", bare),
+                             ("op", lambda: library.spmm_block_op(x8, ops_, geom, ops_t, geom_t)),
+                             ("wrapper", lambda: spmm_block(sp_plan, x8))):
+                host.setdefault(what, []).append(host_us(fn))
+        print("  host us per call on a 256-node plan at d 8 (2000 calls, in turns): " +
+              ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in host.items()))
+        res.update({f"host_us_{k.replace(' ', '_')}": sum(v) / 2 for k, v in host.items()})
+
+        del g_b, hplan, plan
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        res["path_s"] = time.perf_counter() - t_path
+        print(f"path {label}: {res['path_s']:.1f} s in all")
+        path_n.update(res)
+
+    def c_plan_builds(a):
+        """Path N's step 1 on C's graph: its plan by both backends, timed."""
+        _, secs = plan_builds("N on the protein proxy (C's plan)", a,
+                              PlanConfig(2048, 128, gather_segment=128, block_unroll=4))
+        path_n.update(c_native_build_s=secs["native"], c_numpy_build_s=secs["numpy"])
+
+    def after_a(g, model, params_np, xs, logits, trained):
+        deploy_path("N (ogbn-arxiv proxy, deployment: plan files, native preprocess, exported "
+                    "programs and bundles served from fresh processes, K1, K2, K3)", arxiv, g,
+                    params_np, xs, logits, trained)
         int8_path("I (ogbn-arxiv proxy, int8 SpMM, K8)", arxiv, g)
         streamed_path("J.1 (ogbn-arxiv proxy, streamed GCN, K1 on 4 window chunks)", arxiv, g,
                       model, params_np, xs, logits)
@@ -3481,7 +3837,8 @@ def main() -> None:
         "C (protein proxy, K3)", protein,
         PlanConfig(2048, 128, gather_segment=128, block_unroll=4), "spmm_fused",
         (8, 256, 112), host_rows=np.r_[0:2048, last:n],
-        then=lambda g, *_: int8_on_c("C (protein proxy)", protein, g))
+        then=lambda g, *_: (int8_on_c("C (protein proxy)", protein, g),
+                            c_plan_builds(protein)))
     results["spmm_int8"] = path_i
     results["spmm_block"].update(
         {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
@@ -3502,6 +3859,8 @@ def main() -> None:
                              "step": path_m["launches_step"]["spmm_block"],
                              "request_ms": path_m["request_ms"], "step_ms": path_m["step_ms"]},
     }
+    # path N: the deployment path's numbers (seconds, bytes, ms, host us)
+    results["spmm_block"]["n_deploy"] = path_n
     results["spmm_weighted"]["k_dropedge"] = {
         "train_call_and_backward": 2, **{f"train_ms_d{d}": v["train_ms"]
                                          for d, v in path_k["dropedge"].items()}}
@@ -3516,7 +3875,10 @@ def main() -> None:
     for name, (_, _, source, replaces, _) in kernels.items():
         line.append({"name": name, "route": "cuda",
                      "source": f"voltrix_spmm_tpu_torch/csrc/{source}",
-                     "replaces": replaces, "max_abs_err": max_err[name], **results[name]})
+                     "replaces": replaces, "max_abs_err": max_err[name],
+                     # a torch.library op (ops/library.py) that every call goes through
+                     "registered": f"voltrix::{name}" if name in REGISTERED else None,
+                     **results[name]})
     # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed
     # (K6 and K7: E's d 8 and 40 and F's d 256; K13-K15: G's two layers, H 8 x d 8 and
     # H 1 x d 40; K9-K12: path H's, one head of d 8 and d 40); f_*: path F's counts and
@@ -3526,5 +3888,103 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
+def serve_bundles(spec_path: str) -> None:
+    """Path N's serving process (`chip_smoke.py --serve-bundles SPEC`): it
+    imports torch and voltrix_spmm_tpu_torch.serve only, loads each bundle
+    of SPEC with load_bundle, moves its plan to the card, with "warm"
+    calls aot_compile (its warm call), answers REQUESTS requests (features
+    from SPEC's files), and checks that the kernels launched from the loaded
+    program (their counts and torch.profiler's kernel names) and that the
+    plan's tensors are among the program's constants. It writes the logits
+    beside SPEC and prints one JSON line of times in seconds."""
+    t0 = time.perf_counter()
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from voltrix_spmm_tpu_torch.serve import aot_compile, load_bundle
+    t_import = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    work = os.path.dirname(spec_path)
+    counted = {k: getattr(sys.modules[f"voltrix_spmm_tpu_torch.ops.{m}"], k) for k, m in
+               (("spmm_block", "block_spmm"), ("spmm_subtile", "subtile_spmm"),
+                ("spmm_fused", "fused_spmm"))}
+    want_names = {"spmm_block": ("spmm_walk_kernel",), "spmm_subtile": ("spmm_walk_kernel",),
+                  "spmm_fused": ("spmm_fused_kernel", "spmm_walk_kernel")}
+    out = []
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    torch.empty(1, device=dev)
+    t_context = time.perf_counter() - t0
+    for entry in spec["bundles"]:
+        tag = entry["name"] + ("_aot" if entry["warm"] else "")
+        rec = {"tag": tag}
+        t0 = time.perf_counter()
+        bundle = load_bundle(entry["path"])
+        rec["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = None if bundle.plan is None else bundle.plan.to(dev)
+        torch.cuda.synchronize()
+        rec["move_s"] = time.perf_counter() - t0
+        xs = [torch.load(p).to(dev) for p in spec["xs"]]
+        torch.cuda.synchronize()
+        if entry["warm"]:
+            t0 = time.perf_counter()
+            aot_compile(bundle.fn, xs[0])
+            rec["aot_s"] = time.perf_counter() - t0
+        for w in counted.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        ys = [bundle(xs[0])]
+        torch.cuda.synchronize()
+        rec["first_request_s"] = time.perf_counter() - t0
+        rec["cold_start_s"] = sum(rec[k] for k in ("load_s", "move_s", "aot_s", "first_request_s")
+                                  if k in rec)
+        ys += [bundle(x) for x in xs[1:]]
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in counted.items() if w.launches}
+        want = ({"spmm_fused": REQUESTS, "spmm_block": REQUESTS} if entry["kernel"] == "spmm_fused"
+                else {entry["kernel"]: 2 * REQUESTS})
+        if launches != want:
+            fail(f"bundle {tag}: launches {launches}, want {want}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bundle(xs[0])
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+        kernels = [k for k in want_names[entry["kernel"]] if any(k in nm for nm in names)]
+        if kernels != list(want_names[entry["kernel"]]):
+            fail(f"bundle {tag}: the profiler saw kernels {names}")
+        consts = [v for v in vars(bundle.fn).values() if isinstance(v, torch.Tensor)]
+        held = "no plan in the bundle"
+        if plan is not None:
+            fields = ("bitmask", "hind", "window_of_block")
+            found = [f for f in fields if any(
+                c.device == getattr(plan, f).device and c.shape == getattr(plan, f).shape
+                and torch.equal(c, getattr(plan, f)) for c in consts)]
+            if found != list(fields):
+                fail(f"bundle {tag}: the program's constants hold {found} of the plan, not {fields}")
+            held = "plan.npz's bitmask, hind and window_of_block among the program's constants"
+        for i, y in enumerate(ys):
+            torch.save(y.cpu(), os.path.join(work, f"y_{tag}_{i}.pt"))
+        print(f"bundle {tag}: load_bundle {rec['load_s']:.3f} s, plan to the card "
+              f"{rec['move_s']:.3f} s" + (f", aot_compile {rec['aot_s']:.3f} s" if entry["warm"]
+                                           else "") +
+              f", first request {rec['first_request_s']:.4f} s: cold start "
+              f"{rec['cold_start_s']:.3f} s; launches {launches}; profiler kernels {kernels}; "
+              f"{held}")
+        out.append(rec)
+        del bundle, plan
+    print(f"import of torch and voltrix_spmm_tpu_torch.serve {t_import:.3f} s, the CUDA "
+          f"context {t_context:.3f} s (before the first bundle)")
+    if "jax" in sys.modules or "voltrix_spmm_tpu" in sys.modules:
+        fail("the serving process imported jax or the JAX package")
+    print(json.dumps({"import_s": t_import, "context_s": t_context, "bundles": out}))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-bundles":
+        serve_bundles(sys.argv[2])
+    else:
+        main()

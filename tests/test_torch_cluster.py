@@ -148,7 +148,7 @@ def test_pack_bitmask_round_trip_matches_jax():
     assert nsub == jnsub == 2 and packed.dtype == np.uint32
     tb = tplan.total_blocks
     np.testing.assert_array_equal(tcluster.unpack_bitmask_np(packed, ids, tb, 8, 128), jplan.bitmask)
-    dense = tcluster.unpack_bitmask(packed, ids, tb, 8, 128)
+    dense = tcluster.unpack_bitmask(packed, ids, tb, 8, 128, device="cpu")
     assert dense.dtype == torch.int32 and torch.equal(dense, tplan.bitmask)
 
 

@@ -75,7 +75,10 @@ def test_import_leaves_out_jax():
                 ("generate", "real", "sampling", "batching")]
     modules += [f"voltrix_spmm_tpu_torch.models.{m}" for m in
                 ("params", "sage", "sage_minibatch", "gin", "appnp", "deep_gcn", "rgcn",
-                 "readout", "dropedge")]
+                 "readout", "dropedge", "checkpoint")]
+    modules += [f"voltrix_spmm_tpu_torch.{m}" for m in
+                ("serve", "profiling", "compat", "__main__", "runtime.native", "ops.library",
+                 "format.diagnostics", "jit.template")]
     code = ("import sys, voltrix_spmm_tpu_torch, " + ", ".join(modules) + "; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('voltrix_spmm_tpu') and not m.startswith('voltrix_spmm_tpu_torch')); "
@@ -178,7 +181,9 @@ def test_plan_to_moves_every_tensor():
 
 
 @pytest.mark.parametrize("kwargs,cfg", [
-    (dict(backend="native"), {}),
+    # the native preprocess is ported (tests/test_torch_native.py); it refuses
+    # the TPU layouts as the numpy path does
+    (dict(backend="native"), dict(gather_segment=4, pack_order="incidence")),
     (dict(values=True), dict(block_h=128, gather_segment=8)),
     (dict(values=True), dict(block_h=128, cluster_cols=True)),
     ({}, dict(gather_segment=4, pack_order="incidence")),

@@ -1,4 +1,6 @@
-from .cluster import block_occupancy, cluster_window_columns, subtile_stats
+from .cluster import (block_occupancy, cluster_window_columns, pack_bitmask, packed_stats,
+                      subtile_stats, unpack_bitmask, unpack_bitmask_np)
+from .diagnostics import PlanInvariantError, validate_plan
 from .ell import (
     EllPlan,
     build_ell_pair,
@@ -47,6 +49,12 @@ __all__ = [
     "hybrid_stats",
     "slice_plan_windows",
     "subtile_stats",
+    "pack_bitmask",
+    "packed_stats",
+    "unpack_bitmask",
+    "unpack_bitmask_np",
+    "PlanInvariantError",
+    "validate_plan",
     "expand_bitmask_np",
     "pad_empty_windows",
     "plan_stats",

@@ -137,9 +137,11 @@ def unpack_bitmask_np(packed, ids, total_blocks: int, words: int, k: int) -> np.
     return dense.reshape(total_blocks, words, k)
 
 
-def unpack_bitmask(packed, ids, total_blocks: int, words: int, k: int, device="cpu") -> torch.Tensor:
-    """Inverse of `pack_bitmask` on `device`: one scatter into an int32
-    (TB, words, K) bitmask carrying the uint32 bits, as SpmmPlan holds it."""
+def unpack_bitmask(packed, ids, total_blocks: int, words: int, k: int, device="cuda") -> torch.Tensor:
+    """Inverse of `pack_bitmask` on `device` (the card unless the caller
+    asks for the CPU; the JAX package's `unpack_bitmask_device`): one
+    scatter into an int32 (TB, words, K) bitmask carrying the uint32 bits,
+    as SpmmPlan holds it."""
     nsub = words // _WORDS_PER_SUB
     if not isinstance(packed, torch.Tensor):
         packed = torch.from_numpy(_bits_np(packed).view(np.int32))
@@ -147,3 +149,16 @@ def unpack_bitmask(packed, ids, total_blocks: int, words: int, k: int, device="c
     dense = torch.zeros(total_blocks * nsub, _WORDS_PER_SUB, k, dtype=torch.int32, device=device)
     dense[ids.to(device)] = packed.to(device)
     return dense.reshape(total_blocks, words, k)
+
+
+def packed_stats(bitmask) -> dict:
+    """Bytes of the dense bitmask against its packed form (the occupied
+    sub-tiles and their ids), and the share saved."""
+    packed, ids, _ = pack_bitmask(bitmask)
+    dense_b = _bits_np(bitmask).nbytes
+    packed_b = packed.nbytes + ids.nbytes
+    return {
+        "dense_bytes": int(dense_b),
+        "packed_bytes": int(packed_b),
+        "saving": 1.0 - packed_b / max(dense_b, 1),
+    }

@@ -21,8 +21,11 @@ The CUDA kernel reads the same memory as ``uint32_t``.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -137,3 +140,84 @@ class SpmmPlan:
                 if getattr(self, name) is not None
             },
         )
+
+    def save(self, path: str, packed: bool = False) -> str:
+        """Write the plan to one .npz in the JAX package's layout (a JSON
+        header of the metadata beside the arrays), atomically through a
+        per-process temporary file; return the path. Preprocess once, serve
+        from many processes: a file of either package loads in the other.
+
+        packed=True stores only the occupied 128-row bitmask sub-tiles
+        (`bitmask_packed` and `bitmask_ids`, needs block_h % 128 == 0; a
+        plan of other heights is written dense); `load` rebuilds the dense
+        bitmask."""
+        from .cluster import _bits_np, _host, pack_bitmask
+
+        header = json.dumps(
+            {
+                "config": dataclasses.asdict(self.config),
+                "num_nodes": self.num_nodes,
+                "num_edges": self.num_edges,
+                "num_windows": self.num_windows,
+                "total_blocks": self.total_blocks,
+                "has_empty_windows": self.has_empty_windows,
+                "num_cols": self.num_cols,
+            }
+        )
+        arrays = {
+            "hind": _host(self.hind),
+            "window_of_block": _host(self.window_of_block),
+            "block_ptr": _host(self.block_ptr),
+            "header": np.frombuffer(header.encode(), np.uint8),
+        }
+        # the JAX package writes uint32 bits; the port's int32 words carry them
+        if packed and self.config.block_h % 128 == 0:
+            pk, ids, _ = pack_bitmask(self.bitmask)
+            arrays["bitmask_packed"] = pk
+            arrays["bitmask_ids"] = ids
+        else:
+            arrays["bitmask"] = _bits_np(self.bitmask)
+        if self.occ is not None:
+            arrays["occ"] = _bits_np(self.occ)
+        for name in ("values", "src_perm"):
+            if getattr(self, name) is not None:
+                arrays[name] = _host(getattr(self, name))
+        if not path.endswith(".npz"):
+            path += ".npz"
+        tmp = f"{path}.tmp.{os.getpid()}.npz"
+        np.savez(tmp.removesuffix(".npz"), **arrays)
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "SpmmPlan":
+        """Read a plan written by `save` of either package, dense or packed,
+        as CPU tensors (the bitmask and occ as int32 words carrying the
+        uint32 bits); `to(device)` moves it."""
+        from .cluster import unpack_bitmask_np
+
+        def tensor(a, dtype=None):
+            a = np.ascontiguousarray(a)
+            return torch.from_numpy(a if dtype is None else a.view(dtype))
+
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["header"]).decode())
+            cfg = PlanConfig(**meta.pop("config"))
+            if "bitmask_packed" in z:
+                bitmask = unpack_bitmask_np(
+                    z["bitmask_packed"], z["bitmask_ids"],
+                    meta["total_blocks"], cfg.words_per_col, cfg.block_w,
+                )
+            else:
+                bitmask = z["bitmask"]
+            return cls(
+                bitmask=tensor(bitmask, np.int32),
+                hind=tensor(z["hind"]),
+                window_of_block=tensor(z["window_of_block"]),
+                block_ptr=tensor(z["block_ptr"]),
+                config=cfg,
+                occ=tensor(z["occ"], np.int32) if "occ" in z else None,
+                values=tensor(z["values"]) if "values" in z else None,
+                src_perm=tensor(z["src_perm"]) if "src_perm" in z else None,
+                **meta,
+            )

@@ -1,9 +1,10 @@
-"""CSR -> binned block-CSR preprocessing, numpy path.
+"""CSR -> binned block-CSR preprocessing.
 
 Counterpart of voltrix_spmm_tpu/format/preprocess.py: the same
-vectorised numpy pass (sort, unique, scatter), so a CSR gives the same
-plan arrays bit for bit in both packages. The result is wrapped in
-torch tensors on the CPU; `SpmmPlan.to` moves it to the card.
+vectorised numpy pass (sort, unique, scatter), and the native C++/OpenMP
+preprocess beside it (runtime/native.py), so a CSR gives the same plan
+arrays bit for bit in both packages and on both backends. The result is
+wrapped in torch tensors on the CPU; `SpmmPlan.to` moves it to the card.
 """
 
 from __future__ import annotations
@@ -37,23 +38,26 @@ def csr_preprocess(
     indices,
     num_nodes: int,
     config: PlanConfig = PlanConfig(),
-    backend: str = "numpy",
+    backend: str = "auto",
     num_cols: int | None = None,
     values=None,
 ) -> SpmmPlan:
     """Build an `SpmmPlan` (tensors on the CPU) from a CSR.
+
+    backend: "numpy", "native" (the C++/OpenMP preprocess of
+    runtime/native.py, built with g++ at first use; raises when it does not
+    build), or "auto" (native when it builds, else numpy), as in the JAX
+    package. Both give the same plan bit for bit.
 
     values: optional per-edge weights aligned with `indices`. The plan then
     carries a dense float32 (total_blocks, block_h, block_w) value plane
     aligned with the bitmask, and `ops.spmm` runs the weighted kernel K4.
     Duplicate (row, col) edges sum their values, the scipy CSR convention.
     Weighted plans need exact lanes (gather_segment 1, no cluster_cols) and
-    block_h % 32 == 0 (K5 reads whole bitmask words)."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"backend={backend!r}: the port has only the numpy preprocess; "
-            "the native C++ backend is ROADMAP.md item 1"
-        )
+    block_h % 32 == 0 (K5 reads whole bitmask words); the numpy path builds
+    them, whatever the backend."""
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown backend {backend!r}: 'auto', 'native' or 'numpy'")
     if values is not None:
         if config.gather_segment != 1:
             raise ValueError("weighted plans need exact lanes (gather_segment=1)")
@@ -80,6 +84,16 @@ def csr_preprocess(
         values = np.asarray(values, dtype=np.float32)
         if values.shape != indices.shape:
             raise ValueError(f"values {values.shape} must align with indices {indices.shape}")
+        backend = "numpy"  # the native preprocess covers binary plans
+    if backend == "auto":
+        from ..runtime.native import native_available
+
+        backend = "native" if native_available() else "numpy"
+    if backend == "native":
+        from ..runtime.native import native_cluster, native_preprocess
+
+        plan = native_preprocess(indptr, indices, num_nodes, config, num_cols)
+        return native_cluster(plan) if config.cluster_cols else plan
     plan = _numpy_preprocess(indptr, indices, num_nodes, config, num_cols, values)
     if config.cluster_cols:
         # two-level windows: sort each window's lanes by sub-window

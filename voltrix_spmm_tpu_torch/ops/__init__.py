@@ -22,6 +22,7 @@ from .attention_mh import (
     spmm_attention_mh_ad,
     spmm_attention_mh_reference,
 )
+from . import library
 from .autodiff import spmm_ad
 from .bitmask import expand_bitmask
 from .block_spmm import spmm_block

@@ -10,6 +10,10 @@ from __future__ import annotations
 import torch
 
 from ..format.hybrid import HybridPlan
+from ..format.plan import SpmmPlan
+from .block_spmm import spmm_block
+from .fused_spmm import spmm_fused
+from .subtile_spmm import spmm_subtile
 
 
 def _dispatch(plan, feat: torch.Tensor, impl: str = "auto") -> torch.Tensor:
@@ -39,6 +43,13 @@ def _has_values(plan) -> bool:
 
 
 class _SpmmFunction(torch.autograd.Function):
+    """The gradient where `spmm_ad` does not run a registered op's own
+    autograd (a HybridPlan, a list of window chunks, impl other than
+    "auto", batched features): A^T @ grad as `_dispatch` runs it over
+    plan_t. Its forward and
+    backward call the registered ops (ops/library.py) like every other
+    path, and torch.export traces it unchanged."""
+
     @staticmethod
     def forward(ctx, feat, plan, plan_t, impl):
         ctx.plan_t = plan_t
@@ -55,7 +66,22 @@ def spmm_ad(plan, plan_t, feat: torch.Tensor, *, impl: str = "auto"):
     plan for a symmetric adjacency). Either may be an SpmmPlan, a
     HybridPlan or a list of window chunks (`format.stream`). Binary plans
     only, as in JAX: a weighted plan takes `spmm_weighted_ad`, which also
-    differentiates the value plane."""
+    differentiates the value plane.
+
+    Two SpmmPlans under impl="auto" on (N, D) features run the registered
+    op of plan's kind (K1, K2 or K3, ops/library.py:kind_of) with plan_t's
+    operands, and the op's own autograd runs the op of plan_t's kind over
+    plan_t; anything else (composite plans, other impls, graph-batched
+    (B, N, D) features) runs `_SpmmFunction`, whose forward and backward
+    call the same ops."""
     if _has_values(plan) or _has_values(plan_t):
         raise ValueError("plan carries a value plane; use spmm_weighted_ad")
+    if (impl == "auto" and feat.dim() == 2 and isinstance(plan, SpmmPlan)
+            and isinstance(plan_t, SpmmPlan)):
+        from . import library
+
+        kind = library.kind_of(plan)
+        wrapper = {"spmm_block": spmm_block, "spmm_subtile": spmm_subtile,
+                   "spmm_fused": spmm_fused}[kind]
+        return wrapper(plan, feat, plan_t=plan_t)
     return _SpmmFunction.apply(feat, plan, plan_t, impl)

@@ -21,8 +21,10 @@ occupancy) at a plan's first launch for each kernel, the only host sync,
 and kept beside the plan's block_ptr tensor, outside its dataclass
 fields (`plan_walk`).
 
-A CPU tensor takes the plain version, `ops.reference.spmm_reference`. A
-CUDA tensor launches the kernel or raises: there is no fallback.
+The wrapper calls the registered op ``torch.ops.voltrix.spmm_block``
+(ops/library.py), which runs the plain version,
+`ops.reference.spmm_reference`, on a CPU tensor, and on a CUDA tensor
+launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from ..utils import kept_beside
-from .reference import spmm_reference
+from .reference import check_binary
 
 _COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
@@ -98,6 +100,12 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
     """What every CUDA SpMM kernel of the port takes: float32 row-major
     features on the plan's device, a binary plan in natural lane order
     with contiguous int32 arrays, and 32-bit row and column indices."""
+    _check_feat(plan, feat, name)
+    _check_plan(plan, feat.device, name)
+
+
+def _check_feat(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
+    """`_check`'s part that reads the features and the plan's kind."""
     cfg = plan.config
     if feat.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 features, got {feat.dtype}")
@@ -117,6 +125,15 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
             f"{name} takes binary plans in natural lane order only "
             "(no src_perm or seg_interleaved)"
         )
+    if max(plan.num_nodes, plan.source_rows, feat.shape[1]) > _INT_MAX:
+        raise ValueError(f"{name} indexes rows and columns with 32-bit ints")
+    if -(-feat.shape[1] // _COLS) > 65535:
+        raise ValueError(f"D exceeds {name}'s grid limits")
+
+
+def _check_plan(plan: SpmmPlan, device: torch.device, name: str) -> None:
+    """`_check`'s part that reads the plan's tensors alone."""
+    cfg = plan.config
     shapes = {
         "bitmask": (plan.total_blocks, cfg.words_per_col, cfg.block_w),
         "hind": (plan.total_blocks, cfg.block_w),
@@ -126,9 +143,9 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
         shapes["occ"] = (plan.total_blocks,)
     for field, shape in shapes.items():
         t = getattr(plan, field)
-        if t.device != feat.device:
+        if t.device != device:
             raise ValueError(
-                f"plan.{field} is on {t.device}, feat on {feat.device}: move the "
+                f"plan.{field} is on {t.device}, feat on {device}: move the "
                 "plan once with SpmmPlan.to(device)"
             )
         if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -136,10 +153,8 @@ def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None
                 f"plan.{field} must be contiguous int32 {shape}, got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
-    if max(plan.num_nodes, plan.source_rows, feat.shape[1]) > _INT_MAX:
+    if max(plan.num_nodes, plan.source_rows) > _INT_MAX:
         raise ValueError(f"{name} indexes rows and columns with 32-bit ints")
-    if -(-feat.shape[1] // _COLS) > 65535:
-        raise ValueError(f"D exceeds {name}'s grid limits")
 
 
 def window_pieces(block_ptr, piece_blocks: int, visit=None, work=None, piece_work=None):
@@ -368,20 +383,28 @@ def cast_out(out: torch.Tensor, out_dtype) -> torch.Tensor:
     return out.to(out_dtype)
 
 
-def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
     """out[num_nodes, D] = A @ feat through kernel K1 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end)."""
-    if feat.device.type == "cpu":
-        return spmm_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_block runs on cuda or cpu tensors, not {feat.device}")
-    _check(plan, feat)
-    out = torch.empty(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
-    if out.numel():
-        launch_walk("spmm_block", load_library(), plan, feat, out,
-                    plan_walk(plan, "spmm_block"))
-        spmm_block.launches += 1
-    return cast_out(out, out_dtype)
+    accumulation, cast to `out_dtype` at the end), as the registered op
+    ``torch.ops.voltrix.spmm_block`` (ops/library.py). With `plan_t` (A^T's
+    plan) the result is differentiable in feat: its gradient is the op of
+    plan_t's kind over plan_t."""
+    return run_op("spmm_block", plan, feat, out_dtype, plan_t)
 
 
-spmm_block.launches = 0  # plain-int launch count, read by chip_smoke.py
+def run_op(kind: str, plan: SpmmPlan, feat: torch.Tensor, out_dtype, plan_t) -> torch.Tensor:
+    """The wrappers' body: check (on the CPU the plain version checks), call
+    the registered op `kind`, cast to `out_dtype` (default feat's dtype)."""
+    from . import library
+
+    if feat.device.type == "cuda":
+        _check(plan, feat, kind)
+    elif feat.device.type == "cpu":
+        check_binary(plan, feat)
+    else:
+        raise ValueError(f"{kind} runs on cuda or cpu tensors, not {feat.device}")
+    out = library.call(kind, plan, feat, plan_t)
+    return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
+
+
+spmm_block.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py

@@ -15,8 +15,10 @@ PIECE_BLOCKS["spmm_fused"] blocks and about PIECE_WORK["spmm_fused"]
 units of work, the pieces summed in piece order, so two launches give the
 same bits.
 
-A CPU tensor takes the plain version, `spmm_fused_reference`. A CUDA
-tensor launches the kernel or raises: there is no fallback.
+The wrapper calls the registered op ``torch.ops.voltrix.spmm_fused``
+(ops/library.py), which runs the plain version, `spmm_fused_reference`,
+on a CPU tensor, and on a CUDA tensor launches the kernel or raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _INT_MAX, _check, cast_out, launch, plan_walk, walk_workspace
+from .block_spmm import _INT_MAX, launch, run_op, walk_workspace
 from .reference import CHUNK_BYTES, block_sum, check_binary
 
 _COLS = 128  # feature columns a thread block of the kernel sums (csrc/spmm_fused.cu kCols)
@@ -98,37 +100,35 @@ def spmm_fused_reference(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *,
 spmm_fused_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
-def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K3 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end)."""
-    if feat.device.type == "cpu":
-        return spmm_fused_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_fused runs on cuda or cpu tensors, not {feat.device}")
-    _check(plan, feat, "spmm_fused")
-    _check_geometry(plan)
+def launch_fused(library, plan: SpmmPlan, walk, feat: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch K3 (`library`) over `walk` into `out` (num_nodes, d), with a
+    workspace for the cut slabs' pieces 1.. (the library's merge kernel
+    then sums them into out)."""
     cfg = plan.config
     d = feat.shape[1]
-    out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
-    if out.numel():
-        walk = plan_walk(plan, "spmm_fused")
-        if walk.tasks.shape[0] * -(-d // _COLS) > _INT_MAX:
-            raise ValueError("pieces x column chunks exceed spmm_fused's grid limits")
-        ws = walk_workspace("spmm_fused", walk, d, feat.device)
-        # the last int: bulk copies of 16-byte aligned rows in boxes of at
-        # least 8 rows, or 4-byte cp.async
-        bulk = int(d % 4 == 0 and feat.data_ptr() % 16 == 0
-                   and box_rows(cfg.gather_segment) >= 8)
-        launch(
-            "spmm_fused", load_library(), feat,
-            plan.bitmask.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
-            walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
-            cfg.words_per_col, walk.group_words, cfg.block_h, cfg.block_w, cfg.gather_segment,
-            plan.num_nodes, plan.source_rows, d, bulk,
-        )
-        spmm_fused.launches += 1
-    return cast_out(out, out_dtype)
+    if walk.tasks.shape[0] * -(-d // _COLS) > _INT_MAX:
+        raise ValueError("pieces x column chunks exceed spmm_fused's grid limits")
+    ws = walk_workspace("spmm_fused", walk, d, feat.device)
+    # the last int: bulk copies of 16-byte aligned rows in boxes of at
+    # least 8 rows, or 4-byte cp.async
+    bulk = int(d % 4 == 0 and feat.data_ptr() % 16 == 0 and box_rows(cfg.gather_segment) >= 8)
+    launch(
+        "spmm_fused", library, feat,
+        plan.bitmask.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
+        walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
+        cfg.words_per_col, walk.group_words, cfg.block_h, cfg.block_w, cfg.gather_segment,
+        plan.num_nodes, plan.source_rows, d, bulk,
+    )
 
 
-spmm_fused.launches = 0  # plain-int launch count, read by chip_smoke.py
+def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
+    """out[num_nodes, D] = A @ feat through kernel K3 (float32 in, float32
+    accumulation, cast to `out_dtype` at the end), as the registered op
+    ``torch.ops.voltrix.spmm_fused`` (ops/library.py); `plan_t` as in
+    `spmm_block`."""
+    _check_geometry(plan)
+    return run_op("spmm_fused", plan, feat, out_dtype, plan_t)
+
+
+spmm_fused.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py

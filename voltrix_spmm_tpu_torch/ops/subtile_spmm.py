@@ -10,8 +10,10 @@ source says how it is laid out and what bounds it). The skip bitmap is
 when the plan has none, the per-block occupancy of its bitmask, computed
 once with the plan's work list (ops/block_spmm.py:plan_walk).
 
-A CPU tensor takes the plain version, `spmm_subtile_reference`. A CUDA
-tensor launches the kernel or raises: there is no fallback.
+The wrapper calls the registered op ``torch.ops.voltrix.spmm_subtile``
+(ops/library.py), which runs the plain version, `spmm_subtile_reference`,
+on a CPU tensor, and on a CUDA tensor launches the kernel or raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import Walk, _check, cast_out, launch_walk, plan_walk
+from .block_spmm import Walk, plan_walk, run_op
 from .reference import CHUNK_BYTES, block_sum, check_binary, clipped_gather
 
 SUBWIN_ROWS = 128
@@ -107,20 +109,13 @@ def subtile_walk(plan: SpmmPlan) -> Walk:
     return plan_walk(plan, "spmm_subtile", lambda: _plan_occupancy(plan))
 
 
-def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
     """out[num_nodes, D] = A @ feat through kernel K2 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end)."""
-    if feat.device.type == "cpu":
-        return spmm_subtile_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_subtile runs on cuda or cpu tensors, not {feat.device}")
-    _check(plan, feat, "spmm_subtile")
+    accumulation, cast to `out_dtype` at the end), as the registered op
+    ``torch.ops.voltrix.spmm_subtile`` (ops/library.py); `plan_t` as in
+    `spmm_block`."""
     _check_geometry(plan)
-    out = torch.empty(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
-    if out.numel():
-        launch_walk("spmm_subtile", load_library(), plan, feat, out, subtile_walk(plan))
-        spmm_subtile.launches += 1
-    return cast_out(out, out_dtype)
+    return run_op("spmm_subtile", plan, feat, out_dtype, plan_t)
 
 
-spmm_subtile.launches = 0  # plain-int launch count, read by chip_smoke.py
+spmm_subtile.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py

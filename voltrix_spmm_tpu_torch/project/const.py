@@ -6,8 +6,15 @@ PyTorch/CUDA port (counterpart of voltrix_spmm_tpu/project/const.py).
 #   VOLTRIX_TORCH_NVCC                : override the nvcc used to build the kernels
 #   VOLTRIX_TORCH_BUILD_DIR           : override the kernel build directory
 #                                       (default: build/kernels at the repository root)
-#   VOLTRIX_TORCH_PRINT_NVCC_COMMAND  : "1" -> print nvcc command lines and output
-#                                       (ptxas registers, shared memory, spills)
+#   VOLTRIX_TORCH_PRINT_NVCC_COMMAND  : "1" -> print the nvcc and g++ command lines and
+#                                       their output (ptxas registers, shared
+#                                       memory, spills)
+#   VOLTRIX_TORCH_CXX                 : override the host C++ compiler of the native
+#                                       preprocess (default: g++ on PATH)
+#   VOLTRIX_TORCH_DISABLE_NATIVE      : "1" -> csr_preprocess(backend="auto") takes
+#                                       the numpy path
 NVCC_FLAG = "VOLTRIX_TORCH_NVCC"
 BUILD_DIR_FLAG = "VOLTRIX_TORCH_BUILD_DIR"
 PRINT_NVCC_COMMAND_FLAG = "VOLTRIX_TORCH_PRINT_NVCC_COMMAND"
+CXX_FLAG = "VOLTRIX_TORCH_CXX"
+DISABLE_NATIVE_FLAG = "VOLTRIX_TORCH_DISABLE_NATIVE"
