@@ -210,6 +210,31 @@ non-zero on failure (there is no CPU fallback):
       8 -> 256 -> 112 (OGB's ogbn-proteins GCN widths): K3, which runs
       twice on the same input at d 8 and at d 256 and must give the same
       bits; its work list and workspace are printed.
+   O. The tuner on the card (voltrix_spmm_tpu_torch/tuner), each race in a
+      fresh cache (build/tune, removed after), features and values from a
+      generator of its own. O.1 (after M): tune_spmm on A's graph at d 128,
+      the default space, orderings identity and rcm, budget_s 120; every
+      candidate's key, plan build seconds, ms (gpu_bench: the median of 8
+      CUDA-event launches, each after an L2 flush) and why it was skipped;
+      the winner beside K1 on PlanConfig(128, 128) and torch.sparse.mm
+      (printed, never raced), its output against a float64 host product,
+      its kernel's counter moved; a second call a memory hit, a new
+      SpmmTuner on the same directory a disk hit that launches nothing,
+      bit for bit; a 3-variant space with isolate=True (a probe process
+      per candidate). O.4 (after H): tune_attention on G's graph at H 8 x
+      d 8, mode "train", budget_s 60; the winner's out, dq, dk and dv
+      against the plain versions at phase 3's K13-K15 tolerance, K13, K14
+      and K15 once each. O.3 (after F): tune_spmm on F's graph at d 256 and
+      the weighted race (K6 and K4) on it with random values. O.2 (after
+      C): tune_spmm on C's graph at d 256, budget_s 120, past 4 GiB of
+      edge features: the residency-budgeted space, each candidate in a
+      probe, the estimates printed, the winner against a float64 host
+      product on the first and last window's rows. O.3: build_graph("auto")
+      on A, F and C, the config it picks and its SpMM timed beside the
+      race's winner. O.5: `python -m voltrix_spmm_tpu_torch tune` once in a
+      process of its own on rmat-15. Any candidate skipped for a reason
+      other than a geometry refusal or out-of-memory, a plain version run
+      in a race, or a raced kernel that never launched fails the path.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -3771,6 +3796,324 @@ def main() -> None:
                               PlanConfig(2048, 128, gather_segment=128, block_unroll=4))
         path_n.update(c_native_build_s=secs["native"], c_numpy_build_s=secs["numpy"])
 
+    # --- path O: the tuner on the card ------------------------------------
+    from voltrix_spmm_tpu_torch.models.graph import auto_plan_config
+    from voltrix_spmm_tpu_torch.tuner import AttentionTuner, SpmmTuner, Variant
+    from voltrix_spmm_tpu_torch.utils import gpu_bench
+
+    orng = np.random.default_rng(18)  # path O's own features and values
+    tune_dir = os.path.join(ROOT, "build", "tune")  # a fresh cache: every run races
+    path_o = {"races": {}, "launches": dict.fromkeys(kernels, 0)}
+
+    def race(label, tuner, a, x, **kw):
+        """One race on the card: every candidate printed (ms, plan seconds,
+        why it was skipped), its launches counted (plain calls must stay 0),
+        each raced kernel launched, and no skip but a geometry refusal or
+        out-of-memory."""
+        reset_counts()
+        t0 = time.perf_counter()
+        tuned = tuner.compile_and_tune(a.indptr, a.indices, a.shape[0], x, device=dev, **kw)
+        secs = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        print(f"  {label}: {len(tuned.candidates)} candidates in {secs:.1f} s (ms each, median of "
+              f"8 CUDA-event launches after an L2 flush; plan build s):")
+        for key, ms in tuned.candidates.items():
+            err = tuned.errors.get(key)
+            print(f"    {key}: {ms:.4f} ms, plan {tuned.plan_seconds.get(key, float('nan')):.3f} s"
+                  + (f"; skipped: {err}" if err else ""))
+        print(f"  winner {tuned.ordering}|{tuned.variant.key()} at {tuned.time_ms:.4f} ms; race "
+              f"launches {({k: c for k, c in counts.items() if c})}, plain calls {plain_calls}")
+        bad = {k: e for k, e in tuned.errors.items()
+               if not e.startswith(("ValueError", "OutOfMemoryError"))}
+        if bad or plain_calls:
+            fail(f"path O {label}: candidates failed otherwise than by a refusal or "
+                 f"out-of-memory {bad}, or plain versions ran ({plain_calls})")
+        # in-process races launch each timed candidate's first kernel (K3 for
+        # a hybrid); probes launch in their own processes
+        raced = {tuned.variants[key][1].kernels()[0] for key, ms in tuned.candidates.items()
+                 if ms != float("inf")}
+        if any(counts.values()) and not all(counts[k] for k in raced):
+            fail(f"path O {label}: a raced kernel never launched: {counts}")
+        for k, c in counts.items():
+            path_o["launches"][k] += c
+        path_o["races"][label] = {"seconds": secs, "winner": f"{tuned.ordering}|"
+                                  f"{tuned.variant.key()}", "winner_ms": tuned.time_ms,
+                                  "candidates": dict(tuned.candidates),
+                                  "plan_seconds": dict(tuned.plan_seconds),
+                                  "errors": dict(tuned.errors)}
+        return tuned, secs
+
+    def check_winner(label, tuned, a, x, rows=None, values=None):
+        """The winner's SpMM through TunedSpmm: its kernels' counters move, no
+        plain version runs, and its rows (`rows`, default all) agree with a
+        float64 host product within the float32 summation bound."""
+        reset_counts()
+        out = tuned(x)
+        torch.cuda.synchronize()
+        counts, plain_calls = read_counts()
+        want_k = tuned.variant.kernels()
+        moved = {k: c for k, c in counts.items() if c}
+        if plain_calls or not moved or set(moved) - set(want_k):
+            fail(f"path O {label}: the winner launched {moved} (want {want_k}), plain "
+                 f"{plain_calls}")
+        a64 = a.astype(np.float64)
+        if values is not None:
+            a64 = sp.csr_matrix((values.astype(np.float64), a.indices, a.indptr), shape=a.shape)
+        sel = slice(None) if rows is None else rows
+        x64 = x.double().cpu().numpy()
+        want = torch.from_numpy(a64[sel] @ x64)
+        abs_sum = torch.from_numpy(abs(a64[sel]) @ np.abs(x64))
+        deg = torch.from_numpy(np.diff(a.indptr)[sel].astype(np.float64))[:, None]
+        ok, err = sum_bound_ok(out.double().cpu()[sel], want, deg, abs_sum)
+        print(f"  winner's output {tuple(out.shape)} against a float64 host product "
+              f"({want.shape[0]} rows): max|diff| {err:.3e} within the float32 summation "
+              f"bound -> {'ok' if ok else 'MISMATCH'}; launches {moved}")
+        if not (ok and out.shape == (a.shape[0], x.shape[1])):
+            fail(f"path O {label}: the tuned SpMM disagrees with the host product")
+        return out
+
+    def auto_beside(label, a, x, tuned):
+        """build_graph(config="auto"): the config it picks, and its SpMM timed
+        as the race times (gpu_bench) beside the race's winner."""
+        n = a.shape[0]
+        t0 = time.perf_counter()
+        cfg = auto_plan_config(a.indptr, a.indices, n)
+        g = build_graph(a.indptr, a.indices, n, "auto", symmetric=True, device=dev)
+        secs = time.perf_counter() - t0
+        plan = g.plan
+        got = (plan[0] if isinstance(plan, list) else plan).config
+        if got != cfg:
+            fail(f"path O {label}: build_graph('auto') built {got}, auto_plan_config says {cfg}")
+        ms = gpu_bench(lambda: spmm(plan, x), iters=8, warmup=2, device=dev)
+        ratio = ms / tuned.time_ms
+        print(f"  build_graph('auto') on {label}: {cfg}"
+              f"{f' in {len(plan)} chunks' if isinstance(plan, list) else ''} ({secs:.2f} s); "
+              f"spmm {ms:.4f} ms against the race's winner {tuned.variant.key()} "
+              f"({tuned.ordering}) {tuned.time_ms:.4f} ms: {ratio:.3f}x")
+        path_o.setdefault("auto", {})[label] = {"config": str(cfg), "ms": ms,
+                                                "winner_ms": tuned.time_ms, "ratio": ratio}
+        del g, plan
+        torch.cuda.empty_cache()
+
+    def tuner_path_a(a):
+        """O.1 (the race on A's graph at d 128, its caches and the isolated
+        probe) and O.3 on A."""
+        import shutil
+
+        t_path = time.perf_counter()
+        shutil.rmtree(tune_dir, ignore_errors=True)
+        n, d = a.shape[0], 128
+        print(f"path O.1 (tuner, ogbn-arxiv proxy): tune_spmm at d {d}, default space, "
+              f"orderings identity and rcm, budget_s 120, a fresh cache {tune_dir}")
+        x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        kw = dict(reorderings=("identity", "rcm"), budget_s=120, hash_tag="ogbn-arxiv-proxy")
+        tuner = SpmmTuner(cache_dir=os.path.join(tune_dir, "a"))
+        tuned, race_s = race("A d 128", tuner, a, x, **kw)
+        k1_key = "identity|" + Variant("pregather", block_h=128).key()
+        csr = csr_tensor(torch, a, dev)
+        lib = gpu_bench(lambda: torch.sparse.mm(csr, x), iters=8, warmup=2, device=dev)
+        print(f"  winner {tuned.time_ms:.4f} ms against K1 on PlanConfig(128, 128) "
+              f"{tuned.candidates.get(k1_key, float('nan')):.4f} ms and torch.sparse.mm "
+              f"{lib:.4f} ms (printed, never raced)")
+        out = check_winner("A d 128", tuned, a, x)
+        t0 = time.perf_counter()
+        again = tuner.compile_and_tune(a.indptr, a.indices, n, x, device=dev, **kw)
+        hit_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        fresh = SpmmTuner(cache_dir=os.path.join(tune_dir, "a")).compile_and_tune(
+            a.indptr, a.indices, n, x, device=dev, **kw)
+        disk_s = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        same = torch.equal(fresh(x), out)
+        hit = fresh.variant == tuned.variant and fresh.ordering == tuned.ordering
+        print(f"  second call: memory hit {again is tuned} in {hit_s * 1e3:.3f} ms; a new "
+              f"SpmmTuner on the same directory: disk hit {hit} in {disk_s:.2f} s (the "
+              f"winner's plan rebuilt), launches {sum(counts.values())} while it loaded "
+              f"(times nothing), its output bit-identical {same}")
+        if not (again is tuned and hit and not any(counts.values()) and not plain_calls
+                and same):
+            fail("path O.1: the memory or disk cache missed, or the disk hit timed candidates")
+        space3 = [Variant("pregather", block_h=128),
+                  Variant("pregather", block_h=2048, block_unroll=4, subtile=True),
+                  Variant("hybrid", block_h=128, gather_segment=8)]
+        iso, iso_s = race("A d 128, 3 variants, isolate=True", SpmmTuner(
+            cache_dir=os.path.join(tune_dir, "a_iso")), a, x, space=space3, isolate=True,
+            hash_tag="ogbn-arxiv-proxy")
+        for key, ms in iso.candidates.items():
+            print(f"    {key}: probe {ms:.4f} ms, in-process race "
+                  f"{tuned.candidates.get(key, float('nan')):.4f} ms")
+        if not all(np.isfinite(list(iso.candidates.values()))):
+            fail("path O.1: an isolated probe failed")
+        check_winner("A d 128 isolated", iso, a, x)
+        path_o.update(a_race_s=race_s, a_memory_hit_ms=hit_s * 1e3, a_disk_hit_s=disk_s,
+                      a_isolated_s=iso_s, a_k1_ms=tuned.candidates.get(k1_key),
+                      a_library_ms=lib)
+        auto_beside("A", a, x, tuned)
+        del tuned, again, fresh, iso, out, csr
+        torch.cuda.empty_cache()
+        print(f"path O.1: {time.perf_counter() - t_path:.1f} s in all")
+
+    def tuner_path_f(a):
+        """O.3 on F (the race at d 256 and build_graph('auto')) and the
+        weighted race (K4 and K6) on F's graph with random edge values."""
+        t_path = time.perf_counter()
+        n, d = a.shape[0], 256
+        print(f"path O.3 (tuner, ogbl-ddi proxy): tune_spmm at d {d}, default space, budget_s 60")
+        x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        tuned, _ = race("F d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "f")), a, x,
+                        budget_s=60, hash_tag="ogbl-ddi-proxy")
+        check_winner("F d 256", tuned, a, x)
+        auto_beside("F", a, x, tuned)
+        vals = orng.standard_normal(a.nnz).astype(np.float32)
+        print("path O.3 weighted: tune_spmm(values=...) on F's graph at d 256, the weighted "
+              "default space (K6, and K4 where its plane stays within 8 slots an edge)")
+        wt, _ = race("F weighted d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "fw")), a,
+                     x, values=vals, budget_s=60, hash_tag="ogbl-ddi-proxy")
+        check_winner("F weighted d 256", wt, a, x, values=vals)
+        raced = {key.split("|")[1].split("/")[0] for key in wt.candidates}
+        if raced != {"ell", "weighted"}:
+            fail(f"path O.3: the weighted race raced {raced}, not K6 and K4")
+        del tuned, wt
+        torch.cuda.empty_cache()
+        print(f"path O.3 on F: {time.perf_counter() - t_path:.1f} s in all")
+
+    def tuner_path_mid(d=256):
+        """O.3 between F and C: a graph of the protein and ogbl-ddi proxies'
+        family (sp.random at 300 edges a row, symmetrized; tools/auto_sweep.py's
+        graph) of AUTO_FUSED_MIN_NODES rows, the smallest on which
+        build_graph('auto') takes K3, raced by auto_sweep's space (K3, K1
+        h128, K2 h1024 and h2048 clustered) at d 256, with
+        build_graph('auto') beside the winner."""
+        from voltrix_spmm_tpu_torch.models.graph import AUTO_FUSED_MIN_NODES
+        from voltrix_spmm_tpu_torch.tools.auto_sweep import sweep_space
+
+        t_path = time.perf_counter()
+        n = AUTO_FUSED_MIN_NODES
+        a = symmetrize(erdos_renyi_csr(n, 300 / n, seed=n))
+        label = f"uniform {n}"
+        print(f"path O.3 (tuner, {label}: {a.nnz} nnz, AUTO_FUSED_MIN_NODES rows): tune_spmm "
+              f"at d {d}, auto_sweep's space")
+        x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        # in process: past 4 GiB of edge features the tuner would start a
+        # probe a candidate, which O.1 and O.2 show
+        tuned, _ = race(f"{label} d {d}", SpmmTuner(cache_dir=os.path.join(tune_dir, "mid")),
+                        a, x, space=sweep_space(), hash_tag=f"uniform-{n}", isolate=False)
+        check_winner(f"{label} d {d}", tuned, a, x)
+        auto_beside(label, a, x, tuned)
+        del tuned, x, a
+        torch.cuda.empty_cache()
+        print(f"path O.3 on {label}: {time.perf_counter() - t_path:.1f} s in all")
+
+    def tuner_path_c(a):
+        """O.2: the budgeted, isolated race on C's graph at d 256, then O.3
+        on C."""
+        t_path = time.perf_counter()
+        n, d = a.shape[0], 256
+        free, total = torch.cuda.mem_get_info()
+        print(f"path O.2 (tuner, protein proxy): tune_spmm at d {d}, default space, budget_s "
+              f"120; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
+              f"features, past 4 GiB: residency budgeted (free {free / 2**30:.1f} of "
+              f"{total / 2**30:.1f} GiB) and each candidate in a probe of its own")
+        x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        tuned, race_s = race("C d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "c")), a, x,
+                             budget_s=120, hash_tag="protein-proxy")
+        print("  residency of the kept candidates (plan, workspace, features, output): "
+              "tuner.estimate_residency beside the probe's torch.cuda.max_memory_allocated "
+              "over the candidate's first call:")
+        peaks = {}
+        for key, b in tuned.residency.items():
+            peak = tuned.peak_bytes.get(f"identity|{key}")
+            peaks[key] = peak
+            print(f"    {key}: estimate {b / 2**30:.3f} GiB, peak "
+                  + (f"{peak / 2**30:.3f} GiB (estimate over peak {b / peak:.2f})" if peak
+                     else "not measured (skipped by the budget)"))
+        if not tuned.residency or not any(peaks.values()):
+            fail("path O.2: the huge branch recorded no residency estimate or no probe peak")
+        if any(v.stream_chunks for _, v in tuned.variants.values()):
+            print("  window-chunked twins joined the space")
+        last = (n - 1) // 2048 * 2048
+        check_winner("C d 256", tuned, a, x, rows=np.r_[0:2048, last:n])
+        path_o.update(c_race_s=race_s, c_residency=dict(tuned.residency), c_peak_bytes=peaks)
+        auto_beside("C", a, x, tuned)
+        del tuned
+        torch.cuda.empty_cache()
+        print(f"path O.2 and O.3 on C: {time.perf_counter() - t_path:.1f} s in all")
+
+    def tuner_path_g(a, heads=8, dk=8):
+        """O.4: tune_attention on G's graph and first layer (H 8 x d 8) in
+        mode "train"; the winner's out and gradients against the plain
+        versions at phase 3's K13-K15 tolerance."""
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        print(f"path O.4 (attention tuner, G's graph): tune_attention H {heads} x d {dk}, "
+              "mode='train' (K13, K14, K15), default space, budget_s 60")
+        tuner = AttentionTuner(cache_dir=os.path.join(tune_dir, "g"))
+        reset_counts()
+        t0 = time.perf_counter()
+        tuned = tuner.compile_and_tune(a.indptr, a.indices, n, heads=heads, dk=dk, dv=dk,
+                                       mode="train", budget_s=60, hash_tag="gat-loops",
+                                       device=dev)
+        secs = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        for key, ms in tuned.candidates.items():
+            err = tuned.errors.get(key)
+            print(f"    {key}: {ms:.4f} ms, plan {tuned.plan_seconds.get(key, float('nan')):.3f} s"
+                  + (f"; skipped: {err}" if err else ""))
+        print(f"  winner {tuned.variant.key()} at {tuned.time_ms:.4f} ms ({secs:.1f} s); race "
+              f"launches {({k: c for k, c in counts.items() if c})}, plain calls {plain_calls}")
+        bad = {k: e for k, e in tuned.errors.items()
+               if not e.startswith(("ValueError", "OutOfMemoryError"))}
+        if bad or plain_calls or not all(counts[k] for k in ("attn_mh_fwd", "attn_mh_dq",
+                                                              "attn_mh_dkv")):
+            fail(f"path O.4: failures {bad}, plain calls {plain_calls} or launches {counts}")
+        for k, c in counts.items():
+            path_o["launches"][k] += c
+        q, k, v = (torch.from_numpy(orng.standard_normal((heads, n, dk)).astype(np.float32)
+                                    ).to(dev).requires_grad_(True) for _ in range(3))
+        reset_counts()
+        out = tuned(q, k, v)
+        gk = torch.autograd.grad((out * out).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        counts, plain_calls = read_counts()
+        want_counts = {"attn_mh_fwd": 1, "attn_mh_dq": 1, "attn_mh_dkv": 1}
+        if {k_: c for k_, c in counts.items() if c} != want_counts or plain_calls:
+            fail(f"path O.4: the winner launched {counts} (want {want_counts}), plain "
+                 f"{plain_calls}")
+        ref = tuned(q, k, v, impl="reference")
+        gp = torch.autograd.grad((ref * ref).sum(), (q, k, v))
+        label = f"O.4 winner {tuned.variant.key()}"
+        close("attn_mh_fwd", f"{label} out", out.detach(), ref.detach())
+        close("attn_mh_dq", f"{label} dq", gk[0], gp[0])
+        close("attn_mh_dkv", f"{label} dk", gk[1], gp[1])
+        close("attn_mh_dkv", f"{label} dv", gk[2], gp[2])
+        path_o["races"]["G attention H 8 x d 8 train"] = {
+            "seconds": secs, "winner": tuned.variant.key(), "winner_ms": tuned.time_ms,
+            "candidates": dict(tuned.candidates), "plan_seconds": dict(tuned.plan_seconds),
+            "errors": dict(tuned.errors)}
+        del tuned, out, ref, gk, gp, q, k, v
+        torch.cuda.empty_cache()
+        print(f"path O.4: {time.perf_counter() - t_path:.1f} s in all")
+
+    def tuner_path_cli():
+        """O.5: `python -m voltrix_spmm_tpu_torch tune` once, in a fresh
+        process, on a generator graph."""
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "voltrix_spmm_tpu_torch", "tune", "rmat-15", "-d", "64",
+               "--device", "cuda", "--budget", "30", "--reorder", "identity", "rcm"]
+        env = dict(os.environ, VOLTRIX_TORCH_CACHE_DIR=os.path.join(tune_dir, "cli"))
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        secs = time.perf_counter() - t0
+        try:
+            rec = json.loads(r.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            rec = {}
+        print(f"path O.5 (the tune command): {' '.join(cmd[1:])} -> rc {r.returncode} in "
+              f"{secs:.1f} s: {rec or r.stderr[-500:]}")
+        if r.returncode != 0 or not {"variant", "time_ms", "candidates"} <= set(rec):
+            fail("path O.5: the tune command failed")
+        path_o["cli"] = {**rec, "seconds": secs}
+
     def after_a(g, model, params_np, xs, logits, trained):
         deploy_path("N (ogbn-arxiv proxy, deployment: plan files, native preprocess, exported "
                     "programs and bundles served from fresh processes, K1, K2, K3)", arxiv, g,
@@ -3794,6 +4137,7 @@ def main() -> None:
                                "DropEdge on K4)", arxiv)
     path_l = sampled_sage_path("L (ogbn-arxiv proxy, neighbour-sampled GraphSAGE, K1)", arxiv)
     path_m = classify_path("M (GIN graph classification, 128 graphs, K1)")
+    tuner_path_a(arxiv)
     # self-loops, the GAT convention (examples/train_gat.py:46-47)
     loops = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     loops.sort_indices()
@@ -3812,13 +4156,16 @@ def main() -> None:
     results.update(flash_head_path(
         "H (ogbn-arxiv proxy with self-loops, per-head flash GAT, K9-K12)", loops,
         PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
+    tuner_path_g(loops)
     del loops
     t0 = time.perf_counter()
     ddi = symmetrize(proxy_csr("ddi", seed=0))
     print(f"graph: ogbl-ddi proxy in {time.perf_counter() - t0:.2f} s")
     path_f = linkpred_path("F (ogbl-ddi proxy, GCN link prediction, K1, K6 and K7)", ddi,
                            PlanConfig(128, 128), (256, 256, 256))
+    tuner_path_f(ddi)
     del ddi
+    tuner_path_mid()
     for name in ("spmm_ell", "spmm_ell_dvals"):
         # E's widths (8, 40) and F's (256) side by side
         per_width = {**path_e[name].pop("per_width"), **path_f[name].pop("per_width")}
@@ -3839,6 +4186,13 @@ def main() -> None:
         (8, 256, 112), host_rows=np.r_[0:2048, last:n],
         then=lambda g, *_: (int8_on_c("C (protein proxy)", protein, g),
                             c_plan_builds(protein)))
+    tuner_path_c(protein)
+    del protein
+    tuner_path_cli()
+    import shutil
+
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    print(f"path O: {json.dumps(path_o)}")
     results["spmm_int8"] = path_i
     results["spmm_block"].update(
         {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
@@ -3878,6 +4232,8 @@ def main() -> None:
                      "replaces": replaces, "max_abs_err": max_err[name],
                      # a torch.library op (ops/library.py) that every call goes through
                      "registered": f"voltrix::{name}" if name in REGISTERED else None,
+                     # path O: launches of the tuner's in-process races
+                     "o_launches": path_o["launches"][name],
                      **results[name]})
     # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed
     # (K6 and K7: E's d 8 and 40 and F's d 256; K13-K15: G's two layers, H 8 x d 8 and

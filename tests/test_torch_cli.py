@@ -4,6 +4,7 @@ command runs an SpMM. The plans it writes match the JAX package's CLI bit
 for bit."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -92,9 +93,18 @@ def test_cli_loads_tcgnn_npz(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["difference_rate"] < 1e-4
 
 
-def test_cli_tune_refuses_and_names_the_roadmap_item(capsys):
-    assert main(["tune", "er-512", "-d", "32"]) != 0
-    assert "ROADMAP.md item 9" in capsys.readouterr().err
+def test_cli_tune_refuses_and_names_the_roadmap_item(tmp_path, capsys, monkeypatch):
+    """The tune command (ROADMAP.md item 9, no longer refused) prints the JAX
+    package's JSON: the winning variant, its time and the candidates raced,
+    and the ordering and device."""
+    monkeypatch.setenv("VOLTRIX_TORCH_CACHE_DIR", str(tmp_path))
+    assert main(["tune", "er-512", "-d", "32", "--device", "cpu", "--iters", "1",
+                 "--budget", "0", "--reorder", "identity", "rcm"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert {"graph", "d", "variant", "time_ms", "candidates"} <= set(rec)
+    assert rec["graph"] == "er-512" and rec["d"] == 32 and rec["candidates"] == 1
+    assert rec["variant"].startswith("Variant(") and rec["ordering"] == "identity"
+    assert any(f.startswith("tune.er-512.") for f in os.listdir(tmp_path))
 
 
 def test_cli_rejects_unknown_spec():

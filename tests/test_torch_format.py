@@ -78,7 +78,8 @@ def test_import_leaves_out_jax():
                  "readout", "dropedge", "checkpoint")]
     modules += [f"voltrix_spmm_tpu_torch.{m}" for m in
                 ("serve", "profiling", "compat", "__main__", "runtime.native", "ops.library",
-                 "format.diagnostics", "jit.template")]
+                 "format.diagnostics", "jit.template", "tuner.tuner", "tuner.attention",
+                 "tuner.probe")]
     code = ("import sys, voltrix_spmm_tpu_torch, " + ", ".join(modules) + "; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('voltrix_spmm_tpu') and not m.startswith('voltrix_spmm_tpu_torch')); "

@@ -155,15 +155,33 @@ def test_build_graph_moves_the_plan_once():
 
 @pytest.mark.parametrize("kwargs", [dict(config="auto"), dict(stream_chunks=4)])
 def test_build_graph_refuses_unported(kwargs):
-    """config="auto" waits for the H100 tuner (item 9); stream_chunks builds
-    window chunks, which aggregate exactly as the whole plan does."""
+    """config="auto" builds the plans `auto_plan_config` picks and
+    aggregates as the plain path does; an unknown string is refused. Here a
+    graph of 300 nodes: its coverage plan passes JAX's gate, and JAX picks
+    K3's plan, but on the card K3 needs AUTO_FUSED_MIN_NODES rows, so the
+    port builds the default PlanConfig(), bit for bit JAX's plan of it; stream_chunks builds window chunks, which aggregate
+    exactly as the whole plan does."""
+    from voltrix_spmm_tpu_torch.models.graph import auto_plan_config
+
     a = power_law_graph(n=300, edges=900, seed=6)
-    kwargs = {"config": vt.PlanConfig(32, 128), **kwargs}
-    if "stream_chunks" not in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-            vt.build_graph(a.indptr, a.indices, a.shape[0], device="cpu", **kwargs)
-        return
     n = a.shape[0]
+    if "stream_chunks" not in kwargs:
+        g = vt.build_graph(a.indptr, a.indices, n, device="cpu", **kwargs)
+        assert g.plan.config == auto_plan_config(a.indptr, a.indices, n) == vt.PlanConfig()
+        gauto = jmodels.build_graph(a.indptr, a.indices, n, config="auto", backend="numpy")
+        assert gauto.plan.config.gather_segment == 128
+        gj = jmodels.build_graph(a.indptr, a.indices, n, JaxPlanConfig(), backend="numpy")
+        for name in ("bitmask", "hind", "window_of_block", "block_ptr"):
+            want = np.asarray(getattr(gj.plan, name))
+            np.testing.assert_array_equal(getattr(g.plan, name).numpy().view(want.dtype), want,
+                                          err_msg=name)
+        x = torch.from_numpy(features(n, 16, seed=6))
+        want = spmm_reference(vt.csr_preprocess(a.indptr, a.indices, n), x)
+        torch.testing.assert_close(aggregate(g, x, mode="sum"), want)
+        with pytest.raises(ValueError, match="'auto'"):
+            vt.build_graph(a.indptr, a.indices, n, config="fast", device="cpu")
+        return
+    kwargs = {"config": vt.PlanConfig(32, 128), **kwargs}
     g = vt.build_graph(a.indptr, a.indices, n, device="cpu", **kwargs)
     assert isinstance(g.plan, list) and len(g.plan) == 4 and g.num_nodes == n
     whole = vt.build_graph(a.indptr, a.indices, n, vt.PlanConfig(32, 128), device="cpu")

@@ -37,6 +37,11 @@ jax or voltrix_spmm_tpu.
     ``save_checkpoint`` / ``load_checkpoint``, ``profiling``, the tuple API
     (``csr_preprocess_tuple`` / ``spmm_tuple``) and the command line,
     ``python -m voltrix_spmm_tpu_torch``
+  - the autotuner: ``tune_spmm`` / ``SpmmTuner -> TunedSpmm`` races
+    ``Variant``s of ``default_space`` (K1, K2, K3, the hybrids; K4 and K6
+    with values) on the card, ``tune_attention -> TunedAttention`` races
+    ``AttnVariant``s of K13-K15; ``build_graph(config="auto")`` picks a
+    plan without timing
 """
 
 from . import data, profiling, project, serve
@@ -148,6 +153,16 @@ from .ops import (
     spmm_reference,
     spmm_streamed,
     spmm_weighted_ad,
+)
+from .tuner import (
+    AttnVariant,
+    SpmmTuner,
+    TunedAttention,
+    TunedSpmm,
+    Variant,
+    default_space,
+    tune_attention,
+    tune_spmm,
 )
 from .utils import calc_diff, relative_error
 
@@ -266,4 +281,12 @@ __all__ = [
     "spmm_tuple",
     "save_checkpoint",
     "load_checkpoint",
+    "tune_spmm",
+    "TunedSpmm",
+    "Variant",
+    "SpmmTuner",
+    "default_space",
+    "tune_attention",
+    "TunedAttention",
+    "AttnVariant",
 ]

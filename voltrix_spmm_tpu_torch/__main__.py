@@ -5,7 +5,8 @@ and graph specs):
     info                    environment / device / build report
     preprocess GRAPH -o P   build + save an SpmmPlan from a graph
     validate PLAN           check plan invariants (format.diagnostics)
-    tune GRAPH -d D         refused: the H100 tuner is ROADMAP.md item 9
+    tune GRAPH -d D         race the tuner's default space on --device
+                            (default cuda) and report the winning variant
     spmm GRAPH -d D         run one SpMM (random features) on --device
                             (default cuda), check it against scipy, and
                             with --time time it with CUDA events
@@ -147,9 +148,23 @@ def cmd_validate(args) -> int:
 
 
 def cmd_tune(args) -> int:
-    print("tune: the H100 tuner is not ported yet (ROADMAP.md item 9); pass an explicit "
-          "PlanConfig (--block-h, --block-w, --seg, --unroll, --cluster)", file=sys.stderr)
-    return 2
+    from .tuner import tune_spmm
+
+    a, name = _load_graph(args.graph)
+    feat = np.zeros((a.shape[0], args.d), np.float32)
+    tuned = tune_spmm(a.indptr, a.indices, a.shape[0], feat, iters=args.iters, hash_tag=name,
+                      budget_s=args.budget_s, reorderings=tuple(args.reorder),
+                      device=args.device)
+    print(json.dumps({
+        "graph": name,
+        "d": args.d,
+        "device": args.device,
+        "variant": str(tuned.variant),
+        "ordering": tuned.ordering,
+        "time_ms": round(float(tuned.time_ms), 4),
+        "candidates": len(tuned.candidates),
+    }))
+    return 0
 
 
 def cmd_spmm(args) -> int:
@@ -203,11 +218,15 @@ def main(argv=None) -> int:
     pv = sub.add_parser("validate", help="check plan invariants")
     pv.add_argument("plan")
 
-    pt = sub.add_parser("tune", help="not ported: ROADMAP.md item 9")
+    pt = sub.add_parser("tune", help="autotune and report the winner")
     pt.add_argument("graph")
     pt.add_argument("-d", type=int, default=256)
     pt.add_argument("--iters", type=int, default=8)
-    pt.add_argument("--budget-s", type=float, default=None)
+    pt.add_argument("--budget", "--budget-s", dest="budget_s", type=float, default=None,
+                    help="soft tuning budget in seconds")
+    pt.add_argument("--reorder", nargs="+", default=["identity"],
+                    choices=("identity", "rcm", "degree"), help="orderings to race")
+    pt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     ps = sub.add_parser("spmm", help="run one SpMM and check vs scipy")
     ps.add_argument("graph")

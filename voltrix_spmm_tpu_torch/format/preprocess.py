@@ -269,8 +269,7 @@ def _numpy_preprocess(
 def coverage_expansion(indptr, indices, num_nodes: int, block_h: int, seg: int) -> float:
     """Gather rows per nnz of a coverage plan (gather_segment=seg, windows
     of block_h rows), straight from the CSR without building the plan.
-    A plain statistic: the JAX package gates its fused regime on it with
-    a TPU-measured threshold, which the port does not carry over."""
+    The tuner's space and `fused_auto_config` gate K3 on it."""
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices, dtype=np.int64)
     nnz = int(indices.shape[0])
@@ -280,6 +279,59 @@ def coverage_expansion(indptr, indices, num_nodes: int, block_h: int, seg: int) 
     nseg = _cdiv(num_nodes, seg)
     keys = (rows // block_h) * nseg + indices // seg
     return float(_sorted_unique(keys).shape[0] * seg) / nnz
+
+
+def density_split_stats(
+    indptr,
+    indices,
+    num_nodes: int,
+    block_h: int,
+    q: int,
+    thresh: int | None = None,
+) -> tuple[float, float]:
+    """(gather_rows_fraction, slot_inflation) of a density split: the
+    (window, col // q) groups holding >= thresh distinct needed columns
+    (default max(2, q // 2)) go to a dense side that covers each group as
+    one run of q rows, the rest stay exact lanes. Both are relative to the
+    exact lane count u: rows fraction (dense_groups + tail_lanes) / u,
+    slot inflation (q * dense_groups + tail_lanes) / u. Bit for bit the
+    JAX package's statistic; the tuner gates its tall hybrid (K3 on the
+    dense side, K2 on the rest) on it."""
+    if thresh is None:
+        thresh = max(2, q // 2)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    if indices.shape[0] == 0:
+        return 1.0, 1.0
+    span = num_nodes
+    rows = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(indptr))
+    uniq = np.unique((rows // block_h) * span + indices)
+    u = int(uniq.shape[0])
+    gkey = (uniq // span) * (span // q + 1) + (uniq % span) // q
+    # uniq sorted by (window, col): gkey nondecreasing
+    boundaries = np.flatnonzero(np.diff(gkey)) + 1
+    counts = np.diff(np.concatenate(([0], boundaries, [u])))
+    dense = counts >= thresh
+    nd = int(dense.sum())
+    tail = int(counts[~dense].sum())
+    return (nd + tail) / u, (nd * q + tail) / u
+
+
+# K3 joins the tuner's space, and `fused_auto_config` picks its plan, when
+# an h2048 / seg128 coverage plan covers at most this many gather rows per
+# nnz. The JAX package's constant, kept so the gate means the same in both
+# packages; on the card the race (chip_smoke.py path O) decides among the
+# candidates that pass it.
+FUSED_COVERAGE_THRESHOLD = 0.5
+
+
+def fused_auto_config(indptr, indices, num_nodes: int):
+    """K3's coverage plan config when this matrix's coverage waste is under
+    `FUSED_COVERAGE_THRESHOLD`, else None."""
+    cov = coverage_expansion(indptr, indices, num_nodes, 2048, 128)
+    if cov <= FUSED_COVERAGE_THRESHOLD:
+        return PlanConfig(2048, 128, gather_segment=128, block_unroll=4)
+    return None
 
 
 def csr_transpose(indptr, indices, num_nodes: int, values=None,

@@ -30,11 +30,67 @@ class GraphData:
         return self.plan.num_nodes
 
 
+# build_graph(config="auto")'s rule, set on the card (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6): K3's coverage plan needs
+# FUSED_COVERAGE_THRESHOLD's gate and at least AUTO_FUSED_MIN_NODES rows,
+# four windows of 2048. On uniform graphs of about 600 edges a row (the
+# protein and ogbl-ddi proxies' family; tools/auto_sweep.py) the gate
+# passes at every size, but K3 ran 2.14x / 1.25x the winner at 4,267 rows
+# (three windows; d 128 / 256) and won from 8,192 rows on (0.94x / 0.87x
+# the best other; 0.58-0.65x from 16,384 to 65,536, 0.66x on C's 132,534);
+# the crossing between 4,267 and 8,192 is not resolved. Every other graph
+# takes PlanConfig(), K1 on 128-row windows, which won A's race (0.3835 ms
+# at d 128; clustered 1024- and 2048-row windows 0.430 and 0.463), where
+# the JAX package takes K2 on 2048 rows.
+AUTO_FUSED_MIN_NODES = 8192
+# the features' nominal width when build_graph("auto") sizes window chunks:
+# 512 bytes a row of float32, the JAX package's nominal row
+AUTO_NOMINAL_D = 128
+
+
+def auto_plan_config(indptr, indices, num_nodes: int) -> PlanConfig:
+    """The plan config of `build_graph(config="auto")`, from the graph alone
+    (no timing): K3's coverage plan when `fused_auto_config`'s gate passes
+    (FUSED_COVERAGE_THRESHOLD rows per nnz at h2048 / seg128) on a graph of
+    at least AUTO_FUSED_MIN_NODES rows, else PlanConfig(). The threshold
+    and the fallback are the card's (see the constants), not the JAX
+    package's, which sends larger scattered graphs to K2 on 2048 rows."""
+    from ..format.preprocess import fused_auto_config
+
+    if num_nodes >= AUTO_FUSED_MIN_NODES:
+        cfg = fused_auto_config(indptr, indices, num_nodes)
+        if cfg is not None:
+            return cfg
+    return PlanConfig()
+
+
+def auto_stream_chunks(plan: SpmmPlan, nnz: int,
+                       device_mem_bytes: float | None = None) -> int | None:
+    """Window chunks for `build_graph(config="auto")`, or None. The port's
+    kernels gather no copy of X (the JAX package chunks a plan whose gather
+    would not fit), so what a chunk bounds here is the work list's
+    workspace: the plan and the features stay whole. Chunks join, 2 to 64,
+    only when the residency the tuner estimates (`estimate_residency` at
+    AUTO_NOMINAL_D) does not fit the device budget whole."""
+    from ..tuner.tuner import Variant, _device_mem_budget, estimate_residency
+
+    cfg = plan.config
+    v = Variant("fused" if cfg.gather_segment >= 8 else "pregather", cfg.block_h, cfg.block_w,
+                cfg.gather_segment, block_unroll=cfg.block_unroll, subtile=cfg.cluster_cols)
+    budget = device_mem_bytes if device_mem_bytes is not None else _device_mem_budget()
+    stats = dict(num_nodes=plan.num_nodes, d=AUTO_NOMINAL_D, nnz=nnz,
+                 lanes=plan.total_blocks * cfg.block_w)
+    for c in (None, 2, 4, 8, 16, 32, 64):
+        if estimate_residency(v, chunks=c, **stats) <= budget:
+            return c
+    return 64
+
+
 def build_graph(
     indptr,
     indices,
     num_nodes: int,
-    config: PlanConfig = PlanConfig(),
+    config: PlanConfig | str = PlanConfig(),
     symmetric: bool | None = None,
     stream_chunks: int | None = None,
     device="cuda",
@@ -44,9 +100,10 @@ def build_graph(
     asks for the CPU) once, so requests never upload the plan again.
 
     `config` is a PlanConfig, by default the JAX package's PlanConfig()
-    (128-row windows of 128 lanes). A string is refused: the JAX
-    package's "auto" picks from constants measured on a TPU, and the H100
-    tuner is ROADMAP.md item 9. Every binary config builds: the default
+    (128-row windows of 128 lanes), or "auto": `auto_plan_config` picks it
+    from the graph (on an asymmetric graph A^T from its own), and on the
+    card window chunks join when `auto_stream_chunks` says the plan's
+    residency does not fit it whole (a CPU graph is never chunked). Every binary config builds: the default
     windows (kernel K1), column-clustered tall windows such as
     PlanConfig(2048, 128, block_unroll=4, cluster_cols=True) (K2), and
     coverage plans such as PlanConfig(2048, 128, gather_segment=128,
@@ -58,11 +115,14 @@ def build_graph(
     its plan takes, and each output row is summed as on the whole plan."""
     import scipy.sparse as sp
 
-    if not isinstance(config, PlanConfig):
-        raise NotImplementedError(
-            f"config={config!r}: pass an explicit PlanConfig (the H100 tuner "
-            "that would pick one is ROADMAP.md item 9)"
-        )
+    auto = isinstance(config, str) and config == "auto"
+    if not (auto or isinstance(config, PlanConfig)):
+        raise ValueError(f"unknown config {config!r}: pass a PlanConfig or 'auto'")
+    if auto:
+        config = auto_plan_config(indptr, indices, num_nodes)
+    plan = csr_preprocess(indptr, indices, num_nodes, config)
+    if auto and stream_chunks is None and torch.device(device).type == "cuda":
+        stream_chunks = auto_stream_chunks(plan, int(np.asarray(indices).shape[0]))
     chunked = bool(stream_chunks and stream_chunks > 1)
 
     def place(p):
@@ -70,7 +130,6 @@ def build_graph(
             return [s.to(device) for s in slice_plan_windows(p, stream_chunks)]
         return p.to(device)
 
-    plan = csr_preprocess(indptr, indices, num_nodes, config)
     a = sp.csr_matrix(
         (
             np.ones(np.asarray(indices).shape[0], dtype=np.float32),
@@ -85,7 +144,10 @@ def build_graph(
     if symmetric:
         plan = plan_t = place(plan)
     else:
-        plan_t = csr_preprocess(at.indptr, at.indices, num_nodes, config)
+        # A^T takes its own coverage gate under "auto": local rows with
+        # scattered columns must not give A^T a coverage plan
+        config_t = auto_plan_config(at.indptr, at.indices, num_nodes) if auto else config
+        plan_t = csr_preprocess(at.indptr, at.indices, num_nodes, config_t)
         plan, plan_t = place(plan), place(plan_t)
     deg = np.asarray(a.sum(axis=1)).reshape(num_nodes, 1)
     inv_deg = (1.0 / np.maximum(deg, 1.0)).astype(np.float32)

@@ -99,13 +99,13 @@ def _refuse_tiling(block_d, slots, precision, compute_dtype) -> None:
     given = [k for k, v in knobs.items() if v is not None]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: TPU tiling knobs; the H100 kernels' tiles and "
-            "pipeline depth are for the H100 tuner, ROADMAP.md item 9"
+            f"{', '.join(given)}: TPU tiling knobs; the H100 kernels' tiles are their "
+            "work-list piece limits, which are not tuner knobs yet (ROADMAP.md item 9)"
         )
     if compute_dtype is not None and compute_dtype != torch.float32:
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: the port's kernels compute in "
-            "float32; bf16 streams are for the H100 tuner, ROADMAP.md item 9"
+            f"compute_dtype={compute_dtype}: the port's kernels compute in float32 and "
+            "read float32 features; bf16 feature sources are ROADMAP.md item 9"
         )
 
 

@@ -84,18 +84,18 @@ def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> Non
     compute in float32, and have no interpret mode."""
     if block_d is not None:
         raise NotImplementedError(
-            "block_d: a TPU tiling knob; the H100 kernels pick their own tiles "
-            "(the H100 tuner is ROADMAP.md item 9)"
+            "block_d: a TPU tiling knob; the H100 kernels pick their own tiles (their "
+            "piece limits and head groups as tuner knobs are ROADMAP.md item 9)"
         )
     if precision is not None:
         raise NotImplementedError(
             "precision: a TPU matmul knob; the H100 kernels compute in float32 "
-            "(the H100 tuner is ROADMAP.md item 9)"
+            "(ROADMAP.md item 9)"
         )
     if compute_dtype is not None and compute_dtype != torch.float32:
         raise NotImplementedError(
             f"compute_dtype={compute_dtype}: the port's kernels compute in float32; "
-            "bf16 streams are for the H100 tuner, ROADMAP.md item 9"
+            "bf16 planes are `plane_dtype`, bf16 feature sources ROADMAP.md item 9"
         )
     if interpret is not None:
         raise NotImplementedError(

@@ -1,6 +1,7 @@
 """Accuracy utilities, test data and fp8 helpers (counterpart of
-voltrix_spmm_tpu/utils.py:28-47 and :291-368), and `kept_beside`, the
-cache of what is built once per tensor (work lists, edge orders).
+voltrix_spmm_tpu/utils.py:28-47 and :291-368), the tuner's timers
+(`CPU_bench`, `gpu_bench`) and `env_flag`, and `kept_beside`, the cache of
+what is built once per tensor (work lists, edge orders).
 
 Both metrics are taken in float64 on the host, so a tensor on the card
 is copied back first.
@@ -9,6 +10,8 @@ is copied back first.
 from __future__ import annotations
 
 import logging
+import os
+import time
 import weakref
 
 import numpy as np
@@ -39,6 +42,50 @@ def kept_beside(anchor: torch.Tensor, key, build, *tensors):
     value = build()
     cache[key] = (tuple(None if t is None else weakref.ref(t) for t in read), value)
     return value
+
+
+def env_flag(name: str) -> bool:
+    return os.environ.get(name, "0") not in ("", "0", "false", "False")
+
+
+def CPU_bench(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Wall-clock host time of fn() in ms a call, after `warmup` calls: the
+    tuner's timer for a race on the CPU (the plain versions), which the
+    tests run."""
+    for _ in range(warmup):
+        fn()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - start) / iters * 1e3
+
+
+_FLUSH_BYTES = 256 * 2**20  # past the H100's 50 MB L2, as bench_kineto flushes
+
+
+def gpu_bench(fn, iters: int = 8, warmup: int = 2, device=None) -> float:
+    """Median device ms of fn() over `iters` launches on the card, each
+    timed alone by CUDA events after a write of 256 MiB that flushes the
+    L2 (so every launch reads its inputs from device memory, as the
+    reference's bench_kineto times). The `warmup` calls before pay for what
+    a first launch builds (nvcc builds, work lists, the registered ops'
+    operands) outside the timed window."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    for _ in range(warmup):
+        fn()
+    flush = torch.empty(_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize(device)
+    del flush
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def _to_numpy(x) -> np.ndarray:
