@@ -235,6 +235,25 @@ non-zero on failure (there is no CPU fallback):
       process of its own on rmat-15. Any candidate skipped for a reason
       other than a geometry refusal or out-of-memory, a plain version run
       in a race, or a raced kernel that never launched fails the path.
+   P. (after O.1) The parallel trainers of voltrix_spmm_tpu_torch.parallel
+      on A's graph at A's widths (128 -> 256 -> 40, PlanConfig(128, 128),
+      3 SGD steps at lr 0.01), each rank a process of parallel.comm.launch:
+      all five modes on one rank under NCCL (row-sharded, ring, hybrid
+      1 x 1, grid2d 1 x 1, dp x tp 1 x 1), then 2 ranks sharing cuda:0
+      under gloo (row-sharded contiguous and degree-balanced, ring, dp x
+      tp 1 x 2) and 4 (hybrid 2 x 2, grid2d 2 x 2, dp x tp 2 x 2 on 2
+      feature sets); then parallel.dryrun.dryrun_multichip on 4 ranks of
+      the card (n 2048, d 128). Each mode's 3 losses (rel < 1e-4) and
+      updated parameters (max|d| / max|p| < 1e-4) against the
+      single-process step on A's whole plan (K1), its step-0 logits
+      against a float64 host forward on the first and last 2,048 rows,
+      K1 3 launches a rank a step (3 x ranks on the ring and hybrid) and
+      no plain SpMM in any rank, every rank's parameters and losses alike;
+      prints the plans' set-up seconds, rank 0's step times (CUDA events;
+      ranks sharing one card, not a scale-out time), the collectives'
+      bytes a step, each rank's peak memory, and the collectives staged
+      through host memory (parallel.comm.STAGED). A failed rank fails the
+      run.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -278,6 +297,7 @@ import resource
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -288,6 +308,10 @@ TOL_KERNEL = dict(rtol=1e-5, atol=1e-4)  # tests/test_spmm.py:51-52
 TOL_LOGITS = dict(rtol=1e-4, atol=1e-4)
 REQUESTS = 3
 STEPS = 3
+# path P: each parallel mode's loss rel and update max|d| / max|p| against
+# the single-process step; a fault that scales a gradient 2x moves them
+# 10x past it or path P fails (the faults are computed in the run)
+P_GATE = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory peak rate
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 REGISTERED = ("spmm_block", "spmm_subtile", "spmm_fused")  # K1-K3's torch.library ops
@@ -3796,6 +3820,210 @@ def main() -> None:
                               PlanConfig(2048, 128, gather_segment=128, block_unroll=4))
         path_n.update(c_native_build_s=secs["native"], c_numpy_build_s=secs["numpy"])
 
+    # --- path P: the parallel trainers (parallel/, torch.distributed) ------
+    def parallel_path(label, a):
+        """GCN training on A's graph at full width (128 -> 256 -> 40,
+        PlanConfig(128, 128), STEPS SGD steps at lr 0.01) through each
+        parallel mode's trainer, on ranks of parallel.comm.launch: all five
+        modes on one rank under NCCL, then 2 and 4 ranks under gloo sharing
+        cuda:0; then dryrun_multichip on 4 ranks of the card. Each mode's
+        losses and updated parameters against the single-process step on
+        A's whole plan (K1) within P_GATE (two faults that scale gradients
+        2x, computed on the single process, must land 10x past it), its
+        step-0 logits against a float64 host
+        forward on the first and last 2,048 rows, K1's launches per rank
+        per step and no plain SpMM; prints rank 0's step times (ranks that
+        share one card: not a scale-out time), the plans' set-up seconds,
+        the collectives' bytes per step, each rank's peak memory and the
+        collectives staged through host memory. Returns K1's launches per
+        rank per step and the step times by layout and mode."""
+        from voltrix_spmm_tpu_torch import gcn_forward
+        from voltrix_spmm_tpu_torch.parallel import (
+            build_grid2d_plan, build_ring_sharded_plan, build_row_sharded_plan, checks, comm)
+        from voltrix_spmm_tpu_torch.parallel.dryrun import dryrun_multichip
+        from voltrix_spmm_tpu_torch.parallel.sharded import full_gcn_params
+
+        t_path = time.perf_counter()
+        n, ip, ix = a.shape[0], a.indptr, a.indices
+        (d, hidden, classes), cfg, lr, seed = (128, 256, 40), PlanConfig(128, 128), 1e-2, 19
+        prng = np.random.default_rng(1)  # path A's draws
+        params_np = {k: v.astype(np.float32) for k, v in {
+            "w1": prng.standard_normal((d, hidden)) * (2.0 / d) ** 0.5,
+            "b1": prng.standard_normal(hidden) * 0.1,
+            "w2": prng.standard_normal((hidden, classes)) * (2.0 / hidden) ** 0.5,
+            "b2": prng.standard_normal(classes) * 0.1}.items()}
+        print(f"path {label}: GCN {d} -> {hidden} -> {classes}, {cfg}, {STEPS} SGD steps at lr "
+              f"{lr}; collectives staged through host memory (comm.STAGED, from "
+              f"tools/gloo_probe.py): {sorted(comm.STAGED)}")
+
+        # the single-process step on A's whole plan (K1), batch 0 = one
+        # graph's rows, else that many feature sets (dp x tp)
+        g = build_graph(ip, ix, n, cfg, symmetric=True, device=dev)
+        rows = np.r_[0:2048, n - 2048:n]
+
+        def sgd(x, y, scale=None):
+            """STEPS single-process SGD steps from params_np: losses, final
+            parameters, step-0 logits; `scale` multiplies gradients by name."""
+            p, losses, logits0 = gcn_params_from_jax(params_np, dev), [], None
+            for _ in range(STEPS):
+                q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+                logits = gcn_forward(q, g, x, transform_first=False)
+                logits0 = logits.detach() if logits0 is None else logits0
+                loss = F.cross_entropy(logits.reshape(-1, classes), y.reshape(-1))
+                grads = torch.autograd.grad(loss, list(q.values()))
+                p = {k: (v - lr * (scale or {}).get(k, 1.0) * gr).detach()
+                     for (k, v), gr in zip(q.items(), grads)}
+                losses.append(loss.item())
+            return {"losses": losses, "params": {k: v.cpu().numpy() for k, v in p.items()},
+                    "logits0": logits0}
+
+        def gaps(run, ref):
+            """Path P's two numbers: the losses' largest rel difference and
+            the updated parameters' max|d| / max|p|, over the parameters."""
+            rel = max(abs(u - v) / abs(v) for u, v in zip(run["losses"], ref["losses"]))
+            upd = max(np.abs(run["params"][k] - v).max() / np.abs(v).max()
+                      for k, v in ref["params"].items())
+            return rel, upd
+
+        # the faults the gates must see: a row-parallel sum whose backward
+        # sums (tp 2 scales every gradient upstream of it: w2, b1, w1), and
+        # the row-sharded count summed inside autograd (2 ranks scale all)
+        faults = {1: ("row-parallel sum's backward summed, tp 2", {"w1": 2.0, "b1": 2.0,
+                                                                  "w2": 2.0}),
+                  0: ("count summed in autograd, 2 ranks", dict.fromkeys(params_np, 2.0))}
+        refs = {}
+        for batch in (0, 1, 2):
+            arr = checks.problem_arrays(ip, n, n, d, classes, seed, batch)
+            x = torch.from_numpy(arr["xb"] if batch else arr["x"]).to(dev)
+            y = torch.from_numpy(arr["yb"] if batch else arr["y"]).to(dev)
+            refs[batch] = sgd(x, y)
+            first = (arr["xb"][0] if batch else arr["x"]).astype(np.float64)
+            refs[batch]["host"] = (host_forward(a, first, params_np, rows) if batch < 2
+                                   else refs[1]["host"])
+            logits0 = refs[batch].pop("logits0").reshape(-1, n, classes)[0][rows].cpu().numpy()
+            print(f"  single process (K1, batch {batch}): losses "
+                  f"{[round(v, 6) for v in refs[batch]['losses']]}; step-0 logits against the "
+                  f"float64 host forward on {len(rows)} rows: max|diff| "
+                  f"{np.abs(logits0 - refs[batch]['host']).max():.3e}")
+            if batch in faults:
+                what, scale = faults[batch]
+                rel, upd = gaps(sgd(x, y, scale), refs[batch])
+                print(f"  fault {what}: loss rel {rel:.3e}, update max|d|/max|p| {upd:.3e} "
+                      f"(gate {P_GATE:g})")
+                if max(rel, upd) < 10 * P_GATE:
+                    fail(f"path {label}: the gates would not see the fault {what}")
+        del g, x, y
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        plans, plan_s = {}, {}
+        for key, build in (
+                ("row 1", lambda: build_row_sharded_plan(ip, ix, n, 1, cfg, with_transpose=True)),
+                ("ring 1", lambda: build_ring_sharded_plan(ip, ix, n, 1, cfg, with_transpose=True)),
+                ("grid 1x1", lambda: build_grid2d_plan(ip, ix, n, 1, 1, cfg, with_transpose=True)),
+                ("row 2", lambda: build_row_sharded_plan(ip, ix, n, 2, cfg, with_transpose=True)),
+                ("row 2 balanced", lambda: build_row_sharded_plan(ip, ix, n, 2, cfg,
+                                                                  with_transpose=True,
+                                                                  balance=True)),
+                ("ring 2", lambda: build_ring_sharded_plan(ip, ix, n, 2, cfg, with_transpose=True)),
+                ("ring 4", lambda: build_ring_sharded_plan(ip, ix, n, 4, cfg, with_transpose=True)),
+                ("grid 2x2", lambda: build_grid2d_plan(ip, ix, n, 2, 2, cfg, with_transpose=True))):
+            t1 = time.perf_counter()
+            plans[key] = build()
+            plan_s[key] = round(time.perf_counter() - t1, 3)
+        print(f"  plans (host, with transposes): {time.perf_counter() - t0:.2f} s in all; by plan "
+              f"{plan_s}; blocks a shard (tb_max / tbt_max): "
+              f"{ {k: (p.tb_max, p.tbt_max) for k, p in plans.items()} }")
+
+        # (layout, ranks, backend, feature sets of dp x tp, [(case, mode,
+        # plan, mesh)]): every mode on one rank, then ranks sharing cuda:0
+        layouts = (
+            ("1 rank, nccl", 1, "nccl", 1, [
+                ("row_sharded 1", "row_sharded", "row 1", None),
+                ("ring 1", "ring", "ring 1", None),
+                ("hybrid 1x1", "hybrid", "ring 1", (1, 1)),
+                ("grid2d 1x1", "grid2d", "grid 1x1", (1, 1)),
+                ("dp_tp 1x1", "dp_tp", None, (1, 1))]),
+            ("2 ranks on cuda:0, gloo", 2, "gloo", 1, [
+                ("row_sharded 2", "row_sharded", "row 2", None),
+                ("row_sharded 2 balanced", "row_sharded", "row 2 balanced", None),
+                ("ring 2", "ring", "ring 2", None),
+                ("dp_tp 1x2", "dp_tp", None, (1, 2))]),
+            ("4 ranks on cuda:0, gloo", 4, "gloo", 2, [
+                ("hybrid 2x2", "hybrid", "ring 4", (2, 2)),
+                ("grid2d 2x2", "grid2d", "grid 2x2", (2, 2)),
+                ("dp_tp 2x2", "dp_tp", None, (2, 2))]),
+        )
+        out = {}
+        for layout, world, backend, batch, cases in layouts:
+            spec = {"indptr": ip, "indices": ix, "n": n, "cfg": cfg, "params": params_np, "d": d,
+                    "classes": classes, "seed": seed, "batch": batch, "lr": lr, "steps": STEPS,
+                    "logits": True,
+                    "cases": [{"name": name, "mode": mode, "plan": plans.get(key), "mesh": mesh}
+                              for name, mode, key, mesh in cases]}
+            t0 = time.perf_counter()
+            ranks = comm.launch(checks.train_cases, world, spec, "cuda", backend=backend,
+                                timeout=300)
+            print(f"  {layout}: launch {time.perf_counter() - t0:.1f} s ({world} processes: "
+                  f"start, set-up, {STEPS} steps, step-0 logits)")
+            for c in spec["cases"]:
+                name, mode, plan = c["name"], c["mode"], c["plan"]
+                res = [r[name] for r in ranks]
+                shards = 1 if plan is None else getattr(plan, "ndev", 1)
+                want = 3 * (shards if mode in ("ring", "hybrid") else 1)
+                k1 = [r["launches"] / STEPS for r in res]
+                if k1 != [want] * world or any(r["plain_calls"] for r in res):
+                    fail(f"path {label} {layout} {name}: K1 launches per rank per step {k1} "
+                         f"(want {want}), plain calls {[r['plain_calls'] for r in res]}")
+                if any(r["losses"] != res[0]["losses"] for r in res):
+                    fail(f"path {label} {layout} {name}: the ranks' losses differ")
+                if mode == "dp_tp":
+                    by = {r["coords"]: r for r in res}
+                    dp, tp = c["mesh"]
+                    got = full_gcn_params([by[(0, j)]["params"] for j in range(tp)])
+                    logits0 = np.concatenate([by[(i, 0)]["logits0"] for i in range(dp)])[0]
+                    ref = refs[batch]
+                else:
+                    got = res[0]["params"]
+                    if any(not np.array_equal(r["params"][k], got[k]) for r in res for k in got):
+                        fail(f"path {label} {layout} {name}: the ranks' parameters differ")
+                    by = {r["index"]: r["logits0"] for r in res}
+                    logits0 = plan.assemble([by[i] for i in range(len(res))])[:n]
+                    ref = refs[0]
+                rel, upd = gaps({"losses": res[0]["losses"], "params": got}, ref)
+                host_err = np.abs(logits0[rows] - ref["host"]).max()
+                ok = (rel < P_GATE and upd < P_GATE
+                      and np.allclose(logits0[rows], ref["host"], **TOL_LOGITS))
+                ms = res[0]["ms"]
+                per_step = {k: v // STEPS for k, v in
+                            sorted(sum((Counter(r["traffic"]) for r in res), Counter()).items())}
+                print(f"    {name}: losses {[round(v, 6) for v in res[0]['losses']]}, rel "
+                      f"{rel:.2e}, update max|d|/max|p| {upd:.2e}, step-0 logits max|diff| "
+                      f"{host_err:.3e} -> {'ok' if ok else 'MISMATCH'}; K1 {want} a rank a step; "
+                      f"rank 0 step ms (CUDA events) {[round(t, 3) for t in ms]}, host ms "
+                      f"{[round(t, 3) for t in res[0]['host_ms']]}; set-up s "
+                      f"{[round(r['setup_s'], 3) for r in res]}; bytes a step, all ranks: "
+                      f"{per_step}; peak GiB per rank "
+                      f"{[round(r['peak_bytes'] / 2**30, 3) for r in res]}")
+                if not ok:
+                    fail(f"path {label} {layout} {name}: disagrees with the single-process step")
+                out[f"{layout}: {name}"] = {
+                    "k1_per_rank_step": want, "step_ms": ms, "host_ms": res[0]["host_ms"],
+                    "bytes_per_step": sum(per_step.values()),
+                    "peak_gib": max(r["peak_bytes"] for r in res) / 2**30}
+        t0 = time.perf_counter()
+        try:
+            report = dryrun_multichip(4, device="cuda", n=2048, d=128)
+        except RuntimeError as e:
+            fail(f"path {label}: dryrun_multichip on the card: {e}")
+        print(f"  dryrun_multichip(4, device='cuda', n=2048, d=128): "
+              f"{time.perf_counter() - t0:.1f} s; K1 launches a rank, no plain call: "
+              f"{ {m: r['k1_per_rank'] for m, r in report.items() if isinstance(r, dict)} }")
+        out["dryrun 4 ranks on cuda:0, gloo"] = {
+            m: r["loss_rel"] for m, r in report.items() if isinstance(r, dict)}
+        print(f"path {label}: {time.perf_counter() - t_path:.1f} s in all")
+        return out
+
     # --- path O: the tuner on the card ------------------------------------
     from voltrix_spmm_tpu_torch.models.graph import auto_plan_config
     from voltrix_spmm_tpu_torch.tuner import AttentionTuner, SpmmTuner, Variant
@@ -4138,6 +4366,8 @@ def main() -> None:
     path_l = sampled_sage_path("L (ogbn-arxiv proxy, neighbour-sampled GraphSAGE, K1)", arxiv)
     path_m = classify_path("M (GIN graph classification, 128 graphs, K1)")
     tuner_path_a(arxiv)
+    torch.cuda.empty_cache()  # the ranks of path P share the card with this process
+    path_p = parallel_path("P (ogbn-arxiv proxy, the parallel trainers on K1)", arxiv)
     # self-loops, the GAT convention (examples/train_gat.py:46-47)
     loops = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     loops.sort_indices()
@@ -4215,6 +4445,9 @@ def main() -> None:
     }
     # path N: the deployment path's numbers (seconds, bytes, ms, host us)
     results["spmm_block"]["n_deploy"] = path_n
+    # path P: K1's launches per rank per step of each parallel mode and layout
+    results["spmm_block"]["p_parallel"] = {
+        k: v["k1_per_rank_step"] for k, v in path_p.items() if "k1_per_rank_step" in v}
     results["spmm_weighted"]["k_dropedge"] = {
         "train_call_and_backward": 2, **{f"train_ms_d{d}": v["train_ms"]
                                          for d, v in path_k["dropedge"].items()}}
