@@ -254,6 +254,37 @@ non-zero on failure (there is no CPU fallback):
       bytes a step, each rank's peak memory, and the collectives staged
       through host memory (parallel.comm.STAGED). A failed rank fails the
       run.
+   Q. bf16 feature sources, the bf16 instantiations of K1, K2, K3 and K6
+      (counted apart, "<kernel>_bf16"), each drive through a user's call:
+      Q.1 spmm(hybrid plan, x.bfloat16()) on J.2's plan at d 128 and 256
+      (K3 and K1, REQUESTS each), bit for bit the float32 hybrid on the
+      widened rows; REQUESTS GCN requests under agg_dtype=torch.bfloat16 on
+      B's graph (K2) and C's (K3), logits within calc_diff 1e-2 of the
+      float32 path's; REQUESTS spmm(ELL plan, x.bfloat16()) at d 8 and 40
+      on E's graph and geometry (K6); then each kernel on its path's plan at
+      the path's widths (K1 A's d 128 / 256, K2 B's, K3 C's d 8 / 256 and
+      J.2's dense side, K6 E's d 8 / 40): bit for bit the float32 kernel on
+      the widened rows, twice the same bits, against its plain version
+      under the summation bound, timed in turns with the float32 kernel
+      beside its plain version and torch.sparse.mm (on bf16 operands where
+      torch's CSR takes them), with its bound (X's bytes halved). Q.2 A's
+      GCN with agg_dtype=torch.bfloat16: REQUESTS requests (K1's bf16
+      instantiation twice each) and STEPS SGD steps (3 K1 launches each, the
+      two forwards bf16, the backward float32 on the cotangent), no plain
+      call; request 0's logits within calc_diff 1e-2 of the float64 host
+      forward and every request's of the float32 path, step 0's gradients
+      within calc_diff 1e-2 of the float32 step's; request and step timed
+      in turns with the float32 path, busy share, peak memory. Q.3
+      tune_spmm(accurate=False) on A at d 128 (the bf16 variants race
+      beside the float32 ones): the winner, the best of each dtype, the
+      output in the caller's float32. Q.4 build_graph("auto") on A keeps
+      agg_dtype None (float32 rows, models/graph.py). Phase 3 also
+      holds the four bf16 instantiations on small geometries (padded rows
+      at d 130 and 300, rows 2 bytes off an 8-byte boundary, hub windows
+      cut into pieces, K3's narrow and wide walks and runs across tiles at
+      seg 12-192, K6 under compute_dtype=bfloat16), bit for bit the float32
+      kernel on the widened rows. Path O races the float32 default space
+      (accurate=True), as it did before the bf16 variants joined it.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -582,6 +613,13 @@ def main() -> None:
                       "voltrix_spmm_tpu/ops/quant.py:37", quant.load_library),
     }
 
+    # the bf16 instantiations of K1, K2, K3 and K6 (path Q): the same
+    # sources and wrappers, counted apart (wrapper.launches_bf16)
+    bf16_of = {f"{name}_bf16": name
+               for name in ("spmm_block", "spmm_subtile", "spmm_fused", "spmm_ell")}
+    bf16_loaders = (block_spmm.load_bf16_library, subtile_spmm.load_bf16_library,
+                    fused_spmm.load_bf16_library, ell.load_bf16_library)
+
     # --- 2. build: one nvcc per source, all started together -----------
     def timed_build(loader):
         t0 = time.perf_counter()
@@ -600,6 +638,8 @@ def main() -> None:
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"g++ voltrix_preprocess.hpp {t_gxx:.2f} s; {t_nvcc:.2f} s in all, into "
           f"{get_build_dir()}")
+    for loader in bf16_loaders:  # the bf16 entry points of the same builds
+        loader()
     # every kernel sums in a fixed order: no atomic of any kind in the SASS
     # of any source
     cu_sources = sorted(f for f in os.listdir(os.path.join(ROOT, "voltrix_spmm_tpu_torch", "csrc"))
@@ -1444,18 +1484,125 @@ def main() -> None:
                isolated(erdos_renyi_csr(3000, 0.005, 66), lambda r: r % 7 and r < 2700),
                PlanConfig(64, 128, block_unroll=2), 40, expect=zero_block)
 
+    # the bf16 instantiations of K1, K2, K3 and K6 on small geometries: each
+    # bit for bit the float32 kernel on the widened rows (the walk's order
+    # does not depend on the source), twice the same bits, and against its
+    # plain version; rows padded by the wrapper (d 130, 300), rows 2 bytes
+    # off an 8-byte boundary, hub windows cut into pieces, K3's runs across
+    # 128-lane tiles at seg 12-192 and both its walks; a generator of their own
+    rng16 = np.random.default_rng(97)
+    bf16_err = dict.fromkeys(bf16_of, 0.0)
+
+    def bf16_check(key, label, plan, xb, deg=None):
+        """The bf16 instantiation `key` on `plan` and bf16 rows `xb` against
+        the float32 kernel on the widened rows (bit for bit), twice (the same
+        bits) and its plain version (as compare(), under the summation bound
+        with `deg`)."""
+        name = bf16_of[key]
+        kernel, plain = kernels[name][:2]
+        xw = xb.float()
+        out = kernel(plan, xb, torch.float32)
+        same = torch.equal(out, kernel(plan, xw, torch.float32))
+        again = torch.equal(out, kernel(plan, xb, torch.float32))
+        want = plain(plan, xb, torch.float32)
+        torch.cuda.synchronize()
+        allow = TOL_KERNEL["atol"] + TOL_KERNEL["rtol"] * want.abs()
+        if deg is not None:
+            abs_plan = plan
+            if name == "spmm_ell":
+                abs_plan = dataclasses.replace(plan, vals=plan.vals.abs())
+            allow = allow + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * plain(abs_plan, xw.abs())
+        err = (out - want).abs().max().item() if out.numel() else 0.0
+        bf16_err[key] = max(bf16_err[key], err)
+        ok = (same and again and out.dtype == torch.float32
+              and bool(((out - want).abs() <= allow).all()))
+        print(f"  {key} {label}: bf16 {'==' if same else '!='} float32 kernel on the widened "
+              f"rows, twice {'bit-identical' if again else 'DIFFERENT'}, max|kernel - plain| "
+              f"{err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{key} {label}: not the float32 kernel's bits on the widened rows, not the "
+                 "same twice, or off its plain version")
+
+    def bf16_case(key, label, plan, d, offset=False, deg=None):
+        """bf16_check at width d on rows from phase 3's bf16 generator;
+        offset: a contiguous view 2 bytes past an 8-byte boundary."""
+        n = plan.source_rows
+        x = torch.from_numpy(rng16.standard_normal((n, d + offset)).astype(np.float32))
+        xb = x.to(dev).to(torch.bfloat16)
+        if offset:
+            xb = xb.reshape(-1)[1:1 + n * d].view(n, d)
+        bf16_check(key, f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}", plan, xb,
+                   deg)
+
+    print("bf16 sources (K1, K2, K3, K6) on small geometries:")
+    er3 = erdos_renyi_csr(3000, 0.004, 98)
+    deg40k = torch.from_numpy(np.diff(hub40k.indptr).astype(np.float32)).to(dev)[:, None]
+    for cfg in (PlanConfig(128, 128), PlanConfig(32, 128)):
+        p16 = csr_preprocess(er3.indptr, er3.indices, 3000, cfg).to(dev)
+        for d in (8, 40, 128, 130, 256, 300):
+            bf16_case("spmm_block_bf16", f"n3000 block_h {cfg.block_h}", p16, d)
+        bf16_case("spmm_block_bf16", f"n3000 block_h {cfg.block_h}", p16, 128, offset=True)
+    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000, PlanConfig(128, 128)).to(dev)
+    if most_pieces(p16, "spmm_block") < 16:
+        fail("bf16 K1: the hub window is not cut into >= 16 pieces")
+    for d in (128, 130):
+        bf16_case("spmm_block_bf16", "n40000 hub window cut into >= 16 pieces", p16, d,
+                  deg=deg40k)
+    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000,
+                         PlanConfig(512, 128, block_unroll=2, cluster_cols=True)).to(dev)
+    for d in (40, 128, 130, 256):
+        bf16_case("spmm_subtile_bf16", "n40000 PlanConfig(512, 128, 2, clustered)", p16, d,
+                  deg=deg40k)
+    bf16_case("spmm_subtile_bf16", "n40000 PlanConfig(512, 128, 2, clustered)", p16, 128,
+              offset=True, deg=deg40k)
+    p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(128, 128, 8)).to(dev)
+    for d in (8, 12, 40, 128, 130, 256, 300):  # narrow and wide walks, bulk and cp.async
+        bf16_case("spmm_fused_bf16", "n3000 PlanConfig(128, 128, 8)", p16, d)
+    bf16_case("spmm_fused_bf16", "n3000 PlanConfig(128, 128, 8)", p16, 128, offset=True)
+    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000, PlanConfig(128, 128, 8)).to(dev)
+    for d in (8, 128, 256):
+        bf16_case("spmm_fused_bf16", "n40000 PlanConfig(128, 128, 8), hub window cut", p16, d,
+                  deg=deg40k)
+    for seg in (12, 24, 48, 96, 192):  # boxes of 4-64 rows, runs across 128-lane tiles
+        p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(128, 384, seg)).to(dev)
+        for d in (8, 128, 256):
+            bf16_case("spmm_fused_bf16", f"n3000 PlanConfig(128, 384, {seg})", p16, d)
+    vals16 = rng16.standard_normal(er3.nnz).astype(np.float32)
+    p16 = csr_preprocess_ell(er3.indptr, er3.indices, 3000, PlanConfig(128, 128, block_unroll=4),
+                             values=vals16).to(dev)
+    for d in (8, 40, 130, 256):
+        bf16_case("spmm_ell_bf16", "n3000 ELL PlanConfig(128, 128, 4)", p16, d)
+    bf16_case("spmm_ell_bf16", "n3000 ELL PlanConfig(128, 128, 4)", p16, 40, offset=True)
+    # compute_dtype=bfloat16: K6 rounds the edge values in the kernel too
+    x16 = torch.from_numpy(rng16.standard_normal((3000, 40)).astype(np.float32)).to(dev)
+    got = spmm(p16, x16, compute_dtype=torch.bfloat16)
+    want = spmm_ell(dataclasses.replace(p16, vals=p16.vals.to(torch.bfloat16).float()),
+                    x16.to(torch.bfloat16).float())
+    print(f"  spmm_ell_bf16 compute_dtype=bfloat16 (values rounded in the kernel) == float32 "
+          f"kernel on the rounded rows and values: {torch.equal(got, want)}")
+    if not (torch.equal(got, want) and got.dtype == torch.float32):
+        fail("K6 under compute_dtype=bfloat16 is not the float32 kernel on the rounded operands")
+    del p16, x16, got, want
+
     # --- 4. + 5. the paths ------------------------------------------------
+    count_keys = list(kernels) + list(bf16_of)
+
     def reset_counts():
         for wrapper, plain, *_ in kernels.values():
             wrapper.launches = 0
             plain.calls = 0
+        for name in bf16_of.values():
+            kernels[name][0].launches_bf16 = 0
 
     def read_counts():
-        return ({k: w.launches for k, (w, *_) in kernels.items()},
-                sum(p.calls for _, p, *_ in kernels.values()))
+        """(launches by kernel, the bf16 instantiations apart under
+        "<name>_bf16", also counted in <name>'s; plain-version calls)."""
+        counts = {k: w.launches for k, (w, *_) in kernels.items()}
+        counts.update({k: kernels[name][0].launches_bf16 for k, name in bf16_of.items()})
+        return counts, sum(p.calls for _, p, *_ in kernels.values())
 
     def check_counts(label, counts, plain_calls, want_nonzero):
-        want = {k: want_nonzero.get(k, 0) for k in kernels}
+        want = {k: want_nonzero.get(k, 0) for k in count_keys}
         if counts != want or plain_calls != 0:
             fail(f"path {label} launched {counts} (want {want}) and the plain "
                  f"versions {plain_calls} times (want 0)")
@@ -3029,6 +3176,278 @@ def main() -> None:
                       j_hybrid_launches_k1=counts["spmm_block"], j_hybrid_dense_frac=st["dense_frac"])
         del hplan, csr_dense
 
+    # --- path Q: bf16 feature sources (K1, K2, K3 and K6) ------------------
+    # each bf16 instantiation's launches on the drives of path Q (a user's
+    # call, the counts zeroed just before) and its times at each width; path
+    # Q's features and values come from a generator of their own
+    path_q = {k: {"launches": 0, "per_width": {}} for k in bf16_of}
+    qrng = np.random.default_rng(19)
+
+    def q_feat(n, d):
+        return torch.from_numpy(qrng.standard_normal((n, d)).astype(np.float32)).to(dev)
+
+    def library_bf16(csr, xb, x):
+        """(ms, what): torch.sparse.mm on bf16 operands where torch's CSR
+        takes them, else on the float32 ones."""
+        csr16 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                        csr.values().to(torch.bfloat16), size=csr.shape)
+        try:
+            torch.sparse.mm(csr16, xb)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            return library_ms(lambda: torch.sparse.mm(csr, x)), (
+                f"float32 operands (torch's CSR refused bf16: {str(e).splitlines()[0][:80]})")
+        return library_ms(lambda: torch.sparse.mm(csr16, xb)), "bf16 operands"
+
+    def q_kernel(key, tag, label, plan, d, deg, fields, csr, nnz, plain_iters=3):
+        """Q.1 for one bf16 instantiation at width d on a path's plan: bit for
+        bit the float32 kernel on the widened rows, twice the same bits,
+        against its plain version (which widens the rows) under the float32
+        summation bound; timed in turns with the float32 kernel on the
+        float32 rows, beside its plain version and torch.sparse.mm, with its
+        bound (the plan's `fields`, X in bf16, out in float32, each once)."""
+        kernel, plain = kernels[bf16_of[key]][:2]
+        x = q_feat(plan.source_rows, d)
+        xb = x.to(torch.bfloat16)
+        bf16_check(key, f"Q.1 on {label} d{d}", plan, xb, deg)
+        k_ms, f_ms, turns = in_turns(torch, lambda: kernel(plan, xb, torch.float32),
+                                     lambda: kernel(plan, x, torch.float32), plain_iters=20)
+        p_ms = cuda_ms(torch, lambda: plain(plan, xb, torch.float32), iters=plain_iters,
+                       warmup=1)
+        lib, lib_what = library_bf16(csr, xb, x)
+        b_ms, b_by = bound_ms(tensor_bytes(*fields) + plan.source_rows * d * 2
+                              + plan.num_nodes * d * 4, 2 * nnz * d)
+        path_q[key]["per_width"][f"{tag}_d{d}"] = dict(
+            ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        print(f"  Q.1 {key} d={d}: bf16 {turns[1]:.4f} / {turns[2]:.4f} ms, the float32 kernel "
+              f"on float32 rows {turns[0]:.4f} / {turns[3]:.4f} ms ({k_ms / f_ms:.3f}x), plain "
+              f"{p_ms:.4f} ms, torch.sparse.mm {lib:.4f} ms ({lib_what}), bound {b_ms:.4f} ms "
+              f"({b_by}; X in bf16)")
+
+    def q_drive(label, fn, want):
+        """A path Q drive: fn() with the counts zeroed just before and read
+        just after; the bf16 instantiations launched as `want`, no plain call."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        print(f"  {label}: launches {({k: c for k, c in counts.items() if c})}, plain calls "
+              f"{plain_calls} ({secs * 1e3:.3f} ms)")
+        check_counts(f"Q {label}", counts, plain_calls, want)
+        for k, c in counts.items():
+            if k in path_q:
+                path_q[k]["launches"] += c
+        return out
+
+    def q_path_a(label, a, g, params_np):
+        """Path Q on A's graph: Q.1 K1 on A's plan at d 128 and 256, the
+        hybrid (K3 + K1) and K3 alone on its dense side; Q.2 A's GCN with
+        agg_dtype=torch.bfloat16, REQUESTS requests and STEPS SGD steps; Q.3
+        tune_spmm(accurate=False) at d 128; Q.4 build_graph("auto")."""
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev)
+        print(f"path {label}")
+        fields = (g.plan.bitmask, g.plan.hind, g.plan.block_ptr)
+        for d in (128, 256):
+            q_kernel("spmm_block_bf16", "A", "A's plan", g.plan, d, deg, fields, csr, a.nnz)
+        # Q.1 on J.2's hybrid plan: both sides read bf16 rows and are summed
+        # once in float32
+        hplan = csr_preprocess_hybrid(a.indptr, a.indices, n).to(dev)
+        xs = {d: [q_feat(n, d).to(torch.bfloat16) for _ in range(REQUESTS)] for d in (128, 256)}
+        outs = q_drive(f"{REQUESTS} spmm(hybrid plan, x.bfloat16()) at d 128 and 256",
+                       lambda: [spmm(hplan, x, out_dtype=torch.float32)
+                                for d in xs for x in xs[d]],
+                       {"spmm_fused": 2 * REQUESTS, "spmm_block": 2 * REQUESTS,
+                        "spmm_fused_bf16": 2 * REQUESTS, "spmm_block_bf16": 2 * REQUESTS})
+        for x, out in zip([x for d in xs for x in xs[d]], outs):
+            xw = x.float()
+            same = torch.equal(out, spmm(hplan, xw))
+            ok, err = sum_bound_ok(out, spmm(hplan, xw, impl="reference"), deg,
+                                   spmm_reference(g.plan, xw.abs()))
+            if not (ok and same):
+                fail(f"path {label}: the bf16 hybrid is not the float32 hybrid on the widened "
+                     f"rows ({same}) or is off the plain path ({err:.3e})")
+        print(f"  the {len(outs)} hybrid outputs: bit for bit the float32 hybrid on the widened "
+              f"rows, and within the summation bound of the plain path")
+        dense_a = plan_csr(hplan.dense)
+        deg_dense = torch.from_numpy(np.diff(dense_a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr_dense = csr_tensor(torch, dense_a, dev)
+        for d in (128, 256):
+            q_kernel("spmm_fused_bf16", "J2", "J.2's dense side", hplan.dense, d, deg_dense,
+                     (hplan.dense.bitmask, hplan.dense.hind, hplan.dense.block_ptr), csr_dense,
+                     hplan.dense.num_edges)
+        del hplan, csr_dense, outs, xs
+
+        # Q.2: A's GCN on a bf16 aggregation
+        gq = dataclasses.replace(g, agg_dtype=torch.bfloat16)
+        model = GCN.from_params(gcn_params_from_jax(params_np, dev)).eval()
+        xs = [q_feat(n, 128) for _ in range(REQUESTS)]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            logits = q_drive(f"Q.2 {REQUESTS} GCN requests, agg_dtype=torch.bfloat16",
+                             lambda: [model(gq, x) for x in xs],
+                             {"spmm_block": 2 * REQUESTS, "spmm_block_bf16": 2 * REQUESTS})
+            req_peak = torch.cuda.max_memory_allocated() / 2**30
+            f32_logits = [model(g, x) for x in xs]
+        host = host_forward(a, xs[0].cpu().double().numpy(), params_np)
+        diff_host = calc_diff(logits[0].cpu().double().numpy(), host)
+        diffs = [calc_diff(q, f) for q, f in zip(logits, f32_logits)]
+        finite = all(q.shape == (n, 40) and bool(torch.isfinite(q).all()) for q in logits)
+        print(f"  Q.2 logits: request 0 against the float64 host forward calc_diff "
+              f"{diff_host:.3e} (float32 path: {calc_diff(f32_logits[0].cpu().double().numpy(), host):.3e}); "
+              f"against the float32 path {[f'{v:.3e}' for v in diffs]} (limit 1e-2, bf16's class)")
+        if not (finite and diff_host < 1e-2 and max(diffs) < 1e-2):
+            fail(f"path {label} Q.2: the bf16 GCN's logits are off the float64 forward or the "
+                 "float32 path")
+        y = torch.from_numpy(np.random.default_rng(3).integers(0, 40, n)).to(dev)
+
+        def step_of(graph):
+            tm = GCN.from_params(gcn_params_from_jax(params_np, dev))
+            return make_train_step(torch.optim.SGD(tm.parameters(), lr=0.1), gcn_loss), tm
+
+        step32, m32 = step_of(g)
+        step32(m32.params(), g, xs[0], y)
+        want = {k: v.grad.detach().clone() for k, v in m32.params().items()}
+        step16, m16 = step_of(gq)
+        grads0, losses, step_ms = {}, [], []
+        torch.cuda.reset_peak_memory_stats()
+
+        def steps():
+            for i in range(STEPS):
+                t0 = time.perf_counter()
+                losses.append(step16(m16.params(), gq, xs[0], y))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grads0.update({k: v.grad.detach().clone() for k, v in m16.params().items()})
+
+        # the two forwards read bf16 rows; the backward runs the float32
+        # instantiation on the cotangent (ops/library.py)
+        q_drive(f"Q.2 {STEPS} SGD steps, agg_dtype=torch.bfloat16", steps,
+                {"spmm_block": 3 * STEPS, "spmm_block_bf16": 2 * STEPS})
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        gdiff = {k: calc_diff(grads0[k], want[k]) for k in want}
+        print(f"  Q.2 losses {[round(l.item(), 6) for l in losses]}; step 0's gradients against "
+              f"the float32 path calc_diff {({k: f'{v:.3e}' for k, v in gdiff.items()})} (limit "
+              f"1e-2); host ms per step {[round(t, 3) for t in step_ms]}")
+        if not (all(bool(torch.isfinite(l)) for l in losses) and max(gdiff.values()) < 1e-2):
+            fail(f"path {label} Q.2: the bf16 step's gradients are off the float32 path's")
+        with torch.no_grad():
+            x = xs[0]
+            req16, req32, rt = in_turns(torch, lambda: model(gq, x), lambda: model(g, x),
+                                        plain_iters=20)
+        st16, st32, stt = in_turns(torch, lambda: step16(m16.params(), gq, x, y),
+                                   lambda: step32(m32.params(), g, x, y), plain_iters=20)
+        print(f"  Q.2 request: bf16 {rt[1]:.4f} / {rt[2]:.4f} ms, float32 {rt[0]:.4f} / "
+              f"{rt[3]:.4f} ms ({req16 / req32:.3f}x); step: bf16 {stt[1]:.4f} / {stt[2]:.4f} ms, "
+              f"float32 {stt[0]:.4f} / {stt[3]:.4f} ms ({st16 / st32:.3f}x); peak "
+              f"{req_peak:.3f} GiB a request, {step_peak:.3f} GiB a step")
+        with torch.no_grad():
+            rows, hostops, wall = profile_requests(torch, lambda: model(gq, x))
+        print_profile(rows, hostops, wall, "request", top=6)
+        path_q["gcn"] = dict(request_ms=req16, f32_request_ms=req32, step_ms=st16,
+                             f32_step_ms=st32, request_peak_gib=req_peak,
+                             step_peak_gib=step_peak, busy=sum(ms for _, ms in rows) * REQUESTS / wall,
+                             calc_diff_host=diff_host, calc_diff_f32=max(diffs),
+                             grad_calc_diff=max(gdiff.values()))
+        del gq, model, m16, m32, logits, f32_logits
+
+        # Q.3: the tuner's default space with its bf16 variants
+        tuner = SpmmTuner(cache_dir=os.path.join(tune_dir, "q"))
+        tuned, race_s = race("Q.3 A d 128, accurate=False", tuner, a, x, budget_s=60,
+                             hash_tag="ogbn-arxiv-proxy")
+        f32_best = min(((ms, k) for k, ms in tuned.candidates.items()
+                        if not tuned.variants[k][1].bf16), default=(float("inf"), None))
+        bf16_best = min(((ms, k) for k, ms in tuned.candidates.items()
+                         if tuned.variants[k][1].bf16), default=(float("inf"), None))
+        out = check_winner("Q.3 A d 128", tuned, a, x)
+        print(f"  Q.3 winner {tuned.variant.key()} ({'bf16' if tuned.variant.bf16 else 'float32'} "
+              f"rows) {tuned.time_ms:.4f} ms; best float32 {f32_best[1]} {f32_best[0]:.4f} ms, "
+              f"best bf16 {bf16_best[1]} {bf16_best[0]:.4f} ms; output {out.dtype} (the "
+              f"caller's float32)")
+        if out.dtype != torch.float32 or bf16_best[1] is None:
+            fail(f"path {label} Q.3: no bf16 variant raced, or the output is not the caller's "
+                 "dtype")
+        path_q["tuner"] = dict(race_s=race_s, winner=tuned.variant.key(),
+                               winner_ms=tuned.time_ms, f32_best=f32_best[1],
+                               f32_best_ms=f32_best[0], bf16_best=bf16_best[1],
+                               bf16_best_ms=bf16_best[0])
+        del tuned, out
+
+        # Q.4: build_graph("auto")'s rule on A
+        t0 = time.perf_counter()
+        ga = build_graph(a.indptr, a.indices, n, "auto", symmetric=True, device=dev)
+        secs = time.perf_counter() - t0
+        print(f"  Q.4 build_graph('auto') on A: {ga.plan.config} in {secs:.2f} s, agg_dtype "
+              f"{ga.agg_dtype} (float32 rows, as Q.1-Q.2 decided; JAX's rule gives "
+              f"bfloat16 here)")
+        if ga.agg_dtype is not None:
+            fail(f"path {label} Q.4: build_graph('auto') streams {ga.agg_dtype} rows where "
+                 "the card's numbers keep float32")
+        path_q["auto"] = dict(config=str(ga.plan.config), agg_dtype=str(ga.agg_dtype))
+        del ga, csr
+        torch.cuda.empty_cache()
+        path_q["seconds"] = path_q.get("seconds", 0.0) + time.perf_counter() - t_path
+        print(f"path Q on A: {time.perf_counter() - t_path:.1f} s in all")
+
+    def q_path_gcn(label, a, g, model, xs, logits, name, widths):
+        """Path Q on B's or C's graph: REQUESTS GCN requests under
+        agg_dtype=torch.bfloat16 on the path's kernel `name` (its bf16
+        instantiation twice a request), the logits against the path's float32
+        ones at bf16's class; then Q.1 of that kernel at the path's widths."""
+        t_path = time.perf_counter()
+        key = f"{name}_bf16"
+        gq = dataclasses.replace(g, agg_dtype=torch.bfloat16)
+        with torch.no_grad():
+            out = q_drive(f"{label}: {REQUESTS} GCN requests, agg_dtype=torch.bfloat16",
+                          lambda: [model(gq, x) for x in xs],
+                          {name: 2 * REQUESTS, key: 2 * REQUESTS})
+        diffs = [calc_diff(q, f) for q, f in zip(out, logits)]
+        print(f"  {label}: logits against the float32 path calc_diff "
+              f"{[f'{v:.3e}' for v in diffs]} (limit 1e-2)")
+        if not (max(diffs) < 1e-2 and all(bool(torch.isfinite(q).all()) for q in out)):
+            fail(f"path Q {label}: the bf16 GCN's logits are off the float32 path")
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev)
+        fields = [g.plan.bitmask, g.plan.hind, g.plan.block_ptr, g.plan.occ]
+        for d in widths:
+            q_kernel(key, label[0], f"{label[0]}'s plan", g.plan, d, deg, fields, csr, a.nnz,
+                     plain_iters=1 if name == "spmm_fused" else 3)
+        del gq, out, csr
+        torch.cuda.empty_cache()
+        path_q["seconds"] = path_q.get("seconds", 0.0) + time.perf_counter() - t_path
+
+    def q_path_ell(label, a):
+        """Path Q on E's graph and ELL geometry (PlanConfig(128, 128,
+        block_unroll=4), random edge values): REQUESTS spmm(plan,
+        x.bfloat16()) at d 8 and 40 (K6's bf16 instantiation once each), then
+        Q.1 of K6 at those widths."""
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        vals = qrng.standard_normal(a.nnz).astype(np.float32)
+        eplan = csr_preprocess_ell(a.indptr, a.indices, n, PlanConfig(128, 128, block_unroll=4),
+                                   values=vals).to(dev)
+        xs = {d: [q_feat(n, d).to(torch.bfloat16) for _ in range(REQUESTS)] for d in (8, 40)}
+        outs = q_drive(f"{label}: {REQUESTS} spmm(ELL plan, x.bfloat16()) at d 8 and 40",
+                       lambda: [spmm(eplan, x) for d in xs for x in xs[d]],
+                       {"spmm_ell": 2 * REQUESTS, "spmm_ell_bf16": 2 * REQUESTS})
+        if not all(o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"path Q {label}: the bf16 ELL SpMM is not a finite bf16 output")
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev, torch.from_numpy(vals))
+        fields = (eplan.hind, eplan.erow, eplan.vals, eplan.window_of_block)
+        for d in (8, 40):
+            q_kernel("spmm_ell_bf16", label[0], f"{label[0]}'s ELL plan", eplan, d, deg,
+                     fields, csr, a.nnz)
+        del eplan, csr, outs, xs
+        torch.cuda.empty_cache()
+        path_q["seconds"] = path_q.get("seconds", 0.0) + time.perf_counter() - t_path
+
     # --- paths K, L and M: the other model families -----------------------
     TOL_MODEL = 1e-4  # logits: rtol, and atol x max(1, max|plain|)
     # paths K, L and M draw their features from a generator of their own, so
@@ -4031,7 +4450,7 @@ def main() -> None:
 
     orng = np.random.default_rng(18)  # path O's own features and values
     tune_dir = os.path.join(ROOT, "build", "tune")  # a fresh cache: every run races
-    path_o = {"races": {}, "launches": dict.fromkeys(kernels, 0)}
+    path_o = {"races": {}, "launches": dict.fromkeys(count_keys, 0)}
 
     def race(label, tuner, a, x, **kw):
         """One race on the card: every candidate printed (ms, plan seconds,
@@ -4080,6 +4499,8 @@ def main() -> None:
         torch.cuda.synchronize()
         counts, plain_calls = read_counts()
         want_k = tuned.variant.kernels()
+        if tuned.variant.bf16:  # its kernels' bf16 instantiations
+            want_k = want_k + [f"{k}_bf16" for k in want_k]
         moved = {k: c for k, c in counts.items() if c}
         if plain_calls or not moved or set(moved) - set(want_k):
             fail(f"path O {label}: the winner launched {moved} (want {want_k}), plain "
@@ -4088,7 +4509,8 @@ def main() -> None:
         if values is not None:
             a64 = sp.csr_matrix((values.astype(np.float64), a.indices, a.indptr), shape=a.shape)
         sel = slice(None) if rows is None else rows
-        x64 = x.double().cpu().numpy()
+        # a bf16 variant sums the rows rounded to bf16: the host product of those
+        x64 = (x.to(torch.bfloat16) if tuned.variant.bf16 else x).double().cpu().numpy()
         want = torch.from_numpy(a64[sel] @ x64)
         abs_sum = torch.from_numpy(abs(a64[sel]) @ np.abs(x64))
         deg = torch.from_numpy(np.diff(a.indptr)[sel].astype(np.float64))[:, None]
@@ -4134,7 +4556,8 @@ def main() -> None:
         print(f"path O.1 (tuner, ogbn-arxiv proxy): tune_spmm at d {d}, default space, "
               f"orderings identity and rcm, budget_s 120, a fresh cache {tune_dir}")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
-        kw = dict(reorderings=("identity", "rcm"), budget_s=120, hash_tag="ogbn-arxiv-proxy")
+        kw = dict(reorderings=("identity", "rcm"), budget_s=120, hash_tag="ogbn-arxiv-proxy",
+                  accurate=True)
         tuner = SpmmTuner(cache_dir=os.path.join(tune_dir, "a"))
         tuned, race_s = race("A d 128", tuner, a, x, **kw)
         k1_key = "identity|" + Variant("pregather", block_h=128).key()
@@ -4190,14 +4613,14 @@ def main() -> None:
         print(f"path O.3 (tuner, ogbl-ddi proxy): tune_spmm at d {d}, default space, budget_s 60")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
         tuned, _ = race("F d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "f")), a, x,
-                        budget_s=60, hash_tag="ogbl-ddi-proxy")
+                        budget_s=60, hash_tag="ogbl-ddi-proxy", accurate=True)
         check_winner("F d 256", tuned, a, x)
         auto_beside("F", a, x, tuned)
         vals = orng.standard_normal(a.nnz).astype(np.float32)
         print("path O.3 weighted: tune_spmm(values=...) on F's graph at d 256, the weighted "
               "default space (K6, and K4 where its plane stays within 8 slots an edge)")
         wt, _ = race("F weighted d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "fw")), a,
-                     x, values=vals, budget_s=60, hash_tag="ogbl-ddi-proxy")
+                     x, values=vals, budget_s=60, hash_tag="ogbl-ddi-proxy", accurate=True)
         check_winner("F weighted d 256", wt, a, x, values=vals)
         raced = {key.split("|")[1].split("/")[0] for key in wt.candidates}
         if raced != {"ell", "weighted"}:
@@ -4245,7 +4668,7 @@ def main() -> None:
               f"{total / 2**30:.1f} GiB) and each candidate in a probe of its own")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
         tuned, race_s = race("C d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "c")), a, x,
-                             budget_s=120, hash_tag="protein-proxy")
+                             budget_s=120, hash_tag="protein-proxy", accurate=True)
         print("  residency of the kept candidates (plan, workspace, features, output): "
               "tuner.estimate_residency beside the probe's torch.cuda.max_memory_allocated "
               "over the candidate's first call:")
@@ -4350,6 +4773,9 @@ def main() -> None:
         streamed_path("J.1 (ogbn-arxiv proxy, streamed GCN, K1 on 4 window chunks)", arxiv, g,
                       model, params_np, xs, logits)
         hybrid_path("J.2 (ogbn-arxiv proxy, hybrid plan, K3 and K1)", arxiv, g)
+        q_path_a("Q (ogbn-arxiv proxy, bf16 feature sources: K1, the hybrid's K3 and K1, the "
+                 "GCN under agg_dtype=torch.bfloat16, the tuner's bf16 variants, the auto rule)",
+                 arxiv, g, params_np)
 
     t0 = time.perf_counter()
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
@@ -4359,7 +4785,10 @@ def main() -> None:
                             "spmm_block", (128, 256, 40), train_gcn=True, then=after_a),
         "spmm_subtile": serve("B (ogbn-arxiv proxy clustered, K2)", arxiv,
                               PlanConfig(2048, 128, block_unroll=4, cluster_cols=True),
-                              "spmm_subtile", (128, 256, 40)),
+                              "spmm_subtile", (128, 256, 40),
+                              then=lambda g, model, _, xs, logits, __: q_path_gcn(
+                                  "B (path Q, K2's bf16 instantiation)", arxiv, g, model, xs,
+                                  logits, "spmm_subtile", (128, 256))),
     }
     path_k = full_graph_models("K (ogbn-arxiv proxy, SAGE, GIN, APPNP, deep GCN, R-GCN on K1; "
                                "DropEdge on K4)", arxiv)
@@ -4378,6 +4807,7 @@ def main() -> None:
     # examples/train_gat_dot.py:54's plan geometry
     path_e = gat_ell_path("E (ogbn-arxiv proxy with self-loops, dot-product GAT, K6 and K7)",
                           loops, PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8)
+    q_path_ell("E (path Q, K6's bf16 instantiation)", loops)
     # the same graph, geometry and widths as E (bench/bm_gat.py:174-177)
     results.update(gat_flash_path(
         "G (ogbn-arxiv proxy with self-loops, flash GAT, K13, K14 and K15)", loops,
@@ -4414,8 +4844,10 @@ def main() -> None:
         "C (protein proxy, K3)", protein,
         PlanConfig(2048, 128, gather_segment=128, block_unroll=4), "spmm_fused",
         (8, 256, 112), host_rows=np.r_[0:2048, last:n],
-        then=lambda g, *_: (int8_on_c("C (protein proxy)", protein, g),
-                            c_plan_builds(protein)))
+        then=lambda g, model, _, xs, logits, __: (
+            int8_on_c("C (protein proxy)", protein, g), c_plan_builds(protein),
+            q_path_gcn("C (path Q, K3's bf16 instantiation)", protein, g, model, xs, logits,
+                       "spmm_fused", (8, 256))))
     tuner_path_c(protein)
     del protein
     tuner_path_cli()
@@ -4423,6 +4855,7 @@ def main() -> None:
 
     shutil.rmtree(tune_dir, ignore_errors=True)
     print(f"path O: {json.dumps(path_o)}")
+    print(f"path Q: {json.dumps({k: v for k, v in path_q.items() if k not in bf16_of})}")
     results["spmm_int8"] = path_i
     results["spmm_block"].update(
         {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
@@ -4468,6 +4901,23 @@ def main() -> None:
                      # path O: launches of the tuner's in-process races
                      "o_launches": path_o["launches"][name],
                      **results[name]})
+    # the bf16 instantiations (path Q): the same sources and registered ops;
+    # launches on path Q's drives (the GCN on A, B and C, the hybrid, the ELL
+    # SpMM); times summed over the widths of path Q's Q.1, beside the float32
+    # kernel's (f32_ms)
+    for key, name in bf16_of.items():
+        pw = path_q[key]["per_width"]
+        widest = max(pw.values(), key=lambda v: v["bound_ms"])
+        entry = {"name": key, "route": "cuda",
+                 "source": f"voltrix_spmm_tpu_torch/csrc/{kernels[name][2]}",
+                 "replaces": kernels[name][3], "max_abs_err": bf16_err[key],
+                 "registered": f"voltrix::{name}" if name in REGISTERED else None,
+                 "o_launches": path_o["launches"][key], "launches": path_q[key]["launches"],
+                 "bound_by": widest["bound_by"]}
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms"):
+            entry[field] = sum(v[field] for v in pw.values())
+            entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
+        line.append(entry)
     # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed
     # (K6 and K7: E's d 8 and 40 and F's d 256; K13-K15: G's two layers, H 8 x d 8 and
     # H 1 x d 40; K9-K12: path H's, one head of d 8 and d 40); f_*: path F's counts and

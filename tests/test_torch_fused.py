@@ -146,7 +146,16 @@ def test_fused_refuses_plans_it_does_not_take():
     dict(compute_dtype=torch.bfloat16),
 ])
 def test_spmm_refuses_tpu_tiling_knobs(kwargs):
-    _, tplan = both_plans(random_csr(256, 0.05, seed=7), block_h=32, gather_segment=8)
+    """The TPU tiling knobs stay refused; compute_dtype=bfloat16, refused
+    until the kernels read bf16 rows, now runs K3's bf16 source and matches
+    JAX's compute_dtype (a float32 result at the float32 tolerance)."""
+    jplan, tplan = both_plans(random_csr(256, 0.05, seed=7), block_h=32, gather_segment=8)
+    if "compute_dtype" in kwargs:
+        x = features(256, 8, seed=7)
+        out = vt.spmm(tplan, torch.from_numpy(x), **kwargs)
+        assert out.dtype == torch.float32
+        assert_close(out, np.asarray(jvx.spmm(jplan, jnp.asarray(x), compute_dtype=jnp.bfloat16)))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
         vt.spmm(tplan, torch.zeros(256, 8), **kwargs)
     vt.spmm(tplan, torch.zeros(256, 8), compute_dtype=torch.float32)  # the kernels' own

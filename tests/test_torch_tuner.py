@@ -328,9 +328,12 @@ def test_partial_race_resume(problem, tmp_path):
 
 
 def test_default_space_shapes():
+    """accurate=True is the float32 variants of the default space, in its
+    order (accurate=False adds the bf16 ones, tests/test_torch_bf16_tuner.py)."""
     space = default_space()
     assert all(isinstance(v, Variant) for v in space)
-    assert [v.key() for v in default_space(accurate=True)] == [v.key() for v in space]
+    assert [v.key() for v in default_space(accurate=True)] == [v.key() for v in space
+                                                              if not v.bf16]
     keys = {v.key() for v in space}
     for v in (Variant("pregather", block_h=128),
               Variant("pregather", block_h=2048, block_unroll=4, subtile=True),
@@ -346,7 +349,7 @@ def test_default_space_holds_only_what_the_port_runs():
     dense side is K3 on the port (JAX's reads packed super-rows, item 18)."""
     stats = dict(d=16, coverage128=0.1, split_rows8=0.5, split_slots8=1.1)
     jspace = jtuner.default_space(accurate=True, **stats)
-    ours = default_space(**stats)
+    ours = default_space(accurate=True, **stats)
     extra = {v.key() for v in ours} - {v.key() for v in jspace}
     tall = Variant("hybrid", block_h=2048, gather_segment=8, block_unroll=8, subtile=True)
     assert extra == {Variant("pregather", block_h=128).key(), tall.key()}
@@ -489,6 +492,15 @@ def test_one_variant_space_matches_jax_tuned(problem, tmp_path, name, ordering):
     ("hybrid_dense", "pregather"),
 ])
 def test_tpu_only_variant_fields_raise(field, value):
+    """The TPU-only fields raise; feat_dtype and compute_dtype "bfloat16",
+    refused until the kernels read bf16 rows, now build the JAX package's
+    variant (the same key) and refuse only float16."""
+    if field in ("feat_dtype", "compute_dtype"):
+        v = Variant("pregather", **{field: value})
+        assert v.bf16 and v.key() == jtuner.Variant("pregather", **{field: value}).key()
+        with pytest.raises(NotImplementedError, match=field):
+            Variant("pregather", **{field: "float16"})
+        return
     with pytest.raises(NotImplementedError, match=field):
         Variant("pregather", **{field: value})
 

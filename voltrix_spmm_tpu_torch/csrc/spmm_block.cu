@@ -44,6 +44,13 @@
 // No tensor cores: the plan fills 1.19% of its 128 x 128 block slots, so a
 // dense tile product does ~80x the useful work, and K1 is held to float32
 // parity (no tf32; a three-pass bf16 split of X would do ~250x).
+//
+// bf16 features (voltrix_spmm_block_bf16; pallas_spmm.py:192 casts the
+// gathered tile in the kernel): the same walk on bf16 rows (kBF16 of
+// spmm_walk.cuh), 8 bytes a lane into a ring 31 slices deep, each value
+// widened exactly to float32 and added in the same order, so the result is
+// the float32 kernel's on the widened rows, bit for bit. It moves half of
+// X's bytes; what that buys on the card is in PERF.md section 6.
 
 #include "spmm_walk.cuh"
 
@@ -62,6 +69,19 @@ int voltrix_spmm_block_f32(const void* bitmask, const void* hind, const void* ta
   auto walk = vec ? vw::launch_walk<false, vw::kF32x4> : vw::launch_walk<false, vw::kF32x1>;
   return walk(bitmask, hind, nullptr, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges,
               words, block_h, block_w, num_nodes, source_rows, d, d, stream);
+}
+
+// K1 on bf16 rows of width ld (a multiple of 4, >= d; feat 8-byte aligned):
+// the wrapper pads rows that are not (ops/block_spmm.py:bf16_rows). The
+// sums are float32 and out stays float32.
+int voltrix_spmm_block_bf16(const void* bitmask, const void* hind, const void* tasks,
+                            const void* merges, const void* feat, void* out, void* ws,
+                            int num_tasks, int num_merges, int words, int block_h, int block_w,
+                            int num_nodes, int source_rows, int d, int ld, void* stream) {
+  if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
+  return voltrix_walk::launch_walk<false, voltrix_walk::kBF16>(
+      bitmask, hind, nullptr, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
+      block_h, block_w, num_nodes, source_rows, d, ld, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -45,9 +45,21 @@
 // (torch.sparse.mm 0.164 / 0.198; bound 0.012 / 0.025) and 0.624 ms at
 // d 256 on the ogbl-ddi proxy's 5.1M link candidates (0.656; bound 0.039),
 // at PIECE_LANES 512 (tools/k6_piece_sweep.py).
+//
+// bf16 features (voltrix_spmm_ell_bf16; ell.py:56-59 casts the gathered
+// rows, and under compute_dtype=bfloat16 the edge values, in the kernel):
+// the row walk is a template on the feature type, reading four bf16
+// values as 8 bytes where the float32 walk reads a float4 (d % 4 == 0 and
+// feat 8-byte aligned; else one 2-byte load a column) and widening each
+// exactly to float32; with round_vals each edge value is rounded to bf16
+// first. The products and sums are those of the float32 walk, in the same
+// order, so the result is the float32 kernel's on the widened rows (and
+// rounded values), bit for bit.
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,6 +88,21 @@ __device__ __forceinline__ void load_cols(const float* p, float (&x)[kVec]) {
   }
 }
 
+// kVec bf16 columns of a feature row, widened exactly to float32
+template <int kVec>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&x)[kVec]) {
+  if (kVec == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(u.x << 16);
+    x[1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2] = __uint_as_float(u.y << 16);
+    x[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    x[0] = __uint_as_float(static_cast<uint32_t>(u) << 16);
+  }
+}
+
 template <int kVec>
 __device__ __forceinline__ void store_cols(float* p, const float (&x)[kVec]) {
   if (kVec == 4) {
@@ -85,13 +112,16 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[kVec]) {
   }
 }
 
-template <int kVec, int kUnroll>
+// T: the feature type (float or __nv_bfloat16); kRound: each edge value
+// rounded to bf16 before its products (compute_dtype=bfloat16), a template
+// parameter so that the float32 walk's loop is the one it always was
+template <typename T, bool kRound, int kVec, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 spmm_ell_rows_kernel(const int32_t* __restrict__ items,  // (num_items, kItemInts)
                      const int32_t* __restrict__ src,    // (kept lanes,) in row order
                      const int32_t* __restrict__ lane,   // (kept lanes,) flat lane index
                      const float* __restrict__ vals,     // (B * K,)
-                     const float* __restrict__ feat,     // (source_rows, d)
+                     const T* __restrict__ feat,         // (source_rows, d)
                      float* __restrict__ out,            // (num_nodes, d)
                      float* __restrict__ ws,             // (slots, d)
                      int num_items, int d, int tpe) {
@@ -137,6 +167,7 @@ spmm_ell_rows_kernel(const int32_t* __restrict__ items,  // (num_items, kItemInt
       for (int k = 0; k < kVec; ++k) x[u][k] = 0.f;
       if (csrc[u] >= 0) {
         v[u] = __ldg(vals + clane[u]);
+        if constexpr (kRound) v[u] = __bfloat162float(__float2bfloat16_rn(v[u]));
         if (col_ok) load_cols<kVec>(feat + (int64_t)csrc[u] * d + c, x[u]);
       }
     }
@@ -196,17 +227,60 @@ spmm_ell_merge_kernel(const int32_t* __restrict__ merges,  // (cut rows, kMergeI
   store_cols<kVec>(o, v);
 }
 
-template <int kVec, int kUnroll>
+template <typename T, bool kRound, int kVec, int kUnroll>
 cudaError_t launch_rows(const void* items, const void* src, const void* lane, const void* vals,
                         const void* feat, void* out, void* ws, int num_items, int d, int tpe,
                         cudaStream_t stream) {
   const dim3 grid((num_items + kWarps - 1) / kWarps, (d + tpe * kVec - 1) / (tpe * kVec));
-  spmm_ell_rows_kernel<kVec, kUnroll><<<grid, kThreads, 0, stream>>>(
+  spmm_ell_rows_kernel<T, kRound, kVec, kUnroll><<<grid, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(items), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(lane), static_cast<const float*>(vals),
-      static_cast<const float*>(feat), static_cast<float*>(out), static_cast<float*>(ws),
+      static_cast<const T*>(feat), static_cast<float*>(out), static_cast<float*>(ws),
       num_items, d, tpe);
   return cudaGetLastError();
+}
+
+// the row walk's instantiation for (vec, unroll)
+template <typename T, bool kRound>
+auto pick_rows(int vec, int unroll) {
+  return vec == 4 ? (unroll == 4   ? launch_rows<T, kRound, 4, 4>
+                     : unroll == 2 ? launch_rows<T, kRound, 4, 2>
+                                   : launch_rows<T, kRound, 4, 1>)
+                  : (unroll == 4   ? launch_rows<T, kRound, 1, 4>
+                     : unroll == 2 ? launch_rows<T, kRound, 1, 2>
+                                   : launch_rows<T, kRound, 1, 1>);
+}
+
+// K6 on T rows: the row walk, then the merge of cut rows
+template <typename T>
+int launch_ell(const void* items, const void* src, const void* lane, const void* vals,
+               const void* merges, const void* feat, void* out, void* ws, int num_items,
+               int num_merges, int d, int vec, int tpe, int unroll, int round_vals,
+               void* stream) {
+  if (num_items <= 0 || d <= 0 || (vec != 1 && vec != 4) || tpe <= 0 || tpe > 32 ||
+      (tpe & (tpe - 1)) != 0 || (unroll != 1 && unroll != 2 && unroll != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float32 rows are never rounded (compute_dtype=bfloat16 reads bf16 rows)
+  auto rows = round_vals && !std::is_same<T, float>::value ? pick_rows<T, true>(vec, unroll)
+                                                           : pick_rows<T, false>(vec, unroll);
+  cudaError_t err = rows(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s);
+  if (err != cudaSuccess || num_merges == 0) return static_cast<int>(err);
+  // the workspace and out are float32 whatever the features: float4 where
+  // d % 4 == 0 (fresh allocations, so 16-byte aligned)
+  const int mvec = d % 4 == 0 ? 4 : 1;
+  const dim3 grid((num_merges + kWarps - 1) / kWarps, (d + 32 * mvec - 1) / (32 * mvec));
+  if (mvec == 4) {
+    spmm_ell_merge_kernel<4><<<grid, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
+        static_cast<float*>(out), num_merges, d);
+  } else {
+    spmm_ell_merge_kernel<1><<<grid, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
+        static_cast<float*>(out), num_merges, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -224,33 +298,18 @@ int voltrix_spmm_ell_f32(const void* items, const void* src, const void* lane,
                          const void* vals, const void* merges, const void* feat, void* out,
                          void* ws, int num_items, int num_merges, int d, int vec, int tpe,
                          int unroll, void* stream) {
-  if (num_items <= 0 || d <= 0 || (vec != 1 && vec != 4) || tpe <= 0 || tpe > 32 ||
-      (tpe & (tpe - 1)) != 0 || (unroll != 1 && unroll != 2 && unroll != 4)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (vec == 4) {
-    err = unroll == 4   ? launch_rows<4, 4>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s)
-          : unroll == 2 ? launch_rows<4, 2>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s)
-                        : launch_rows<4, 1>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s);
-  } else {
-    err = unroll == 4   ? launch_rows<1, 4>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s)
-          : unroll == 2 ? launch_rows<1, 2>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s)
-                        : launch_rows<1, 1>(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s);
-  }
-  if (err != cudaSuccess || num_merges == 0) return static_cast<int>(err);
-  const dim3 grid((num_merges + kWarps - 1) / kWarps, (d + 32 * vec - 1) / (32 * vec));
-  if (vec == 4) {
-    spmm_ell_merge_kernel<4><<<grid, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
-        static_cast<float*>(out), num_merges, d);
-  } else {
-    spmm_ell_merge_kernel<1><<<grid, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(merges), static_cast<const float*>(ws),
-        static_cast<float*>(out), num_merges, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_ell<float>(items, src, lane, vals, merges, feat, out, ws, num_items, num_merges,
+                           d, vec, tpe, unroll, 0, stream);
+}
+
+// K6 on bf16 rows: vec is 4 (d % 4 == 0 and feat 8-byte aligned) or 1;
+// round_vals = 1 rounds each edge value to bf16 (compute_dtype=bfloat16).
+int voltrix_spmm_ell_bf16(const void* items, const void* src, const void* lane,
+                          const void* vals, const void* merges, const void* feat, void* out,
+                          void* ws, int num_items, int num_merges, int d, int vec, int tpe,
+                          int unroll, int round_vals, void* stream) {
+  return launch_ell<__nv_bfloat16>(items, src, lane, vals, merges, feat, out, ws, num_items,
+                                   num_merges, d, vec, tpe, unroll, round_vals, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

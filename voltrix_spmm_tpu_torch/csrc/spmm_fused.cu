@@ -65,12 +65,28 @@
 // No tensor cores: at the protein proxy's fill (0.45%), a 16 x 8 tile of A
 // holds a bit about 43% of the time, so an mma over binary tiles would do
 // ~100x the useful work.
+//
+// bf16 features (voltrix_spmm_fused_bf16; pallas_spmm_fused.py:235 casts X
+// before its DMA): the kernel is a template on the staged element type.
+// The tensor map reads bf16 (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16), a stage
+// holds bf16 rows, and the walks read groups of four values as 8 bytes and
+// widen each exactly to float32, adding in the same order: the result is
+// the float32 kernel's on the widened rows, bit for bit. At 128 columns a
+// stage is 36 KB instead of 68 KB; the wide walk's 17 warps at 94
+// registers already fill an SM's register file, so the freed shared memory
+// buys a deeper ring (6 stages instead of 3), not a second thread block.
+// TMA needs a box's inner size to be a multiple of 16 bytes, so the bulk
+// copies need rows of ld % 8 == 0 bf16 values (float32: d % 4 == 0); other
+// rows come by 8-byte cp.async, 4 values at a time, from rows of width ld
+// % 4 == 0 that the wrapper pads once where d % 4 != 0
+// (ops/block_spmm.py:bf16_rows).
 
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "spmm_walk.cuh"
@@ -114,6 +130,23 @@ __device__ __forceinline__ void tma_copy(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// four staged values from shared memory as float32 (16 bytes of float32,
+// or 8 bytes of bf16 widened exactly)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return vw::widen_bf16x4(*reinterpret_cast<const uint2*>(p));
+}
+
+// four zero values into shared memory
+__device__ __forceinline__ void zero4(float* p) {
+  *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void zero4(__nv_bfloat16* p) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+}
+
 // an arrival on `bar` once this thread's earlier cp.async copies have landed
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
@@ -125,13 +158,15 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // it) and, for l < nw, word l's 128 bitmask
 // words, up to stages - 1 tiles ahead of the walk. The run heads of tile t
 // (hind) are loaded kAhead tiles before its copies are issued, into
-// registers that an unrolled loop indexes with constants.
-template <bool kBulk>
+// registers that an unrolled loop indexes with constants. T is the staged
+// element type (float32 or bf16); rows of feat are ld elements apart, and
+// the chunk's lw of them are staged.
+template <typename T, bool kBulk>
 __device__ __forceinline__ void produce_tiles(
     const uint32_t* __restrict__ bitmask, const int32_t* __restrict__ hind,
-    const float* __restrict__ feat, const CUtensorMap* xmap, float* smem, uint64_t* full,
+    const T* __restrict__ feat, const CUtensorMap* xmap, unsigned char* smem, uint64_t* full,
     uint64_t* empty, int b0, int tiles, int tpb, int words, int gw, int g, int nw, int block_w,
-    int seg, int source_rows, int d, int c0, int cw, int pitch, int stage_floats, int stages) {
+    int seg, int source_rows, int ld, int c0, int lw, int pitch, int stage_bytes, int stages) {
   constexpr int kRows = kTileLanes / 32;  // tile rows a lane stages
   const int lane = threadIdx.x % 32;
   const int box = box_rows(seg);  // rows of a box, within one run
@@ -161,7 +196,7 @@ __device__ __forceinline__ void produce_tiles(
       if (t >= stages) mbar_wait(&empty[st], (t / stages - 1) & 1);
       const int64_t b = b0 + t / tpb;
       const int lane0 = (t % tpb) * kTileLanes;
-      float* xs = smem + st * stage_floats;
+      T* xs = reinterpret_cast<T*>(smem + (int64_t)st * stage_bytes);
       uint32_t* ms = reinterpret_cast<uint32_t*>(xs + kTileLanes * pitch);
       const uint32_t* mrow = bitmask + (b * words + gw * g + lane) * block_w + lane0;
       if constexpr (kBulk) {
@@ -170,7 +205,7 @@ __device__ __forceinline__ void produce_tiles(
         uint32_t total = lane < nw ? kTileLanes * 4 : 0;
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
-          if ((32 * k + lane) % box == 0) total += box * pitch * 4;
+          if ((32 * k + lane) % box == 0) total += box * pitch * sizeof(T);
         }
         mbar_arrive_expect_tx(&full[st], total);
 #pragma unroll
@@ -182,19 +217,21 @@ __device__ __forceinline__ void produce_tiles(
       } else {
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {  // a row past X reads as zero
-          float* x = xs + (32 * k + lane) * pitch;
+          T* x = xs + (32 * k + lane) * pitch;
           if (rows[k] < 0 || rows[k] >= source_rows) {
-            for (int c = 0; c < pitch; c += 4) {
-              *reinterpret_cast<float4*>(x + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-            }
+            for (int c = 0; c < pitch; c += 4) zero4(x + c);
           }
         }
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (rows[k] >= 0 && rows[k] < source_rows) {
-            const float* src = feat + (int64_t)rows[k] * d + c0;
-            float* x = xs + (32 * k + lane) * pitch;
-            for (int c = 0; c < cw; ++c) vw::cp_async4(x + c, src + c);
+            const T* src = feat + (int64_t)rows[k] * ld + c0;
+            T* x = xs + (32 * k + lane) * pitch;
+            if constexpr (sizeof(T) == 4) {
+              for (int c = 0; c < lw; ++c) vw::cp_async4(x + c, src + c);
+            } else {  // ld % 4 == 0: four bf16 values a copy
+              for (int c = 0; c < lw; c += 4) vw::cp_async8(x + c, src + c);
+            }
           }
         }
         if (lane < nw) {
@@ -215,32 +252,34 @@ __host__ __device__ constexpr int warps_per_word() { return kNC ? 1 : 2; }
 
 // kNC = 0: the wide walk (a warp per 16 rows of a word, lane l: columns
 // 4l .. 4l + 3 of the chunk). kNC > 0: the narrow walk for d <= 4 kNC <= 32
-// (a warp per word, lane l: row l, kNC float4 of columns).
-template <bool kBulk, int kNC>
+// (a warp per word, lane l: row l, kNC float4 of columns). T: the staged
+// element type, float32 or bf16 (rows of ld elements).
+template <typename T, bool kBulk, int kNC>
 __global__ void __launch_bounds__(32 * (kMaxWarps * warps_per_word<kNC>() + 1), kNC ? 3 : 1)
 spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
                   const int32_t* __restrict__ hind,      // (B, block_w)
                   const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
-                  const float* __restrict__ feat,        // (source_rows, d)
+                  const T* __restrict__ feat,            // (source_rows, ld)
                   float* __restrict__ out,               // (num_nodes, d)
                   float* __restrict__ ws,                // (slots, tile rows, d)
                   const __grid_constant__ CUtensorMap xmap,  // feat (bulk copies)
                   int words, int gw, int block_h, int block_w, int seg, int num_nodes,
-                  int source_rows, int d, int chunks, int stages) {
+                  int source_rows, int d, int ld, int chunks, int stages) {
   constexpr int kWpw = warps_per_word<kNC>();
   constexpr int kRowsPerWarp = 32 / kWpw;
   // stages x [(kTileLanes, pitch) X rows, (gw, kTileLanes) bitmask words]
-  extern __shared__ __align__(128) float smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];   // the stage's copies have landed
   __shared__ __align__(8) uint64_t empty[kMaxStages];  // the walking warps are done with it
 
   const int* task = tasks + (int64_t)(blockIdx.x / chunks) * vw::kTaskInts;
   const int w = task[vw::kW], g = task[vw::kG], b0 = task[vw::kB0], b1 = task[vw::kB1];
   const int c0 = (blockIdx.x % chunks) * kCols;
-  const int cw = min(kCols, d - c0);
-  // floats between staged rows: a box's width, or cp.async's rows
-  const int pitch = kBulk ? (d < kCols ? d : kCols) : (cw + 3) & ~3;
-  const int stage_floats = kTileLanes * pitch + gw * kTileLanes;
+  const int cw = min(kCols, d - c0);   // output columns of the chunk
+  const int lw = min(kCols, ld - c0);  // staged columns of the chunk
+  // elements between staged rows: a box's width, or cp.async's rows
+  const int pitch = kBulk ? (ld < kCols ? ld : kCols) : (lw + 3) & ~3;
+  const int stage_bytes = kTileLanes * pitch * (int)sizeof(T) + gw * kTileLanes * 4;
   const int nw = min(gw, words - gw * g);  // words of this slab
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tpb = block_w / kTileLanes;
@@ -256,9 +295,9 @@ spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   __syncthreads();
 
   if (warp == gw * kWpw) {
-    produce_tiles<kBulk>(bitmask, hind, feat, &xmap, smem, full, empty, b0, tiles, tpb, words,
-                         gw, g, nw, block_w, seg, source_rows, d, c0, cw, pitch, stage_floats,
-                         stages);
+    produce_tiles<T, kBulk>(bitmask, hind, feat, &xmap, smem, full, empty, b0, tiles, tpb,
+                            words, gw, g, nw, block_w, seg, source_rows, ld, c0, lw, pitch,
+                            stage_bytes, stages);
     return;
   }
   if (warp >= nw * kWpw) return;
@@ -299,12 +338,12 @@ spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   for (int t = 0; t < tiles; ++t) {
     const int st = t % stages;
     mbar_wait(&full[st], (t / stages) & 1);
-    const float* xs = smem + st * stage_floats;
+    const T* xs = reinterpret_cast<const T*>(smem + (int64_t)st * stage_bytes);
     const uint32_t* ms =
         reinterpret_cast<const uint32_t*>(xs + kTileLanes * pitch) + wi * kTileLanes;
 #pragma unroll
     for (int sl = 0; sl < kTileLanes / 32; ++sl) {
-      const float* xsl = xs + sl * 32 * pitch;
+      const T* xsl = xs + sl * 32 * pitch;
       if constexpr (kNC) {
         const uint32_t m = ms[sl * 32 + lane];
         unsigned kept = __ballot_sync(0xffffffffu, m != 0u);
@@ -314,11 +353,11 @@ spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
           // every lane reads the same row (a broadcast); the lane whose
           // row has the bit adds it
           const bool mine = (__shfl_sync(0xffffffffu, m, src) >> lane) & 1u;
-          const float* xrow = xsl + src * pitch;
+          const T* xrow = xsl + src * pitch;
 #pragma unroll
           for (int k = 0; k < kNC; ++k) {
             if (4 * k < cw) {
-              const float4 x = *reinterpret_cast<const float4*>(xrow + 4 * k);
+              const float4 x = load4(xrow + 4 * k);
               if (mine) {
                 acc[0][k].x += x.x;
                 acc[0][k].y += x.y;
@@ -343,8 +382,8 @@ spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
           const uint32_t bits2 = two ? __shfl_sync(0xffffffffu, m, s2) : 0u;
           float4 x1 = make_float4(0.f, 0.f, 0.f, 0.f), x2 = x1;
           if (col_ok) {
-            x1 = *reinterpret_cast<const float4*>(xsl + s1 * pitch + 4 * lane);
-            x2 = *reinterpret_cast<const float4*>(xsl + s2 * pitch + 4 * lane);
+            x1 = load4(xsl + s1 * pitch + 4 * lane);
+            x2 = load4(xsl + s2 * pitch + 4 * lane);
           }
           add_rows(bits1, x1);
           add_rows(bits2, x2);
@@ -410,6 +449,73 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// Launches K3 on T rows of width ld (ld = d for float32; ld % 4 == 0 and
+// ld >= d for bf16), then the merge of cut slabs, on `stream`; returns the
+// first CUDA error as an int. `dtype` is the tensor map's element type.
+template <typename T>
+int launch_fused(const void* bitmask, const void* hind, const void* tasks, const void* merges,
+                 const void* feat, void* out, void* ws, int num_tasks, int num_merges, int words,
+                 int gw, int block_h, int block_w, int seg, int num_nodes, int source_rows, int d,
+                 int ld, int bulk, CUtensorMapDataType dtype, void* stream) {
+  constexpr int kSize = sizeof(T);
+  if (num_tasks <= 0 || d <= 0 || ld < d || (gw != 4 && gw != kMaxWarps) ||
+      block_w % kTileLanes || seg < 1 || block_w % seg ||
+      (bulk && (box_rows(seg) < 8 || ld * kSize % 16 != 0)) || (kSize == 2 && ld % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (d + kCols - 1) / kCols;
+  const int lw = ld < kCols ? ld : kCols;  // the first chunk's staged columns
+  const int pitch = bulk ? lw : (lw + 3) & ~3;
+  // the staged rows come as (lw, box_rows(seg)) boxes of a tensor map over
+  // feat
+  CUtensorMap xmap;
+  std::memset(&xmap, 0, sizeof(xmap));
+  if (bulk && source_rows > 0) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ld), static_cast<cuuint64_t>(source_rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * kSize};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(lw),
+                               static_cast<cuuint32_t>(box_rows(seg))};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(&xmap, dtype, 2, const_cast<void*>(feat), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int stage_bytes = kTileLanes * pitch * kSize + gw * kTileLanes * 4;
+  // the narrow walk (d <= 32) leaves room for three thread blocks an SM
+  int stages = (d <= 32 ? kSmemBudget / 3 : kSmemBudget) / stage_bytes;
+  stages = stages < kMaxStages ? stages : kMaxStages;
+  stages = stages > 2 ? stages : 2;
+  const int smem = stages * stage_bytes;
+  // the narrow walk for rows of up to 32 values, by its float4 per row
+  auto pick = [&](auto b) {
+    constexpr bool kB = decltype(b)::value;
+    return d <= 8    ? spmm_fused_kernel<T, kB, 2>
+           : d <= 16 ? spmm_fused_kernel<T, kB, 4>
+           : d <= 32 ? spmm_fused_kernel<T, kB, 8>
+                     : spmm_fused_kernel<T, kB, 0>;
+  };
+  auto kernel = bulk ? pick(std::true_type{}) : pick(std::false_type{});
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((int64_t)num_tasks * chunks > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
+  const int walkers = gw * (d <= 32 ? warps_per_word<2>() : warps_per_word<0>());
+  kernel<<<num_tasks * chunks, 32 * (walkers + 1), smem, s>>>(
+      static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
+      static_cast<const int32_t*>(tasks), static_cast<const T*>(feat),
+      static_cast<float*>(out), static_cast<float*>(ws), xmap, words, gw, block_h, block_w, seg,
+      num_nodes, source_rows, d, ld, chunks, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(vw::launch_merge(merges, ws, out, num_merges, words, block_h, num_nodes,
+                                           d, d % 4 == 0, s, gw));
+}
+
 }  // namespace
 
 extern "C" {
@@ -427,61 +533,24 @@ int voltrix_spmm_fused_f32(const void* bitmask, const void* hind, const void* ta
                            int num_tasks, int num_merges, int words, int gw, int block_h,
                            int block_w, int seg, int num_nodes, int source_rows, int d, int bulk,
                            void* stream) {
-  if (num_tasks <= 0 || d <= 0 || (gw != 4 && gw != kMaxWarps) || block_w % kTileLanes ||
-      seg < 1 || block_w % seg || (bulk && box_rows(seg) < 8)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (d + kCols - 1) / kCols;
-  const int cw = d < kCols ? d : kCols;
-  const int pitch = bulk ? cw : (cw + 3) & ~3;
-  // the staged rows come as (cw, box_rows(seg)) boxes of a tensor map over
-  // feat
-  CUtensorMap xmap;
-  std::memset(&xmap, 0, sizeof(xmap));
-  if (bulk && source_rows > 0) {
-    const EncodeTiled encode = tensor_map_encoder();
-    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(source_rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 4};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(cw),
-                               static_cast<cuuint32_t>(box_rows(seg))};
-    const cuuint32_t unit[2] = {1, 1};
-    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(feat), dims, strides,
-               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const int stage_bytes = (kTileLanes * pitch + gw * kTileLanes) * 4;
-  // the narrow walk (d <= 32) leaves room for three thread blocks an SM
-  int stages = (d <= 32 ? kSmemBudget / 3 : kSmemBudget) / stage_bytes;
-  stages = stages < kMaxStages ? stages : kMaxStages;
-  stages = stages > 2 ? stages : 2;
-  const int smem = stages * stage_bytes;
-  // the narrow walk for rows of up to 32 floats, by its float4 per row
-  auto pick = [&](auto b) {
-    constexpr bool kB = decltype(b)::value;
-    return d <= 8    ? spmm_fused_kernel<kB, 2>
-           : d <= 16 ? spmm_fused_kernel<kB, 4>
-           : d <= 32 ? spmm_fused_kernel<kB, 8>
-                     : spmm_fused_kernel<kB, 0>;
-  };
-  auto kernel = bulk ? pick(std::true_type{}) : pick(std::false_type{});
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((int64_t)num_tasks * chunks > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
-  const int walkers = gw * (d <= 32 ? warps_per_word<2>() : warps_per_word<0>());
-  kernel<<<num_tasks * chunks, 32 * (walkers + 1), smem, s>>>(
-      static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
-      static_cast<const int32_t*>(tasks), static_cast<const float*>(feat),
-      static_cast<float*>(out), static_cast<float*>(ws), xmap, words, gw, block_h, block_w, seg,
-      num_nodes, source_rows, d, chunks, stages);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vw::launch_merge(merges, ws, out, num_merges, words, block_h, num_nodes,
-                                           d, d % 4 == 0, s, gw));
+  return launch_fused<float>(bitmask, hind, tasks, merges, feat, out, ws, num_tasks, num_merges,
+                             words, gw, block_h, block_w, seg, num_nodes, source_rows, d, d, bulk,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32, stream);
+}
+
+// K3 on bf16 rows of width ld (ld % 4 == 0, ld >= d, feat 8-byte aligned;
+// the wrapper pads rows that are not: ops/block_spmm.py:bf16_rows). bulk =
+// 1 iff ld % 8 == 0, feat is 16-byte aligned and box_rows(seg) >= 8; bulk
+// = 0 takes 8-byte cp.async. The sums and out are float32.
+int voltrix_spmm_fused_bf16(const void* bitmask, const void* hind, const void* tasks,
+                            const void* merges, const void* feat, void* out, void* ws,
+                            int num_tasks, int num_merges, int words, int gw, int block_h,
+                            int block_w, int seg, int num_nodes, int source_rows, int d, int ld,
+                            int bulk, void* stream) {
+  return launch_fused<__nv_bfloat16>(bitmask, hind, tasks, merges, feat, out, ws, num_tasks,
+                                     num_merges, words, gw, block_h, block_w, seg, num_nodes,
+                                     source_rows, d, ld, bulk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                     stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -34,6 +34,10 @@
 //
 // No tensor cores: the plan fills 0.13% of its 2048 x 128 block slots, and
 // K2 is held to float32 parity.
+//
+// bf16 features (voltrix_spmm_subtile_bf16; pallas_spmm.py:263 casts the
+// gathered tile in the kernel): the walk's kBF16 source, as K1's
+// (csrc/spmm_block.cu), bit for bit the float32 kernel on the widened rows.
 
 #include "spmm_walk.cuh"
 
@@ -53,6 +57,19 @@ int voltrix_spmm_subtile_f32(const void* bitmask, const void* hind, const void* 
   auto walk = vec ? vw::launch_walk<true, vw::kF32x4> : vw::launch_walk<true, vw::kF32x1>;
   return walk(bitmask, hind, occ, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges,
               words, block_h, block_w, num_nodes, source_rows, d, d, stream);
+}
+
+// K2 on bf16 rows of width ld (a multiple of 4, >= d; feat 8-byte aligned),
+// as voltrix_spmm_block_bf16.
+int voltrix_spmm_subtile_bf16(const void* bitmask, const void* hind, const void* occ,
+                              const void* tasks, const void* merges, const void* feat, void* out,
+                              void* ws, int num_tasks, int num_merges, int words, int block_h,
+                              int block_w, int num_nodes, int source_rows, int d, int ld,
+                              void* stream) {
+  if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
+  return voltrix_walk::launch_walk<true, voltrix_walk::kBF16>(
+      bitmask, hind, occ, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
+      block_h, block_w, num_nodes, source_rows, d, ld, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

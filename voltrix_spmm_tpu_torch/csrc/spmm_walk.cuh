@@ -3,9 +3,12 @@
 // = A @ X over the binned block-CSR plan, for sm_90a. K2 is the walk with
 // the sub-window occupancy test (kOcc); K1 and K8 are the walk without it.
 // The walk is a template on its feature source: float32 rows of feat (K1,
-// K2), or int8 rows q (source_rows, d4) with one float32 scale per row (K8),
-// each value dequantized as bf16(float(q) * bf16(scale)) as the TPU kernel
-// does (voltrix_spmm_tpu/ops/quant.py:47-50).
+// K2), bfloat16 rows of width ld (a multiple of 4, 8-byte aligned; K1 and
+// K2 on bf16 features, each value widened exactly to float32 as the TPU
+// kernels' astype does, voltrix_spmm_tpu/ops/pallas_spmm.py:192, :263), or
+// int8 rows q (source_rows, d4) with one float32 scale per row (K8), each
+// value dequantized as bf16(float(q) * bf16(scale)) as the TPU kernel does
+// (voltrix_spmm_tpu/ops/quant.py:47-50).
 //
 // Work list. The wrapper cuts each 128-row group of a window into pieces
 // (ops/block_spmm.py:window_pieces, walk_tasks): block ranges that hold at
@@ -30,12 +33,17 @@
 // cp.async into a ring of kStages slots, kStages - 1 items ahead of the one
 // being summed: float32, lane l copies columns 4l..4l+3 (16 bytes) of a
 // 512-byte slot, or, where d % 4 != 0 or feat is not 16-byte aligned,
-// columns l, l + 32, l + 64, l + 96 with 4-byte copies (kF32x1); int8, lane
-// l copies its four columns' 4 bytes of a 128-byte slot, a quarter of the
-// float32 ring, so the ring is twice as deep. K8's scale travels with the
+// columns l, l + 32, l + 64, l + 96 with 4-byte copies (kF32x1); bf16,
+// lane l copies columns 4l..4l+3 (8 bytes) of a 256-byte slot, half the
+// float32 slot (cp.async has no 2-byte copy, so the wrapper pads rows whose
+// width is not a multiple of 4 or that are not 8-byte aligned, once, into
+// rows of width ld); int8, lane l copies its four columns' 4 bytes of a
+// 128-byte slot, a quarter of the float32 ring. The bf16 and int8 rings are
+// twice as deep as the float32 one in the same shared memory. K8's scale travels with the
 // item's hind through the queue: the lane that owns the lane slot loads it
 // two units before the unit is queued. Lane l then adds its four columns
-// into the rows of the item's set bits, a byte of the word at a time,
+// (bf16: each widened by a 16-bit shift) into the rows of the item's set
+// bits, a byte of the word at a time,
 // skipping zero bytes (the word is the same across the warp, so the tests
 // do not diverge; constant indices keep the sums in registers). Each lane
 // reads only what it copied, so the ring needs no barrier.
@@ -65,15 +73,17 @@ constexpr int kThreads = 32 * kWarps;
 // is what shortened the walk on the H100
 constexpr int kBlocksPerSm = 3;
 constexpr int kCols = 128;  // feature columns per thread block, 4 per lane
-// the feature source: float32 rows copied 16 or 4 bytes a lane, or int8
-// rows with a float32 scale per row
-enum { kF32x4, kF32x1, kI8 };
+// the feature source: float32 rows copied 16 or 4 bytes a lane, bfloat16
+// rows copied 8 bytes a lane, or int8 rows with a float32 scale per row
+enum { kF32x4, kF32x1, kI8, kBF16 };
 // row slices in flight per warp (cp.async ring)
 template <int kSrc>
-__host__ __device__ constexpr int stages() { return kSrc == kI8 ? 32 : 16; }
-// 4-byte words of a ring slot: kCols float32 columns, or kCols int8 ones
+__host__ __device__ constexpr int stages() { return kSrc == kI8 || kSrc == kBF16 ? 32 : 16; }
+// 4-byte words of a ring slot: kCols float32 columns, kCols bf16 or int8 ones
 template <int kSrc>
-__host__ __device__ constexpr int slot_words() { return kSrc == kI8 ? kCols / 4 : kCols; }
+__host__ __device__ constexpr int slot_words() {
+  return kSrc == kI8 ? kCols / 4 : kSrc == kBF16 ? kCols / 2 : kCols;
+}
 constexpr int kQueue = 64;  // kept items a warp holds: >= stages - 1 + 32
 // per item in the queue: its bitmask word and source row (int8: and scale)
 template <int kSrc>
@@ -93,6 +103,12 @@ constexpr int kStripRows = kThreads / 32;  // rows a merge thread block sums
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst_s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst_s), "l"(src)
                : "memory");
 }
 
@@ -163,6 +179,13 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// four bf16 values (8 bytes, the lower address in u.x's low half) widened
+// exactly to float32: a bf16 is the high half of its float32
+__device__ __forceinline__ float4 widen_bf16x4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 template <int kSrc>
 __host__ __device__ constexpr int smem_bytes() {
   return kWarps * (stages<kSrc>() * slot_words<kSrc>() + queue_arrays<kSrc>() * kQueue) * 4;
@@ -189,7 +212,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
                  const int32_t* __restrict__ hind,      // (B, block_w)
                  const uint32_t* __restrict__ occ,      // (B,) sub-window bits (kOcc)
                  const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
-                 const void* __restrict__ feat,         // (source_rows, ld) float32 or int8
+                 const void* __restrict__ feat,         // (source_rows, ld) float32, bf16 or int8
                  const float* __restrict__ scale,       // (source_rows,) (kI8)
                  float* __restrict__ out,               // (num_nodes, d)
                  float* __restrict__ ws,                // (slots, tile rows, d)
@@ -207,7 +230,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   const int gwords = min(kWarps, words - kWarps * g);
   const int c0 = blockIdx.y * kCols;
   const int cw = min(kCols, d - c0);   // output columns of the chunk
-  const int lw = min(kCols, ld - c0);  // feature columns of the chunk (int8: d4's)
+  const int lw = min(kCols, ld - c0);  // feature columns of the chunk (bf16, int8: ld's)
   float* s_ring = smem + warp * kStages * kSlotWords;
   uint32_t* s_qword = reinterpret_cast<uint32_t*>(smem + kWarps * kStages * kSlotWords) +
                       warp * queue_arrays<kSrc>() * kQueue;
@@ -232,7 +255,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   if (warp >= gwords) return;
 
   // the lane's sums: row s of the warp's word, columns 4 lane .. 4 lane + 3
-  // (kF32x4, kI8) or lane + 32 k (kF32x1)
+  // (kF32x4, kBF16, kI8) or lane + 32 k (kF32x1)
   float acc[32][4];
 #pragma unroll
   for (int s = 0; s < 32; ++s) {
@@ -309,6 +332,9 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
       if constexpr (kSrc == kI8) {
         const int8_t* row = static_cast<const int8_t*>(feat) + src * ld + c0;
         if (4 * lane < lw) cp_async4(slot + lane, row + 4 * lane);
+      } else if constexpr (kSrc == kBF16) {
+        const __nv_bfloat16* row = static_cast<const __nv_bfloat16*>(feat) + src * ld + c0;
+        if (4 * lane < lw) cp_async8(slot + 2 * lane, row + 4 * lane);
       } else {
         const float* row = static_cast<const float*>(feat) + src * ld + c0;
         if constexpr (kSrc == kF32x4) {
@@ -343,6 +369,13 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
       x[1] = bf16_round(static_cast<float>(q.y) * sc);
       x[2] = bf16_round(static_cast<float>(q.z) * sc);
       x[3] = bf16_round(static_cast<float>(q.w) * sc);
+    } else if constexpr (kSrc == kBF16) {
+      const float4 v = 4 * lane < lw ? widen_bf16x4(*reinterpret_cast<const uint2*>(slot + 2 * lane))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
     } else if constexpr (kSrc == kF32x4) {
       const float4 v = 4 * lane < lw ? *reinterpret_cast<const float4*>(slot + 4 * lane)
                                      : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -377,7 +410,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
                          : ws + ((int64_t)(task[kSlot] + rank - 1) * tile_rows(words) +
                                  32 * warp) * d + c0;
   // 16-byte stores where a row's four columns are whole and aligned
-  const bool store4 = kSrc == kF32x4 || (kSrc == kI8 && d % 4 == 0);
+  const bool store4 = kSrc == kF32x4 || ((kSrc == kI8 || kSrc == kBF16) && d % 4 == 0);
 #pragma unroll
   for (int s = 0; s < 32; ++s) {
     if (s < rows) {
@@ -490,8 +523,9 @@ inline cudaError_t launch_merge(const void* merges, const void* ws, void* out, i
   return cudaGetLastError();
 }
 
-// Launches the walk over `feat` (kSrc: float32 rows of width ld = d, or
-// int8 rows of width ld = d4 with `scale`) and, when a group is cut, the
+// Launches the walk over `feat` (kSrc: float32 rows of width ld = d, bf16
+// rows of width ld (a multiple of 4, >= d), or int8 rows of width ld = d4
+// with `scale`) and, when a group is cut, the
 // merge after it on `stream`; returns the first CUDA error as an int.
 template <bool kOcc, int kSrc>
 int launch_walk(const void* bitmask, const void* hind, const void* occ, const void* tasks,
@@ -512,7 +546,7 @@ int launch_walk(const void* bitmask, const void* hind, const void* occ, const vo
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_merge(merges, ws, out, num_merges, words, block_h, num_nodes,
-                                       d, kSrc == kF32x4 || (kSrc == kI8 && d % 4 == 0), s));
+                                       d, kSrc == kF32x4 || (kSrc != kF32x1 && d % 4 == 0), s));
 }
 
 }  // namespace voltrix_walk

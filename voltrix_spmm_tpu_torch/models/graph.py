@@ -21,6 +21,10 @@ class GraphData:
     plan_t: SpmmPlan | list  # A^T (the same object for symmetric graphs)
     inv_deg: torch.Tensor  # float32 (N, 1): 1/max(out-degree, 1)
     inv_sqrt_deg: torch.Tensor  # float32 (N, 1): max(out-degree, 1)^-1/2
+    # the dtype `aggregate` streams the features in (None: x's own); with
+    # torch.bfloat16 the kernels read bf16 rows and sum in float32, and the
+    # result returns in x's dtype (the JAX package's agg_dtype)
+    agg_dtype: torch.dtype | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -43,6 +47,16 @@ class GraphData:
 # at d 128; clustered 1024- and 2048-row windows 0.430 and 0.463), where
 # the JAX package takes K2 on 2048 rows.
 AUTO_FUSED_MIN_NODES = 8192
+# build_graph(config="auto") leaves agg_dtype at None (float32 rows) where
+# the JAX package's rule (voltrix_spmm_tpu/models/graph.py:179-191) streams
+# bf16 rows: on plans without gather runs (gather_segment 1) of at least
+# 65,536 rows. Set on the card (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+# path Q, PERF.md section 6): on A's graph (the ogbn-arxiv proxy, 169,343
+# rows, which the JAX rule sends to bf16) K1's bf16 instantiation takes
+# 0.484 / 0.886 ms at d 128 / 256 against 0.389 / 0.709 for float32 rows
+# (1.24x / 1.25x: the walk's instructions, not X's bytes, set its time),
+# and the GCN request 2.789 against 2.036 ms (1.37x), the step 5.628
+# against 4.170 (1.35x).
 # the features' nominal width when build_graph("auto") sizes window chunks:
 # 512 bytes a row of float32, the JAX package's nominal row
 AUTO_NOMINAL_D = 128
@@ -170,16 +184,24 @@ def aggregate(g: GraphData, x: torch.Tensor, mode: str = "mean", *, impl: str = 
     impl: "auto" (the plan's kernel on the card: K1, K2 for clustered
     plans, K3 for coverage plans, chunk by chunk on a streamed graph) or
     "reference" (plain version).
+
+    With `g.agg_dtype` (torch.bfloat16) x is cast to it first, so the
+    kernels read bf16 rows (and sum in float32); the SpMM's bf16 result
+    returns in x's dtype, with the JAX package's rounding points: in sym
+    mode the pre-scaled rows round to bf16 too.
     """
     if x.dim() == 3:
         b, n, d = x.shape
         flat = x.permute(1, 0, 2).reshape(n, b * d)
         out = aggregate(g, flat, mode, impl=impl)
         return out.reshape(n, b, d).permute(1, 0, 2)
+    out_dtype = x.dtype
+    if g.agg_dtype is not None:
+        x = x.to(g.agg_dtype)
     if mode == "sym":
         pre = (g.inv_sqrt_deg * x).to(x.dtype)
-        return (g.inv_sqrt_deg * spmm_ad(g.plan, g.plan_t, pre, impl=impl)).to(x.dtype)
-    out = spmm_ad(g.plan, g.plan_t, x, impl=impl)
+        return (g.inv_sqrt_deg * spmm_ad(g.plan, g.plan_t, pre, impl=impl)).to(out_dtype)
+    out = spmm_ad(g.plan, g.plan_t, x, impl=impl).to(out_dtype)
     if mode == "mean":
         return g.inv_deg * out
     if mode != "sum":

@@ -1,3 +1,5 @@
+import dataclasses
+
 import torch
 
 from .attention import (
@@ -25,7 +27,7 @@ from .attention_mh import (
 from . import library
 from .autodiff import spmm_ad
 from .bitmask import expand_bitmask
-from .block_spmm import spmm_block
+from .block_spmm import bf16_compute, spmm_block
 from .ell import (
     sddmm_ell,
     sddmm_ell_ad,
@@ -92,20 +94,15 @@ def _refuse_foreign(plan) -> None:
         )
 
 
-def _refuse_tiling(block_d, slots, precision, compute_dtype) -> None:
+def _refuse_tiling(block_d, slots, precision) -> None:
     """The JAX package's TPU tiling and precision knobs: the H100 kernels
-    pick their own tiles and compute in float32."""
+    pick their own tiles and sum in float32."""
     knobs = {"block_d": block_d, "slots": slots, "precision": precision}
     given = [k for k, v in knobs.items() if v is not None]
     if given:
         raise NotImplementedError(
             f"{', '.join(given)}: TPU tiling knobs; the H100 kernels' tiles are their "
             "work-list piece limits, which are not tuner knobs yet (ROADMAP.md item 9)"
-        )
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: the port's kernels compute in float32 and "
-            "read float32 features; bf16 feature sources are ROADMAP.md item 9"
         )
 
 
@@ -179,16 +176,41 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
 
     feat may be (N, D) or graph-batched (B, N, D): the batch folds into
     the feature axis, so one launch serves the whole batch.
+
+    feat is float32 or bfloat16: K1, K2, K3 and K6 read bf16 rows through
+    their bf16 instantiations and sum in float32; the output is cast once
+    to `out_dtype` (default feat's dtype). compute_dtype=torch.bfloat16
+    rounds float32 features to bf16 (round to nearest even; K6 also its
+    edge values) and runs the bf16 sources, the output defaulting to the
+    caller's dtype, as the JAX package's compute_dtype does; K4 ignores it
+    (the JAX package's weighted kernel does) and K8 refuses it.
     """
     _refuse_foreign(plan)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: the port has {', '.join(IMPLS)}")
-    _refuse_tiling(block_d, slots, precision, compute_dtype)
+    _refuse_tiling(block_d, slots, precision)
     if feat.dim() == 3:
         b, n, d = feat.shape
         flat = feat.permute(1, 0, 2).reshape(n, b * d)
-        out = spmm(plan, flat, impl=impl, subtile=subtile, out_dtype=out_dtype)
+        out = spmm(plan, flat, impl=impl, subtile=subtile, out_dtype=out_dtype,
+                   compute_dtype=compute_dtype)
         return out.reshape(-1, b, d).permute(1, 0, 2)
+    weighted = isinstance(plan, SpmmPlan) and plan.values is not None
+    if isinstance(plan, EllPlan):
+        if impl not in ("auto", "ell", "reference"):
+            raise ValueError(f"an EllPlan runs impl 'auto', 'ell' or 'reference', not {impl!r}")
+        if impl != "reference":
+            return spmm_ell(plan, feat, out_dtype, compute_dtype=compute_dtype)
+    if bf16_compute(compute_dtype) and not weighted:
+        if impl == "int8":
+            raise NotImplementedError(
+                "compute_dtype=bfloat16 with impl='int8': K8 quantizes float32 rows")
+        out_dtype = feat.dtype if out_dtype is None else out_dtype
+        feat = feat.to(torch.bfloat16)
+        if isinstance(plan, EllPlan):  # K6's plain version on the values its kernel reads
+            plan = dataclasses.replace(plan, vals=plan.vals.to(torch.bfloat16).float())
+    if isinstance(plan, EllPlan):
+        return spmm_ell_reference(plan, feat, out_dtype)
     if isinstance(plan, (list, tuple)):
         if impl not in CHUNK_IMPLS:
             raise ValueError(
@@ -207,15 +229,8 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
         if subtile is None:
             subtile = plan.dense.config.cluster_cols
         return spmm_hybrid(plan, feat, subtile=subtile, out_dtype=out_dtype)
-    if isinstance(plan, EllPlan):
-        if impl == "reference":
-            return spmm_ell_reference(plan, feat, out_dtype)
-        if impl not in ("auto", "ell"):
-            raise ValueError(f"an EllPlan runs impl 'auto', 'ell' or 'reference', not {impl!r}")
-        return spmm_ell(plan, feat, out_dtype)
     if impl == "ell":
         raise ValueError("impl='ell' needs an EllPlan (csr_preprocess_ell)")
-    weighted = plan.values is not None
     if impl == "auto":
         if weighted:
             impl = "weighted"

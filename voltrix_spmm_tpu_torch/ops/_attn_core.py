@@ -94,8 +94,8 @@ def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> Non
         )
     if compute_dtype is not None and compute_dtype != torch.float32:
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: the port's kernels compute in float32; "
-            "bf16 planes are `plane_dtype`, bf16 feature sources ROADMAP.md item 9"
+            f"compute_dtype={compute_dtype}: the attention kernels K9-K15 compute in "
+            "float32; bf16 planes are `plane_dtype`, their compute_dtype ROADMAP.md item 9"
         )
     if interpret is not None:
         raise NotImplementedError(

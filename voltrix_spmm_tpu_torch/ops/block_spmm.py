@@ -25,6 +25,13 @@ The wrapper calls the registered op ``torch.ops.voltrix.spmm_block``
 (ops/library.py), which runs the plain version,
 `ops.reference.spmm_reference`, on a CPU tensor, and on a CUDA tensor
 launches the kernel or raises: there is no fallback.
+
+K1, K2, K3 and K6 read float32 or bfloat16 feature rows (`FEAT_DTYPES`):
+a bf16 row is read as 2-byte values and widened exactly to float32 in the
+kernel, the sums are float32 in the kernel's order, and the result is
+cast once to `out_dtype` (default: the features' dtype), the JAX
+package's semantics (pallas_spmm.py:192, :263). The bf16 rows go to the
+kernels as `bf16_rows` gives them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from .reference import check_binary
 _COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
+# the feature types the CUDA kernels K1, K2, K3 and K6 read (K4, K5, K7
+# and K8 read float32 alone)
+FEAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`; None: no work limit), by kernel:
@@ -96,19 +106,31 @@ def load_library():
     return launch, error_string
 
 
-def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block") -> None:
-    """What every CUDA SpMM kernel of the port takes: float32 row-major
-    features on the plan's device, a binary plan in natural lane order
-    with contiguous int32 arrays, and 32-bit row and column indices."""
-    _check_feat(plan, feat, name)
+@functools.cache
+def load_bf16_library():
+    """K1's bf16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_block", ["spmm_block.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_block_bf16", [p] * 7 + [i] * 9 + [p]),
+            load_library()[1])
+
+
+def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block",
+           dtypes=FEAT_DTYPES) -> None:
+    """What every CUDA SpMM kernel of the port takes: row-major features
+    of one of `dtypes` on the plan's device, a binary plan in natural lane
+    order with contiguous int32 arrays, and 32-bit row and column indices."""
+    _check_feat(plan, feat, name, dtypes)
     _check_plan(plan, feat.device, name)
 
 
-def _check_feat(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
+def _check_feat(plan: SpmmPlan, feat: torch.Tensor, name: str, dtypes=FEAT_DTYPES) -> None:
     """`_check`'s part that reads the features and the plan's kind."""
     cfg = plan.config
-    if feat.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 features, got {feat.dtype}")
+    if feat.dtype not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise TypeError(f"{name} takes {names} features, got {feat.dtype}")
     if feat.dim() != 2 or feat.shape[0] != plan.source_rows:
         raise ValueError(
             f"feat must be (source_rows={plan.source_rows}, D), got {tuple(feat.shape)}"
@@ -343,21 +365,55 @@ def walk_workspace(name: str, walk: Walk, d: int, device) -> torch.Tensor | None
     return torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=device)
 
 
+def bf16_compute(compute_dtype) -> bool:
+    """The JAX package's compute_dtype on the port: True for
+    torch.bfloat16 (the features are rounded to bf16, round to nearest
+    even, and read by the kernels' bf16 sources), False for None and
+    float32 (the kernels' own); any other type raises."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise NotImplementedError(
+        f"compute_dtype={compute_dtype}: the SpMM kernels read float32 or bfloat16 rows; "
+        "float16 features are ROADMAP.md item 9")
+
+
+def bf16_rows(feat: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(rows, ld): bf16 features as the kernels' bf16 sources read them,
+    rows of a width ld that is a multiple of 4, 8-byte aligned. cp.async
+    copies 4, 8 or 16 bytes and has no 2-byte copy, so where d % 4 != 0 or
+    the rows are not 8-byte aligned they are padded here, once a call, with
+    zero columns into a fresh (source_rows, ld) tensor (a copy of X in
+    bf16, on the card, inside the timed call); else feat itself."""
+    n, d = feat.shape
+    if d % 4 == 0 and feat.data_ptr() % 8 == 0:
+        return feat, d
+    ld = d + (-d % 4)
+    rows = feat.new_zeros(n, ld)
+    rows[:, :d] = feat
+    return rows, ld
+
+
 def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: torch.Tensor,
                 walk: Walk, scale: torch.Tensor | None = None) -> None:
     """Launch K1, K2 or K8 (`library`) over `walk` into `out` (num_nodes,
-    d): `feat` is float32 (source_rows, d) rows, or with `scale` K8's int8
-    (source_rows, d4) rows and their float32 scales; with a workspace for
-    the cut groups' pieces 1.. (the library's second kernel then sums them
-    into out)."""
+    d): `feat` is float32 (source_rows, d) rows, bf16 rows (`library` the
+    bf16 instantiation; padded by `bf16_rows` where needed), or with
+    `scale` K8's int8 (source_rows, d4) rows and their float32 scales;
+    with a workspace for the cut groups' pieces 1.. (the library's second
+    kernel then sums them into out)."""
     d = out.shape[1]
     ws = walk_workspace(name, walk, d, feat.device)
     cfg = plan.config
     occ = () if walk.occ is None else (walk.occ.data_ptr(),)
-    if scale is None:  # the last int: 16-byte copies of float32 rows, or 4-byte ones
-        rows, last = (feat.data_ptr(),), int(d % 4 == 0 and feat.data_ptr() % 16 == 0)
-    else:  # the last int: the int8 rows' width d4
+    if scale is not None:  # the last int: the int8 rows' width d4
         rows, last = (feat.data_ptr(), scale.data_ptr()), feat.shape[1]
+    elif feat.dtype == torch.bfloat16:  # the last int: the bf16 rows' width ld
+        feat, last = bf16_rows(feat)
+        rows = (feat.data_ptr(),)
+    else:  # the last int: 16-byte copies of float32 rows, or 4-byte ones
+        rows, last = (feat.data_ptr(),), int(d % 4 == 0 and feat.data_ptr() % 16 == 0)
     launch(
         name, library, feat, plan.bitmask.data_ptr(), plan.hind.data_ptr(), *occ,
         walk.tasks.data_ptr(), walk.merges.data_ptr(), *rows, out.data_ptr(),
@@ -384,8 +440,8 @@ def cast_out(out: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K1 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end), as the registered op
+    """out[num_nodes, D] = A @ feat through kernel K1 (float32 or bf16
+    in, float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_block`` (ops/library.py). With `plan_t` (A^T's
     plan) the result is differentiable in feat: its gradient is the op of
     plan_t's kind over plan_t."""
@@ -408,3 +464,4 @@ def run_op(kind: str, plan: SpmmPlan, feat: torch.Tensor, out_dtype, plan_t) -> 
 
 
 spmm_block.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
+spmm_block.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)

@@ -4,7 +4,10 @@ versions and gradients (counterpart of voltrix_spmm_tpu/ops/ell.py).
 On an `EllPlan` (format/ell.py; one lane per edge):
 
 - `spmm_ell(plan, feat)` computes out = (A o V) @ feat through K6
-  (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel). Padding lanes
+  (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel), on float32 or
+  bfloat16 rows (widened exactly in the kernel); compute_dtype=bfloat16
+  rounds float32 rows and the edge values to bf16 first, as JAX's kernel
+  does (ell.py:56-59). Padding lanes
   (erow = -1) add nothing, whatever `vals` holds there. K6 walks the
   plan's row order (`ell_row_order`: lanes grouped by destination row,
   rows cut into pieces of at most PIECE_LANES lanes), built at a plan's
@@ -38,7 +41,7 @@ import torch
 from ..format.ell import EllPlan, edge_values, lane_values, slice_ell_windows
 from ..jit import build
 from ..utils import kept_beside
-from .block_spmm import _INT_MAX, cast_out, launch
+from .block_spmm import _INT_MAX, FEAT_DTYPES, bf16_compute, cast_out, launch
 from .reference import CHUNK_BYTES
 from .weighted import _check_kernel_args
 
@@ -64,6 +67,15 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = rt.function("voltrix_spmm_ell_f32", [p] * 8 + [i] * 6 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+@functools.cache
+def load_bf16_library():
+    """K6's bf16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_ell", ["spmm_ell.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return rt.function("voltrix_spmm_ell_bf16", [p] * 8 + [i] * 7 + [p]), load_library()[1]
 
 
 @functools.cache
@@ -139,8 +151,8 @@ spmm_ell_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
 def _k6_lanes(d: int, aligned: bool) -> tuple[int, int, int]:
-    """K6's (vec, tpe, unroll): float4 loads when d % 4 == 0 and feat is
-    16-byte aligned; tpe threads an edge, the power of two (at most 32) at
+    """K6's (vec, tpe, unroll): four columns a load (a float4, or 8 bytes
+    of bf16) when d % 4 == 0 and feat is `aligned` to that load; tpe threads an edge, the power of two (at most 32) at
     or above the row's vectors, so a warp has 32 / tpe edge slots; each
     thread gathers `unroll` edges at a time, so that a warp keeps about 8
     edges in flight (4 a thread at most)."""
@@ -215,11 +227,21 @@ def plan_rows(plan: EllPlan) -> EllRows:
                        plan.window_of_block)
 
 
-def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 in,
-    float32 accumulation in a fixed order, cast to `out_dtype` at the
-    end)."""
+def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
+             compute_dtype=None) -> torch.Tensor:
+    """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 or
+    bf16 in, float32 accumulation in a fixed order, cast to `out_dtype`,
+    default feat's dtype, at the end). compute_dtype=torch.bfloat16 rounds
+    the features (round to nearest even) and, in the kernel, the edge
+    values to bf16 first, the JAX kernel's compute_dtype; the output then
+    defaults to the caller's feature dtype."""
+    round_vals = bf16_compute(compute_dtype)
+    if round_vals:
+        out_dtype = feat.dtype if out_dtype is None else out_dtype
+        feat = feat.to(torch.bfloat16)
     if feat.device.type == "cpu":
+        if round_vals:
+            plan = dataclasses.replace(plan, vals=plan.vals.to(torch.bfloat16).float())
         return spmm_ell_reference(plan, feat, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_ell runs on cuda or cpu tensors, not {feat.device}")
@@ -230,9 +252,16 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
         "erow": (torch.int32, (tb, K)),
         "vals": (torch.float32, (tb, K)),
         "window_of_block": (torch.int32, (tb,)),
-    }, feat)
+    }, feat, dtypes=FEAT_DTYPES)
     d = feat.shape[1]
-    vec, tpe, unroll = _k6_lanes(d, feat.data_ptr() % 16 == 0)
+    bf16 = feat.dtype == torch.bfloat16
+    if bf16 and feat.data_ptr() % 8:
+        # 8-byte loads of four bf16 values need 8-byte aligned rows: a
+        # misaligned view is copied once (a fresh tensor is aligned), so
+        # every bf16 input walks with the lanes of the float32 kernel on
+        # its widened rows, and sums in its order
+        feat = feat.clone()
+    vec, tpe, unroll = _k6_lanes(d, feat.data_ptr() % (4 * feat.element_size()) == 0)
     if -(-d // (tpe * vec)) > 65535:
         raise ValueError("D exceeds spmm_ell's grid limits")
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
@@ -242,26 +271,28 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
         if rows.slots:
             ws = torch.empty(rows.slots * d, dtype=torch.float32, device=feat.device)
         launch(
-            "spmm_ell", load_library(), feat,
+            "spmm_ell", load_bf16_library() if bf16 else load_library(), feat,
             rows.items.data_ptr(), rows.src.data_ptr(), rows.lane.data_ptr(),
             plan.vals.data_ptr(), rows.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), rows.items.shape[0], rows.merges.shape[0],
-            d, vec, tpe, unroll,
+            d, vec, tpe, unroll, *((int(round_vals),) if bf16 else ()),
         )
         spmm_ell.launches += 1
-    return cast_out(out, out_dtype)
+        spmm_ell.launches_bf16 += bf16
+    return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
 
 
 spmm_ell.launches = 0  # plain-int launch count, read by chip_smoke.py
+spmm_ell.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)
 
 
 def spmm_ell_streamed(plan, feat: torch.Tensor, *, num_chunks: int = 8,
-                      out_dtype=None) -> torch.Tensor:
+                      out_dtype=None, compute_dtype=None) -> torch.Tensor:
     """K6 over window-contiguous slices of the plan, one after another, so
     only one slice's work is in flight; `plan` may be an EllPlan or the
     list `slice_ell_windows` returns."""
     subs = slice_ell_windows(plan, num_chunks) if isinstance(plan, EllPlan) else list(plan)
-    outs = [spmm_ell(s, feat, out_dtype) for s in subs]
+    outs = [spmm_ell(s, feat, out_dtype, compute_dtype=compute_dtype) for s in subs]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 

@@ -30,7 +30,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _INT_MAX, launch, run_op, walk_workspace
+from .block_spmm import _INT_MAX, bf16_rows, launch, run_op, walk_workspace
 from .reference import CHUNK_BYTES, block_sum, check_binary
 
 _COLS = 128  # feature columns a thread block of the kernel sums (csrc/spmm_fused.cu kCols)
@@ -44,6 +44,16 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = rt.function("voltrix_spmm_fused_f32", [p] * 7 + [i] * 11 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
+
+
+@functools.cache
+def load_bf16_library():
+    """K3's bf16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_fused", ["spmm_fused.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_fused_bf16", [p] * 7 + [i] * 12 + [p]),
+            load_library()[1])
 
 
 def box_rows(seg: int) -> int:
@@ -103,28 +113,36 @@ spmm_fused_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 def launch_fused(library, plan: SpmmPlan, walk, feat: torch.Tensor, out: torch.Tensor) -> None:
     """Launch K3 (`library`) over `walk` into `out` (num_nodes, d), with a
     workspace for the cut slabs' pieces 1.. (the library's merge kernel
-    then sums them into out)."""
+    then sums them into out). bf16 features take the bf16 instantiation
+    (`library` its), on rows of the width `bf16_rows` gives them."""
     cfg = plan.config
     d = feat.shape[1]
     if walk.tasks.shape[0] * -(-d // _COLS) > _INT_MAX:
         raise ValueError("pieces x column chunks exceed spmm_fused's grid limits")
     ws = walk_workspace("spmm_fused", walk, d, feat.device)
-    # the last int: bulk copies of 16-byte aligned rows in boxes of at
-    # least 8 rows, or 4-byte cp.async
-    bulk = int(d % 4 == 0 and feat.data_ptr() % 16 == 0 and box_rows(cfg.gather_segment) >= 8)
+    # the last int: bulk copies (TMA) of 16-byte aligned rows whose width
+    # is a multiple of 16 bytes, in boxes of at least 8 rows, or cp.async
+    # (4 bytes a float32 value, 8 bytes four bf16 values)
+    widths = (d,)
+    if feat.dtype == torch.bfloat16:
+        feat, ld = bf16_rows(feat)
+        widths = (d, ld)
+    row_bytes = widths[-1] * feat.element_size()
+    bulk = int(row_bytes % 16 == 0 and feat.data_ptr() % 16 == 0
+               and box_rows(cfg.gather_segment) >= 8)
     launch(
         "spmm_fused", library, feat,
         plan.bitmask.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
         walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
         cfg.words_per_col, walk.group_words, cfg.block_h, cfg.block_w, cfg.gather_segment,
-        plan.num_nodes, plan.source_rows, d, bulk,
+        plan.num_nodes, plan.source_rows, *widths, bulk,
     )
 
 
 def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K3 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end), as the registered op
+    """out[num_nodes, D] = A @ feat through kernel K3 (float32 or bf16 in,
+    float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_fused`` (ops/library.py); `plan_t` as in
     `spmm_block`."""
     _check_geometry(plan)
@@ -132,3 +150,4 @@ def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=Non
 
 
 spmm_fused.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
+spmm_fused.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)

@@ -19,24 +19,27 @@ from .subtile_spmm import spmm_subtile
 
 
 def _sum_sides(plan: HybridPlan, feat: torch.Tensor, dense, sparse, out_dtype) -> torch.Tensor:
-    """dense(plan.dense, feat) + sparse(plan.sparse, feat) in float32, each
-    side only if it has blocks (zeros when neither has), cast at the end."""
+    """dense(plan.dense, feat) + sparse(plan.sparse, feat) in float32 (each
+    side's float32 sums, on float32 or bf16 rows), each side only if it has
+    blocks (zeros when neither has), cast once to `out_dtype` (default
+    feat's dtype) at the end."""
     out = None
     if plan.dense.total_blocks > 0:
-        out = dense(plan.dense, feat)
+        out = dense(plan.dense, feat, torch.float32)
     if plan.sparse.total_blocks > 0:
-        part = sparse(plan.sparse, feat)
+        part = sparse(plan.sparse, feat, torch.float32)
         out = part if out is None else out + part
     if out is None:
         out = torch.zeros(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
-    return cast_out(out, out_dtype)
+    return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
 
 
 def spmm_hybrid(plan: HybridPlan, feat: torch.Tensor, dense_impl: str = "auto",
                 subtile: bool = False, out_dtype=None) -> torch.Tensor:
-    """out = A_dense @ feat + A_sparse @ feat through the sides' kernels.
-    The sides are summed in float32 and cast to `out_dtype` once (the JAX
-    package casts each side, then adds)."""
+    """out = A_dense @ feat + A_sparse @ feat through the sides' kernels,
+    on float32 or bf16 rows. The sides are summed in float32 and cast to
+    `out_dtype` once (the JAX package casts each side, then adds: on bf16
+    rows its default output may differ by one bf16 ulp)."""
     if dense_impl == "auto":
         # the JAX package sends seg_interleaved and incidence-packed dense
         # sides to "pregather"; the port builds neither

@@ -30,7 +30,13 @@ after one eager call, so that the lists are constants of the program and
 never rebuilt inside the traced region (serve.py:export_servable does so).
 
 On a CPU tensor the op runs the kernel's plain version; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises. The features are float32 or bfloat16
+(the kernel's bf16 instantiation; the plain versions widen the rows); the
+op returns float32 either way. Its gradient runs the float32 kernel on the
+cotangent as it arrives and casts once to the features' dtype: behind a
+bf16 output the cotangent's values are bf16 already, so this gives the bits
+of the JAX package's `spmm_ad` (a bf16 SpMM of its bf16 cotangent), and
+behind a float32 output it is the chain rule of the forward.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from torch.utils.flop_counter import register_flop_formula
 from ..format.plan import PlanConfig, SpmmPlan
 from ..utils import kept_beside
 from . import fused_spmm, subtile_spmm
-from .block_spmm import Walk, _check_plan, launch_walk, load_library, plan_walk
+from .block_spmm import Walk, _check_plan, launch_walk, plan_walk
 from .fused_spmm import launch_fused, spmm_fused_reference
 from .reference import spmm_reference
 from .subtile_spmm import spmm_subtile_reference, subtile_walk
@@ -146,15 +152,18 @@ def _run(kind: str, feat: Tensor, tensors: list[Tensor], geom: list[int]) -> Ten
     out = torch.empty(plan.num_nodes, feat.shape[1], dtype=torch.float32, device=feat.device)
     if out.numel():
         walk = _walk_of(tensors, geom)
+        module = {"spmm_block": block_spmm, "spmm_subtile": subtile_spmm,
+                  "spmm_fused": fused_spmm}[kind]
+        bf16 = feat.dtype == torch.bfloat16
+        library = module.load_bf16_library() if bf16 else module.load_library()
         if kind == "spmm_fused":
-            launch_fused(fused_spmm.load_library(), plan, walk, feat, out)
-            fused_spmm.spmm_fused.launches += 1
-        elif kind == "spmm_subtile":
-            launch_walk(kind, subtile_spmm.load_library(), plan, feat, out, walk)
-            subtile_spmm.spmm_subtile.launches += 1
+            launch_fused(library, plan, walk, feat, out)
         else:
-            launch_walk(kind, load_library(), plan, feat, out, walk)
-            block_spmm.spmm_block.launches += 1
+            launch_walk(kind, library, plan, feat, out, walk)
+        wrapper = getattr(module, kind)
+        wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += 1
     return out
 
 

@@ -119,7 +119,8 @@ def spmm_int8(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tenso
         return spmm_int8_reference(plan, feat, out_dtype)
     if feat.device.type != "cuda":
         raise ValueError(f"spmm_int8 runs on cuda or cpu tensors, not {feat.device}")
-    _check(plan, feat, "spmm_int8")  # K1's checks: the JAX package's refusals and float32
+    # K1's checks: the JAX package's refusals, and float32 features
+    _check(plan, feat, "spmm_int8", dtypes=(torch.float32,))
     return launch_quantized(plan, *quantize_padded(feat), feat.shape[1], out_dtype)
 
 

@@ -40,6 +40,16 @@ def load_library():
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
+@functools.cache
+def load_bf16_library():
+    """K2's bf16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_subtile", ["spmm_subtile.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_subtile_bf16", [p] * 8 + [i] * 9 + [p]),
+            load_library()[1])
+
+
 def _check_geometry(plan: SpmmPlan) -> None:
     cfg = plan.config
     if cfg.block_h % SUBWIN_ROWS or cfg.block_h > 32 * SUBWIN_ROWS:
@@ -110,8 +120,8 @@ def subtile_walk(plan: SpmmPlan) -> Walk:
 
 
 def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K2 (float32 in, float32
-    accumulation, cast to `out_dtype` at the end), as the registered op
+    """out[num_nodes, D] = A @ feat through kernel K2 (float32 or bf16 in,
+    float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_subtile`` (ops/library.py); `plan_t` as in
     `spmm_block`."""
     _check_geometry(plan)
@@ -119,3 +129,4 @@ def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=N
 
 
 spmm_subtile.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
+spmm_subtile.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)

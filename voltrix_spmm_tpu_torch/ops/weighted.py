@@ -80,14 +80,17 @@ def _check_rows(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} takes plans in natural lane order only")
 
 
-def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors) -> None:
-    """What K4-K7 take: contiguous float32 tensors on the plan's
-    device, contiguous plan arrays of the right type and shape, and row,
-    column and block counts that fit 32-bit ints."""
+def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors,
+                       dtypes=(torch.float32,)) -> None:
+    """What K4-K7 take: contiguous tensors of one of `dtypes` (float32;
+    K6's features also bfloat16) on the plan's device, contiguous plan
+    arrays of the right type and shape, and row, column and block counts
+    that fit 32-bit ints."""
     device = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"{name} takes contiguous float32 tensors, got {t.dtype}")
+        if t.dtype not in dtypes or not t.is_contiguous():
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name} takes contiguous {names} tensors, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
     for field, (dtype, shape) in fields.items():

@@ -45,6 +45,9 @@ from ..project import const
 from ..utils import CPU_bench, env_flag, gpu_bench
 
 IMPLS = ("pregather", "fused", "hybrid", "int8", "ell", "weighted")
+# the dtypes a Variant's feat_dtype and compute_dtype may name: the
+# kernels' bf16 sources (K1, K2, K3, K6) and their own float32
+FEAT_DTYPES = ("float32", "bfloat16")
 # f32 edge-feature volume (nnz x d x 4) past which the default space is
 # budgeted against device memory and candidates race in probes of their own
 HUGE_BYTES = 4 * 2**30
@@ -56,8 +59,13 @@ class Variant:
     same thing. impl: "pregather" (K1, or K2 with `subtile`), "fused"
     (K3), "hybrid" (K3 on the dense runs, K1 or K2 on the rest), "int8"
     (K8), "ell" (K6) or "weighted" (K4). stream_chunks runs "pregather" and
-    "ell" plans window chunk by window chunk. The JAX package's TPU knobs
-    raise NotImplementedError with their reason."""
+    "ell" plans window chunk by window chunk. feat_dtype="bfloat16" casts
+    the caller's features to bf16 before the SpMM, and
+    compute_dtype="bfloat16" has the SpMM round them (K6: and its edge
+    values) itself; both run the kernels' bf16 sources (K1, K2, K3, K6,
+    so not "int8" or "weighted"), and the result returns in the caller's
+    dtype. The JAX package's TPU knobs raise NotImplementedError with
+    their reason."""
 
     impl: str
     block_h: int = 128
@@ -79,11 +87,17 @@ class Variant:
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}: the port races {', '.join(IMPLS)}")
+        for name in ("feat_dtype", "compute_dtype"):
+            value = getattr(self, name)
+            if value is not None and value not in FEAT_DTYPES:
+                raise NotImplementedError(
+                    f"Variant {name}={value!r}: the SpMM kernels read float32 or bfloat16 rows; "
+                    "float16 features are ROADMAP.md item 9")
+        if self.bf16 and self.impl in ("int8", "weighted"):
+            raise NotImplementedError(
+                f"Variant {self.impl!r} with bf16 features: K8 and K4 read float32 rows; the "
+                "bf16 sources are K1, K2, K3 and K6's")
         refused = {
-            "feat_dtype": (self.feat_dtype is not None,
-                           "bf16 feature sources: K1-K3 read float32 rows (ROADMAP.md item 9)"),
-            "compute_dtype": (self.compute_dtype != "float32",
-                              "the port's kernels compute in float32 (ROADMAP.md item 9)"),
             "block_d": (self.block_d is not None,
                         "a TPU tiling knob; the H100 kernels pick their own tiles"),
             "slots": (self.slots is not None,
@@ -108,6 +122,11 @@ class Variant:
         return PlanConfig(self.block_h, self.block_w, self.gather_segment, self.block_unroll,
                           cluster_cols=self.subtile)
 
+    @property
+    def bf16(self) -> bool:
+        """True when the variant's kernels read bf16 rows."""
+        return "bfloat16" in (self.feat_dtype, self.compute_dtype)
+
     def kernels(self) -> list[str]:
         """The kernels (wrapper counter names) the variant's SpMM launches,
         its main launch first (the work list's kernel name)."""
@@ -122,6 +141,7 @@ class Variant:
             f"{self.impl}/h{self.block_h}w{self.block_w}s{self.gather_segment}"
             f"u{self.block_unroll}{'st' if self.subtile else ''}"
             f"{'c' + str(self.stream_chunks) if self.stream_chunks else ''}"
+            f"{'/x' + self.feat_dtype if self.feat_dtype else ''}"
             f"/d{self.block_d}/{self.compute_dtype}/{self.precision}/t{self.threshold}"
         )
 
@@ -137,9 +157,11 @@ def estimate_residency(v: Variant, num_nodes: int, d: int, nnz: int, lanes: floa
     work list's workspace for the pieces of cut windows (at most one tile
     of block_h x d floats a piece past a window's first: pieces of
     PIECE_BLOCKS blocks or about PIECE_WORK units of work, a unit a set bit
-    here, an upper estimate), the float32 features and output, and a
-    second output where window chunks are concatenated; the workspace is
-    one chunk's (`chunks`, default the variant's stream_chunks). A wrong
+    here, an upper estimate), the float32 features and output, the bf16
+    copy of the features of a bf16 variant (2 bytes a value, the JAX
+    package's count), and a second output where window chunks are
+    concatenated; the workspace is one chunk's (`chunks`, default the
+    variant's stream_chunks). A wrong
     estimate costs a candidate, not a result: the race skips one that runs
     out of memory."""
     name = v.kernels()[0]
@@ -152,7 +174,7 @@ def estimate_residency(v: Variant, num_nodes: int, d: int, nnz: int, lanes: floa
         pieces += nnz / (PIECE_WORK[name] * groups)
     chunks = chunks or v.stream_chunks or 1
     workspace = pieces / chunks * h * d * 4
-    features = (3 if chunks > 1 else 2) * num_nodes * d * 4
+    features = ((3 if chunks > 1 else 2) * 4 + (2 if v.bf16 else 0)) * num_nodes * d
     return plan + workspace + features
 
 
@@ -231,9 +253,17 @@ def default_space(
       dense runs, K2 on the rest), when `density_split_stats(..., 2048, 8)`
       gives rows <= 0.75 and slots <= 1.35, the JAX package's gate.
 
-    accurate=False adds nothing yet: the JAX package's extra variants read
-    bf16 features, which the port's kernels do not (ROADMAP.md item 9).
-    int8 (K8) stays out: it runs 2.0-2.6x slower than torch.sparse.mm on the
+    accurate=False (the default) adds the JAX package's bf16 variants that
+    the port runs, after the float32 ones: K1 on 2048-row windows with
+    unroll 4 and K2 on clustered ones, each with feat_dtype="bfloat16",
+    and K3's coverage plan at seg 128 with compute_dtype="bfloat16" when
+    its gate passes. A compute_dtype variant and its feat_dtype twin run
+    the same kernel on the same bf16 rows (the cast is made before the SpMM
+    either way), so one of each pair races: the JAX space's own (feat_dtype
+    for K1 and K2, compute_dtype for K3). Left out of the JAX space: the TPU gather
+    layouts' bf16 twins (packed runs, the interleaved hybrid) and K3's
+    slots=3 twin, a TPU pipeline knob. accurate=True keeps the float32
+    variants alone. int8 (K8) stays out: it runs 2.0-2.6x slower than torch.sparse.mm on the
     card (PERF.md section 6); `Variant("int8")` races when asked for.
 
     Past HUGE_BYTES of f32 edge-feature volume (nnz x d x 4) the hybrids
@@ -245,7 +275,6 @@ def default_space(
     a pregather one that fits only in window chunks joins with the fewest
     chunks that fit (stream_chunks). `residency`, a dict, receives each
     kept candidate's estimate by key."""
-    del accurate  # nothing to add until the kernels read bf16 features
     space = []
     fused_cov = None
     if coverage128 is None or coverage128 <= FUSED_COVERAGE_THRESHOLD:
@@ -268,6 +297,15 @@ def default_space(
             and (split_slots8 if split_slots8 is not None else 99.0) <= 1.35):
         space.append(Variant("hybrid", block_h=2048, gather_segment=8, block_unroll=8,
                              subtile=True))
+    if not accurate:
+        space += [
+            Variant("pregather", block_h=2048, block_unroll=4, feat_dtype="bfloat16"),
+            Variant("pregather", block_h=2048, block_unroll=4, subtile=True,
+                    feat_dtype="bfloat16"),
+        ]
+        if coverage128 is None or coverage128 <= FUSED_COVERAGE_THRESHOLD:
+            space.append(Variant("fused", block_h=2048, gather_segment=128, block_unroll=4,
+                                 compute_dtype="bfloat16"))
     if nnz is None or d is None or nnz * d * 4 <= HUGE_BYTES:
         return space
     budget = device_mem_bytes if device_mem_bytes is not None else _device_mem_budget()
@@ -296,10 +334,13 @@ def weighted_default_space(
     Past HUGE_BYTES of edge-feature volume K4 leaves the space, and K6
     runs in the fewest window chunks (2 to 64) whose estimated residency
     (12 bytes a lane, workspace of row pieces, features and output) fits
-    the device budget, when the whole plan does not. accurate=False adds
-    nothing yet (bf16 features, ROADMAP.md item 9)."""
-    del accurate
+    the device budget, when the whole plan does not. accurate=False (the
+    default) adds the JAX package's bf16 twins of K6 at 128 and 256 rows
+    (feat_dtype="bfloat16"), chunked as the others past HUGE_BYTES."""
     space = [Variant("ell", block_h=h, block_unroll=4) for h in (128, 256, 512)]
+    if not accurate:
+        space += [Variant("ell", block_h=h, block_unroll=4, feat_dtype="bfloat16")
+                  for h in (128, 256)]
     huge = nnz is not None and d is not None and nnz * d * 4 > HUGE_BYTES
     if not huge:
         if dense_slots_per_nnz is not None and dense_slots_per_nnz <= 8.0:
@@ -432,26 +473,30 @@ def build_variant_plan(variant: Variant, indptr, indices, num_nodes: int, values
 
 def _run_variant(variant: Variant, plan, feat: torch.Tensor, perm=None, inv_perm=None):
     """A @ feat through the variant's kernel on `plan` (rows permuted in and
-    out when `perm` is given)."""
-    from ..ops import spmm, spmm_ell_streamed, spmm_streamed
+    out when `perm` is given), in the caller's dtype: a bf16 variant's
+    float32 sums are cast to it once, not rounded through bf16 first."""
+    from ..ops import spmm, spmm_ell_streamed
 
+    out_dtype = feat.dtype
+    if variant.feat_dtype is not None:
+        feat = feat.to(getattr(torch, variant.feat_dtype))
     if perm is not None:
         feat = feat.index_select(0, perm)
     impl = variant.impl
-    if impl == "ell":
-        out = (spmm_ell_streamed(plan, feat) if variant.stream_chunks
-               else spmm(plan, feat, impl="ell"))
+    kw = dict(out_dtype=out_dtype, compute_dtype=getattr(torch, variant.compute_dtype))
+    if impl == "ell" and variant.stream_chunks:
+        out = spmm_ell_streamed(plan, feat, **kw)
     elif impl == "hybrid":
-        out = spmm(plan, feat, subtile=variant.subtile)
-    elif impl in ("fused", "int8", "weighted"):
+        out = spmm(plan, feat, subtile=variant.subtile, **kw)
+    elif impl in ("fused", "ell"):
+        out = spmm(plan, feat, impl=impl, **kw)
+    elif impl in ("int8", "weighted"):
         out = spmm(plan, feat, impl=impl)
-    elif variant.stream_chunks:
-        out = spmm_streamed(plan, feat, subtile=variant.subtile)
-    else:
-        out = spmm(plan, feat, impl="pregather", subtile=variant.subtile)
+    else:  # K1 or K2, on the whole plan or its window chunks
+        out = spmm(plan, feat, impl="pregather", subtile=variant.subtile, **kw)
     if inv_perm is not None:
         out = out.index_select(0, inv_perm)
-    return out
+    return out.to(out_dtype)
 
 
 def _loaders(variant: Variant) -> list:
@@ -620,6 +665,7 @@ class SpmmTuner(Tuner):
         isolate: bool | None = None,
         probe_timeout_s: float = 900.0,
         device="cuda",
+        accurate: bool = False,
     ) -> TunedSpmm:
         """The fastest (variant, ordering) for this (matrix, feature shape)
         on `device` (the card unless the caller asks for the CPU).
@@ -639,7 +685,9 @@ class SpmmTuner(Tuner):
         HUGE_BYTES of f32 edge-feature volume (nnz x d x 4): a process's exit
         frees all it held. Plan build seconds are recorded, not raced; the
         first calls of each candidate, outside the timed window, build its
-        work list and kernels."""
+        work list and kernels. accurate=True races the float32 variants
+        of the default space alone (`default_space`); its signature gets an
+        "A", as tune_attention's does."""
         device = torch.device(device)
         budget_s = self._budget(budget_s)
         if hash_tag is None and len(indices) >= 1 << 20:
@@ -660,8 +708,9 @@ class SpmmTuner(Tuner):
         if space is not None:
             smark = ".s" + hashlib.md5("|".join(sorted(v.key() for v in space)).encode()
                                        ).hexdigest()[:8]
+        amark = "A" if accurate and space is None else ""
         signature = (f"{tag}.n{num_nodes}.d{d}.{_dtype_name(feat.dtype)}.{_device_tag(device)}"
-                     f"{wmark}{smark}.{_code_version()}")
+                     f"{wmark}{smark}{amark}.{_code_version()}")
         # the disk entry is structure only (plans are rebuilt from the
         # caller's values); a memory entry holds its value plane
         mem_key = signature if values is None else f"{signature}.v{_values_hash(values)}"
@@ -701,7 +750,8 @@ class SpmmTuner(Tuner):
 
         residency: dict = {}
         if space is None:
-            space = _default_space_for(indptr, indices, num_nodes, d, values, residency)
+            space = _default_space_for(indptr, indices, num_nodes, d, values, residency,
+                                       accurate)
             for k, b in residency.items():
                 self._say(f"{k} residency estimate {b / 2**30:.3f} GiB")
         if isolate is None:
@@ -879,7 +929,8 @@ class SpmmTuner(Tuner):
         return tuned
 
 
-def _default_space_for(indptr, indices, num_nodes: int, d: int, values, residency: dict):
+def _default_space_for(indptr, indices, num_nodes: int, d: int, values, residency: dict,
+                       accurate: bool = False):
     """The default space from the graph's statistics: O(nnz log nnz) host
     passes, run only on a cache miss."""
     from ..format.preprocess import coverage_expansion, density_split_stats
@@ -887,8 +938,8 @@ def _default_space_for(indptr, indices, num_nodes: int, d: int, values, residenc
     nnz = len(indices)
     if values is not None:
         slots = coverage_expansion(indptr, indices, num_nodes, 128, 1) * 128
-        return weighted_default_space(d=d, nnz=nnz, dense_slots_per_nnz=slots,
-                                      num_nodes=num_nodes)
+        return weighted_default_space(d=d, nnz=nnz, accurate=accurate,
+                                      dense_slots_per_nnz=slots, num_nodes=num_nodes)
     cov128 = coverage_expansion(indptr, indices, num_nodes, 2048, 128)
     cov32 = (coverage_expansion(indptr, indices, num_nodes, 2048, 32)
              if cov128 > FUSED_COVERAGE_THRESHOLD else None)
@@ -897,7 +948,7 @@ def _default_space_for(indptr, indices, num_nodes: int, d: int, values, residenc
     if nnz * d * 4 > HUGE_BYTES:  # only the residency budget reads them
         rows512 = int(coverage_expansion(indptr, indices, num_nodes, 512, 1) * nnz)
         rows2048 = int(coverage_expansion(indptr, indices, num_nodes, 2048, 1) * nnz)
-    return default_space(d=d, nnz=nnz, coverage128=cov128, coverage32=cov32,
+    return default_space(accurate, d=d, nnz=nnz, coverage128=cov128, coverage32=cov32,
                          gather_rows=rows512, num_nodes=num_nodes, gather_rows_2048=rows2048,
                          split_rows8=sr8, split_slots8=ss8, residency=residency)
 
@@ -955,6 +1006,8 @@ def _probe(csr_path, num_nodes, d, dtype_name, variant, ordering, iters, backend
     import sys
     import tempfile
 
+    # feat_dtype: the caller's features, which the variant's own feat_dtype
+    # (in its fields) casts as in process
     spec = {"csr": csr_path, "num_nodes": num_nodes, "d": d, "feat_dtype": dtype_name,
             "variant": dataclasses.asdict(variant), "ordering": ordering, "iters": iters,
             "backend": backend, "device": str(device)}
