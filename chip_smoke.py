@@ -200,7 +200,20 @@ non-zero on failure (there is no CPU fallback):
       of A's trained parameters (logits bit for bit), spmm_tuple on the
       card against the plain version, profile_op and attribute_spmm on A's
       request, and the host microseconds of a K1 call: the wrapper, the
-      registered op alone, and the bare launch, in turns.
+      registered op alone, and the bare launch, in turns; and of a call of
+      each op of K4-K15 on 256-node plans at d 8: the wrapper and the op
+      alone (bit for bit the wrapper's), in turns. Where their paths hold
+      the model, the graph and the eager logits, the requests of D (GAT,
+      K4), E (dot-product GAT, K6 and K7; bundled without a plan, the ELL
+      plan beside the bundle), G (flash GAT on (plan, plan_t), bf16
+      planes, K13), H (flash GAT per head on the bare plan, K9) and I
+      (spmm(plan, x, impl="int8") on A's plan at d 128, K8) are exported
+      at their paths' full width, the programs' graphs holding the paths'
+      voltrix ops, bundled, and timed in turns against the eager request;
+      after H two fresh processes (without and with aot_compile) serve the
+      five bundles as above: logits bit for bit the eager path's, each
+      kernel's launches a request, torch.profiler's kernel names, the
+      plans among the programs' constants, cold start and bundle bytes.
    M. GIN graph classification on examples/train_graph_classify.py's
       corpus: 128 graphs of 30-80 nodes (dense or rings) in one
       block-diagonal batch, PlanConfig(128, 128), 16 -> 64 -> 2, sum
@@ -345,7 +358,27 @@ STEPS = 3
 P_GATE = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory peak rate
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-REGISTERED = ("spmm_block", "spmm_subtile", "spmm_fused")  # K1-K3's torch.library ops
+# each kernel's key in this script -> (its module under voltrix_spmm_tpu_torch.ops,
+# the wrapper whose `launches` counts it, its torch.library op in the voltrix
+# namespace, ops/library.py); every call of a kernel goes through its op
+KERNEL_OPS = {
+    "spmm_block": ("block_spmm", "spmm_block", "spmm_block"),
+    "spmm_subtile": ("subtile_spmm", "spmm_subtile", "spmm_subtile"),
+    "spmm_fused": ("fused_spmm", "spmm_fused", "spmm_fused"),
+    "spmm_weighted": ("weighted", "spmm_weighted", "spmm_weighted"),
+    "spmm_dvalues": ("weighted", "spmm_weighted_dvalues", "spmm_dvalues"),
+    "spmm_ell": ("ell", "spmm_ell", "spmm_ell"),
+    "spmm_ell_dvals": ("ell", "spmm_ell_dvals", "spmm_ell_dvals"),
+    "attn_mh_fwd": ("attention_mh", "spmm_attention_mh", "spmm_attention_mh"),
+    "attn_mh_dq": ("attention_mh", "attention_mh_dq", "attention_mh_dq"),
+    "attn_mh_dkv": ("attention_mh", "attention_mh_dkv", "attention_mh_dkv"),
+    "attn_fwd": ("attention", "spmm_attention", "spmm_attention"),
+    "attn_bwd": ("attention", "attention_bwd", "attention_bwd"),
+    "attn_dq": ("attention", "attention_dq", "attention_dq"),
+    "attn_dkv": ("attention", "attention_dkv", "attention_dkv"),
+    "spmm_int8": ("quant", "spmm_int8", "spmm_int8"),
+}
+REGISTERED = {key: op for key, (_, _, op) in KERNEL_OPS.items()}
 
 
 def fail(msg: str):
@@ -1890,6 +1923,8 @@ def main() -> None:
                       f"{(out - ref).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"path {label} request {i}: logits disagree with the plain forward")
+        export_model("D", lambda x: model(g, x), xs, logits, g.plan,
+                     {"spmm_weighted": per_request}, ("spmm_weighted_kernel",))
 
         # layer 2's scores within rounding of leaky_relu's kink, and the edges
         # whose score has another sign on the kernel path than on the plain
@@ -2134,6 +2169,9 @@ def main() -> None:
                       f"{(out - ref).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"path {label} request {i}: logits disagree with the plain forward")
+        export_model("E", lambda x: model(g, x), xs, logits, None,
+                     {"spmm_ell": per_request, "spmm_ell_dvals": per_request},
+                     ("spmm_ell_rows_kernel", "spmm_ell_dvals_kernel"), ell_plan=g.plan)
 
         # scores within rounding of leaky_relu's kink, and the edges whose
         # score has another sign on the kernel path than on the plain path
@@ -2343,6 +2381,8 @@ def main() -> None:
         print(f"  request 0's logits again: {'bit-identical' if same else 'DIFFERENT'}")
         if not same:
             fail(f"path {label}: two runs of request 0 give different logits")
+        export_model("G", lambda x: model(g, x), xs, logits, g.plan, {"attn_mh_fwd": 2},
+                     ("attn_mh_fwd",))
         # bf16 planes: float32 noise in layer 1's output may move a layer-2
         # input across a bf16 rounding boundary (one bf16 ulp, 2**-8
         # relative), so the two paths agree to the bf16 class (JAX's own bf16
@@ -2586,6 +2626,8 @@ def main() -> None:
                       f"{(out - ref).abs().max().item():.3e} -> {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"path {label} request {i}: logits disagree with the plain forward")
+        export_model("H", lambda x: model(plan, x), xs, logits, plan,
+                     {"attn_fwd": per_request}, ("attn_fwd_kernel",))
 
         # the kernels at the path's widths: head 0 of layer 1, and layer 2, on
         # request 0's activations
@@ -2901,6 +2943,8 @@ def main() -> None:
               f"{[round(t, 3) for t in wall_ms]}")
         check_counts(label, counts, plain_calls, {"spmm_int8": len(widths) * REQUESTS})
         path_i["launches"] = counts["spmm_int8"]
+        export_model("I", lambda x: spmm(plan, x, impl="int8"), xs[128], outs[128], plan,
+                     {"spmm_int8": 1}, ("spmm_walk_kernel",))
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
         csr = csr_tensor(torch, a, dev)
         piece_line(f"path {label}", [plan], "spmm_int8", widths)
@@ -3942,6 +3986,110 @@ def main() -> None:
             fail(f"path {label}: the native and numpy plans differ")
         return built["native"], secs
 
+    # path N's model bundles: D, E, G, H and I exported where their paths
+    # hold the model, the graph and the eager logits, served together after H
+    model_work = os.path.join(ROOT, "build", "deploy_models")
+    model_bundles = []
+
+    def export_model(name, fn, xs, logits, plan, launches, names, ell_plan=None):
+        """Path N on a model of path `name`: fn (one request on the path's
+        graph, at its full width) exported with export_servable after the
+        path's eager requests, the program's graph holding the path's
+        registered ops, bundled with save_bundle (with `plan`; an ELL plan
+        goes beside the bundle, for the serving process's constants check),
+        and timed in turns against the eager request in this process. The
+        serving process (`serve_models`) later answers the path's inputs
+        `xs`, whose eager `logits` are saved here."""
+        from voltrix_spmm_tpu_torch.serve import export_servable, load_servable, save_bundle
+
+        t_path = time.perf_counter()
+        os.makedirs(model_work, exist_ok=True)
+        rec = {}
+        t0 = time.perf_counter()
+        blob = export_servable(fn, xs[0])
+        rec["export_s"] = time.perf_counter() - t0
+        path = os.path.join(model_work, f"bundle_{name}")
+        save_bundle(path, blob, plan=plan, meta={"path": name})
+        rec["bundle_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                  for f in os.listdir(path))
+        loaded = load_servable(blob)
+        ops = sorted({str(nd.target) for nd in loaded.graph.nodes
+                      if nd.op == "call_function" and str(nd.target).startswith("voltrix.")})
+        want_ops = sorted(f"voltrix.{REGISTERED[k]}.default" for k in launches)
+        if ops != want_ops:
+            fail(f"path N ({name}): the exported program's ops are {ops}, not {want_ops}")
+        entry = {"name": name, "path": path, "launches": launches, "kernels": list(names),
+                 "xs": [], "ys": []}
+        for i, (x, y) in enumerate(zip(xs, logits)):
+            for what, t in (("xs", x), ("ys", y)):
+                f = os.path.join(model_work, f"{what[0]}_{name}_{i}.pt")
+                torch.save(t.detach().cpu(), f)
+                entry[what].append(f)
+        if ell_plan is not None:
+            entry["ell_plan"] = ell_plan.save(os.path.join(model_work, f"ell_plan_{name}.npz"))
+        x = xs[0]
+        with torch.no_grad():
+            same = torch.equal(loaded(x), logits[0])
+            l_ms, e_ms, turns = in_turns(torch, lambda: loaded(x), lambda: fn(x), plain_iters=10)
+        if not same:
+            fail(f"path N ({name}): the loaded program's logits in this process are not the "
+                 "eager path's")
+        rec.update(loaded_request_ms=l_ms, eager_request_ms=e_ms)
+        del loaded
+        rec["main_s"] = time.perf_counter() - t_path
+        print(f"  path N ({name}): export_servable {rec['export_s']:.2f} s, program "
+              f"{len(blob)} bytes, bundle {rec['bundle_bytes']} bytes "
+              f"({', '.join(sorted(os.listdir(path)))}); the program's ops {ops}; loaded "
+              f"program bit-identical to the eager request; loaded {turns[1]:.4f} / "
+              f"{turns[2]:.4f} ms, eager {turns[0]:.4f} / {turns[3]:.4f} ms (CUDA events, 20 "
+              f"calls after 3, eager 10 after 1, in turns); {rec['main_s']:.1f} s here")
+        path_n[f"model_{name}"] = rec
+        model_bundles.append(entry)
+
+    def serve_models():
+        """Path N's models served: two fresh processes that import only
+        voltrix_spmm_tpu_torch.serve (chip_smoke.py --serve-bundles), side by
+        side, each answering REQUESTS requests of every bundle of
+        export_model, the second after aot_compile's warm call; logits bit for
+        bit the eager path's, the kernels launched by counter and by
+        torch.profiler's names, the plans among the programs' constants, cold
+        start and bundle bytes."""
+        import shutil
+
+        t_path = time.perf_counter()
+        procs = []
+        for proc, warm in enumerate((False, True)):
+            spec_path = os.path.join(model_work, f"serve{proc}.json")
+            with open(spec_path, "w") as f:
+                json.dump({"bundles": [dict(e, warm=warm) for e in model_bundles]}, f)
+            procs.append((time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--serve-bundles",
+                 spec_path], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for proc, (t0, p) in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=600)
+            for line in stdout.strip().splitlines()[:-1]:
+                print(f"  [model serving process {proc}] {line}")
+            if p.returncode:
+                fail(f"path N: model serving process {proc} exited {p.returncode}: "
+                     f"{stderr[-3000:]}")
+            out = json.loads(stdout.strip().splitlines()[-1])
+            print(f"  model serving process {proc}: {time.perf_counter() - t0:.1f} s in all")
+            for entry, o in zip(model_bundles, out["bundles"]):
+                for i, (y_file, want_file) in enumerate(zip(o["ys"], entry["ys"])):
+                    same = torch.equal(torch.load(y_file), torch.load(want_file))
+                    print(f"  bundle {o['tag']} request {i} from the fresh process: "
+                          f"bit-identical to the eager path {same}")
+                    if not same:
+                        fail(f"path N: bundle {o['tag']} request {i} disagrees with the eager "
+                             "path")
+                path_n[f"model_{entry['name']}"].update(
+                    {f"cold_{k}{'_aot' if proc else ''}": v for k, v in o.items()
+                     if k.endswith("_s")})
+        shutil.rmtree(model_work, ignore_errors=True)
+        path_n["models_serve_s"] = time.perf_counter() - t_path
+        print(f"path N (models D, E, G, H, I): served in {path_n['models_serve_s']:.1f} s")
+
     def deploy_path(label, a, g, params_np, xs, logits, trained):
         """Path N: the deployment path on A's graph at 128 -> 256 -> 40. The
         native and numpy plan builds timed and held bit for bit; A's plan
@@ -4079,12 +4227,14 @@ def main() -> None:
 
         # 4. fresh processes: cold start without and with aot_compile's warm
         # call, the requests, the profiler, the constants
-        spec = [{"name": "A", "path": bundles["A"], "kernel": "spmm_block", "warm": False},
-                {"name": "B", "path": bundles["B"], "kernel": "spmm_subtile", "warm": False},
-                {"name": "A", "path": bundles["A"], "kernel": "spmm_block", "warm": True,
-                 "process": 1},
-                {"name": "J.2", "path": bundles["J.2"], "kernel": "spmm_fused", "warm": False,
-                 "process": 1}]
+        walk = ["spmm_walk_kernel"]
+        a_, b_ = ({"launches": {k: 2}, "kernels": walk} for k in ("spmm_block", "spmm_subtile"))
+        j2 = {"launches": {"spmm_fused": 1, "spmm_block": 1},
+              "kernels": ["spmm_fused_kernel", *walk]}
+        spec = [{"name": "A", "path": bundles["A"], "warm": False, **a_},
+                {"name": "B", "path": bundles["B"], "warm": False, **b_},
+                {"name": "A", "path": bundles["A"], "warm": True, "process": 1, **a_},
+                {"name": "J.2", "path": bundles["J.2"], "warm": False, "process": 1, **j2}]
         served, procs = {}, []
         for proc in (0, 1):  # the two processes side by side
             mine = [s for s in spec if s.get("process", 0) == proc]
@@ -4225,6 +4375,7 @@ def main() -> None:
         print("  host us per call on a 256-node plan at d 8 (2000 calls, in turns): " +
               ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in host.items()))
         res.update({f"host_us_{k.replace(' ', '_')}": sum(v) / 2 for k, v in host.items()})
+        res["host_us_ops"] = op_host_us(small, x8, host_us)
 
         del g_b, hplan, plan
         shutil.rmtree(work, ignore_errors=True)
@@ -4232,6 +4383,103 @@ def main() -> None:
         res["path_s"] = time.perf_counter() - t_path
         print(f"path {label}: {res['path_s']:.1f} s in all")
         path_n.update(res)
+
+    def op_host_us(small, x8, host_us):
+        """Path N: the host microseconds of one call of each op of K4-K15 on
+        `small`'s 256-node plan at d 8 (H 2 for K13-K15), the wrapper a user
+        calls and the registered op alone on its kept operands, in turns
+        (op, wrapper, wrapper, op), 1000 calls each; the op's output against
+        the wrapper's, bit for bit."""
+        from voltrix_spmm_tpu_torch import csr_preprocess_ell
+        from voltrix_spmm_tpu_torch.ops import library
+
+        n, L = 256, library
+        hrng = np.random.default_rng(72)
+
+        def f32(*shape):
+            return torch.from_numpy(hrng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        plan = csr_preprocess(small.indptr, small.indices, n).to(dev)
+        vals = hrng.standard_normal(small.nnz).astype(np.float32)
+        wplan = csr_preprocess(small.indptr, small.indices, n, values=vals).to(dev)
+        eplan = csr_preprocess_ell(small.indptr, small.indices, n, values=vals).to(dev)
+        g8, q, k, v, gq = f32(n, 8), f32(n, 8), f32(n, 8), f32(n, 8), f32(n, 8)
+        q2, k2, v2, g2 = f32(2, n, 8), f32(2, n, 8), f32(2, n, 8), f32(2, n, 8)
+        out, lse = spmm_attention(plan, q, k, v, return_stats=True)
+        out2, lse2 = spmm_attention_mh(plan, q2, k2, v2, return_stats=True)
+        d_row, d_row2 = (gq * out).sum(-1), (g2 * out2).sum(-1)
+        rows, scale = quant.quantize_padded(x8)
+        one = [t[None] for t in (q, k, v, gq, lse, d_row)]
+        sc = 8 ** -0.5
+
+        def ops(p, kind, ell_plan=False):
+            o, geom = (L.ell_operands if ell_plan else L.operands)(p, kind, dev)
+            return o, geom, *L.no_plan(o, geom)
+
+        ow, gw, nw, ngw = ops(wplan, "spmm_weighted")
+        oe, ge, ne, nge = ops(eplan, "spmm_ell", True)
+        o7, g7, n7, ng7 = ops(eplan, "spmm_ell_dvals", True)
+        o9, g9, n9, ng9 = ops(plan, "spmm_attention")
+        o13, g13, n13, ng13 = ops(plan, "spmm_attention_mh")
+        calls = {
+            "K4 spmm_weighted": (
+                lambda: spmm_weighted(wplan, x8),
+                lambda: L.spmm_weighted_op(x8, wplan.values, ow, gw, nw, ngw, None, nw, ngw)),
+            "K5 spmm_dvalues": (
+                lambda: spmm_weighted_dvalues(plan, x8, g8),
+                lambda: L.spmm_dvalues_op(x8, g8, *ops(plan, "spmm_dvalues")[:2])),
+            "K6 spmm_ell": (
+                lambda: spmm_ell(eplan, x8),
+                lambda: L.spmm_ell_op(x8, eplan.vals, oe, ge, ne, nge, None, ne, nge, False)),
+            "K7 spmm_ell_dvals": (
+                lambda: spmm_ell_dvals(eplan, x8, g8),
+                lambda: L.spmm_ell_dvals_op(x8, g8, o7, g7, n7, ng7, n7, ng7)),
+            "K8 spmm_int8": (
+                lambda: quant.launch_quantized(plan, rows, scale, 8),
+                lambda: L.spmm_int8_op(rows, scale, *ops(plan, "spmm_int8")[:2], 8)),
+            "K9 spmm_attention": (
+                lambda: spmm_attention(plan, q, k, v, scale=sc, return_stats=True),
+                lambda: L.spmm_attention_op(q, k, v, o9, g9, n9, ng9, n9, ng9, sc, 1.0)),
+            "K10 attention_bwd": (
+                lambda: attention_bwd_summed(plan, q, k, v, out, lse, gq, scale=sc),
+                lambda: L.attention_bwd_op(q, k, v, out, lse, gq,
+                                           *ops(plan, "attention_bwd")[:2], sc, 1.0, True)),
+            "K11 attention_dq": (
+                lambda: attention_dq(plan, q, k, v, gq, lse, d_row, scale=sc),
+                lambda: L.attention_dq_op(*one, *ops(plan, "attention_dq")[:2], sc, 1.0, None)),
+            "K12 attention_dkv": (
+                lambda: attention_dkv(plan, q, k, v, gq, lse, d_row, scale=sc),
+                lambda: L.attention_dkv_op(*one, *ops(plan, "attention_dkv")[:2], sc, 1.0,
+                                           None)),
+            "K13 spmm_attention_mh": (
+                lambda: spmm_attention_mh(plan, q2, k2, v2, scale=sc, return_stats=True),
+                lambda: L.spmm_attention_mh_op(q2, k2, v2, o13, g13, n13, ng13, n13, ng13, sc,
+                                               1.0, None)),
+            "K14 attention_mh_dq": (
+                lambda: attention_mh_dq(plan, q2, k2, v2, g2, lse2, d_row2, scale=sc),
+                lambda: L.attention_mh_dq_op(q2, k2, v2, g2, lse2, d_row2,
+                                             *ops(plan, "attention_mh_dq")[:2], sc, 1.0, None)),
+            "K15 attention_mh_dkv": (
+                lambda: attention_mh_dkv(plan, q2, k2, v2, g2, lse2, d_row2, scale=sc),
+                lambda: L.attention_mh_dkv_op(q2, k2, v2, g2, lse2, d_row2,
+                                              *ops(plan, "attention_mh_dkv")[:2], sc, 1.0,
+                                              None)),
+        }
+        res = {}
+        for name, (wrapper, op) in calls.items():
+            w_out, o_out = wrapper(), op()
+            w_out, o_out = ((w_out,), (o_out,)) if isinstance(w_out, torch.Tensor) else (w_out,
+                                                                                         o_out)
+            if name.startswith(("K11", "K12")):
+                o_out = [t[0] for t in o_out]
+            if not all(torch.equal(a_, b_.reshape(a_.shape)) for a_, b_ in zip(w_out, o_out)):
+                fail(f"path N: {name}'s op alone and its wrapper differ")
+            turns = [host_us(f, calls=1000) for f in (op, wrapper, wrapper, op)]
+            res[name] = {"op": (turns[0] + turns[3]) / 2, "wrapper": (turns[1] + turns[2]) / 2}
+        print("  host us per call, 256-node plans at d 8 (H 2 for K13-K15; 1000 calls, in turns "
+              "op, wrapper, wrapper, op): " + "; ".join(
+                  f"{k} op {v['op']:.2f}, wrapper {v['wrapper']:.2f}" for k, v in res.items()))
+        return res
 
     def c_plan_builds(a):
         """Path N's step 1 on C's graph: its plan by both backends, timed."""
@@ -4816,6 +5064,7 @@ def main() -> None:
     results.update(flash_head_path(
         "H (ogbn-arxiv proxy with self-loops, per-head flash GAT, K9-K12)", loops,
         PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
+    serve_models()  # path N's bundles of D, E, G, H and I, from fresh processes
     tuner_path_g(loops)
     del loops
     t0 = time.perf_counter()
@@ -4897,7 +5146,7 @@ def main() -> None:
                      "source": f"voltrix_spmm_tpu_torch/csrc/{source}",
                      "replaces": replaces, "max_abs_err": max_err[name],
                      # a torch.library op (ops/library.py) that every call goes through
-                     "registered": f"voltrix::{name}" if name in REGISTERED else None,
+                     "registered": f"voltrix::{REGISTERED[name]}",
                      # path O: launches of the tuner's in-process races
                      "o_launches": path_o["launches"][name],
                      **results[name]})
@@ -4911,7 +5160,7 @@ def main() -> None:
         entry = {"name": key, "route": "cuda",
                  "source": f"voltrix_spmm_tpu_torch/csrc/{kernels[name][2]}",
                  "replaces": kernels[name][3], "max_abs_err": bf16_err[key],
-                 "registered": f"voltrix::{name}" if name in REGISTERED else None,
+                 "registered": f"voltrix::{REGISTERED[name]}",
                  "o_launches": path_o["launches"][key], "launches": path_q[key]["launches"],
                  "bound_by": widest["bound_by"]}
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms"):
@@ -4932,10 +5181,13 @@ def serve_bundles(spec_path: str) -> None:
     imports torch and voltrix_spmm_tpu_torch.serve only, loads each bundle
     of SPEC with load_bundle, moves its plan to the card, with "warm"
     calls aot_compile (its warm call), answers REQUESTS requests (features
-    from SPEC's files), and checks that the kernels launched from the loaded
-    program (their counts and torch.profiler's kernel names) and that the
-    plan's tensors are among the program's constants. It writes the logits
-    beside SPEC and prints one JSON line of times in seconds."""
+    from the entry's files, or SPEC's), and checks that each kernel of the
+    entry's "launches" launched that many times a request from the loaded
+    program (its count, and its "kernels" among torch.profiler's kernel
+    names) and that the plan's tensors are among the program's constants
+    (plan.npz's, or the ELL plan beside the bundle). It writes the logits
+    beside SPEC and prints one JSON line of times in seconds and the logits'
+    files."""
     t0 = time.perf_counter()
     import torch
     from torch.autograd import DeviceType
@@ -4947,11 +5199,6 @@ def serve_bundles(spec_path: str) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
     work = os.path.dirname(spec_path)
-    counted = {k: getattr(sys.modules[f"voltrix_spmm_tpu_torch.ops.{m}"], k) for k, m in
-               (("spmm_block", "block_spmm"), ("spmm_subtile", "subtile_spmm"),
-                ("spmm_fused", "fused_spmm"))}
-    want_names = {"spmm_block": ("spmm_walk_kernel",), "spmm_subtile": ("spmm_walk_kernel",),
-                  "spmm_fused": ("spmm_fused_kernel", "spmm_walk_kernel")}
     out = []
     t0 = time.perf_counter()
     torch.cuda.init()
@@ -4963,11 +5210,14 @@ def serve_bundles(spec_path: str) -> None:
         t0 = time.perf_counter()
         bundle = load_bundle(entry["path"])
         rec["load_s"] = time.perf_counter() - t0
+        # the kernels' counts, from the modules the loaded program's ops live in
+        counted = {k: getattr(sys.modules[f"voltrix_spmm_tpu_torch.ops.{m}"], w)
+                   for k, (m, w, _) in KERNEL_OPS.items()}
         t0 = time.perf_counter()
         plan = None if bundle.plan is None else bundle.plan.to(dev)
         torch.cuda.synchronize()
         rec["move_s"] = time.perf_counter() - t0
-        xs = [torch.load(p).to(dev) for p in spec["xs"]]
+        xs = [torch.load(p).to(dev) for p in entry.get("xs", spec.get("xs"))]
         torch.cuda.synchronize()
         if entry["warm"]:
             t0 = time.perf_counter()
@@ -4984,29 +5234,36 @@ def serve_bundles(spec_path: str) -> None:
         ys += [bundle(x) for x in xs[1:]]
         torch.cuda.synchronize()
         launches = {k: w.launches for k, w in counted.items() if w.launches}
-        want = ({"spmm_fused": REQUESTS, "spmm_block": REQUESTS} if entry["kernel"] == "spmm_fused"
-                else {entry["kernel"]: 2 * REQUESTS})
+        want = {k: n * len(xs) for k, n in entry["launches"].items()}
         if launches != want:
             fail(f"bundle {tag}: launches {launches}, want {want}")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             bundle(xs[0])
             torch.cuda.synchronize()
         names = sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
-        kernels = [k for k in want_names[entry["kernel"]] if any(k in nm for nm in names)]
-        if kernels != list(want_names[entry["kernel"]]):
+        kernels = [k for k in entry["kernels"] if any(k in nm for nm in names)]
+        if kernels != list(entry["kernels"]):
             fail(f"bundle {tag}: the profiler saw kernels {names}")
         consts = [v for v in vars(bundle.fn).values() if isinstance(v, torch.Tensor)]
-        held = "no plan in the bundle"
+        held, fields = "no plan in the bundle", ()
         if plan is not None:
-            fields = ("bitmask", "hind", "window_of_block")
+            fields, what = ("bitmask", "hind", "window_of_block"), "plan.npz's"
+        elif "ell_plan" in entry:
+            from voltrix_spmm_tpu_torch.format.ell import EllPlan
+
+            plan = EllPlan.load(entry["ell_plan"]).to(dev)
+            fields, what = ("hind", "erow", "window_of_block"), "the ELL plan's"
+        if fields:
             found = [f for f in fields if any(
                 c.device == getattr(plan, f).device and c.shape == getattr(plan, f).shape
                 and torch.equal(c, getattr(plan, f)) for c in consts)]
             if found != list(fields):
                 fail(f"bundle {tag}: the program's constants hold {found} of the plan, not {fields}")
-            held = "plan.npz's bitmask, hind and window_of_block among the program's constants"
+            held = f"{what} {', '.join(fields)} among the program's constants"
+        rec["ys"] = []
         for i, y in enumerate(ys):
-            torch.save(y.cpu(), os.path.join(work, f"y_{tag}_{i}.pt"))
+            rec["ys"].append(os.path.join(work, f"y_{tag}_{i}.pt"))
+            torch.save(y.cpu(), rec["ys"][-1])
         print(f"bundle {tag}: load_bundle {rec['load_s']:.3f} s, plan to the card "
               f"{rec['move_s']:.3f} s" + (f", aot_compile {rec['aot_s']:.3f} s" if entry["warm"]
                                            else "") +

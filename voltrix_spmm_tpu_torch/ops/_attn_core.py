@@ -7,8 +7,10 @@ planes; ops/attention.py launches them with H = 1 and float32 planes as
 K11 and K12 (the JAX package keeps a single-head and a multi-head copy of
 each Pallas kernel only because the TPU pays one gather call per head).
 All of K9-K15 walk rows with csrc/attn_walk.cuh; K9 and K10 are launched
-by ops/attention.py, K13 by ops/attention_mh.py. The launch functions
-take the entry point that calls them: its name keys the work list
+by ops/attention.py, K13 by ops/attention_mh.py. The launch functions are
+the bodies of the registered ops (ops/library.py) on the card: they take
+the entry point whose op calls them and its work list, built from the
+real plan beside the op's operands; the entry's name keys the work list
 (ops/block_spmm.py: PIECE_BLOCKS, PIECE_WORK), the head group and the
 messages, and its `launches` count goes up by one where the kernel
 launches, and nowhere else.
@@ -24,7 +26,7 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .bitmask import expand_bitmask
-from .block_spmm import _INT_MAX, launch, plan_walk
+from .block_spmm import _INT_MAX, launch
 from .reference import CHUNK_BYTES
 
 
@@ -265,8 +267,10 @@ def _dkv_plain(plan_t: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chun
 
 # --- the kernels of K14 and K15, over (H, n, d) stacks -----------------------
 
-def _plan_args(plan: SpmmPlan, device, name: str):
-    """The plan's arrays as pointers, after checking what the kernels read."""
+def check_plan_arrays(plan: SpmmPlan, device, name: str) -> None:
+    """Check the plan's arrays that K9-K15 read: contiguous int32 tensors
+    of the plan's shapes on `device`, and rows and blocks that 32-bit ints
+    index (ops/library.py checks them where it builds the ops' operands)."""
     cfg = plan.config
     shapes = {
         "bitmask": (plan.total_blocks, cfg.words_per_col, cfg.block_w),
@@ -284,7 +288,6 @@ def _plan_args(plan: SpmmPlan, device, name: str):
                              f"{t.dtype} {tuple(t.shape)}")
     if max(plan.padded_nodes, plan.source_rows, plan.total_blocks) > _INT_MAX:
         raise ValueError(f"{name} indexes rows and blocks with 32-bit ints")
-    return [getattr(plan, f).data_ptr() for f in shapes]
 
 
 def _tensors(name: str, device, *pairs):
@@ -360,14 +363,13 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def _walk_of(name: str, plan: SpmmPlan, heads: int, d: int):
-    """The kernel's work list and (head group, column chunk), after
-    checking that the grid takes them."""
-    walk = plan_walk(plan, name)
+def _grid(name: str, walk, heads: int, d: int) -> tuple[int, int]:
+    """(head group, column chunk) of K14 or K15 on `walk`, after checking
+    that the grid takes them."""
     hg, acc = bwd_geometry(name, heads, d)
     if walk.tasks.shape[0] * -(-heads // hg) > _INT_MAX or -(-d // acc) > 65535 or heads > 65535:
         raise ValueError(f"{name}: more tasks, heads or columns than the grid takes")
-    return walk, hg, acc
+    return hg, acc
 
 
 def _workspace(walk, heads: int, d: int, device):
@@ -383,16 +385,16 @@ def _strides(*stacks):
     return [x for t in stacks for x in t.stride()[:2]]
 
 
-def _dq_kernel(entry, plan, q, k, v, g, lse, d_row, scale, slope, pdt):
-    """dq (H, nq, dk) float32 through K14 (csrc/attn_mh_dq.cu): the walk
-    over `plan_walk(plan, name)` for each head group and, when a group of
+def _dq_kernel(entry, plan, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
+    """dq (H, nq, dk) float32 through K14 (csrc/attn_mh_dq.cu), the body of
+    the op of `entry` (ops/library.py): the walk over `walk`
+    (`plan_walk(plan, name)`) for each head group and, when a group of
     rows is cut, the merge of each head's pieces. q, k, v and dO are read
     through their head and row strides (`_head_rows`). Every row is
     written."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
-    _plan_args(plan, dev, name)
     f32, tdt = torch.float32, pdt or torch.float32
     qc, kc, vc, gc = (_head_rows(name, dev, t, dt)
                       for t, dt in ((q, f32), (k, tdt), (v, tdt), (g, f32)))
@@ -400,7 +402,7 @@ def _dq_kernel(entry, plan, q, k, v, g, lse, d_row, scale, slope, pdt):
     dq = torch.empty(heads, nq, dk, dtype=f32, device=dev)
     if plan.total_blocks == 0 or dk == 0:
         return dq.zero_()
-    walk, hg, acc = _walk_of(name, plan, heads, dk)
+    hg, acc = _grid(name, walk, heads, dk)
     ws = _workspace(walk, heads, dk, dev)
     cfg = plan.config
     launch(
@@ -416,16 +418,16 @@ def _dq_kernel(entry, plan, q, k, v, g, lse, d_row, scale, slope, pdt):
     return dq
 
 
-def _dkv_kernel(entry, plan_t, q, k, v, g, lse, d_row, scale, slope, pdt):
+def _dkv_kernel(entry, plan_t, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
     """(dk, dv) float32 through K15 (csrc/attn_mh_dkv.cu) over the
-    transpose plan: the walk over `plan_walk(plan_t, name)` for each head
-    group and, when a group of rows is cut, the merges of each head's
-    pieces of dk and of dv. q, k, v and dO are read in the plane's type
+    transpose plan, the body of the op of `entry` (ops/library.py): the
+    walk over `walk` (`plan_walk(plan_t, name)`) for each head group and,
+    when a group of rows is cut, the merges of each head's pieces of dk
+    and of dv. q, k, v and dO are read in the plane's type
     through their head and row strides. Every row is written."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
-    _plan_args(plan_t, dev, name)
     f32, tdt = torch.float32, pdt or torch.float32
     qc, kc, vc, gc = (_head_rows(name, dev, t, tdt) for t in (q, k, v, g))
     lc, dc_row = _tensors(name, dev, (lse, f32), (d_row, f32))
@@ -433,7 +435,7 @@ def _dkv_kernel(entry, plan_t, q, k, v, g, lse, d_row, scale, slope, pdt):
     dv_out = torch.empty(heads, nk, dv, dtype=f32, device=dev)
     if plan_t.total_blocks == 0 or dk + dv == 0:
         return dk_out.zero_(), dv_out.zero_()
-    walk, hg, acc = _walk_of(name, plan_t, heads, max(dk, dv))
+    hg, acc = _grid(name, walk, heads, max(dk, dv))
     ws_k, ws_v = (_workspace(walk, heads, d, dev) for d in (dk, dv))
     cfg = plan_t.config
     launch(

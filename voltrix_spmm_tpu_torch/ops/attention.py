@@ -34,13 +34,17 @@ out_r and ds = p (dO_r . v_l - D_r) act'(raw) scale:
   hold bits, grouped by hind (`lane_source_order`), summed in lane order
   within a source, with no atomics. `scatter_lanes` is the plain version's
   sum (index_add_).
-- `spmm_attention_ad` is the autograd Function: forward K9; backward K11
+- `spmm_attention_ad` is K9's op with its gradient: forward K9; backward K11
   and K12 when given the transpose plan, else `attention_bwd_summed`.
 
-A CPU tensor takes the plain versions, which take the edges from the
-bitmask, compute scores by gather, the row maxima and denominators by
-segment reductions, and aggregate with `index_add_`. A CUDA tensor
-launches the kernel or raises: there is no fallback.
+K9-K12 are the registered ops ``torch.ops.voltrix.spmm_attention``,
+``attention_bwd``, ``attention_dq`` and ``attention_dkv`` (ops/library.py),
+which every call goes through; K9's op carries `spmm_attention_ad`'s
+gradient. An op's body runs the plain versions on a CPU tensor: they
+take the edges from the bitmask, compute scores by gather, the row
+maxima and denominators by segment reductions, and aggregate with
+`index_add_`. On a CUDA tensor it launches the kernel or raises: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -60,9 +64,7 @@ from ._attn_core import (
     _check_bwd,
     _check_plan,
     _check_qkv,
-    _dkv_kernel,
     _dkv_plain,
-    _dq_kernel,
     _dq_plain,
     _ds,
     _edge_chunks,
@@ -70,7 +72,6 @@ from ._attn_core import (
     _fwd_plain,
     _loader,
     _on_cuda,
-    _plan_args,
     _refuse_knobs,
     _tensors,
     _vec4,
@@ -243,16 +244,20 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                    negative_slope: float = 1.0, block_d=None, compute_dtype=None,
                    precision=None, return_stats: bool = False, interpret=None, out_dtype=None):
     """Fused attention aggregation of one head through kernel K9
-    (csrc/attn_fwd.cu): out[r] = softmax over r's in-neighbours l of
-    act(scale q[r] . k[l]), applied to v. q (num_nodes, dk), k (source_rows,
-    dk), v (source_rows, dv); returns (num_nodes, dv) in `out_dtype`
-    (default v's) and, with return_stats, lse (padded_nodes,) float32.
-    scale defaults to 1/sqrt(dk); negative_slope 1.0 is the identity. A
-    plan with a value plane raises ValueError; the TPU knobs block_d,
-    precision, a non-float32 compute_dtype and interpret raise
-    NotImplementedError."""
+    (csrc/attn_fwd.cu), as the registered op
+    ``torch.ops.voltrix.spmm_attention`` (ops/library.py): out[r] = softmax
+    over r's in-neighbours l of act(scale q[r] . k[l]), applied to v. q
+    (num_nodes, dk), k (source_rows, dk), v (source_rows, dv); returns
+    (num_nodes, dv) in `out_dtype` (default v's) and, with return_stats,
+    lse (padded_nodes,) float32. scale defaults to 1/sqrt(dk);
+    negative_slope 1.0 is the identity. A plan with a value plane raises
+    ValueError; the TPU knobs block_d, precision, a non-float32
+    compute_dtype and interpret raise NotImplementedError."""
+    from . import library
+
     _refuse_knobs(compute_dtype, precision, block_d, interpret)
     nq, _, dk, dv = _check_single(plan, q, k, v, "spmm_attention")
+    _on_cuda(q, "spmm_attention")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
     out_dtype = v.dtype if out_dtype is None else out_dtype
     if plan.total_blocks == 0:
@@ -261,11 +266,7 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
             return out, torch.full((plan.padded_nodes,), _EMPTY_LSE, dtype=torch.float32,
                                    device=q.device)
         return out
-    if not _on_cuda(q, "spmm_attention"):
-        return spmm_attention_reference(plan, q, k, v, scale=scale,
-                                        negative_slope=negative_slope,
-                                        return_stats=return_stats, out_dtype=out_dtype)
-    out, lse = _fwd_kernel(plan, q, k, v, scale, negative_slope)
+    out, lse = library.call_attention(plan, q, k, v, float(scale), float(negative_slope))
     out = out.to(out_dtype)
     return (out, lse) if return_stats else out
 
@@ -273,22 +274,21 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
 spmm_attention.launches = 0  # plain-int launch count, read by chip_smoke.py
 
 
-def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float):
-    """out (num_nodes, dv) and lse (padded_nodes,), float32, through K9:
-    the walk over `attention_walk(plan, "spmm_attention")` and, when a
-    group is cut, the merge of its shares. Every row is written."""
+def _fwd_kernel(plan: SpmmPlan, walk, q, k, v, scale: float, slope: float):
+    """out (num_nodes, dv) and lse (padded_nodes,), float32, through K9,
+    the op's body (ops/library.py): the walk over `walk`
+    (`attention_walk(plan, "spmm_attention")`) and, when a group is cut,
+    the merge of its shares. Every row is written."""
     name = "spmm_attention"
     dev = q.device
-    _plan_args(plan, dev, name)
     f32 = torch.float32
     qc, kc, vc = _tensors(name, dev, (q, f32), (k, f32), (v, f32))
     (nq, dk), (nk, dv) = qc.shape, vc.shape
     cfg = plan.config
     out = torch.empty(nq, dv, dtype=f32, device=dev)
     lse = torch.empty(plan.padded_nodes, dtype=f32, device=dev)
-    if dv == 0:
-        return out, lse.fill_(_EMPTY_LSE)
-    walk = attention_walk(plan, name)
+    if dv == 0 or plan.total_blocks == 0:
+        return out.zero_(), lse.fill_(_EMPTY_LSE)
     acc = acc_width(dv)
     if walk.tasks.shape[0] > _INT_MAX or -(-dv // acc) > 65535:
         raise ValueError(f"{name}: more tasks or columns than the grid takes")
@@ -340,13 +340,15 @@ attention_dkv_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 def attention_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                  negative_slope: float = 1.0) -> torch.Tensor:
     """dq (num_nodes, dk) float32 through kernel K11 (K14's kernel at H =
-    1) over `plan`; see the plain version."""
-    if not _on_cuda(q, "attention_dq"):
-        return attention_dq_reference(plan, q, k, v, g, lse, d_row, scale=scale,
-                                      negative_slope=negative_slope)
+    1) over `plan`, as the registered op ``torch.ops.voltrix.attention_dq``
+    (ops/library.py, on H = 1 views); see the plain version."""
+    from . import library
+
+    _on_cuda(q, "attention_dq")
     views = _one_head("attention_dq", q, k, v, g, lse, d_row)
     _check_bwd(plan, *views, "attention_dq", False)
-    return _dq_kernel(attention_dq, plan, *views, scale, negative_slope, None)[0]
+    return library.call_attention_dq("attention_dq", plan, *views, float(scale),
+                                float(negative_slope), None)[0]
 
 
 attention_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -355,13 +357,15 @@ attention_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
 def attention_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                   negative_slope: float = 1.0):
     """(dk, dv) float32 through kernel K12 (K15's kernel at H = 1) over the
-    transpose plan; see the plain version."""
-    if not _on_cuda(q, "attention_dkv"):
-        return attention_dkv_reference(plan_t, q, k, v, g, lse, d_row, scale=scale,
-                                       negative_slope=negative_slope)
+    transpose plan, as the registered op ``torch.ops.voltrix.attention_dkv``
+    (ops/library.py, on H = 1 views); see the plain version."""
+    from . import library
+
+    _on_cuda(q, "attention_dkv")
     views = _one_head("attention_dkv", q, k, v, g, lse, d_row)
     _check_bwd(plan_t, *views, "attention_dkv", True)
-    dk, dv = _dkv_kernel(attention_dkv, plan_t, *views, scale, negative_slope, None)
+    dk, dv = library.call_attention_dkv("attention_dkv", plan_t, *views, float(scale),
+                                   float(negative_slope), None)
     return dk[0], dv[0]
 
 
@@ -414,20 +418,18 @@ attention_bwd_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 def attention_bwd(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
                   negative_slope: float = 1.0):
-    """(dq, dk_lane, dv_lane) float32 through kernel K10 (csrc/attn_bwd.cu);
-    see the plain version. K10 writes the lanes that hold bits in the
-    source order (`plan_lane_sources`); their rows go to their lanes of
-    planes that are zero elsewhere. D = rowsum(dO o out) is one PyTorch
-    reduction before the launch."""
-    if not _on_cuda(q, "attention_bwd"):
-        return attention_bwd_reference(plan, q, k, v, out, lse, g, scale=scale,
-                                       negative_slope=negative_slope)
-    dq, slot_k, slot_v = _bwd_kernel(plan, q, k, v, out, lse, g, scale, negative_slope, False)
-    lanes = plan.total_blocks * plan.config.block_w
-    idx = plan_lane_sources(plan).slot_lane.long()
-    planes = [torch.zeros(lanes, t.shape[1], dtype=t.dtype, device=t.device).index_copy_(0, idx, t)
-              for t in (slot_k, slot_v)]
-    return dq, *planes
+    """(dq, dk_lane, dv_lane) float32 through kernel K10 (csrc/attn_bwd.cu),
+    as the registered op ``torch.ops.voltrix.attention_bwd``
+    (ops/library.py); see the plain version. K10 writes the lanes that
+    hold bits in the source order (`plan_lane_sources`); their rows go to
+    their lanes of planes that are zero elsewhere. D = rowsum(dO o out) is
+    one PyTorch reduction before the launch."""
+    from . import library
+
+    _on_cuda(q, "attention_bwd")
+    _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
+    return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
+                                 float(negative_slope), False)
 
 
 attention_bwd.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -437,41 +439,54 @@ def attention_bwd_summed(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
                          negative_slope: float = 1.0):
     """(dq, dk, dv) float32: K10 with its lane planes summed into source
     rows by hind in a fixed order, with no atomics (what `segment_sum`
-    gives in the JAX package's _attn_bwd). A CUDA tensor launches K10 once
+    gives in the JAX package's _attn_bwd), as the registered op
+    ``torch.ops.voltrix.attention_bwd``. A CUDA tensor launches K10 once
     (csrc/attn_bwd.cu: its dq walk, its lane pass into the source order of
     `plan_lane_sources`, and its sum, a warp per source row adding its
     slots in order); a CPU tensor runs the plain version of K10, takes its
     lane planes in the same order and sums them with
     `sum_slots_reference`."""
-    nk = k.shape[0]
-    if _on_cuda(q, "attention_bwd"):
-        return _bwd_kernel(plan, q, k, v, out, lse, g, scale, negative_slope, True)
+    from . import library
+
+    _on_cuda(q, "attention_bwd")
+    _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
+    return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
+                                 float(negative_slope), True)
+
+
+def bwd_plain(plan: SpmmPlan, sources: LaneSources, q, k, v, out, lse, g, scale: float,
+              slope: float, summed: bool):
+    """The op's body on the CPU (ops/library.py): the plain version of K10,
+    with `summed` its lane planes taken in the source order `sources` and
+    summed with `sum_slots_reference`."""
     dq, dk_lane, dv_lane = attention_bwd_reference(plan, q, k, v, out, lse, g, scale=scale,
-                                                   negative_slope=negative_slope)
-    sources = plan_lane_sources(plan)
+                                                   negative_slope=slope)
+    if not summed:
+        return dq, dk_lane, dv_lane
     idx = sources.slot_lane.long()
-    return (dq, *(sum_slots_reference(sources, t.index_select(0, idx), nk)
+    return (dq, *(sum_slots_reference(sources, t.index_select(0, idx), k.shape[0])
                   for t in (dk_lane, dv_lane)))
 
 
-def _bwd_kernel(plan: SpmmPlan, q, k, v, out, lse, g, scale: float, slope: float, summed: bool):
-    """K10 on the card: dq and either the lanes' rows in the source order
-    (slot_k, slot_v: one row for each lane that holds a bit) or, `summed`,
-    dk and dv (source_rows rows). Counts one launch of attention_bwd."""
+def _bwd_kernel(plan: SpmmPlan, walk, sources: LaneSources, q, k, v, out, lse, g, scale: float,
+                slope: float, summed: bool):
+    """K10 on the card, the op's body (ops/library.py): dq and either the
+    lane planes (the lanes' rows in the source order `sources`, copied to
+    their lanes of zero planes) or, `summed`, dk and dv (source_rows rows).
+    Counts one launch of attention_bwd."""
     name = "attention_bwd"
-    nq, nk, dk, dv = _check_lanes(plan, q, k, v, out, lse, g, name)
+    nq, dk = q.shape
+    nk, dv = v.shape
     dev = q.device
-    _plan_args(plan, dev, name)
     f32 = torch.float32
     qc, kc, vc, gc, lc = _tensors(name, dev, (q, f32), (k, f32), (v, f32), (g, f32), (lse, f32))
     d_row = (gc * out.float()).sum(-1)
     cfg = plan.config
-    sources = plan_lane_sources(plan)
     n = sources.lane.shape[0]
+    lanes = plan.total_blocks * cfg.block_w
     if plan.total_blocks == 0 or dk + dv == 0:
-        sides = (torch.zeros(nk if summed else n, d, dtype=f32, device=dev) for d in (dk, dv))
+        sides = (torch.zeros(nk if summed else lanes, d, dtype=f32, device=dev) for d in (dk, dv))
         return torch.zeros(nq, dk, dtype=f32, device=dev), *sides
-    walk = attention_walk(plan, name)
     acc = acc_width(max(dk, dv))
     if walk.tasks.shape[0] > _INT_MAX or -(-max(dk, dv) // acc) > 65535:
         raise ValueError(f"{name}: more tasks or columns than the grid takes")
@@ -497,7 +512,11 @@ def _bwd_kernel(plan: SpmmPlan, q, k, v, out, lse, g, scale: float, slope: float
         acc, float(scale), float(slope), _vec4(dk, qc, kc), _vec4(dv, vc, gc),
     )
     attention_bwd.launches += 1
-    return (dq, dk_out, dv_out) if summed else (dq, slot_k, slot_v)
+    if summed:
+        return dq, dk_out, dv_out
+    idx = sources.slot_lane.long()
+    return dq, *(torch.zeros(lanes, t.shape[1], dtype=f32, device=dev).index_copy_(0, idx, t)
+                 for t in (slot_k, slot_v))
 
 
 def scatter_lanes(plan: SpmmPlan, lane_plane: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -517,12 +536,16 @@ def scatter_lanes(plan: SpmmPlan, lane_plane: torch.Tensor, num_rows: int) -> to
 
 # --- the gradient ------------------------------------------------------------------
 
-class _AttentionFunction(torch.autograd.Function):
+class _PlainAttention(torch.autograd.Function):
+    """`spmm_attention_ad(impl="reference")`: the plain versions of K9-K12
+    with the kernels' gradient (without plan_t, K10's plain lane planes
+    summed by `scatter_lanes`)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, plan, plan_t, scale, slope, impl):
-        ctx.plan, ctx.plan_t, ctx.scale, ctx.slope, ctx.impl = plan, plan_t, scale, slope, impl
-        fwd = spmm_attention_reference if impl == "reference" else spmm_attention
-        out, lse = fwd(plan, q, k, v, scale=scale, negative_slope=slope, return_stats=True)
+    def forward(ctx, q, k, v, plan, plan_t, scale, slope):
+        ctx.plan, ctx.plan_t, ctx.scale, ctx.slope = plan, plan_t, scale, slope
+        out, lse = spmm_attention_reference(plan, q, k, v, scale=scale, negative_slope=slope,
+                                            return_stats=True)
         # residuals are O(n): the inputs, out and lse; no per-edge tensor
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -532,47 +555,49 @@ class _AttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.float().contiguous()
         kw = dict(scale=ctx.scale, negative_slope=ctx.slope)
-        ref = ctx.impl == "reference"
         dq = dk = dv = None
-        if ctx.plan_t is None and ref:
+        if ctx.plan_t is None:
             dq, dk_lane, dv_lane = attention_bwd_reference(ctx.plan, q, k, v, out, lse, g, **kw)
             dk = scatter_lanes(ctx.plan, dk_lane, k.shape[0])
             dv = scatter_lanes(ctx.plan, dv_lane, v.shape[0])
-        elif ctx.plan_t is None:
-            dq, dk, dv = attention_bwd_summed(ctx.plan, q, k, v, out, lse, g, **kw)
         else:
             d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
             if ctx.needs_input_grad[0]:
-                dq_fn = attention_dq_reference if ref else attention_dq
-                dq = dq_fn(ctx.plan, q, k, v, g, lse, d_row, **kw)
+                dq = attention_dq_reference(ctx.plan, q, k, v, g, lse, d_row, **kw)
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-                dkv_fn = attention_dkv_reference if ref else attention_dkv
-                dk, dv = dkv_fn(ctx.plan_t, q, k, v, g, lse, d_row, **kw)
+                dk, dv = attention_dkv_reference(ctx.plan_t, q, k, v, g, lse, d_row, **kw)
         grads = [t if t is None else t.to(x.dtype) for t, x in ((dq, q), (dk, k), (dv, v))]
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None,
                       scale: float | None = None, negative_slope: float = 1.0,
                       compute_dtype=None, precision=None, impl: str = "auto"):
     """Differentiable fused attention of one head (gradients for q, k and
-    v): exactly `spmm_attention` forward (K9), saving out and lse, never a
-    per-edge tensor. With plan_t (csr_preprocess of A^T; the same object
-    for a symmetric graph) the backward is split: K11 over `plan` for dq
-    and K12 over `plan_t` for dk and dv. Without it, K10 emits dq and sums
-    its per-lane dk and dv planes by hind in a fixed order
-    (`attention_bwd_summed`); impl="reference" sums the plain version's
-    planes with `scatter_lanes`. impl:
-    "auto" (the kernels on the card, the plain versions on the CPU) or
+    v): the registered op ``torch.ops.voltrix.spmm_attention``
+    (ops/library.py) and its gradient; exactly `spmm_attention` forward
+    (K9), saving out and lse, never a per-edge tensor. With plan_t
+    (csr_preprocess of A^T; the same object for a symmetric graph) the
+    backward is split: K11 over `plan` for dq and K12 over `plan_t` for dk
+    and dv. Without it, K10 emits dq and sums its per-lane dk and dv planes
+    by hind in a fixed order (`attention_bwd_summed`); impl="reference"
+    sums the plain version's planes with `scatter_lanes`. impl: "auto"
+    (the kernels on the card, the plain versions on the CPU) or
     "reference" (the plain versions)."""
+    from . import library
+
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: it takes {', '.join(IMPLS)}")
     _refuse_knobs(compute_dtype, precision)
     dk = _check_single(plan, q, k, v, "spmm_attention_ad")[2]
+    _on_cuda(q, "spmm_attention_ad")
     if plan_t is not None:
         _check_plan(plan_t, "spmm_attention_ad")
         if (plan_t.num_nodes, plan_t.source_rows) != (plan.source_rows, plan.num_nodes):
             raise ValueError("plan_t must be the transpose of plan (its rows are plan's "
                              "source rows and its columns plan's rows)")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
-    return _AttentionFunction.apply(q, k, v, plan, plan_t, scale, float(negative_slope), impl)
+    if impl == "reference":
+        return _PlainAttention.apply(q, k, v, plan, plan_t, scale, float(negative_slope))
+    return library.call_attention(plan, q, k, v, scale, float(negative_slope), plan_t=plan_t,
+                             differentiable=True)[0]

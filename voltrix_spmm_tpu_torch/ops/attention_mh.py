@@ -27,7 +27,7 @@ lse exactly 1e30.
   transpose plan's own work list (`plan_walk(plan_t,
   "attention_mh_dkv")`, kept apart from K13's and K14's even where
   plan_t is plan), a lane per row of dk and dv.
-- `spmm_attention_mh_ad` is the autograd Function over the three.
+- `spmm_attention_mh_ad` is K13's op with its gradient over the three.
 
 K14's and K15's launches, the plain versions' arithmetic and the
 argument checks live in ops/_attn_core.py, which the single-head op
@@ -45,11 +45,15 @@ The JAX kernels' subtile branch skips a block's empty 128-row sub-windows;
 the port's kernels visit only set bits, so they skip them by
 construction, and the result is the same.
 
-A CPU tensor takes the plain versions (`spmm_attention_mh_reference`,
-`attention_mh_dq_reference`, `attention_mh_dkv_reference`), which take
-the edges from the bitmask, compute scores by gather, the row maxima and
-denominators by segment reductions, and aggregate with `index_add_`. A
-CUDA tensor launches the kernel or raises: there is no fallback.
+K13-K15 are the registered ops ``torch.ops.voltrix.spmm_attention_mh``,
+``attention_mh_dq`` and ``attention_mh_dkv`` (ops/library.py), which every
+call goes through; K13's op carries `spmm_attention_mh_ad`'s gradient. An
+op's body runs the plain versions on a CPU tensor
+(`spmm_attention_mh_reference`, `attention_mh_dq_reference`,
+`attention_mh_dkv_reference`), which take the edges from the bitmask,
+compute scores by gather, the row maxima and denominators by segment
+reductions, and aggregate with `index_add_`. On a CUDA tensor it launches
+the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -63,14 +67,11 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     _check_bwd,
     _check_plan,
     _check_qkv,
-    _dkv_kernel,
     _dkv_plain,
-    _dq_kernel,
     _dq_plain,
     _fwd_plain,
     _head_rows,
     _on_cuda,
-    _plan_args,
     _plane,
     _refuse_knobs,
     _rows16,
@@ -79,7 +80,7 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     load_dkv_library,
     load_dq_library,
 )
-from .attention import attention_walk, load_mh_fwd_library
+from .attention import load_mh_fwd_library
 from .block_spmm import _INT_MAX, launch
 from .reference import CHUNK_BYTES
 
@@ -99,25 +100,24 @@ def mh_geometry(heads: int, dv: int) -> tuple[int, int]:
     return group_and_chunk(heads, dv, HEAD_GROUP, MH_ACC_WIDTHS)
 
 
-def _fwd_kernel(plan: SpmmPlan, q, k, v, scale: float, slope: float, pdt):
-    """out (H, nq, dv) and lse (H, padded_nodes), float32, through K13:
-    the walk over `attention_walk(plan, "spmm_attention_mh")` for each
-    head group and, when a group of rows is cut, the merge of each head's
-    shares. q, k and v are read through their head and row strides
-    (`_head_rows`). Every row is written."""
+def _fwd_kernel(plan: SpmmPlan, walk, q, k, v, scale: float, slope: float, pdt):
+    """out (H, nq, dv) and lse (H, padded_nodes), float32, through K13, the
+    op's body (ops/library.py): the walk over `walk`
+    (`attention_walk(plan, "spmm_attention_mh")`) for each head group and,
+    when a group of rows is cut, the merge of each head's shares. q, k and
+    v are read through their head and row strides (`_head_rows`). Every
+    row is written."""
     name = "spmm_attention_mh"
     heads, nq, dk = q.shape
     nk, dv = k.shape[1], v.shape[2]
     dev = q.device
-    _plan_args(plan, dev, name)
     f32, tdt = torch.float32, pdt or torch.float32
     qc, kc, vc = (_head_rows(name, dev, t, dt) for t, dt in ((q, f32), (k, tdt), (v, tdt)))
     cfg = plan.config
     out = torch.empty(heads, nq, dv, dtype=f32, device=dev)
     lse = torch.empty(heads, plan.padded_nodes, dtype=f32, device=dev)
-    if dv == 0:
-        return out, lse.fill_(_EMPTY_LSE)
-    walk = attention_walk(plan, name)
+    if dv == 0 or plan.total_blocks == 0:
+        return out.zero_(), lse.fill_(_EMPTY_LSE)
     hg, acc = mh_geometry(heads, dv)
     if walk.tasks.shape[0] * -(-heads // hg) > _INT_MAX or -(-dv // acc) > 65535:
         raise ValueError(f"{name}: more tasks, heads or columns than the grid takes")
@@ -203,31 +203,32 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                       negative_slope: float = 1.0, compute_dtype=None, precision=None,
                       plane_dtype=None, return_stats: bool = False, subtile: bool = False,
                       out_dtype=None):
-    """All-head fused attention aggregation through kernel K13: per head
-    h, out[h, r] = softmax over r's in-neighbours l of act(scale q[h, r] .
-    k[h, l]), applied to v[h]. q (H, num_nodes, dk), k (H, source_rows,
-    dk), v (H, source_rows, dv); returns (H, num_nodes, dv) in `out_dtype`
-    (default v's) and, with return_stats, lse (H, padded_nodes) float32.
-    scale defaults to 1/sqrt(dk); negative_slope 1.0 is the identity.
-    plane_dtype=torch.bfloat16 rounds k and v to bf16. A plan with a value
-    plane is refused (ValueError), as the single-head op refuses it."""
+    """All-head fused attention aggregation through kernel K13, as the
+    registered op ``torch.ops.voltrix.spmm_attention_mh`` (ops/library.py):
+    per head h, out[h, r] = softmax over r's in-neighbours l of act(scale
+    q[h, r] . k[h, l]), applied to v[h]. q (H, num_nodes, dk), k (H,
+    source_rows, dk), v (H, source_rows, dv); returns (H, num_nodes, dv) in
+    `out_dtype` (default v's) and, with return_stats, lse (H, padded_nodes)
+    float32. scale defaults to 1/sqrt(dk); negative_slope 1.0 is the
+    identity. plane_dtype=torch.bfloat16 rounds k and v to bf16. A plan
+    with a value plane is refused (ValueError), as the single-head op
+    refuses it."""
+    from . import library
+
     _refuse_knobs(compute_dtype, precision)
     heads, nq, _, dk, dv = _check_qkv(plan, q, k, v, "spmm_attention_mh")
     _check_subtile(subtile, plan)
+    _on_cuda(q, "spmm_attention_mh")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
     out_dtype = v.dtype if out_dtype is None else out_dtype
-    pdt = _plane(plane_dtype)
     if plan.total_blocks == 0:
         out = torch.zeros(heads, nq, dv, dtype=out_dtype, device=q.device)
         if return_stats:
             return out, torch.full((heads, plan.padded_nodes), _EMPTY_LSE,
                                    dtype=torch.float32, device=q.device)
         return out
-    if not _on_cuda(q, "spmm_attention_mh"):
-        return spmm_attention_mh_reference(plan, q, k, v, scale=scale,
-                                           negative_slope=negative_slope, plane_dtype=pdt,
-                                           return_stats=return_stats, out_dtype=out_dtype)
-    out, lse = _fwd_kernel(plan, q, k, v, scale, negative_slope, pdt)
+    out, lse = library.call_attention_mh(plan, q, k, v, float(scale), float(negative_slope),
+                                    _plane(plane_dtype))
     out = out.to(out_dtype)
     return (out, lse) if return_stats else out
 
@@ -238,13 +239,14 @@ spmm_attention_mh.launches = 0  # plain-int launch count, read by chip_smoke.py
 def attention_mh_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                     negative_slope: float = 1.0, plane_dtype=None) -> torch.Tensor:
     """dq (H, num_nodes, dk) float32 through kernel K14 over `plan` (see
-    the plain version)."""
-    if not _on_cuda(q, "attention_mh_dq"):
-        return attention_mh_dq_reference(plan, q, k, v, g, lse, d_row, scale=scale,
-                                         negative_slope=negative_slope, plane_dtype=plane_dtype)
+    the plain version), as the registered op
+    ``torch.ops.voltrix.attention_mh_dq`` (ops/library.py)."""
+    from . import library
+
+    _on_cuda(q, "attention_mh_dq")
     _check_bwd(plan, q, k, v, g, lse, d_row, "attention_mh_dq", False)
-    return _dq_kernel(attention_mh_dq, plan, q, k, v, g, lse, d_row, scale, negative_slope,
-                      _plane(plane_dtype))
+    return library.call_attention_dq("attention_mh_dq", plan, q, k, v, g, lse, d_row, float(scale),
+                                float(negative_slope), _plane(plane_dtype))
 
 
 attention_mh_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -253,14 +255,14 @@ attention_mh_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
 def attention_mh_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                      negative_slope: float = 1.0, plane_dtype=None):
     """(dk, dv) float32 through kernel K15 over the transpose plan (see
-    the plain version)."""
-    if not _on_cuda(q, "attention_mh_dkv"):
-        return attention_mh_dkv_reference(plan_t, q, k, v, g, lse, d_row, scale=scale,
-                                          negative_slope=negative_slope,
-                                          plane_dtype=plane_dtype)
+    the plain version), as the registered op
+    ``torch.ops.voltrix.attention_mh_dkv`` (ops/library.py)."""
+    from . import library
+
+    _on_cuda(q, "attention_mh_dkv")
     _check_bwd(plan_t, q, k, v, g, lse, d_row, "attention_mh_dkv", True)
-    return _dkv_kernel(attention_mh_dkv, plan_t, q, k, v, g, lse, d_row, scale, negative_slope,
-                       _plane(plane_dtype))
+    return library.call_attention_dkv("attention_mh_dkv", plan_t, q, k, v, g, lse, d_row,
+                                 float(scale), float(negative_slope), _plane(plane_dtype))
 
 
 attention_mh_dkv.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -268,14 +270,15 @@ attention_mh_dkv.launches = 0  # plain-int launch count, read by chip_smoke.py
 
 # --- the gradient --------------------------------------------------------------
 
-class _AttentionMHFunction(torch.autograd.Function):
+class _PlainAttentionMH(torch.autograd.Function):
+    """`spmm_attention_mh_ad(impl="reference")`: the plain versions of K13,
+    K14 and K15 with the kernels' gradient."""
+
     @staticmethod
-    def forward(ctx, q, k, v, plan, plan_t, scale, slope, pdt, impl):
-        ctx.plan, ctx.plan_t, ctx.scale, ctx.slope, ctx.pdt, ctx.impl = (
-            plan, plan_t, scale, slope, pdt, impl)
-        fwd = spmm_attention_mh_reference if impl == "reference" else spmm_attention_mh
-        out, lse = fwd(plan, q, k, v, scale=scale, negative_slope=slope, plane_dtype=pdt,
-                       return_stats=True)
+    def forward(ctx, q, k, v, plan, plan_t, scale, slope, pdt):
+        ctx.plan, ctx.plan_t, ctx.scale, ctx.slope, ctx.pdt = plan, plan_t, scale, slope, pdt
+        out, lse = spmm_attention_mh_reference(plan, q, k, v, scale=scale, negative_slope=slope,
+                                               plane_dtype=pdt, return_stats=True)
         # residuals are O(n): the inputs, out and lse; no per-edge tensor
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -286,30 +289,29 @@ class _AttentionMHFunction(torch.autograd.Function):
         g = g.float().contiguous()
         d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
         kw = dict(scale=ctx.scale, negative_slope=ctx.slope, plane_dtype=ctx.pdt)
-        ref = ctx.impl == "reference"
-        # k and v in the plane's type once, for both kernels (a no-op for
-        # float32 planes; the plain versions round them the same way)
+        # k and v in the plane's type once, as the op's gradient does
         kp, vp = (t if ctx.pdt is None else t.to(ctx.pdt) for t in (k, v))
         dq = dk = dv = None
         if ctx.needs_input_grad[0]:
-            dq_fn = attention_mh_dq_reference if ref else attention_mh_dq
-            dq = dq_fn(ctx.plan, q, kp, vp, g, lse, d_row, **kw).to(q.dtype)
+            dq = attention_mh_dq_reference(ctx.plan, q, kp, vp, g, lse, d_row, **kw).to(q.dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dkv_fn = attention_mh_dkv_reference if ref else attention_mh_dkv
-            dk, dv = dkv_fn(ctx.plan_t, q, kp, vp, g, lse, d_row, **kw)
+            dk, dv = attention_mh_dkv_reference(ctx.plan_t, q, kp, vp, g, lse, d_row, **kw)
             dk, dv = dk.to(k.dtype), dv.to(v.dtype)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: float | None = None,
                          negative_slope: float = 1.0, compute_dtype=None, precision=None,
                          plane_dtype=None, subtile: bool = False, impl: str = "auto"):
     """Differentiable all-head fused attention (gradients for the q, k
-    and v stacks). Forward K13 (saving out and lse, never a per-edge
-    tensor); backward K14 over `plan` for dq and K15 over `plan_t`
-    (csr_preprocess of A^T; the same object for a symmetric graph) for dk
-    and dv. impl: "auto" (the kernels on the card, the plain versions on
-    the CPU) or "reference" (the plain versions)."""
+    and v stacks): the registered op ``torch.ops.voltrix.spmm_attention_mh``
+    (ops/library.py) and its gradient. Forward K13 (saving out and lse,
+    never a per-edge tensor); backward K14 over `plan` for dq and K15 over
+    `plan_t` (csr_preprocess of A^T; the same object for a symmetric graph)
+    for dk and dv. impl: "auto" (the kernels on the card, the plain
+    versions on the CPU) or "reference" (the plain versions)."""
+    from . import library
+
     if plan_t is None:
         raise ValueError(
             "spmm_attention_mh_ad requires plan_t (csr_preprocess of A^T): the backward "
@@ -321,8 +323,12 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     dk = _check_qkv(plan, q, k, v, "spmm_attention_mh_ad")[3]
     _check_plan(plan_t, "spmm_attention_mh_ad")
     _check_subtile(subtile, plan, plan_t)
+    _on_cuda(q, "spmm_attention_mh_ad")
     if (plan_t.num_nodes, plan_t.source_rows) != (plan.source_rows, plan.num_nodes):
         raise ValueError("plan_t must be the transpose of plan")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
-    return _AttentionMHFunction.apply(q, k, v, plan, plan_t, scale, float(negative_slope),
-                                      _plane(plane_dtype), impl)
+    if impl == "reference":
+        return _PlainAttentionMH.apply(q, k, v, plan, plan_t, scale, float(negative_slope),
+                                       _plane(plane_dtype))
+    return library.call_attention_mh(plan, q, k, v, scale, float(negative_slope),
+                                     _plane(plane_dtype), plan_t=plan_t)[0]

@@ -24,9 +24,15 @@ On an `EllPlan` (format/ell.py; one lane per edge):
   `plan_sources`); narrower rows take the sub-group kernel.
 - `spmm_ell_ad`, `sddmm_ell` and `sddmm_ell_ad` are built on the two.
 
-A CPU tensor takes the plain versions, `spmm_ell_reference` and
-`spmm_ell_dvals_reference`. A CUDA tensor launches the kernel or raises:
-there is no fallback.
+K6 and K7 are the registered ops ``torch.ops.voltrix.spmm_ell`` and
+``spmm_ell_dvals`` (ops/library.py), which every call goes through: the
+wrappers check their arguments and call the op, whose body runs the
+plain versions, `spmm_ell_reference` and `spmm_ell_dvals_reference`, on a
+CPU tensor, and on a CUDA tensor launches the kernel (`k6_kernel`,
+`k7_kernel`) over the orders kept among the op's operands, or raises:
+there is no fallback. K6's op carries `spmm_ell_ad`'s gradient, K7's
+`sddmm_ell_ad`'s; `edge_values` and `lane_values` stay gathers outside
+the ops.
 """
 
 from __future__ import annotations
@@ -231,28 +237,43 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
              compute_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 or
     bf16 in, float32 accumulation in a fixed order, cast to `out_dtype`,
-    default feat's dtype, at the end). compute_dtype=torch.bfloat16 rounds
-    the features (round to nearest even) and, in the kernel, the edge
-    values to bf16 first, the JAX kernel's compute_dtype; the output then
-    defaults to the caller's feature dtype."""
+    default feat's dtype, at the end), as the registered op
+    ``torch.ops.voltrix.spmm_ell`` (ops/library.py).
+    compute_dtype=torch.bfloat16 rounds the features (round to nearest
+    even) and, in the kernel, the edge values to bf16 first, the JAX
+    kernel's compute_dtype; the output then defaults to the caller's
+    feature dtype."""
+    from . import library
+
     round_vals = bf16_compute(compute_dtype)
     if round_vals:
         out_dtype = feat.dtype if out_dtype is None else out_dtype
         feat = feat.to(torch.bfloat16)
-    if feat.device.type == "cpu":
-        if round_vals:
-            plan = dataclasses.replace(plan, vals=plan.vals.to(torch.bfloat16).float())
-        return spmm_ell_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_ell runs on cuda or cpu tensors, not {feat.device}")
-    _check_rows(plan, feat, "spmm_ell")
-    tb, K = plan.total_blocks, plan.config.block_w
-    _check_kernel_args(plan, "spmm_ell", {
-        "hind": (torch.int32, (tb, K)),
-        "erow": (torch.int32, (tb, K)),
-        "vals": (torch.float32, (tb, K)),
-        "window_of_block": (torch.int32, (tb,)),
-    }, feat, dtypes=FEAT_DTYPES)
+    _check_ell(plan, feat, "spmm_ell")
+    out = library.call_ell(plan, feat, round_vals=round_vals)
+    return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
+
+
+def _check_ell(plan: EllPlan, feat: torch.Tensor, name: str) -> None:
+    """What K6 takes: an EllPlan, the features' rows, and on the card
+    contiguous float32 or bf16 features and int32 lanes on their device."""
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
+    _check_rows(plan, feat, name)
+    if feat.device.type == "cuda":
+        tb, K = plan.total_blocks, plan.config.block_w
+        _check_kernel_args(plan, name, {
+            "hind": (torch.int32, (tb, K)),
+            "erow": (torch.int32, (tb, K)),
+            "vals": (torch.float32, (tb, K)),
+            "window_of_block": (torch.int32, (tb,)),
+        }, feat, dtypes=FEAT_DTYPES)
+
+
+def k6_kernel(plan: EllPlan, rows: EllRows, feat: torch.Tensor, round_vals: bool) -> torch.Tensor:
+    """K6 on the card over the plan's row order `rows`, the op's body
+    (ops/library.py): float32 (num_nodes, d); with round_vals the bf16
+    instantiation rounds the edge values to bf16."""
     d = feat.shape[1]
     bf16 = feat.dtype == torch.bfloat16
     if bf16 and feat.data_ptr() % 8:
@@ -266,7 +287,6 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
         raise ValueError("D exceeds spmm_ell's grid limits")
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
-        rows = plan_rows(plan)
         ws = None
         if rows.slots:
             ws = torch.empty(rows.slots * d, dtype=torch.float32, device=feat.device)
@@ -279,7 +299,7 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
         )
         spmm_ell.launches += 1
         spmm_ell.launches_bf16 += bf16
-    return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
+    return out
 
 
 spmm_ell.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -390,32 +410,54 @@ def _k7_geometry(d: int, aligned: bool) -> tuple[int, int]:
 
 def spmm_ell_dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The lane gradient through kernel K7 (see the plain version for the
-    definition). The plan's `vals` are not read."""
-    if feat.device.type == "cpu":
-        return spmm_ell_dvals_reference(plan, feat, g)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_ell_dvals runs on cuda or cpu tensors, not {feat.device}")
-    _check_g(plan, feat, g, "spmm_ell_dvals")
+    definition), as the registered op ``torch.ops.voltrix.spmm_ell_dvals``
+    (ops/library.py). The plan's `vals` are not read."""
+    from . import library
+
+    _check_dvals(plan, feat, g, "spmm_ell_dvals")
+    return library.call_ell_dvals(plan, feat, g)
+
+
+def _check_dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor, name: str) -> None:
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
+    _check_g(plan, feat, g, name)
+    if feat.device.type == "cuda":
+        tb, K = plan.total_blocks, plan.config.block_w
+        _check_kernel_args(plan, name, {
+            "hind": (torch.int32, (tb, K)),
+            "erow": (torch.int32, (tb, K)),
+            "window_of_block": (torch.int32, (tb,)),
+        }, feat, g)
+
+
+def k7_wide_rows(plan: EllPlan, d: int) -> bool:
+    """Whether K7 may take its wide kernel at width d (`_k7_wide` with the
+    rows aligned): the source order `plan_sources` is then among the op's
+    operands."""
+    return _k7_wide(d, plan.config.block_h, True)
+
+
+def k7_kernel(plan: EllPlan, sources: EllSources | None, feat: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """K7 on the card, the op's body (ops/library.py): float32
+    (total_blocks, block_w); the wide kernel over the source order
+    `sources` where the rows qualify (given and aligned), else the
+    sub-group kernel."""
     tb, H, K = plan.total_blocks, plan.config.block_h, plan.config.block_w
-    _check_kernel_args(plan, "spmm_ell_dvals", {
-        "hind": (torch.int32, (tb, K)),
-        "erow": (torch.int32, (tb, K)),
-        "window_of_block": (torch.int32, (tb,)),
-    }, feat, g)
     d = feat.shape[1]
     if d == 0:
         return torch.zeros(tb, K, dtype=torch.float32, device=feat.device)
     aligned = feat.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
-    if tb and _k7_wide(d, H, aligned):
+    if tb and sources is not None and _k7_wide(d, H, aligned):
         out = torch.zeros(tb, K, dtype=torch.float32, device=feat.device)
-        order = plan_sources(plan)
-        if order.pieces.shape[0]:
+        if sources.pieces.shape[0]:
             _, wide, error_string = load_dvals_library()
             launch(
                 "spmm_ell_dvals", (wide, error_string), feat,
-                order.pieces.data_ptr(), order.lane.data_ptr(), order.src.data_ptr(),
-                order.row.data_ptr(), feat.data_ptr(), g.data_ptr(), out.data_ptr(),
-                order.pieces.shape[0], H, plan.num_nodes, d,
+                sources.pieces.data_ptr(), sources.lane.data_ptr(), sources.src.data_ptr(),
+                sources.row.data_ptr(), feat.data_ptr(), g.data_ptr(), out.data_ptr(),
+                sources.pieces.shape[0], H, plan.num_nodes, d,
             )
             spmm_ell_dvals.launches += 1
         return out
@@ -441,18 +483,6 @@ def _check_impl(impl: str, name: str) -> None:
         raise ValueError(f"unknown impl {impl!r} for {name}: it takes {', '.join(IMPLS)}")
 
 
-def _forward(plan: EllPlan, feat: torch.Tensor, impl: str) -> torch.Tensor:
-    if impl == "reference":
-        return spmm_ell_reference(plan, feat)
-    return spmm_ell(plan, feat)
-
-
-def _dvals(plan: EllPlan, feat: torch.Tensor, g: torch.Tensor, impl: str) -> torch.Tensor:
-    if impl == "reference":
-        return spmm_ell_dvals_reference(plan, feat, g)
-    return spmm_ell_dvals(plan, feat, g)
-
-
 def sddmm_ell(plan: EllPlan, x: torch.Tensor, y: torch.Tensor, *,
               per_edge: bool = False) -> torch.Tensor:
     """Sampled dense-dense product on the ELL plan, through K7: for every
@@ -463,16 +493,18 @@ def sddmm_ell(plan: EllPlan, x: torch.Tensor, y: torch.Tensor, *,
     return edge_values(plan, lanes) if per_edge else lanes
 
 
-class _EllFunction(torch.autograd.Function):
+class _PlainEll(torch.autograd.Function):
+    """`spmm_ell_ad(impl="reference")`: the plain versions of K6 and K7
+    with the kernels' gradient (K6's over plan_t's lanes, K7's)."""
+
     @staticmethod
-    def forward(ctx, feat, vals, plan, plan_t, impl):
+    def forward(ctx, feat, vals, plan, plan_t):
         plan = dataclasses.replace(plan, vals=vals)
         ctx.plan = plan
         ctx.plan_t = plan_t
-        ctx.impl = impl
         if ctx.needs_input_grad[1]:
             ctx.save_for_backward(feat)
-        return _forward(plan, feat, impl).to(feat.dtype)
+        return spmm_ell_reference(plan, feat).to(feat.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -480,37 +512,49 @@ class _EllFunction(torch.autograd.Function):
         dfeat = dvals = None
         if ctx.needs_input_grad[0]:
             if ctx.plan_t is None or ctx.plan_t.vals is None:
-                raise ValueError("the feature gradient needs plan_t with A^T's lane values")
-            dfeat = _forward(ctx.plan_t, g, ctx.impl)
+                raise ValueError(NEEDS_LANES_T)
+            dfeat = spmm_ell_reference(ctx.plan_t, g)
         if ctx.needs_input_grad[1]:
             (feat,) = ctx.saved_tensors
-            dvals = _dvals(ctx.plan, feat.float().contiguous(), g, ctx.impl)
-        return dfeat, dvals, None, None, None
+            dvals = spmm_ell_dvals_reference(ctx.plan, feat.float().contiguous(), g)
+        return dfeat, dvals, None, None
+
+
+NEEDS_LANES_T = "the feature gradient needs plan_t with A^T's lane values"
 
 
 def spmm_ell_ad(plan: EllPlan, plan_t: EllPlan | None, feat: torch.Tensor, *,
                 impl: str = "auto") -> torch.Tensor:
     """ELL weighted SpMM with gradients for feat and for the lane values.
 
-    An autograd Function of (feat, plan.vals, plan, plan_t): `plan_t`
-    encodes A^T with matching lane values (build both with
-    `format.build_ell_pair`; give plan_t's vals through `lane_values(plan_t,
-    w)` for learned edges). Backward: d/dfeat = (A o V)^T @ g, K6 over
-    plan_t; d/dvals = the per-lane dot products, K7 over plan, delivered
-    to `plan.vals` (and through `lane_values` to per-edge parameters).
-    plan_t's values get no gradient, as in JAX. A side whose input needs
-    no gradient is not launched (plan_t may then be None). impl: "auto"
-    or "ell" (the kernels), "reference" (the plain versions)."""
+    The registered op ``torch.ops.voltrix.spmm_ell`` (ops/library.py) of
+    (feat, plan.vals), with `plan_t` for its gradient: `plan_t` encodes A^T
+    with matching lane values (build both with `format.build_ell_pair`;
+    give plan_t's vals through `lane_values(plan_t, w)` for learned edges).
+    Backward: d/dfeat = (A o V)^T @ g, K6 over plan_t; d/dvals = the
+    per-lane dot products, K7 over plan, delivered to `plan.vals` (and
+    through `lane_values` to per-edge parameters). plan_t's values get no
+    gradient, as in JAX. A side whose input needs no gradient is not
+    launched (plan_t may then be None). impl: "auto" or "ell" (the
+    kernels), "reference" (the plain versions)."""
+    from . import library
+
     _check_impl(impl, "spmm_ell_ad")
-    return _EllFunction.apply(feat, plan.vals, plan, plan_t, impl)
+    if impl == "reference":
+        return _PlainEll.apply(feat, plan.vals, plan, plan_t)
+    _check_ell(plan, feat, "spmm_ell_ad")
+    return library.call_ell(plan, feat, plan_t=plan_t).to(feat.dtype)
 
 
-class _SddmmFunction(torch.autograd.Function):
+class _PlainSddmm(torch.autograd.Function):
+    """`sddmm_ell_ad(impl="reference")`: the plain version of K7 with the
+    kernels' gradient (the plain version of K6 over plan and plan_t)."""
+
     @staticmethod
-    def forward(ctx, x, y, plan, plan_t, impl):
-        ctx.plan, ctx.plan_t, ctx.impl = plan, plan_t, impl
+    def forward(ctx, x, y, plan, plan_t):
+        ctx.plan, ctx.plan_t = plan, plan_t
         ctx.save_for_backward(x, y)
-        return edge_values(plan, _dvals(plan, y, x, impl))
+        return edge_values(plan, spmm_ell_dvals_reference(plan, y, x))
 
     @staticmethod
     def backward(ctx, g):
@@ -519,20 +563,44 @@ class _SddmmFunction(torch.autograd.Function):
         dx = dy = None
         if ctx.needs_input_grad[0]:
             gp = dataclasses.replace(ctx.plan, vals=lane_values(ctx.plan, g))
-            dx = _forward(gp, y.float().contiguous(), ctx.impl).to(x.dtype)
+            dx = spmm_ell_reference(gp, y.float().contiguous()).to(x.dtype)
         if ctx.needs_input_grad[1]:
             gp_t = dataclasses.replace(ctx.plan_t, vals=lane_values(ctx.plan_t, g))
-            dy = _forward(gp_t, x.float().contiguous(), ctx.impl).to(y.dtype)
-        return dx, dy, None, None, None
+            dy = spmm_ell_reference(gp_t, x.float().contiguous()).to(y.dtype)
+        return dx, dy, None, None
 
 
 def sddmm_ell_ad(plan: EllPlan, plan_t: EllPlan, x: torch.Tensor, y: torch.Tensor, *,
                  impl: str = "auto") -> torch.Tensor:
     """Differentiable SDDMM -> (nnz,) per-edge scores x[u] . y[v] in CSR
-    order, through K7. Backward, two K6 launches (the SDDMM/SpMM adjoint
-    pair): dx = (A o G) @ y over plan, dy = (A o G)^T @ x over plan_t, with
-    G the score cotangents placed on each plan's lanes by `lane_values`.
-    Build (plan, plan_t) with `format.build_ell_pair`, so both edge maps
-    are in A's CSR edge order."""
+    order: the registered op ``torch.ops.voltrix.spmm_ell_dvals`` (K7,
+    ops/library.py) and the gather `edge_values`. Backward, two K6 launches
+    (the SDDMM/SpMM adjoint pair): dx = (A o G) @ y over plan, dy = (A o
+    G)^T @ x over plan_t, with G the score cotangents on each plan's lanes
+    (on plan_t's by the lane map `ell_lane_map`). Build (plan, plan_t) with
+    `format.build_ell_pair`, so both edge maps are in A's CSR edge order."""
+    from . import library
+
     _check_impl(impl, "sddmm_ell_ad")
-    return _SddmmFunction.apply(x, y, plan, plan_t, impl)
+    if impl == "reference":
+        return _PlainSddmm.apply(x, y, plan, plan_t)
+    _check_dvals(plan, y, x, "sddmm_ell_ad")
+    return edge_values(plan, library.call_ell_dvals(plan, y, x, plan_t=plan_t))
+
+
+def ell_lane_map(plan: EllPlan, plan_t: EllPlan) -> torch.Tensor:
+    """int64 (plan_t's lanes,): for each lane of plan_t, the flat lane of
+    plan that holds the same CSR edge, -1 on padding lanes; built at the
+    first call and kept beside plan_t's lane_edge tensor (checked against
+    plan's edge_lane), so the SDDMM's gradient takes a lane plane of plan
+    to plan_t's lanes by one gather."""
+    if plan.edge_lane is None or plan_t.lane_edge is None:
+        raise ValueError("the SDDMM's gradient needs both plans' edge maps "
+                         "(build them with format.build_ell_pair)")
+
+    def build():
+        lane_edge = plan_t.lane_edge.long()
+        lanes = plan.edge_lane.long().index_select(0, lane_edge.clamp(min=0))
+        return torch.where(lane_edge >= 0, lanes, -1)
+
+    return kept_beside(plan_t.lane_edge, ("lane_map", plan.num_edges), build, plan.edge_lane)

@@ -14,8 +14,13 @@ for "spmm_int8" (`block_spmm.plan_walk`, with K8's own piece limits). The
 quantization is plain torch, as in JAX, where it runs outside the Pallas
 kernel.
 
-A CPU tensor takes the plain version, `spmm_int8_reference`. A CUDA
-tensor launches the kernel or raises: there is no fallback.
+K8 is the registered op ``torch.ops.voltrix.spmm_int8`` (ops/library.py)
+on the int8 rows and scales that `quantize_padded` makes, which every
+call goes through; its body runs the plain version on a CPU tensor
+(`int8_rows_reference`, the dequantization and sum of
+`spmm_int8_reference`), and on a CUDA tensor launches the kernel
+(`k8_kernel`) or raises: there is no fallback. It has no gradient, as the
+JAX package's `spmm_pallas_int8` has none.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _check, cast_out, launch_walk, plan_walk
+from .block_spmm import _check, cast_out, launch_walk
 from .reference import CHUNK_BYTES, block_sum, check_binary, clipped_gather
 
 
@@ -77,14 +82,23 @@ def spmm_int8_reference(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *,
     """The plain version of K8: quantize the rows, dequantize them through
     bfloat16 as the kernel does, then the masked block sum of
     `spmm_reference` in float32."""
-    spmm_int8_reference.calls += 1
     _refuse(plan, feat, "spmm_int8_reference")
     check_binary(plan, feat)
     out_dtype = feat.dtype if out_dtype is None else out_dtype
+    q, scale = quantize_rows(feat)
+    return int8_rows_reference(plan, q, scale, feat.shape[1], chunk_bytes=chunk_bytes).to(out_dtype)
+
+
+def int8_rows_reference(plan: SpmmPlan, q: torch.Tensor, scale: torch.Tensor, d: int, *,
+                        chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """The plain version of K8 on rows already quantized (`quantize_rows`,
+    or `quantize_padded` with its zero columns past d): float32
+    (num_nodes, d). Counts one call of `spmm_int8_reference`."""
+    spmm_int8_reference.calls += 1
     if plan.total_blocks == 0:
-        return torch.zeros(plan.num_nodes, feat.shape[1], dtype=out_dtype, device=feat.device)
-    xq = dequantize_rows(*quantize_rows(feat), torch.bfloat16).float()
-    return block_sum(plan, xq, clipped_gather(plan, xq), chunk_bytes=chunk_bytes).to(out_dtype)
+        return torch.zeros(plan.num_nodes, d, dtype=torch.float32, device=q.device)
+    xq = dequantize_rows(q[:, :d], scale, torch.bfloat16).float()
+    return block_sum(plan, xq, clipped_gather(plan, xq), chunk_bytes=chunk_bytes)
 
 
 spmm_int8_reference.calls = 0  # plain-int call count, read by chip_smoke.py
@@ -100,27 +114,40 @@ def quantize_padded(feat: torch.Tensor):
 
 def launch_quantized(plan: SpmmPlan, q: torch.Tensor, scale: torch.Tensor, d: int,
                      out_dtype=None) -> torch.Tensor:
-    """Kernel K8 alone on CUDA rows that `quantize_padded` made (q int8
-    (source_rows, d4), scale float32 (source_rows, 1)): out[num_nodes, d].
-    `spmm_int8` checks the plan and the features, then calls this."""
+    """The registered op ``torch.ops.voltrix.spmm_int8`` (ops/library.py)
+    alone, on rows that `quantize_padded` made (q int8 (source_rows, d4),
+    scale float32 (source_rows, 1)): out[num_nodes, d]. `spmm_int8` checks
+    the plan and the features, then calls this."""
+    from . import library
+
+    return cast_out(library.call_int8(plan, q, scale, d), out_dtype)
+
+
+def k8_kernel(plan: SpmmPlan, walk, q: torch.Tensor, scale: torch.Tensor, d: int) -> torch.Tensor:
+    """K8 on the card over `walk`, the op's body (ops/library.py): float32
+    (num_nodes, d)."""
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=q.device)
     if out.numel():
-        launch_walk("spmm_int8", load_library(), plan, q, out, plan_walk(plan, "spmm_int8"),
-                    scale)
+        launch_walk("spmm_int8", load_library(), plan, q, out, walk, scale)
         spmm_int8.launches += 1
-    return cast_out(out, out_dtype)
+    return out
 
 
 def spmm_int8(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = A @ feat through kernel K8, with the features
-    quantized per row to int8 (float32 accumulation, cast to `out_dtype`
-    at the end)."""
+    quantized per row to int8 (float32 accumulation, cast to `out_dtype`,
+    default feat's dtype, at the end). The quantization is plain torch; K8
+    is the registered op ``torch.ops.voltrix.spmm_int8``, which has no
+    gradient, as the JAX package's `spmm_pallas_int8` has none."""
     if feat.device.type == "cpu":
-        return spmm_int8_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
+        _refuse(plan, feat, "spmm_int8")
+        check_binary(plan, feat)
+    elif feat.device.type == "cuda":
+        # K1's checks: the JAX package's refusals, and float32 features
+        _check(plan, feat, "spmm_int8", dtypes=(torch.float32,))
+    else:
         raise ValueError(f"spmm_int8 runs on cuda or cpu tensors, not {feat.device}")
-    # K1's checks: the JAX package's refusals, and float32 features
-    _check(plan, feat, "spmm_int8", dtypes=(torch.float32,))
+    out_dtype = feat.dtype if out_dtype is None else out_dtype
     return launch_quantized(plan, *quantize_padded(feat), feat.shape[1], out_dtype)
 
 

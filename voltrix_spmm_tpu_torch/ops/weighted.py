@@ -23,9 +23,13 @@ with the bitmask.
   off the bitmask, and two launches on one input give the same bits.
 - `sddmm` and `spmm_weighted_ad` are built on the two.
 
-A CPU tensor takes the plain versions, `spmm_weighted_reference` and
-`spmm_weighted_dvalues_reference`. A CUDA tensor launches the kernel or
-raises: there is no fallback.
+K4 and K5 are the registered ops ``torch.ops.voltrix.spmm_weighted`` and
+``spmm_dvalues`` (ops/library.py), which every call goes through: the
+wrappers check their arguments and call the op, whose body runs the
+plain versions, `spmm_weighted_reference` and
+`spmm_weighted_dvalues_reference`, on a CPU tensor, and on a CUDA tensor
+launches the kernel (`k4_kernel`, `k5_kernel`) or raises: there is no
+fallback. K4's op carries `spmm_weighted_ad`'s gradient.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ from .block_spmm import (
     acc_width,
     cast_out,
     launch,
-    plan_walk,
     walk_workspace,
 )
 from .reference import CHUNK_BYTES, block_sum, clipped_gather
@@ -162,33 +165,50 @@ def k4_tiling(block_h: int, block_w: int, d: int) -> tuple[int, int, int]:
     return dc, tr, chunks
 
 
+def _check_weighted(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
+    """What K4 takes: a plan with a value plane, the features' rows, and on
+    the card contiguous float32 tensors and int32 plan arrays on the
+    features' device."""
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
+    if plan.values is None:
+        raise ValueError("plan has no value plane; use spmm_block (spmm_reference on the CPU)")
+    _check_rows(plan, feat, name)
+    if feat.device.type == "cuda":
+        cfg = plan.config
+        tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
+        _check_kernel_args(plan, name, {
+            "values": (torch.float32, (tb, H, K)),
+            "hind": (torch.int32, (tb, K)),
+            "block_ptr": (torch.int32, (plan.num_windows + 1,)),
+        }, feat)
+
+
 def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 in,
-    float32 accumulation in a fixed order, cast to `out_dtype` at the
-    end). Every row of out is written (rows of windows without blocks are
-    zero)."""
-    if feat.device.type == "cpu":
-        return spmm_weighted_reference(plan, feat, out_dtype)
-    if feat.device.type != "cuda":
-        raise ValueError(f"spmm_weighted runs on cuda or cpu tensors, not {feat.device}")
-    if plan.values is None:
-        raise ValueError("plan has no value plane; use spmm_block")
-    _check_rows(plan, feat, "spmm_weighted")
-    cfg = plan.config
-    tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
-    _check_kernel_args(plan, "spmm_weighted", {
-        "values": (torch.float32, (tb, H, K)),
-        "hind": (torch.int32, (tb, K)),
-        "block_ptr": (torch.int32, (plan.num_windows + 1,)),
-    }, feat)
+    float32 accumulation in a fixed order, cast to `out_dtype`, default
+    feat's dtype, at the end), as the registered op
+    ``torch.ops.voltrix.spmm_weighted`` (ops/library.py). Every row of out
+    is written (rows of windows without blocks are zero)."""
+    from . import library
+
+    _check_weighted(plan, feat, "spmm_weighted")
+    out_dtype = feat.dtype if out_dtype is None else out_dtype
+    return cast_out(library.call_weighted(plan, feat), out_dtype)
+
+
+def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
+    """K4 on the card over `walk`, the op's body (ops/library.py): float32
+    (num_nodes, d). The value plane is read in 16-byte words."""
     if plan.values.data_ptr() % 16:
         raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
                          "it must start 16-byte aligned")
+    cfg = plan.config
+    H, K = cfg.block_h, cfg.block_w
     d = feat.shape[1]
     dc, tr, _ = k4_tiling(H, K, d)
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
-        walk = plan_walk(plan, "spmm_weighted")
         ws = walk_workspace("spmm_weighted", walk, d, feat.device)
         launch(
             "spmm_weighted", load_library(), feat,
@@ -199,7 +219,7 @@ def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.T
             int(d % 4 == 0 and feat.data_ptr() % 16 == 0),
         )
         spmm_weighted.launches += 1
-    return cast_out(out, out_dtype)
+    return out
 
 
 spmm_weighted.launches = 0  # plain-int launch count, read by chip_smoke.py
@@ -249,29 +269,40 @@ spmm_weighted_dvalues_reference.calls = 0  # plain-int call count, read by chip_
 
 def spmm_weighted_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The value gradient plane through kernel K5 (see the plain version
-    for the definition). The plan's value plane is not read: any plan with
-    exact lanes, binary or weighted, takes it; block_h and block_w must be
-    multiples of 32 (whole bitmask words and lane slices)."""
-    if feat.device.type == "cpu":
-        return spmm_weighted_dvalues_reference(plan, feat, g)
-    if feat.device.type != "cuda":
+    for the definition), as the registered op
+    ``torch.ops.voltrix.spmm_dvalues`` (ops/library.py). The plan's value
+    plane is not read: any plan with exact lanes, binary or weighted, takes
+    it; block_h and block_w must be multiples of 32 (whole bitmask words and
+    lane slices)."""
+    from . import library
+
+    if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spmm_weighted_dvalues runs on cuda or cpu tensors, not {feat.device}")
     _check_dvalues(plan, feat, g, "spmm_weighted_dvalues")
+    if feat.device.type == "cuda":
+        cfg = plan.config
+        tb, K = plan.total_blocks, cfg.block_w
+        _check_kernel_args(plan, "spmm_weighted_dvalues", {
+            "bitmask": (torch.int32, (tb, cfg.words_per_col, K)),
+            "hind": (torch.int32, (tb, K)),
+            "block_ptr": (torch.int32, (plan.num_windows + 1,)),
+        }, feat, g)
+        if K % 32:
+            raise ValueError(
+                f"spmm_weighted_dvalues takes block_w in whole 32-lane slices, got {K}")
+    return library.call_dvalues(plan, feat, g)
+
+
+def k5_kernel(plan: SpmmPlan, walk, feat: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5 on the card over `walk`, the op's body (ops/library.py): float32
+    (total_blocks, block_h, block_w)."""
     cfg = plan.config
     tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
-    _check_kernel_args(plan, "spmm_weighted_dvalues", {
-        "bitmask": (torch.int32, (tb, cfg.words_per_col, K)),
-        "hind": (torch.int32, (tb, K)),
-        "block_ptr": (torch.int32, (plan.num_windows + 1,)),
-    }, feat, g)
-    if K % 32:
-        raise ValueError(f"spmm_weighted_dvalues takes block_w in whole 32-lane slices, got {K}")
     d = feat.shape[1]
     out = torch.empty(tb, H, K, dtype=torch.float32, device=feat.device)
     if tb and d == 0:
         return out.zero_()
     if tb:
-        walk = plan_walk(plan, "spmm_dvalues")
         if walk.tasks.shape[0] > _INT_MAX:
             raise ValueError("spmm_weighted_dvalues: more tasks than the grid takes")
         launch(
@@ -300,23 +331,19 @@ def sddmm(plan: SpmmPlan, x: torch.Tensor, y: torch.Tensor, *, per_edge=None) ->
     return plane
 
 
-def _forward(plan: SpmmPlan, feat: torch.Tensor, impl: str) -> torch.Tensor:
-    if impl == "reference":
-        return spmm_weighted_reference(plan, feat)
-    return spmm_weighted(plan, feat)
+class _PlainWeighted(torch.autograd.Function):
+    """`spmm_weighted_ad(impl="reference")`: the plain versions of K4 and
+    K5 with the kernels' gradient (K4's over plan_t's plane, K5's)."""
 
-
-class _WeightedFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feat, values, plan, plan_t, impl):
+    def forward(ctx, feat, values, plan, plan_t):
         plan = dataclasses.replace(plan, values=values)
         # the backward reads the plan's geometry only: do not hold the plane
         ctx.plan = dataclasses.replace(plan, values=None)
         ctx.plan_t = plan_t
-        ctx.impl = impl
         if ctx.needs_input_grad[1]:
             ctx.save_for_backward(feat)
-        return _forward(plan, feat, impl)
+        return spmm_weighted_reference(plan, feat)
 
     @staticmethod
     def backward(ctx, g):
@@ -324,14 +351,15 @@ class _WeightedFunction(torch.autograd.Function):
         dfeat = dvalues = None
         if ctx.needs_input_grad[0]:
             if ctx.plan_t.values is None:
-                raise ValueError("the feature gradient needs plan_t.values (A^T's plane)")
-            dfeat = _forward(ctx.plan_t, g, ctx.impl)
+                raise ValueError(NEEDS_PLANE_T)
+            dfeat = spmm_weighted_reference(ctx.plan_t, g)
         if ctx.needs_input_grad[1]:
             (feat,) = ctx.saved_tensors
-            dvalues_fn = (spmm_weighted_dvalues_reference if ctx.impl == "reference"
-                          else spmm_weighted_dvalues)
-            dvalues = dvalues_fn(ctx.plan, feat, g)
-        return dfeat, dvalues, None, None, None
+            dvalues = spmm_weighted_dvalues_reference(ctx.plan, feat, g)
+        return dfeat, dvalues, None, None
+
+
+NEEDS_PLANE_T = "the feature gradient needs plan_t.values (A^T's plane)"
 
 
 def spmm_weighted_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *,
@@ -342,12 +370,18 @@ def spmm_weighted_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *,
     `format.csr_transpose(..., values=...)`). Backward: d/dfeat = (A o V)^T
     @ g, K4 over plan_t; d/dvalues = mask o (g @ feat^T) per block, K5
     over plan, delivered to `plan.values` (a plane built from per-edge
-    tensors through `format.edge_slot_map` passes it on to them). plan_t's
-    values get no gradient, as in JAX. A side whose input needs no
-    gradient is not launched. impl: "auto" (the kernels) or "reference"
-    (the plain versions)."""
+    tensors through `format.edge_slot_map` passes it on to them): the
+    gradient of the registered op ``torch.ops.voltrix.spmm_weighted``
+    (ops/library.py). plan_t's values get no gradient, as in JAX. A side
+    whose input needs no gradient is not launched. impl: "auto" (the
+    kernels) or "reference" (the plain versions)."""
+    from . import library
+
     if impl not in ("auto", "weighted", "reference"):
         raise ValueError(f"unknown impl {impl!r} for the weighted SpMM")
     if plan.values is None:
         raise ValueError("plan has no value plane; use spmm_ad")
-    return _WeightedFunction.apply(feat, plan.values, plan, plan_t, impl)
+    if impl == "reference":
+        return _PlainWeighted.apply(feat, plan.values, plan, plan_t)
+    _check_weighted(plan, feat, "spmm_weighted_ad")
+    return library.call_weighted(plan, feat, plan_t)

@@ -2,15 +2,17 @@
 bundles (counterpart of voltrix_spmm_tpu/serve.py, with its names and its
 bundle layout; `torch.export` in place of `jax.export`).
 
-A request function (a GCN forward over a graph's plans, an `ops.spmm`
-call) is exported once with `export_servable` into a self-contained
-program: the kernels K1-K3 are registered ops (ops/library.py) and stay
-as nodes of the program, and the plans and parameters the function
+A request function (a GCN, GAT, dot-product or flash GAT forward over a
+graph's plans, an `ops.spmm` call, int8 included) is exported once with
+`export_servable` into a self-contained program: every kernel, K1-K15, is
+a registered op (ops/library.py) and stays a node of the program, and the
+plans, their work lists and orders, and the parameters the function
 closes over become the program's constants. `load_servable` brings the
 program back in a process that has never imported the model code; it
 imports `ops.library` first, so the ops are registered before
 `torch.export.load` reads them. A bundle is a directory with the program,
-the plan (`SpmmPlan.save`, packed by default) and a metadata file.
+the plan (`SpmmPlan.save`, packed by default; none for a program whose
+plans are ELL plans, which its constants hold) and a metadata file.
 
     python -c "from voltrix_spmm_tpu_torch.serve import load_bundle; ..."
 """
@@ -37,25 +39,29 @@ def _warm(fn: Callable, args) -> Any:
 
 def aot_compile(fn: Callable, *example_args) -> Callable:
     """Do fn's costly first-call work now, at deploy time, and return fn:
-    the kernel builds (nvcc for K1-K3 on the card, g++ for the native
-    preprocess), the work lists of the plans fn reads (built and kept at
-    their first call, ops/block_spmm.py:plan_walk), and one warm call on
-    the example arguments. The first request then runs at steady-state
-    latency. fn may be a loaded servable."""
-    from .ops import block_spmm, fused_spmm, subtile_spmm
+    the kernel builds on the card (nvcc, or the cached library, of every
+    kernel of the ops in fn's graph where it has one, as a loaded servable
+    does: `library.loaders_of`; else of those the warm call launches), g++
+    for the native preprocess, the work lists and orders of the plans fn
+    reads (built and kept at their first call, ops/library.py), and one
+    warm call on the example arguments. The first request then runs at
+    steady-state latency. fn may be a loaded servable."""
+    from .ops import library
     from .runtime.native import native_available
 
     native_available()
     if any(isinstance(a, torch.Tensor) and a.is_cuda for a in example_args):
-        for module in (block_spmm, subtile_spmm, fused_spmm):
-            module.load_library()
+        for load in library.loaders_of(fn):
+            load()
     _warm(fn, example_args)
     return fn
 
 
 def compiled_stats(fn: Callable, *args) -> dict:
     """Capacity-planning numbers of one call of fn(*args): flops
-    (`torch.utils.flop_counter`, with 2 nnz d for each of K1-K3), the
+    (`torch.utils.flop_counter`, with each registered op's formula,
+    ops/library.py: 2 nnz d for K1-K8, 2 nnz H (dk + dv) for the attention
+    forwards K9 and K13), the
     bytes of the tensor arguments and of the output, and the peak device
     bytes the call allocates beyond what was allocated before it (None on
     the CPU)."""
@@ -122,8 +128,11 @@ def export_servable(fn: Callable, *example_args, polymorphic_shapes=None) -> byt
     """fn, traced at the example arguments with `torch.export`, as bytes
     (`torch.export.save`). The tensors fn closes over (plans, parameters)
     become constants of the program. fn is called once first, without
-    autograd, so that the plans' work lists are built from the real plans
-    and enter the program as constants (ops/library.py).
+    autograd, so that the plans' work lists and orders are built from the
+    real plans and enter the program as constants (ops/library.py), and is
+    traced without autograd too, as a request is served: a branch fn takes
+    only for a gradient (a GAT's transpose plane) stays out of the
+    program. The example arguments are not saved with it.
 
     polymorphic_shapes: JAX's spec strings, one per argument (e.g.
     ``("b, _",)``): named axes become torch.export.Dim, so one program
@@ -134,7 +143,11 @@ def export_servable(fn: Callable, *example_args, polymorphic_shapes=None) -> byt
         if len(polymorphic_shapes) != len(example_args):
             raise ValueError("polymorphic_shapes needs one spec per example argument")
         dynamic = _dynamic_shapes(example_args, polymorphic_shapes)
-    program = torch.export.export(_Program(fn), tuple(example_args), dynamic_shapes=dynamic)
+    with torch.no_grad():  # traced as it is served, without autograd's side of fn
+        program = torch.export.export(_Program(fn), tuple(example_args), dynamic_shapes=dynamic)
+    # the example request is not part of the program: torch.export.save would
+    # store its features in every bundle, beside the constants
+    program.example_inputs = None
     buf = io.BytesIO()
     torch.export.save(program, buf)
     return buf.getvalue()
@@ -145,7 +158,7 @@ def load_servable(blob: bytes) -> Callable:
     kernels' ops are registered first (ops/library.py), then the program
     is loaded; its constants come back on the device they were exported
     on."""
-    from .ops import library  # noqa: F401  (registers voltrix::spmm_*)
+    from .ops import library  # noqa: F401  (registers the voltrix ops)
 
     return torch.export.load(io.BytesIO(blob)).module()
 

@@ -8,9 +8,13 @@ a 256-node plan at d 8 (2000 calls, the launch alone costs), and CUDA-event
 milliseconds (20 calls after 3 warm-up) of chip_smoke.py's path A request
 (GCN 128 -> 256 -> 40 on the ogbn-arxiv proxy, PlanConfig(128, 128)),
 path M's request and Adam step (GIN classifier on 128 block-diagonal
-graphs) and path L's Adam step on one fixed sampled batch (SAGE 128 ->
-256 -> 40, 512 seeds, fanouts [10, 25], PlanConfig(32, 128)), each with
-its host wall time per call. It uses only entry points that the port had
+graphs), path L's Adam step on one fixed sampled batch (SAGE 128 ->
+256 -> 40, 512 seeds, fanouts [10, 25], PlanConfig(32, 128)), and on A's
+graph with self-loops at 128 -> 8 heads x 8 -> 40: path D's GAT request
+(PlanConfig(64, 128), K4), path E's dot-product GAT request and Adam step
+(ELL plans PlanConfig(128, 128, block_unroll=4), K6 and K7) and path G's
+flash GAT request (the same geometry, bf16 planes, K13), each with its
+host wall time per call. It uses only entry points that the port had
 before its kernels became registered ops, so it runs on either tree: to
 compare, unpack the other tree with `git archive` into a git-ignored
 directory, copy this file into its tools/, and run parent, change, change,
@@ -91,6 +95,30 @@ def main(argv=None) -> None:
     with torch.no_grad():
         rec["a_request_ms"], rec["a_request_wall_ms"] = timed(lambda: vt.gcn_forward(params, g, x))
     del g
+
+    # paths D, E and G: A's graph with self-loops, 128 -> 8 heads x 8 -> 40
+    loops = ((a + sp.eye(n, format="csr")) != 0).astype(np.float32).tocsr()
+    loops.sort_indices()
+    y = torch.from_numpy(rng.integers(0, 40, n)).to(dev)
+    gen = torch.Generator().manual_seed(3)
+    gd = vt.build_gat_graph(loops.indptr, loops.indices, n, vt.PlanConfig(64, 128), device=dev)
+    gat = vt.GAT(128, 8, 40, 8, generator=gen, device=dev)
+    with torch.no_grad():
+        rec["d_request_ms"], rec["d_request_wall_ms"] = timed(lambda: gat(gd, x))
+    del gd
+    cfg = vt.PlanConfig(128, 128, block_unroll=4)
+    ge = vt.build_ell_graph(loops.indptr, loops.indices, n, cfg, device=dev)
+    dot = vt.GATDot(128, 8, 40, 8, generator=gen, device=dev)
+    with torch.no_grad():
+        rec["e_request_ms"], rec["e_request_wall_ms"] = timed(lambda: dot(ge, x))
+    dot_step = vt.make_train_step(torch.optim.Adam(dot.parameters(), lr=5e-3), vt.gat_dot_loss)
+    rec["e_step_ms"], rec["e_step_wall_ms"] = timed(lambda: dot_step(dot.params(), ge, x, y))
+    del ge
+    gg = vt.build_graph(loops.indptr, loops.indices, n, cfg, symmetric=True, device=dev)
+    flash = vt.GATFlash(128, 8, 40, 8, generator=gen, device=dev)
+    with torch.no_grad():
+        rec["g_request_ms"], rec["g_request_wall_ms"] = timed(lambda: flash(gg, x))
+    del gg
 
     # path M: the GIN classifier on 128 graphs of 30-80 nodes
     rng = np.random.default_rng(0)
