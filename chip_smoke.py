@@ -15,7 +15,8 @@ non-zero on failure (there is no CPU fallback):
    (csrc/spmm_dvalues.cu), K6 (csrc/spmm_ell.cu), K7
    (csrc/spmm_ell_dvals.cu), K14 (csrc/attn_mh_dq.cu), K15
    (csrc/attn_mh_dkv.cu), K9 and K13 (csrc/attn_fwd.cu), K10
-   (csrc/attn_bwd.cu) and K8 (csrc/spmm_int8.cu), one nvcc each, all
+   (csrc/attn_bwd.cu), K8 (csrc/spmm_int8.cu) and K9 and K13 at
+   compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu), one nvcc each, all
    started together, into build/kernels/. K11 and K12 are the kernels of
    K14 and K15 launched with one head and float32 planes. The SASS of
    every .cu source under csrc/ holds no atomic instruction
@@ -239,7 +240,7 @@ non-zero on failure (there is no CPU fallback):
       against the plain versions at phase 3's K13-K15 tolerance, K13, K14
       and K15 once each. O.3 (after F): tune_spmm on F's graph at d 256 and
       the weighted race (K6 and K4) on it with random values. O.2 (after
-      C): tune_spmm on C's graph at d 256, budget_s 120, past 4 GiB of
+      C): tune_spmm on C's graph at d 256, budget_s 60, past 4 GiB of
       edge features: the residency-budgeted space, each candidate in a
       probe, the estimates printed, the winner against a float64 host
       product on the first and last window's rows. O.3: build_graph("auto")
@@ -298,6 +299,38 @@ non-zero on failure (there is no CPU fallback):
       seg 12-192, K6 under compute_dtype=bfloat16), bit for bit the float32
       kernel on the widened rows. Path O races the float32 default space
       (accurate=True), as it did before the bf16 variants joined it.
+   R. bf16 on K4, K8, K9 and K13 (counted apart: spmm_weighted_bf16,
+      spmm_int8_bf16, attn_fwd_bf16, attn_mh_fwd_bf16), after Q on A, after
+      H on the graph with self-loops, and after C: R.1 DropEdge on A
+      (build_dropedge_graph, PlanConfig(64, 128), keep 0.8) on bf16 rows at
+      d 128 and 256, REQUESTS training calls with their backward (K4's bf16
+      instantiation twice each), out and dx within calc_diff 1e-2 of the
+      float32 path on the same draws and mask, timed in turns with it, busy
+      share, peak memory. R.2 K4 on bf16 rows with a float32 and a bf16
+      plane on D's plan geometry at d 8 and 40 and K.6's DropEdge plan at
+      d 128 and 256: bit for bit the float32 K4 on the widened inputs, twice
+      the same bits, against its plain version under the summation bound,
+      timed in turns with the float32 K4 beside torch.sparse.mm on bf16
+      operands, with its bound (rows and plane in bf16). R.3 REQUESTS
+      spmm(plan, x.bfloat16(), impl="int8") on A's plan at d 128 and 256 and
+      one on C's at d 256: the codes and scales of quantize_rows on the card
+      equal the CPU's, a bf16 output (K8's float32 output rounded once),
+      K8 against its plain version under the summation bound, timed with
+      the float32 call, torch.sparse.mm on the dequantized bf16 rows and its
+      bound. R.4 spmm_attention_mh(..., compute_dtype=torch.bfloat16) at
+      G's geometry (H 8 x d 8 and H 1 x d 40, float32 and bf16 planes) and
+      spmm_attention on H's plan at d 8 and 40: out and lse against the
+      plain version at phase 3's attention tolerance, twice the same bits,
+      rows without edges 0 / 1e30, timed in turns with compute_dtype
+      float32. R.5 an int8 request on bf16 rows and a K13 request under the
+      flag, exported and loaded in this process: the voltrix op alone, the
+      eager bits. Phase 3 also holds K4's bf16 instantiations on its work
+      list's geometries (a hub window cut into >= 16 pieces, a window of
+      exactly 2 x PIECE_BLOCKS blocks, d 130 and 300, rows 2 bytes off an
+      8-byte boundary, values off the bitmask on cut windows; float32 and
+      bf16 planes), bit for bit the float32 K4 on the widened inputs, and
+      K9 and K13 at compute_dtype=bfloat16 on each of its attention
+      problems. Path R prints its seconds.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -578,7 +611,8 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.models.gat import edge_orders
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.models.gat_flash import _project_heads
-    from voltrix_spmm_tpu_torch.ops._attn_core import BWD_HEAD_GROUP, bwd_geometry
+    from voltrix_spmm_tpu_torch.ops._attn_core import (BWD_HEAD_GROUP, bwd_geometry,
+                                                       load_fwd_bf16_library)
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_bwd_summed, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
@@ -652,6 +686,13 @@ def main() -> None:
                for name in ("spmm_block", "spmm_subtile", "spmm_fused", "spmm_ell")}
     bf16_loaders = (block_spmm.load_bf16_library, subtile_spmm.load_bf16_library,
                     fused_spmm.load_bf16_library, ell.load_bf16_library)
+    # path R: K4 on bf16 rows or a bf16 plane (its bf16 instantiations), K8 on
+    # the codes of bf16 rows, and K9 and K13 at compute_dtype=bfloat16
+    # (csrc/attn_fwd_bf16.cu, K13's kernel at one head for K9): the same
+    # wrappers, counted apart (wrapper.launches_bf16)
+    r_of = {"spmm_weighted_bf16": "spmm_weighted", "spmm_int8_bf16": "spmm_int8",
+            "attn_fwd_bf16": "attn_fwd", "attn_mh_fwd_bf16": "attn_mh_fwd"}
+    r_source = {"attn_fwd_bf16": "attn_fwd_bf16.cu", "attn_mh_fwd_bf16": "attn_fwd_bf16.cu"}
 
     # --- 2. build: one nvcc per source, all started together -----------
     def timed_build(loader):
@@ -662,6 +703,7 @@ def main() -> None:
     # K11 and K12 share K14's and K15's builds, K13 K9's; beside them g++
     # builds the native preprocess (csrc/voltrix_preprocess.hpp)
     sources = {k[2]: k[4] for k in kernels.values()}
+    sources["attn_fwd_bf16.cu"] = load_fwd_bf16_library  # K9 and K13 at compute_dtype bf16
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host_build = pool.submit(timed_build, native_build_libraries)
@@ -686,7 +728,7 @@ def main() -> None:
             fail(f"{src} compiled to atomics {dict(ops)}: its sums must run in a fixed order")
 
     # --- 3. kernels against their plain versions --------------------------
-    max_err = dict.fromkeys(kernels, 0.0)
+    max_err = dict.fromkeys([*kernels, *r_of], 0.0)
 
     def compare(name, label, plan, args, deg=None):
         """The kernel against its plain version on `args` ((feat,), or
@@ -1038,6 +1080,75 @@ def main() -> None:
          PlanConfig(64, 128), expect=lambda p: most_pieces(p, k4) >= 4, off_mask=True,
          bound=True, gen=rng4)
 
+    # K4's bf16 instantiations on the same geometries, with a float32 and a
+    # bf16 plane: bit for bit the float32 K4 on the widened rows and plane
+    # (the sums' order does not depend on the source), twice the same bits,
+    # and against the plain version (which widens them) under the summation
+    # bound; rows padded by the wrapper (d 130, 300) and rows 2 bytes off an
+    # 8-byte boundary; values and rows from a generator of their own
+    r_err = dict.fromkeys(r_of, 0.0)
+
+    def k4_bf16_check(label, plan, xb, deg):
+        out = spmm_weighted(plan, xb, torch.float32)
+        wide = dataclasses.replace(plan, values=plan.values.float())
+        same = torch.equal(out, spmm_weighted(wide, xb.float(), torch.float32))
+        again = torch.equal(out, spmm_weighted(plan, xb, torch.float32))
+        want = spmm_weighted_reference(plan, xb, torch.float32)
+        torch.cuda.synchronize()
+        allow = TOL_KERNEL["atol"] + TOL_KERNEL["rtol"] * want.abs()
+        if deg is not None:
+            abs_plan = dataclasses.replace(plan, values=plan.values.abs())
+            allow = allow + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * spmm_weighted_reference(
+                abs_plan, xb.abs(), torch.float32)
+        err = (out - want).abs().max().item() if out.numel() else 0.0
+        r_err["spmm_weighted_bf16"] = max(r_err["spmm_weighted_bf16"], err)
+        ok = same and again and bool(((out - want).abs() <= allow).all())
+        print(f"  spmm_weighted_bf16 {label}: bf16 {'==' if same else '!='} float32 K4 on the "
+              f"widened rows and plane, twice {'bit-identical' if again else 'DIFFERENT'}, "
+              f"max|kernel - plain| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"spmm_weighted_bf16 {label}: not the float32 kernel's bits on the widened "
+                 "inputs, not the same twice, or off its plain version")
+
+    rng4b = np.random.default_rng(99)
+
+    def k4_bf16_case(label, a, cfg, widths, expect=None, off_mask=False, offset=False):
+        n = a.shape[0]
+        plan = csr_preprocess(a.indptr, a.indices, n, cfg,
+                              values=rng4b.standard_normal(a.nnz).astype(np.float32))
+        if off_mask:  # every slot of a tile counts, off the bitmask too
+            dense = rng4b.standard_normal(tuple(plan.values.shape)).astype(np.float32)
+            plan = dataclasses.replace(plan, values=torch.from_numpy(dense))
+            bpw = torch.diff(plan.block_ptr).float()
+            deg = (bpw.repeat_interleave(cfg.block_h)[:n] * cfg.block_w).to(dev)[:, None]
+        else:
+            deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        if expect is not None and not expect(plan):
+            fail(f"{label}: the plan lacks the property this case is for")
+        plan = plan.to(dev)
+        for d in widths:
+            x = rng4b.standard_normal((n, d + offset)).astype(np.float32)
+            xb = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+            if offset:
+                xb = xb.reshape(-1)[1:1 + n * d].view(n, d)
+            for plane in (torch.float32, torch.bfloat16):
+                k4_bf16_check(f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}, "
+                              f"{str(plane).removeprefix('torch.')} plane",
+                              dataclasses.replace(plan, values=plan.values.to(plane)), xb, deg)
+
+    print(f"kernel K4's bf16 instantiations on its work list (PIECE_BLOCKS {pb}):")
+    k4_bf16_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+                 PlanConfig(64, 128), (40, 130, 300),
+                 expect=lambda p: most_pieces(p, k4) >= 16)
+    k4_bf16_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+                 PlanConfig(64, 128), (40,), offset=True)
+    k4_bf16_case(f"n{128 * 2 * pb + 2048} PlanConfig(128,128), window 0 of exactly 2 x {pb} "
+                 "blocks", window0_of(2 * pb, 36), PlanConfig(128, 128), (40,),
+                 expect=lambda p: int(p.block_ptr[1]) == 2 * pb)
+    k4_bf16_case("n8000 PlanConfig(64,128), values off the bitmask on cut windows", hub,
+                 PlanConfig(64, 128), (40,), expect=lambda p: most_pieces(p, k4) >= 4,
+                 off_mask=True)
+
     # K5 at set bits only, over its work list (PIECE_BLOCKS["spmm_dvalues"]):
     # each case twice on one input, the same bits; block_w 256, bits on rows
     # at num_nodes and beyond (0.0 there), hind outside the source rows
@@ -1303,6 +1414,21 @@ def main() -> None:
         if not lse_ok:
             fail(f"kernel {name}'s lse disagrees with its plain version on {label}")
 
+    def compute_close(name, label, nq, kernel, plain):
+        """A forward at compute_dtype=bfloat16 (K9's or K13's bf16 kernel,
+        csrc/attn_fwd_bf16.cu) against its plain version, which rounds at
+        the same points (fwd_close's tolerance; rows without edges exactly 0
+        with lse 1e30), and twice on the input, the same bits."""
+        out_k, lse_k = kernel()
+        out_p, lse_p = plain()
+        torch.cuda.synchronize()
+        fwd_close(name, f"{label} compute_dtype bf16", nq, out_k, lse_k, out_p, lse_p)
+        again = kernel()
+        same = torch.equal(again[0], out_k) and torch.equal(again[1], lse_k)
+        print(f"    {name} {label}: (out, lse) twice {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{label}: two runs of {name} on the same input differ")
+
     def bwd_twice(label, what, first, again):
         """A backward kernel's outputs from two launches on one input: the
         same bits, or fail (K11, K12, K14 and K15 sum in a fixed order)."""
@@ -1321,6 +1447,10 @@ def main() -> None:
         out_p, lse_p = spmm_attention_reference(plan, q, k, v, return_stats=True, **kw)
         torch.cuda.synchronize()
         fwd_close("attn_fwd", label, plan.num_nodes, out_k, lse_k, out_p, lse_p)
+        kb = dict(kw, compute_dtype=torch.bfloat16, return_stats=True)
+        compute_close("attn_fwd_bf16", label, plan.num_nodes,
+                      lambda: spmm_attention(plan, q, k, v, **kb),
+                      lambda: spmm_attention_reference(plan, q, k, v, **kb))
         kw["scale"] = 1.0 / q.shape[1] ** 0.5
         got = attention_bwd(plan, q, k, v, out_p, lse_p, g, **kw)
         want = attention_bwd_reference(plan, q, k, v, out_p, lse_p, g, **kw)
@@ -1363,6 +1493,10 @@ def main() -> None:
               f"{'bit-identical' if same else 'DIFFERENT'}")
         if not same:
             fail(f"{label}: two runs of K13 on the same input differ")
+        kb = dict(kw, compute_dtype=torch.bfloat16, return_stats=True)
+        compute_close("attn_mh_fwd_bf16", label, plan.num_nodes,
+                      lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                      lambda: spmm_attention_mh_reference(plan, q, k, v, **kb))
         d_row = (g * out_p).sum(-1)
         bwd = (q, k, v, g, lse_p, d_row)
         kw["scale"] = scale
@@ -1618,20 +1752,21 @@ def main() -> None:
     del p16, x16, got, want
 
     # --- 4. + 5. the paths ------------------------------------------------
-    count_keys = list(kernels) + list(bf16_of)
+    count_keys = list(kernels) + list(bf16_of) + list(r_of)
 
     def reset_counts():
         for wrapper, plain, *_ in kernels.values():
             wrapper.launches = 0
             plain.calls = 0
-        for name in bf16_of.values():
+        for name in (*bf16_of.values(), *r_of.values()):
             kernels[name][0].launches_bf16 = 0
 
     def read_counts():
-        """(launches by kernel, the bf16 instantiations apart under
-        "<name>_bf16", also counted in <name>'s; plain-version calls)."""
+        """(launches by kernel, the bf16 instantiations (paths Q and R) apart
+        under "<name>_bf16", also counted in <name>'s; plain-version calls)."""
         counts = {k: w.launches for k, (w, *_) in kernels.items()}
-        counts.update({k: kernels[name][0].launches_bf16 for k, name in bf16_of.items()})
+        counts.update({k: kernels[name][0].launches_bf16
+                       for k, name in (*bf16_of.items(), *r_of.items())})
         return counts, sum(p.calls for _, p, *_ in kernels.values())
 
     def check_counts(label, counts, plain_calls, want_nonzero):
@@ -3499,6 +3634,313 @@ def main() -> None:
     # kink on path E moves with them)
     klm_rng = np.random.default_rng(16)
 
+    # --- path R: bf16 on K4, K8, K9 and K13 ----------------------------------
+    # each path R key's launches on its drives (a user's call, the counts
+    # zeroed just before), its times at each width, and path R's seconds; its
+    # inputs come from a generator of their own
+    path_r = {k: {"launches": 0, "per_width": {}} for k in r_of}
+    path_r_s = []
+    rrng = np.random.default_rng(23)
+    bf16 = torch.bfloat16
+
+    def r_feat(n, d):
+        return torch.from_numpy(rrng.standard_normal((n, d)).astype(np.float32)).to(dev)
+
+    def r_drive(label, fn, want):
+        """A path R drive: fn() with the counts zeroed just before and read
+        just after; launched as `want`, no plain call."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, plain_calls = read_counts()
+        print(f"  {label}: launches {({k: c for k, c in counts.items() if c})}, plain calls "
+              f"{plain_calls} ({secs * 1e3:.3f} ms)")
+        check_counts(f"R {label}", counts, plain_calls, want)
+        for k, c in counts.items():
+            if k in path_r:
+                path_r[k]["launches"] += c
+        return out
+
+    def r_export(label, fn, x, op):
+        """R.5: one request exported with export_servable and loaded with
+        load_servable in this process: its program's ops are `op` alone, and
+        it gives the eager bits."""
+        from voltrix_spmm_tpu_torch.serve import export_servable, load_servable
+
+        with torch.no_grad():
+            eager = fn(x)
+            loaded = load_servable(export_servable(fn, x))
+            got = loaded(x)
+        ops = sorted({str(nd.target) for nd in loaded.graph.nodes
+                      if nd.op == "call_function" and str(nd.target).startswith("voltrix.")})
+        ok = ops == [f"voltrix.{op}.default"] and torch.equal(got, eager)
+        print(f"  R.5 {label}: exported and loaded in this process, ops {ops}, the eager bits "
+              f"{'yes' if torch.equal(got, eager) else 'NO'} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path R.5 {label}: the loaded program's ops or bits are not the eager call's")
+
+    def r_k4(tag, label, plan, d, deg, csr_w, nz):
+        """R.2: K4 on bf16 rows at width d on `plan` (a float32 plane) with the
+        plane in float32 and in bf16 (k4_bf16_check: the float32 K4's bits
+        on the widened inputs, twice the same, the plain version under the
+        summation bound); timed in turns with the float32 K4 on the float32
+        rows and plane, beside its plain version and torch.sparse.mm on bf16
+        operands, with its bound (the rows' and the plane's bytes halved)."""
+        n = plan.source_rows
+        x = r_feat(n, d)
+        xb = x.to(bf16)
+        plan16 = dataclasses.replace(plan, values=plan.values.to(bf16))
+        for p, what in ((plan, "float32"), (plan16, "bf16")):
+            k4_bf16_check(f"R.2 on {label} d{d}, {what} plane", p, xb, deg)
+        k_ms, f_ms, turns = in_turns(torch, lambda: spmm_weighted(plan16, xb, torch.float32),
+                                     lambda: spmm_weighted(plan, x, torch.float32),
+                                     plain_iters=20)
+        rows_ms = cuda_ms(torch, lambda: spmm_weighted(plan, xb, torch.float32))
+        p_ms = cuda_ms(torch, lambda: spmm_weighted_reference(plan16, xb, torch.float32),
+                       iters=3, warmup=1)
+        lib, lib_what = library_bf16(csr_w, xb, x)
+        b_ms, b_by = bound_ms(tensor_bytes(plan16.values, plan.hind, plan.window_of_block)
+                              + n * d * 2 + plan.num_nodes * d * 4, 2 * nz * d)
+        path_r["spmm_weighted_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
+            ms=k_ms, f32_ms=f_ms, bf16_rows_f32_plane_ms=rows_ms, plain_ms=p_ms,
+            library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        print(f"  R.2 spmm_weighted_bf16 on {label} d={d}: bf16 rows and plane {turns[1]:.4f} / "
+              f"{turns[2]:.4f} ms, the float32 K4 {turns[0]:.4f} / {turns[3]:.4f} ms "
+              f"({k_ms / f_ms:.3f}x); bf16 rows on the float32 plane {rows_ms:.4f} ms; plain "
+              f"{p_ms:.4f} ms; torch.sparse.mm {lib:.4f} ms ({lib_what}); bound {b_ms:.4f} ms "
+              f"({b_by}; rows and plane in bf16)")
+
+    def r_dropedge(label, a):
+        """R.1 and R.2 on K.6's graph: DropEdge's training call and its
+        backward (K4 twice: the kept edges' plane, then A^T's plane for dx) on
+        bf16 rows at d 128 and 256, REQUESTS calls counted, against the
+        float32 path on the same draws and mask (calc_diff < 1e-2), timed in
+        turns with it, its busy share and peak memory; then K4 on the
+        DropEdge plan of one mask (R.2)."""
+        n, keep = a.shape[0], 0.8
+        g = build_dropedge_graph(a.indptr, a.indices, n, device=dev)
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        print(f"  R.1 build_dropedge_graph: {g.plan.config}, keep_prob {keep}")
+        res = {}
+        for d in (128, 256):
+            x = r_feat(n, d).requires_grad_(True)
+            g_out = r_feat(n, d)
+            xb = x.detach().to(bf16).requires_grad_(True)
+            gb = g_out.to(bf16)
+            gen = torch.Generator(device=dev).manual_seed(60 + d)
+            state = gen.get_state()
+
+            def call(xx, gg):
+                xx.grad = None
+                o = dropedge_aggregate(g, xx, gen, keep)
+                o.backward(gg)
+                return o.detach(), xx.grad
+
+            outs = r_drive(f"R.1 d{d} {REQUESTS} DropEdge training calls and their backward on "
+                           "bf16 rows", lambda: [call(xb, gb) for _ in range(REQUESTS)],
+                           {"spmm_weighted": 2 * REQUESTS, "spmm_weighted_bf16": 2 * REQUESTS})
+            if not all(o.dtype == bf16 and dx.dtype == bf16 and bool(torch.isfinite(o).all())
+                       and bool(torch.isfinite(dx).all()) for o, dx in outs):
+                fail(f"path R.1 d{d}: the bf16 training call is not a finite bf16 output")
+            gen.set_state(state)
+            torch.cuda.reset_peak_memory_stats()
+            ob, dxb = call(xb, gb)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            gen.set_state(state)
+            of, dxf = call(x, g_out)
+            diffs = (calc_diff(ob.float(), of), calc_diff(dxb.float(), dxf))
+            ok = max(diffs) < 1e-2
+            print(f"  R.1 d{d}: out and dx against the float32 path on the same draws and mask "
+                  f"calc_diff {diffs[0]:.3e} / {diffs[1]:.3e} (limit 1e-2); peak {peak:.3f} GiB "
+                  f"-> {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"path R.1 d{d}: the bf16 DropEdge call is off the float32 path")
+            b_ms, f_ms, turns = in_turns(torch, lambda: call(xb, gb), lambda: call(x, g_out),
+                                         plain_iters=20)
+            print(f"  R.1 d{d} training call and backward: bf16 rows {turns[1]:.4f} / "
+                  f"{turns[2]:.4f} ms, float32 rows {turns[0]:.4f} / {turns[3]:.4f} ms "
+                  f"({b_ms / f_ms:.3f}x)")
+            rows, host, wall = profile_requests(torch, lambda: call(xb, gb))
+            print_profile(rows, host, wall, "bf16 training call", top=6)
+            busy = sum(ms for _, ms in rows) * REQUESTS / wall
+            res[f"d{d}"] = {"train_ms": b_ms, "f32_train_ms": f_ms, "peak_gib": peak,
+                            "busy_share": busy, "calc_diff_out": diffs[0],
+                            "calc_diff_dx": diffs[1]}
+            del x, xb, g_out, gb, outs, ob, dxb, of, dxf
+        # R.2: K4 on the DropEdge plan of one keep mask, at d 128 and 256
+        w = dropedge_weights(g.num_edges, keep, torch.Generator(device=dev).manual_seed(59),
+                             device=dev)
+        tb, H, K = g.plan.total_blocks, g.plan.config.block_h, g.plan.config.block_w
+        plane = torch.zeros(tb * H * K, device=dev).index_add_(0, g.slots, w).view(tb, H, K)
+        wplan = dataclasses.replace(g.plan, values=plane)
+        csr_w = csr_tensor(torch, a, dev, w)
+        for d in (128, 256):
+            r_k4("K6", "K.6's DropEdge plan", wplan, d, deg, csr_w, int(torch.count_nonzero(w)))
+        path_r["dropedge"] = res
+        del g, wplan, plane, csr_w
+        torch.cuda.empty_cache()
+
+    def r_int8(tag, label, a, plan, d, requests):
+        """R.3: `requests` calls of spmm(plan, x.bfloat16(), impl="int8") at
+        width d (K8 once each, counted apart); the codes and scales of
+        quantize_rows on the card equal the CPU's for the same bf16 rows; the
+        bf16 output is K8's float32 output rounded once, which holds against
+        its plain version under phase 3's tolerance and the summation bound;
+        timed in turns with the float32 call, with K8 alone, its plain
+        version, torch.sparse.mm on the dequantized bf16 rows, and its bound."""
+        n = a.shape[0]
+        xs = [r_feat(n, d) for _ in range(requests)]
+        xbs = [x.to(bf16) for x in xs]
+        outs = r_drive(f"R.3 {requests} requests spmm(plan, x.bfloat16(), impl='int8') on "
+                       f"{label} d{d}", lambda: [spmm(plan, xb, impl="int8") for xb in xbs],
+                       {"spmm_int8": requests, "spmm_int8_bf16": requests})
+        xb = xbs[0]
+        q, sc = quant.quantize_padded(xb)
+        q_cpu, sc_cpu = quant.quantize_padded(xb.cpu())
+        codes = torch.equal(q.cpu(), q_cpu) and torch.equal(sc.cpu(), sc_cpu)
+        out32 = quant.launch_quantized(plan, q, sc, d)
+        want = quant.int8_rows_reference(plan, q, sc, d)
+        xq = dequantize_rows(q, sc, bf16).float()[:, :d].contiguous()
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        torch.cuda.synchronize()
+        allow = (TOL_KERNEL["atol"] + TOL_KERNEL["rtol"] * want.abs()
+                 + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * quant.int8_rows_reference(
+                     plan, q.abs(), sc.abs(), d))
+        err = (out32 - want).abs().max().item()
+        r_err["spmm_int8_bf16"] = max(r_err["spmm_int8_bf16"], err)
+        ok = (codes and all(o.dtype == bf16 and tuple(o.shape) == (n, d)
+                            and bool(torch.isfinite(o).all()) for o in outs)
+              and torch.equal(outs[0], out32.to(bf16))
+              and bool(((out32 - want).abs() <= allow).all()))
+        print(f"  R.3 {label} d{d}: codes and scales on the card "
+              f"{'==' if codes else '!='} quantize_rows on the CPU; bf16 output = K8's float32 "
+              f"output rounded once; max|kernel - plain| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path R.3 {label} d{d}: K8 on bf16 rows disagrees")
+        k_ms = cuda_ms(torch, lambda: quant.launch_quantized(plan, q, sc, d, bf16_rows=True))
+        w_ms, f_ms, turns = in_turns(torch, lambda: spmm(plan, xb, impl="int8"),
+                                     lambda: spmm(plan, xs[0], impl="int8"), plain_iters=20)
+        p_ms = cuda_ms(torch, lambda: spmm_int8_reference(plan, xb), iters=2, warmup=1)
+        lib, lib_what = library_bf16(csr_tensor(torch, a, dev), xq.to(bf16), xq)
+        b_ms, b_by = bound_ms(tensor_bytes(plan.bitmask, plan.hind, q, sc) + n * d * 4,
+                              2 * a.nnz * d)
+        path_r["spmm_int8_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
+            ms=k_ms, wrapper_ms=w_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=lib,
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  R.3 spmm_int8_bf16 on {label} d={d}: K8 alone {k_ms:.4f} ms; spmm(impl='int8') "
+              f"on bf16 rows {turns[1]:.4f} / {turns[2]:.4f} ms, on float32 rows {turns[0]:.4f} "
+              f"/ {turns[3]:.4f} ms; plain {p_ms:.4f} ms; torch.sparse.mm on the dequantized "
+              f"rows {lib:.4f} ms ({lib_what}); bound {b_ms:.4f} ms ({b_by})")
+        return xb
+
+    def r_path_a(label, a, g):
+        """Path R on A's graph: R.1 and R.2 on K.6's DropEdge graph, R.3 on
+        A's plan at d 128 and 256, R.5's int8 request."""
+        t_path = time.perf_counter()
+        print(f"path {label}")
+        r_dropedge(label, a)
+        for d in (128, 256):
+            xb = r_int8("A", "A's plan", a, g.plan, d, REQUESTS)
+        r_export("an int8 request on bf16 rows (A's plan, d 256)",
+                 lambda x: spmm(g.plan, x, impl="int8"), xb, "spmm_int8")
+        torch.cuda.empty_cache()
+        path_r_s.append(time.perf_counter() - t_path)
+        print(f"path R on A: {path_r_s[-1]:.1f} s in all")
+
+    def r_int8_on_c(label, a, g):
+        """R.3 on C's plan: one call at d 256."""
+        t_path = time.perf_counter()
+        r_int8("C", "C's plan", a, g.plan, 256, 1)
+        path_r_s.append(time.perf_counter() - t_path)
+        print(f"path R on {label}: {path_r_s[-1]:.1f} s in all")
+
+    def r_path_loops(label, a):
+        """Path R on D's, G's and H's graph (self-loops): R.2 K4 on D's plan
+        geometry at d 8 and 40; R.4 K13 under compute_dtype=bfloat16 at G's
+        geometry (H 8 x d 8 and H 1 x d 40, float32 and bf16 planes) and K9 on
+        H's plan at d 8 and 40, each against its plain version, twice the same
+        bits, timed in turns with compute_dtype float32; R.5's K13 request."""
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        print(f"path {label}")
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        vals = rrng.standard_normal(a.nnz).astype(np.float32)
+        dplan = csr_preprocess(a.indptr, a.indices, n, PlanConfig(64, 128), values=vals).to(dev)
+        csr_w = csr_tensor(torch, a, dev, torch.from_numpy(vals))
+        for d in (8, 40):
+            r_k4("D", "D's plan", dplan, d, deg, csr_w, a.nnz)
+        del dplan, csr_w
+        plan = csr_preprocess(a.indptr, a.indices, n, PlanConfig(128, 128, block_unroll=4)).to(dev)
+        plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
+        with torch.no_grad():
+            for heads, d in ((8, 8), (1, 40)):
+                q, k, v = (r_feat(heads * n, d).view(heads, n, d) for _ in range(3))
+                for pdt in (None, bf16):
+                    kw = dict(negative_slope=0.2, plane_dtype=pdt, return_stats=True)
+                    kb = dict(kw, compute_dtype=bf16)
+                    pname = "bf16" if pdt is not None else "float32"
+                    tag = f"h{heads}_d{d}_{pname}"
+                    r_drive(f"R.4 K13 H {heads} d {d}, {pname} planes, compute_dtype bf16",
+                            lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                            {"attn_mh_fwd": 1, "attn_mh_fwd_bf16": 1})
+                    compute_close("attn_mh_fwd_bf16", f"R.4 G's plan H {heads} d {d} {pname} "
+                                  "planes", n, lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                                  lambda: spmm_attention_mh_reference(plan, q, k, v, **kb))
+                    k_ms, f_ms, turns = in_turns(
+                        torch, lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                        lambda: spmm_attention_mh(plan, q, k, v, **kw), plain_iters=20)
+                    p_ms = cuda_ms(torch, lambda: spmm_attention_mh_reference(plan, q, k, v, **kb),
+                                   iters=2, warmup=1)
+                    plane = 2 if pdt is not None else 4
+                    b_ms, b_by = bound_ms(plan_bytes + heads * n * (4 * d + plane * 2 * d + 4 * d)
+                                          + heads * plan.padded_nodes * 4,
+                                          plan.num_edges * heads * 4 * d)
+                    path_r["attn_mh_fwd_bf16"]["per_width"][tag] = dict(
+                        ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by=b_by)
+                    print(f"  R.4 attn_mh_fwd_bf16 {tag}: compute bf16 {turns[1]:.4f} / "
+                          f"{turns[2]:.4f} ms, compute float32 {turns[0]:.4f} / {turns[3]:.4f} "
+                          f"ms ({k_ms / f_ms:.3f}x); plain {p_ms:.4f} ms; no library call; bound "
+                          f"{b_ms:.4f} ms ({b_by})")
+                if heads == 8:
+                    qx = q
+                    r_export("a K13 request under compute_dtype bf16 (G's plan, H 8 x d 8, bf16 "
+                             "planes)", lambda x: spmm_attention_mh(
+                                 plan, x, k, v, negative_slope=0.2, plane_dtype=bf16,
+                                 compute_dtype=bf16), qx, "spmm_attention_mh")
+            for d in (8, 40):
+                q, k, v = (r_feat(n, d) for _ in range(3))
+                kw = dict(negative_slope=0.2, return_stats=True)
+                kb = dict(kw, compute_dtype=bf16)
+                r_drive(f"R.4 K9 d {d}, compute_dtype bf16",
+                        lambda: spmm_attention(plan, q, k, v, **kb),
+                        {"attn_fwd": 1, "attn_fwd_bf16": 1})
+                compute_close("attn_fwd_bf16", f"R.4 H's plan d {d}", n,
+                              lambda: spmm_attention(plan, q, k, v, **kb),
+                              lambda: spmm_attention_reference(plan, q, k, v, **kb))
+                k_ms, f_ms, turns = in_turns(torch, lambda: spmm_attention(plan, q, k, v, **kb),
+                                             lambda: spmm_attention(plan, q, k, v, **kw),
+                                             plain_iters=20)
+                p_ms = cuda_ms(torch, lambda: spmm_attention_reference(plan, q, k, v, **kb),
+                               iters=2, warmup=1)
+                b_ms, b_by = bound_ms(plan_bytes + n * 4 * 4 * d + plan.padded_nodes * 4,
+                                      plan.num_edges * 4 * d)
+                path_r["attn_fwd_bf16"]["per_width"][f"d{d}"] = dict(
+                    ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by)
+                print(f"  R.4 attn_fwd_bf16 d{d}: compute bf16 {turns[1]:.4f} / {turns[2]:.4f} "
+                      f"ms, compute float32 {turns[0]:.4f} / {turns[3]:.4f} ms "
+                      f"({k_ms / f_ms:.3f}x); plain {p_ms:.4f} ms; no library call; bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+        del plan
+        torch.cuda.empty_cache()
+        path_r_s.append(time.perf_counter() - t_path)
+        print(f"path {label}: {path_r_s[-1]:.1f} s in all")
+
     def klm_feat(n, d):
         return torch.from_numpy(klm_rng.standard_normal((n, d)).astype(np.float32)).to(dev)
 
@@ -4911,12 +5353,14 @@ def main() -> None:
         n, d = a.shape[0], 256
         free, total = torch.cuda.mem_get_info()
         print(f"path O.2 (tuner, protein proxy): tune_spmm at d {d}, default space, budget_s "
-              f"120; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
+              f"60; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
               f"features, past 4 GiB: residency budgeted (free {free / 2**30:.1f} of "
               f"{total / 2**30:.1f} GiB) and each candidate in a probe of its own")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        # budget 60 s (120 before path R joined the run): the isolated probes
+        # of C's candidates take 9-17 s each, and the run has 1,200 s
         tuned, race_s = race("C d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "c")), a, x,
-                             budget_s=120, hash_tag="protein-proxy", accurate=True)
+                             budget_s=60, hash_tag="protein-proxy", accurate=True)
         print("  residency of the kept candidates (plan, workspace, features, output): "
               "tuner.estimate_residency beside the probe's torch.cuda.max_memory_allocated "
               "over the candidate's first call:")
@@ -5024,6 +5468,8 @@ def main() -> None:
         q_path_a("Q (ogbn-arxiv proxy, bf16 feature sources: K1, the hybrid's K3 and K1, the "
                  "GCN under agg_dtype=torch.bfloat16, the tuner's bf16 variants, the auto rule)",
                  arxiv, g, params_np)
+        r_path_a("R (ogbn-arxiv proxy, bf16 on K4 and K8: DropEdge on bf16 rows, K4 on bf16 rows "
+                 "and planes, the int8 SpMM on bf16 rows)", arxiv, g)
 
     t0 = time.perf_counter()
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
@@ -5064,6 +5510,8 @@ def main() -> None:
     results.update(flash_head_path(
         "H (ogbn-arxiv proxy with self-loops, per-head flash GAT, K9-K12)", loops,
         PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
+    r_path_loops("R (ogbn-arxiv proxy with self-loops: K4 on D's plan, K13 and K9 at "
+                 "compute_dtype=bfloat16 on G's and H's plan)", loops)
     serve_models()  # path N's bundles of D, E, G, H and I, from fresh processes
     tuner_path_g(loops)
     del loops
@@ -5095,6 +5543,7 @@ def main() -> None:
         (8, 256, 112), host_rows=np.r_[0:2048, last:n],
         then=lambda g, model, _, xs, logits, __: (
             int8_on_c("C (protein proxy)", protein, g), c_plan_builds(protein),
+            r_int8_on_c("C (protein proxy)", protein, g),
             q_path_gcn("C (path Q, K3's bf16 instantiation)", protein, g, model, xs, logits,
                        "spmm_fused", (8, 256))))
     tuner_path_c(protein)
@@ -5105,6 +5554,8 @@ def main() -> None:
     shutil.rmtree(tune_dir, ignore_errors=True)
     print(f"path O: {json.dumps(path_o)}")
     print(f"path Q: {json.dumps({k: v for k, v in path_q.items() if k not in bf16_of})}")
+    r_extra = {k: v for k, v in path_r.items() if k not in r_of}
+    print(f"path R: {json.dumps({'seconds': sum(path_r_s), 'parts_s': path_r_s, **r_extra})}")
     results["spmm_int8"] = path_i
     results["spmm_block"].update(
         {k: v for k, v in path_j.items() if k.startswith("j_stream") or k.startswith("j_k1")})
@@ -5165,6 +5616,23 @@ def main() -> None:
                  "bound_by": widest["bound_by"]}
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms"):
             entry[field] = sum(v[field] for v in pw.values())
+            entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
+        line.append(entry)
+    # path R: K4's bf16 instantiations, K8 on bf16 rows' codes, K9 and K13 at
+    # compute_dtype=bfloat16 (their own source); launches on path R's drives;
+    # times summed over R's widths, beside the float32 kernel's (f32_ms)
+    for key, name in r_of.items():
+        pw = path_r[key]["per_width"]
+        widest = max(pw.values(), key=lambda v: v["bound_ms"])
+        entry = {"name": key, "route": "cuda",
+                 "source": f"voltrix_spmm_tpu_torch/csrc/{r_source.get(key, kernels[name][2])}",
+                 "replaces": kernels[name][3], "max_abs_err": max(max_err[key], r_err[key]),
+                 "registered": f"voltrix::{REGISTERED[name]}",
+                 "o_launches": path_o["launches"][key], "launches": path_r[key]["launches"],
+                 "bound_by": widest["bound_by"]}
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms"):
+            vals = [v[field] for v in pw.values()]
+            entry[field] = None if None in vals else sum(vals)
             entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
         line.append(entry)
     # ms / plain_ms / library_ms / bound_ms: one call at each of the paths' widths, summed

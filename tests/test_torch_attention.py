@@ -393,8 +393,12 @@ REFUSALS = {
                   lambda tp, a, x: spmm_attention(tp, *x, precision="highest")),
     "precision (ad)": (NotImplementedError, "item 9",
                        lambda tp, a, x: spmm_attention_ad(tp, *x, precision="highest")),
-    "compute_dtype": (NotImplementedError, "item 9",
-                      lambda tp, a, x: spmm_attention(tp, *x, compute_dtype=torch.bfloat16)),
+    # the forward takes compute_dtype bf16 (tests/test_torch_attention_compute.py);
+    # inputs that need a gradient are refused, the backward's is item 9
+    "compute_dtype (ad)": (NotImplementedError, "item 9",
+                           lambda tp, a, x: spmm_attention_ad(
+                               tp, *(t.detach().requires_grad_(True) for t in x),
+                               compute_dtype=torch.bfloat16)),
     "interpret": (NotImplementedError, "interpret",
                   lambda tp, a, x: spmm_attention(tp, *x, interpret=True)),
     "not the transpose": (ValueError, "transpose",

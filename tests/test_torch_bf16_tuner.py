@@ -64,9 +64,10 @@ def test_variant_bf16_fields():
     assert not Variant("pregather", compute_dtype="float32").bf16
     with pytest.raises(NotImplementedError, match="float16"):
         Variant("pregather", feat_dtype="float16")
-    for impl in ("int8", "weighted"):
-        with pytest.raises(NotImplementedError, match="float32 rows"):
-            Variant(impl, feat_dtype="bfloat16")
+    for impl in ("int8", "weighted"):  # K4 and K8 take bf16 rows, not compute_dtype
+        assert Variant(impl, feat_dtype="bfloat16").bf16
+        with pytest.raises(NotImplementedError, match="no compute_dtype"):
+            Variant(impl, compute_dtype="bfloat16")
 
 
 # the difference with the JAX package's space, pinned: the port adds K1 on

@@ -67,8 +67,10 @@ __host__ __device__ inline int slot_floats(int dk, int vw) {
 }
 
 // the warps' rings (nbuf batches of nb slots of sf floats each) and queues
-__host__ __device__ inline int ring_smem_bytes(int sf, int nb, int nbuf) {
-  return kWarps * (nbuf * nb * sf + 2 * kQueue) * 4;
+// (`queues` arrays of kQueue ints: an item's word and source row, and with
+// walk_items<true> its block)
+__host__ __device__ inline int ring_smem_bytes(int sf, int nb, int nbuf, int queues = 2) {
+  return kWarps * (nbuf * nb * sf + queues * kQueue) * 4;
 }
 
 __host__ __device__ inline int smem_bytes(int dk, int vw, int nb, int nbuf) {
@@ -149,8 +151,11 @@ __device__ __forceinline__ void store_row(float* dst, const float* acc, int cw, 
 // edge(slot) on each lane whose row has a bit in the item (none where
 // `active` is false), a lane's items in order; src is the lane's hind
 // clipped into [0, nk), as the JAX gather clips it. q_word and q_src hold
-// kQueue entries each.
-template <typename Stage, typename Edge>
+// kQueue entries each. kBlk: the walk also queues each item's block in the
+// kQueue ints after q_src and calls edge(slot, block) (the compute_dtype
+// kernels of csrc/attn_fwd_bf16.cu, whose rounding point depends on the
+// block's grid step); a lane's items come in block order.
+template <bool kBlk = false, typename Stage, typename Edge>
 __device__ __forceinline__ void walk_items(const uint32_t* __restrict__ bitmask,
                                            const int32_t* __restrict__ hind, int b0, int b1,
                                            int words, int wi, int block_w, int nk, int sf,
@@ -187,6 +192,7 @@ __device__ __forceinline__ void walk_items(const uint32_t* __restrict__ bitmask,
       const int pos = (produced + __popc(ballot & ((1u << lane) - 1u))) % kQueue;
       q_word[pos] = next_word[0];
       q_src[pos] = next_src[0];
+      if constexpr (kBlk) q_src[kQueue + pos] = b0 + u / slices;
     }
     __syncwarp();
     produced += __popc(ballot);
@@ -234,7 +240,11 @@ __device__ __forceinline__ void walk_items(const uint32_t* __restrict__ bitmask,
     while (mask) {
       const int i = __ffs(static_cast<int>(mask)) - 1;
       mask &= mask - 1u;
-      edge(slots + i * sf);
+      if constexpr (kBlk) {
+        edge(slots + i * sf, q_src[kQueue + (base + i) % kQueue]);
+      } else {
+        edge(slots + i * sf);
+      }
     }
     __syncwarp();  // the batch is read before a later batch reuses its slots
     if (nbuf == 1) {
@@ -279,11 +289,11 @@ __device__ __forceinline__ void walk_word(const uint32_t* __restrict__ bitmask,
 // walk whose slots hold sf floats: the largest batch whose two buffers fit
 // `budget` bytes with the queues, else one buffer, else the same within
 // all of a thread block's shared memory; nb 0 when nothing fits.
-inline void walk_geometry_sf(int sf, int budget, int* nb, int* nbuf) {
+inline void walk_geometry_sf(int sf, int budget, int* nb, int* nbuf, int queues = 2) {
   for (const int cap : {budget, kSmemMax}) {
     for (*nbuf = 2; *nbuf >= 1; --*nbuf) {
       for (*nb = kMaxBatch; *nb >= 1; *nb /= 2) {
-        if (ring_smem_bytes(sf, *nb, *nbuf) <= cap) return;
+        if (ring_smem_bytes(sf, *nb, *nbuf, queues) <= cap) return;
       }
     }
   }

@@ -9,7 +9,10 @@
 // float32 scale per row. The TPU kernel's arithmetic is kept exactly: each
 // gathered value is bf16_rn(float(q) * float(bf16_rn(scale[src]))) (q is exact
 // in bf16, and a product of two bf16 values is exact in float32, so the one
-// rounding is the bf16 multiply's), and the sums are float32.
+// rounding is the bf16 multiply's), and the sums are float32. bf16 rows
+// are quantized in bf16 (ops/quant.py, as jnp does): their scales are bf16
+// values, which bf16_rn leaves as they are, so the same kernel reads their
+// codes.
 //
 // Design: the walk of csrc/spmm_walk.cuh that K1 runs, on int8 rows (kI8).
 // One thread block of four warps per (piece, 128-row group, 128 columns); a

@@ -177,8 +177,9 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
     feat may be (N, D) or graph-batched (B, N, D): the batch folds into
     the feature axis, so one launch serves the whole batch.
 
-    feat is float32 or bfloat16: K1, K2, K3 and K6 read bf16 rows through
-    their bf16 instantiations and sum in float32; the output is cast once
+    feat is float32 or bfloat16: K1, K2, K3, K4 and K6 read bf16 rows
+    through their bf16 instantiations (K4 also a bf16 value plane) and K8
+    quantizes them in bf16, and all sum in float32; the output is cast once
     to `out_dtype` (default feat's dtype). compute_dtype=torch.bfloat16
     rounds float32 features to bf16 (round to nearest even; K6 also its
     edge values) and runs the bf16 sources, the output defaulting to the
@@ -204,7 +205,9 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
     if bf16_compute(compute_dtype) and not weighted:
         if impl == "int8":
             raise NotImplementedError(
-                "compute_dtype=bfloat16 with impl='int8': K8 quantizes float32 rows")
+                "compute_dtype=bfloat16 with impl='int8': the JAX package's spmm_pallas_int8 "
+                "takes no compute_dtype (K8 quantizes the rows in their own dtype: pass bf16 "
+                "rows to quantize bf16 rows)")
         out_dtype = feat.dtype if out_dtype is None else out_dtype
         feat = feat.to(torch.bfloat16)
         if isinstance(plan, EllPlan):  # K6's plain version on the values its kernel reads

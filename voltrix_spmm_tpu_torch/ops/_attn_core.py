@@ -62,6 +62,11 @@ load_dq_library = _loader("attn_mh_dq", "voltrix_attn_mh_dq",
                           [_p] * 12 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 load_dkv_library = _loader("attn_mh_dkv", "voltrix_attn_mh_dkv",
                            [_p] * 14 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
+# K9 and K13 under compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu): the plan's
+# arrays (with window_of_block) and the work list, the tensors and bmax, the
+# geometry, the plane, the alignment flags and the (head, row) strides
+load_fwd_bf16_library = _loader("attn_fwd_bf16", "voltrix_attn_fwd_bf16",
+                                [_p] * 13 + [_i] * 16 + [_f, _f, _i, _i] + [_ll] * 6 + [_p])
 
 
 # --- arguments -----------------------------------------------------------
@@ -81,9 +86,36 @@ def _rounded(x: torch.Tensor, pdt) -> torch.Tensor:
     return x.float() if pdt is None else x.to(pdt).float()
 
 
+def compute_bf16(compute_dtype) -> bool:
+    """The JAX package's compute_dtype of K9 and K13 on the port: True for
+    torch.bfloat16 (q, k, v and p rounded to bf16 before their products,
+    attention.py:121-143), False for None and float32; any other type
+    raises."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise NotImplementedError(
+        f"compute_dtype={compute_dtype}: the attention kernels compute in float32 or, for the "
+        "forward, in bfloat16 (ROADMAP.md item 9)")
+
+
+def op_compute_dtype(compute_dtype) -> torch.dtype:
+    """The registered ops' compute_dtype argument for a call's: bfloat16 or
+    float32."""
+    return torch.bfloat16 if compute_bf16(compute_dtype) else torch.float32
+
+
+BF16_BACKWARD = ("compute_dtype=torch.bfloat16 with inputs that need a gradient: the "
+                 "backward kernels K10-K12, K14 and K15 compute in float32, and their "
+                 "compute_dtype is ROADMAP.md item 9's backward entry; call the forward under "
+                 "torch.no_grad()")
+
+
 def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> None:
     """The JAX package's TPU knobs: the H100 kernels pick their own tiles,
-    compute in float32, and have no interpret mode."""
+    compute in float32 (the forward also in bfloat16, `compute_bf16`), and
+    have no interpret mode."""
     if block_d is not None:
         raise NotImplementedError(
             "block_d: a TPU tiling knob; the H100 kernels pick their own tiles (their "
@@ -94,11 +126,7 @@ def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> Non
             "precision: a TPU matmul knob; the H100 kernels compute in float32 "
             "(ROADMAP.md item 9)"
         )
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: the attention kernels K9-K15 compute in "
-            "float32; bf16 planes are `plane_dtype`, their compute_dtype ROADMAP.md item 9"
-        )
+    compute_bf16(compute_dtype)
     if interpret is not None:
         raise NotImplementedError(
             "interpret: Pallas's interpret mode; the port launches the kernel on a CUDA "
@@ -196,11 +224,14 @@ def _ds(p, dp, d_row, raw, scale: float, slope: float) -> torch.Tensor:
 
 # --- the plain versions, over (H, n, d) stacks -------------------------------
 
-def _fwd_plain(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes):
+def _fwd_plain(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes, compute=False):
     """out (H, num_nodes, dv) and lse (H, padded_nodes), float32: scores by
     gather over the plan's edges, row maxima by `scatter_reduce("amax")`,
     denominators and the aggregation by `index_add_`, in chunks of about
-    `chunk_bytes`."""
+    `chunk_bytes`. compute: compute_dtype=bfloat16 (`_fwd_plain_bf16`; a
+    bf16 plane's k and v are bf16 values already)."""
+    if compute:
+        return _fwd_plain_bf16(plan, q, k, v, scale, slope, chunk_bytes)
     heads, nq, dk, dv = q.shape[0], q.shape[1], q.shape[2], v.shape[2]
     padded, dev = plan.padded_nodes, q.device
     qf, kf, vf = q.float(), _rounded(k, pdt), _rounded(v, pdt)
@@ -219,6 +250,67 @@ def _fwd_plain(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes):
     for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dv, chunk_bytes):
         c = cols[e0:e1]
         acc.index_add_(1, rows[e0:e1], p_all[:, e0:e1, None] * vf.index_select(1, c))
+    out = (acc / l.clamp_min(1e-30)[..., None])[:, :nq]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), _EMPTY_LSE)
+    return out, lse
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, rounded to bf16 (round to nearest even, as jnp's astype)."""
+    return x.to(torch.bfloat16).float()
+
+
+def _grid_steps(plan: SpmmPlan, lanes: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's grid step of each edge's block, within its window:
+    (block - the window's first block) // block_unroll."""
+    blk = lanes // plan.config.block_w
+    wob = plan.window_of_block.long()
+    first = torch.searchsorted(wob, torch.arange(plan.num_windows, device=wob.device))
+    return (blk - first.index_select(0, wob.index_select(0, blk))) // plan.config.block_unroll
+
+
+def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
+    """`_fwd_plain` at compute_dtype=bfloat16, with the JAX package's
+    rounding points (attention.py:121-143, attention_mh.py:168-190): q, k
+    and v rounded to bf16, each score summed in column order (each product
+    exact; K9's and K13's bf16 kernels sum in the same order), p = exp(s -
+    M) summed into l unrounded and rounded to bf16 before its product with
+    v. M is the TPU kernel's running maximum: the row's largest score over
+    its window's grid steps (block_unroll blocks each) up to the edge's,
+    which the rounding of p depends on."""
+    heads, nq, dk, dv = q.shape[0], q.shape[1], q.shape[2], v.shape[2]
+    padded, dev = plan.padded_nodes, q.device
+    qb, kb, vb = _bf16(q), _bf16(k), _bf16(v)
+    rows, cols, lanes = _edges(plan, chunk_bytes)
+    s_all = torch.empty(heads, rows.numel(), dtype=torch.float32, device=dev)
+    for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dk, chunk_bytes):
+        qe, ke = qb.index_select(1, rows[e0:e1]), kb.index_select(1, cols[e0:e1])
+        raw = torch.zeros(heads, e1 - e0, dtype=torch.float32, device=dev)
+        for c in range(dk):
+            raw = raw + qe[..., c] * ke[..., c]
+        s_all[:, e0:e1] = _act(raw, scale, slope)
+    # M: the running maximum after each grid step, one step after another
+    step = _grid_steps(plan, lanes)
+    order = torch.argsort(step, stable=True)
+    counts = torch.bincount(step).tolist() if step.numel() else []
+    m = torch.full((heads, padded), _NEG, dtype=torch.float32, device=dev)
+    big = torch.empty_like(s_all)
+    start = 0
+    for n in counts:
+        idx = order[start:start + n]
+        start += n
+        r = rows.index_select(0, idx)
+        m.scatter_reduce_(1, r.expand(heads, -1), s_all.index_select(1, idx), "amax")
+        big[:, idx] = m.index_select(1, r)
+    p_all = torch.exp(s_all - big)
+    del s_all
+    f = torch.exp(big - m.index_select(1, rows))  # from the step's maximum to the row's
+    l = torch.zeros(heads, padded, dtype=torch.float32, device=dev).index_add_(1, rows, p_all * f)
+    pv = _bf16(p_all) * f
+    del p_all, f, big
+    acc = torch.zeros(heads, padded, dv, dtype=torch.float32, device=dev)
+    for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dv, chunk_bytes):
+        acc.index_add_(1, rows[e0:e1], pv[:, e0:e1, None] * vb.index_select(1, cols[e0:e1]))
     out = (acc / l.clamp_min(1e-30)[..., None])[:, :nq]
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), _EMPTY_LSE)
     return out, lse
@@ -383,6 +475,52 @@ def _workspace(walk, heads: int, d: int, device):
 
 def _strides(*stacks):
     return [x for t in stacks for x in t.stride()[:2]]
+
+
+def fwd_bf16_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc):
+    """out (H, nq, dv) and lse (H, padded_nodes), float32, through K13 at
+    compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu; `entry` K9's or K13's
+    wrapper, whose launches and launches_bf16 it counts), the body of their
+    ops (ops/library.py) under the flag: its first walk writes each block's
+    row maxima into a (H, blocks, block_h) workspace, its second walk the
+    rows, over `walk` for each group of hg heads and acc columns, and, when a
+    group of rows is cut, the merge of each head's shares. q, k and v are
+    read through their head and row strides (`_head_rows`). Every row is
+    written."""
+    name = entry.__name__
+    heads, nq, dk = q.shape
+    nk, dv = k.shape[1], v.shape[2]
+    dev = q.device
+    f32, tdt = torch.float32, pdt or torch.float32
+    qc, kc, vc = (_head_rows(name, dev, t, dt) for t, dt in ((q, f32), (k, tdt), (v, tdt)))
+    cfg = plan.config
+    out = torch.empty(heads, nq, dv, dtype=f32, device=dev)
+    lse = torch.empty(heads, plan.padded_nodes, dtype=f32, device=dev)
+    if dv == 0 or plan.total_blocks == 0:
+        return out.zero_(), lse.fill_(_EMPTY_LSE)
+    if walk.tasks.shape[0] * -(-heads // hg) > _INT_MAX or -(-dv // acc) > 65535:
+        raise ValueError(f"{name}: more tasks, heads or columns than the grid takes")
+    if heads * plan.total_blocks * cfg.block_h > 2**63 - 1:
+        raise ValueError(f"{name}: the block maxima outgrow 64-bit indices")
+    bmax = torch.empty(heads, plan.total_blocks, cfg.block_h, dtype=f32, device=dev)
+    ws_ml = ws_acc = None
+    if walk.slots:
+        ws_ml = torch.empty(walk.slots * heads * walk.rows * 2, dtype=f32, device=dev)
+        ws_acc = torch.empty(walk.slots * heads * walk.rows * dv, dtype=f32, device=dev)
+    launch(
+        name, load_fwd_bf16_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        plan.window_of_block.data_ptr(), walk.tasks.data_ptr(), walk.merges.data_ptr(),
+        qc.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), bmax.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), None if ws_acc is None else ws_acc.data_ptr(),
+        walk.tasks.shape[0], walk.merges.shape[0], heads, hg, cfg.words_per_col, cfg.block_h,
+        cfg.block_w, cfg.block_unroll, plan.total_blocks, nq, nk, dk, dv, plan.padded_nodes,
+        acc, int(pdt is not None), float(scale), float(slope), _rows16(kc), _rows16(vc),
+        *_strides(qc, kc, vc),
+    )
+    entry.launches += 1
+    entry.launches_bf16 += 1
+    return out, lse
 
 
 def _dq_kernel(entry, plan, walk, q, k, v, g, lse, d_row, scale, slope, pdt):

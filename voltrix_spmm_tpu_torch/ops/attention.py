@@ -59,6 +59,7 @@ from ..format.plan import SpmmPlan
 from ..utils import kept_beside
 from ._attn_core import (
     _EMPTY_LSE,
+    BF16_BACKWARD,
     IMPLS,
     _act,
     _check_bwd,
@@ -75,6 +76,8 @@ from ._attn_core import (
     _refuse_knobs,
     _tensors,
     _vec4,
+    compute_bf16,
+    op_compute_dtype,
 )
 from .block_spmm import (
     _INT_MAX,
@@ -225,14 +228,18 @@ def _check_single(plan: SpmmPlan, q, k, v, name: str):
 
 def spmm_attention_reference(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                              negative_slope: float = 1.0, return_stats: bool = False,
-                             out_dtype=None, chunk_bytes: int = CHUNK_BYTES):
+                             out_dtype=None, compute_dtype=None,
+                             chunk_bytes: int = CHUNK_BYTES):
     """The plain version of K9: out (num_nodes, dv) in `out_dtype` (default
-    v's) and, with return_stats, lse (padded_nodes,) float32."""
+    v's) and, with return_stats, lse (padded_nodes,) float32;
+    compute_dtype=torch.bfloat16 rounds at the JAX package's points
+    (ops/_attn_core.py:_fwd_plain_bf16)."""
     spmm_attention_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     dk = _check_single(plan, q, k, v, "spmm_attention_reference")[2]
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
     out, lse = _fwd_plain(plan, q[None], k[None], v[None], scale, negative_slope, None,
-                          chunk_bytes)
+                          chunk_bytes, compute)
     out = out[0].to(v.dtype if out_dtype is None else out_dtype)
     return (out, lse[0]) if return_stats else out
 
@@ -250,9 +257,12 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     (num_nodes, dk), k (source_rows, dk), v (source_rows, dv); returns
     (num_nodes, dv) in `out_dtype` (default v's) and, with return_stats,
     lse (padded_nodes,) float32. scale defaults to 1/sqrt(dk);
-    negative_slope 1.0 is the identity. A plan with a value plane raises
-    ValueError; the TPU knobs block_d, precision, a non-float32
-    compute_dtype and interpret raise NotImplementedError."""
+    negative_slope 1.0 is the identity. compute_dtype=torch.bfloat16 rounds
+    q, k, v and p to bf16 before their products, as the JAX package does
+    (K13's bf16 kernel at one head, csrc/attn_fwd_bf16.cu; counted in
+    `launches` and `launches_bf16`); its inputs may not need a gradient
+    (NotImplementedError). A plan with a value plane raises ValueError; the
+    TPU knobs block_d, precision and interpret raise NotImplementedError."""
     from . import library
 
     _refuse_knobs(compute_dtype, precision, block_d, interpret)
@@ -266,12 +276,15 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
             return out, torch.full((plan.padded_nodes,), _EMPTY_LSE, dtype=torch.float32,
                                    device=q.device)
         return out
-    out, lse = library.call_attention(plan, q, k, v, float(scale), float(negative_slope))
+    out, lse = library.call_attention(plan, q, k, v, float(scale), float(negative_slope),
+                                      compute_dtype=op_compute_dtype(compute_dtype))
     out = out.to(out_dtype)
     return (out, lse) if return_stats else out
 
 
 spmm_attention.launches = 0  # plain-int launch count, read by chip_smoke.py
+# of which at compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu)
+spmm_attention.launches_bf16 = 0
 
 
 def _fwd_kernel(plan: SpmmPlan, walk, q, k, v, scale: float, slope: float):
@@ -583,12 +596,16 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
     by hind in a fixed order (`attention_bwd_summed`); impl="reference"
     sums the plain version's planes with `scatter_lanes`. impl: "auto"
     (the kernels on the card, the plain versions on the CPU) or
-    "reference" (the plain versions)."""
+    "reference" (the plain versions). compute_dtype=torch.bfloat16 runs the
+    forward alone: inputs that need a gradient raise NotImplementedError
+    before any launch (the backward's compute_dtype is ROADMAP.md item
+    9)."""
     from . import library
 
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: it takes {', '.join(IMPLS)}")
     _refuse_knobs(compute_dtype, precision)
+    compute = op_compute_dtype(compute_dtype)
     dk = _check_single(plan, q, k, v, "spmm_attention_ad")[2]
     _on_cuda(q, "spmm_attention_ad")
     if plan_t is not None:
@@ -597,7 +614,13 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
             raise ValueError("plan_t must be the transpose of plan (its rows are plan's "
                              "source rows and its columns plan's rows)")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
+    if compute == torch.bfloat16:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(BF16_BACKWARD)
+        if impl == "reference":
+            return spmm_attention_reference(plan, q, k, v, scale=scale,
+                                            negative_slope=negative_slope, compute_dtype=compute)
     if impl == "reference":
         return _PlainAttention.apply(q, k, v, plan, plan_t, scale, float(negative_slope))
     return library.call_attention(plan, q, k, v, scale, float(negative_slope), plan_t=plan_t,
-                             differentiable=True)[0]
+                                  differentiable=True, compute_dtype=compute)[0]

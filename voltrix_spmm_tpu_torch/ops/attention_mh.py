@@ -63,6 +63,7 @@ import torch
 from ..format.plan import SpmmPlan
 from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's kernels)
     _EMPTY_LSE,
+    BF16_BACKWARD,
     IMPLS,
     _check_bwd,
     _check_plan,
@@ -76,9 +77,11 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     _refuse_knobs,
     _rows16,
     _strides,
+    compute_bf16,
     group_and_chunk,
     load_dkv_library,
     load_dq_library,
+    op_compute_dtype,
 )
 from .attention import load_mh_fwd_library
 from .block_spmm import _INT_MAX, launch
@@ -151,16 +154,20 @@ def _check_subtile(subtile: bool, *plans: SpmmPlan) -> None:
 
 def spmm_attention_mh_reference(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                                 negative_slope: float = 1.0, plane_dtype=None,
-                                return_stats: bool = False, out_dtype=None,
+                                return_stats: bool = False, out_dtype=None, compute_dtype=None,
                                 chunk_bytes: int = CHUNK_BYTES):
     """The plain version of K13: out (H, num_nodes, dv) and, with
     return_stats, lse (H, padded_nodes); scores by gather over the plan's
     edges, row maxima by `scatter_reduce("amax")`, denominators and the
-    aggregation by `index_add_`, in chunks of about `chunk_bytes`."""
+    aggregation by `index_add_`, in chunks of about `chunk_bytes`;
+    compute_dtype=torch.bfloat16 rounds at the JAX package's points
+    (ops/_attn_core.py:_fwd_plain_bf16)."""
     spmm_attention_mh_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     dk = _check_qkv(plan, q, k, v, "spmm_attention_mh_reference")[3]
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
-    out, lse = _fwd_plain(plan, q, k, v, scale, negative_slope, _plane(plane_dtype), chunk_bytes)
+    out, lse = _fwd_plain(plan, q, k, v, scale, negative_slope, _plane(plane_dtype), chunk_bytes,
+                          compute)
     out = out.to(v.dtype if out_dtype is None else out_dtype)
     return (out, lse) if return_stats else out
 
@@ -210,9 +217,12 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     source_rows, dk), v (H, source_rows, dv); returns (H, num_nodes, dv) in
     `out_dtype` (default v's) and, with return_stats, lse (H, padded_nodes)
     float32. scale defaults to 1/sqrt(dk); negative_slope 1.0 is the
-    identity. plane_dtype=torch.bfloat16 rounds k and v to bf16. A plan
-    with a value plane is refused (ValueError), as the single-head op
-    refuses it."""
+    identity. plane_dtype=torch.bfloat16 rounds k and v to bf16.
+    compute_dtype=torch.bfloat16 rounds q, k, v and p to bf16 before their
+    products, as the JAX package does (csrc/attn_fwd_bf16.cu; counted in
+    `launches` and `launches_bf16`); its inputs may not need a gradient
+    (NotImplementedError). A plan with a value plane is refused
+    (ValueError), as the single-head op refuses it."""
     from . import library
 
     _refuse_knobs(compute_dtype, precision)
@@ -228,12 +238,15 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
                                    dtype=torch.float32, device=q.device)
         return out
     out, lse = library.call_attention_mh(plan, q, k, v, float(scale), float(negative_slope),
-                                    _plane(plane_dtype))
+                                         _plane(plane_dtype),
+                                         compute_dtype=op_compute_dtype(compute_dtype))
     out = out.to(out_dtype)
     return (out, lse) if return_stats else out
 
 
 spmm_attention_mh.launches = 0  # plain-int launch count, read by chip_smoke.py
+# of which at compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu)
+spmm_attention_mh.launches_bf16 = 0
 
 
 def attention_mh_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
@@ -309,7 +322,10 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     never a per-edge tensor); backward K14 over `plan` for dq and K15 over
     `plan_t` (csr_preprocess of A^T; the same object for a symmetric graph)
     for dk and dv. impl: "auto" (the kernels on the card, the plain
-    versions on the CPU) or "reference" (the plain versions)."""
+    versions on the CPU) or "reference" (the plain versions).
+    compute_dtype=torch.bfloat16 runs the forward alone: inputs that need a
+    gradient raise NotImplementedError before any launch (the backward's
+    compute_dtype is ROADMAP.md item 9)."""
     from . import library
 
     if plan_t is None:
@@ -320,6 +336,7 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: it takes {', '.join(IMPLS)}")
     _refuse_knobs(compute_dtype, precision)
+    compute = op_compute_dtype(compute_dtype)
     dk = _check_qkv(plan, q, k, v, "spmm_attention_mh_ad")[3]
     _check_plan(plan_t, "spmm_attention_mh_ad")
     _check_subtile(subtile, plan, plan_t)
@@ -327,8 +344,15 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     if (plan_t.num_nodes, plan_t.source_rows) != (plan.source_rows, plan.num_nodes):
         raise ValueError("plan_t must be the transpose of plan")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
+    if compute == torch.bfloat16:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(BF16_BACKWARD)
+        if impl == "reference":
+            return spmm_attention_mh_reference(plan, q, k, v, scale=scale,
+                                               negative_slope=negative_slope,
+                                               plane_dtype=plane_dtype, compute_dtype=compute)
     if impl == "reference":
         return _PlainAttentionMH.apply(q, k, v, plan, plan_t, scale, float(negative_slope),
                                        _plane(plane_dtype))
     return library.call_attention_mh(plan, q, k, v, scale, float(negative_slope),
-                                     _plane(plane_dtype), plan_t=plan_t)[0]
+                                     _plane(plane_dtype), plan_t=plan_t, compute_dtype=compute)[0]

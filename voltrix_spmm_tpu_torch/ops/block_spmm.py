@@ -26,7 +26,7 @@ The wrapper calls the registered op ``torch.ops.voltrix.spmm_block``
 `ops.reference.spmm_reference`, on a CPU tensor, and on a CUDA tensor
 launches the kernel or raises: there is no fallback.
 
-K1, K2, K3 and K6 read float32 or bfloat16 feature rows (`FEAT_DTYPES`):
+K1, K2, K3, K4 and K6 read float32 or bfloat16 feature rows (`FEAT_DTYPES`):
 a bf16 row is read as 2-byte values and widened exactly to float32 in the
 kernel, the sums are float32 in the kernel's order, and the result is
 cast once to `out_dtype` (default: the features' dtype), the JAX
@@ -51,8 +51,8 @@ from .reference import check_binary
 _COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
-# the feature types the CUDA kernels K1, K2, K3 and K6 read (K4, K5, K7
-# and K8 read float32 alone)
+# the feature types the CUDA kernels K1, K2, K3, K4 and K6 read (K8 the
+# codes of either; K5 and K7 read float32 alone)
 FEAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of

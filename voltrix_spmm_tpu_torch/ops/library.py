@@ -50,13 +50,18 @@ inside the traced region (serve.py:export_servable does so).
 On a CPU tensor an op runs the kernel's plain version; on a CUDA tensor
 it launches the kernel or raises, and the kernel's `launches` count goes
 up there, in the op's body, and nowhere else (not in the fake, nor while
-tracing). The ops return float32; the wrappers cast. K1-K3 and K6 read
-float32 or bfloat16 features (the bf16 instantiations; the plain versions
-widen the rows). K1-K3's gradient runs the float32 kernel on the
-cotangent as it arrives and casts once to the features' dtype: behind a
-bf16 output the cotangent's values are bf16 already, so this gives the
-bits of the JAX package's `spmm_ad` (a bf16 SpMM of its bf16 cotangent),
-and behind a float32 output it is the chain rule of the forward.
+tracing). The ops return float32; the wrappers cast. K1-K4 and K6 read
+float32 or bfloat16 features, K4 also a bf16 value plane (the bf16
+instantiations; the plain versions widen them), and K8 the codes of
+either. K1-K3's gradient runs the float32 kernel on the cotangent as it
+arrives and casts once to the features' dtype: behind a bf16 output the
+cotangent's values are bf16 already, so this gives the bits of the JAX
+package's `spmm_ad` (a bf16 SpMM of its bf16 cotangent), and behind a
+float32 output it is the chain rule of the forward. K4's casts the
+cotangent to the features' dtype first, as JAX's rule does. K9's and
+K13's ops take a compute_dtype (float32, or bfloat16: csrc/attn_fwd_bf16.cu);
+under bfloat16 they have no gradient and raise where autograd would
+record one.
 """
 
 from __future__ import annotations
@@ -72,8 +77,9 @@ from ..format.plan import PlanConfig, SpmmPlan
 from ..utils import kept_beside
 from . import (attention, attention_mh, block_spmm, ell, fused_spmm, quant, subtile_spmm,
                weighted)
-from ._attn_core import _dkv_kernel, _dq_kernel, check_plan_arrays
-from .block_spmm import Walk, _check_plan, launch_walk
+from ._attn_core import (BF16_BACKWARD, _dkv_kernel, _dq_kernel, check_plan_arrays,
+                         compute_bf16, fwd_bf16_kernel, load_fwd_bf16_library)
+from .block_spmm import Walk, _check_plan, acc_width, launch_walk
 from .fused_spmm import launch_fused, spmm_fused_reference
 from .reference import spmm_reference
 from .subtile_spmm import spmm_subtile_reference, subtile_walk
@@ -423,13 +429,18 @@ def _weighted_backward(ctx, grad):
     if ctx.needs_input_grad[0]:
         if values_t is None or _absent(geom_t):
             raise ValueError(weighted.NEEDS_PLANE_T)
-        dfeat = spmm_weighted_op(grad, values_t, plan_t, geom_t, *no_plan(plan_t, geom_t), None,
+        # K4 over the cotangent in the features' dtype, as JAX's rule casts
+        # it (weighted.py:334-336): bf16 rows for bf16 features
+        dfeat = spmm_weighted_op(grad.to(ctx.dtype), values_t, plan_t, geom_t,
+                                 *no_plan(plan_t, geom_t), None,
                                  *no_plan(plan_t, geom_t)).to(ctx.dtype)
     if ctx.needs_input_grad[1]:
         if _absent(geom_dv):
             raise RuntimeError(f"{NAMESPACE}::spmm_weighted was called without K5's operands: "
                                "differentiate through spmm_weighted_ad")
-        dvalues = spmm_dvalues_op(feat, grad, plan_dv, geom_dv)
+        # K5 on float32 operands, as JAX widens both (weighted.py:221, :226);
+        # autograd casts the float32 plane to the plane's dtype
+        dvalues = spmm_dvalues_op(feat.float(), grad, plan_dv, geom_dv)
     return (dfeat, dvalues, [None] * n, None, [None] * n_dv, None, None, [None] * len(plan_t),
             None)
 
@@ -469,8 +480,9 @@ def call_weighted(plan: SpmmPlan, feat: Tensor, plan_t: SpmmPlan | None = None) 
     if plan_t is not None and _needs(feat):
         if plan_t.values is not None and dev.type == "cuda":
             cfg = plan_t.config
-            plane = (torch.float32, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
-            weighted._check_kernel_args(plan_t, "spmm_weighted_ad", {"values": plane}, feat)
+            plane = (weighted.FEAT_DTYPES, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
+            weighted._check_kernel_args(plan_t, "spmm_weighted_ad", {"values": plane}, feat,
+                                        dtypes=weighted.FEAT_DTYPES)
         values_t, (ops_t, geom_t) = plan_t.values, operands(plan_t, "spmm_weighted", dev)
     return spmm_weighted_op(feat, plan.values, ops, geom, ops_dv, geom_dv, values_t, ops_t, geom_t)
 
@@ -484,18 +496,19 @@ def call_dvalues(plan: SpmmPlan, feat: Tensor, g: Tensor) -> Tensor:
 
 # --- K8: the int8 SpMM -----------------------------------------------------------------
 
-def _int8_body(rows, scale, plan, geom, d):
+def _int8_body(rows, scale, plan, geom, d, bf16_rows=False):
     p = _plan_of(plan, geom)
     if rows.device.type == "cpu":
         return quant.int8_rows_reference(p, rows, scale, d)
-    return quant.k8_kernel(p, _walk_of(plan, geom), rows, scale, d)
+    return quant.k8_kernel(p, _walk_of(plan, geom), rows, scale, d, bf16_rows)
 
 
-def _int8_fake(rows, scale, plan, geom, d):
+def _int8_fake(rows, scale, plan, geom, d, bf16_rows=False):
     return _f32(geom[_G["num_nodes"]], d, like=scale)
 
 
-def _int8_flops(rows_shape, scale_shape, plan, geom, d, out_shape=None, **kwargs) -> int:
+def _int8_flops(rows_shape, scale_shape, plan, geom, d, bf16_rows=False, out_shape=None,
+                **kwargs) -> int:
     """2 nnz d: a multiply and an add for each edge and column (the
     dequantization's 2 a row value aside)."""
     return 2 * geom[_G["num_edges"]] * d
@@ -507,15 +520,18 @@ def _int8_backward(ctx, grad):
 
 
 spmm_int8_op = _register(
-    "spmm_int8", "(Tensor rows, Tensor scale, Tensor[] plan, int[] geom, int d) -> Tensor",
+    "spmm_int8", "(Tensor rows, Tensor scale, Tensor[] plan, int[] geom, int d, "
+    "bool bf16_rows=False) -> Tensor",
     _int8_body, _int8_fake, _int8_flops, _int8_backward, lambda ctx, inputs, output: None)
 
 
-def call_int8(plan: SpmmPlan, rows: Tensor, scale: Tensor, d: int) -> Tensor:
-    """K8's op on int8 rows and their scales from `quant.quantize_padded`:
-    float32 (num_nodes, d)."""
+def call_int8(plan: SpmmPlan, rows: Tensor, scale: Tensor, d: int,
+              bf16_rows: bool = False) -> Tensor:
+    """K8's op on int8 rows and their scales from `quant.quantize_padded`
+    (`bf16_rows`: quantized from bf16 rows, which K8 counts apart): float32
+    (num_nodes, d)."""
     ops, geom = operands(plan, "spmm_int8", rows.device)
-    return spmm_int8_op(rows, scale, ops, geom, d)
+    return spmm_int8_op(rows, scale, ops, geom, d, bf16_rows)
 
 
 # --- K9-K15: fused attention ---------------------------------------------------------
@@ -550,14 +566,22 @@ def _sources_of(tensors: list[Tensor]):
                                  offsets=offsets)
 
 
-def _attention_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope):
+def _attention_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope,
+                    compute_dtype=torch.float32):
     p = _plan_of(plan, geom)
+    bf16 = compute_bf16(compute_dtype)
     if q.device.type == "cpu":
         out, lse = attention.spmm_attention_reference(p, q, k, v, scale=scale,
                                                       negative_slope=slope, return_stats=True,
-                                                      out_dtype=torch.float32)
+                                                      out_dtype=torch.float32,
+                                                      compute_dtype=compute_dtype)
         return out.contiguous(), lse.contiguous()
-    return attention._fwd_kernel(p, _walk_of(plan, geom), q, k, v, scale, slope)
+    walk = _walk_of(plan, geom)
+    if bf16:  # K13's bf16 kernel at one head, on K9's work list and count
+        out, lse = fwd_bf16_kernel(attention.spmm_attention, p, walk, q[None], k[None], v[None],
+                                   scale, slope, None, 1, acc_width(v.shape[1]))
+        return out[0], lse[0]
+    return attention._fwd_kernel(p, walk, q, k, v, scale, slope)
 
 
 def _attention_fake(q, k, v, plan, geom, *args):
@@ -566,7 +590,9 @@ def _attention_fake(q, k, v, plan, geom, *args):
 
 
 def _attention_setup(ctx, inputs, output):
-    q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope = inputs
+    q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope, *flag = inputs
+    if flag and compute_bf16(flag[0]):
+        raise NotImplementedError(BF16_BACKWARD)
     out, lse = output
     ctx.mark_non_differentiable(lse)
     ctx.geoms, ctx.scale, ctx.slope = (geom_dq, geom_dkv), scale, slope
@@ -599,13 +625,14 @@ def _attention_backward(ctx, g, _g_lse):
                                                      ctx.slope, None))
     grads = [t if t is None else t.to(x.dtype) for t, x in ((dq, q), (dk, k), (dv, v))]
     return (*grads, [None] * n, None, [None] * len(plan_dq), None, [None] * len(plan_dkv), None,
-            None, None)
+            None, None, None)
 
 
 spmm_attention_op = _register(
     "spmm_attention",
     "(Tensor q, Tensor k, Tensor v, Tensor[] plan, int[] geom, Tensor[] plan_dq, int[] geom_dq, "
-    "Tensor[] plan_dkv, int[] geom_dkv, float scale, float slope) -> (Tensor, Tensor)",
+    "Tensor[] plan_dkv, int[] geom_dkv, float scale, float slope, "
+    "ScalarType compute_dtype=float) -> (Tensor, Tensor)",
     _attention_body, _attention_fake, _attn_flops, _attention_backward, _attention_setup)
 
 
@@ -692,14 +719,19 @@ attention_mh_dkv_op = _define_dkv("attention_mh_dkv")
 
 
 def _attention_mh_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope,
-                       plane_dtype):
+                       plane_dtype, compute_dtype=torch.float32):
     p = _plan_of(plan, geom)
+    bf16 = compute_bf16(compute_dtype)
     if q.device.type == "cpu":
         out, lse = attention_mh.spmm_attention_mh_reference(
             p, q, k, v, scale=scale, negative_slope=slope, plane_dtype=plane_dtype,
-            return_stats=True, out_dtype=torch.float32)
+            return_stats=True, out_dtype=torch.float32, compute_dtype=compute_dtype)
         return out.contiguous(), lse.contiguous()
-    return attention_mh._fwd_kernel(p, _walk_of(plan, geom), q, k, v, scale, slope, plane_dtype)
+    walk = _walk_of(plan, geom)
+    if bf16:
+        return fwd_bf16_kernel(attention_mh.spmm_attention_mh, p, walk, q, k, v, scale, slope,
+                               plane_dtype, *attention_mh.mh_geometry(*q.shape[::2]))
+    return attention_mh._fwd_kernel(p, walk, q, k, v, scale, slope, plane_dtype)
 
 
 def _attention_mh_fake(q, k, v, plan, geom, *args):
@@ -709,7 +741,9 @@ def _attention_mh_fake(q, k, v, plan, geom, *args):
 
 
 def _attention_mh_setup(ctx, inputs, output):
-    q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope, pdt = inputs
+    q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope, pdt, *flag = inputs
+    if flag and compute_bf16(flag[0]):
+        raise NotImplementedError(BF16_BACKWARD)
     out, lse = output
     ctx.mark_non_differentiable(lse)
     ctx.geoms, ctx.scale, ctx.slope, ctx.pdt = (geom_dq, geom_dkv), scale, slope, pdt
@@ -741,24 +775,29 @@ def _attention_mh_backward(ctx, g, _g_lse):
         dk, dv = attention_mh_dkv_op(q, kp, vp, g, lse, d_row, plan_dkv, geom_dkv, *args)
         dk, dv = dk.to(k.dtype), dv.to(v.dtype)
     return (dq, dk, dv, [None] * n, None, [None] * len(plan_dq), None, [None] * len(plan_dkv),
-            None, None, None, None)
+            None, None, None, None, None)
 
 
 spmm_attention_mh_op = _register(
     "spmm_attention_mh",
     "(Tensor q, Tensor k, Tensor v, Tensor[] plan, int[] geom, Tensor[] plan_dq, int[] geom_dq, "
-    "Tensor[] plan_dkv, int[] geom_dkv, float scale, float slope, ScalarType? plane_dtype) "
-    "-> (Tensor, Tensor)",
+    "Tensor[] plan_dkv, int[] geom_dkv, float scale, float slope, ScalarType? plane_dtype, "
+    "ScalarType compute_dtype=float) -> (Tensor, Tensor)",
     _attention_mh_body, _attention_mh_fake, _attn_flops, _attention_mh_backward,
     _attention_mh_setup)
 
 
 def call_attention(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: float, slope: float,
-              plan_t: SpmmPlan | None = None, differentiable: bool = False):
+              plan_t: SpmmPlan | None = None, differentiable: bool = False,
+              compute_dtype=torch.float32):
     """K9's op (arguments checked by the caller): (out (num_nodes, dv), lse
     (padded_nodes,)) float32. `differentiable` and autograd taking the
-    gradient: K11's and K12's operands with plan_t, K10's without."""
+    gradient: K11's and K12's operands with plan_t, K10's without. A
+    bfloat16 compute_dtype whose inputs need a gradient raises before the
+    launch (BF16_BACKWARD)."""
     dev = q.device
+    if compute_bf16(compute_dtype) and _needs(q, k, v):
+        raise NotImplementedError(BF16_BACKWARD)
     ops, geom = operands(plan, "spmm_attention", dev)
     ops_dq, geom_dq = ops_dkv, geom_dkv = no_plan(ops, geom)
     if differentiable and _needs(q, k, v):
@@ -767,22 +806,26 @@ def call_attention(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: float
         else:
             ops_dq, geom_dq = operands(plan, "attention_dq", dev)
             ops_dkv, geom_dkv = operands(plan_t, "attention_dkv", dev)
-    return spmm_attention_op(q, k, v, ops, geom, ops_dq, geom_dq, ops_dkv, geom_dkv, scale, slope)
+    return spmm_attention_op(q, k, v, ops, geom, ops_dq, geom_dq, ops_dkv, geom_dkv, scale, slope,
+                             compute_dtype)
 
 
 def call_attention_mh(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: float, slope: float,
-                 plane_dtype, plan_t: SpmmPlan | None = None):
+                 plane_dtype, plan_t: SpmmPlan | None = None, compute_dtype=torch.float32):
     """K13's op (arguments checked by the caller): (out (H, num_nodes,
     dv), lse (H, padded_nodes)) float32; with plan_t, K14's and K15's
-    operands where autograd takes the gradient."""
+    operands where autograd takes the gradient. A bfloat16 compute_dtype
+    whose inputs need a gradient raises before the launch (BF16_BACKWARD)."""
     dev = q.device
+    if compute_bf16(compute_dtype) and _needs(q, k, v):
+        raise NotImplementedError(BF16_BACKWARD)
     ops, geom = operands(plan, "spmm_attention_mh", dev)
     ops_dq, geom_dq = ops_dkv, geom_dkv = no_plan(ops, geom)
     if plan_t is not None and _needs(q, k, v):
         ops_dq, geom_dq = operands(plan, "attention_mh_dq", dev)
         ops_dkv, geom_dkv = operands(plan_t, "attention_mh_dkv", dev)
     return spmm_attention_mh_op(q, k, v, ops, geom, ops_dq, geom_dq, ops_dkv, geom_dkv, scale,
-                                slope, plane_dtype)
+                                slope, plane_dtype, compute_dtype)
 
 
 def call_attention_dq(name: str, plan: SpmmPlan, q, k, v, g, lse, d_row, scale: float,
@@ -965,7 +1008,22 @@ def loaders_of(fn) -> list:
     loaded servable, a GraphModule): those it can launch. A plain callable
     gets none: the kernels its first call launches build there."""
     graph = getattr(fn, "graph", None)
-    names = set() if graph is None else {
-        str(node.target).split(".")[1] for node in graph.nodes
-        if node.op == "call_function" and str(node.target).startswith(NAMESPACE + ".")}
-    return list(dict.fromkeys(f for name in sorted(names) for f in LOADERS[name]))
+    nodes = [] if graph is None else [
+        node for node in graph.nodes
+        if node.op == "call_function" and str(node.target).startswith(NAMESPACE + ".")]
+    names = {str(node.target).split(".")[1] for node in nodes}
+    loaders = [f for name in sorted(names) for f in LOADERS[name]]
+    if any(_compute_dtype_of(node) == torch.bfloat16 for node in nodes):
+        loaders.append(load_fwd_bf16_library)
+    return list(dict.fromkeys(loaders))
+
+
+def _compute_dtype_of(node):
+    """The compute_dtype of a K9 or K13 node of a program (float32 for
+    the other ops and where the call leaves the default)."""
+    place = {"spmm_attention": 11, "spmm_attention_mh": 12}.get(str(node.target).split(".")[1])
+    if place is None:
+        return torch.float32
+    if "compute_dtype" in node.kwargs:
+        return node.kwargs["compute_dtype"]
+    return node.args[place] if len(node.args) > place else torch.float32

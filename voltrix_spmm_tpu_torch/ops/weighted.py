@@ -3,12 +3,18 @@ gradient (counterpart of voltrix_spmm_tpu/ops/weighted.py).
 
 A weighted plan (`csr_preprocess(..., values=...)`) carries a dense
 float32 (total_blocks, block_h, block_w) value tile per block, aligned
-with the bitmask.
+with the bitmask; a plane built from per-edge tensors (models/gat.py,
+models/dropedge.py) may be bfloat16.
 
 - `spmm_weighted(plan, feat)` computes out = (A o V) @ feat through K4
   (csrc/spmm_weighted.cu, replacing weighted.py:_spmm_weighted_kernel). As
   in JAX, the whole value tile multiplies the gathered rows: the bitmask
-  is not read, and a value placed off it counts. K4 walks the work list
+  is not read, and a value placed off it counts. K4 reads float32 or
+  bfloat16 rows and a float32 or bfloat16 plane, widens each bf16 value
+  exactly, sums in float32 and casts once to `out_dtype` (default the
+  features' dtype), the JAX package's semantics (weighted.py:46, :75); its
+  bf16 instantiations give the float32 kernel's bits on the widened
+  inputs. K4 walks the work list
   of `block_spmm.plan_walk(plan, "spmm_weighted")` (each 128-row group of
   a window cut into pieces of at most PIECE_BLOCKS["spmm_weighted"]
   blocks, cut groups merged in piece order), so its sums run in a fixed
@@ -46,7 +52,9 @@ from .bitmask import expand_bitmask
 from .block_spmm import (
     _GROUP_WORDS,
     _INT_MAX,
+    FEAT_DTYPES,
     acc_width,
+    bf16_rows,
     cast_out,
     launch,
     walk_workspace,
@@ -54,6 +62,8 @@ from .block_spmm import (
 from .reference import CHUNK_BYTES, block_sum, clipped_gather
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a thread block may use on sm_90
+# K4's feature sources (csrc/spmm_walk.cuh kF32x4, kF32x1, kBF16)
+_SRC_F32X4, _SRC_F32X1, _SRC_BF16 = 0, 1, 3
 
 
 @functools.cache
@@ -61,7 +71,7 @@ def load_library():
     """Build (or reuse) K4's library; return (launch, error_string)."""
     rt = build("spmm_weighted", ["spmm_weighted.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = rt.function("voltrix_spmm_weighted_f32", [p] * 7 + [i] * 10 + [p])
+    fn = rt.function("voltrix_spmm_weighted", [p] * 7 + [i] * 12 + [p])
     return fn, rt.function("voltrix_cuda_error_string", [i], ctypes.c_char_p)
 
 
@@ -86,9 +96,10 @@ def _check_rows(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
 def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors,
                        dtypes=(torch.float32,)) -> None:
     """What K4-K7 take: contiguous tensors of one of `dtypes` (float32;
-    K6's features also bfloat16) on the plan's device, contiguous plan
-    arrays of the right type and shape, and row, column and block counts
-    that fit 32-bit ints."""
+    K4's and K6's features also bfloat16) on the plan's device, contiguous
+    plan arrays of the right type (one dtype, or a tuple of those it may
+    have) and shape, and row, column and block counts that fit 32-bit
+    ints."""
     device = tensors[0].device
     for t in tensors:
         if t.dtype not in dtypes or not t.is_contiguous():
@@ -105,9 +116,11 @@ def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors,
                 f"plan.{field} is on {t.device}, feat on {device}: move the plan "
                 "once with SpmmPlan.to(device) or EllPlan.to(device)"
             )
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.dtype not in allowed or tuple(t.shape) != shape or not t.is_contiguous():
+            names = " or ".join(str(d) for d in allowed)
             raise ValueError(
-                f"plan.{field} must be contiguous {dtype} {shape}, got "
+                f"plan.{field} must be contiguous {names} {shape}, got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
     if max(plan.num_nodes, plan.source_rows, plan.total_blocks, tensors[0].shape[1]) > _INT_MAX:
@@ -167,8 +180,8 @@ def k4_tiling(block_h: int, block_w: int, d: int) -> tuple[int, int, int]:
 
 def _check_weighted(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
     """What K4 takes: a plan with a value plane, the features' rows, and on
-    the card contiguous float32 tensors and int32 plan arrays on the
-    features' device."""
+    the card contiguous float32 or bfloat16 features and plane and int32
+    plan arrays on the features' device."""
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
     if plan.values is None:
@@ -178,16 +191,16 @@ def _check_weighted(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
         cfg = plan.config
         tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
         _check_kernel_args(plan, name, {
-            "values": (torch.float32, (tb, H, K)),
+            "values": (FEAT_DTYPES, (tb, H, K)),
             "hind": (torch.int32, (tb, K)),
             "block_ptr": (torch.int32, (plan.num_windows + 1,)),
-        }, feat)
+        }, feat, dtypes=FEAT_DTYPES)
 
 
 def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 in,
-    float32 accumulation in a fixed order, cast to `out_dtype`, default
-    feat's dtype, at the end), as the registered op
+    """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 or
+    bfloat16 rows and plane in, float32 accumulation in a fixed order, cast
+    to `out_dtype`, default feat's dtype, at the end), as the registered op
     ``torch.ops.voltrix.spmm_weighted`` (ops/library.py). Every row of out
     is written (rows of windows without blocks are zero)."""
     from . import library
@@ -199,7 +212,9 @@ def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.T
 
 def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     """K4 on the card over `walk`, the op's body (ops/library.py): float32
-    (num_nodes, d). The value plane is read in 16-byte words."""
+    (num_nodes, d). The value plane is read in 16-byte words; bf16 rows go
+    to the kernel as `bf16_rows` gives them (padded once where d % 4 != 0
+    or they are not 8-byte aligned), float32 rows as they are."""
     if plan.values.data_ptr() % 16:
         raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
                          "it must start 16-byte aligned")
@@ -210,19 +225,29 @@ def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
         ws = walk_workspace("spmm_weighted", walk, d, feat.device)
+        if feat.dtype == torch.bfloat16:
+            rows, ld = bf16_rows(feat)
+            src = _SRC_BF16
+        else:
+            rows, ld = feat, d
+            src = _SRC_F32X4 if d % 4 == 0 and feat.data_ptr() % 16 == 0 else _SRC_F32X1
+        bf16_plane = plan.values.dtype == torch.bfloat16
         launch(
             "spmm_weighted", load_library(), feat,
             plan.values.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
-            walk.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            walk.merges.data_ptr(), rows.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
-            H, K, plan.num_nodes, plan.source_rows, d, dc, tr,
-            int(d % 4 == 0 and feat.data_ptr() % 16 == 0),
+            H, K, plan.num_nodes, plan.source_rows, d, ld, dc, tr, src, int(bf16_plane),
         )
         spmm_weighted.launches += 1
+        if src == _SRC_BF16 or bf16_plane:
+            spmm_weighted.launches_bf16 += 1
     return out
 
 
 spmm_weighted.launches = 0  # plain-int launch count, read by chip_smoke.py
+# of which on bf16 rows or a bf16 plane (a bf16 instantiation)
+spmm_weighted.launches_bf16 = 0
 
 
 def _check_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor, name: str) -> None:
@@ -340,7 +365,7 @@ class _PlainWeighted(torch.autograd.Function):
         plan = dataclasses.replace(plan, values=values)
         # the backward reads the plan's geometry only: do not hold the plane
         ctx.plan = dataclasses.replace(plan, values=None)
-        ctx.plan_t = plan_t
+        ctx.plan_t, ctx.feat_dtype = plan_t, feat.dtype
         if ctx.needs_input_grad[1]:
             ctx.save_for_backward(feat)
         return spmm_weighted_reference(plan, feat)
@@ -352,7 +377,8 @@ class _PlainWeighted(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             if ctx.plan_t.values is None:
                 raise ValueError(NEEDS_PLANE_T)
-            dfeat = spmm_weighted_reference(ctx.plan_t, g)
+            # over the cotangent in the features' dtype (weighted.py:334-336)
+            dfeat = spmm_weighted_reference(ctx.plan_t, g.to(ctx.feat_dtype))
         if ctx.needs_input_grad[1]:
             (feat,) = ctx.saved_tensors
             dvalues = spmm_weighted_dvalues_reference(ctx.plan, feat, g)
@@ -372,7 +398,8 @@ def spmm_weighted_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *,
     over plan, delivered to `plan.values` (a plane built from per-edge
     tensors through `format.edge_slot_map` passes it on to them): the
     gradient of the registered op ``torch.ops.voltrix.spmm_weighted``
-    (ops/library.py). plan_t's values get no gradient, as in JAX. A side
+    (ops/library.py). The output is in feat's dtype, as JAX's. plan_t's
+    values get no gradient, as in JAX. A side
     whose input needs no gradient is not launched. impl: "auto" (the
     kernels) or "reference" (the plain versions)."""
     from . import library
@@ -384,4 +411,4 @@ def spmm_weighted_ad(plan: SpmmPlan, plan_t: SpmmPlan, feat: torch.Tensor, *,
     if impl == "reference":
         return _PlainWeighted.apply(feat, plan.values, plan, plan_t)
     _check_weighted(plan, feat, "spmm_weighted_ad")
-    return library.call_weighted(plan, feat, plan_t)
+    return cast_out(library.call_weighted(plan, feat, plan_t), feat.dtype)

@@ -46,7 +46,8 @@ from ..utils import CPU_bench, env_flag, gpu_bench
 
 IMPLS = ("pregather", "fused", "hybrid", "int8", "ell", "weighted")
 # the dtypes a Variant's feat_dtype and compute_dtype may name: the
-# kernels' bf16 sources (K1, K2, K3, K6) and their own float32
+# kernels' bf16 sources (K1, K2, K3, K4, K6; K8 quantizes bf16 rows) and
+# their own float32
 FEAT_DTYPES = ("float32", "bfloat16")
 # f32 edge-feature volume (nnz x d x 4) past which the default space is
 # budgeted against device memory and candidates race in probes of their own
@@ -62,10 +63,12 @@ class Variant:
     "ell" plans window chunk by window chunk. feat_dtype="bfloat16" casts
     the caller's features to bf16 before the SpMM, and
     compute_dtype="bfloat16" has the SpMM round them (K6: and its edge
-    values) itself; both run the kernels' bf16 sources (K1, K2, K3, K6,
-    so not "int8" or "weighted"), and the result returns in the caller's
-    dtype. The JAX package's TPU knobs raise NotImplementedError with
-    their reason."""
+    values) itself; both run the kernels' bf16 sources (K1, K2, K3, K6;
+    "weighted" and "int8" take feat_dtype alone: K4 reads bf16 rows and K8
+    quantizes them in bf16, and the JAX package's K4 and K8 take no
+    compute_dtype), and the result returns in the caller's dtype, the
+    float32 sums cast to it once. The JAX package's TPU knobs raise
+    NotImplementedError with their reason."""
 
     impl: str
     block_h: int = 128
@@ -93,10 +96,11 @@ class Variant:
                 raise NotImplementedError(
                     f"Variant {name}={value!r}: the SpMM kernels read float32 or bfloat16 rows; "
                     "float16 features are ROADMAP.md item 9")
-        if self.bf16 and self.impl in ("int8", "weighted"):
+        if self.compute_dtype == "bfloat16" and self.impl in ("int8", "weighted"):
             raise NotImplementedError(
-                f"Variant {self.impl!r} with bf16 features: K8 and K4 read float32 rows; the "
-                "bf16 sources are K1, K2, K3 and K6's")
+                f"Variant {self.impl!r} with compute_dtype='bfloat16': the JAX package's K4 and "
+                "K8 take no compute_dtype (its variant would race float32 rows under a bf16 "
+                "key); feat_dtype='bfloat16' runs them on bf16 rows")
         refused = {
             "block_d": (self.block_d is not None,
                         "a TPU tiling knob; the H100 kernels pick their own tiles"),
@@ -491,7 +495,11 @@ def _run_variant(variant: Variant, plan, feat: torch.Tensor, perm=None, inv_perm
     elif impl in ("fused", "ell"):
         out = spmm(plan, feat, impl=impl, **kw)
     elif impl in ("int8", "weighted"):
-        out = spmm(plan, feat, impl=impl)
+        # no compute_dtype (the Variant refuses it), but the caller's dtype:
+        # the JAX package's _run_variant gives K4 and K8 no out_dtype, so its
+        # bf16 variants round their float32 sums through bf16 before the
+        # cast back (ROADMAP.md §3, Faults of the JAX package)
+        out = spmm(plan, feat, impl=impl, out_dtype=out_dtype)
     else:  # K1 or K2, on the whole plan or its window chunks
         out = spmm(plan, feat, impl="pregather", subtile=variant.subtile, **kw)
     if inv_perm is not None:
