@@ -18,7 +18,9 @@ non-zero on failure (there is no CPU fallback):
    (csrc/attn_bwd.cu), K8 (csrc/spmm_int8.cu) and K9 and K13 at
    compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu), one nvcc each, all
    started together, into build/kernels/. K11 and K12 are the kernels of
-   K14 and K15 launched with one head and float32 planes. The SASS of
+   K14 and K15 launched with one head and float32 planes; the compute
+   variants of K10, K14 and K15 (compute_dtype=bfloat16 in the backward)
+   are template instances in the same sources. The SASS of
    every .cu source under csrc/ holds no atomic instruction
    (tools/sass_atomics.py).
 3. Each kernel against its plain version on the card, on several plan
@@ -182,7 +184,8 @@ non-zero on failure (there is no CPU fallback):
       sage_inference over A's graph on PlanConfig(32, 128), K1 2 a request.
    N. The deployment path on A's graph and widths (128 -> 256 -> 40): A's
       plan by the native preprocess and by the numpy path, timed, bit for
-      bit (and C's, beside path C); A's plan saved dense and packed,
+      bit (and C's by the native preprocess, timed, beside path C); A's
+      plan saved dense and packed,
       loaded back bit for bit and validated (validate_plan, and the CLI in
       a process of its own); the CLI's info, preprocess (--backend native
       --packed, A's plan bit for bit), validate and spmm (on the card,
@@ -234,13 +237,13 @@ non-zero on failure (there is no CPU fallback):
       (printed, never raced), its output against a float64 host product,
       its kernel's counter moved; a second call a memory hit, a new
       SpmmTuner on the same directory a disk hit that launches nothing,
-      bit for bit; a 3-variant space with isolate=True (a probe process
+      bit for bit; a 1-variant space with isolate=True (a probe process
       per candidate). O.4 (after H): tune_attention on G's graph at H 8 x
       d 8, mode "train", budget_s 60; the winner's out, dq, dk and dv
       against the plain versions at phase 3's K13-K15 tolerance, K13, K14
       and K15 once each. O.3 (after F): tune_spmm on F's graph at d 256 and
       the weighted race (K6 and K4) on it with random values. O.2 (after
-      C): tune_spmm on C's graph at d 256, budget_s 60, past 4 GiB of
+      C): tune_spmm on C's graph at d 256, budget_s 30, past 4 GiB of
       edge features: the residency-budgeted space, each candidate in a
       probe, the estimates printed, the winner against a float64 host
       product on the first and last window's rows. O.3: build_graph("auto")
@@ -253,10 +256,9 @@ non-zero on failure (there is no CPU fallback):
       on A's graph at A's widths (128 -> 256 -> 40, PlanConfig(128, 128),
       3 SGD steps at lr 0.01), each rank a process of parallel.comm.launch:
       all five modes on one rank under NCCL (row-sharded, ring, hybrid
-      1 x 1, grid2d 1 x 1, dp x tp 1 x 1), then 2 ranks sharing cuda:0
-      under gloo (row-sharded contiguous and degree-balanced, ring, dp x
-      tp 1 x 2) and 4 (hybrid 2 x 2, grid2d 2 x 2, dp x tp 2 x 2 on 2
-      feature sets); then parallel.dryrun.dryrun_multichip on 4 ranks of
+      1 x 1, grid2d 1 x 1, dp x tp 1 x 1), then 4 ranks sharing cuda:0
+      under gloo (row-sharded degree-balanced, ring, hybrid 2 x 2, grid2d
+      2 x 2, dp x tp 2 x 2 on 2 feature sets); then parallel.dryrun.dryrun_multichip on 4 ranks of
       the card (n 2048, d 128). Each mode's 3 losses (rel < 1e-4) and
       updated parameters (max|d| / max|p| < 1e-4) against the
       single-process step on A's whole plan (K1), its step-0 logits
@@ -299,8 +301,10 @@ non-zero on failure (there is no CPU fallback):
       seg 12-192, K6 under compute_dtype=bfloat16), bit for bit the float32
       kernel on the widened rows. Path O races the float32 default space
       (accurate=True), as it did before the bf16 variants joined it.
-   R. bf16 on K4, K8, K9 and K13 (counted apart: spmm_weighted_bf16,
-      spmm_int8_bf16, attn_fwd_bf16, attn_mh_fwd_bf16), after Q on A, after
+   R. bf16 on K4, K8, K9 and K13, and compute_dtype=bfloat16 in the
+      backward (counted apart: spmm_weighted_bf16, spmm_int8_bf16,
+      attn_fwd_bf16, attn_mh_fwd_bf16; attn_bwd_bf16, attn_dq_bf16,
+      attn_dkv_bf16, attn_mh_dq_bf16, attn_mh_dkv_bf16), after Q on A, after
       H on the graph with self-loops, and after C: R.1 DropEdge on A
       (build_dropedge_graph, PlanConfig(64, 128), keep 0.8) on bf16 rows at
       d 128 and 256, REQUESTS training calls with their backward (K4's bf16
@@ -324,13 +328,30 @@ non-zero on failure (there is no CPU fallback):
       rows without edges 0 / 1e30, timed in turns with compute_dtype
       float32. R.5 an int8 request on bf16 rows and a K13 request under the
       flag, exported and loaded in this process: the voltrix op alone, the
-      eager bits. Phase 3 also holds K4's bf16 instantiations on its work
+      eager bits. R.6 the backward under the flag on the same plan:
+      REQUESTS forward-and-backward calls of spmm_attention_mh_ad(...,
+      compute_dtype=torch.bfloat16) at H 8 x d 8 and H 1 x d 40 with float32
+      and bf16 planes (K13's bf16 kernel, K14's and K15's compute variants)
+      and of spmm_attention_ad under the flag at d 8 and 40 with plan_t
+      (K9's bf16 kernel, K11's and K12's compute variants) and without (K10's),
+      each drive's gradients against the plain backward on the kernel
+      forward's out and lse (atol 1e-4 x max|grad|, G's step-0 rule) and
+      against impl="reference" in the bf16 class (calc_diff < 1e-6, rtol and
+      atol 2e-2 x max|grad|: the plain forward's lse differs in the last
+      bits, and a p or draw rounded to bf16 may land on the neighbouring
+      value); each compute variant against its plain version on the same
+      out, lse and D at calc_diff < 1e-8, twice the same bits, timed in
+      turns with its compute-float32 kernel beside its plain version and
+      the float32 row's bound. Phase 3 also holds K4's bf16 instantiations on its work
       list's geometries (a hub window cut into >= 16 pieces, a window of
       exactly 2 x PIECE_BLOCKS blocks, d 130 and 300, rows 2 bytes off an
       8-byte boundary, values off the bitmask on cut windows; float32 and
       bf16 planes), bit for bit the float32 K4 on the widened inputs, and
-      K9 and K13 at compute_dtype=bfloat16 on each of its attention
-      problems. Path R prints its seconds.
+      K9 and K13 at compute_dtype=bfloat16 and the compute variants of
+      K10-K12, K14 and K15 (calc_diff < 1e-8, twice the same bits) on each
+      of its attention problems (hub windows cut into pieces, empty windows,
+      widths not a multiple of 4, d 300). Path R prints its seconds; the run
+      prints each part's seconds beside the total.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -619,7 +640,7 @@ def main() -> None:
         attention_mh_dkv, attention_mh_dkv_reference, attention_mh_dq, attention_mh_dq_reference,
         block_spmm, ell, expand_bitmask, fused_spmm, scatter_lanes, sddmm_ell, sddmm_ell_ad,
         spmm_attention,
-        spmm_attention_ad, spmm_attention_mh, spmm_attention_mh_reference,
+        spmm_attention_ad, spmm_attention_mh, spmm_attention_mh_ad, spmm_attention_mh_reference,
         spmm_attention_reference, spmm_block, spmm_ell,
         spmm_ell_dvals, spmm_ell_dvals_reference, spmm_ell_reference, spmm_ell_streamed,
         spmm_fused,
@@ -691,7 +712,10 @@ def main() -> None:
     # (csrc/attn_fwd_bf16.cu, K13's kernel at one head for K9): the same
     # wrappers, counted apart (wrapper.launches_bf16)
     r_of = {"spmm_weighted_bf16": "spmm_weighted", "spmm_int8_bf16": "spmm_int8",
-            "attn_fwd_bf16": "attn_fwd", "attn_mh_fwd_bf16": "attn_mh_fwd"}
+            "attn_fwd_bf16": "attn_fwd", "attn_mh_fwd_bf16": "attn_mh_fwd",
+            # R.6: the backward's compute variants, in the float32 kernels' sources
+            "attn_bwd_bf16": "attn_bwd", "attn_dq_bf16": "attn_dq", "attn_dkv_bf16": "attn_dkv",
+            "attn_mh_dq_bf16": "attn_mh_dq", "attn_mh_dkv_bf16": "attn_mh_dkv"}
     r_source = {"attn_fwd_bf16": "attn_fwd_bf16.cu", "attn_mh_fwd_bf16": "attn_fwd_bf16.cu"}
 
     # --- 2. build: one nvcc per source, all started together -----------
@@ -710,6 +734,15 @@ def main() -> None:
         builds = dict(zip(sources, pool.map(timed_build, sources.values())))
         t_gxx = host_build.result()
     t_nvcc = time.perf_counter() - t0
+    # each part's seconds, printed beside the total at the end
+    part_s, part_t = {}, [t_start]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - part_t[0], 1)
+        part_t[0] = now
+
+    part("device and build")
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"g++ voltrix_preprocess.hpp {t_gxx:.2f} s; {t_nvcc:.2f} s in all, into "
           f"{get_build_dir()}")
@@ -1381,10 +1414,12 @@ def main() -> None:
          hub40k, 130, PlanConfig(128, 128), feat=feat8(40000, 130),
          expect=lambda p: most_pieces(p, k8) >= 4, bound=True)
 
-    def close(name, label, got, want, extra=""):
-        """One K13-K15 output against its plain version: calc_diff < 1e-6 and
-        |got - want| <= 1e-4 |want| + 1e-5 max|want| (float32 sums in another
-        order, a softmax merged across tasks)."""
+    def close(name, label, got, want, extra="", limit=1e-6):
+        """One K13-K15 output against its plain version: calc_diff < limit
+        (1e-6; 1e-8 for the backward's compute variants, which round the same
+        p and draw as their plain versions) and |got - want| <= 1e-4 |want| +
+        1e-5 max|want| (float32 sums in another order, a softmax merged
+        across tasks)."""
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             fail(f"{name} {label}: kernel output {tuple(got.shape)} is not a finite "
                  f"{tuple(want.shape)}")
@@ -1392,7 +1427,7 @@ def main() -> None:
         diff = calc_diff(got, want)
         err = (got - want).abs().max().item() if got.numel() else 0.0
         max_err[name] = max(max_err[name], err)
-        ok = diff < 1e-6 and torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+        ok = diff < limit and torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
         print(f"    {name} {label}: calc_diff {diff:.3e}, max|kernel - plain| {err:.3e} "
               f"(max|plain| {scale:.3e}){extra} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -1475,6 +1510,40 @@ def main() -> None:
             close("attn_dkv", f"{label} {part}", a, b)
         bwd_twice(label, "K11 (dq) and K12 (dk, dv)", (dq, *dkv),
                   (attention_dq(plan, *bwd, **kw), *attention_dkv(plan_t, *bwd, **kw)))
+        attn1_compute_bwd(label, plan, plan_t, q, k, v, g, slope)
+
+    def attn1_compute_bwd(label, plan, plan_t, q, k, v, g, slope):
+        """K10's, K11's and K12's compute variants (compute_dtype=bfloat16)
+        against their plain versions at calc_diff < 1e-8, on the compute
+        forward's out and lse (K10's lanes without bits exactly 0); each
+        twice on one input, the same bits."""
+        kw = dict(negative_slope=slope, compute_dtype=torch.bfloat16)
+        out, lse = spmm_attention_reference(plan, q, k, v, return_stats=True, **kw)
+        kw["scale"] = 1.0 / q.shape[1] ** 0.5
+        got = attention_bwd(plan, q, k, v, out, lse, g, **kw)
+        want = attention_bwd_reference(plan, q, k, v, out, lse, g, **kw)
+        unset = (plan.bitmask == 0).all(1).reshape(-1)
+        zero = all(bool((t[unset] == 0).all()) for t in got[1:])
+        for part, a, b in zip(("dq", "dk lanes", "dv lanes"), got, want):
+            close("attn_bwd_bf16", f"{label} compute bf16 {part}", a, b, limit=1e-8)
+        if not zero:
+            fail(f"K10's compute variant writes lanes without bits on {label}")
+        summed = attention_bwd_summed(plan, q, k, v, out, lse, g, **kw)
+        nk = k.shape[0]
+        plain = (want[0], scatter_lanes(plan, want[1], nk), scatter_lanes(plan, want[2], nk))
+        for part, a, b in zip(("dq", "dk", "dv"), summed, plain):
+            close("attn_bwd_bf16", f"{label} compute bf16 summed {part}", a, b, limit=1e-8)
+        bwd = (q, k, v, g, lse, (g * out).sum(-1))
+        dq = attention_dq(plan, *bwd, **kw)
+        close("attn_dq_bf16", f"{label} compute bf16 dq", dq,
+              attention_dq_reference(plan, *bwd, **kw), limit=1e-8)
+        dkv = attention_dkv(plan_t, *bwd, **kw)
+        for part, a, b in zip(("dk", "dv"), dkv, attention_dkv_reference(plan_t, *bwd, **kw)):
+            close("attn_dkv_bf16", f"{label} compute bf16 {part}", a, b, limit=1e-8)
+        bwd_twice(label, "the compute variants of K10 (summed), K11 and K12",
+                  (*summed, dq, *dkv),
+                  (*attention_bwd_summed(plan, q, k, v, out, lse, g, **kw),
+                   attention_dq(plan, *bwd, **kw), *attention_dkv(plan_t, *bwd, **kw)))
 
     def attn_compare(label, plan, plan_t, q, k, v, g, slope, pdt):
         """K13, K14 and K15 against their plain versions on one problem; the
@@ -1508,6 +1577,26 @@ def main() -> None:
         close("attn_mh_dkv", f"{label} dv", dv_k, dv_p)
         bwd_twice(label, "K14 (dq) and K15 (dk, dv)", (dq_k, dk_k, dv_k),
                   (attention_mh_dq(plan, *bwd, **kw), *attention_mh_dkv(plan_t, *bwd, **kw)))
+        mh_compute_bwd(label, plan, plan_t, q, k, v, g, slope, pdt)
+
+    def mh_compute_bwd(label, plan, plan_t, q, k, v, g, slope, pdt):
+        """K14's and K15's compute variants (compute_dtype=bfloat16) against
+        their plain versions at calc_diff < 1e-8 on the compute forward's
+        lse and D, each twice on one input, the same bits. Returns (dq, dk,
+        dv) and the inputs (q, k, v, dO, lse, D)."""
+        kw = dict(negative_slope=slope, plane_dtype=pdt, compute_dtype=torch.bfloat16)
+        out, lse = spmm_attention_mh_reference(plan, q, k, v, return_stats=True, **kw)
+        bwd = (q, k, v, g, lse, (g * out).sum(-1))
+        kw["scale"] = 1.0 / q.shape[2] ** 0.5
+        dq = attention_mh_dq(plan, *bwd, **kw)
+        close("attn_mh_dq_bf16", f"{label} compute bf16 dq", dq,
+              attention_mh_dq_reference(plan, *bwd, **kw), limit=1e-8)
+        dkv = attention_mh_dkv(plan_t, *bwd, **kw)
+        for part, a, b in zip(("dk", "dv"), dkv, attention_mh_dkv_reference(plan_t, *bwd, **kw)):
+            close("attn_mh_dkv_bf16", f"{label} compute bf16 {part}", a, b, limit=1e-8)
+        bwd_twice(label, "the compute variants of K14 and K15", (dq, *dkv),
+                  (attention_mh_dq(plan, *bwd, **kw), *attention_mh_dkv(plan_t, *bwd, **kw)))
+        return (dq, *dkv), bwd
 
     def attn_case(label, a, cfg, heads, dk, dv, slope=0.2, pdt=None, cfg_t=None, expect=None):
         """K13-K15 on plans of `a` and of its transpose (`cfg_t`, default
@@ -1752,6 +1841,7 @@ def main() -> None:
     del p16, x16, got, want
 
     # --- 4. + 5. the paths ------------------------------------------------
+    part("phase 3")
     count_keys = list(kernels) + list(bf16_of) + list(r_of)
 
     def reset_counts():
@@ -3858,12 +3948,154 @@ def main() -> None:
         path_r_s.append(time.perf_counter() - t_path)
         print(f"path R on {label}: {path_r_s[-1]:.1f} s in all")
 
+    def r_time(key, tag, kernel, f32, plain, nbytes, flops):
+        """R.6: a compute variant timed in turns with its compute-float32
+        kernel, beside its plain version and its bound (the float32 row's
+        bytes and operations)."""
+        k_ms, f_ms, turns = in_turns(torch, kernel, f32, plain_iters=20)
+        p_ms = cuda_ms(torch, plain, iters=2, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        path_r[key]["per_width"][tag] = dict(ms=k_ms, f32_ms=f_ms, plain_ms=p_ms,
+                                             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        print(f"  R.6 {key} {tag}: compute bf16 {turns[1]:.4f} / {turns[2]:.4f} ms, compute "
+              f"float32 {turns[0]:.4f} / {turns[3]:.4f} ms ({k_ms / f_ms:.3f}x); plain "
+              f"{p_ms:.4f} ms; no library call; bound {b_ms:.4f} ms ({b_by})")
+
+    def r_ad(label, fn, leaves, w, want, plain_bwd):
+        """R.6: REQUESTS forward-and-backward calls of fn(*leaves, impl) on
+        the kernel path (r_drive: launched as `want`, no plain call). Their
+        gradients against the plain backward on the kernel forward's out and
+        lse (plain_bwd(out, lse) -> dq, dk, dv) by G's step-0 rule (atol
+        1e-4 max|grad|), and against impl="reference" (the plain forward
+        too) in the bf16 class: calc_diff < 1e-6, rtol and atol 2e-2 (JAX's
+        bf16 class, tests/test_attention.py:468-470), since the forwards' lse
+        differ in the last bits and p and draw, rounded to bf16, may then
+        land on the neighbouring bf16 value."""
+        def grads(impl):
+            xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+            out = fn(*xs, impl)
+            (out * w).sum().backward()
+            return {name: x.grad for name, x in zip("qkv", xs)}
+
+        got = r_drive(f"R.6 {label}: {REQUESTS} forward-and-backward calls",
+                      lambda: [grads("auto") for _ in range(REQUESTS)][-1],
+                      {k: REQUESTS for k in want})
+        with torch.no_grad():
+            plain = dict(zip("qkv", plain_bwd()))
+        print(f"  R.6 {label}: the gradients against the plain backward on the kernel "
+              "forward's out and lse")
+        ok, worst, rel = grads_close(torch, calc_diff, got, plain, 1e-4)
+        print(f"  R.6 {label}: against impl=\"reference\" (the plain forward too)")
+        ok_ref, worst_ref, rel_ref = grads_close(torch, calc_diff, got, grads("reference"), 2e-2,
+                                                 rtol=2e-2)
+        print(f"  R.6 {label}: worst calc_diff {worst:.3e} / {worst_ref:.3e}, max|diff| / "
+              f"max|grad| {rel:.3e} / {rel_ref:.3e} -> {'ok' if ok and ok_ref else 'MISMATCH'}")
+        if not (ok and ok_ref):
+            fail(f"path R.6 {label}: the kernel path's gradients disagree with the plain path's")
+
+    def r_backward(plan, n, plan_bytes):
+        """R.6: spmm_attention_mh_ad under compute_dtype=bfloat16 on G's plan
+        (K13's bf16 kernel, K14's and K15's compute variants) at H 8 x d 8
+        and H 1 x d 40, float32 and bf16 planes, and spmm_attention_ad under
+        the flag on H's plan at d 8 and 40 with plan_t (K9's bf16 kernel,
+        K11's and K12's compute variants) and without (K10's): each drive's
+        gradients against the plain path's, each backward op against its
+        plain version and twice the same bits, timed in turns with its
+        compute-float32 kernel."""
+        mh_keys = ("attn_mh_fwd", "attn_mh_fwd_bf16", "attn_mh_dq", "attn_mh_dq_bf16",
+                   "attn_mh_dkv", "attn_mh_dkv_bf16")
+        for heads, d in ((8, 8), (1, 40)):
+            for pdt in (None, bf16):
+                q, k, v, w = (r_feat(heads * n, d).view(heads, n, d) for _ in range(4))
+                pname = "bf16" if pdt is not None else "float32"
+                tag = f"h{heads}_d{d}_{pname}"
+                kw = dict(negative_slope=0.2, plane_dtype=pdt)
+
+                def plain_mh():
+                    out, lse = spmm_attention_mh(plan, q, k, v, return_stats=True,
+                                                 compute_dtype=bf16, **kw)
+                    kp, vp = (t if pdt is None else t.to(pdt) for t in (k, v))
+                    bwd = (q, kp, vp, w, lse, (w * out).sum(-1))
+                    kb = dict(kw, scale=1.0 / d ** 0.5, compute_dtype=bf16)
+                    return (attention_mh_dq_reference(plan, *bwd, **kb),
+                            *attention_mh_dkv_reference(plan, *bwd, **kb))
+
+                r_ad(f"spmm_attention_mh_ad H {heads} d {d}, {pname} planes, compute_dtype bf16",
+                     lambda *x: spmm_attention_mh_ad(plan, *x[:3], plan_t=plan, impl=x[3],
+                                                     compute_dtype=bf16, **kw),
+                     (q, k, v), w, mh_keys, plain_mh)
+                _, bwd = mh_compute_bwd(f"R.6 G's plan {tag}", plan, plan, q, k, v, w, 0.2, pdt)
+                # k and v in the plane's type once, as the backward casts them
+                bwd = (bwd[0], *(t if pdt is None else t.to(pdt) for t in bwd[1:3]), *bwd[3:])
+                kw["scale"] = 1.0 / d ** 0.5
+                kb = dict(kw, compute_dtype=bf16)
+                plane = 2 if pdt is not None else 4
+                hn, edges, lse_b = heads * n, plan.num_edges * heads, bwd[4].numel() * 4
+                # the float32 rows' bytes and operations (time_attn)
+                r_time("attn_mh_dq_bf16", tag, lambda: attention_mh_dq(plan, *bwd, **kb),
+                       lambda: attention_mh_dq(plan, *bwd, **kw),
+                       lambda: attention_mh_dq_reference(plan, *bwd, **kb),
+                       plan_bytes + hn * (4 * d + plane * 2 * d + 4 * d + 4 + 4 * d) + lse_b,
+                       edges * 6 * d)
+                r_time("attn_mh_dkv_bf16", tag, lambda: attention_mh_dkv(plan, *bwd, **kb),
+                       lambda: attention_mh_dkv(plan, *bwd, **kw),
+                       lambda: attention_mh_dkv_reference(plan, *bwd, **kb),
+                       plan_bytes + hn * (plane * 4 * d + 4 + 8 * d) + lse_b, edges * 8 * d)
+        for d in (8, 40):
+            q, k, v, w = (r_feat(n, d) for _ in range(4))
+            kb = dict(negative_slope=0.2, scale=1.0 / d ** 0.5, compute_dtype=bf16)
+
+            def plain_one(split):
+                out, lse = spmm_attention(plan, q, k, v, return_stats=True, negative_slope=0.2,
+                                          compute_dtype=bf16)
+                if split:
+                    bwd = (q, k, v, w, lse, (w * out).sum(-1))
+                    return (attention_dq_reference(plan, *bwd, **kb),
+                            *attention_dkv_reference(plan, *bwd, **kb))
+                dq, dkl, dvl = attention_bwd_reference(plan, q, k, v, out, lse, w, **kb)
+                return dq, scatter_lanes(plan, dkl, n), scatter_lanes(plan, dvl, n)
+
+            for plan_t, keys in ((plan, ("attn_dq", "attn_dkv")), (None, ("attn_bwd",))):
+                what = "with plan_t (K11, K12)" if plan_t is not None else "without plan_t (K10)"
+                r_ad(f"spmm_attention_ad d {d} {what}, compute_dtype bf16",
+                     lambda *x: spmm_attention_ad(plan, *x[:3], plan_t=plan_t, impl=x[3],
+                                                  negative_slope=0.2, compute_dtype=bf16),
+                     (q, k, v), w,
+                     ("attn_fwd", "attn_fwd_bf16", *keys, *(f"{key}_bf16" for key in keys)),
+                     lambda: plain_one(plan_t is not None))
+            attn1_compute_bwd(f"R.6 H's plan d{d}", plan, plan, q, k, v, w, 0.2)
+            kw = dict(negative_slope=0.2, scale=1.0 / d ** 0.5)
+            with torch.no_grad():
+                out, lse = spmm_attention(plan, q, k, v, return_stats=True, **kb)
+            bwd = (q, k, v, w, lse, (w * out).sum(-1))
+            lse_b = lse.numel() * 4
+
+            def plain_k10():
+                dq, dkl, dvl = attention_bwd_reference(plan, q, k, v, out, lse, w, **kb)
+                return dq, scatter_lanes(plan, dkl, n), scatter_lanes(plan, dvl, n)
+
+            # the float32 rows' bytes and operations (time_attn1)
+            r_time("attn_bwd_bf16", f"d{d}",
+                   lambda: attention_bwd_summed(plan, q, k, v, out, lse, w, **kb),
+                   lambda: attention_bwd_summed(plan, q, k, v, out, lse, w, **kw), plain_k10,
+                   plan_bytes + n * 4 * 6 * d + lse_b + n * 4 * 2 * d,
+                   plan.num_edges * 10 * d + 2 * n * d)
+            r_time("attn_dq_bf16", f"d{d}", lambda: attention_dq(plan, *bwd, **kb),
+                   lambda: attention_dq(plan, *bwd, **kw),
+                   lambda: attention_dq_reference(plan, *bwd, **kb),
+                   plan_bytes + n * 4 * (5 * d + 1) + lse_b, plan.num_edges * 6 * d)
+            r_time("attn_dkv_bf16", f"d{d}", lambda: attention_dkv(plan, *bwd, **kb),
+                   lambda: attention_dkv(plan, *bwd, **kw),
+                   lambda: attention_dkv_reference(plan, *bwd, **kb),
+                   plan_bytes + n * 4 * (6 * d + 1) + lse_b, plan.num_edges * 8 * d)
+
     def r_path_loops(label, a):
         """Path R on D's, G's and H's graph (self-loops): R.2 K4 on D's plan
         geometry at d 8 and 40; R.4 K13 under compute_dtype=bfloat16 at G's
         geometry (H 8 x d 8 and H 1 x d 40, float32 and bf16 planes) and K9 on
         H's plan at d 8 and 40, each against its plain version, twice the same
-        bits, timed in turns with compute_dtype float32; R.5's K13 request."""
+        bits, timed in turns with compute_dtype float32; R.5's K13 request;
+        R.6 the backward under the flag (r_backward)."""
         t_path = time.perf_counter()
         n = a.shape[0]
         print(f"path {label}")
@@ -3936,6 +4168,7 @@ def main() -> None:
                       f"ms, compute float32 {turns[0]:.4f} / {turns[3]:.4f} ms "
                       f"({k_ms / f_ms:.3f}x); plain {p_ms:.4f} ms; no library call; bound "
                       f"{b_ms:.4f} ms ({b_by})")
+        r_backward(plan, n, plan_bytes)
         del plan
         torch.cuda.empty_cache()
         path_r_s.append(time.perf_counter() - t_path)
@@ -4924,17 +5157,23 @@ def main() -> None:
         return res
 
     def c_plan_builds(a):
-        """Path N's step 1 on C's graph: its plan by both backends, timed."""
-        _, secs = plan_builds("N on the protein proxy (C's plan)", a,
-                              PlanConfig(2048, 128, gather_segment=128, block_unroll=4))
-        path_n.update(c_native_build_s=secs["native"], c_numpy_build_s=secs["numpy"])
+        """Path N's step 1 on C's graph: its plan by the native preprocess,
+        timed (the numpy build, ~24 s, and the bit-for-bit comparison went
+        when R.6 joined the run; step 1 keeps both on A)."""
+        t0 = time.perf_counter()
+        csr_preprocess(a.indptr, a.indices, a.shape[0],
+                       PlanConfig(2048, 128, gather_segment=128, block_unroll=4), backend="native")
+        secs = time.perf_counter() - t0
+        print(f"path N on the protein proxy (C's plan): csr_preprocess(backend='native') "
+              f"{secs:.3f} s")
+        path_n.update(c_native_build_s=secs)
 
     # --- path P: the parallel trainers (parallel/, torch.distributed) ------
     def parallel_path(label, a):
         """GCN training on A's graph at full width (128 -> 256 -> 40,
         PlanConfig(128, 128), STEPS SGD steps at lr 0.01) through each
         parallel mode's trainer, on ranks of parallel.comm.launch: all five
-        modes on one rank under NCCL, then 2 and 4 ranks under gloo sharing
+        modes on one rank under NCCL, then 4 ranks under gloo sharing
         cuda:0; then dryrun_multichip on 4 ranks of the card. Each mode's
         losses and updated parameters against the single-process step on
         A's whole plan (K1) within P_GATE (two faults that scale gradients
@@ -5030,11 +5269,9 @@ def main() -> None:
                 ("row 1", lambda: build_row_sharded_plan(ip, ix, n, 1, cfg, with_transpose=True)),
                 ("ring 1", lambda: build_ring_sharded_plan(ip, ix, n, 1, cfg, with_transpose=True)),
                 ("grid 1x1", lambda: build_grid2d_plan(ip, ix, n, 1, 1, cfg, with_transpose=True)),
-                ("row 2", lambda: build_row_sharded_plan(ip, ix, n, 2, cfg, with_transpose=True)),
-                ("row 2 balanced", lambda: build_row_sharded_plan(ip, ix, n, 2, cfg,
+                ("row 4 balanced", lambda: build_row_sharded_plan(ip, ix, n, 4, cfg,
                                                                   with_transpose=True,
                                                                   balance=True)),
-                ("ring 2", lambda: build_ring_sharded_plan(ip, ix, n, 2, cfg, with_transpose=True)),
                 ("ring 4", lambda: build_ring_sharded_plan(ip, ix, n, 4, cfg, with_transpose=True)),
                 ("grid 2x2", lambda: build_grid2d_plan(ip, ix, n, 2, 2, cfg, with_transpose=True))):
             t1 = time.perf_counter()
@@ -5045,7 +5282,10 @@ def main() -> None:
               f"{ {k: (p.tb_max, p.tbt_max) for k, p in plans.items()} }")
 
         # (layout, ranks, backend, feature sets of dp x tp, [(case, mode,
-        # plan, mesh)]): every mode on one rank, then ranks sharing cuda:0
+        # plan, mesh)]): every mode on one rank, then on four ranks sharing
+        # cuda:0 (a layout of two ranks, row-sharded contiguous and balanced,
+        # ring and dp x tp 1 x 2, went when R.6 joined the run: each gloo
+        # layout starts its own processes)
         layouts = (
             ("1 rank, nccl", 1, "nccl", 1, [
                 ("row_sharded 1", "row_sharded", "row 1", None),
@@ -5053,12 +5293,9 @@ def main() -> None:
                 ("hybrid 1x1", "hybrid", "ring 1", (1, 1)),
                 ("grid2d 1x1", "grid2d", "grid 1x1", (1, 1)),
                 ("dp_tp 1x1", "dp_tp", None, (1, 1))]),
-            ("2 ranks on cuda:0, gloo", 2, "gloo", 1, [
-                ("row_sharded 2", "row_sharded", "row 2", None),
-                ("row_sharded 2 balanced", "row_sharded", "row 2 balanced", None),
-                ("ring 2", "ring", "ring 2", None),
-                ("dp_tp 1x2", "dp_tp", None, (1, 2))]),
             ("4 ranks on cuda:0, gloo", 4, "gloo", 2, [
+                ("row_sharded 4 balanced", "row_sharded", "row 4 balanced", None),
+                ("ring 4", "ring", "ring 4", None),
                 ("hybrid 2x2", "hybrid", "ring 4", (2, 2)),
                 ("grid2d 2x2", "grid2d", "grid 2x2", (2, 2)),
                 ("dp_tp 2x2", "dp_tp", None, (2, 2))]),
@@ -5275,11 +5512,11 @@ def main() -> None:
         if not (again is tuned and hit and not any(counts.values()) and not plain_calls
                 and same):
             fail("path O.1: the memory or disk cache missed, or the disk hit timed candidates")
-        space3 = [Variant("pregather", block_h=128),
-                  Variant("pregather", block_h=2048, block_unroll=4, subtile=True),
-                  Variant("hybrid", block_h=128, gather_segment=8)]
-        iso, iso_s = race("A d 128, 3 variants, isolate=True", SpmmTuner(
-            cache_dir=os.path.join(tune_dir, "a_iso")), a, x, space=space3, isolate=True,
+        # one variant in a probe of its own (three before R.6 joined the run:
+        # each probe's process takes ~14 s of the 1,200 s)
+        space1 = [Variant("pregather", block_h=128)]
+        iso, iso_s = race("A d 128, 1 variant, isolate=True", SpmmTuner(
+            cache_dir=os.path.join(tune_dir, "a_iso")), a, x, space=space1, isolate=True,
             hash_tag="ogbn-arxiv-proxy")
         for key, ms in iso.candidates.items():
             print(f"    {key}: probe {ms:.4f} ms, in-process race "
@@ -5353,14 +5590,15 @@ def main() -> None:
         n, d = a.shape[0], 256
         free, total = torch.cuda.mem_get_info()
         print(f"path O.2 (tuner, protein proxy): tune_spmm at d {d}, default space, budget_s "
-              f"60; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
+              f"30; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
               f"features, past 4 GiB: residency budgeted (free {free / 2**30:.1f} of "
               f"{total / 2**30:.1f} GiB) and each candidate in a probe of its own")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
-        # budget 60 s (120 before path R joined the run): the isolated probes
-        # of C's candidates take 9-17 s each, and the run has 1,200 s
+        # budget 30 s (120 before path R joined the run, 60 before R.6): the
+        # isolated probes of C's candidates take 9-17 s each, and the run has
+        # 1,200 s
         tuned, race_s = race("C d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "c")), a, x,
-                             budget_s=60, hash_tag="protein-proxy", accurate=True)
+                             budget_s=30, hash_tag="protein-proxy", accurate=True)
         print("  residency of the kept candidates (plan, workspace, features, output): "
               "tuner.estimate_residency beside the probe's torch.cuda.max_memory_allocated "
               "over the candidate's first call:")
@@ -5484,13 +5722,19 @@ def main() -> None:
                                   "B (path Q, K2's bf16 instantiation)", arxiv, g, model, xs,
                                   logits, "spmm_subtile", (128, 256))),
     }
+    part("A and B (A: N, I, J.1, J.2, Q, R.1-R.3; B: Q)")
     path_k = full_graph_models("K (ogbn-arxiv proxy, SAGE, GIN, APPNP, deep GCN, R-GCN on K1; "
                                "DropEdge on K4)", arxiv)
+    part("K")
     path_l = sampled_sage_path("L (ogbn-arxiv proxy, neighbour-sampled GraphSAGE, K1)", arxiv)
+    part("L")
     path_m = classify_path("M (GIN graph classification, 128 graphs, K1)")
+    part("M")
     tuner_path_a(arxiv)
+    part("O.1")
     torch.cuda.empty_cache()  # the ranks of path P share the card with this process
     path_p = parallel_path("P (ogbn-arxiv proxy, the parallel trainers on K1)", arxiv)
+    part("P")
     # self-loops, the GAT convention (examples/train_gat.py:46-47)
     loops = ((arxiv + sp.eye(arxiv.shape[0], format="csr")) != 0).astype(np.float32).tocsr()
     loops.sort_indices()
@@ -5498,31 +5742,42 @@ def main() -> None:
     results["spmm_weighted"], results["spmm_dvalues"] = gat_path(
         "D (ogbn-arxiv proxy with self-loops, GAT, K4 and K5)", loops, PlanConfig(64, 128),
         (128, 8, 40), heads=8)
+    part("D")
     # examples/train_gat_dot.py:54's plan geometry
     path_e = gat_ell_path("E (ogbn-arxiv proxy with self-loops, dot-product GAT, K6 and K7)",
                           loops, PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8)
     q_path_ell("E (path Q, K6's bf16 instantiation)", loops)
+    part("E (Q on E)")
     # the same graph, geometry and widths as E (bench/bm_gat.py:174-177)
     results.update(gat_flash_path(
         "G (ogbn-arxiv proxy with self-loops, flash GAT, K13, K14 and K15)", loops,
         PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
+    part("G")
     # the same graph, plan geometry and widths as G, on a bare plan
     results.update(flash_head_path(
         "H (ogbn-arxiv proxy with self-loops, per-head flash GAT, K9-K12)", loops,
         PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8))
+    part("H")
     r_path_loops("R (ogbn-arxiv proxy with self-loops: K4 on D's plan, K13 and K9 at "
-                 "compute_dtype=bfloat16 on G's and H's plan)", loops)
+                 "compute_dtype=bfloat16 on G's and H's plan, and their backward, K10, K11, "
+                 "K12, K14 and K15 under the flag)", loops)
+    part("R on D, G, H (R.2, R.4-R.6)")
     serve_models()  # path N's bundles of D, E, G, H and I, from fresh processes
+    part("N's model bundles")
     tuner_path_g(loops)
+    part("O.4")
     del loops
     t0 = time.perf_counter()
     ddi = symmetrize(proxy_csr("ddi", seed=0))
     print(f"graph: ogbl-ddi proxy in {time.perf_counter() - t0:.2f} s")
     path_f = linkpred_path("F (ogbl-ddi proxy, GCN link prediction, K1, K6 and K7)", ddi,
                            PlanConfig(128, 128), (256, 256, 256))
+    part("F")
     tuner_path_f(ddi)
+    part("O.3 on F")
     del ddi
     tuner_path_mid()
+    part("O.3 mid")
     for name in ("spmm_ell", "spmm_ell_dvals"):
         # E's widths (8, 40) and F's (256) side by side
         per_width = {**path_e[name].pop("per_width"), **path_f[name].pop("per_width")}
@@ -5546,9 +5801,12 @@ def main() -> None:
             r_int8_on_c("C (protein proxy)", protein, g),
             q_path_gcn("C (path Q, K3's bf16 instantiation)", protein, g, model, xs, logits,
                        "spmm_fused", (8, 256))))
+    part("C (I, R.3, Q on C)")
     tuner_path_c(protein)
+    part("O.2")
     del protein
     tuner_path_cli()
+    part("O.5")
     import shutil
 
     shutil.rmtree(tune_dir, ignore_errors=True)
@@ -5590,6 +5848,7 @@ def main() -> None:
     print(f"timing on {smi} (CUDA events; kernels mean of 20 launches after 3 warm-up, "
           "plain versions of 3 after 1, library calls of 10 after 2; in turns plain, kernel, "
           "kernel, plain); bounds at 3.35 TB/s and 67 TFLOP/s float32")
+    print(f"seconds by part: {json.dumps(part_s)}")
     print(f"total {time.perf_counter() - t_start:.1f} s (nvcc {t_nvcc:.2f} s)")
     line = []
     for name, (_, _, source, replaces, _) in kernels.items():

@@ -16,10 +16,11 @@ The card's kernel (csrc/attn_fwd_bf16.cu) walks each piece of its work
 list twice: the block maxima, then the rows from the maximum of the
 window's blocks before the piece, a grid step at a time. Its steps are
 emulated here piece by piece (windows cut into many pieces, grid steps
-that cross the pieces' ends) against the plain version. Inputs that need
-a gradient are refused before any launch (the backward's compute_dtype is
-ROADMAP.md item 9); under torch.no_grad() the forward runs. A K13 call
-under the flag exports with the flag in its program.
+that cross the pieces' ends) against the plain version. Under
+torch.no_grad() the differentiable entry points are the forward; their
+backward under the flag is held to jax.grad in
+tests/test_torch_attention_compute_bwd.py. A K13 call under the flag
+exports with the flag in its program.
 """
 
 import jax.numpy as jnp
@@ -263,24 +264,12 @@ def test_bf16_kernel_emulation_matches_the_plain_version(cfg, limits):
 
 # --- autograd, export ------------------------------------------------------------
 
-def test_compute_bf16_refuses_autograd_and_runs_under_no_grad(graph):
-    """Inputs that need a gradient raise in the forward, before any launch,
-    naming ROADMAP.md item 9's backward entry; the op called directly
-    raises too; under torch.no_grad() the call is the forward's."""
+def test_compute_bf16_under_no_grad_is_the_forward(graph):
+    """Under torch.no_grad() the differentiable entry points under the flag
+    give the forward's bits; float16 is refused with its item-9 message."""
     tp = graph["h32"][1]
     q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in graph["one"])
     qh, kh, vh = (torch.from_numpy(x[:2]).requires_grad_(True) for x in graph["four"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        spmm_attention_ad(tp, q, k, v, plan_t=tp, compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        spmm_attention_mh_ad(tp, qh, kh, vh, plan_t=tp, compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        spmm_attention(tp, q, k, v, compute_dtype=BF16)
-    ops, geom = library.operands(tp, "spmm_attention_mh", torch.device("cpu"))
-    no_ops, no_geom = library.no_plan(ops, geom)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        library.spmm_attention_mh_op(qh, kh, vh, ops, geom, no_ops, no_geom, no_ops, no_geom,
-                                     0.3, 1.0, None, BF16)
     with torch.no_grad():
         got = spmm_attention_ad(tp, q, k, v, plan_t=tp, compute_dtype=BF16)
         got_mh = spmm_attention_mh_ad(tp, qh, kh, vh, plan_t=tp, compute_dtype=BF16)

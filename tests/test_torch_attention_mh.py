@@ -255,12 +255,6 @@ REFUSALS = {
                 lambda tp, a, x: spmm_attention_mh(tp, *x, subtile=True)),
     "subtile (ad)": (ValueError, "block_h % 128",
                      lambda tp, a, x: spmm_attention_mh_ad(tp, *x, plan_t=tp, subtile=True)),
-    # the forward takes compute_dtype bf16 (tests/test_torch_attention_compute.py);
-    # inputs that need a gradient are refused, the backward's is item 9
-    "compute_dtype (ad)": (NotImplementedError, "item 9",
-                           lambda tp, a, x: spmm_attention_mh_ad(
-                               tp, *(t.detach().requires_grad_(True) for t in x), plan_t=tp,
-                               compute_dtype=torch.bfloat16)),
     "precision": (NotImplementedError, "item 9",
                   lambda tp, a, x: spmm_attention_mh(tp, *x, precision="highest")),
     "plane dtype": (ValueError, "plane_dtype",

@@ -43,6 +43,17 @@
 // lane pass), a hub row's edges taken one a step in the dq walk, and the
 // slots (lanes with bits x (dk + dv) floats, written and read once)
 // separate the kernels from it.
+//
+// compute_dtype=bfloat16 (kBf; attention.py:379-414): the same three passes
+// with JAX's rounding points. q, k, v and dO are rounded to bf16 where they
+// are read; raw and dP are one fma chain each in column order (each product
+// exact); p = expf, as in the float32 kernels; draw = bf16(p (dP - D)
+// act'(raw) scale), each product rounded on its own, multiplies k (dq) and
+// q (dk_lane), and bf16(p) multiplies dO (dv_lane). D is the wrapper's, from
+// the unrounded dO and out, as JAX's. The plain version (ops/attention.py:
+// attention_bwd_reference) rounds the same p and draw; the sums pass is
+// the float32 one. The same bound; the roundings and the single chains add
+// instructions an edge.
 
 #include "attn_mh_common.cuh"
 #include "attn_walk.cuh"
@@ -66,9 +77,18 @@ using voltrix_walk::tile_rows;
 constexpr int kSumCols = 128;  // columns of a sum thread block's warp: four a lane
 constexpr int kSumBatch = 8;   // slots a sum lane loads at once
 
+// a[0..d) . b[0..d), both in global memory, each value rounded to bf16:
+// one fma chain in column order (the compute variant's lane pass)
+__device__ __forceinline__ float chain_ldg(const float* __restrict__ a,
+                                           const float* __restrict__ b, int d) {
+  float s = 0.f;
+  for (int c = 0; c < d; ++c) s = fmaf(bf16_round(__ldg(a + c)), bf16_round(__ldg(b + c)), s);
+  return s;
+}
+
 // dq through the row walk; piece 0 of a group into dq, pieces 1.. into
 // their workspace tiles.
-template <int kAcc>
+template <int kAcc, bool kBf>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
                    const int32_t* __restrict__ hind,      // (B, K)
@@ -112,11 +132,18 @@ attn_bwd_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
   walk_word(bitmask, hind, task[kB0], task[kB1], words, kWarps * gr + warp, block_w, nk, k, v,
             dk, dv, 0, dv, vec_k && vec_v, nb, nbuf, ring, q_word, q_src, has_row,
             [&](const float* s) {
-              const float raw = dot4<true>(q_row, s, dk, vec_k);
-              const float p = expf(act(raw, scale, slope) - lse_r);
-              const float dp = dot4<true>(g_row, s + kpad, dv, vec_v);
-              const float ds = p * (dp - d_r) * act_grad(raw, slope) * scale;
-              axpy_staged<kAcc>(ds, s + c0, cw, acc);
+              if constexpr (kBf) {
+                const float raw = score_ldg(q_row, s, dk);
+                const float p = expf(act_rn(raw, scale, slope) - lse_r);
+                const float dp = score_ldg(g_row, s + kpad, dv);
+                axpy_bf16<kAcc>(draw_bf16(p, dp, d_r, raw, scale, slope), s + c0, cw, acc);
+              } else {
+                const float raw = dot4<true>(q_row, s, dk, vec_k);
+                const float p = expf(act(raw, scale, slope) - lse_r);
+                const float dp = dot4<true>(g_row, s + kpad, dv, vec_v);
+                const float ds = p * (dp - d_r) * act_grad(raw, slope) * scale;
+                axpy_staged<kAcc>(ds, s + c0, cw, acc);
+              }
             });
 
   const bool vec_out = vec_k && cw % 4 == 0;
@@ -130,23 +157,24 @@ attn_bwd_dq_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
 }
 
 // acc[c] += coef * row[c] for c < cw, row in global memory (16-byte
-// aligned when vec)
-template <int kAcc>
+// aligned when vec); kRound: row's values rounded to bf16
+template <int kAcc, bool kRound = false>
 __device__ __forceinline__ void axpy_row(float coef, const float* __restrict__ row, int cw,
                                          bool vec, float* acc) {
+  const auto x_of = [](float x) { return kRound ? bf16_round(x) : x; };
 #pragma unroll
   for (int c = 0; c < kAcc; c += 4) {
     if (c < cw) {
       if (vec) {
         const float4 x = load4(row + c);
-        acc[c] = fmaf(coef, x.x, acc[c]);
-        acc[c + 1] = fmaf(coef, x.y, acc[c + 1]);
-        acc[c + 2] = fmaf(coef, x.z, acc[c + 2]);
-        acc[c + 3] = fmaf(coef, x.w, acc[c + 3]);
+        acc[c] = fmaf(coef, x_of(x.x), acc[c]);
+        acc[c + 1] = fmaf(coef, x_of(x.y), acc[c + 1]);
+        acc[c + 2] = fmaf(coef, x_of(x.z), acc[c + 2]);
+        acc[c + 3] = fmaf(coef, x_of(x.w), acc[c + 3]);
       } else {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          if (c + t < cw) acc[c + t] = fmaf(coef, __ldg(row + c + t), acc[c + t]);
+          if (c + t < cw) acc[c + t] = fmaf(coef, x_of(__ldg(row + c + t)), acc[c + t]);
         }
       }
     }
@@ -157,7 +185,7 @@ __device__ __forceinline__ void axpy_row(float coef, const float* __restrict__ r
 // lane order), walks its bits in row order and writes its sums, columns
 // [y kAcc, (y + 1) kAcc) of dk and of dv for chunk y, to its slot
 // lane_slot[lane] of slot_k and slot_v.
-template <int kAcc>
+template <int kAcc, bool kBf>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_lane_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
                      const int32_t* __restrict__ hind,      // (B, K)
@@ -202,14 +230,25 @@ attn_bwd_lane_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, K)
     const int64_t row = row0 + r;
     const float* q_row = q + row * dk;
     const float* g_row = g + row * dv;
-    const float raw = dot4<false>(k_src, q_row, dk, vec_k);
-    const float p = expf(act(raw, scale, slope) - __ldg(lse + row));
-    if (cwk > 0) {
-      const float dp = dot4<false>(v_src, g_row, dv, vec_v);
-      const float ds = p * (dp - __ldg(drow + row)) * act_grad(raw, slope) * scale;
-      axpy_row<kAcc>(ds, q_row + c0, cwk, vec_k, acc_k);
+    if constexpr (kBf) {
+      const float raw = chain_ldg(k_src, q_row, dk);
+      const float p = expf(act_rn(raw, scale, slope) - __ldg(lse + row));
+      if (cwk > 0) {
+        const float dp = chain_ldg(v_src, g_row, dv);
+        const float draw = draw_bf16(p, dp, __ldg(drow + row), raw, scale, slope);
+        axpy_row<kAcc, true>(draw, q_row + c0, cwk, vec_k, acc_k);
+      }
+      axpy_row<kAcc, true>(bf16_round(p), g_row + c0, cwv, vec_v, acc_v);
+    } else {
+      const float raw = dot4<false>(k_src, q_row, dk, vec_k);
+      const float p = expf(act(raw, scale, slope) - __ldg(lse + row));
+      if (cwk > 0) {
+        const float dp = dot4<false>(v_src, g_row, dv, vec_v);
+        const float ds = p * (dp - __ldg(drow + row)) * act_grad(raw, slope) * scale;
+        axpy_row<kAcc>(ds, q_row + c0, cwk, vec_k, acc_k);
+      }
+      axpy_row<kAcc>(p, g_row + c0, cwv, vec_v, acc_v);
     }
-    axpy_row<kAcc>(p, g_row + c0, cwv, vec_v, acc_v);
   }
   const int64_t slot = __ldg(lane_slot + lane);
   if (cwk > 0) store_row<kAcc>(slot_k + slot * dk + c0, acc_k, cwk, 1.f, vec_k);
@@ -293,7 +332,7 @@ cudaError_t launch_sum(const void* slot, const void* offsets, void* out, int row
   return cudaGetLastError();
 }
 
-template <int kAcc>
+template <int kAcc, bool kBf>
 int launch(const void* bitmask, const void* hind, const void* wob, const void* tasks,
            const void* merges, const void* lanes, const void* lane_slot, const void* offsets,
            const void* q, const void* k, const void* v, const void* g, const void* lse,
@@ -304,7 +343,7 @@ int launch(const void* bitmask, const void* hind, const void* wob, const void* t
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaError_t err = cudaSuccess;
   if (dk > 0) {  // dq, and its cut groups' merge
-    auto walk = attn_bwd_dq_kernel<kAcc>;
+    auto walk = attn_bwd_dq_kernel<kAcc, kBf>;
     int nb, nbuf;
     walk_geometry(dk, dv, &nb, &nbuf);
     if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -323,7 +362,7 @@ int launch(const void* bitmask, const void* hind, const void* wob, const void* t
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n > 0) {  // the lanes with bits, into their source-order slots
-    attn_bwd_lane_kernel<kAcc><<<dim3((n + kThreads - 1) / kThreads,
+    attn_bwd_lane_kernel<kAcc, kBf><<<dim3((n + kThreads - 1) / kThreads,
                                       (max(dk, dv) + kAcc - 1) / kAcc), kThreads, 0, s>>>(
         static_cast<const uint32_t*>(bitmask), static_cast<const int32_t*>(hind),
         static_cast<const int32_t*>(wob), static_cast<const int32_t*>(lanes),
@@ -355,7 +394,8 @@ extern "C" {
 // (nk, dk) and dv_out (nk, dv). Every row of dq, of the n slots and of
 // dk_out and dv_out is written. acc is the column chunk a thread keeps (8,
 // 16, 32, 40 or 64). vec_k: dk % 4 == 0 with q and k 16-byte aligned;
-// vec_v: dv % 4 == 0 with v and dO aligned.
+// vec_v: dv % 4 == 0 with v and dO aligned. compute != 0:
+// compute_dtype=bfloat16 (the kBf variant of the dq walk and the lanes).
 int voltrix_attn_bwd(const void* bitmask, const void* hind, const void* wob,
                      const void* tasks, const void* merges, const void* lanes,
                      const void* lane_slot, const void* offsets,
@@ -363,7 +403,7 @@ int voltrix_attn_bwd(const void* bitmask, const void* hind, const void* wob,
                      const void* drow, void* dq, void* ws, void* slot_k, void* slot_v,
                      void* dk_out, void* dv_out, int num_tasks, int num_merges, int n, int words,
                      int block_h, int block_w, int nq, int nk, int dk, int dv, int acc,
-                     float scale, float slope, int vec_k, int vec_v, void* stream) {
+                     float scale, float slope, int vec_k, int vec_v, int compute, void* stream) {
   if (num_tasks <= 0 || num_merges < 0 || n < 0 || words <= 0 || words * 32 < block_h ||
       block_h <= 0 || block_w <= 0 || nq <= 0 || nk <= 0 || dk < 0 || dv < 0 || dk + dv <= 0 ||
       (vec_k && dk % 4) || (vec_v && dv % 4) || (max(dk, dv) + acc - 1) / acc > 65535 ||
@@ -371,12 +411,12 @@ int voltrix_attn_bwd(const void* bitmask, const void* hind, const void* wob,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLTRIX_BWD(N)                                                                     \
-  case N:                                                                                  \
-    return launch<N>(bitmask, hind, wob, tasks, merges, lanes, lane_slot, offsets, q, k, v, \
-                     g, lse, drow, dq, ws, slot_k, slot_v, dk_out, dv_out, num_tasks,        \
-                     num_merges, n, words, block_h, block_w, nq, nk, dk, dv, scale, slope,   \
-                     vec_k, vec_v, s);
+#define VOLTRIX_BWD(N)                                                                      \
+  case N:                                                                                   \
+    return (compute ? launch<N, true> : launch<N, false>)(                                   \
+        bitmask, hind, wob, tasks, merges, lanes, lane_slot, offsets, q, k, v, g, lse, drow, \
+        dq, ws, slot_k, slot_v, dk_out, dv_out, num_tasks, num_merges, n, words, block_h,    \
+        block_w, nq, nk, dk, dv, scale, slope, vec_k, vec_v, s);
   switch (acc) {
     VOLTRIX_BWD(8)
     VOLTRIX_BWD(16)

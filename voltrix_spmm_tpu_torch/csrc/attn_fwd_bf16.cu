@@ -76,48 +76,6 @@ using voltrix_walk::tile_rows;
 
 constexpr int kQueues = 3;  // a walk_items<true> queue: word, source row, block
 
-// four staged values rounded to bf16 (a bf16 plane's values already are)
-template <typename T>
-__device__ __forceinline__ float4 staged4_bf16(const T* p) {
-  float4 y = staged4(p);
-  if constexpr (sizeof(T) == 4) {
-    y = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z), bf16_round(y.w));
-  }
-  return y;
-}
-
-// q[0..dk) (registers, bf16-rounded, zero past dk) . k[0..dk) (staged):
-// one fma chain in column order
-template <int kQ, typename T>
-__device__ __forceinline__ float score_regs(const float* qr, const T* s, int dk) {
-  float a = 0.f;
-#pragma unroll
-  for (int c = 0; c < kQ; c += 4) {
-    if (c < dk) {
-      const float4 y = staged4_bf16(s + c);
-      a = fmaf(qr[c], y.x, a);
-      if (c + 1 < dk) a = fmaf(qr[c + 1], y.y, a);
-      if (c + 2 < dk) a = fmaf(qr[c + 2], y.z, a);
-      if (c + 3 < dk) a = fmaf(qr[c + 3], y.w, a);
-    }
-  }
-  return a;
-}
-
-// the same with q read through __ldg and rounded (dk past the registers)
-template <typename T>
-__device__ __forceinline__ float score_ldg(const float* __restrict__ q, const T* s, int dk) {
-  float a = 0.f;
-  for (int c = 0; c < dk; c += 4) {
-    const float4 y = staged4_bf16(s + c);
-    a = fmaf(bf16_round(__ldg(q + c)), y.x, a);
-    if (c + 1 < dk) a = fmaf(bf16_round(__ldg(q + c + 1)), y.y, a);
-    if (c + 2 < dk) a = fmaf(bf16_round(__ldg(q + c + 2)), y.z, a);
-    if (c + 3 < dk) a = fmaf(bf16_round(__ldg(q + c + 3)), y.w, a);
-  }
-  return a;
-}
-
 // The arguments both kernels take: the plan's arrays and the work list, the
 // stacks and their strides, the geometry, bmax, and the walk's batch
 #define VOLTRIX_BF16_PARAMS                                                                  \

@@ -42,6 +42,17 @@
 // the transpose plan, q, k, v, dO, lse, D, dk and dv once each. The
 // per-item gathers of q and dO rows and of lse and D, and a hub source's
 // edges, one a step, separate the kernel from it.
+//
+// compute_dtype=bfloat16 (kBf; attention_mh.py:529-570, attention.py:535-569
+// for K12): the same walk and merges, with JAX's rounding points. k, v, q
+// and dO are rounded to bf16 where they are read; raw = k . q and dP = v .
+// dO are one fma chain each in column order (each product exact); p =
+// expf, not __expf; dv sums bf16(p) dO and dk sums draw q, draw = bf16(p
+// (dP - D) act'(raw) scale) with each product rounded on its own. On bf16
+// planes the wrapper passes lse and D as JAX's K15 reads them there, bf16
+// hi + lo (ops/_attn_core.py:_dkv_stats). The plain version
+// (ops/_attn_core.py:_dkv_plain) rounds the same p and draw. The same
+// bound; the roundings, expf and the single chains add instructions an edge.
 
 #include "attn_walk.cuh"
 
@@ -60,7 +71,7 @@ using voltrix_walk::kTaskInts;
 using voltrix_walk::kW;
 using voltrix_walk::tile_rows;
 
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 __global__ void __launch_bounds__(kThreads)
 attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K)
                    const int32_t* __restrict__ hind,      // (B, K): destination rows
@@ -121,6 +132,10 @@ attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K
     for (int c = 0; c < kQ; ++c) {
       kr[j][c] = regs && c < dk ? to_f(__ldg(kh + c)) : 0.f;
       vr[j][c] = regs && c < dv ? to_f(__ldg(vh + c)) : 0.f;
+      if constexpr (kBf) {
+        kr[j][c] = bf16_round(kr[j][c]);
+        vr[j][c] = bf16_round(vr[j][c]);
+      }
     }
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
@@ -150,20 +165,35 @@ attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K
           const int jj = min(j, hg - 1);
           const T* qst = st + jj * kpad;
           const T* kh = k + (h0 + jj) * ks.head + rr * ks.row;
-          raw[j] = regs ? bwd_dot_regs<kQ, 1>(kr[j], qst, dk) : bwd_dot_ldg<1>(kh, qst, dk, vec_k);
+          if constexpr (kBf) {
+            raw[j] = regs ? score_regs<kQ>(kr[j], qst, dk) : score_ldg(kh, qst, dk);
+          } else {
+            raw[j] = regs ? bwd_dot_regs<kQ, 1>(kr[j], qst, dk)
+                          : bwd_dot_ldg<1>(kh, qst, dk, vec_k);
+          }
         }
 #pragma unroll
         for (int j = 0; j < HG; ++j) {
           const int jj = min(j, hg - 1);
           const T* gst = st + hgl * kpad + jj * vpad;
-          const float p = __expf(act(raw[j], scale, slope) - s[stats + jj]);
-          axpy_typed<kAcc>(p, gst + c0, cwv, acc_v[j]);
-          if (cwk > 0) {
-            const T* vh = v + (h0 + jj) * vs.head + rr * vs.row;
-            const float dp =
-                regs ? bwd_dot_regs<kQ, 4>(vr[j], gst, dv) : bwd_dot_ldg<4>(vh, gst, dv, vec_v);
-            const float ds = p * (dp - s[stats + hgl + jj]) * act_grad(raw[j], slope) * scale;
-            axpy_typed<kAcc>(ds, st + jj * kpad + c0, cwk, acc_k[j]);
+          const T* vh = v + (h0 + jj) * vs.head + rr * vs.row;
+          if constexpr (kBf) {
+            const float p = expf(act_rn(raw[j], scale, slope) - s[stats + jj]);
+            axpy_bf16<kAcc>(bf16_round(p), gst + c0, cwv, acc_v[j]);
+            if (cwk > 0) {
+              const float dp = regs ? score_regs<kQ>(vr[j], gst, dv) : score_ldg(vh, gst, dv);
+              const float draw = draw_bf16(p, dp, s[stats + hgl + jj], raw[j], scale, slope);
+              axpy_bf16<kAcc>(draw, st + jj * kpad + c0, cwk, acc_k[j]);
+            }
+          } else {
+            const float p = __expf(act(raw[j], scale, slope) - s[stats + jj]);
+            axpy_typed<kAcc>(p, gst + c0, cwv, acc_v[j]);
+            if (cwk > 0) {
+              const float dp =
+                  regs ? bwd_dot_regs<kQ, 4>(vr[j], gst, dv) : bwd_dot_ldg<4>(vh, gst, dv, vec_v);
+              const float ds = p * (dp - s[stats + hgl + jj]) * act_grad(raw[j], slope) * scale;
+              axpy_typed<kAcc>(ds, st + jj * kpad + c0, cwk, acc_k[j]);
+            }
           }
         }
       });
@@ -192,7 +222,7 @@ attn_mh_dkv_kernel(const uint32_t* __restrict__ bitmask,  // plan_t (B, words, K
   }
 }
 
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 int launch(const void* bitmask, const void* hind, const void* tasks, const void* merges,
            const void* k, const void* v, const void* q, const void* g, const void* lse,
            const void* drow, void* dk_out, void* dv_out, void* ws_k, void* ws_v, int num_tasks,
@@ -200,7 +230,7 @@ int launch(const void* bitmask, const void* hind, const void* tasks, const void*
            int nq, int dk, int dv, int lse_stride, float scale, float slope, int vec_k,
            int vec_v, int vec_q, int vec_g, Strides ks, Strides vs, Strides qs, Strides gs,
            cudaStream_t s) {
-  auto walk = attn_mh_dkv_kernel<T, HG, kAcc>;
+  auto walk = attn_mh_dkv_kernel<T, HG, kAcc, kBf>;
   const int hgl = min(HG, heads);
   const int sf = mh_slot_floats(dk, dv, hgl, sizeof(T), 2 * hgl);
   int nb, nbuf;
@@ -231,7 +261,7 @@ int launch(const void* bitmask, const void* hind, const void* tasks, const void*
   return static_cast<int>(err);
 }
 
-template <typename T>
+template <typename T, bool kBf>
 int dispatch(int hg, int acc, const void* bitmask, const void* hind, const void* tasks,
              const void* merges, const void* k, const void* v, const void* q, const void* g,
              const void* lse, const void* drow, void* dk_out, void* dv_out, void* ws_k,
@@ -241,7 +271,7 @@ int dispatch(int hg, int acc, const void* bitmask, const void* hind, const void*
              Strides vs, Strides qs, Strides gs, cudaStream_t s) {
 #define VOLTRIX_DKV(HG, N)                                                                     \
   if (hg == HG && acc == N) {                                                                  \
-    return launch<T, HG, N>(bitmask, hind, tasks, merges, k, v, q, g, lse, drow, dk_out,       \
+    return launch<T, HG, N, kBf>(bitmask, hind, tasks, merges, k, v, q, g, lse, drow, dk_out,  \
                             dv_out, ws_k, ws_v, num_tasks, num_merges, slots, heads, words,    \
                             block_h, block_w, nk, nq, dk, dv, lse_stride, scale, slope, vec_k, \
                             vec_v, vec_q, vec_g, ks, vs, qs, gs, s);                           \
@@ -273,10 +303,11 @@ extern "C" {
 // tile_rows(words) rows, dk floats a row (ws_k) and dv (ws_v). hg heads
 // share a thread block's walk and acc columns of dk and of dv a lane's
 // registers: the pairs of dispatch. k, v, q and dO are bf16 when bf16 !=
-// 0, else float; lse and D are float. Head h's row r of k starts at k +
-// h * k_head + r * k_row (elements; a row's values contiguous), and
-// likewise for v, q and dO. vec_k, vec_v: rows of k and v read four values
-// at a time (d % 4 == 0, rows aligned to four values); vec_q, vec_g: rows
+// 0, else float; lse and D are float. compute != 0: compute_dtype=bfloat16
+// (the kBf variant). Head h's row r of k starts at k + h * k_head + r *
+// k_row (elements; a row's values contiguous), and likewise for v, q and
+// dO. vec_k, vec_v: rows of k and v read four values at a time (d % 4 ==
+// 0, rows aligned to four values); vec_q, vec_g: rows
 // of q and dO a multiple of 16 bytes, 16-byte aligned (staged by 16-byte
 // copies).
 int voltrix_attn_mh_dkv(const void* bitmask, const void* hind, const void* tasks,
@@ -284,10 +315,11 @@ int voltrix_attn_mh_dkv(const void* bitmask, const void* hind, const void* tasks
                         const void* g, const void* lse, const void* drow, void* dk_out,
                         void* dv_out, void* ws_k, void* ws_v, int num_tasks, int num_merges,
                         int slots, int heads, int hg, int words, int block_h, int block_w, int nk,
-                        int nq, int dk, int dv, int lse_stride, int acc, int bf16, float scale,
-                        float slope, int vec_k, int vec_v, int vec_q, int vec_g, long long k_head,
-                        long long k_row, long long v_head, long long v_row, long long q_head,
-                        long long q_row, long long g_head, long long g_row, void* stream) {
+                        int nq, int dk, int dv, int lse_stride, int acc, int bf16, int compute,
+                        float scale, float slope, int vec_k, int vec_v, int vec_q, int vec_g,
+                        long long k_head, long long k_row, long long v_head, long long v_row,
+                        long long q_head, long long q_row, long long g_head, long long g_row,
+                        void* stream) {
   if (num_tasks <= 0 || num_merges < 0 || slots < 0 || heads <= 0 || hg <= 0 ||
       (int64_t)num_tasks * ((heads + hg - 1) / hg) > INT32_MAX || heads > 65535 || words <= 0 ||
       words * 32 < block_h || block_h <= 0 || block_w <= 0 || nk <= 0 || nq <= 0 || dk < 0 ||
@@ -299,15 +331,15 @@ int voltrix_attn_mh_dkv(const void* bitmask, const void* hind, const void* tasks
   }
   const Strides ks{k_head, k_row}, vs{v_head, v_row}, qs{q_head, q_row}, gs{g_head, g_row};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(hg, acc, bitmask, hind, tasks, merges, k, v, q, g, lse,
-                                        drow, dk_out, dv_out, ws_k, ws_v, num_tasks, num_merges,
-                                        slots, heads, words, block_h, block_w, nk, nq, dk, dv,
-                                        lse_stride, scale, slope, vec_k, vec_v, vec_q, vec_g, ks,
-                                        vs, qs, gs, s)
-              : dispatch<float>(hg, acc, bitmask, hind, tasks, merges, k, v, q, g, lse, drow,
-                                dk_out, dv_out, ws_k, ws_v, num_tasks, num_merges, slots, heads,
-                                words, block_h, block_w, nk, nq, dk, dv, lse_stride, scale, slope,
-                                vec_k, vec_v, vec_q, vec_g, ks, vs, qs, gs, s);
+  const auto run = [&](auto f) {
+    return f(hg, acc, bitmask, hind, tasks, merges, k, v, q, g, lse, drow, dk_out, dv_out, ws_k,
+             ws_v, num_tasks, num_merges, slots, heads, words, block_h, block_w, nk, nq, dk, dv,
+             lse_stride, scale, slope, vec_k, vec_v, vec_q, vec_g, ks, vs, qs, gs, s);
+  };
+  if (compute) {
+    return bf16 ? run(dispatch<__nv_bfloat16, true>) : run(dispatch<float, true>);
+  }
+  return bf16 ? run(dispatch<__nv_bfloat16, false>) : run(dispatch<float, false>);
 }
 
 const char* voltrix_cuda_error_string(int code) {

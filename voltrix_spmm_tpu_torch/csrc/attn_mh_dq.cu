@@ -43,6 +43,17 @@
 // the plan, q, k, v, dO, lse, D and dq once each. The per-item gathers of k
 // and v rows (L2 hits on the arxiv proxy) and a hub row's edges, one a
 // step, separate the kernel from it.
+//
+// compute_dtype=bfloat16 (kBf; attention_mh.py:436-463, attention.py:465-488
+// for K11): the same walk and merge, with JAX's rounding points. q, k, v and
+// dO are rounded to bf16 where they are read (a bf16 plane's k and v are
+// already); raw = q . k and dP = dO . v are one fma chain each in column
+// order (each product exact); p = expf, not __expf, the function torch.exp
+// runs on the card; ds = p (dP - D) act'(raw) scale, each product rounded on
+// its own, and draw = bf16(ds) multiplies the rounded k. So the plain
+// version (ops/_attn_core.py:_dq_plain) rounds the same draw, and only the
+// order of dq's float32 sums differs. The same bound; the roundings, expf
+// and the single chains add instructions an edge.
 
 #include "attn_walk.cuh"
 
@@ -81,7 +92,7 @@ using voltrix_walk::tile_rows;
       nk, dk, dv, lse_stride, slots, scale, slope, vec_q, vec_g, vec_k, vec_v, qs, ks, vs, \
       gs, nb, nbuf
 
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 __device__ __forceinline__ void dq_walk(VOLTRIX_DQ_PARAMS) {
   // q and dO values a lane keeps in registers per head where HG x kAcc <=
   // 32 and the rows fit (dk, dv <= kAcc); else the rows are read through
@@ -123,6 +134,10 @@ __device__ __forceinline__ void dq_walk(VOLTRIX_DQ_PARAMS) {
     for (int c = 0; c < kQ; ++c) {
       qr[j][c] = regs && c < dk ? __ldg(qh + c) : 0.f;
       gr[j][c] = regs && c < dv ? __ldg(gh + c) : 0.f;
+      if constexpr (kBf) {
+        qr[j][c] = bf16_round(qr[j][c]);
+        gr[j][c] = bf16_round(gr[j][c]);
+      }
     }
     lse_r[j] = has_row ? __ldg(lse + h * lse_stride + rr) : 0.f;
     d_r[j] = has_row ? __ldg(drow + h * nq + rr) : 0.f;
@@ -151,18 +166,30 @@ __device__ __forceinline__ void dq_walk(VOLTRIX_DQ_PARAMS) {
           const int jj = min(j, hg - 1);
           const T* kst = st + jj * kpad;
           const float* qh = q + (h0 + jj) * qs.head + rr * qs.row;
-          raw[j] = regs ? bwd_dot_regs<kQ, 1>(qr[j], kst, dk) : bwd_dot_ldg<1>(qh, kst, dk, vec_q);
+          if constexpr (kBf) {
+            raw[j] = regs ? score_regs<kQ>(qr[j], kst, dk) : score_ldg(qh, kst, dk);
+          } else {
+            raw[j] = regs ? bwd_dot_regs<kQ, 1>(qr[j], kst, dk)
+                          : bwd_dot_ldg<1>(qh, kst, dk, vec_q);
+          }
         }
 #pragma unroll
         for (int j = 0; j < HG; ++j) {
           const int jj = min(j, hg - 1);
           const T* vst = st + hgl * kpad + jj * vpad;
-          const float p = __expf(act(raw[j], scale, slope) - lse_r[j]);
           const float* gh = g + (h0 + jj) * gs.head + rr * gs.row;
-          const float dp =
-              regs ? bwd_dot_regs<kQ, 4>(gr[j], vst, dv) : bwd_dot_ldg<4>(gh, vst, dv, vec_g);
-          const float ds = p * (dp - d_r[j]) * act_grad(raw[j], slope) * scale;
-          axpy_typed<kAcc>(ds, st + jj * kpad + c0, cw, acc[j]);
+          if constexpr (kBf) {
+            const float p = expf(act_rn(raw[j], scale, slope) - lse_r[j]);
+            const float dp = regs ? score_regs<kQ>(gr[j], vst, dv) : score_ldg(gh, vst, dv);
+            const float draw = draw_bf16(p, dp, d_r[j], raw[j], scale, slope);
+            axpy_bf16<kAcc>(draw, st + jj * kpad + c0, cw, acc[j]);
+          } else {
+            const float p = __expf(act(raw[j], scale, slope) - lse_r[j]);
+            const float dp =
+                regs ? bwd_dot_regs<kQ, 4>(gr[j], vst, dv) : bwd_dot_ldg<4>(gh, vst, dv, vec_g);
+            const float ds = p * (dp - d_r[j]) * act_grad(raw[j], slope) * scale;
+            axpy_typed<kAcc>(ds, st + jj * kpad + c0, cw, acc[j]);
+          }
         }
       });
 
@@ -185,20 +212,20 @@ __device__ __forceinline__ void dq_walk(VOLTRIX_DQ_PARAMS) {
 
 // K14 over one head a block takes the registers ptxas picks; over a
 // group, at least mh_min_blocks(HG) blocks an SM
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 __global__ void __launch_bounds__(kThreads) attn_mh_dq_kernel(VOLTRIX_DQ_PARAMS) {
-  dq_walk<T, HG, kAcc>(VOLTRIX_DQ_ARGS);
+  dq_walk<T, HG, kAcc, kBf>(VOLTRIX_DQ_ARGS);
 }
 
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 __global__ void __launch_bounds__(kThreads, mh_min_blocks(HG))
     attn_mh_dq_group_kernel(VOLTRIX_DQ_PARAMS) {
-  dq_walk<T, HG, kAcc>(VOLTRIX_DQ_ARGS);
+  dq_walk<T, HG, kAcc, kBf>(VOLTRIX_DQ_ARGS);
 }
 #undef VOLTRIX_DQ_PARAMS
 #undef VOLTRIX_DQ_ARGS
 
-template <typename T, int HG, int kAcc>
+template <typename T, int HG, int kAcc, bool kBf>
 int launch(const void* bitmask, const void* hind, const void* tasks, const void* merges,
            const void* q, const void* k, const void* v, const void* g, const void* lse,
            const void* drow, void* dq, void* ws, int num_tasks, int num_merges, int slots,
@@ -207,9 +234,9 @@ int launch(const void* bitmask, const void* hind, const void* tasks, const void*
            Strides qs, Strides ks, Strides vs, Strides gs, cudaStream_t s) {
   const auto walk = [] {
     if constexpr (HG == 1) {
-      return attn_mh_dq_kernel<T, HG, kAcc>;
+      return attn_mh_dq_kernel<T, HG, kAcc, kBf>;
     } else {
-      return attn_mh_dq_group_kernel<T, HG, kAcc>;
+      return attn_mh_dq_group_kernel<T, HG, kAcc, kBf>;
     }
   }();
   const int sf = mh_slot_floats(dk, dv, min(HG, heads), sizeof(T));
@@ -233,7 +260,7 @@ int launch(const void* bitmask, const void* hind, const void* tasks, const void*
       heads, (int64_t)nq * dk, (int64_t)slots * tile_rows(words) * dk));
 }
 
-template <typename T>
+template <typename T, bool kBf>
 int dispatch(int hg, int acc, const void* bitmask, const void* hind, const void* tasks,
              const void* merges, const void* q, const void* k, const void* v, const void* g,
              const void* lse, const void* drow, void* dq, void* ws, int num_tasks,
@@ -243,7 +270,7 @@ int dispatch(int hg, int acc, const void* bitmask, const void* hind, const void*
              cudaStream_t s) {
 #define VOLTRIX_DQ(HG, N)                                                                      \
   if (hg == HG && acc == N) {                                                                  \
-    return launch<T, HG, N>(bitmask, hind, tasks, merges, q, k, v, g, lse, drow, dq, ws,       \
+    return launch<T, HG, N, kBf>(bitmask, hind, tasks, merges, q, k, v, g, lse, drow, dq, ws,  \
                             num_tasks, num_merges, slots, heads, words, block_h, block_w, nq, \
                             nk, dk, dv, lse_stride, scale, slope, vec_q, vec_g, vec_k, vec_v, \
                             qs, ks, vs, gs, s);                                                \
@@ -274,8 +301,9 @@ extern "C" {
 // `slots` tiles of tile_rows(words) x dk floats. hg heads share a thread
 // block's walk and acc columns of dq a lane's registers: the pairs of
 // dispatch. k and v are bf16 when bf16 != 0, else float; q, dO, lse and D
-// are float. Head h's row r of q starts at q + h * q_head + r * q_row
-// (elements; a row's values contiguous), and likewise for k, v and dO.
+// are float. compute != 0: compute_dtype=bfloat16 (the kBf variant). Head
+// h's row r of q starts at q + h * q_head + r * q_row (elements; a row's
+// values contiguous), and likewise for k, v and dO.
 // vec_q, vec_g: rows of q and dO read four floats at a time (d % 4 == 0,
 // 16-byte aligned rows); vec_k, vec_v: rows of k and v a multiple of 16
 // bytes, 16-byte aligned (staged by 16-byte copies).
@@ -284,10 +312,10 @@ int voltrix_attn_mh_dq(const void* bitmask, const void* hind, const void* tasks,
                        const void* g, const void* lse, const void* drow, void* dq, void* ws,
                        int num_tasks, int num_merges, int slots, int heads, int hg, int words,
                        int block_h, int block_w, int nq, int nk, int dk, int dv, int lse_stride,
-                       int acc, int bf16, float scale, float slope, int vec_q, int vec_g,
-                       int vec_k, int vec_v, long long q_head, long long q_row, long long k_head,
-                       long long k_row, long long v_head, long long v_row, long long g_head,
-                       long long g_row, void* stream) {
+                       int acc, int bf16, int compute, float scale, float slope, int vec_q,
+                       int vec_g, int vec_k, int vec_v, long long q_head, long long q_row,
+                       long long k_head, long long k_row, long long v_head, long long v_row,
+                       long long g_head, long long g_row, void* stream) {
   if (num_tasks <= 0 || num_merges < 0 || slots < 0 || heads <= 0 || hg <= 0 ||
       (int64_t)num_tasks * ((heads + hg - 1) / hg) > INT32_MAX || heads > 65535 || words <= 0 ||
       words * 32 < block_h || block_h <= 0 || block_w <= 0 || nq <= 0 || nk <= 0 || dk <= 0 ||
@@ -299,14 +327,15 @@ int voltrix_attn_mh_dq(const void* bitmask, const void* hind, const void* tasks,
   }
   const Strides qs{q_head, q_row}, ks{k_head, k_row}, vs{v_head, v_row}, gs{g_head, g_row};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(hg, acc, bitmask, hind, tasks, merges, q, k, v, g, lse,
-                                        drow, dq, ws, num_tasks, num_merges, slots, heads, words,
-                                        block_h, block_w, nq, nk, dk, dv, lse_stride, scale,
-                                        slope, vec_q, vec_g, vec_k, vec_v, qs, ks, vs, gs, s)
-              : dispatch<float>(hg, acc, bitmask, hind, tasks, merges, q, k, v, g, lse, drow,
-                                dq, ws, num_tasks, num_merges, slots, heads, words, block_h,
-                                block_w, nq, nk, dk, dv, lse_stride, scale, slope, vec_q, vec_g,
-                                vec_k, vec_v, qs, ks, vs, gs, s);
+  const auto run = [&](auto f) {
+    return f(hg, acc, bitmask, hind, tasks, merges, q, k, v, g, lse, drow, dq, ws, num_tasks,
+             num_merges, slots, heads, words, block_h, block_w, nq, nk, dk, dv, lse_stride, scale,
+             slope, vec_q, vec_g, vec_k, vec_v, qs, ks, vs, gs, s);
+  };
+  if (compute) {
+    return bf16 ? run(dispatch<__nv_bfloat16, true>) : run(dispatch<float, true>);
+  }
+  return bf16 ? run(dispatch<__nv_bfloat16, false>) : run(dispatch<float, false>);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -473,6 +473,92 @@ __device__ __forceinline__ void axpy_typed(float coef, const T* s, int cw, float
   }
 }
 
+// --- compute_dtype=bfloat16 (the JAX package's rounding points) -------------
+// K9's and K13's bf16 kernels (attn_fwd_bf16.cu) and the compute variants of
+// K10 (attn_bwd.cu), K14 (attn_mh_dq.cu) and K15 (attn_mh_dkv.cu). Each
+// product takes two bf16 values, so it is exact in float32, and a sum of
+// them is one fma chain in column order: the plain versions
+// (ops/_attn_core.py:_chain) add the same products in the same order.
+
+using voltrix_walk::bf16_round;
+
+// four staged values rounded to bf16 (a bf16 plane's values already are)
+template <typename T>
+__device__ __forceinline__ float4 staged4_bf16(const T* p) {
+  float4 y = staged4(p);
+  if constexpr (sizeof(T) == 4) {
+    y = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z), bf16_round(y.w));
+  }
+  return y;
+}
+
+// x[0..d) (registers, bf16-rounded, zero past d) . s[0..d) (staged): one
+// fma chain in column order
+template <int kQ, typename T>
+__device__ __forceinline__ float score_regs(const float* qr, const T* s, int dk) {
+  float a = 0.f;
+#pragma unroll
+  for (int c = 0; c < kQ; c += 4) {
+    if (c < dk) {
+      const float4 y = staged4_bf16(s + c);
+      a = fmaf(qr[c], y.x, a);
+      if (c + 1 < dk) a = fmaf(qr[c + 1], y.y, a);
+      if (c + 2 < dk) a = fmaf(qr[c + 2], y.z, a);
+      if (c + 3 < dk) a = fmaf(qr[c + 3], y.w, a);
+    }
+  }
+  return a;
+}
+
+// the same with x (float or bf16) read through __ldg and rounded (d past
+// the registers)
+template <typename U, typename T>
+__device__ __forceinline__ float score_ldg(const U* __restrict__ q, const T* s, int dk) {
+  using voltrix_attn::to_f;
+  float a = 0.f;
+  for (int c = 0; c < dk; c += 4) {
+    const float4 y = staged4_bf16(s + c);
+    a = fmaf(bf16_round(to_f(__ldg(q + c))), y.x, a);
+    if (c + 1 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 1))), y.y, a);
+    if (c + 2 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 2))), y.z, a);
+    if (c + 3 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 3))), y.w, a);
+  }
+  return a;
+}
+
+// acc[c] += coef * bf16(s[c]) for the groups of four c < cw (coef a bf16
+// value: each product exact; axpy_typed's padding rule)
+template <int kAcc, typename T>
+__device__ __forceinline__ void axpy_bf16(float coef, const T* s, int cw, float* acc) {
+#pragma unroll
+  for (int c = 0; c < kAcc; c += 4) {
+    if (c < cw) {
+      const float4 y = staged4_bf16(s + c);
+      acc[c] = fmaf(coef, y.x, acc[c]);
+      acc[c + 1] = fmaf(coef, y.y, acc[c + 1]);
+      acc[c + 2] = fmaf(coef, y.z, acc[c + 2]);
+      acc[c + 3] = fmaf(coef, y.w, acc[c + 3]);
+    }
+  }
+}
+
+// leaky_relu(scale * raw) with each product rounded on its own (__fmul_rn),
+// so that nvcc contracts neither into the subtraction of lse that follows
+// and p = exp(s - lse) rounds as the plain version's does
+__device__ __forceinline__ float act_rn(float raw, float scale, float slope) {
+  const float s = __fmul_rn(raw, scale);
+  return s > 0.f ? s : __fmul_rn(s, slope);
+}
+
+// draw = bf16(p (dp - D) act'(raw) scale): the backward's score gradient,
+// each product rounded on its own in the order of the plain version
+// (ops/_attn_core.py:_ds), then to bf16 once
+__device__ __forceinline__ float draw_bf16(float p, float dp, float d, float raw, float scale,
+                                           float slope) {
+  const float ds = __fmul_rn(__fmul_rn(p, dp - d), voltrix_attn::act_grad(raw, slope));
+  return bf16_round(__fmul_rn(ds, scale));
+}
+
 // thread blocks an SM holds at least, by head group of two or more:
 // registers capped to fit them, which timed faster at path G's layer 1 on
 // the H100 than the registers the sums ask for (K13 in attn_fwd.cu, K14 in

@@ -56,12 +56,13 @@ def _loader(name: str, symbol: str, argtypes):
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
-# the plan's arrays and the work list, the kernel's tensors, the geometry,
-# the alignment flags, then the (head, row) strides of the four stacks
+# the plan's arrays and the work list, the kernel's tensors, the geometry
+# (with the plane and the compute flag), the alignment flags, then the
+# (head, row) strides of the four stacks
 load_dq_library = _loader("attn_mh_dq", "voltrix_attn_mh_dq",
-                          [_p] * 12 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
+                          [_p] * 12 + [_i] * 16 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 load_dkv_library = _loader("attn_mh_dkv", "voltrix_attn_mh_dkv",
-                           [_p] * 14 + [_i] * 15 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
+                           [_p] * 14 + [_i] * 16 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 # K9 and K13 under compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu): the plan's
 # arrays (with window_of_block) and the work list, the tensors and bmax, the
 # geometry, the plane, the alignment flags and the (head, row) strides
@@ -87,17 +88,17 @@ def _rounded(x: torch.Tensor, pdt) -> torch.Tensor:
 
 
 def compute_bf16(compute_dtype) -> bool:
-    """The JAX package's compute_dtype of K9 and K13 on the port: True for
-    torch.bfloat16 (q, k, v and p rounded to bf16 before their products,
-    attention.py:121-143), False for None and float32; any other type
-    raises."""
+    """The JAX package's compute_dtype of K9-K15 on the port: True for
+    torch.bfloat16 (the products' operands rounded to bf16 where JAX rounds
+    them: attention.py:121-143 forward, :379-414, :465-488 and :535-569
+    backward), False for None and float32; any other type raises."""
     if compute_dtype is None or compute_dtype == torch.float32:
         return False
     if compute_dtype == torch.bfloat16:
         return True
     raise NotImplementedError(
-        f"compute_dtype={compute_dtype}: the attention kernels compute in float32 or, for the "
-        "forward, in bfloat16 (ROADMAP.md item 9)")
+        f"compute_dtype={compute_dtype}: the attention kernels compute in float32 or "
+        "bfloat16 (float16 is ROADMAP.md item 9)")
 
 
 def op_compute_dtype(compute_dtype) -> torch.dtype:
@@ -106,16 +107,10 @@ def op_compute_dtype(compute_dtype) -> torch.dtype:
     return torch.bfloat16 if compute_bf16(compute_dtype) else torch.float32
 
 
-BF16_BACKWARD = ("compute_dtype=torch.bfloat16 with inputs that need a gradient: the "
-                 "backward kernels K10-K12, K14 and K15 compute in float32, and their "
-                 "compute_dtype is ROADMAP.md item 9's backward entry; call the forward under "
-                 "torch.no_grad()")
-
-
 def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> None:
     """The JAX package's TPU knobs: the H100 kernels pick their own tiles,
-    compute in float32 (the forward also in bfloat16, `compute_bf16`), and
-    have no interpret mode."""
+    compute in float32 or bfloat16 (`compute_bf16`), and have no interpret
+    mode."""
     if block_d is not None:
         raise NotImplementedError(
             "block_d: a TPU tiling knob; the H100 kernels pick their own tiles (their "
@@ -284,10 +279,7 @@ def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
     rows, cols, lanes = _edges(plan, chunk_bytes)
     s_all = torch.empty(heads, rows.numel(), dtype=torch.float32, device=dev)
     for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dk, chunk_bytes):
-        qe, ke = qb.index_select(1, rows[e0:e1]), kb.index_select(1, cols[e0:e1])
-        raw = torch.zeros(heads, e1 - e0, dtype=torch.float32, device=dev)
-        for c in range(dk):
-            raw = raw + qe[..., c] * ke[..., c]
+        raw = _chain(qb.index_select(1, rows[e0:e1]), kb.index_select(1, cols[e0:e1]))
         s_all[:, e0:e1] = _act(raw, scale, slope)
     # M: the running maximum after each grid step, one step after another
     step = _grid_steps(plan, lanes)
@@ -316,43 +308,91 @@ def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
     return out, lse
 
 
-def _dq_plain(plan: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chunk_bytes):
+def _chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b, -1) of bf16 values, one sum in column order: each product
+    is exact in float32, so a kernel's fma chain in that order gives the
+    same bits."""
+    out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for c in range(a.shape[-1]):
+        out = out + a[..., c] * b[..., c]
+    return out
+
+
+def _hi_lo(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) as bf16 hi + lo, summed in float32 (exact): JAX's K15
+    reads lse and D so on bf16 planes (attention_mh.py:93-99, :530-537)."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _dkv_stats(lse, d_row, pdt, compute):
+    """K15's lse and D in float32: under compute_dtype=bfloat16 on bf16
+    planes JAX's hi + lo of each (`_hi_lo`), whose last bits p's rounding
+    to bf16 would otherwise turn into whole bf16 steps; else as they
+    are."""
+    lse, d_row = lse.float(), d_row.float()
+    if compute and pdt is not None:
+        return _hi_lo(lse), _hi_lo(d_row)
+    return lse, d_row
+
+
+def _edge_grads(qe, ke, ve, ge, lse_e, d_e, scale, slope, compute):
+    """Per edge (raw's operands gathered): p = exp(act(raw) - lse) and the
+    coefficient of dq's and dk's terms, ds (float32) or, with compute, draw
+    = bf16(ds) from scores and dP summed in column order, and the dv term's
+    coefficient, p or bf16(p) (attention.py:379-414)."""
+    if compute:
+        raw, dp = _chain(qe, ke), _chain(ge, ve)
+    else:
+        raw, dp = (qe * ke).sum(-1), (ge * ve).sum(-1)
+    p = torch.exp(_act(raw, scale, slope) - lse_e)
+    ds = _ds(p, dp, d_e, raw, scale, slope)
+    return (_bf16(ds), _bf16(p)) if compute else (ds, p)
+
+
+def _dq_plain(plan: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chunk_bytes,
+              compute=False):
     """dq (H, num_nodes, dk) float32 over `plan`, from the forward's lse and
-    D = rowsum(dO o out)."""
+    D = rowsum(dO o out). compute: compute_dtype=bfloat16 (q, k, v and dO
+    rounded to bf16, scores and dP summed in column order, draw = bf16(ds);
+    attention.py:465-488, attention_mh.py:436-463)."""
     heads, nq, dk, dv = q.shape[0], q.shape[1], q.shape[2], v.shape[2]
-    qf, kf, vf, gf = q.float(), _rounded(k, pdt), _rounded(v, pdt), g.float()
+    # every operand rounded to bf16 under the flag; else k and v by the plane
+    q_dt, k_dt = (torch.bfloat16, torch.bfloat16) if compute else (None, pdt)
+    qf, kf, vf, gf = _rounded(q, q_dt), _rounded(k, k_dt), _rounded(v, k_dt), _rounded(g, q_dt)
     lse, d_row = lse.float(), d_row.float()
     rows, cols, _ = _edges(plan, chunk_bytes)
     dq = torch.zeros(heads, nq, dk, dtype=torch.float32, device=q.device)
     for e0, e1 in _edge_chunks(rows.numel(), heads, 3 * dk + 2 * dv, chunk_bytes):
         r, c = rows[e0:e1], cols[e0:e1]
         kc = kf.index_select(1, c)
-        raw = (qf.index_select(1, r) * kc).sum(-1)
-        p = torch.exp(_act(raw, scale, slope) - lse.index_select(1, r))
-        dp = (gf.index_select(1, r) * vf.index_select(1, c)).sum(-1)
-        ds = _ds(p, dp, d_row.index_select(1, r), raw, scale, slope)
+        ds, _ = _edge_grads(qf.index_select(1, r), kc, vf.index_select(1, c),
+                            gf.index_select(1, r), lse.index_select(1, r),
+                            d_row.index_select(1, r), scale, slope, compute)
         dq.index_add_(1, r, ds[..., None] * kc)
     return dq
 
 
-def _dkv_plain(plan_t: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chunk_bytes):
+def _dkv_plain(plan_t: SpmmPlan, q, k, v, g, lse, d_row, scale, slope, pdt, chunk_bytes,
+               compute=False):
     """(dk, dv) float32 over the transpose plan, whose rows are the source
     rows of k and v and whose lanes are the destination rows of q, dO, lse
-    and D."""
+    and D. compute: compute_dtype=bfloat16 (attention.py:535-569,
+    attention_mh.py:529-570: dv sums bf16(p) dO, dk draw q)."""
     heads, nk, dk, dv = k.shape[0], k.shape[1], k.shape[2], v.shape[2]
+    lse, d_row = _dkv_stats(lse, d_row, pdt, compute)
+    pdt = torch.bfloat16 if compute else pdt  # every operand rounded under the flag
     qf, kf, vf, gf = (_rounded(t, pdt) for t in (q, k, v, g))
-    lse, d_row = lse.float(), d_row.float()
     rows, cols, _ = _edges(plan_t, chunk_bytes)  # rows index k and v, cols q and dO
     dk_out = torch.zeros(heads, nk, dk, dtype=torch.float32, device=q.device)
     dv_out = torch.zeros(heads, nk, dv, dtype=torch.float32, device=q.device)
     for e0, e1 in _edge_chunks(rows.numel(), heads, 3 * dk + 3 * dv, chunk_bytes):
         s, r = rows[e0:e1], cols[e0:e1]
         qc, gc = qf.index_select(1, r), gf.index_select(1, r)
-        raw = (kf.index_select(1, s) * qc).sum(-1)
-        p = torch.exp(_act(raw, scale, slope) - lse.index_select(1, r))
+        ds, p = _edge_grads(qc, kf.index_select(1, s), vf.index_select(1, s), gc,
+                            lse.index_select(1, r), d_row.index_select(1, r), scale, slope,
+                            compute)
         dv_out.index_add_(1, s, p[..., None] * gc)
-        dp = (vf.index_select(1, s) * gc).sum(-1)
-        ds = _ds(p, dp, d_row.index_select(1, r), raw, scale, slope)
         dk_out.index_add_(1, s, ds[..., None] * qc)
     return dk_out, dv_out
 
@@ -523,13 +563,14 @@ def fwd_bf16_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc):
     return out, lse
 
 
-def _dq_kernel(entry, plan, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
+def _dq_kernel(entry, plan, walk, q, k, v, g, lse, d_row, scale, slope, pdt, compute=False):
     """dq (H, nq, dk) float32 through K14 (csrc/attn_mh_dq.cu), the body of
     the op of `entry` (ops/library.py): the walk over `walk`
     (`plan_walk(plan, name)`) for each head group and, when a group of
     rows is cut, the merge of each head's pieces. q, k, v and dO are read
     through their head and row strides (`_head_rows`). Every row is
-    written."""
+    written. compute: compute_dtype=bfloat16 (the kernel's compute
+    variant, counted in entry.launches_bf16 too)."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
@@ -549,26 +590,28 @@ def _dq_kernel(entry, plan, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
         vc.data_ptr(), gc.data_ptr(), lc.data_ptr(), dc_row.data_ptr(), dq.data_ptr(),
         None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
         walk.slots, heads, hg, cfg.words_per_col, cfg.block_h, cfg.block_w, nq, nk, dk, dv,
-        lc.shape[1], acc, int(pdt is not None), float(scale), float(slope), _rows4(qc),
-        _rows4(gc), _rows16(kc), _rows16(vc), *_strides(qc, kc, vc, gc),
+        lc.shape[1], acc, int(pdt is not None), int(compute), float(scale), float(slope),
+        _rows4(qc), _rows4(gc), _rows16(kc), _rows16(vc), *_strides(qc, kc, vc, gc),
     )
     entry.launches += 1
+    entry.launches_bf16 += int(compute)
     return dq
 
 
-def _dkv_kernel(entry, plan_t, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
+def _dkv_kernel(entry, plan_t, walk, q, k, v, g, lse, d_row, scale, slope, pdt, compute=False):
     """(dk, dv) float32 through K15 (csrc/attn_mh_dkv.cu) over the
     transpose plan, the body of the op of `entry` (ops/library.py): the
     walk over `walk` (`plan_walk(plan_t, name)`) for each head group and,
     when a group of rows is cut, the merges of each head's pieces of dk
     and of dv. q, k, v and dO are read in the plane's type
-    through their head and row strides. Every row is written."""
+    through their head and row strides. Every row is written. compute as
+    `_dq_kernel`'s."""
     name = entry.__name__
     heads, nq, nk, dk, dv = q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     dev = q.device
     f32, tdt = torch.float32, pdt or torch.float32
     qc, kc, vc, gc = (_head_rows(name, dev, t, tdt) for t in (q, k, v, g))
-    lc, dc_row = _tensors(name, dev, (lse, f32), (d_row, f32))
+    lc, dc_row = _tensors(name, dev, *((t, f32) for t in _dkv_stats(lse, d_row, pdt, compute)))
     dk_out = torch.empty(heads, nk, dk, dtype=f32, device=dev)
     dv_out = torch.empty(heads, nk, dv, dtype=f32, device=dev)
     if plan_t.total_blocks == 0 or dk + dv == 0:
@@ -583,8 +626,9 @@ def _dkv_kernel(entry, plan_t, walk, q, k, v, g, lse, d_row, scale, slope, pdt):
         dv_out.data_ptr(), *(None if w is None else w.data_ptr() for w in (ws_k, ws_v)),
         walk.tasks.shape[0], walk.merges.shape[0], walk.slots, heads, hg, cfg.words_per_col,
         cfg.block_h, cfg.block_w, nk, nq, dk, dv, lc.shape[1], acc, int(pdt is not None),
-        float(scale), float(slope), _rows4(kc), _rows4(vc), _rows16(qc), _rows16(gc),
-        *_strides(kc, vc, qc, gc),
+        int(compute), float(scale), float(slope), _rows4(kc), _rows4(vc), _rows16(qc),
+        _rows16(gc), *_strides(kc, vc, qc, gc),
     )
     entry.launches += 1
+    entry.launches_bf16 += int(compute)
     return dk_out, dv_out

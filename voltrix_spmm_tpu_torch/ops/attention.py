@@ -37,6 +37,11 @@ out_r and ds = p (dO_r . v_l - D_r) act'(raw) scale:
 - `spmm_attention_ad` is K9's op with its gradient: forward K9; backward K11
   and K12 when given the transpose plan, else `attention_bwd_summed`.
 
+compute_dtype=torch.bfloat16 rounds the products' operands to bf16 where
+the JAX package rounds them (ops/_attn_core.py:compute_bf16): the forward
+through csrc/attn_fwd_bf16.cu, the backward through the compute variants of
+K10 (csrc/attn_bwd.cu) and of K14 and K15 (K11, K12).
+
 K9-K12 are the registered ops ``torch.ops.voltrix.spmm_attention``,
 ``attention_bwd``, ``attention_dq`` and ``attention_dkv`` (ops/library.py),
 which every call goes through; K9's op carries `spmm_attention_ad`'s
@@ -59,16 +64,15 @@ from ..format.plan import SpmmPlan
 from ..utils import kept_beside
 from ._attn_core import (
     _EMPTY_LSE,
-    BF16_BACKWARD,
     IMPLS,
-    _act,
+    _bf16,
     _check_bwd,
     _check_plan,
     _check_qkv,
     _dkv_plain,
     _dq_plain,
-    _ds,
     _edge_chunks,
+    _edge_grads,
     _edges,
     _fwd_plain,
     _loader,
@@ -95,7 +99,7 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 load_fwd_library = _loader("attn_fwd", "voltrix_attn_fwd",
                            [_p] * 11 + [_i] * 10 + [_f, _f, _i, _i, _p])
 load_bwd_library = _loader("attn_bwd", "voltrix_attn_bwd",
-                           [_p] * 20 + [_i] * 11 + [_f, _f, _i, _i, _p])
+                           [_p] * 20 + [_i] * 11 + [_f, _f, _i, _i, _i, _p])
 # K13 (ops/attention_mh.py) from the same library as K9: the plan's arrays
 # and the work list, the tensors, then the geometry, the plane, the
 # alignment flags and the (head, row) strides of q, k and v
@@ -260,8 +264,8 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     negative_slope 1.0 is the identity. compute_dtype=torch.bfloat16 rounds
     q, k, v and p to bf16 before their products, as the JAX package does
     (K13's bf16 kernel at one head, csrc/attn_fwd_bf16.cu; counted in
-    `launches` and `launches_bf16`); its inputs may not need a gradient
-    (NotImplementedError). A plan with a value plane raises ValueError; the
+    `launches` and `launches_bf16`; its gradient is `spmm_attention_ad`'s).
+    A plan with a value plane raises ValueError; the
     TPU knobs block_d, precision and interpret raise NotImplementedError."""
     from . import library
 
@@ -324,26 +328,32 @@ def _fwd_kernel(plan: SpmmPlan, walk, q, k, v, scale: float, slope: float):
 # --- K11 and K12: the split backward ----------------------------------------------
 
 def attention_dq_reference(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                           negative_slope: float = 1.0,
+                           negative_slope: float = 1.0, compute_dtype=None,
                            chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """The plain version of K11: dq (num_nodes, dk) float32 over `plan`,
-    from the forward's lse and D = rowsum(dO o out)."""
+    from the forward's lse and D = rowsum(dO o out); compute_dtype=
+    torch.bfloat16 rounds at the JAX package's points (ops/_attn_core.py:
+    _dq_plain)."""
     attention_dq_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     views = _one_head("attention_dq_reference", q, k, v, g, lse, d_row)
     _check_bwd(plan, *views, "attention_dq_reference", False)
-    return _dq_plain(plan, *views, scale, negative_slope, None, chunk_bytes)[0]
+    return _dq_plain(plan, *views, scale, negative_slope, None, chunk_bytes, compute)[0]
 
 
 attention_dq_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
 def attention_dkv_reference(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                            negative_slope: float = 1.0, chunk_bytes: int = CHUNK_BYTES):
-    """The plain version of K12: (dk, dv) float32 over the transpose plan."""
+                            negative_slope: float = 1.0, compute_dtype=None,
+                            chunk_bytes: int = CHUNK_BYTES):
+    """The plain version of K12: (dk, dv) float32 over the transpose plan;
+    compute_dtype as `attention_dq_reference`'s."""
     attention_dkv_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     views = _one_head("attention_dkv_reference", q, k, v, g, lse, d_row)
     _check_bwd(plan_t, *views, "attention_dkv_reference", True)
-    dk, dv = _dkv_plain(plan_t, *views, scale, negative_slope, None, chunk_bytes)
+    dk, dv = _dkv_plain(plan_t, *views, scale, negative_slope, None, chunk_bytes, compute)
     return dk[0], dv[0]
 
 
@@ -351,38 +361,45 @@ attention_dkv_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
 def attention_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                 negative_slope: float = 1.0) -> torch.Tensor:
+                 negative_slope: float = 1.0, compute_dtype=None) -> torch.Tensor:
     """dq (num_nodes, dk) float32 through kernel K11 (K14's kernel at H =
     1) over `plan`, as the registered op ``torch.ops.voltrix.attention_dq``
-    (ops/library.py, on H = 1 views); see the plain version."""
+    (ops/library.py, on H = 1 views); see the plain version.
+    compute_dtype=torch.bfloat16 launches K14's compute variant (counted in
+    `launches` and `launches_bf16`)."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_dq")
     views = _one_head("attention_dq", q, k, v, g, lse, d_row)
     _check_bwd(plan, *views, "attention_dq", False)
     return library.call_attention_dq("attention_dq", plan, *views, float(scale),
-                                float(negative_slope), None)[0]
+                                     float(negative_slope), None, compute)[0]
 
 
 attention_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
+attention_dq.launches_bf16 = 0  # of which at compute_dtype=bfloat16
 
 
 def attention_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                  negative_slope: float = 1.0):
+                  negative_slope: float = 1.0, compute_dtype=None):
     """(dk, dv) float32 through kernel K12 (K15's kernel at H = 1) over the
     transpose plan, as the registered op ``torch.ops.voltrix.attention_dkv``
-    (ops/library.py, on H = 1 views); see the plain version."""
+    (ops/library.py, on H = 1 views); see the plain version; compute_dtype
+    as `attention_dq`'s."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_dkv")
     views = _one_head("attention_dkv", q, k, v, g, lse, d_row)
     _check_bwd(plan_t, *views, "attention_dkv", True)
     dk, dv = library.call_attention_dkv("attention_dkv", plan_t, *views, float(scale),
-                                   float(negative_slope), None)
+                                        float(negative_slope), None, compute)
     return dk[0], dv[0]
 
 
 attention_dkv.launches = 0  # plain-int launch count, read by chip_smoke.py
+attention_dkv.launches_bf16 = 0  # of which at compute_dtype=bfloat16
 
 
 # --- K10: the self-contained backward ----------------------------------------------
@@ -396,17 +413,23 @@ def _check_lanes(plan: SpmmPlan, q, k, v, out, lse, g, name: str):
 
 
 def attention_bwd_reference(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
-                            negative_slope: float = 1.0, chunk_bytes: int = CHUNK_BYTES):
+                            negative_slope: float = 1.0, compute_dtype=None,
+                            chunk_bytes: int = CHUNK_BYTES):
     """The plain version of K10: (dq, dk_lane, dv_lane) float32. dq
     (num_nodes, dk) sums over `plan`'s windows; dk_lane (total_blocks *
     block_w, dk) and dv_lane (total_blocks * block_w, dv) hold, for lane
     (b, j), sum_r ds q[r] and sum_r p dO[r] over the set bits r of column j
-    of block b. Lanes without bits are exactly 0."""
+    of block b. Lanes without bits are exactly 0. compute_dtype=
+    torch.bfloat16 rounds where JAX's _attn_bwd_kernel rounds
+    (attention.py:379-414): q, k, v and dO to bf16, p before dv's product,
+    draw = bf16(ds) before dq's and dk's; D = rowsum(dO o out) from the
+    unrounded dO and out."""
     attention_bwd_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     nq, _, dk, dv = _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd_reference")
-    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     lse = lse.float()
-    d_row = (gf * out.float()).sum(-1)
+    d_row = (g.float() * out.float()).sum(-1)
+    qf, kf, vf, gf = (_bf16(t) if compute else t.float() for t in (q, k, v, g))
     lanes = plan.total_blocks * plan.config.block_w
     dev = q.device
     dq = torch.zeros(nq, dk, dtype=torch.float32, device=dev)
@@ -416,10 +439,8 @@ def attention_bwd_reference(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: floa
     for e0, e1 in _edge_chunks(rows.numel(), 1, 4 * dk + 3 * dv, chunk_bytes):
         r, c, ln = rows[e0:e1], cols[e0:e1], lane[e0:e1]
         qc, kc, gc = qf.index_select(0, r), kf.index_select(0, c), gf.index_select(0, r)
-        raw = (qc * kc).sum(-1)
-        p = torch.exp(_act(raw, scale, negative_slope) - lse.index_select(0, r))
-        dp = (gc * vf.index_select(0, c)).sum(-1)
-        ds = _ds(p, dp, d_row.index_select(0, r), raw, scale, negative_slope)
+        ds, p = _edge_grads(qc, kc, vf.index_select(0, c), gc, lse.index_select(0, r),
+                            d_row.index_select(0, r), scale, negative_slope, compute)
         dq.index_add_(0, r, ds[:, None] * kc)
         dk_lane.index_add_(0, ln, ds[:, None] * qc)
         dv_lane.index_add_(0, ln, p[:, None] * gc)
@@ -430,26 +451,30 @@ attention_bwd_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 
 
 def attention_bwd(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
-                  negative_slope: float = 1.0):
+                  negative_slope: float = 1.0, compute_dtype=None):
     """(dq, dk_lane, dv_lane) float32 through kernel K10 (csrc/attn_bwd.cu),
     as the registered op ``torch.ops.voltrix.attention_bwd``
     (ops/library.py); see the plain version. K10 writes the lanes that
     hold bits in the source order (`plan_lane_sources`); their rows go to
     their lanes of planes that are zero elsewhere. D = rowsum(dO o out) is
-    one PyTorch reduction before the launch."""
+    one PyTorch reduction before the launch. compute_dtype=torch.bfloat16
+    launches K10's compute variant (counted in `launches` and
+    `launches_bf16`)."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_bwd")
     _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
     return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
-                                 float(negative_slope), False)
+                                      float(negative_slope), False, compute)
 
 
 attention_bwd.launches = 0  # plain-int launch count, read by chip_smoke.py
+attention_bwd.launches_bf16 = 0  # of which at compute_dtype=bfloat16
 
 
 def attention_bwd_summed(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
-                         negative_slope: float = 1.0):
+                         negative_slope: float = 1.0, compute_dtype=None):
     """(dq, dk, dv) float32: K10 with its lane planes summed into source
     rows by hind in a fixed order, with no atomics (what `segment_sum`
     gives in the JAX package's _attn_bwd), as the registered op
@@ -458,22 +483,24 @@ def attention_bwd_summed(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
     `plan_lane_sources`, and its sum, a warp per source row adding its
     slots in order); a CPU tensor runs the plain version of K10, takes its
     lane planes in the same order and sums them with
-    `sum_slots_reference`."""
+    `sum_slots_reference`. compute_dtype as `attention_bwd`'s."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_bwd")
     _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
     return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
-                                 float(negative_slope), True)
+                                      float(negative_slope), True, compute)
 
 
 def bwd_plain(plan: SpmmPlan, sources: LaneSources, q, k, v, out, lse, g, scale: float,
-              slope: float, summed: bool):
+              slope: float, summed: bool, compute_dtype=None):
     """The op's body on the CPU (ops/library.py): the plain version of K10,
     with `summed` its lane planes taken in the source order `sources` and
     summed with `sum_slots_reference`."""
     dq, dk_lane, dv_lane = attention_bwd_reference(plan, q, k, v, out, lse, g, scale=scale,
-                                                   negative_slope=slope)
+                                                   negative_slope=slope,
+                                                   compute_dtype=compute_dtype)
     if not summed:
         return dq, dk_lane, dv_lane
     idx = sources.slot_lane.long()
@@ -482,11 +509,12 @@ def bwd_plain(plan: SpmmPlan, sources: LaneSources, q, k, v, out, lse, g, scale:
 
 
 def _bwd_kernel(plan: SpmmPlan, walk, sources: LaneSources, q, k, v, out, lse, g, scale: float,
-                slope: float, summed: bool):
+                slope: float, summed: bool, compute: bool = False):
     """K10 on the card, the op's body (ops/library.py): dq and either the
     lane planes (the lanes' rows in the source order `sources`, copied to
     their lanes of zero planes) or, `summed`, dk and dv (source_rows rows).
-    Counts one launch of attention_bwd."""
+    compute: compute_dtype=bfloat16 (K10's compute variant, counted in
+    launches_bf16 too). Counts one launch of attention_bwd."""
     name = "attention_bwd"
     nq, dk = q.shape
     nk, dv = v.shape
@@ -522,9 +550,10 @@ def _bwd_kernel(plan: SpmmPlan, walk, sources: LaneSources, q, k, v, out, lse, g
         vc.data_ptr(), gc.data_ptr(), lc.data_ptr(), d_row.data_ptr(), dq.data_ptr(), ptr(ws),
         slot_k.data_ptr(), slot_v.data_ptr(), ptr(dk_out), ptr(dv_out), walk.tasks.shape[0],
         walk.merges.shape[0], n, cfg.words_per_col, cfg.block_h, cfg.block_w, nq, nk, dk, dv,
-        acc, float(scale), float(slope), _vec4(dk, qc, kc), _vec4(dv, vc, gc),
+        acc, float(scale), float(slope), _vec4(dk, qc, kc), _vec4(dv, vc, gc), int(compute),
     )
     attention_bwd.launches += 1
+    attention_bwd.launches_bf16 += int(compute)
     if summed:
         return dq, dk_out, dv_out
     idx = sources.slot_lane.long()
@@ -552,13 +581,14 @@ def scatter_lanes(plan: SpmmPlan, lane_plane: torch.Tensor, num_rows: int) -> to
 class _PlainAttention(torch.autograd.Function):
     """`spmm_attention_ad(impl="reference")`: the plain versions of K9-K12
     with the kernels' gradient (without plan_t, K10's plain lane planes
-    summed by `scatter_lanes`)."""
+    summed by `scatter_lanes`), at compute_dtype `compute`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, plan, plan_t, scale, slope):
+    def forward(ctx, q, k, v, plan, plan_t, scale, slope, compute):
         ctx.plan, ctx.plan_t, ctx.scale, ctx.slope = plan, plan_t, scale, slope
+        ctx.compute = compute
         out, lse = spmm_attention_reference(plan, q, k, v, scale=scale, negative_slope=slope,
-                                            return_stats=True)
+                                            return_stats=True, compute_dtype=compute)
         # residuals are O(n): the inputs, out and lse; no per-edge tensor
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -567,7 +597,7 @@ class _PlainAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.float().contiguous()
-        kw = dict(scale=ctx.scale, negative_slope=ctx.slope)
+        kw = dict(scale=ctx.scale, negative_slope=ctx.slope, compute_dtype=ctx.compute)
         dq = dk = dv = None
         if ctx.plan_t is None:
             dq, dk_lane, dv_lane = attention_bwd_reference(ctx.plan, q, k, v, out, lse, g, **kw)
@@ -580,7 +610,7 @@ class _PlainAttention(torch.autograd.Function):
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
                 dk, dv = attention_dkv_reference(ctx.plan_t, q, k, v, g, lse, d_row, **kw)
         grads = [t if t is None else t.to(x.dtype) for t, x in ((dq, q), (dk, k), (dv, v))]
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None,
@@ -596,10 +626,9 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
     by hind in a fixed order (`attention_bwd_summed`); impl="reference"
     sums the plain version's planes with `scatter_lanes`. impl: "auto"
     (the kernels on the card, the plain versions on the CPU) or
-    "reference" (the plain versions). compute_dtype=torch.bfloat16 runs the
-    forward alone: inputs that need a gradient raise NotImplementedError
-    before any launch (the backward's compute_dtype is ROADMAP.md item
-    9)."""
+    "reference" (the plain versions). compute_dtype=torch.bfloat16 rounds
+    where the JAX package rounds, forward (`spmm_attention`) and backward
+    (K10's, K11's and K12's compute variants, and their plain versions)."""
     from . import library
 
     if impl not in IMPLS:
@@ -614,13 +643,8 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
             raise ValueError("plan_t must be the transpose of plan (its rows are plan's "
                              "source rows and its columns plan's rows)")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
-    if compute == torch.bfloat16:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(BF16_BACKWARD)
-        if impl == "reference":
-            return spmm_attention_reference(plan, q, k, v, scale=scale,
-                                            negative_slope=negative_slope, compute_dtype=compute)
     if impl == "reference":
-        return _PlainAttention.apply(q, k, v, plan, plan_t, scale, float(negative_slope))
+        return _PlainAttention.apply(q, k, v, plan, plan_t, scale, float(negative_slope),
+                                     compute)
     return library.call_attention(plan, q, k, v, scale, float(negative_slope), plan_t=plan_t,
                                   differentiable=True, compute_dtype=compute)[0]

@@ -39,6 +39,10 @@ plane_dtype=torch.bfloat16 rounds exactly the operands the JAX package
 streams in bf16: k and v everywhere, q and dO where K15 gathers them.
 K13's q and K14's q and dO stay float32; all sums are float32. The
 backward casts k and v to the plane's type once for K14 and K15.
+compute_dtype=torch.bfloat16 rounds every product's operands to bf16 where
+JAX rounds them (ops/_attn_core.py:compute_bf16): K13 through
+csrc/attn_fwd_bf16.cu, K14 and K15 through their compute variants, on
+either plane.
 
 subtile=True is accepted, as in JAX, for plans with block_h % 128 == 0.
 The JAX kernels' subtile branch skips a block's empty 128-row sub-windows;
@@ -63,7 +67,6 @@ import torch
 from ..format.plan import SpmmPlan
 from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's kernels)
     _EMPTY_LSE,
-    BF16_BACKWARD,
     IMPLS,
     _check_bwd,
     _check_plan,
@@ -177,13 +180,17 @@ spmm_attention_mh_reference.calls = 0  # plain-int call count, read by chip_smok
 
 def attention_mh_dq_reference(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                               negative_slope: float = 1.0, plane_dtype=None,
+                              compute_dtype=None,
                               chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """The plain version of K14: dq (H, num_nodes, dk) float32 over `plan`,
-    from the forward's lse and D = rowsum(dO o out)."""
+    from the forward's lse and D = rowsum(dO o out); compute_dtype=
+    torch.bfloat16 rounds at the JAX package's points (ops/_attn_core.py:
+    _dq_plain)."""
     attention_mh_dq_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     _check_bwd(plan, q, k, v, g, lse, d_row, "attention_mh_dq_reference", False)
     return _dq_plain(plan, q, k, v, g, lse, d_row, scale, negative_slope, _plane(plane_dtype),
-                     chunk_bytes)
+                     chunk_bytes, compute)
 
 
 attention_mh_dq_reference.calls = 0  # plain-int call count, read by chip_smoke.py
@@ -191,14 +198,16 @@ attention_mh_dq_reference.calls = 0  # plain-int call count, read by chip_smoke.
 
 def attention_mh_dkv_reference(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
                                negative_slope: float = 1.0, plane_dtype=None,
-                               chunk_bytes: int = CHUNK_BYTES):
+                               compute_dtype=None, chunk_bytes: int = CHUNK_BYTES):
     """The plain version of K15: (dk, dv) float32 over the transpose plan,
     whose rows are the source rows of k and v and whose lanes are the
-    destination rows of q, dO, lse and D."""
+    destination rows of q, dO, lse and D; compute_dtype as
+    `attention_mh_dq_reference`'s."""
     attention_mh_dkv_reference.calls += 1
+    compute = compute_bf16(compute_dtype)
     _check_bwd(plan_t, q, k, v, g, lse, d_row, "attention_mh_dkv_reference", True)
     return _dkv_plain(plan_t, q, k, v, g, lse, d_row, scale, negative_slope,
-                      _plane(plane_dtype), chunk_bytes)
+                      _plane(plane_dtype), chunk_bytes, compute)
 
 
 attention_mh_dkv_reference.calls = 0  # plain-int call count, read by chip_smoke.py
@@ -220,8 +229,8 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     identity. plane_dtype=torch.bfloat16 rounds k and v to bf16.
     compute_dtype=torch.bfloat16 rounds q, k, v and p to bf16 before their
     products, as the JAX package does (csrc/attn_fwd_bf16.cu; counted in
-    `launches` and `launches_bf16`); its inputs may not need a gradient
-    (NotImplementedError). A plan with a value plane is refused
+    `launches` and `launches_bf16`; its gradient is
+    `spmm_attention_mh_ad`'s). A plan with a value plane is refused
     (ValueError), as the single-head op refuses it."""
     from . import library
 
@@ -250,48 +259,60 @@ spmm_attention_mh.launches_bf16 = 0
 
 
 def attention_mh_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                    negative_slope: float = 1.0, plane_dtype=None) -> torch.Tensor:
+                    negative_slope: float = 1.0, plane_dtype=None,
+                    compute_dtype=None) -> torch.Tensor:
     """dq (H, num_nodes, dk) float32 through kernel K14 over `plan` (see
     the plain version), as the registered op
-    ``torch.ops.voltrix.attention_mh_dq`` (ops/library.py)."""
+    ``torch.ops.voltrix.attention_mh_dq`` (ops/library.py).
+    compute_dtype=torch.bfloat16 launches K14's compute variant (counted in
+    `launches` and `launches_bf16`)."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_mh_dq")
     _check_bwd(plan, q, k, v, g, lse, d_row, "attention_mh_dq", False)
-    return library.call_attention_dq("attention_mh_dq", plan, q, k, v, g, lse, d_row, float(scale),
-                                float(negative_slope), _plane(plane_dtype))
+    return library.call_attention_dq("attention_mh_dq", plan, q, k, v, g, lse, d_row,
+                                     float(scale), float(negative_slope), _plane(plane_dtype),
+                                     compute)
 
 
 attention_mh_dq.launches = 0  # plain-int launch count, read by chip_smoke.py
+attention_mh_dq.launches_bf16 = 0  # of which at compute_dtype=bfloat16
 
 
 def attention_mh_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
-                     negative_slope: float = 1.0, plane_dtype=None):
+                     negative_slope: float = 1.0, plane_dtype=None, compute_dtype=None):
     """(dk, dv) float32 through kernel K15 over the transpose plan (see
     the plain version), as the registered op
-    ``torch.ops.voltrix.attention_mh_dkv`` (ops/library.py)."""
+    ``torch.ops.voltrix.attention_mh_dkv`` (ops/library.py); compute_dtype
+    as `attention_mh_dq`'s."""
     from . import library
 
+    compute = op_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_mh_dkv")
     _check_bwd(plan_t, q, k, v, g, lse, d_row, "attention_mh_dkv", True)
     return library.call_attention_dkv("attention_mh_dkv", plan_t, q, k, v, g, lse, d_row,
-                                 float(scale), float(negative_slope), _plane(plane_dtype))
+                                      float(scale), float(negative_slope), _plane(plane_dtype),
+                                      compute)
 
 
 attention_mh_dkv.launches = 0  # plain-int launch count, read by chip_smoke.py
+attention_mh_dkv.launches_bf16 = 0  # of which at compute_dtype=bfloat16
 
 
 # --- the gradient --------------------------------------------------------------
 
 class _PlainAttentionMH(torch.autograd.Function):
     """`spmm_attention_mh_ad(impl="reference")`: the plain versions of K13,
-    K14 and K15 with the kernels' gradient."""
+    K14 and K15 with the kernels' gradient, at compute_dtype `compute`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, plan, plan_t, scale, slope, pdt):
+    def forward(ctx, q, k, v, plan, plan_t, scale, slope, pdt, compute):
         ctx.plan, ctx.plan_t, ctx.scale, ctx.slope, ctx.pdt = plan, plan_t, scale, slope, pdt
+        ctx.compute = compute
         out, lse = spmm_attention_mh_reference(plan, q, k, v, scale=scale, negative_slope=slope,
-                                               plane_dtype=pdt, return_stats=True)
+                                               plane_dtype=pdt, return_stats=True,
+                                               compute_dtype=compute)
         # residuals are O(n): the inputs, out and lse; no per-edge tensor
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -301,7 +322,8 @@ class _PlainAttentionMH(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.float().contiguous()
         d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
-        kw = dict(scale=ctx.scale, negative_slope=ctx.slope, plane_dtype=ctx.pdt)
+        kw = dict(scale=ctx.scale, negative_slope=ctx.slope, plane_dtype=ctx.pdt,
+                  compute_dtype=ctx.compute)
         # k and v in the plane's type once, as the op's gradient does
         kp, vp = (t if ctx.pdt is None else t.to(ctx.pdt) for t in (k, v))
         dq = dk = dv = None
@@ -310,7 +332,7 @@ class _PlainAttentionMH(torch.autograd.Function):
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dk, dv = attention_mh_dkv_reference(ctx.plan_t, q, kp, vp, g, lse, d_row, **kw)
             dk, dv = dk.to(k.dtype), dv.to(v.dtype)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: float | None = None,
@@ -323,9 +345,9 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     `plan_t` (csr_preprocess of A^T; the same object for a symmetric graph)
     for dk and dv. impl: "auto" (the kernels on the card, the plain
     versions on the CPU) or "reference" (the plain versions).
-    compute_dtype=torch.bfloat16 runs the forward alone: inputs that need a
-    gradient raise NotImplementedError before any launch (the backward's
-    compute_dtype is ROADMAP.md item 9)."""
+    compute_dtype=torch.bfloat16 rounds where the JAX package rounds,
+    forward (`spmm_attention_mh`) and backward (K14's and K15's compute
+    variants, and their plain versions), on float32 or bf16 planes."""
     from . import library
 
     if plan_t is None:
@@ -344,15 +366,8 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     if (plan_t.num_nodes, plan_t.source_rows) != (plan.source_rows, plan.num_nodes):
         raise ValueError("plan_t must be the transpose of plan")
     scale = 1.0 / float(dk) ** 0.5 if scale is None else float(scale)
-    if compute == torch.bfloat16:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(BF16_BACKWARD)
-        if impl == "reference":
-            return spmm_attention_mh_reference(plan, q, k, v, scale=scale,
-                                               negative_slope=negative_slope,
-                                               plane_dtype=plane_dtype, compute_dtype=compute)
     if impl == "reference":
         return _PlainAttentionMH.apply(q, k, v, plan, plan_t, scale, float(negative_slope),
-                                       _plane(plane_dtype))
+                                       _plane(plane_dtype), compute)
     return library.call_attention_mh(plan, q, k, v, scale, float(negative_slope),
                                      _plane(plane_dtype), plan_t=plan_t, compute_dtype=compute)[0]

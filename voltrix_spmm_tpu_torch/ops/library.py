@@ -59,9 +59,9 @@ cotangent's values are bf16 already, so this gives the bits of the JAX
 package's `spmm_ad` (a bf16 SpMM of its bf16 cotangent), and behind a
 float32 output it is the chain rule of the forward. K4's casts the
 cotangent to the features' dtype first, as JAX's rule does. K9's and
-K13's ops take a compute_dtype (float32, or bfloat16: csrc/attn_fwd_bf16.cu);
-under bfloat16 they have no gradient and raise where autograd would
-record one.
+K13's ops take a compute_dtype (float32, or bfloat16: csrc/attn_fwd_bf16.cu),
+which their gradient passes to the backward ops (K10-K12, K14, K15), whose
+own compute_dtype launches their kernels' compute variants.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ from ..format.plan import PlanConfig, SpmmPlan
 from ..utils import kept_beside
 from . import (attention, attention_mh, block_spmm, ell, fused_spmm, quant, subtile_spmm,
                weighted)
-from ._attn_core import (BF16_BACKWARD, _dkv_kernel, _dq_kernel, check_plan_arrays,
-                         compute_bf16, fwd_bf16_kernel, load_fwd_bf16_library)
+from ._attn_core import (_dkv_kernel, _dq_kernel, check_plan_arrays, compute_bf16,
+                         fwd_bf16_kernel, load_fwd_bf16_library)
 from .block_spmm import Walk, _check_plan, acc_width, launch_walk
 from .fused_spmm import launch_fused, spmm_fused_reference
 from .reference import spmm_reference
@@ -591,18 +591,18 @@ def _attention_fake(q, k, v, plan, geom, *args):
 
 def _attention_setup(ctx, inputs, output):
     q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope, *flag = inputs
-    if flag and compute_bf16(flag[0]):
-        raise NotImplementedError(BF16_BACKWARD)
     out, lse = output
     ctx.mark_non_differentiable(lse)
     ctx.geoms, ctx.scale, ctx.slope = (geom_dq, geom_dkv), scale, slope
+    ctx.compute = flag[0] if flag else torch.float32
     ctx.sizes = (len(plan), len(plan_dq))
     ctx.save_for_backward(q, k, v, out, lse, *plan_dq, *plan_dkv)
 
 
 def _attention_backward(ctx, g, _g_lse):
     """K9's gradient: K10 summed (geom_dq of attention_bwd), or K11 over
-    plan and K12 over plan_t. lse carries none."""
+    plan and K12 over plan_t, at the forward's compute_dtype. lse carries
+    none."""
     geom_dq, geom_dkv = ctx.geoms
     q, k, v, out, lse, *rest = ctx.saved_tensors
     n, n_dq = ctx.sizes
@@ -614,15 +614,15 @@ def _attention_backward(ctx, g, _g_lse):
                            "operands: differentiate through spmm_attention_ad")
     if KINDS[geom_dq[_G["kind"]]] == "attention_bwd":
         dq, dk, dv = attention_bwd_op(q, k, v, out, lse, g, plan_dq, geom_dq, ctx.scale,
-                                      ctx.slope, True)
+                                      ctx.slope, True, ctx.compute)
     else:
         d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
         views = [t[None] for t in (q, k, v, g, lse, d_row)]
+        args = (ctx.scale, ctx.slope, None, ctx.compute)
         if ctx.needs_input_grad[0]:
-            dq = attention_dq_op(*views, plan_dq, geom_dq, ctx.scale, ctx.slope, None)[0]
+            dq = attention_dq_op(*views, plan_dq, geom_dq, *args)[0]
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dk, dv = (t[0] for t in attention_dkv_op(*views, plan_dkv, geom_dkv, ctx.scale,
-                                                     ctx.slope, None))
+            dk, dv = (t[0] for t in attention_dkv_op(*views, plan_dkv, geom_dkv, *args))
     grads = [t if t is None else t.to(x.dtype) for t, x in ((dq, q), (dk, k), (dv, v))]
     return (*grads, [None] * n, None, [None] * len(plan_dq), None, [None] * len(plan_dkv), None,
             None, None, None)
@@ -636,17 +636,18 @@ spmm_attention_op = _register(
     _attention_body, _attention_fake, _attn_flops, _attention_backward, _attention_setup)
 
 
-def _k10_body(q, k, v, out, lse, g, plan, geom, scale, slope, summed):
+def _k10_body(q, k, v, out, lse, g, plan, geom, scale, slope, summed,
+              compute_dtype=torch.float32):
     p = _plan_of(plan, geom)
     sources = _sources_of(plan)
     if q.device.type == "cpu":
         return tuple(t.contiguous() for t in attention.bwd_plain(
-            p, sources, q, k, v, out, lse, g, scale, slope, summed))
+            p, sources, q, k, v, out, lse, g, scale, slope, summed, compute_dtype))
     return attention._bwd_kernel(p, _walk_of(plan, geom), sources, q, k, v, out, lse, g, scale,
-                                 slope, summed)
+                                 slope, summed, compute_bf16(compute_dtype))
 
 
-def _k10_fake(q, k, v, out, lse, g, plan, geom, scale, slope, summed):
+def _k10_fake(q, k, v, out, lse, g, plan, geom, scale, slope, summed, *args):
     rows = k.shape[0] if summed else geom[_G["total_blocks"]] * geom[_G["block_w"]]
     return (_f32(q.shape[0], q.shape[1], like=q), _f32(rows, q.shape[1], like=q),
             _f32(rows, v.shape[1], like=q))
@@ -655,11 +656,13 @@ def _k10_fake(q, k, v, out, lse, g, plan, geom, scale, slope, summed):
 attention_bwd_op = _register(
     "attention_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor g, Tensor[] plan, "
-    "int[] geom, float scale, float slope, bool summed) -> (Tensor, Tensor, Tensor)",
+    "int[] geom, float scale, float slope, bool summed, ScalarType compute_dtype=float) -> "
+    "(Tensor, Tensor, Tensor)",
     _k10_body, _k10_fake, _k10_flops)
 
 BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor g, Tensor lse, Tensor d_row, "
-              "Tensor[] plan, int[] geom, float scale, float slope, ScalarType? plane_dtype)")
+              "Tensor[] plan, int[] geom, float scale, float slope, ScalarType? plane_dtype, "
+              "ScalarType compute_dtype=float)")
 
 
 def _define_dq(name: str):
@@ -668,18 +671,19 @@ def _define_dq(name: str):
     over (H, n, d) stacks."""
     entry = _ENTRY[name]
 
-    def body(q, k, v, g, lse, d_row, plan, geom, scale, slope, plane_dtype):
+    def body(q, k, v, g, lse, d_row, plan, geom, scale, slope, plane_dtype,
+             compute_dtype=torch.float32):
         p = _plan_of(plan, geom)
         if q.device.type == "cpu":
             if name == "attention_dq":
                 return attention.attention_dq_reference(
                     p, *(t[0] for t in (q, k, v, g, lse, d_row)), scale=scale,
-                    negative_slope=slope)[None]
+                    negative_slope=slope, compute_dtype=compute_dtype)[None]
             return attention_mh.attention_mh_dq_reference(
                 p, q, k, v, g, lse, d_row, scale=scale, negative_slope=slope,
-                plane_dtype=plane_dtype)
+                plane_dtype=plane_dtype, compute_dtype=compute_dtype)
         return _dq_kernel(entry, p, _walk_of(plan, geom), q, k, v, g, lse, d_row, scale, slope,
-                          plane_dtype)
+                          plane_dtype, compute_bf16(compute_dtype))
 
     def fake(q, k, v, g, lse, d_row, plan, geom, *args):
         return _f32(*q.shape, like=q)
@@ -692,19 +696,20 @@ def _define_dkv(name: str):
     (H, nk, d) float32 over the transpose plan."""
     entry = _ENTRY[name]
 
-    def body(q, k, v, g, lse, d_row, plan, geom, scale, slope, plane_dtype):
+    def body(q, k, v, g, lse, d_row, plan, geom, scale, slope, plane_dtype,
+             compute_dtype=torch.float32):
         p = _plan_of(plan, geom)
         if q.device.type == "cpu":
             if name == "attention_dkv":
                 dk, dv = attention.attention_dkv_reference(
                     p, *(t[0] for t in (q, k, v, g, lse, d_row)), scale=scale,
-                    negative_slope=slope)
+                    negative_slope=slope, compute_dtype=compute_dtype)
                 return dk[None], dv[None]
             return attention_mh.attention_mh_dkv_reference(
                 p, q, k, v, g, lse, d_row, scale=scale, negative_slope=slope,
-                plane_dtype=plane_dtype)
+                plane_dtype=plane_dtype, compute_dtype=compute_dtype)
         return _dkv_kernel(entry, p, _walk_of(plan, geom), q, k, v, g, lse, d_row, scale, slope,
-                           plane_dtype)
+                           plane_dtype, compute_bf16(compute_dtype))
 
     def fake(q, k, v, g, lse, d_row, plan, geom, *args):
         return _f32(*k.shape, like=q), _f32(*v.shape, like=q)
@@ -742,19 +747,18 @@ def _attention_mh_fake(q, k, v, plan, geom, *args):
 
 def _attention_mh_setup(ctx, inputs, output):
     q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope, pdt, *flag = inputs
-    if flag and compute_bf16(flag[0]):
-        raise NotImplementedError(BF16_BACKWARD)
     out, lse = output
     ctx.mark_non_differentiable(lse)
     ctx.geoms, ctx.scale, ctx.slope, ctx.pdt = (geom_dq, geom_dkv), scale, slope, pdt
+    ctx.compute = flag[0] if flag else torch.float32
     ctx.sizes = (len(plan), len(plan_dq))
     ctx.save_for_backward(q, k, v, out, lse, *plan_dq, *plan_dkv)
 
 
 def _attention_mh_backward(ctx, g, _g_lse):
     """K13's gradient: K14 over plan for dq, K15 over plan_t for dk and
-    dv, with k and v rounded to the plane's type once for both. lse
-    carries none."""
+    dv, with k and v rounded to the plane's type once for both, at the
+    forward's compute_dtype. lse carries none."""
     geom_dq, geom_dkv = ctx.geoms
     q, k, v, out, lse, *rest = ctx.saved_tensors
     n, n_dq = ctx.sizes
@@ -764,7 +768,7 @@ def _attention_mh_backward(ctx, g, _g_lse):
                            "operands: differentiate through spmm_attention_mh_ad")
     g = g.float().contiguous()
     d_row = (g * out.float()).sum(-1)  # D = rowsum(dO o out), float32
-    args = (ctx.scale, ctx.slope, ctx.pdt)
+    args = (ctx.scale, ctx.slope, ctx.pdt, ctx.compute)
     # k and v in the plane's type once, for both kernels (a no-op for
     # float32 planes; the plain versions round them the same way)
     kp, vp = (t if ctx.pdt is None else t.to(ctx.pdt) for t in (k, v))
@@ -792,12 +796,9 @@ def call_attention(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: float
               compute_dtype=torch.float32):
     """K9's op (arguments checked by the caller): (out (num_nodes, dv), lse
     (padded_nodes,)) float32. `differentiable` and autograd taking the
-    gradient: K11's and K12's operands with plan_t, K10's without. A
-    bfloat16 compute_dtype whose inputs need a gradient raises before the
-    launch (BF16_BACKWARD)."""
+    gradient: K11's and K12's operands with plan_t, K10's without (at
+    compute_dtype too)."""
     dev = q.device
-    if compute_bf16(compute_dtype) and _needs(q, k, v):
-        raise NotImplementedError(BF16_BACKWARD)
     ops, geom = operands(plan, "spmm_attention", dev)
     ops_dq, geom_dq = ops_dkv, geom_dkv = no_plan(ops, geom)
     if differentiable and _needs(q, k, v):
@@ -814,11 +815,8 @@ def call_attention_mh(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: fl
                  plane_dtype, plan_t: SpmmPlan | None = None, compute_dtype=torch.float32):
     """K13's op (arguments checked by the caller): (out (H, num_nodes,
     dv), lse (H, padded_nodes)) float32; with plan_t, K14's and K15's
-    operands where autograd takes the gradient. A bfloat16 compute_dtype
-    whose inputs need a gradient raises before the launch (BF16_BACKWARD)."""
+    operands where autograd takes the gradient (at compute_dtype too)."""
     dev = q.device
-    if compute_bf16(compute_dtype) and _needs(q, k, v):
-        raise NotImplementedError(BF16_BACKWARD)
     ops, geom = operands(plan, "spmm_attention_mh", dev)
     ops_dq, geom_dq = ops_dkv, geom_dkv = no_plan(ops, geom)
     if plan_t is not None and _needs(q, k, v):
@@ -829,29 +827,30 @@ def call_attention_mh(plan: SpmmPlan, q: Tensor, k: Tensor, v: Tensor, scale: fl
 
 
 def call_attention_dq(name: str, plan: SpmmPlan, q, k, v, g, lse, d_row, scale: float,
-                      slope: float, plane_dtype):
+                      slope: float, plane_dtype, compute_dtype=torch.float32):
     """K14's op (name "attention_mh_dq") or K11's ("attention_dq") on (H, n,
     d) stacks q, k, v, dO and (H, n) lse and D: dq float32."""
     ops, geom = operands(plan, name, q.device)
     op = attention_dq_op if name == "attention_dq" else attention_mh_dq_op
-    return op(q, k, v, g, lse, d_row, ops, geom, scale, slope, plane_dtype)
+    return op(q, k, v, g, lse, d_row, ops, geom, scale, slope, plane_dtype, compute_dtype)
 
 
 def call_attention_dkv(name: str, plan_t: SpmmPlan, q, k, v, g, lse, d_row, scale: float,
-                       slope: float, plane_dtype):
+                       slope: float, plane_dtype, compute_dtype=torch.float32):
     """K15's op (name "attention_mh_dkv") or K12's ("attention_dkv") over the
     transpose plan: (dk, dv) float32."""
     ops, geom = operands(plan_t, name, q.device)
     op = attention_dkv_op if name == "attention_dkv" else attention_mh_dkv_op
-    return op(q, k, v, g, lse, d_row, ops, geom, scale, slope, plane_dtype)
+    return op(q, k, v, g, lse, d_row, ops, geom, scale, slope, plane_dtype, compute_dtype)
 
 
 def call_attention_bwd(plan: SpmmPlan, q, k, v, out, lse, g, scale: float, slope: float,
-                  summed: bool):
+                       summed: bool, compute_dtype=torch.float32):
     """K10's op: (dq, dk, dv) summed into source rows, or (dq, dk_lane,
     dv_lane), float32."""
     ops, geom = operands(plan, "attention_bwd", q.device)
-    return attention_bwd_op(q, k, v, out, lse, g, ops, geom, scale, slope, summed)
+    return attention_bwd_op(q, k, v, out, lse, g, ops, geom, scale, slope, summed,
+                            compute_dtype)
 
 
 # --- K6 and K7: the ELL SpMM and SDDMM --------------------------------------------------
