@@ -352,6 +352,33 @@ non-zero on failure (there is no CPU fallback):
       of its attention problems (hub windows cut into pieces, empty windows,
       widths not a multiple of 4, d 300). Path R prints its seconds; the run
       prints each part's seconds beside the total.
+   S. float16 feature sources, the float16 instantiations of K1, K2, K3 and
+      K6 (counted apart, "<kernel>_f16"), after Q on A, B, E and C, each
+      drive through a user's call: S.1 A's GCN with agg_dtype=torch.float16,
+      REQUESTS requests (K1's float16 instantiation twice each) and STEPS SGD
+      steps (twice each; the backward runs the float32 instantiation on the
+      cotangent, whose values are float16 ones), logits and loss against the
+      float32 GCN on the same weights and logits against the float64 host
+      forward at calc_diff < 1e-2 x 2**-6 (Q.2's bf16 limit scaled from 8
+      significant bits to 11), step 0's gradients against the plain path
+      under the same aggregation and, with the loss scaled by 2**16, against
+      the float32 path, at that limit (unscaled, the mean loss's float16
+      cotangent is subnormal: printed); request and step in turns with the
+      float32 and bf16 paths, busy share, peak memory. S.2 one
+      spmm(hybrid plan, x.half()) on J.2's plan at d 128 and one at d 256
+      (K3 + K1), bit for bit the float32 hybrid on the widened rows; one GCN
+      request of B (K2) and of C (K3); one spmm(ELL plan, x.half()) on E's
+      plan at d 8 and one at d 40 (K6). S.3 each float16 instantiation on
+      its path's plan at its widths: bit for bit the float32 kernel on
+      x.half().float(), twice the same bits, against its plain version, once
+      under compute_dtype=torch.float16 on float32 rows (K6: its edge values
+      rounded in the kernel; the float32 kernel's bits on the rounded
+      operands), timed in turns with the float32 and bf16 kernels, beside
+      its plain version and torch.sparse.mm on float16 operands, with its
+      bound (X in float16). S.4 one exported float16 aggregate of A, loaded
+      in the same process, the eager call's bits. Phase 3 holds the four
+      float16 instantiations on the bf16 cases' geometries (features from a
+      generator of their own), and K4's and K8's refusal of float16 rows.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -469,6 +496,15 @@ def in_turns(torch, kernel, plain, plain_iters=3):
     k2 = cuda_ms(torch, kernel)
     p2 = cuda_ms(torch, plain, iters=plain_iters, warmup=1)
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def in_turns_n(torch, fns, iters: int = 20):
+    """(mean ms of each fn, the readings): each fn timed in order, then in
+    reverse order (a, b, c, c, b, a), each mean of its two readings."""
+    order = [*range(len(fns)), *reversed(range(len(fns)))]
+    readings = [cuda_ms(torch, fns[i], iters=iters) for i in order]
+    means = [sum(r for i, r in zip(order, readings) if i == k) / 2 for k in range(len(fns))]
+    return means, readings
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -707,6 +743,12 @@ def main() -> None:
                for name in ("spmm_block", "spmm_subtile", "spmm_fused", "spmm_ell")}
     bf16_loaders = (block_spmm.load_bf16_library, subtile_spmm.load_bf16_library,
                     fused_spmm.load_bf16_library, ell.load_bf16_library)
+    # their float16 instantiations (path S): the same sources and wrappers,
+    # counted apart (wrapper.launches_f16)
+    f16_of = {f"{name}_f16": name for name in bf16_of.values()}
+    f16_loaders = (block_spmm.load_f16_library, subtile_spmm.load_f16_library,
+                   fused_spmm.load_f16_library, ell.load_f16_library)
+    half_of = {**bf16_of, **f16_of}
     # path R: K4 on bf16 rows or a bf16 plane (its bf16 instantiations), K8 on
     # the codes of bf16 rows, and K9 and K13 at compute_dtype=bfloat16
     # (csrc/attn_fwd_bf16.cu, K13's kernel at one head for K9): the same
@@ -746,7 +788,7 @@ def main() -> None:
     print(f"build: {', '.join(f'{src} {s:.2f} s' for src, s in builds.items())}; "
           f"g++ voltrix_preprocess.hpp {t_gxx:.2f} s; {t_nvcc:.2f} s in all, into "
           f"{get_build_dir()}")
-    for loader in bf16_loaders:  # the bf16 entry points of the same builds
+    for loader in (*bf16_loaders, *f16_loaders):  # 16-bit entry points of the same builds
         loader()
     # every kernel sums in a fixed order: no atomic of any kind in the SASS
     # of any source
@@ -1740,21 +1782,21 @@ def main() -> None:
                isolated(erdos_renyi_csr(3000, 0.005, 66), lambda r: r % 7 and r < 2700),
                PlanConfig(64, 128, block_unroll=2), 40, expect=zero_block)
 
-    # the bf16 instantiations of K1, K2, K3 and K6 on small geometries: each
-    # bit for bit the float32 kernel on the widened rows (the walk's order
-    # does not depend on the source), twice the same bits, and against its
-    # plain version; rows padded by the wrapper (d 130, 300), rows 2 bytes
-    # off an 8-byte boundary, hub windows cut into pieces, K3's runs across
-    # 128-lane tiles at seg 12-192 and both its walks; a generator of their own
-    rng16 = np.random.default_rng(97)
-    bf16_err = dict.fromkeys(bf16_of, 0.0)
+    # the bf16 and float16 instantiations of K1, K2, K3 and K6 on small
+    # geometries: each bit for bit the float32 kernel on the widened rows
+    # (the walk's order does not depend on the source), twice the same bits,
+    # and against its plain version; rows padded by the wrapper (d 130, 300),
+    # rows 2 bytes off an 8-byte boundary, hub windows cut into pieces, K3's
+    # runs across 128-lane tiles at seg 12-192 and both its walks; each
+    # dtype's features from a generator of its own
+    half_err = dict.fromkeys([*bf16_of, *f16_of], 0.0)
 
-    def bf16_check(key, label, plan, xb, deg=None):
-        """The bf16 instantiation `key` on `plan` and bf16 rows `xb` against
-        the float32 kernel on the widened rows (bit for bit), twice (the same
-        bits) and its plain version (as compare(), under the summation bound
-        with `deg`)."""
-        name = bf16_of[key]
+    def half_check(key, label, plan, xb, deg=None):
+        """The 16-bit instantiation `key` on `plan` and rows `xb` (bf16 or
+        float16) against the float32 kernel on the widened rows (bit for
+        bit), twice (the same bits) and its plain version (as compare(),
+        under the summation bound with `deg`)."""
+        name = half_of[key]
         kernel, plain = kernels[name][:2]
         xw = xb.float()
         out = kernel(plan, xb, torch.float32)
@@ -1769,80 +1811,105 @@ def main() -> None:
                 abs_plan = dataclasses.replace(plan, vals=plan.vals.abs())
             allow = allow + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * plain(abs_plan, xw.abs())
         err = (out - want).abs().max().item() if out.numel() else 0.0
-        bf16_err[key] = max(bf16_err[key], err)
+        half_err[key] = max(half_err[key], err)
         ok = (same and again and out.dtype == torch.float32
               and bool(((out - want).abs() <= allow).all()))
-        print(f"  {key} {label}: bf16 {'==' if same else '!='} float32 kernel on the widened "
+        what = key.rsplit("_", 1)[1]
+        print(f"  {key} {label}: {what} {'==' if same else '!='} float32 kernel on the widened "
               f"rows, twice {'bit-identical' if again else 'DIFFERENT'}, max|kernel - plain| "
               f"{err:.3e} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{key} {label}: not the float32 kernel's bits on the widened rows, not the "
                  "same twice, or off its plain version")
 
-    def bf16_case(key, label, plan, d, offset=False, deg=None):
-        """bf16_check at width d on rows from phase 3's bf16 generator;
-        offset: a contiguous view 2 bytes past an 8-byte boundary."""
-        n = plan.source_rows
-        x = torch.from_numpy(rng16.standard_normal((n, d + offset)).astype(np.float32))
-        xb = x.to(dev).to(torch.bfloat16)
-        if offset:
-            xb = xb.reshape(-1)[1:1 + n * d].view(n, d)
-        bf16_check(key, f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}", plan, xb,
-                   deg)
+    def half_sources(suffix, dtype, rng):
+        """Phase 3's cases of the `suffix` ("bf16" or "f16") instantiations
+        on rows of `dtype`, features and values from `rng`; then K6 under
+        compute_dtype=dtype (its edge values rounded in the kernel)."""
 
-    print("bf16 sources (K1, K2, K3, K6) on small geometries:")
+        def case(name, label, plan, d, offset=False, deg=None):
+            """half_check at width d; offset: a contiguous view 2 bytes past
+            an 8-byte boundary."""
+            n = plan.source_rows
+            x = torch.from_numpy(rng.standard_normal((n, d + offset)).astype(np.float32))
+            xb = x.to(dev).to(dtype)
+            if offset:
+                xb = xb.reshape(-1)[1:1 + n * d].view(n, d)
+            half_check(f"{name}_{suffix}",
+                       f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}", plan, xb, deg)
+
+        print(f"{suffix} sources (K1, K2, K3, K6) on small geometries:")
+        for cfg in (PlanConfig(128, 128), PlanConfig(32, 128)):
+            p16 = csr_preprocess(er3.indptr, er3.indices, 3000, cfg).to(dev)
+            for d in (8, 40, 128, 130, 256, 300):
+                case("spmm_block", f"n3000 block_h {cfg.block_h}", p16, d)
+            case("spmm_block", f"n3000 block_h {cfg.block_h}", p16, 128, offset=True)
+        p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000, PlanConfig(128, 128)).to(dev)
+        if most_pieces(p16, "spmm_block") < 16:
+            fail(f"{suffix} K1: the hub window is not cut into >= 16 pieces")
+        for d in (128, 130):
+            case("spmm_block", "n40000 hub window cut into >= 16 pieces", p16, d, deg=deg40k)
+        p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000,
+                             PlanConfig(512, 128, block_unroll=2, cluster_cols=True)).to(dev)
+        for d in (40, 128, 130, 256):
+            case("spmm_subtile", "n40000 PlanConfig(512, 128, 2, clustered)", p16, d,
+                 deg=deg40k)
+        case("spmm_subtile", "n40000 PlanConfig(512, 128, 2, clustered)", p16, 128,
+             offset=True, deg=deg40k)
+        p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(128, 128, 8)).to(dev)
+        for d in (8, 12, 40, 128, 130, 256, 300):  # narrow and wide walks, bulk and cp.async
+            case("spmm_fused", "n3000 PlanConfig(128, 128, 8)", p16, d)
+        case("spmm_fused", "n3000 PlanConfig(128, 128, 8)", p16, 128, offset=True)
+        p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000,
+                             PlanConfig(128, 128, 8)).to(dev)
+        for d in (8, 128, 256):
+            case("spmm_fused", "n40000 PlanConfig(128, 128, 8), hub window cut", p16, d,
+                 deg=deg40k)
+        for seg in (12, 24, 48, 96, 192):  # boxes of 4-64 rows, runs across 128-lane tiles
+            p16 = csr_preprocess(er3.indptr, er3.indices, 3000,
+                                 PlanConfig(128, 384, seg)).to(dev)
+            for d in (8, 128, 256):
+                case("spmm_fused", f"n3000 PlanConfig(128, 384, {seg})", p16, d)
+        vals16 = rng.standard_normal(er3.nnz).astype(np.float32)
+        p16 = csr_preprocess_ell(er3.indptr, er3.indices, 3000,
+                                 PlanConfig(128, 128, block_unroll=4), values=vals16).to(dev)
+        for d in (8, 40, 130, 256):
+            case("spmm_ell", "n3000 ELL PlanConfig(128, 128, 4)", p16, d)
+        case("spmm_ell", "n3000 ELL PlanConfig(128, 128, 4)", p16, 40, offset=True)
+        # compute_dtype: K6 rounds the edge values in the kernel too
+        x16 = torch.from_numpy(rng.standard_normal((3000, 40)).astype(np.float32)).to(dev)
+        got = spmm(p16, x16, compute_dtype=dtype)
+        want = spmm_ell(dataclasses.replace(p16, vals=p16.vals.to(dtype).float()),
+                        x16.to(dtype).float())
+        print(f"  spmm_ell_{suffix} compute_dtype={dtype} (values rounded in the kernel) == "
+              f"float32 kernel on the rounded rows and values: {torch.equal(got, want)}")
+        if not (torch.equal(got, want) and got.dtype == torch.float32):
+            fail(f"K6 under compute_dtype={dtype} is not the float32 kernel on the rounded "
+                 "operands")
+
     er3 = erdos_renyi_csr(3000, 0.004, 98)
     deg40k = torch.from_numpy(np.diff(hub40k.indptr).astype(np.float32)).to(dev)[:, None]
-    for cfg in (PlanConfig(128, 128), PlanConfig(32, 128)):
-        p16 = csr_preprocess(er3.indptr, er3.indices, 3000, cfg).to(dev)
-        for d in (8, 40, 128, 130, 256, 300):
-            bf16_case("spmm_block_bf16", f"n3000 block_h {cfg.block_h}", p16, d)
-        bf16_case("spmm_block_bf16", f"n3000 block_h {cfg.block_h}", p16, 128, offset=True)
-    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000, PlanConfig(128, 128)).to(dev)
-    if most_pieces(p16, "spmm_block") < 16:
-        fail("bf16 K1: the hub window is not cut into >= 16 pieces")
-    for d in (128, 130):
-        bf16_case("spmm_block_bf16", "n40000 hub window cut into >= 16 pieces", p16, d,
-                  deg=deg40k)
-    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000,
-                         PlanConfig(512, 128, block_unroll=2, cluster_cols=True)).to(dev)
-    for d in (40, 128, 130, 256):
-        bf16_case("spmm_subtile_bf16", "n40000 PlanConfig(512, 128, 2, clustered)", p16, d,
-                  deg=deg40k)
-    bf16_case("spmm_subtile_bf16", "n40000 PlanConfig(512, 128, 2, clustered)", p16, 128,
-              offset=True, deg=deg40k)
-    p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(128, 128, 8)).to(dev)
-    for d in (8, 12, 40, 128, 130, 256, 300):  # narrow and wide walks, bulk and cp.async
-        bf16_case("spmm_fused_bf16", "n3000 PlanConfig(128, 128, 8)", p16, d)
-    bf16_case("spmm_fused_bf16", "n3000 PlanConfig(128, 128, 8)", p16, 128, offset=True)
-    p16 = csr_preprocess(hub40k.indptr, hub40k.indices, 40000, PlanConfig(128, 128, 8)).to(dev)
-    for d in (8, 128, 256):
-        bf16_case("spmm_fused_bf16", "n40000 PlanConfig(128, 128, 8), hub window cut", p16, d,
-                  deg=deg40k)
-    for seg in (12, 24, 48, 96, 192):  # boxes of 4-64 rows, runs across 128-lane tiles
-        p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(128, 384, seg)).to(dev)
-        for d in (8, 128, 256):
-            bf16_case("spmm_fused_bf16", f"n3000 PlanConfig(128, 384, {seg})", p16, d)
-    vals16 = rng16.standard_normal(er3.nnz).astype(np.float32)
-    p16 = csr_preprocess_ell(er3.indptr, er3.indices, 3000, PlanConfig(128, 128, block_unroll=4),
-                             values=vals16).to(dev)
-    for d in (8, 40, 130, 256):
-        bf16_case("spmm_ell_bf16", "n3000 ELL PlanConfig(128, 128, 4)", p16, d)
-    bf16_case("spmm_ell_bf16", "n3000 ELL PlanConfig(128, 128, 4)", p16, 40, offset=True)
-    # compute_dtype=bfloat16: K6 rounds the edge values in the kernel too
-    x16 = torch.from_numpy(rng16.standard_normal((3000, 40)).astype(np.float32)).to(dev)
-    got = spmm(p16, x16, compute_dtype=torch.bfloat16)
-    want = spmm_ell(dataclasses.replace(p16, vals=p16.vals.to(torch.bfloat16).float()),
-                    x16.to(torch.bfloat16).float())
-    print(f"  spmm_ell_bf16 compute_dtype=bfloat16 (values rounded in the kernel) == float32 "
-          f"kernel on the rounded rows and values: {torch.equal(got, want)}")
-    if not (torch.equal(got, want) and got.dtype == torch.float32):
-        fail("K6 under compute_dtype=bfloat16 is not the float32 kernel on the rounded operands")
-    del p16, x16, got, want
+    half_sources("bf16", torch.bfloat16, np.random.default_rng(97))
+    half_sources("f16", torch.float16, np.random.default_rng(24))
+    # K4 and K8 refuse float16 rows on the card, naming the ROADMAP entry
+    p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(64, 128)).to(dev)
+    x16 = torch.zeros(3000, 8, dtype=torch.float16, device=dev)
+    pw16 = dataclasses.replace(p16, values=torch.ones(p16.total_blocks, 64, 128, device=dev))
+    for what, call in (("K4", lambda: spmm_weighted(pw16, x16)),
+                       ("K8", lambda: spmm(p16, x16, impl="int8"))):
+        try:
+            call()
+        except TypeError as e:
+            print(f"  {what} on float16 rows refused: {e}")
+            if "ROADMAP.md item 9" not in str(e):
+                fail(f"{what}'s float16 refusal does not name its ROADMAP entry")
+        else:
+            fail(f"{what} took float16 rows on the card")
+    del p16, x16, pw16
 
     # --- 4. + 5. the paths ------------------------------------------------
     part("phase 3")
-    count_keys = list(kernels) + list(bf16_of) + list(r_of)
+    count_keys = list(kernels) + list(bf16_of) + list(f16_of) + list(r_of)
 
     def reset_counts():
         for wrapper, plain, *_ in kernels.values():
@@ -1850,13 +1917,17 @@ def main() -> None:
             plain.calls = 0
         for name in (*bf16_of.values(), *r_of.values()):
             kernels[name][0].launches_bf16 = 0
+        for name in f16_of.values():
+            kernels[name][0].launches_f16 = 0
 
     def read_counts():
         """(launches by kernel, the bf16 instantiations (paths Q and R) apart
-        under "<name>_bf16", also counted in <name>'s; plain-version calls)."""
+        under "<name>_bf16" and the float16 ones (path S) under "<name>_f16",
+        also counted in <name>'s; plain-version calls)."""
         counts = {k: w.launches for k, (w, *_) in kernels.items()}
         counts.update({k: kernels[name][0].launches_bf16
                        for k, name in (*bf16_of.items(), *r_of.items())})
+        counts.update({k: kernels[name][0].launches_f16 for k, name in f16_of.items()})
         return counts, sum(p.calls for _, p, *_ in kernels.values())
 
     def check_counts(label, counts, plain_calls, want_nonzero):
@@ -3455,18 +3526,19 @@ def main() -> None:
     def q_feat(n, d):
         return torch.from_numpy(qrng.standard_normal((n, d)).astype(np.float32)).to(dev)
 
-    def library_bf16(csr, xb, x):
-        """(ms, what): torch.sparse.mm on bf16 operands where torch's CSR
-        takes them, else on the float32 ones."""
+    def library_half(csr, xb, x):
+        """(ms, what): torch.sparse.mm on operands of xb's 16-bit dtype where
+        torch's CSR takes them, else on the float32 ones."""
+        what = {torch.bfloat16: "bf16", torch.float16: "float16"}[xb.dtype]
         csr16 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
-                                        csr.values().to(torch.bfloat16), size=csr.shape)
+                                        csr.values().to(xb.dtype), size=csr.shape)
         try:
             torch.sparse.mm(csr16, xb)
             torch.cuda.synchronize()
         except RuntimeError as e:
             return library_ms(lambda: torch.sparse.mm(csr, x)), (
-                f"float32 operands (torch's CSR refused bf16: {str(e).splitlines()[0][:80]})")
-        return library_ms(lambda: torch.sparse.mm(csr16, xb)), "bf16 operands"
+                f"float32 operands (torch's CSR refused {what}: {str(e).splitlines()[0][:80]})")
+        return library_ms(lambda: torch.sparse.mm(csr16, xb)), f"{what} operands"
 
     def q_kernel(key, tag, label, plan, d, deg, fields, csr, nnz, plain_iters=3):
         """Q.1 for one bf16 instantiation at width d on a path's plan: bit for
@@ -3478,12 +3550,12 @@ def main() -> None:
         kernel, plain = kernels[bf16_of[key]][:2]
         x = q_feat(plan.source_rows, d)
         xb = x.to(torch.bfloat16)
-        bf16_check(key, f"Q.1 on {label} d{d}", plan, xb, deg)
+        half_check(key, f"Q.1 on {label} d{d}", plan, xb, deg)
         k_ms, f_ms, turns = in_turns(torch, lambda: kernel(plan, xb, torch.float32),
                                      lambda: kernel(plan, x, torch.float32), plain_iters=20)
         p_ms = cuda_ms(torch, lambda: plain(plan, xb, torch.float32), iters=plain_iters,
                        warmup=1)
-        lib, lib_what = library_bf16(csr, xb, x)
+        lib, lib_what = library_half(csr, xb, x)
         b_ms, b_by = bound_ms(tensor_bytes(*fields) + plan.source_rows * d * 2
                               + plan.num_nodes * d * 4, 2 * nnz * d)
         path_q[key]["per_width"][f"{tag}_d{d}"] = dict(
@@ -3493,9 +3565,10 @@ def main() -> None:
               f"{p_ms:.4f} ms, torch.sparse.mm {lib:.4f} ms ({lib_what}), bound {b_ms:.4f} ms "
               f"({b_by}; X in bf16)")
 
-    def q_drive(label, fn, want):
-        """A path Q drive: fn() with the counts zeroed just before and read
-        just after; the bf16 instantiations launched as `want`, no plain call."""
+    def half_drive(path, store, label, fn, want):
+        """A path Q or S drive: fn() with the counts zeroed just before and
+        read just after; the 16-bit instantiations launched as `want`, no
+        plain call; their launches added to `store`."""
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -3505,11 +3578,14 @@ def main() -> None:
         counts, plain_calls = read_counts()
         print(f"  {label}: launches {({k: c for k, c in counts.items() if c})}, plain calls "
               f"{plain_calls} ({secs * 1e3:.3f} ms)")
-        check_counts(f"Q {label}", counts, plain_calls, want)
+        check_counts(f"{path} {label}", counts, plain_calls, want)
         for k, c in counts.items():
-            if k in path_q:
-                path_q[k]["launches"] += c
+            if k in store:
+                store[k]["launches"] += c
         return out
+
+    def q_drive(label, fn, want):
+        return half_drive("Q", path_q, label, fn, want)
 
     def q_path_a(label, a, g, params_np):
         """Path Q on A's graph: Q.1 K1 on A's plan at d 128 and 256, the
@@ -3717,6 +3793,297 @@ def main() -> None:
         torch.cuda.empty_cache()
         path_q["seconds"] = path_q.get("seconds", 0.0) + time.perf_counter() - t_path
 
+    # --- path S: float16 feature sources (K1, K2, K3 and K6) ---------------
+    # each float16 instantiation's launches on the drives of path S (a user's
+    # call, the counts zeroed just before) and its times at each width,
+    # beside its float32 and bf16 kernels; path S's features and values come
+    # from a generator of their own
+    path_s = {k: {"launches": 0, "per_width": {}} for k in f16_of}
+    srng = np.random.default_rng(20)
+    # the float16 class of a calc_diff: Q.2's bf16 limit (1e-2) scaled from
+    # bf16's 8 significant bits to float16's 11: a relative error 2**-3 as
+    # large, so calc_diff (a squared relative distance) 2**-6 as large
+    s_limit = 1e-2 * 2.0**-6
+
+    def s_feat(n, d):
+        return torch.from_numpy(srng.standard_normal((n, d)).astype(np.float32)).to(dev)
+
+    def s_drive(label, fn, want):
+        return half_drive("S", path_s, label, fn, want)
+
+    def s_compute(key, label, plan, x):
+        """compute_dtype=torch.float16 on float32 rows `x` through spmm (the
+        kernel's float16 instantiation; K6 rounds its edge values in the
+        kernel): the float32 kernel's bits on the rounded operands, float32."""
+        name = f16_of[key]
+        kernel = kernels[name][0]
+        ref_plan = plan
+        if name == "spmm_ell":
+            ref_plan = dataclasses.replace(plan, vals=plan.vals.half().float())
+        got = spmm(plan, x, compute_dtype=torch.float16, subtile=name == "spmm_subtile")
+        want = kernel(ref_plan, x.half().float(), torch.float32)
+        ok = got.dtype == torch.float32 and torch.equal(got, want)
+        print(f"  {key} {label}: compute_dtype=torch.float16 on float32 rows "
+              f"{'==' if ok else '!='} the float32 kernel on the rounded operands")
+        if not ok:
+            fail(f"{key} {label}: compute_dtype=float16 is not the float32 kernel on the "
+                 "rounded operands")
+
+    def s_kernel(key, tag, label, plan, d, deg, fields, csr, nnz, plain_iters=3):
+        """S.3 for one float16 instantiation at width d on a path's plan: bit
+        for bit the float32 kernel on the widened rows, twice the same bits,
+        against its plain version under the float32 summation bound; once
+        under compute_dtype=float16; timed in turns with the float32 kernel
+        on the float32 rows and the bf16 kernel on bf16 rows, beside its
+        plain version and torch.sparse.mm, with its bound (the plan's
+        `fields`, X in float16, out in float32, each once)."""
+        kernel, plain = kernels[f16_of[key]][:2]
+        x = s_feat(plan.source_rows, d)
+        xh, xb = x.half(), x.bfloat16()
+        half_check(key, f"S.3 on {label} d{d}", plan, xh, deg)
+        s_compute(key, f"S.3 on {label} d{d}", plan, x)
+        (f_ms, b_ms, h_ms), turns = in_turns_n(
+            torch, [lambda: kernel(plan, x, torch.float32), lambda: kernel(plan, xb, torch.float32),
+                    lambda: kernel(plan, xh, torch.float32)])
+        p_ms = cuda_ms(torch, lambda: plain(plan, xh, torch.float32), iters=plain_iters,
+                       warmup=1)
+        lib, lib_what = library_half(csr, xh, x)
+        bd_ms, bd_by = bound_ms(tensor_bytes(*fields) + plan.source_rows * d * 2
+                                + plan.num_nodes * d * 4, 2 * nnz * d)
+        path_s[key]["per_width"][f"{tag}_d{d}"] = dict(
+            ms=h_ms, f32_ms=f_ms, bf16_ms=b_ms, plain_ms=p_ms, library_ms=lib, bound_ms=bd_ms,
+            bound_by=bd_by)
+        print(f"  S.3 {key} d={d}: float16 {turns[2]:.4f} / {turns[3]:.4f} ms, bf16 "
+              f"{turns[1]:.4f} / {turns[4]:.4f}, float32 {turns[0]:.4f} / {turns[5]:.4f} "
+              f"(float16 / float32 {h_ms / f_ms:.3f}x, float16 / bf16 {h_ms / b_ms:.3f}x), plain "
+              f"{p_ms:.4f} ms, torch.sparse.mm {lib:.4f} ms ({lib_what}), bound {bd_ms:.4f} ms "
+              f"({bd_by}; X in float16)")
+
+    def s_path_a(label, a, g, params_np):
+        """Path S on A's graph: S.3 K1 on A's plan at d 128 and 256; S.2 one
+        spmm on J.2's hybrid plan (K3 + K1) at d 128 and one at d 256 on
+        float16 rows, and S.3 K3 on its dense side; S.1 A's GCN with
+        agg_dtype=torch.float16, REQUESTS requests and STEPS SGD steps; S.4
+        the exported float16 aggregate, loaded in this process."""
+        from voltrix_spmm_tpu_torch.models.graph import aggregate
+        from voltrix_spmm_tpu_torch.serve import export_servable, load_servable
+
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev)
+        print(f"path {label}")
+        fields = (g.plan.bitmask, g.plan.hind, g.plan.block_ptr)
+        for d in (128, 256):
+            s_kernel("spmm_block_f16", "A", "A's plan", g.plan, d, deg, fields, csr, a.nnz)
+        hplan = csr_preprocess_hybrid(a.indptr, a.indices, n).to(dev)
+        xs = [s_feat(n, d).half() for d in (128, 256)]
+        outs = s_drive("S.2 spmm(hybrid plan, x.half()) at d 128 and 256",
+                       lambda: [spmm(hplan, x, out_dtype=torch.float32) for x in xs],
+                       {"spmm_fused": 2, "spmm_block": 2, "spmm_fused_f16": 2,
+                        "spmm_block_f16": 2})
+        for x, out in zip(xs, outs):
+            xw = x.float()
+            same = torch.equal(out, spmm(hplan, xw))
+            ok, err = sum_bound_ok(out, spmm(hplan, xw, impl="reference"), deg,
+                                   spmm_reference(g.plan, xw.abs()))
+            if not (ok and same):
+                fail(f"path {label}: the float16 hybrid is not the float32 hybrid on the "
+                     f"widened rows ({same}) or is off the plain path ({err:.3e})")
+        print(f"  the {len(outs)} hybrid outputs: bit for bit the float32 hybrid on the widened "
+              f"rows, and within the summation bound of the plain path")
+        dense_a = plan_csr(hplan.dense)
+        deg_dense = torch.from_numpy(np.diff(dense_a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr_dense = csr_tensor(torch, dense_a, dev)
+        for d in (128, 256):
+            s_kernel("spmm_fused_f16", "J2", "J.2's dense side", hplan.dense, d, deg_dense,
+                     (hplan.dense.bitmask, hplan.dense.hind, hplan.dense.block_ptr), csr_dense,
+                     hplan.dense.num_edges)
+        del hplan, csr_dense, outs, xs
+
+        # S.1: A's GCN on a float16 aggregation, beside the float32 and bf16 ones
+        gs = dataclasses.replace(g, agg_dtype=torch.float16)
+        gb = dataclasses.replace(g, agg_dtype=torch.bfloat16)
+        model = GCN.from_params(gcn_params_from_jax(params_np, dev)).eval()
+        xs = [s_feat(n, 128) for _ in range(REQUESTS)]
+        y = torch.from_numpy(np.random.default_rng(3).integers(0, 40, n)).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            logits = s_drive(f"S.1 {REQUESTS} GCN requests, agg_dtype=torch.float16",
+                             lambda: [model(gs, x) for x in xs],
+                             {"spmm_block": 2 * REQUESTS, "spmm_block_f16": 2 * REQUESTS})
+            req_peak = torch.cuda.max_memory_allocated() / 2**30
+            f32_logits = [model(g, x) for x in xs]
+            losses16 = [gcn_loss(model.params(), gs, x, y) for x in xs]
+            losses32 = [gcn_loss(model.params(), g, x, y) for x in xs]
+        host = host_forward(a, xs[0].cpu().double().numpy(), params_np)
+        diff_host = calc_diff(logits[0].cpu().double().numpy(), host)
+        diffs = [calc_diff(q, f) for q, f in zip(logits, f32_logits)]
+        ldiffs = [calc_diff(q, f) for q, f in zip(losses16, losses32)]
+        finite = all(q.shape == (n, 40) and bool(torch.isfinite(q).all()) for q in logits)
+        print(f"  S.1 logits: request 0 against the float64 host forward calc_diff "
+              f"{diff_host:.3e}; against the float32 path {[f'{v:.3e}' for v in diffs]}, "
+              f"losses {[f'{v:.3e}' for v in ldiffs]} (limit {s_limit:.3e}, the float16 class: "
+              f"Q.2's bf16 1e-2 times 2**-6)")
+        if not (finite and max(diff_host, *diffs, *ldiffs) < s_limit):
+            fail(f"path {label} S.1: the float16 GCN's logits or loss are off the float64 "
+                 "forward or the float32 path")
+
+        def step_of(graph):
+            tm = GCN.from_params(gcn_params_from_jax(params_np, dev))
+            return make_train_step(torch.optim.SGD(tm.parameters(), lr=0.1), gcn_loss), tm
+
+        step32, m32 = step_of(g)
+        step32(m32.params(), g, xs[0], y)
+        want = {k: v.grad.detach().clone() for k, v in m32.params().items()}
+        step16, m16 = step_of(gs)
+        grads0, losses, step_ms = {}, [], []
+        torch.cuda.reset_peak_memory_stats()
+
+        def steps():
+            for i in range(STEPS):
+                t0 = time.perf_counter()
+                losses.append(step16(m16.params(), gs, xs[0], y))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    grads0.update({k: v.grad.detach().clone() for k, v in m16.params().items()})
+
+        # the two forwards read float16 rows; the backward runs the float32
+        # instantiation on the cotangent, whose values are float16 ones
+        # (ops/library.py)
+        s_drive(f"S.1 {STEPS} SGD steps, agg_dtype=torch.float16", steps,
+                {"spmm_block": 3 * STEPS, "spmm_block_f16": 2 * STEPS})
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def grads(graph, scale=1.0, impl="auto"):
+            """The gradients of `scale` times the loss at the initial
+            parameters, divided by `scale`."""
+            p = {k: v.requires_grad_(True) for k, v in gcn_params_from_jax(params_np, dev).items()}
+            loss = gcn_loss(p, graph, xs[0], y, impl=impl) * scale
+            return {k: v / scale for k, v in zip(p, torch.autograd.grad(loss, list(p.values())))}
+
+        def diffs_of(got, ref):
+            return {k: calc_diff(got[k], ref[k]) for k in ref}
+
+        # the float16 cotangent of the mean loss over 169,343 rows (about
+        # 1e-7 a value) is a float16 subnormal, so the unscaled gradients
+        # leave the float16 class of the float32 path's, as they do in the
+        # JAX package: the kernel path is held to the plain path under the
+        # same float16 aggregation, and with the loss scaled by 2**16
+        # (torch.amp.GradScaler's initial scale) to the float32 path
+        gdiff = diffs_of(grads0, want)
+        pdiff = diffs_of(grads0, grads(gs, impl="reference"))
+        sdiff = diffs_of(grads(gs, scale=2.0**16), want)
+        fmt = lambda d: {k: f"{v:.3e}" for k, v in d.items()}  # noqa: E731
+        print(f"  S.1 losses {[round(l.item(), 6) for l in losses]}; step 0's gradients "
+              f"against the plain path under agg_dtype=torch.float16 calc_diff {fmt(pdiff)}, "
+              f"with the loss scaled by 2**16 against the float32 path {fmt(sdiff)} (limit "
+              f"{s_limit:.3e}); unscaled against the float32 path {fmt(gdiff)} (float16 "
+              f"subnormal cotangents); host ms per step {[round(t, 3) for t in step_ms]}")
+        if not (all(bool(torch.isfinite(l)) for l in losses)
+                and max(*pdiff.values(), *sdiff.values()) < s_limit):
+            fail(f"path {label} S.1: the float16 step's gradients are off the plain path's, or "
+                 "off the float32 path's with the loss scaled")
+        stepb, mb = step_of(gb)
+        x = xs[0]
+        with torch.no_grad():
+            (r32, rb, r16), rt = in_turns_n(torch, [lambda: model(g, x), lambda: model(gb, x),
+                                                    lambda: model(gs, x)])
+        (st32, stb, st16), stt = in_turns_n(torch, [lambda: step32(m32.params(), g, x, y),
+                                                    lambda: stepb(mb.params(), gb, x, y),
+                                                    lambda: step16(m16.params(), gs, x, y)])
+        print(f"  S.1 request: float16 {rt[2]:.4f} / {rt[3]:.4f} ms, bf16 {rt[1]:.4f} / "
+              f"{rt[4]:.4f}, float32 {rt[0]:.4f} / {rt[5]:.4f} (float16 / float32 "
+              f"{r16 / r32:.3f}x); step: float16 {stt[2]:.4f} / {stt[3]:.4f} ms, bf16 "
+              f"{stt[1]:.4f} / {stt[4]:.4f}, float32 {stt[0]:.4f} / {stt[5]:.4f} "
+              f"({st16 / st32:.3f}x); peak {req_peak:.3f} GiB a request, {step_peak:.3f} GiB a "
+              "step")
+        with torch.no_grad():
+            rows, hostops, wall = profile_requests(torch, lambda: model(gs, x))
+        print_profile(rows, hostops, wall, "request", top=6)
+        path_s["gcn"] = dict(request_ms=r16, bf16_request_ms=rb, f32_request_ms=r32,
+                             step_ms=st16, bf16_step_ms=stb, f32_step_ms=st32,
+                             request_peak_gib=req_peak, step_peak_gib=step_peak,
+                             busy=sum(ms for _, ms in rows) * REQUESTS / wall,
+                             calc_diff_host=diff_host, calc_diff_f32=max(diffs),
+                             loss_calc_diff=max(ldiffs), grad_calc_diff_plain=max(pdiff.values()),
+                             grad_calc_diff_scaled=max(sdiff.values()),
+                             grad_calc_diff_unscaled=max(gdiff.values()))
+
+        # S.4: one exported float16 aggregate of A, loaded in this process
+        def fn(v):
+            return aggregate(gs, v, mode="mean")
+
+        with torch.no_grad():
+            eager = fn(x)
+            loaded = load_servable(export_servable(fn, x))
+            got = s_drive("S.4 the exported float16 aggregate, loaded in this process",
+                          lambda: loaded(x), {"spmm_block": 1, "spmm_block_f16": 1})
+        ops = sorted({str(nd.target) for nd in loaded.graph.nodes
+                      if nd.op == "call_function" and str(nd.target).startswith("voltrix.")})
+        ok = ops == ["voltrix.spmm_block.default"] and torch.equal(got, eager)
+        print(f"  S.4: ops {ops}, the eager bits {'yes' if torch.equal(got, eager) else 'NO'} "
+              f"-> {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"path {label} S.4: the loaded program's ops or bits are not the eager call's")
+        del gs, gb, model, m16, m32, mb, logits, f32_logits, loaded, csr
+        torch.cuda.empty_cache()
+        path_s["seconds"] = path_s.get("seconds", 0.0) + time.perf_counter() - t_path
+        print(f"path S on A: {time.perf_counter() - t_path:.1f} s in all")
+
+    def s_path_gcn(label, a, g, model, xs, logits, name, widths, plain_iters=3):
+        """Path S on B's or C's graph: one GCN request under
+        agg_dtype=torch.float16 on the path's kernel `name` (its float16
+        instantiation twice), the logits against the path's float32 ones in
+        the float16 class; then S.3 of that kernel at the path's widths."""
+        t_path = time.perf_counter()
+        key = f"{name}_f16"
+        gs = dataclasses.replace(g, agg_dtype=torch.float16)
+        with torch.no_grad():
+            out = s_drive(f"{label}: 1 GCN request, agg_dtype=torch.float16",
+                          lambda: model(gs, xs[0]), {name: 2, key: 2})
+        diff = calc_diff(out, logits[0])
+        print(f"  {label}: logits against the float32 path calc_diff {diff:.3e} (limit "
+              f"{s_limit:.3e})")
+        if not (diff < s_limit and bool(torch.isfinite(out).all())):
+            fail(f"path S {label}: the float16 GCN's logits are off the float32 path")
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev)
+        fields = [g.plan.bitmask, g.plan.hind, g.plan.block_ptr, g.plan.occ]
+        for d in widths:
+            s_kernel(key, label[0], f"{label[0]}'s plan", g.plan, d, deg, fields, csr, a.nnz,
+                     plain_iters=plain_iters)
+        del gs, out, csr
+        torch.cuda.empty_cache()
+        path_s["seconds"] = path_s.get("seconds", 0.0) + time.perf_counter() - t_path
+
+    def s_path_ell(label, a):
+        """Path S on E's graph and ELL geometry (PlanConfig(128, 128,
+        block_unroll=4), random edge values): one spmm(plan, x.half()) at d 8
+        and one at d 40 (K6's float16 instantiation once each), then S.3 of
+        K6 at those widths."""
+        t_path = time.perf_counter()
+        n = a.shape[0]
+        vals = srng.standard_normal(a.nnz).astype(np.float32)
+        eplan = csr_preprocess_ell(a.indptr, a.indices, n, PlanConfig(128, 128, block_unroll=4),
+                                   values=vals).to(dev)
+        xs = [s_feat(n, d).half() for d in (8, 40)]
+        outs = s_drive(f"{label}: spmm(ELL plan, x.half()) at d 8 and 40",
+                       lambda: [spmm(eplan, x) for x in xs],
+                       {"spmm_ell": 2, "spmm_ell_f16": 2})
+        if not all(o.dtype == torch.float16 and bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"path S {label}: the float16 ELL SpMM is not a finite float16 output")
+        deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
+        csr = csr_tensor(torch, a, dev, torch.from_numpy(vals))
+        fields = (eplan.hind, eplan.erow, eplan.vals, eplan.window_of_block)
+        for d in (8, 40):
+            s_kernel("spmm_ell_f16", label[0], f"{label[0]}'s ELL plan", eplan, d, deg,
+                     fields, csr, a.nnz)
+        del eplan, csr, outs, xs
+        torch.cuda.empty_cache()
+        path_s["seconds"] = path_s.get("seconds", 0.0) + time.perf_counter() - t_path
+
     # --- paths K, L and M: the other model families -----------------------
     TOL_MODEL = 1e-4  # logits: rtol, and atol x max(1, max|plain|)
     # paths K, L and M draw their features from a generator of their own, so
@@ -3791,7 +4158,7 @@ def main() -> None:
         rows_ms = cuda_ms(torch, lambda: spmm_weighted(plan, xb, torch.float32))
         p_ms = cuda_ms(torch, lambda: spmm_weighted_reference(plan16, xb, torch.float32),
                        iters=3, warmup=1)
-        lib, lib_what = library_bf16(csr_w, xb, x)
+        lib, lib_what = library_half(csr_w, xb, x)
         b_ms, b_by = bound_ms(tensor_bytes(plan16.values, plan.hind, plan.window_of_block)
                               + n * d * 2 + plan.num_nodes * d * 4, 2 * nz * d)
         path_r["spmm_weighted_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
@@ -3915,7 +4282,7 @@ def main() -> None:
         w_ms, f_ms, turns = in_turns(torch, lambda: spmm(plan, xb, impl="int8"),
                                      lambda: spmm(plan, xs[0], impl="int8"), plain_iters=20)
         p_ms = cuda_ms(torch, lambda: spmm_int8_reference(plan, xb), iters=2, warmup=1)
-        lib, lib_what = library_bf16(csr_tensor(torch, a, dev), xq.to(bf16), xq)
+        lib, lib_what = library_half(csr_tensor(torch, a, dev), xq.to(bf16), xq)
         b_ms, b_by = bound_ms(tensor_bytes(plan.bitmask, plan.hind, q, sc) + n * d * 4,
                               2 * a.nnz * d)
         path_r["spmm_int8_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
@@ -5706,6 +6073,9 @@ def main() -> None:
         q_path_a("Q (ogbn-arxiv proxy, bf16 feature sources: K1, the hybrid's K3 and K1, the "
                  "GCN under agg_dtype=torch.bfloat16, the tuner's bf16 variants, the auto rule)",
                  arxiv, g, params_np)
+        s_path_a("S (ogbn-arxiv proxy, float16 feature sources: K1, the hybrid's K3 and K1, the "
+                 "GCN under agg_dtype=torch.float16, an exported float16 aggregate)",
+                 arxiv, g, params_np)
         r_path_a("R (ogbn-arxiv proxy, bf16 on K4 and K8: DropEdge on bf16 rows, K4 on bf16 rows "
                  "and planes, the int8 SpMM on bf16 rows)", arxiv, g)
 
@@ -5718,11 +6088,13 @@ def main() -> None:
         "spmm_subtile": serve("B (ogbn-arxiv proxy clustered, K2)", arxiv,
                               PlanConfig(2048, 128, block_unroll=4, cluster_cols=True),
                               "spmm_subtile", (128, 256, 40),
-                              then=lambda g, model, _, xs, logits, __: q_path_gcn(
-                                  "B (path Q, K2's bf16 instantiation)", arxiv, g, model, xs,
-                                  logits, "spmm_subtile", (128, 256))),
+                              then=lambda g, model, _, xs, logits, __: (
+                                  q_path_gcn("B (path Q, K2's bf16 instantiation)", arxiv, g,
+                                             model, xs, logits, "spmm_subtile", (128, 256)),
+                                  s_path_gcn("B (path S, K2's float16 instantiation)", arxiv, g,
+                                             model, xs, logits, "spmm_subtile", (128, 256)))),
     }
-    part("A and B (A: N, I, J.1, J.2, Q, R.1-R.3; B: Q)")
+    part("A and B (A: N, I, J.1, J.2, Q, S, R.1-R.3; B: Q, S)")
     path_k = full_graph_models("K (ogbn-arxiv proxy, SAGE, GIN, APPNP, deep GCN, R-GCN on K1; "
                                "DropEdge on K4)", arxiv)
     part("K")
@@ -5747,7 +6119,8 @@ def main() -> None:
     path_e = gat_ell_path("E (ogbn-arxiv proxy with self-loops, dot-product GAT, K6 and K7)",
                           loops, PlanConfig(128, 128, block_unroll=4), (128, 8, 40), heads=8)
     q_path_ell("E (path Q, K6's bf16 instantiation)", loops)
-    part("E (Q on E)")
+    s_path_ell("E (path S, K6's float16 instantiation)", loops)
+    part("E (Q and S on E)")
     # the same graph, geometry and widths as E (bench/bm_gat.py:174-177)
     results.update(gat_flash_path(
         "G (ogbn-arxiv proxy with self-loops, flash GAT, K13, K14 and K15)", loops,
@@ -5800,8 +6173,10 @@ def main() -> None:
             int8_on_c("C (protein proxy)", protein, g), c_plan_builds(protein),
             r_int8_on_c("C (protein proxy)", protein, g),
             q_path_gcn("C (path Q, K3's bf16 instantiation)", protein, g, model, xs, logits,
-                       "spmm_fused", (8, 256))))
-    part("C (I, R.3, Q on C)")
+                       "spmm_fused", (8, 256)),
+            s_path_gcn("C (path S, K3's float16 instantiation)", protein, g, model, xs, logits,
+                       "spmm_fused", (8, 256), plain_iters=1)))
+    part("C (I, R.3, Q and S on C)")
     tuner_path_c(protein)
     part("O.2")
     del protein
@@ -5812,6 +6187,7 @@ def main() -> None:
     shutil.rmtree(tune_dir, ignore_errors=True)
     print(f"path O: {json.dumps(path_o)}")
     print(f"path Q: {json.dumps({k: v for k, v in path_q.items() if k not in bf16_of})}")
+    print(f"path S: {json.dumps({k: v for k, v in path_s.items() if k not in f16_of})}")
     r_extra = {k: v for k, v in path_r.items() if k not in r_of}
     print(f"path R: {json.dumps({'seconds': sum(path_r_s), 'parts_s': path_r_s, **r_extra})}")
     results["spmm_int8"] = path_i
@@ -5869,11 +6245,28 @@ def main() -> None:
         widest = max(pw.values(), key=lambda v: v["bound_ms"])
         entry = {"name": key, "route": "cuda",
                  "source": f"voltrix_spmm_tpu_torch/csrc/{kernels[name][2]}",
-                 "replaces": kernels[name][3], "max_abs_err": bf16_err[key],
+                 "replaces": kernels[name][3], "max_abs_err": half_err[key],
                  "registered": f"voltrix::{REGISTERED[name]}",
                  "o_launches": path_o["launches"][key], "launches": path_q[key]["launches"],
                  "bound_by": widest["bound_by"]}
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms"):
+            entry[field] = sum(v[field] for v in pw.values())
+            entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
+        line.append(entry)
+    # the float16 instantiations (path S): the same sources and registered
+    # ops; launches on path S's drives (the GCN on A, B and C, the hybrid,
+    # the ELL SpMM, the exported aggregate); times summed over the widths of
+    # S.3, beside the float32 kernel's (f32_ms) and the bf16 one's (bf16_ms)
+    for key, name in f16_of.items():
+        pw = path_s[key]["per_width"]
+        widest = max(pw.values(), key=lambda v: v["bound_ms"])
+        entry = {"name": key, "route": "cuda",
+                 "source": f"voltrix_spmm_tpu_torch/csrc/{kernels[name][2]}",
+                 "replaces": kernels[name][3], "max_abs_err": half_err[key],
+                 "registered": f"voltrix::{REGISTERED[name]}",
+                 "o_launches": path_o["launches"][key], "launches": path_s[key]["launches"],
+                 "bound_by": widest["bound_by"]}
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms", "bf16_ms"):
             entry[field] = sum(v[field] for v in pw.values())
             entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
         line.append(entry)

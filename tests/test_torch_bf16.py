@@ -245,9 +245,10 @@ def test_spmm_out_dtype_skips_bf16_roundtrip(impl):
 
 def test_other_float_dtypes_keep_their_behaviour():
     """float16 and float64 features on the CPU run the plain path as before
-    (the rows widened to float32, the output in their dtype); a
-    compute_dtype other than float32 and bfloat16 is refused, and so is
-    int8 under compute_dtype=bfloat16."""
+    (the rows widened to float32, the output in their dtype);
+    compute_dtype=float16 now runs (tests/test_torch_f16.py holds it to
+    JAX) and equals the plain path on the rounded rows; int8 under either
+    16-bit compute_dtype is still refused."""
     a = random_csr(256, 0.05, seed=28)
     _, tplan = plans(a, dict(block_h=32, block_w=128))
     x = torch.from_numpy(features(256, 8, seed=29))
@@ -255,10 +256,12 @@ def test_other_float_dtypes_keep_their_behaviour():
         out = vt.spmm(tplan, x.to(dtype))
         assert out.dtype == dtype
         assert torch.equal(out, spmm_reference(tplan, x.to(dtype)))
-    with pytest.raises(NotImplementedError, match="float16"):
-        vt.spmm(tplan, x, compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        vt.spmm(tplan, x, impl="int8", compute_dtype=torch.bfloat16)
+    out = vt.spmm(tplan, x, compute_dtype=torch.float16)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, spmm_reference(tplan, x.to(torch.float16), torch.float32))
+    for compute in (torch.bfloat16, torch.float16):
+        with pytest.raises(NotImplementedError, match="int8"):
+            vt.spmm(tplan, x, impl="int8", compute_dtype=compute)
 
 
 # --- aggregate, GCN, build_graph("auto"), export ---------------------------

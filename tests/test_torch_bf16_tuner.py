@@ -53,8 +53,8 @@ BF16_VARIANTS = [
 
 def test_variant_bf16_fields():
     """feat_dtype and compute_dtype take "bfloat16" (the key is JAX's, with
-    its /x marker for feat_dtype); float16 and the kernels that read float32
-    rows alone (K4, K8) refuse them."""
+    its /x marker for feat_dtype); "float16" now builds JAX's key too; K4 and
+    K8 refuse a 16-bit compute_dtype, and float16 rows."""
     for v in BF16_VARIANTS:
         assert v.bf16
         assert v.key() == jtuner.Variant(**{k: getattr(v, k) for k in (
@@ -62,12 +62,17 @@ def test_variant_bf16_fields():
             "compute_dtype", "stream_chunks")}).key()
     assert "/xbfloat16/" in Variant("pregather", feat_dtype="bfloat16").key()
     assert not Variant("pregather", compute_dtype="float32").bf16
-    with pytest.raises(NotImplementedError, match="float16"):
-        Variant("pregather", feat_dtype="float16")
+    for field in ("feat_dtype", "compute_dtype"):
+        v = Variant("pregather", **{field: "float16"})
+        assert v.half and not v.bf16
+        assert v.key() == jtuner.Variant("pregather", **{field: "float16"}).key()
     for impl in ("int8", "weighted"):  # K4 and K8 take bf16 rows, not compute_dtype
         assert Variant(impl, feat_dtype="bfloat16").bf16
-        with pytest.raises(NotImplementedError, match="no compute_dtype"):
-            Variant(impl, compute_dtype="bfloat16")
+        for dtype in ("bfloat16", "float16"):
+            with pytest.raises(NotImplementedError, match="no compute_dtype"):
+                Variant(impl, compute_dtype=dtype)
+        with pytest.raises(NotImplementedError, match="float16"):
+            Variant(impl, feat_dtype="float16")
 
 
 # the difference with the JAX package's space, pinned: the port adds K1 on

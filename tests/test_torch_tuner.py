@@ -492,14 +492,17 @@ def test_one_variant_space_matches_jax_tuned(problem, tmp_path, name, ordering):
     ("hybrid_dense", "pregather"),
 ])
 def test_tpu_only_variant_fields_raise(field, value):
-    """The TPU-only fields raise; feat_dtype and compute_dtype "bfloat16",
-    refused until the kernels read bf16 rows, now build the JAX package's
-    variant (the same key) and refuse only float16."""
+    """The TPU-only fields raise; feat_dtype and compute_dtype "bfloat16"
+    and "float16", refused until the kernels read 16-bit rows, now build the
+    JAX package's variant (the same key) and refuse a type neither package
+    names ("float64")."""
     if field in ("feat_dtype", "compute_dtype"):
         v = Variant("pregather", **{field: value})
         assert v.bf16 and v.key() == jtuner.Variant("pregather", **{field: value}).key()
+        h = Variant("pregather", **{field: "float16"})
+        assert h.half and h.key() == jtuner.Variant("pregather", **{field: "float16"}).key()
         with pytest.raises(NotImplementedError, match=field):
-            Variant("pregather", **{field: "float16"})
+            Variant("pregather", **{field: "float64"})
         return
     with pytest.raises(NotImplementedError, match=field):
         Variant("pregather", **{field: value})

@@ -51,6 +51,12 @@
 // widened exactly to float32 and added in the same order, so the result is
 // the float32 kernel's on the widened rows, bit for bit. It moves half of
 // X's bytes; what that buys on the card is in PERF.md section 6.
+//
+// float16 features (voltrix_spmm_block_f16): the same walk on IEEE half
+// rows (kF16 of spmm_walk.cuh): the bf16 source's copies and ring, each
+// value widened by a conversion, exact for every half (subnormals
+// included), so the result is the float32 kernel's on the widened rows,
+// bit for bit.
 
 #include "spmm_walk.cuh"
 
@@ -80,6 +86,17 @@ int voltrix_spmm_block_bf16(const void* bitmask, const void* hind, const void* t
                             int num_nodes, int source_rows, int d, int ld, void* stream) {
   if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
   return voltrix_walk::launch_walk<false, voltrix_walk::kBF16>(
+      bitmask, hind, nullptr, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
+      block_h, block_w, num_nodes, source_rows, d, ld, stream);
+}
+
+// K1 on float16 rows of width ld, as voltrix_spmm_block_bf16.
+int voltrix_spmm_block_f16(const void* bitmask, const void* hind, const void* tasks,
+                           const void* merges, const void* feat, void* out, void* ws,
+                           int num_tasks, int num_merges, int words, int block_h, int block_w,
+                           int num_nodes, int source_rows, int d, int ld, void* stream) {
+  if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
+  return voltrix_walk::launch_walk<false, voltrix_walk::kF16>(
       bitmask, hind, nullptr, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
       block_h, block_w, num_nodes, source_rows, d, ld, stream);
 }

@@ -54,12 +54,18 @@
 // exactly to float32; with round_vals each edge value is rounded to bf16
 // first. The products and sums are those of the float32 walk, in the same
 // order, so the result is the float32 kernel's on the widened rows (and
-// rounded values), bit for bit.
+// rounded values), bit for bit. float16 features (voltrix_spmm_ell_f16)
+// are the same walk on T = __half: four halves as 8 bytes (or one 2-byte
+// load a column), each widened by a conversion, exact for every half; with
+// round_vals each edge value is rounded to float16 (round to nearest even,
+// subnormals kept), so a product of a rounded value and a widened half is
+// exact in float32 and the fma chain is the float32 walk's.
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -103,6 +109,33 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&x)[kVe
   }
 }
 
+// kVec float16 columns of a feature row, widened exactly to float32
+template <int kVec>
+__device__ __forceinline__ void load_cols(const __half* p, float (&x)[kVec]) {
+  if (kVec == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+    const float2 lo = __half22float2(h[0]), hi = __half22float2(h[1]);
+    x[0] = lo.x;
+    x[1] = lo.y;
+    x[2] = hi.x;
+    x[3] = hi.y;
+  } else {
+    x[0] = __half2float(__ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
+
+// an edge value rounded to the feature type T (round to nearest even), as
+// compute_dtype's cast of the values
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(v));
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
+
 template <int kVec>
 __device__ __forceinline__ void store_cols(float* p, const float (&x)[kVec]) {
   if (kVec == 4) {
@@ -112,8 +145,8 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[kVec]) {
   }
 }
 
-// T: the feature type (float or __nv_bfloat16); kRound: each edge value
-// rounded to bf16 before its products (compute_dtype=bfloat16), a template
+// T: the feature type (float, __nv_bfloat16 or __half); kRound: each edge
+// value rounded to T before its products (compute_dtype), a template
 // parameter so that the float32 walk's loop is the one it always was
 template <typename T, bool kRound, int kVec, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
@@ -167,7 +200,7 @@ spmm_ell_rows_kernel(const int32_t* __restrict__ items,  // (num_items, kItemInt
       for (int k = 0; k < kVec; ++k) x[u][k] = 0.f;
       if (csrc[u] >= 0) {
         v[u] = __ldg(vals + clane[u]);
-        if constexpr (kRound) v[u] = __bfloat162float(__float2bfloat16_rn(v[u]));
+        if constexpr (kRound) v[u] = round_to<T>(v[u]);
         if (col_ok) load_cols<kVec>(feat + (int64_t)csrc[u] * d + c, x[u]);
       }
     }
@@ -262,7 +295,7 @@ int launch_ell(const void* items, const void* src, const void* lane, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // float32 rows are never rounded (compute_dtype=bfloat16 reads bf16 rows)
+  // float32 rows are never rounded (compute_dtype reads 16-bit rows)
   auto rows = round_vals && !std::is_same<T, float>::value ? pick_rows<T, true>(vec, unroll)
                                                            : pick_rows<T, false>(vec, unroll);
   cudaError_t err = rows(items, src, lane, vals, feat, out, ws, num_items, d, tpe, s);
@@ -310,6 +343,16 @@ int voltrix_spmm_ell_bf16(const void* items, const void* src, const void* lane,
                           int unroll, int round_vals, void* stream) {
   return launch_ell<__nv_bfloat16>(items, src, lane, vals, merges, feat, out, ws, num_items,
                                    num_merges, d, vec, tpe, unroll, round_vals, stream);
+}
+
+// K6 on float16 rows, as voltrix_spmm_ell_bf16; round_vals = 1 rounds each
+// edge value to float16 (compute_dtype=float16).
+int voltrix_spmm_ell_f16(const void* items, const void* src, const void* lane,
+                         const void* vals, const void* merges, const void* feat, void* out,
+                         void* ws, int num_items, int num_merges, int d, int vec, int tpe,
+                         int unroll, int round_vals, void* stream) {
+  return launch_ell<__half>(items, src, lane, vals, merges, feat, out, ws, num_items, num_merges,
+                            d, vec, tpe, unroll, round_vals, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -79,7 +79,10 @@
 // copies need rows of ld % 8 == 0 bf16 values (float32: d % 4 == 0); other
 // rows come by 8-byte cp.async, 4 values at a time, from rows of width ld
 // % 4 == 0 that the wrapper pads once where d % 4 != 0
-// (ops/block_spmm.py:bf16_rows).
+// (ops/block_spmm.py:bf16_rows). float16 features (voltrix_spmm_fused_f16)
+// are the same template on __half: a float16 tensor map
+// (CU_TENSOR_MAP_DATA_TYPE_FLOAT16), the bf16 stages, copies and padding,
+// and each value widened by a conversion, exact for every half.
 
 #include <cstdint>
 #include <cstring>
@@ -87,6 +90,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "spmm_walk.cuh"
@@ -131,12 +135,15 @@ __device__ __forceinline__ void tma_copy(void* dst, const CUtensorMap* map, int 
 }
 
 // four staged values from shared memory as float32 (16 bytes of float32,
-// or 8 bytes of bf16 widened exactly)
+// or 8 bytes of bf16 or float16 widened exactly)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return vw::widen_bf16x4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  return vw::widen_f16x4(*reinterpret_cast<const uint2*>(p));
 }
 
 // four zero values into shared memory
@@ -144,6 +151,9 @@ __device__ __forceinline__ void zero4(float* p) {
   *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 __device__ __forceinline__ void zero4(__nv_bfloat16* p) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+}
+__device__ __forceinline__ void zero4(__half* p) {
   *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
 }
 
@@ -159,7 +169,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // words, up to stages - 1 tiles ahead of the walk. The run heads of tile t
 // (hind) are loaded kAhead tiles before its copies are issued, into
 // registers that an unrolled loop indexes with constants. T is the staged
-// element type (float32 or bf16); rows of feat are ld elements apart, and
+// element type (float32, bf16 or float16); rows of feat are ld elements apart, and
 // the chunk's lw of them are staged.
 template <typename T, bool kBulk>
 __device__ __forceinline__ void produce_tiles(
@@ -229,7 +239,7 @@ __device__ __forceinline__ void produce_tiles(
             T* x = xs + (32 * k + lane) * pitch;
             if constexpr (sizeof(T) == 4) {
               for (int c = 0; c < lw; ++c) vw::cp_async4(x + c, src + c);
-            } else {  // ld % 4 == 0: four bf16 values a copy
+            } else {  // ld % 4 == 0: four 16-bit values a copy
               for (int c = 0; c < lw; c += 4) vw::cp_async8(x + c, src + c);
             }
           }
@@ -253,7 +263,7 @@ __host__ __device__ constexpr int warps_per_word() { return kNC ? 1 : 2; }
 // kNC = 0: the wide walk (a warp per 16 rows of a word, lane l: columns
 // 4l .. 4l + 3 of the chunk). kNC > 0: the narrow walk for d <= 4 kNC <= 32
 // (a warp per word, lane l: row l, kNC float4 of columns). T: the staged
-// element type, float32 or bf16 (rows of ld elements).
+// element type, float32, bf16 or float16 (rows of ld elements).
 template <typename T, bool kBulk, int kNC>
 __global__ void __launch_bounds__(32 * (kMaxWarps * warps_per_word<kNC>() + 1), kNC ? 3 : 1)
 spmm_fused_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
@@ -450,7 +460,7 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // Launches K3 on T rows of width ld (ld = d for float32; ld % 4 == 0 and
-// ld >= d for bf16), then the merge of cut slabs, on `stream`; returns the
+// ld >= d for bf16 and float16), then the merge of cut slabs, on `stream`; returns the
 // first CUDA error as an int. `dtype` is the tensor map's element type.
 template <typename T>
 int launch_fused(const void* bitmask, const void* hind, const void* tasks, const void* merges,
@@ -551,6 +561,17 @@ int voltrix_spmm_fused_bf16(const void* bitmask, const void* hind, const void* t
                                      num_merges, words, gw, block_h, block_w, seg, num_nodes,
                                      source_rows, d, ld, bulk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                                      stream);
+}
+
+// K3 on float16 rows of width ld, as voltrix_spmm_fused_bf16.
+int voltrix_spmm_fused_f16(const void* bitmask, const void* hind, const void* tasks,
+                           const void* merges, const void* feat, void* out, void* ws,
+                           int num_tasks, int num_merges, int words, int gw, int block_h,
+                           int block_w, int seg, int num_nodes, int source_rows, int d, int ld,
+                           int bulk, void* stream) {
+  return launch_fused<__half>(bitmask, hind, tasks, merges, feat, out, ws, num_tasks, num_merges,
+                              words, gw, block_h, block_w, seg, num_nodes, source_rows, d, ld,
+                              bulk, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, stream);
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -37,7 +37,8 @@
 //
 // bf16 features (voltrix_spmm_subtile_bf16; pallas_spmm.py:263 casts the
 // gathered tile in the kernel): the walk's kBF16 source, as K1's
-// (csrc/spmm_block.cu), bit for bit the float32 kernel on the widened rows.
+// (csrc/spmm_block.cu), bit for bit the float32 kernel on the widened rows;
+// float16 features (voltrix_spmm_subtile_f16) likewise on its kF16 source.
 
 #include "spmm_walk.cuh"
 
@@ -68,6 +69,18 @@ int voltrix_spmm_subtile_bf16(const void* bitmask, const void* hind, const void*
                               void* stream) {
   if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
   return voltrix_walk::launch_walk<true, voltrix_walk::kBF16>(
+      bitmask, hind, occ, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
+      block_h, block_w, num_nodes, source_rows, d, ld, stream);
+}
+
+// K2 on float16 rows of width ld, as voltrix_spmm_subtile_bf16.
+int voltrix_spmm_subtile_f16(const void* bitmask, const void* hind, const void* occ,
+                             const void* tasks, const void* merges, const void* feat, void* out,
+                             void* ws, int num_tasks, int num_merges, int words, int block_h,
+                             int block_w, int num_nodes, int source_rows, int d, int ld,
+                             void* stream) {
+  if (ld % 4 != 0 || ld < d) return static_cast<int>(cudaErrorInvalidValue);
+  return voltrix_walk::launch_walk<true, voltrix_walk::kF16>(
       bitmask, hind, occ, tasks, merges, feat, nullptr, out, ws, num_tasks, num_merges, words,
       block_h, block_w, num_nodes, source_rows, d, ld, stream);
 }

@@ -3,9 +3,10 @@
 // = A @ X over the binned block-CSR plan, for sm_90a. K2 is the walk with
 // the sub-window occupancy test (kOcc); K1 and K8 are the walk without it.
 // The walk is a template on its feature source: float32 rows of feat (K1,
-// K2), bfloat16 rows of width ld (a multiple of 4, 8-byte aligned; K1 and
-// K2 on bf16 features, each value widened exactly to float32 as the TPU
-// kernels' astype does, voltrix_spmm_tpu/ops/pallas_spmm.py:192, :263), or
+// K2), 16-bit rows of width ld (a multiple of 4, 8-byte aligned; K1 and K2
+// on bfloat16 or float16 features, each value widened exactly to float32
+// as the TPU kernels' astype does, voltrix_spmm_tpu/ops/pallas_spmm.py:192,
+// :263), or
 // int8 rows q (source_rows, d4) with one float32 scale per row (K8), each
 // value dequantized as bf16(float(q) * bf16(scale)) as the TPU kernel does
 // (voltrix_spmm_tpu/ops/quant.py:47-50).
@@ -33,16 +34,17 @@
 // cp.async into a ring of kStages slots, kStages - 1 items ahead of the one
 // being summed: float32, lane l copies columns 4l..4l+3 (16 bytes) of a
 // 512-byte slot, or, where d % 4 != 0 or feat is not 16-byte aligned,
-// columns l, l + 32, l + 64, l + 96 with 4-byte copies (kF32x1); bf16,
-// lane l copies columns 4l..4l+3 (8 bytes) of a 256-byte slot, half the
+// columns l, l + 32, l + 64, l + 96 with 4-byte copies (kF32x1); bf16 or
+// float16, lane l copies columns 4l..4l+3 (8 bytes) of a 256-byte slot, half the
 // float32 slot (cp.async has no 2-byte copy, so the wrapper pads rows whose
 // width is not a multiple of 4 or that are not 8-byte aligned, once, into
 // rows of width ld); int8, lane l copies its four columns' 4 bytes of a
-// 128-byte slot, a quarter of the float32 ring. The bf16 and int8 rings are
+// 128-byte slot, a quarter of the float32 ring. The 16-bit and int8 rings are
 // twice as deep as the float32 one in the same shared memory. K8's scale travels with the
 // item's hind through the queue: the lane that owns the lane slot loads it
 // two units before the unit is queued. Lane l then adds its four columns
-// (bf16: each widened by a 16-bit shift) into the rows of the item's set
+// (bf16: each widened by a 16-bit shift; float16: by a conversion, exact for
+// every half, subnormals included) into the rows of the item's set
 // bits, a byte of the word at a time,
 // skipping zero bytes (the word is the same across the warp, so the tests
 // do not diverge; constant indices keep the sums in registers). Each lane
@@ -62,6 +64,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace voltrix_walk {
@@ -74,15 +77,19 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBlocksPerSm = 3;
 constexpr int kCols = 128;  // feature columns per thread block, 4 per lane
 // the feature source: float32 rows copied 16 or 4 bytes a lane, bfloat16
-// rows copied 8 bytes a lane, or int8 rows with a float32 scale per row
-enum { kF32x4, kF32x1, kI8, kBF16 };
+// or float16 rows copied 8 bytes a lane, or int8 rows with a float32 scale
+// per row
+enum { kF32x4, kF32x1, kI8, kBF16, kF16 };
+// a 16-bit source: the same copies and ring, only the widening differs
+template <int kSrc>
+__host__ __device__ constexpr bool half_src() { return kSrc == kBF16 || kSrc == kF16; }
 // row slices in flight per warp (cp.async ring)
 template <int kSrc>
-__host__ __device__ constexpr int stages() { return kSrc == kI8 || kSrc == kBF16 ? 32 : 16; }
-// 4-byte words of a ring slot: kCols float32 columns, kCols bf16 or int8 ones
+__host__ __device__ constexpr int stages() { return kSrc == kI8 || half_src<kSrc>() ? 32 : 16; }
+// 4-byte words of a ring slot: kCols float32 columns, kCols 16-bit or int8 ones
 template <int kSrc>
 __host__ __device__ constexpr int slot_words() {
-  return kSrc == kI8 ? kCols / 4 : kSrc == kBF16 ? kCols / 2 : kCols;
+  return kSrc == kI8 ? kCols / 4 : half_src<kSrc>() ? kCols / 2 : kCols;
 }
 constexpr int kQueue = 64;  // kept items a warp holds: >= stages - 1 + 32
 // per item in the queue: its bitmask word and source row (int8: and scale)
@@ -186,6 +193,24 @@ __device__ __forceinline__ float4 widen_bf16x4(uint2 u) {
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
+// four float16 values (8 bytes, the lower address in u.x's low half)
+// widened exactly to float32 (every half, subnormals included, is a float)
+__device__ __forceinline__ float4 widen_f16x4(uint2 u) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  const float2 lo = __half22float2(h[0]), hi = __half22float2(h[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// four values of 16-bit source kSrc (kBF16 or kF16) widened to float32
+template <int kSrc>
+__device__ __forceinline__ float4 widen16x4(uint2 u) {
+  if constexpr (kSrc == kBF16) {
+    return widen_bf16x4(u);
+  } else {
+    return widen_f16x4(u);
+  }
+}
+
 template <int kSrc>
 __host__ __device__ constexpr int smem_bytes() {
   return kWarps * (stages<kSrc>() * slot_words<kSrc>() + queue_arrays<kSrc>() * kQueue) * 4;
@@ -212,7 +237,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
                  const int32_t* __restrict__ hind,      // (B, block_w)
                  const uint32_t* __restrict__ occ,      // (B,) sub-window bits (kOcc)
                  const int32_t* __restrict__ tasks,     // (num_tasks, kTaskInts)
-                 const void* __restrict__ feat,         // (source_rows, ld) float32, bf16 or int8
+                 const void* __restrict__ feat,         // (source_rows, ld) float32, 16-bit or int8
                  const float* __restrict__ scale,       // (source_rows,) (kI8)
                  float* __restrict__ out,               // (num_nodes, d)
                  float* __restrict__ ws,                // (slots, tile rows, d)
@@ -230,7 +255,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   const int gwords = min(kWarps, words - kWarps * g);
   const int c0 = blockIdx.y * kCols;
   const int cw = min(kCols, d - c0);   // output columns of the chunk
-  const int lw = min(kCols, ld - c0);  // feature columns of the chunk (bf16, int8: ld's)
+  const int lw = min(kCols, ld - c0);  // feature columns of the chunk (16-bit, int8: ld's)
   float* s_ring = smem + warp * kStages * kSlotWords;
   uint32_t* s_qword = reinterpret_cast<uint32_t*>(smem + kWarps * kStages * kSlotWords) +
                       warp * queue_arrays<kSrc>() * kQueue;
@@ -255,7 +280,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
   if (warp >= gwords) return;
 
   // the lane's sums: row s of the warp's word, columns 4 lane .. 4 lane + 3
-  // (kF32x4, kBF16, kI8) or lane + 32 k (kF32x1)
+  // (kF32x4, kBF16, kF16, kI8) or lane + 32 k (kF32x1)
   float acc[32][4];
 #pragma unroll
   for (int s = 0; s < 32; ++s) {
@@ -332,8 +357,8 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
       if constexpr (kSrc == kI8) {
         const int8_t* row = static_cast<const int8_t*>(feat) + src * ld + c0;
         if (4 * lane < lw) cp_async4(slot + lane, row + 4 * lane);
-      } else if constexpr (kSrc == kBF16) {
-        const __nv_bfloat16* row = static_cast<const __nv_bfloat16*>(feat) + src * ld + c0;
+      } else if constexpr (half_src<kSrc>()) {
+        const uint16_t* row = static_cast<const uint16_t*>(feat) + src * ld + c0;
         if (4 * lane < lw) cp_async8(slot + 2 * lane, row + 4 * lane);
       } else {
         const float* row = static_cast<const float*>(feat) + src * ld + c0;
@@ -369,9 +394,10 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
       x[1] = bf16_round(static_cast<float>(q.y) * sc);
       x[2] = bf16_round(static_cast<float>(q.z) * sc);
       x[3] = bf16_round(static_cast<float>(q.w) * sc);
-    } else if constexpr (kSrc == kBF16) {
-      const float4 v = 4 * lane < lw ? widen_bf16x4(*reinterpret_cast<const uint2*>(slot + 2 * lane))
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if constexpr (half_src<kSrc>()) {
+      const float4 v = 4 * lane < lw
+                           ? widen16x4<kSrc>(*reinterpret_cast<const uint2*>(slot + 2 * lane))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
       x[0] = v.x;
       x[1] = v.y;
       x[2] = v.z;
@@ -410,7 +436,7 @@ spmm_walk_kernel(const uint32_t* __restrict__ bitmask,  // (B, words, block_w)
                          : ws + ((int64_t)(task[kSlot] + rank - 1) * tile_rows(words) +
                                  32 * warp) * d + c0;
   // 16-byte stores where a row's four columns are whole and aligned
-  const bool store4 = kSrc == kF32x4 || ((kSrc == kI8 || kSrc == kBF16) && d % 4 == 0);
+  const bool store4 = kSrc == kF32x4 || ((kSrc == kI8 || half_src<kSrc>()) && d % 4 == 0);
 #pragma unroll
   for (int s = 0; s < 32; ++s) {
     if (s < rows) {
@@ -524,7 +550,7 @@ inline cudaError_t launch_merge(const void* merges, const void* ws, void* out, i
 }
 
 // Launches the walk over `feat` (kSrc: float32 rows of width ld = d, bf16
-// rows of width ld (a multiple of 4, >= d), or int8 rows of width ld = d4
+// or float16 rows of width ld (a multiple of 4, >= d), or int8 rows of width ld = d4
 // with `scale`) and, when a group is cut, the
 // merge after it on `stream`; returns the first CUDA error as an int.
 template <bool kOcc, int kSrc>

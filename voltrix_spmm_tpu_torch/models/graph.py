@@ -22,8 +22,9 @@ class GraphData:
     inv_deg: torch.Tensor  # float32 (N, 1): 1/max(out-degree, 1)
     inv_sqrt_deg: torch.Tensor  # float32 (N, 1): max(out-degree, 1)^-1/2
     # the dtype `aggregate` streams the features in (None: x's own); with
-    # torch.bfloat16 the kernels read bf16 rows and sum in float32, and the
-    # result returns in x's dtype (the JAX package's agg_dtype)
+    # torch.bfloat16 or torch.float16 the kernels read 16-bit rows and sum in
+    # float32, and the result returns in x's dtype (the JAX package's
+    # agg_dtype)
     agg_dtype: torch.dtype | None = None
 
     @property
@@ -185,10 +186,10 @@ def aggregate(g: GraphData, x: torch.Tensor, mode: str = "mean", *, impl: str = 
     plans, K3 for coverage plans, chunk by chunk on a streamed graph) or
     "reference" (plain version).
 
-    With `g.agg_dtype` (torch.bfloat16) x is cast to it first, so the
-    kernels read bf16 rows (and sum in float32); the SpMM's bf16 result
-    returns in x's dtype, with the JAX package's rounding points: in sym
-    mode the pre-scaled rows round to bf16 too.
+    With `g.agg_dtype` (torch.bfloat16 or torch.float16) x is cast to it
+    first, so the kernels read 16-bit rows (and sum in float32); the
+    SpMM's 16-bit result returns in x's dtype, with the JAX package's
+    rounding points: in sym mode the pre-scaled rows round to it too.
     """
     if x.dim() == 3:
         b, n, d = x.shape

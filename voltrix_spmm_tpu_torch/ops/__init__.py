@@ -27,7 +27,7 @@ from .attention_mh import (
 from . import library
 from .autodiff import spmm_ad
 from .bitmask import expand_bitmask
-from .block_spmm import bf16_compute, spmm_block
+from .block_spmm import half_compute, spmm_block
 from .ell import (
     sddmm_ell,
     sddmm_ell_ad,
@@ -177,14 +177,16 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
     feat may be (N, D) or graph-batched (B, N, D): the batch folds into
     the feature axis, so one launch serves the whole batch.
 
-    feat is float32 or bfloat16: K1, K2, K3, K4 and K6 read bf16 rows
-    through their bf16 instantiations (K4 also a bf16 value plane) and K8
-    quantizes them in bf16, and all sum in float32; the output is cast once
-    to `out_dtype` (default feat's dtype). compute_dtype=torch.bfloat16
-    rounds float32 features to bf16 (round to nearest even; K6 also its
-    edge values) and runs the bf16 sources, the output defaulting to the
-    caller's dtype, as the JAX package's compute_dtype does; K4 ignores it
-    (the JAX package's weighted kernel does) and K8 refuses it.
+    feat is float32, bfloat16 or float16: K1, K2, K3 and K6 read 16-bit
+    rows through their bf16 and float16 instantiations, K4 bf16 rows (and a
+    bf16 value plane) and K8 quantizes bf16 rows in bf16; all sum in
+    float32, and the output is cast once to `out_dtype` (default feat's
+    dtype). On the card K4 and K8 refuse float16 rows (ROADMAP.md item 9).
+    compute_dtype=torch.bfloat16 or torch.float16 rounds float32 features
+    to it (round to nearest even; K6 also its edge values) and runs the
+    16-bit sources, the output defaulting to the caller's dtype, as the JAX
+    package's compute_dtype does; K4 ignores it (the JAX package's weighted
+    kernel casts its tile to float32) and K8 refuses it.
     """
     _refuse_foreign(plan)
     if impl not in IMPLS:
@@ -202,16 +204,17 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
             raise ValueError(f"an EllPlan runs impl 'auto', 'ell' or 'reference', not {impl!r}")
         if impl != "reference":
             return spmm_ell(plan, feat, out_dtype, compute_dtype=compute_dtype)
-    if bf16_compute(compute_dtype) and not weighted:
+    compute = half_compute(compute_dtype)
+    if compute is not None and not weighted:
         if impl == "int8":
             raise NotImplementedError(
-                "compute_dtype=bfloat16 with impl='int8': the JAX package's spmm_pallas_int8 "
-                "takes no compute_dtype (K8 quantizes the rows in their own dtype: pass bf16 "
-                "rows to quantize bf16 rows)")
+                f"compute_dtype={compute} with impl='int8': the JAX package's "
+                "spmm_pallas_int8 takes no compute_dtype (K8 quantizes the rows in their own "
+                "dtype: pass bf16 rows to quantize bf16 rows)")
         out_dtype = feat.dtype if out_dtype is None else out_dtype
-        feat = feat.to(torch.bfloat16)
+        feat = feat.to(compute)
         if isinstance(plan, EllPlan):  # K6's plain version on the values its kernel reads
-            plan = dataclasses.replace(plan, vals=plan.vals.to(torch.bfloat16).float())
+            plan = dataclasses.replace(plan, vals=plan.vals.to(compute).float())
     if isinstance(plan, EllPlan):
         return spmm_ell_reference(plan, feat, out_dtype)
     if isinstance(plan, (list, tuple)):

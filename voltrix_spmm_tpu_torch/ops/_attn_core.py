@@ -98,7 +98,7 @@ def compute_bf16(compute_dtype) -> bool:
         return True
     raise NotImplementedError(
         f"compute_dtype={compute_dtype}: the attention kernels compute in float32 or "
-        "bfloat16 (float16 is ROADMAP.md item 9)")
+        "bfloat16 (compute_dtype=float16 in K9-K15 is an entry of ROADMAP.md item 9)")
 
 
 def op_compute_dtype(compute_dtype) -> torch.dtype:

@@ -26,12 +26,13 @@ The wrapper calls the registered op ``torch.ops.voltrix.spmm_block``
 `ops.reference.spmm_reference`, on a CPU tensor, and on a CUDA tensor
 launches the kernel or raises: there is no fallback.
 
-K1, K2, K3, K4 and K6 read float32 or bfloat16 feature rows (`FEAT_DTYPES`):
-a bf16 row is read as 2-byte values and widened exactly to float32 in the
-kernel, the sums are float32 in the kernel's order, and the result is
-cast once to `out_dtype` (default: the features' dtype), the JAX
-package's semantics (pallas_spmm.py:192, :263). The bf16 rows go to the
-kernels as `bf16_rows` gives them.
+K1, K2, K3 and K6 read float32, bfloat16 or float16 feature rows
+(`FEAT_DTYPES`; K4 float32 or bfloat16, `BF16_FEAT_DTYPES`): a 16-bit row
+is read as 2-byte values and widened exactly to float32 in the kernel, the
+sums are float32 in the kernel's order, and the result is cast once to
+`out_dtype` (default: the features' dtype), the JAX package's semantics
+(pallas_spmm.py:192, :263). The 16-bit rows go to the kernels as
+`half_rows` gives them.
 """
 
 from __future__ import annotations
@@ -51,9 +52,15 @@ from .reference import check_binary
 _COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
-# the feature types the CUDA kernels K1, K2, K3, K4 and K6 read (K8 the
-# codes of either; K5 and K7 read float32 alone)
-FEAT_DTYPES = (torch.float32, torch.bfloat16)
+# the feature types the CUDA kernels K1, K2, K3 and K6 read; K4 reads, and
+# K8 quantizes, float32 or bfloat16 rows alone (K5 and K7 read float32)
+FEAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+BF16_FEAT_DTYPES = (torch.float32, torch.bfloat16)
+# the 16-bit feature types, each read by its own instantiation of a kernel
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+# K4's and K8's refusal of float16 rows on the card
+F16_NEXT = ("{name} reads float32 or bfloat16 rows, got {dtype}: float16 rows on K4 "
+            "and K8 are the next entries of ROADMAP.md item 9")
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`; None: no work limit), by kernel:
@@ -114,6 +121,37 @@ def load_bf16_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     return (rt.function("voltrix_spmm_block_bf16", [p] * 7 + [i] * 9 + [p]),
             load_library()[1])
+
+
+@functools.cache
+def load_f16_library():
+    """K1's float16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_block", ["spmm_block.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_block_f16", [p] * 7 + [i] * 9 + [p]),
+            load_library()[1])
+
+
+def library_for(module, dtype):
+    """`module`'s kernel library for feature rows of `dtype`: its bf16 or
+    float16 instantiation (`load_bf16_library`, `load_f16_library`), else
+    its float32 one."""
+    if dtype == torch.bfloat16:
+        return module.load_bf16_library()
+    if dtype == torch.float16:
+        return module.load_f16_library()
+    return module.load_library()
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One launch of `wrapper`'s kernel on rows of `dtype`: `launches`, and
+    `launches_bf16` or `launches_f16` for a 16-bit instantiation."""
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    elif dtype == torch.float16:
+        wrapper.launches_f16 += 1
 
 
 def _check(plan: SpmmPlan, feat: torch.Tensor, name: str = "spmm_block",
@@ -365,27 +403,34 @@ def walk_workspace(name: str, walk: Walk, d: int, device) -> torch.Tensor | None
     return torch.empty(walk.slots * walk.rows * d, dtype=torch.float32, device=device)
 
 
-def bf16_compute(compute_dtype) -> bool:
-    """The JAX package's compute_dtype on the port: True for
-    torch.bfloat16 (the features are rounded to bf16, round to nearest
-    even, and read by the kernels' bf16 sources), False for None and
-    float32 (the kernels' own); any other type raises."""
+def half_compute(compute_dtype) -> torch.dtype | None:
+    """The JAX package's compute_dtype on the port: torch.bfloat16 or
+    torch.float16 (the features are rounded to it, round to nearest even,
+    and read by the kernels' 16-bit sources), None for None and float32
+    (the kernels' own); any other type raises."""
     if compute_dtype is None or compute_dtype == torch.float32:
-        return False
-    if compute_dtype == torch.bfloat16:
-        return True
+        return None
+    if compute_dtype in HALF_DTYPES:
+        return compute_dtype
     raise NotImplementedError(
-        f"compute_dtype={compute_dtype}: the SpMM kernels read float32 or bfloat16 rows; "
-        "float16 features are ROADMAP.md item 9")
+        f"compute_dtype={compute_dtype}: the SpMM kernels compute in float32 from float32, "
+        "bfloat16 or float16 rows")
 
 
-def bf16_rows(feat: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(rows, ld): bf16 features as the kernels' bf16 sources read them,
-    rows of a width ld that is a multiple of 4, 8-byte aligned. cp.async
-    copies 4, 8 or 16 bytes and has no 2-byte copy, so where d % 4 != 0 or
-    the rows are not 8-byte aligned they are padded here, once a call, with
-    zero columns into a fresh (source_rows, ld) tensor (a copy of X in
-    bf16, on the card, inside the timed call); else feat itself."""
+def refuse_f16(name: str, dtype) -> None:
+    """K4's and K8's refusal of float16 rows (`F16_NEXT`)."""
+    if dtype == torch.float16:
+        raise TypeError(F16_NEXT.format(name=name, dtype=dtype))
+
+
+def half_rows(feat: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(rows, ld): bf16 or float16 features as the kernels' 16-bit sources
+    read them, rows of a width ld that is a multiple of 4, 8-byte aligned.
+    cp.async copies 4, 8 or 16 bytes and has no 2-byte copy, so where d % 4
+    != 0 or the rows are not 8-byte aligned they are padded here, once a
+    call, with zero columns into a fresh (source_rows, ld) tensor (a copy
+    of X in its dtype, on the card, inside the timed call); else feat
+    itself."""
     n, d = feat.shape
     if d % 4 == 0 and feat.data_ptr() % 8 == 0:
         return feat, d
@@ -398,8 +443,8 @@ def bf16_rows(feat: torch.Tensor) -> tuple[torch.Tensor, int]:
 def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: torch.Tensor,
                 walk: Walk, scale: torch.Tensor | None = None) -> None:
     """Launch K1, K2 or K8 (`library`) over `walk` into `out` (num_nodes,
-    d): `feat` is float32 (source_rows, d) rows, bf16 rows (`library` the
-    bf16 instantiation; padded by `bf16_rows` where needed), or with
+    d): `feat` is float32 (source_rows, d) rows, bf16 or float16 rows
+    (`library` that instantiation; padded by `half_rows` where needed), or with
     `scale` K8's int8 (source_rows, d4) rows and their float32 scales;
     with a workspace for the cut groups' pieces 1.. (the library's second
     kernel then sums them into out)."""
@@ -409,8 +454,8 @@ def launch_walk(name: str, library, plan: SpmmPlan, feat: torch.Tensor, out: tor
     occ = () if walk.occ is None else (walk.occ.data_ptr(),)
     if scale is not None:  # the last int: the int8 rows' width d4
         rows, last = (feat.data_ptr(), scale.data_ptr()), feat.shape[1]
-    elif feat.dtype == torch.bfloat16:  # the last int: the bf16 rows' width ld
-        feat, last = bf16_rows(feat)
+    elif feat.dtype in HALF_DTYPES:  # the last int: the 16-bit rows' width ld
+        feat, last = half_rows(feat)
         rows = (feat.data_ptr(),)
     else:  # the last int: 16-byte copies of float32 rows, or 4-byte ones
         rows, last = (feat.data_ptr(),), int(d % 4 == 0 and feat.data_ptr() % 16 == 0)
@@ -440,8 +485,8 @@ def cast_out(out: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 def spmm_block(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K1 (float32 or bf16
-    in, float32 accumulation, cast to `out_dtype` at the end), as the registered op
+    """out[num_nodes, D] = A @ feat through kernel K1 (float32, bf16 or
+    float16 in, float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_block`` (ops/library.py). With `plan_t` (A^T's
     plan) the result is differentiable in feat: its gradient is the op of
     plan_t's kind over plan_t."""
@@ -465,3 +510,4 @@ def run_op(kind: str, plan: SpmmPlan, feat: torch.Tensor, out_dtype, plan_t) -> 
 
 spmm_block.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
 spmm_block.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)
+spmm_block.launches_f16 = 0  # of which on float16 features (the float16 instantiation)

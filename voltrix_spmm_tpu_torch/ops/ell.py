@@ -4,10 +4,10 @@ versions and gradients (counterpart of voltrix_spmm_tpu/ops/ell.py).
 On an `EllPlan` (format/ell.py; one lane per edge):
 
 - `spmm_ell(plan, feat)` computes out = (A o V) @ feat through K6
-  (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel), on float32 or
-  bfloat16 rows (widened exactly in the kernel); compute_dtype=bfloat16
-  rounds float32 rows and the edge values to bf16 first, as JAX's kernel
-  does (ell.py:56-59). Padding lanes
+  (csrc/spmm_ell.cu, replacing ell.py:_ell_fwd_kernel), on float32,
+  bfloat16 or float16 rows (widened exactly in the kernel);
+  compute_dtype=bfloat16 or float16 rounds float32 rows and the edge values
+  to it first, as JAX's kernel does (ell.py:56-59). Padding lanes
   (erow = -1) add nothing, whatever `vals` holds there. K6 walks the
   plan's row order (`ell_row_order`: lanes grouped by destination row,
   rows cut into pieces of at most PIECE_LANES lanes), built at a plan's
@@ -47,7 +47,8 @@ import torch
 from ..format.ell import EllPlan, edge_values, lane_values, slice_ell_windows
 from ..jit import build
 from ..utils import kept_beside
-from .block_spmm import _INT_MAX, FEAT_DTYPES, bf16_compute, cast_out, launch
+from .block_spmm import (_INT_MAX, FEAT_DTYPES, HALF_DTYPES, cast_out, count_launch,
+                         half_compute, launch)
 from .reference import CHUNK_BYTES
 from .weighted import _check_kernel_args
 
@@ -82,6 +83,15 @@ def load_bf16_library():
     rt = build("spmm_ell", ["spmm_ell.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
     return rt.function("voltrix_spmm_ell_bf16", [p] * 8 + [i] * 7 + [p]), load_library()[1]
+
+
+@functools.cache
+def load_f16_library():
+    """K6's float16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_ell", ["spmm_ell.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return rt.function("voltrix_spmm_ell_f16", [p] * 8 + [i] * 7 + [p]), load_library()[1]
 
 
 @functools.cache
@@ -235,20 +245,21 @@ def plan_rows(plan: EllPlan) -> EllRows:
 
 def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
              compute_dtype=None) -> torch.Tensor:
-    """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32 or
-    bf16 in, float32 accumulation in a fixed order, cast to `out_dtype`,
-    default feat's dtype, at the end), as the registered op
+    """out[num_nodes, D] = (A o V) @ feat through kernel K6 (float32, bf16
+    or float16 in, float32 accumulation in a fixed order, cast to
+    `out_dtype`, default feat's dtype, at the end), as the registered op
     ``torch.ops.voltrix.spmm_ell`` (ops/library.py).
-    compute_dtype=torch.bfloat16 rounds the features (round to nearest
-    even) and, in the kernel, the edge values to bf16 first, the JAX
-    kernel's compute_dtype; the output then defaults to the caller's
-    feature dtype."""
+    compute_dtype=torch.bfloat16 or torch.float16 rounds the features
+    (round to nearest even) and, in the kernel, the edge values to it
+    first, the JAX kernel's compute_dtype; the output then defaults to the
+    caller's feature dtype."""
     from . import library
 
-    round_vals = bf16_compute(compute_dtype)
+    compute = half_compute(compute_dtype)
+    round_vals = compute is not None
     if round_vals:
         out_dtype = feat.dtype if out_dtype is None else out_dtype
-        feat = feat.to(torch.bfloat16)
+        feat = feat.to(compute)
     _check_ell(plan, feat, "spmm_ell")
     out = library.call_ell(plan, feat, round_vals=round_vals)
     return cast_out(out, feat.dtype if out_dtype is None else out_dtype)
@@ -256,7 +267,8 @@ def spmm_ell(plan: EllPlan, feat: torch.Tensor, out_dtype=None, *,
 
 def _check_ell(plan: EllPlan, feat: torch.Tensor, name: str) -> None:
     """What K6 takes: an EllPlan, the features' rows, and on the card
-    contiguous float32 or bf16 features and int32 lanes on their device."""
+    contiguous float32, bf16 or float16 features and int32 lanes on their
+    device."""
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
     _check_rows(plan, feat, name)
@@ -272,14 +284,14 @@ def _check_ell(plan: EllPlan, feat: torch.Tensor, name: str) -> None:
 
 def k6_kernel(plan: EllPlan, rows: EllRows, feat: torch.Tensor, round_vals: bool) -> torch.Tensor:
     """K6 on the card over the plan's row order `rows`, the op's body
-    (ops/library.py): float32 (num_nodes, d); with round_vals the bf16
-    instantiation rounds the edge values to bf16."""
+    (ops/library.py): float32 (num_nodes, d); with round_vals the 16-bit
+    instantiation rounds the edge values to the features' type."""
     d = feat.shape[1]
-    bf16 = feat.dtype == torch.bfloat16
-    if bf16 and feat.data_ptr() % 8:
-        # 8-byte loads of four bf16 values need 8-byte aligned rows: a
+    half = feat.dtype in HALF_DTYPES
+    if half and feat.data_ptr() % 8:
+        # 8-byte loads of four 16-bit values need 8-byte aligned rows: a
         # misaligned view is copied once (a fresh tensor is aligned), so
-        # every bf16 input walks with the lanes of the float32 kernel on
+        # every 16-bit input walks with the lanes of the float32 kernel on
         # its widened rows, and sums in its order
         feat = feat.clone()
     vec, tpe, unroll = _k6_lanes(d, feat.data_ptr() % (4 * feat.element_size()) == 0)
@@ -291,19 +303,20 @@ def k6_kernel(plan: EllPlan, rows: EllRows, feat: torch.Tensor, round_vals: bool
         if rows.slots:
             ws = torch.empty(rows.slots * d, dtype=torch.float32, device=feat.device)
         launch(
-            "spmm_ell", load_bf16_library() if bf16 else load_library(), feat,
+            "spmm_ell", {torch.bfloat16: load_bf16_library, torch.float16: load_f16_library}.get(
+                feat.dtype, load_library)(), feat,
             rows.items.data_ptr(), rows.src.data_ptr(), rows.lane.data_ptr(),
             plan.vals.data_ptr(), rows.merges.data_ptr(), feat.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), rows.items.shape[0], rows.merges.shape[0],
-            d, vec, tpe, unroll, *((int(round_vals),) if bf16 else ()),
+            d, vec, tpe, unroll, *((int(round_vals),) if half else ()),
         )
-        spmm_ell.launches += 1
-        spmm_ell.launches_bf16 += bf16
+        count_launch(spmm_ell, feat.dtype)
     return out
 
 
 spmm_ell.launches = 0  # plain-int launch count, read by chip_smoke.py
 spmm_ell.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)
+spmm_ell.launches_f16 = 0  # of which on float16 features (the float16 instantiation)
 
 
 def spmm_ell_streamed(plan, feat: torch.Tensor, *, num_chunks: int = 8,

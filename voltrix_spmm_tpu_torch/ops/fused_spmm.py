@@ -30,7 +30,7 @@ import torch
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import _INT_MAX, bf16_rows, launch, run_op, walk_workspace
+from .block_spmm import _INT_MAX, HALF_DTYPES, half_rows, launch, run_op, walk_workspace
 from .reference import CHUNK_BYTES, block_sum, check_binary
 
 _COLS = 128  # feature columns a thread block of the kernel sums (csrc/spmm_fused.cu kCols)
@@ -53,6 +53,16 @@ def load_bf16_library():
     rt = build("spmm_fused", ["spmm_fused.cu"])
     p, i = ctypes.c_void_p, ctypes.c_int
     return (rt.function("voltrix_spmm_fused_bf16", [p] * 7 + [i] * 12 + [p]),
+            load_library()[1])
+
+
+@functools.cache
+def load_f16_library():
+    """K3's float16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_fused", ["spmm_fused.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_fused_f16", [p] * 7 + [i] * 12 + [p]),
             load_library()[1])
 
 
@@ -113,8 +123,9 @@ spmm_fused_reference.calls = 0  # plain-int call count, read by chip_smoke.py
 def launch_fused(library, plan: SpmmPlan, walk, feat: torch.Tensor, out: torch.Tensor) -> None:
     """Launch K3 (`library`) over `walk` into `out` (num_nodes, d), with a
     workspace for the cut slabs' pieces 1.. (the library's merge kernel
-    then sums them into out). bf16 features take the bf16 instantiation
-    (`library` its), on rows of the width `bf16_rows` gives them."""
+    then sums them into out). bf16 or float16 features take that
+    instantiation (`library` its), on rows of the width `half_rows` gives
+    them."""
     cfg = plan.config
     d = feat.shape[1]
     if walk.tasks.shape[0] * -(-d // _COLS) > _INT_MAX:
@@ -122,10 +133,10 @@ def launch_fused(library, plan: SpmmPlan, walk, feat: torch.Tensor, out: torch.T
     ws = walk_workspace("spmm_fused", walk, d, feat.device)
     # the last int: bulk copies (TMA) of 16-byte aligned rows whose width
     # is a multiple of 16 bytes, in boxes of at least 8 rows, or cp.async
-    # (4 bytes a float32 value, 8 bytes four bf16 values)
+    # (4 bytes a float32 value, 8 bytes four 16-bit values)
     widths = (d,)
-    if feat.dtype == torch.bfloat16:
-        feat, ld = bf16_rows(feat)
+    if feat.dtype in HALF_DTYPES:
+        feat, ld = half_rows(feat)
         widths = (d, ld)
     row_bytes = widths[-1] * feat.element_size()
     bulk = int(row_bytes % 16 == 0 and feat.data_ptr() % 16 == 0
@@ -141,7 +152,7 @@ def launch_fused(library, plan: SpmmPlan, walk, feat: torch.Tensor, out: torch.T
 
 
 def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K3 (float32 or bf16 in,
+    """out[num_nodes, D] = A @ feat through kernel K3 (float32, bf16 or float16 in,
     float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_fused`` (ops/library.py); `plan_t` as in
     `spmm_block`."""
@@ -151,3 +162,4 @@ def spmm_fused(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=Non
 
 spmm_fused.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
 spmm_fused.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)
+spmm_fused.launches_f16 = 0  # of which on float16 features (the float16 instantiation)

@@ -20,7 +20,7 @@ from .subtile_spmm import spmm_subtile
 
 def _sum_sides(plan: HybridPlan, feat: torch.Tensor, dense, sparse, out_dtype) -> torch.Tensor:
     """dense(plan.dense, feat) + sparse(plan.sparse, feat) in float32 (each
-    side's float32 sums, on float32 or bf16 rows), each side only if it has
+    side's float32 sums, on float32, bf16 or float16 rows), each side only if it has
     blocks (zeros when neither has), cast once to `out_dtype` (default
     feat's dtype) at the end."""
     out = None
@@ -37,9 +37,9 @@ def _sum_sides(plan: HybridPlan, feat: torch.Tensor, dense, sparse, out_dtype) -
 def spmm_hybrid(plan: HybridPlan, feat: torch.Tensor, dense_impl: str = "auto",
                 subtile: bool = False, out_dtype=None) -> torch.Tensor:
     """out = A_dense @ feat + A_sparse @ feat through the sides' kernels,
-    on float32 or bf16 rows. The sides are summed in float32 and cast to
-    `out_dtype` once (the JAX package casts each side, then adds: on bf16
-    rows its default output may differ by one bf16 ulp)."""
+    on float32, bf16 or float16 rows. The sides are summed in float32 and
+    cast to `out_dtype` once (the JAX package casts each side, then adds: on
+    16-bit rows its default output may differ by one ulp of that type)."""
     if dense_impl == "auto":
         # the JAX package sends seg_interleaved and incidence-packed dense
         # sides to "pregather"; the port builds neither

@@ -50,14 +50,16 @@ inside the traced region (serve.py:export_servable does so).
 On a CPU tensor an op runs the kernel's plain version; on a CUDA tensor
 it launches the kernel or raises, and the kernel's `launches` count goes
 up there, in the op's body, and nowhere else (not in the fake, nor while
-tracing). The ops return float32; the wrappers cast. K1-K4 and K6 read
-float32 or bfloat16 features, K4 also a bf16 value plane (the bf16
-instantiations; the plain versions widen them), and K8 the codes of
-either. K1-K3's gradient runs the float32 kernel on the cotangent as it
-arrives and casts once to the features' dtype: behind a bf16 output the
-cotangent's values are bf16 already, so this gives the bits of the JAX
-package's `spmm_ad` (a bf16 SpMM of its bf16 cotangent), and behind a
-float32 output it is the chain rule of the forward. K4's casts the
+tracing). The ops return float32; the wrappers cast. K1-K3 and K6 read
+float32, bfloat16 or float16 features, K4 float32 or bfloat16 ones and a
+bf16 value plane (the 16-bit instantiations; the plain versions widen
+them), and K8 the codes of float32 or bf16 rows. K1-K3's gradient runs
+the float32 kernel on the cotangent as it arrives and casts once to the
+features' dtype: behind a bf16 or float16 output the cotangent's values
+are of that type already, so this gives the bits of the JAX package's
+`spmm_ad` (a 16-bit SpMM of its 16-bit cotangent: the 16-bit kernels are
+the float32 one on the widened rows), and behind a float32 output it is
+the chain rule of the forward. K4's casts the
 cotangent to the features' dtype first, as JAX's rule does. K9's and
 K13's ops take a compute_dtype (float32, or bfloat16: csrc/attn_fwd_bf16.cu),
 which their gradient passes to the backward ops (K10-K12, K14, K15), whose
@@ -79,7 +81,7 @@ from . import (attention, attention_mh, block_spmm, ell, fused_spmm, quant, subt
                weighted)
 from ._attn_core import (_dkv_kernel, _dq_kernel, check_plan_arrays, compute_bf16,
                          fwd_bf16_kernel, load_fwd_bf16_library)
-from .block_spmm import Walk, _check_plan, acc_width, launch_walk
+from .block_spmm import Walk, _check_plan, acc_width, count_launch, launch_walk, library_for
 from .fused_spmm import launch_fused, spmm_fused_reference
 from .reference import spmm_reference
 from .subtile_spmm import spmm_subtile_reference, subtile_walk
@@ -319,16 +321,12 @@ def _run(kind: str, feat: Tensor, tensors: list[Tensor], geom: list[int]) -> Ten
         walk = _walk_of(tensors, geom)
         module = {"spmm_block": block_spmm, "spmm_subtile": subtile_spmm,
                   "spmm_fused": fused_spmm}[kind]
-        bf16 = feat.dtype == torch.bfloat16
-        library = module.load_bf16_library() if bf16 else module.load_library()
+        library = library_for(module, feat.dtype)
         if kind == "spmm_fused":
             launch_fused(library, plan, walk, feat, out)
         else:
             launch_walk(kind, library, plan, feat, out, walk)
-        wrapper = getattr(module, kind)
-        wrapper.launches += 1
-        if bf16:
-            wrapper.launches_bf16 += 1
+        count_launch(getattr(module, kind), feat.dtype)
     return out
 
 
@@ -480,9 +478,9 @@ def call_weighted(plan: SpmmPlan, feat: Tensor, plan_t: SpmmPlan | None = None) 
     if plan_t is not None and _needs(feat):
         if plan_t.values is not None and dev.type == "cuda":
             cfg = plan_t.config
-            plane = (weighted.FEAT_DTYPES, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
+            plane = (weighted.BF16_FEAT_DTYPES, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
             weighted._check_kernel_args(plan_t, "spmm_weighted_ad", {"values": plane}, feat,
-                                        dtypes=weighted.FEAT_DTYPES)
+                                        dtypes=weighted.BF16_FEAT_DTYPES)
         values_t, (ops_t, geom_t) = plan_t.values, operands(plan_t, "spmm_weighted", dev)
     return spmm_weighted_op(feat, plan.values, ops, geom, ops_dv, geom_dv, values_t, ops_t, geom_t)
 
@@ -863,8 +861,8 @@ def _rows_of(tensors: list[Tensor], geom: list[int]):
 
 def _ell_body(feat, vals, plan, geom, plan_dv, geom_dv, vals_t, plan_t, geom_t, round_vals):
     if feat.device.type == "cpu":
-        if round_vals:
-            vals = vals.to(torch.bfloat16).float()
+        if round_vals:  # to the 16-bit type the features were rounded to
+            vals = vals.to(feat.dtype).float()
         return ell.spmm_ell_reference(_ell_of(plan, geom, vals), feat, torch.float32)
     return ell.k6_kernel(_ell_of(plan, geom, vals), _rows_of(plan, geom), feat, round_vals)
 

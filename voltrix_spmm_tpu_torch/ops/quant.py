@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from ..format.plan import SpmmPlan
 from ..jit import build
-from .block_spmm import FEAT_DTYPES, _check, cast_out, launch_walk
+from .block_spmm import BF16_FEAT_DTYPES, _check, cast_out, launch_walk, refuse_f16
 from .reference import CHUNK_BYTES, block_sum, check_binary, clipped_gather
 
 
@@ -71,8 +71,7 @@ def load_library():
 
 def _refuse(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
     """The JAX package's refusals (quant.py:69-78), and float32 or
-    bfloat16 features only, as `block_spmm._check` takes them on the card
-    (float16 rows are ROADMAP.md item 9)."""
+    bfloat16 features only, as K8 takes them on the card (`F16_NEXT`)."""
     if plan.values is not None:
         raise ValueError(
             f"plan carries a value plane; {name} computes the binary SpMM: use "
@@ -83,7 +82,8 @@ def _refuse(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
             "pack_order='incidence' and seg_interleaved plans are pregather-only "
             f"layouts; {name} takes plans in natural lane order"
         )
-    if feat.dtype not in FEAT_DTYPES:
+    refuse_f16(name, feat.dtype)
+    if feat.dtype not in BF16_FEAT_DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16 features, got {feat.dtype}")
 
 
@@ -160,7 +160,8 @@ def spmm_int8(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tenso
         check_binary(plan, feat)
     elif feat.device.type == "cuda":
         # K1's checks: the JAX package's refusals, float32 or bf16 features
-        _check(plan, feat, "spmm_int8")
+        refuse_f16("spmm_int8", feat.dtype)
+        _check(plan, feat, "spmm_int8", BF16_FEAT_DTYPES)
     else:
         raise ValueError(f"spmm_int8 runs on cuda or cpu tensors, not {feat.device}")
     out_dtype = feat.dtype if out_dtype is None else out_dtype

@@ -50,6 +50,16 @@ def load_bf16_library():
             load_library()[1])
 
 
+@functools.cache
+def load_f16_library():
+    """K2's float16 instantiation from the same build; return (launch,
+    error_string)."""
+    rt = build("spmm_subtile", ["spmm_subtile.cu"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return (rt.function("voltrix_spmm_subtile_f16", [p] * 8 + [i] * 9 + [p]),
+            load_library()[1])
+
+
 def _check_geometry(plan: SpmmPlan) -> None:
     cfg = plan.config
     if cfg.block_h % SUBWIN_ROWS or cfg.block_h > 32 * SUBWIN_ROWS:
@@ -120,7 +130,7 @@ def subtile_walk(plan: SpmmPlan) -> Walk:
 
 
 def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=None) -> torch.Tensor:
-    """out[num_nodes, D] = A @ feat through kernel K2 (float32 or bf16 in,
+    """out[num_nodes, D] = A @ feat through kernel K2 (float32, bf16 or float16 in,
     float32 accumulation, cast to `out_dtype` at the end), as the registered op
     ``torch.ops.voltrix.spmm_subtile`` (ops/library.py); `plan_t` as in
     `spmm_block`."""
@@ -130,3 +140,4 @@ def spmm_subtile(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None, *, plan_t=N
 
 spmm_subtile.launches = 0  # plain-int launch count (in ops/library.py), read by chip_smoke.py
 spmm_subtile.launches_bf16 = 0  # of which on bf16 features (the bf16 instantiation)
+spmm_subtile.launches_f16 = 0  # of which on float16 features (the float16 instantiation)

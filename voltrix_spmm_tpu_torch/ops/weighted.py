@@ -52,9 +52,10 @@ from .bitmask import expand_bitmask
 from .block_spmm import (
     _GROUP_WORDS,
     _INT_MAX,
-    FEAT_DTYPES,
+    BF16_FEAT_DTYPES,
     acc_width,
-    bf16_rows,
+    half_rows,
+    refuse_f16,
     cast_out,
     launch,
     walk_workspace,
@@ -188,13 +189,14 @@ def _check_weighted(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
         raise ValueError("plan has no value plane; use spmm_block (spmm_reference on the CPU)")
     _check_rows(plan, feat, name)
     if feat.device.type == "cuda":
+        refuse_f16(name, feat.dtype)
         cfg = plan.config
         tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
         _check_kernel_args(plan, name, {
-            "values": (FEAT_DTYPES, (tb, H, K)),
+            "values": (BF16_FEAT_DTYPES, (tb, H, K)),
             "hind": (torch.int32, (tb, K)),
             "block_ptr": (torch.int32, (plan.num_windows + 1,)),
-        }, feat, dtypes=FEAT_DTYPES)
+        }, feat, dtypes=BF16_FEAT_DTYPES)
 
 
 def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -213,7 +215,7 @@ def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.T
 def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     """K4 on the card over `walk`, the op's body (ops/library.py): float32
     (num_nodes, d). The value plane is read in 16-byte words; bf16 rows go
-    to the kernel as `bf16_rows` gives them (padded once where d % 4 != 0
+    to the kernel as `half_rows` gives them (padded once where d % 4 != 0
     or they are not 8-byte aligned), float32 rows as they are."""
     if plan.values.data_ptr() % 16:
         raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
@@ -226,7 +228,7 @@ def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     if out.numel():
         ws = walk_workspace("spmm_weighted", walk, d, feat.device)
         if feat.dtype == torch.bfloat16:
-            rows, ld = bf16_rows(feat)
+            rows, ld = half_rows(feat)
             src = _SRC_BF16
         else:
             rows, ld = feat, d

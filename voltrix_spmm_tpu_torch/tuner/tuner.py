@@ -46,9 +46,10 @@ from ..utils import CPU_bench, env_flag, gpu_bench
 
 IMPLS = ("pregather", "fused", "hybrid", "int8", "ell", "weighted")
 # the dtypes a Variant's feat_dtype and compute_dtype may name: the
-# kernels' bf16 sources (K1, K2, K3, K4, K6; K8 quantizes bf16 rows) and
-# their own float32
-FEAT_DTYPES = ("float32", "bfloat16")
+# kernels' 16-bit sources (K1, K2, K3 and K6 read bf16 and float16 rows;
+# K4 bf16 rows, and K8 quantizes them) and their own float32
+FEAT_DTYPES = ("float32", "bfloat16", "float16")
+HALF_DTYPES = ("bfloat16", "float16")
 # f32 edge-feature volume (nnz x d x 4) past which the default space is
 # budgeted against device memory and candidates race in probes of their own
 HUGE_BYTES = 4 * 2**30
@@ -60,14 +61,15 @@ class Variant:
     same thing. impl: "pregather" (K1, or K2 with `subtile`), "fused"
     (K3), "hybrid" (K3 on the dense runs, K1 or K2 on the rest), "int8"
     (K8), "ell" (K6) or "weighted" (K4). stream_chunks runs "pregather" and
-    "ell" plans window chunk by window chunk. feat_dtype="bfloat16" casts
-    the caller's features to bf16 before the SpMM, and
-    compute_dtype="bfloat16" has the SpMM round them (K6: and its edge
-    values) itself; both run the kernels' bf16 sources (K1, K2, K3, K6;
-    "weighted" and "int8" take feat_dtype alone: K4 reads bf16 rows and K8
-    quantizes them in bf16, and the JAX package's K4 and K8 take no
-    compute_dtype), and the result returns in the caller's dtype, the
-    float32 sums cast to it once. The JAX package's TPU knobs raise
+    "ell" plans window chunk by window chunk. feat_dtype="bfloat16" or
+    "float16" casts the caller's features to that type before the SpMM,
+    and compute_dtype="bfloat16" or "float16" has the SpMM round them (K6:
+    and its edge values) itself; both run the kernels' 16-bit sources (K1,
+    K2, K3, K6; "weighted" and "int8" take feat_dtype="bfloat16" alone: K4
+    reads bf16 rows and K8 quantizes them in bf16, neither reads float16
+    rows yet, and the JAX package's K4 and K8 take no compute_dtype), and
+    the result returns in the caller's dtype, the float32 sums cast to it
+    once. The JAX package's TPU knobs raise
     NotImplementedError with their reason."""
 
     impl: str
@@ -94,13 +96,17 @@ class Variant:
             value = getattr(self, name)
             if value is not None and value not in FEAT_DTYPES:
                 raise NotImplementedError(
-                    f"Variant {name}={value!r}: the SpMM kernels read float32 or bfloat16 rows; "
-                    "float16 features are ROADMAP.md item 9")
-        if self.compute_dtype == "bfloat16" and self.impl in ("int8", "weighted"):
+                    f"Variant {name}={value!r}: the SpMM kernels read float32, bfloat16 or "
+                    "float16 rows")
+        if self.compute_dtype in HALF_DTYPES and self.impl in ("int8", "weighted"):
             raise NotImplementedError(
-                f"Variant {self.impl!r} with compute_dtype='bfloat16': the JAX package's K4 and "
-                "K8 take no compute_dtype (its variant would race float32 rows under a bf16 "
-                "key); feat_dtype='bfloat16' runs them on bf16 rows")
+                f"Variant {self.impl!r} with compute_dtype={self.compute_dtype!r}: the JAX "
+                "package's K4 and K8 take no compute_dtype (its variant would race float32 "
+                "rows under a 16-bit key); feat_dtype='bfloat16' runs them on bf16 rows")
+        if self.feat_dtype == "float16" and self.impl in ("int8", "weighted"):
+            raise NotImplementedError(
+                f"Variant {self.impl!r} with feat_dtype='float16': K4 and K8 read float32 or "
+                "bfloat16 rows; float16 rows on them are the next entries of ROADMAP.md item 9")
         refused = {
             "block_d": (self.block_d is not None,
                         "a TPU tiling knob; the H100 kernels pick their own tiles"),
@@ -130,6 +136,11 @@ class Variant:
     def bf16(self) -> bool:
         """True when the variant's kernels read bf16 rows."""
         return "bfloat16" in (self.feat_dtype, self.compute_dtype)
+
+    @property
+    def half(self) -> bool:
+        """True when the variant's kernels read 16-bit (bf16 or float16) rows."""
+        return self.feat_dtype in HALF_DTYPES or self.compute_dtype in HALF_DTYPES
 
     def kernels(self) -> list[str]:
         """The kernels (wrapper counter names) the variant's SpMM launches,
@@ -161,9 +172,9 @@ def estimate_residency(v: Variant, num_nodes: int, d: int, nnz: int, lanes: floa
     work list's workspace for the pieces of cut windows (at most one tile
     of block_h x d floats a piece past a window's first: pieces of
     PIECE_BLOCKS blocks or about PIECE_WORK units of work, a unit a set bit
-    here, an upper estimate), the float32 features and output, the bf16
-    copy of the features of a bf16 variant (2 bytes a value, the JAX
-    package's count), and a second output where window chunks are
+    here, an upper estimate), the float32 features and output, the 16-bit
+    copy of the features of a bf16 or float16 variant (2 bytes a value, the
+    JAX package's count), and a second output where window chunks are
     concatenated; the workspace is one chunk's (`chunks`, default the
     variant's stream_chunks). A wrong
     estimate costs a candidate, not a result: the race skips one that runs
@@ -178,7 +189,7 @@ def estimate_residency(v: Variant, num_nodes: int, d: int, nnz: int, lanes: floa
         pieces += nnz / (PIECE_WORK[name] * groups)
     chunks = chunks or v.stream_chunks or 1
     workspace = pieces / chunks * h * d * 4
-    features = ((3 if chunks > 1 else 2) * 4 + (2 if v.bf16 else 0)) * num_nodes * d
+    features = ((3 if chunks > 1 else 2) * 4 + (2 if v.half else 0)) * num_nodes * d
     return plan + workspace + features
 
 
