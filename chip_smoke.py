@@ -16,8 +16,10 @@ non-zero on failure (there is no CPU fallback):
    (csrc/spmm_ell_dvals.cu), K14 (csrc/attn_mh_dq.cu), K15
    (csrc/attn_mh_dkv.cu), K9 and K13 (csrc/attn_fwd.cu), K10
    (csrc/attn_bwd.cu), K8 (csrc/spmm_int8.cu) and K9 and K13 at
-   compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu), one nvcc each, all
-   started together, into build/kernels/. K11 and K12 are the kernels of
+   compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu) and float16
+   (csrc/attn_fwd_f16.cu; both instantiate csrc/attn_fwd_half.cuh), one
+   nvcc each, all started together, into build/kernels/, while path C's
+   protein proxy is made on a thread of its own. K11 and K12 are the kernels of
    K14 and K15 launched with one head and float32 planes; the compute
    variants of K10, K14 and K15 (compute_dtype=bfloat16 in the backward)
    are template instances in the same sources. The SASS of
@@ -243,7 +245,7 @@ non-zero on failure (there is no CPU fallback):
       against the plain versions at phase 3's K13-K15 tolerance, K13, K14
       and K15 once each. O.3 (after F): tune_spmm on F's graph at d 256 and
       the weighted race (K6 and K4) on it with random values. O.2 (after
-      C): tune_spmm on C's graph at d 256, budget_s 30, past 4 GiB of
+      C): tune_spmm on C's graph at d 256, budget_s 12, past 4 GiB of
       edge features: the residency-budgeted space, each candidate in a
       probe, the estimates printed, the winner against a float64 host
       product on the first and last window's rows. O.3: build_graph("auto")
@@ -378,7 +380,33 @@ non-zero on failure (there is no CPU fallback):
       bound (X in float16). S.4 one exported float16 aggregate of A, loaded
       in the same process, the eager call's bits. Phase 3 holds the four
       float16 instantiations on the bf16 cases' geometries (features from a
-      generator of their own), and K4's and K8's refusal of float16 rows.
+      generator of their own), and K4's float16 instantiations on float16
+      rows with each plane type on its work list's geometries (a hub window
+      cut into >= 16 pieces at d 40 and 130, rows 2 bytes off an 8-byte
+      boundary, values off the bitmask on cut windows). S.5-S.9 mirror R.1-R.5
+      on float16 (the same functions, by type; "<kernel>_f16" counts
+      wrapper.launches_f16), after R on A, after R on the graph with
+      self-loops and after R.3 on C: S.5 DropEdge on A on float16 rows
+      (float16 planes) at d 128 and 256, REQUESTS training calls with their
+      backward, against the float32 path in the float16 class, timed in turns
+      with the float32 and bf16 rows. S.6 K4 on float16 rows with a float32,
+      a bf16 and a float16 plane on D's plan geometry at d 8 and 40 and K.6's
+      DropEdge plan at d 128 and 256: bit for bit the float32 K4 on the
+      widened inputs, twice the same bits, against its plain version, timed
+      in turns with the float32 and the bf16 K4, beside torch.sparse.mm on
+      float16 operands, with its bound (rows and plane in float16). S.7
+      spmm(plan, x.half(), impl="int8") on A's plan at d 128 and 256
+      (REQUESTS each) and once on C's at d 256, with a zero row and a row of
+      largest value 3e-6 planted: the card's codes and scales equal the
+      CPU's (both scales 0), K8 alone timed in turns with K8 on the codes of
+      the float32 and the bf16 rows. S.8 K13 under compute_dtype=float16 at
+      G's geometry (float32 and bf16 planes) and K9 on H's plan at d 8 and
+      40: within calc_diff 1e-8 of the plain version, twice the same bits,
+      timed in turns with compute_dtype float32 and bfloat16; K13 on a bf16
+      plane whose k reaches 70,144 (inf in float16): the plain version's NaN
+      rows, lse 1e30 there. S.9 an int8 request on float16 rows and a K13
+      request under compute_dtype=float16, exported and loaded in this
+      process.
    Every other kernel and every plain version is launched 0 times. Logits
    must match the same forward with impl="reference" (rtol=1e-4,
    atol=1e-4), and for A-C a float64 host forward (C: the rows of the
@@ -669,7 +697,8 @@ def main() -> None:
     from voltrix_spmm_tpu_torch.models.gat_ell import dot_attention_aggregate
     from voltrix_spmm_tpu_torch.models.gat_flash import _project_heads
     from voltrix_spmm_tpu_torch.ops._attn_core import (BWD_HEAD_GROUP, bwd_geometry,
-                                                       load_fwd_bf16_library)
+                                                       load_fwd_bf16_library,
+                                                       load_fwd_f16_library)
     from voltrix_spmm_tpu_torch.ops import (
         attention, attention_bwd, attention_bwd_reference, attention_bwd_summed, attention_dkv,
         attention_dkv_reference, attention_dq, attention_dq_reference, attention_mh,
@@ -688,6 +717,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    F16 = torch.float16
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -743,9 +773,12 @@ def main() -> None:
                for name in ("spmm_block", "spmm_subtile", "spmm_fused", "spmm_ell")}
     bf16_loaders = (block_spmm.load_bf16_library, subtile_spmm.load_bf16_library,
                     fused_spmm.load_bf16_library, ell.load_bf16_library)
-    # their float16 instantiations (path S): the same sources and wrappers,
-    # counted apart (wrapper.launches_f16)
-    f16_of = {f"{name}_f16": name for name in bf16_of.values()}
+    # their float16 instantiations (path S), and K4 on float16 rows or a
+    # float16 plane, K8 on the codes of float16 rows, K9 and K13 at
+    # compute_dtype=float16 (S.5-S.9): the same wrappers, counted apart
+    # (wrapper.launches_f16)
+    f16_of = {f"{name}_f16": name for name in (*bf16_of.values(), "spmm_weighted", "spmm_int8",
+                                               "attn_fwd", "attn_mh_fwd")}
     f16_loaders = (block_spmm.load_f16_library, subtile_spmm.load_f16_library,
                    fused_spmm.load_f16_library, ell.load_f16_library)
     half_of = {**bf16_of, **f16_of}
@@ -758,9 +791,17 @@ def main() -> None:
             # R.6: the backward's compute variants, in the float32 kernels' sources
             "attn_bwd_bf16": "attn_bwd", "attn_dq_bf16": "attn_dq", "attn_dkv_bf16": "attn_dkv",
             "attn_mh_dq_bf16": "attn_mh_dq", "attn_mh_dkv_bf16": "attn_mh_dkv"}
-    r_source = {"attn_fwd_bf16": "attn_fwd_bf16.cu", "attn_mh_fwd_bf16": "attn_fwd_bf16.cu"}
+    # the sources of K9 and K13 under a 16-bit compute_dtype (csrc/attn_fwd_half.cuh)
+    half_source = {"attn_fwd_bf16": "attn_fwd_bf16.cu", "attn_mh_fwd_bf16": "attn_fwd_bf16.cu",
+                   "attn_fwd_f16": "attn_fwd_f16.cu", "attn_mh_fwd_f16": "attn_fwd_f16.cu"}
 
     # --- 2. build: one nvcc per source, all started together -----------
+    # path C's protein proxy (79M nnz, ~20 s on the host) is made on a
+    # thread of its own meanwhile: the build's threads wait on nvcc
+    protein_pool = ThreadPoolExecutor(1)
+    protein_made = protein_pool.submit(
+        lambda: (time.perf_counter(), symmetrize(proxy_csr("protein", seed=0)),
+                 time.perf_counter()))
     def timed_build(loader):
         t0 = time.perf_counter()
         loader()
@@ -770,6 +811,7 @@ def main() -> None:
     # builds the native preprocess (csrc/voltrix_preprocess.hpp)
     sources = {k[2]: k[4] for k in kernels.values()}
     sources["attn_fwd_bf16.cu"] = load_fwd_bf16_library  # K9 and K13 at compute_dtype bf16
+    sources["attn_fwd_f16.cu"] = load_fwd_f16_library  # and at compute_dtype float16
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host_build = pool.submit(timed_build, native_build_libraries)
@@ -803,7 +845,7 @@ def main() -> None:
             fail(f"{src} compiled to atomics {dict(ops)}: its sums must run in a fixed order")
 
     # --- 3. kernels against their plain versions --------------------------
-    max_err = dict.fromkeys([*kernels, *r_of], 0.0)
+    max_err = dict.fromkeys([*kernels, *r_of, *f16_of], 0.0)
 
     def compare(name, label, plan, args, deg=None):
         """The kernel against its plain version on `args` ((feat,), or
@@ -1162,8 +1204,15 @@ def main() -> None:
     # bound; rows padded by the wrapper (d 130, 300) and rows 2 bytes off an
     # 8-byte boundary; values and rows from a generator of their own
     r_err = dict.fromkeys(r_of, 0.0)
+    # the same for the 16-bit instantiations of paths Q and S
+    half_err = dict.fromkeys([*bf16_of, *f16_of], 0.0)
 
-    def k4_bf16_check(label, plan, xb, deg):
+    def k4_half_check(label, plan, xb, deg, key="spmm_weighted_bf16"):
+        """K4 on 16-bit rows xb or a 16-bit plane (`key`: its bf16 or its
+        float16 instantiations) against the float32 K4 on the widened rows
+        and plane (bit for bit), twice (the same bits) and its plain version
+        under the summation bound."""
+        err_of = r_err if key in r_err else half_err
         out = spmm_weighted(plan, xb, torch.float32)
         wide = dataclasses.replace(plan, values=plan.values.float())
         same = torch.equal(out, spmm_weighted(wide, xb.float(), torch.float32))
@@ -1176,18 +1225,22 @@ def main() -> None:
             allow = allow + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * spmm_weighted_reference(
                 abs_plan, xb.abs(), torch.float32)
         err = (out - want).abs().max().item() if out.numel() else 0.0
-        r_err["spmm_weighted_bf16"] = max(r_err["spmm_weighted_bf16"], err)
+        err_of[key] = max(err_of[key], err)
         ok = same and again and bool(((out - want).abs() <= allow).all())
-        print(f"  spmm_weighted_bf16 {label}: bf16 {'==' if same else '!='} float32 K4 on the "
-              f"widened rows and plane, twice {'bit-identical' if again else 'DIFFERENT'}, "
-              f"max|kernel - plain| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        print(f"  {key} {label}: {key.rsplit('_', 1)[1]} {'==' if same else '!='} float32 K4 "
+              f"on the widened rows and plane, twice {'bit-identical' if again else 'DIFFERENT'}"
+              f", max|kernel - plain| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"spmm_weighted_bf16 {label}: not the float32 kernel's bits on the widened "
-                 "inputs, not the same twice, or off its plain version")
+            fail(f"{key} {label}: not the float32 kernel's bits on the widened inputs, not the "
+                 "same twice, or off its plain version")
 
     rng4b = np.random.default_rng(99)
 
-    def k4_bf16_case(label, a, cfg, widths, expect=None, off_mask=False, offset=False):
+    def k4_half_case(label, a, cfg, widths, expect=None, off_mask=False, offset=False,
+                     half=torch.bfloat16):
+        """K4's instantiations on rows of the 16-bit type `half` with each
+        plane type it pairs with (bf16 rows: a float32 and a bf16 plane;
+        float16 rows: a float32, a bf16 and a float16 plane)."""
         n = a.shape[0]
         plan = csr_preprocess(a.indptr, a.indices, n, cfg,
                               values=rng4b.standard_normal(a.nnz).astype(np.float32))
@@ -1203,24 +1256,25 @@ def main() -> None:
         plan = plan.to(dev)
         for d in widths:
             x = rng4b.standard_normal((n, d + offset)).astype(np.float32)
-            xb = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+            xb = torch.from_numpy(x).to(dev).to(half)
             if offset:
                 xb = xb.reshape(-1)[1:1 + n * d].view(n, d)
-            for plane in (torch.float32, torch.bfloat16):
-                k4_bf16_check(f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}, "
+            for plane in (torch.float32, torch.bfloat16, torch.float16)[:3 if half == F16 else 2]:
+                k4_half_check(f"{label} d{d}{' (rows 2 bytes off 8)' if offset else ''}, "
                               f"{str(plane).removeprefix('torch.')} plane",
-                              dataclasses.replace(plan, values=plan.values.to(plane)), xb, deg)
+                              dataclasses.replace(plan, values=plan.values.to(plane)), xb, deg,
+                              "spmm_weighted_f16" if half == F16 else "spmm_weighted_bf16")
 
     print(f"kernel K4's bf16 instantiations on its work list (PIECE_BLOCKS {pb}):")
-    k4_bf16_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+    k4_half_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
                  PlanConfig(64, 128), (40, 130, 300),
                  expect=lambda p: most_pieces(p, k4) >= 16)
-    k4_bf16_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+    k4_half_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
                  PlanConfig(64, 128), (40,), offset=True)
-    k4_bf16_case(f"n{128 * 2 * pb + 2048} PlanConfig(128,128), window 0 of exactly 2 x {pb} "
+    k4_half_case(f"n{128 * 2 * pb + 2048} PlanConfig(128,128), window 0 of exactly 2 x {pb} "
                  "blocks", window0_of(2 * pb, 36), PlanConfig(128, 128), (40,),
                  expect=lambda p: int(p.block_ptr[1]) == 2 * pb)
-    k4_bf16_case("n8000 PlanConfig(64,128), values off the bitmask on cut windows", hub,
+    k4_half_case("n8000 PlanConfig(64,128), values off the bitmask on cut windows", hub,
                  PlanConfig(64, 128), (40,), expect=lambda p: most_pieces(p, k4) >= 4,
                  off_mask=True)
 
@@ -1475,13 +1529,14 @@ def main() -> None:
         if not ok:
             fail(f"kernel {name} disagrees with its plain version on {label}")
 
-    def fwd_close(name, label, nq, out_k, lse_k, out_p, lse_p):
+    def fwd_close(name, label, nq, out_k, lse_k, out_p, lse_p, limit=1e-6):
         """A forward's out and lse (last axis: rows) against its plain
-        version's; rows without edges exactly 0 with lse exactly 1e30."""
+        version's (out at calc_diff < limit); rows without edges exactly 0
+        with lse exactly 1e30."""
         empty = lse_p == 1e30
         rows_empty = empty[..., :nq]
         exact = bool((lse_k[empty] == 1e30).all()) and bool((out_k[rows_empty] == 0).all())
-        close(name, f"{label} out", out_k, out_p)
+        close(name, f"{label} out", out_k, out_p, limit=limit)
         finite = ~empty
         lse_err = (lse_k[finite] - lse_p[finite]).abs().max().item() if finite.any() else 0.0
         lse_ok = lse_err <= 1e-5 * max(1.0, lse_p[finite].abs().max().item()) and exact
@@ -1491,15 +1546,17 @@ def main() -> None:
         if not lse_ok:
             fail(f"kernel {name}'s lse disagrees with its plain version on {label}")
 
-    def compute_close(name, label, nq, kernel, plain):
-        """A forward at compute_dtype=bfloat16 (K9's or K13's bf16 kernel,
-        csrc/attn_fwd_bf16.cu) against its plain version, which rounds at
-        the same points (fwd_close's tolerance; rows without edges exactly 0
-        with lse 1e30), and twice on the input, the same bits."""
+    def compute_close(name, label, nq, kernel, plain, limit=1e-6):
+        """A forward at a 16-bit compute_dtype (K9's or K13's kernel of
+        csrc/attn_fwd_half.cuh) against its plain version, which rounds at
+        the same points (fwd_close's tolerance, out at calc_diff < limit;
+        rows without edges exactly 0 with lse 1e30), and twice on the input,
+        the same bits."""
         out_k, lse_k = kernel()
         out_p, lse_p = plain()
         torch.cuda.synchronize()
-        fwd_close(name, f"{label} compute_dtype bf16", nq, out_k, lse_k, out_p, lse_p)
+        fwd_close(name, f"{label} compute_dtype {name.rsplit('_', 1)[1]}", nq, out_k, lse_k,
+                  out_p, lse_p, limit)
         again = kernel()
         same = torch.equal(again[0], out_k) and torch.equal(again[1], lse_k)
         print(f"    {name} {label}: (out, lse) twice {'bit-identical' if same else 'DIFFERENT'}")
@@ -1789,7 +1846,6 @@ def main() -> None:
     # rows 2 bytes off an 8-byte boundary, hub windows cut into pieces, K3's
     # runs across 128-lane tiles at seg 12-192 and both its walks; each
     # dtype's features from a generator of its own
-    half_err = dict.fromkeys([*bf16_of, *f16_of], 0.0)
 
     def half_check(key, label, plan, xb, deg=None):
         """The 16-bit instantiation `key` on `plan` and rows `xb` (bf16 or
@@ -1891,21 +1947,17 @@ def main() -> None:
     deg40k = torch.from_numpy(np.diff(hub40k.indptr).astype(np.float32)).to(dev)[:, None]
     half_sources("bf16", torch.bfloat16, np.random.default_rng(97))
     half_sources("f16", torch.float16, np.random.default_rng(24))
-    # K4 and K8 refuse float16 rows on the card, naming the ROADMAP entry
-    p16 = csr_preprocess(er3.indptr, er3.indices, 3000, PlanConfig(64, 128)).to(dev)
-    x16 = torch.zeros(3000, 8, dtype=torch.float16, device=dev)
-    pw16 = dataclasses.replace(p16, values=torch.ones(p16.total_blocks, 64, 128, device=dev))
-    for what, call in (("K4", lambda: spmm_weighted(pw16, x16)),
-                       ("K8", lambda: spmm(p16, x16, impl="int8"))):
-        try:
-            call()
-        except TypeError as e:
-            print(f"  {what} on float16 rows refused: {e}")
-            if "ROADMAP.md item 9" not in str(e):
-                fail(f"{what}'s float16 refusal does not name its ROADMAP entry")
-        else:
-            fail(f"{what} took float16 rows on the card")
-    del p16, x16, pw16
+    # K4's float16 instantiations on its work list's geometries (float16 rows
+    # with each plane type), as its bf16 ones above
+    print(f"kernel K4's float16 instantiations on its work list (PIECE_BLOCKS {pb}):")
+    k4_half_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+                 PlanConfig(64, 128), (40, 130), expect=lambda p: most_pieces(p, k4) >= 16,
+                 half=F16)
+    k4_half_case("n40000 PlanConfig(64,128), hub window cut into >= 16 pieces", hub40k,
+                 PlanConfig(64, 128), (40,), offset=True, half=F16)
+    k4_half_case("n8000 PlanConfig(64,128), values off the bitmask on cut windows", hub,
+                 PlanConfig(64, 128), (40,), expect=lambda p: most_pieces(p, k4) >= 4,
+                 off_mask=True, half=F16)
 
     # --- 4. + 5. the paths ------------------------------------------------
     part("phase 3")
@@ -4121,10 +4173,29 @@ def main() -> None:
                 path_r[k]["launches"] += c
         return out
 
-    def r_export(label, fn, x, op):
-        """R.5: one request exported with export_servable and loaded with
-        load_servable in this process: its program's ops are `op` alone, and
-        it gives the eager bits."""
+    def half_path(half):
+        """Path R's steps R.1-R.5 on bf16 and their float16 mirrors S.5-S.9,
+        by the 16-bit type `half`: (the step's name from R's number, the
+        path's store, its drive, the keys' suffix)."""
+        if half == bf16:
+            return (lambda i: f"R.{i}"), path_r, r_drive, "bf16"
+        return (lambda i: f"S.{i + 4}"), path_s, s_drive, "f16"
+
+    def path_seconds(half, secs):
+        """A part's seconds, added to path R's (bf16) or path S's (float16)."""
+        if half == bf16:
+            path_r_s.append(secs)
+        else:
+            path_s["seconds"] = path_s.get("seconds", 0.0) + secs
+
+    def turns_of(turns, i):
+        """fn i's two readings of in_turns_n (the order a, b, c, c, b, a)."""
+        return f"{turns[i]:.4f} / {turns[len(turns) - 1 - i]:.4f}"
+
+    def r_export(label, fn, x, op, step="R.5"):
+        """R.5 (S.9): one request exported with export_servable and loaded
+        with load_servable in this process: its program's ops are `op` alone,
+        and it gives the eager bits."""
         from voltrix_spmm_tpu_torch.serve import export_servable, load_servable
 
         with torch.no_grad():
@@ -4134,59 +4205,76 @@ def main() -> None:
         ops = sorted({str(nd.target) for nd in loaded.graph.nodes
                       if nd.op == "call_function" and str(nd.target).startswith("voltrix.")})
         ok = ops == [f"voltrix.{op}.default"] and torch.equal(got, eager)
-        print(f"  R.5 {label}: exported and loaded in this process, ops {ops}, the eager bits "
+        print(f"  {step} {label}: exported and loaded in this process, ops {ops}, the eager bits "
               f"{'yes' if torch.equal(got, eager) else 'NO'} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"path R.5 {label}: the loaded program's ops or bits are not the eager call's")
+            fail(f"path {step} {label}: the loaded program's ops or bits are not the eager call's")
 
-    def r_k4(tag, label, plan, d, deg, csr_w, nz):
-        """R.2: K4 on bf16 rows at width d on `plan` (a float32 plane) with the
-        plane in float32 and in bf16 (k4_bf16_check: the float32 K4's bits
-        on the widened inputs, twice the same, the plain version under the
-        summation bound); timed in turns with the float32 K4 on the float32
-        rows and plane, beside its plain version and torch.sparse.mm on bf16
-        operands, with its bound (the rows' and the plane's bytes halved)."""
+    def r_k4(tag, label, plan, d, deg, csr_w, nz, half=bf16):
+        """R.2 (S.6): K4 on rows of `half` at width d on `plan` (a float32
+        plane) with each plane type they pair with (bf16: float32 and bf16;
+        float16: float32, bf16 and float16; k4_half_check: the float32 K4's
+        bits on the widened inputs, twice the same, the plain version under
+        the summation bound); rows and plane of `half` timed in turns with the
+        float32 K4 on the float32 rows and plane (and, for float16, the bf16
+        K4 on bf16 rows and plane), beside its plain version and
+        torch.sparse.mm on 16-bit operands, with its bound (the rows' and the
+        plane's bytes halved)."""
+        step, store, _, sfx = half_path(half)
+        key = f"spmm_weighted_{sfx}"
         n = plan.source_rows
         x = r_feat(n, d)
-        xb = x.to(bf16)
-        plan16 = dataclasses.replace(plan, values=plan.values.to(bf16))
-        for p, what in ((plan, "float32"), (plan16, "bf16")):
-            k4_bf16_check(f"R.2 on {label} d{d}, {what} plane", p, xb, deg)
-        k_ms, f_ms, turns = in_turns(torch, lambda: spmm_weighted(plan16, xb, torch.float32),
-                                     lambda: spmm_weighted(plan, x, torch.float32),
-                                     plain_iters=20)
-        rows_ms = cuda_ms(torch, lambda: spmm_weighted(plan, xb, torch.float32))
-        p_ms = cuda_ms(torch, lambda: spmm_weighted_reference(plan16, xb, torch.float32),
+        xh = x.to(half)
+        plan16 = dataclasses.replace(plan, values=plan.values.to(half))
+        for pdt in (torch.float32, bf16, F16)[:2 if half == bf16 else 3]:
+            k4_half_check(f"{step(2)} on {label} d{d}, {str(pdt).removeprefix('torch.')} plane",
+                          dataclasses.replace(plan, values=plan.values.to(pdt)), xh, deg, key)
+        fns = [lambda: spmm_weighted(plan, x, torch.float32)]
+        if half == F16:
+            xb, planb = x.to(bf16), dataclasses.replace(plan, values=plan.values.to(bf16))
+            fns.append(lambda: spmm_weighted(planb, xb, torch.float32))
+        fns.append(lambda: spmm_weighted(plan16, xh, torch.float32))
+        means, turns = in_turns_n(torch, fns)
+        k_ms, f_ms = means[-1], means[0]
+        rows_ms = cuda_ms(torch, lambda: spmm_weighted(plan, xh, torch.float32))
+        p_ms = cuda_ms(torch, lambda: spmm_weighted_reference(plan16, xh, torch.float32),
                        iters=3, warmup=1)
-        lib, lib_what = library_half(csr_w, xb, x)
+        lib, lib_what = library_half(csr_w, xh, x)
         b_ms, b_by = bound_ms(tensor_bytes(plan16.values, plan.hind, plan.window_of_block)
                               + n * d * 2 + plan.num_nodes * d * 4, 2 * nz * d)
-        path_r["spmm_weighted_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
-            ms=k_ms, f32_ms=f_ms, bf16_rows_f32_plane_ms=rows_ms, plain_ms=p_ms,
-            library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-        print(f"  R.2 spmm_weighted_bf16 on {label} d={d}: bf16 rows and plane {turns[1]:.4f} / "
-              f"{turns[2]:.4f} ms, the float32 K4 {turns[0]:.4f} / {turns[3]:.4f} ms "
-              f"({k_ms / f_ms:.3f}x); bf16 rows on the float32 plane {rows_ms:.4f} ms; plain "
-              f"{p_ms:.4f} ms; torch.sparse.mm {lib:.4f} ms ({lib_what}); bound {b_ms:.4f} ms "
-              f"({b_by}; rows and plane in bf16)")
+        entry = dict(ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by, **{f"{sfx}_rows_f32_plane_ms": rows_ms})
+        if half == F16:
+            entry["bf16_ms"] = means[1]
+        store[key]["per_width"][f"{tag}_d{d}"] = entry
+        twin = f", the bf16 K4 {turns_of(turns, 1)} ms" if half == F16 else ""
+        print(f"  {step(2)} {key} on {label} d={d}: {sfx} rows and plane "
+              f"{turns_of(turns, len(fns) - 1)} ms, the float32 K4 {turns_of(turns, 0)} ms"
+              f"{twin} ({k_ms / f_ms:.3f}x float32); {sfx} rows on the float32 plane "
+              f"{rows_ms:.4f} ms; plain {p_ms:.4f} ms; torch.sparse.mm {lib:.4f} ms "
+              f"({lib_what}); bound {b_ms:.4f} ms ({b_by}; rows and plane in {sfx})")
 
-    def r_dropedge(label, a):
-        """R.1 and R.2 on K.6's graph: DropEdge's training call and its
-        backward (K4 twice: the kept edges' plane, then A^T's plane for dx) on
-        bf16 rows at d 128 and 256, REQUESTS calls counted, against the
-        float32 path on the same draws and mask (calc_diff < 1e-2), timed in
-        turns with it, its busy share and peak memory; then K4 on the
-        DropEdge plan of one mask (R.2)."""
+    def r_dropedge(label, a, half=bf16):
+        """R.1 and R.2 (S.5 and S.6) on K.6's graph: DropEdge's training call
+        and its backward (K4 twice: the kept edges' plane, then A^T's plane
+        for dx) on rows of `half` at d 128 and 256 (the planes in that type),
+        REQUESTS calls counted, against the float32 path on the same draws and
+        mask (calc_diff < 1e-2 for bf16, the float16 class for float16),
+        timed in turns with it (and, for float16, with bf16 rows), its busy
+        share and peak memory; then K4 on the DropEdge plan of one mask."""
+        step, store, drive, sfx = half_path(half)
+        key = f"spmm_weighted_{sfx}"
+        limit = 1e-2 if half == bf16 else s_limit
         n, keep = a.shape[0], 0.8
         g = build_dropedge_graph(a.indptr, a.indices, n, device=dev)
         deg = torch.from_numpy(np.diff(a.indptr).astype(np.float32)).to(dev)[:, None]
-        print(f"  R.1 build_dropedge_graph: {g.plan.config}, keep_prob {keep}")
+        print(f"  {step(1)} build_dropedge_graph: {g.plan.config}, keep_prob {keep}")
         res = {}
         for d in (128, 256):
             x = r_feat(n, d).requires_grad_(True)
             g_out = r_feat(n, d)
-            xb = x.detach().to(bf16).requires_grad_(True)
-            gb = g_out.to(bf16)
+            xh = x.detach().to(half).requires_grad_(True)
+            gh = g_out.to(half)
             gen = torch.Generator(device=dev).manual_seed(60 + d)
             state = gen.get_state()
 
@@ -4196,39 +4284,47 @@ def main() -> None:
                 o.backward(gg)
                 return o.detach(), xx.grad
 
-            outs = r_drive(f"R.1 d{d} {REQUESTS} DropEdge training calls and their backward on "
-                           "bf16 rows", lambda: [call(xb, gb) for _ in range(REQUESTS)],
-                           {"spmm_weighted": 2 * REQUESTS, "spmm_weighted_bf16": 2 * REQUESTS})
-            if not all(o.dtype == bf16 and dx.dtype == bf16 and bool(torch.isfinite(o).all())
+            outs = drive(f"{step(1)} d{d} {REQUESTS} DropEdge training calls and their backward "
+                         f"on {sfx} rows", lambda: [call(xh, gh) for _ in range(REQUESTS)],
+                         {"spmm_weighted": 2 * REQUESTS, key: 2 * REQUESTS})
+            if not all(o.dtype == half and dx.dtype == half and bool(torch.isfinite(o).all())
                        and bool(torch.isfinite(dx).all()) for o, dx in outs):
-                fail(f"path R.1 d{d}: the bf16 training call is not a finite bf16 output")
+                fail(f"path {step(1)} d{d}: the {sfx} training call is not a finite {sfx} output")
             gen.set_state(state)
             torch.cuda.reset_peak_memory_stats()
-            ob, dxb = call(xb, gb)
+            oh, dxh = call(xh, gh)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**30
             gen.set_state(state)
             of, dxf = call(x, g_out)
-            diffs = (calc_diff(ob.float(), of), calc_diff(dxb.float(), dxf))
-            ok = max(diffs) < 1e-2
-            print(f"  R.1 d{d}: out and dx against the float32 path on the same draws and mask "
-                  f"calc_diff {diffs[0]:.3e} / {diffs[1]:.3e} (limit 1e-2); peak {peak:.3f} GiB "
-                  f"-> {'ok' if ok else 'MISMATCH'}")
+            diffs = (calc_diff(oh.float(), of), calc_diff(dxh.float(), dxf))
+            ok = max(diffs) < limit
+            print(f"  {step(1)} d{d}: out and dx against the float32 path on the same draws and "
+                  f"mask calc_diff {diffs[0]:.3e} / {diffs[1]:.3e} (limit {limit:.3e}); peak "
+                  f"{peak:.3f} GiB -> {'ok' if ok else 'MISMATCH'}")
             if not ok:
-                fail(f"path R.1 d{d}: the bf16 DropEdge call is off the float32 path")
-            b_ms, f_ms, turns = in_turns(torch, lambda: call(xb, gb), lambda: call(x, g_out),
-                                         plain_iters=20)
-            print(f"  R.1 d{d} training call and backward: bf16 rows {turns[1]:.4f} / "
-                  f"{turns[2]:.4f} ms, float32 rows {turns[0]:.4f} / {turns[3]:.4f} ms "
-                  f"({b_ms / f_ms:.3f}x)")
-            rows, host, wall = profile_requests(torch, lambda: call(xb, gb))
-            print_profile(rows, host, wall, "bf16 training call", top=6)
+                fail(f"path {step(1)} d{d}: the {sfx} DropEdge call is off the float32 path")
+            fns = [lambda: call(x, g_out)]
+            if half == F16:
+                xb = x.detach().to(bf16).requires_grad_(True)
+                gb = g_out.to(bf16)
+                fns.append(lambda: call(xb, gb))
+            fns.append(lambda: call(xh, gh))
+            means, turns = in_turns_n(torch, fns)
+            twin = f", bf16 rows {turns_of(turns, 1)} ms" if half == F16 else ""
+            print(f"  {step(1)} d{d} training call and backward: {sfx} rows "
+                  f"{turns_of(turns, len(fns) - 1)} ms, float32 rows {turns_of(turns, 0)} ms"
+                  f"{twin} ({means[-1] / means[0]:.3f}x float32)")
+            rows, host, wall = profile_requests(torch, lambda: call(xh, gh))
+            print_profile(rows, host, wall, f"{sfx} training call", top=6)
             busy = sum(ms for _, ms in rows) * REQUESTS / wall
-            res[f"d{d}"] = {"train_ms": b_ms, "f32_train_ms": f_ms, "peak_gib": peak,
+            res[f"d{d}"] = {"train_ms": means[-1], "f32_train_ms": means[0], "peak_gib": peak,
                             "busy_share": busy, "calc_diff_out": diffs[0],
                             "calc_diff_dx": diffs[1]}
-            del x, xb, g_out, gb, outs, ob, dxb, of, dxf
-        # R.2: K4 on the DropEdge plan of one keep mask, at d 128 and 256
+            if half == F16:
+                res[f"d{d}"]["bf16_train_ms"] = means[1]
+            del x, xh, g_out, gh, outs, oh, dxh, of, dxf, fns
+        # R.2 (S.6): K4 on the DropEdge plan of one keep mask, at d 128 and 256
         w = dropedge_weights(g.num_edges, keep, torch.Generator(device=dev).manual_seed(59),
                              device=dev)
         tb, H, K = g.plan.total_blocks, g.plan.config.block_h, g.plan.config.block_w
@@ -4236,29 +4332,44 @@ def main() -> None:
         wplan = dataclasses.replace(g.plan, values=plane)
         csr_w = csr_tensor(torch, a, dev, w)
         for d in (128, 256):
-            r_k4("K6", "K.6's DropEdge plan", wplan, d, deg, csr_w, int(torch.count_nonzero(w)))
-        path_r["dropedge"] = res
+            r_k4("K6", "K.6's DropEdge plan", wplan, d, deg, csr_w, int(torch.count_nonzero(w)),
+                 half)
+        store["dropedge"] = res
         del g, wplan, plane, csr_w
         torch.cuda.empty_cache()
 
-    def r_int8(tag, label, a, plan, d, requests):
-        """R.3: `requests` calls of spmm(plan, x.bfloat16(), impl="int8") at
-        width d (K8 once each, counted apart); the codes and scales of
-        quantize_rows on the card equal the CPU's for the same bf16 rows; the
-        bf16 output is K8's float32 output rounded once, which holds against
-        its plain version under phase 3's tolerance and the summation bound;
-        timed in turns with the float32 call, with K8 alone, its plain
-        version, torch.sparse.mm on the dequantized bf16 rows, and its bound."""
+    def r_int8(tag, label, a, plan, d, requests, half=bf16, iters=20):
+        """R.3 (S.7): `requests` calls of spmm(plan, x.to(half),
+        impl="int8") at width d (K8 once each, counted apart); the codes and
+        scales of quantize_rows on the card equal the CPU's for the same
+        16-bit rows (float16: with a planted zero row, whose scale is 0, and
+        a row of largest value 3e-6, whose scale underflows to 0); the 16-bit
+        output is K8's float32 output rounded once, which holds against its
+        plain version under phase 3's tolerance and the summation bound; K8
+        alone timed (float16: in turns with K8 on the codes of the float32
+        and the bf16 rows), the call in turns with the float32 call, beside
+        its plain version, torch.sparse.mm on the dequantized 16-bit rows,
+        and its bound; each timing the mean of `iters` calls."""
+        step, store, drive, sfx = half_path(half)
+        key = f"spmm_int8_{sfx}"
         n = a.shape[0]
         xs = [r_feat(n, d) for _ in range(requests)]
-        xbs = [x.to(bf16) for x in xs]
-        outs = r_drive(f"R.3 {requests} requests spmm(plan, x.bfloat16(), impl='int8') on "
-                       f"{label} d{d}", lambda: [spmm(plan, xb, impl="int8") for xb in xbs],
-                       {"spmm_int8": requests, "spmm_int8_bf16": requests})
-        xb = xbs[0]
-        q, sc = quant.quantize_padded(xb)
-        q_cpu, sc_cpu = quant.quantize_padded(xb.cpu())
+        if half == F16:
+            xs[0][3] = 0.0
+            xs[0][7] = xs[0][7].clamp(-1, 1) * 3e-6
+        xhs = [x.to(half) for x in xs]
+        outs = drive(f"{step(3)} {requests} requests spmm(plan, x.to({sfx}), impl='int8') on "
+                     f"{label} d{d}", lambda: [spmm(plan, xh, impl="int8") for xh in xhs],
+                     {"spmm_int8": requests, key: requests})
+        xh = xhs[0]
+        q, sc = quant.quantize_padded(xh)
+        q_cpu, sc_cpu = quant.quantize_padded(xh.cpu())
         codes = torch.equal(q.cpu(), q_cpu) and torch.equal(sc.cpu(), sc_cpu)
+        planted = ""
+        if half == F16:
+            codes = codes and sc[3].item() == 0.0 and sc[7].item() == 0.0 and not q[3].any()
+            planted = (f" (the zero row's scale {sc[3].item()}, the 3e-6 row's {sc[7].item()}, "
+                       f"its codes {sorted(set(q[7, :d].tolist()))})")
         out32 = quant.launch_quantized(plan, q, sc, d)
         want = quant.int8_rows_reference(plan, q, sc, d)
         xq = dequantize_rows(q, sc, bf16).float()[:, :d].contiguous()
@@ -4268,52 +4379,71 @@ def main() -> None:
                  + 2 * (deg - 1).clamp(min=0) * 2.0**-24 * quant.int8_rows_reference(
                      plan, q.abs(), sc.abs(), d))
         err = (out32 - want).abs().max().item()
-        r_err["spmm_int8_bf16"] = max(r_err["spmm_int8_bf16"], err)
-        ok = (codes and all(o.dtype == bf16 and tuple(o.shape) == (n, d)
+        err_of = r_err if key in r_err else half_err
+        err_of[key] = max(err_of[key], err)
+        ok = (codes and all(o.dtype == half and tuple(o.shape) == (n, d)
                             and bool(torch.isfinite(o).all()) for o in outs)
-              and torch.equal(outs[0], out32.to(bf16))
+              and torch.equal(outs[0], out32.to(half))
               and bool(((out32 - want).abs() <= allow).all()))
-        print(f"  R.3 {label} d{d}: codes and scales on the card "
-              f"{'==' if codes else '!='} quantize_rows on the CPU; bf16 output = K8's float32 "
-              f"output rounded once; max|kernel - plain| {err:.3e} -> {'ok' if ok else 'MISMATCH'}")
+        print(f"  {step(3)} {label} d{d}: codes and scales on the card "
+              f"{'==' if codes else '!='} quantize_rows on the CPU{planted}; {sfx} output = "
+              f"K8's float32 output rounded once; max|kernel - plain| {err:.3e} -> "
+              f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"path R.3 {label} d{d}: K8 on bf16 rows disagrees")
-        k_ms = cuda_ms(torch, lambda: quant.launch_quantized(plan, q, sc, d, bf16_rows=True))
-        w_ms, f_ms, turns = in_turns(torch, lambda: spmm(plan, xb, impl="int8"),
-                                     lambda: spmm(plan, xs[0], impl="int8"), plain_iters=20)
-        p_ms = cuda_ms(torch, lambda: spmm_int8_reference(plan, xb), iters=2, warmup=1)
-        lib, lib_what = library_half(csr_tensor(torch, a, dev), xq.to(bf16), xq)
+            fail(f"path {step(3)} {label} d{d}: K8 on {sfx} rows disagrees")
+        alone = lambda qq, ss, dt: lambda: quant.launch_quantized(  # noqa: E731
+            plan, qq, ss, d, rows_dtype=dt)
+        extra = {}
+        if half == F16:  # K8 alone on the codes of float32, bf16 and float16 rows, in turns
+            (f_alone, b_alone, k_ms), kt = in_turns_n(torch, [
+                alone(*quant.quantize_padded(xs[0]), torch.float32),
+                alone(*quant.quantize_padded(xs[0].to(bf16)), bf16), alone(q, sc, half)],
+                iters)
+            extra = dict(f32_ms=f_alone, bf16_ms=b_alone)
+            k_what = (f"K8 alone {turns_of(kt, 2)} ms, on the codes of float32 rows "
+                      f"{turns_of(kt, 0)}, of bf16 rows {turns_of(kt, 1)}")
+        else:
+            k_ms = cuda_ms(torch, alone(q, sc, half), iters)
+            k_what = f"K8 alone {k_ms:.4f} ms"
+        (f_ms, w_ms), turns = in_turns_n(torch, [lambda: spmm(plan, xs[0], impl="int8"),
+                                                 lambda: spmm(plan, xh, impl="int8")], iters)
+        p_ms = cuda_ms(torch, lambda: spmm_int8_reference(plan, xh), iters=2, warmup=1)
+        lib, lib_what = library_half(csr_tensor(torch, a, dev), xq.to(half), xq)
         b_ms, b_by = bound_ms(tensor_bytes(plan.bitmask, plan.hind, q, sc) + n * d * 4,
                               2 * a.nnz * d)
-        path_r["spmm_int8_bf16"]["per_width"][f"{tag}_d{d}"] = dict(
-            ms=k_ms, wrapper_ms=w_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=lib,
-            bound_ms=b_ms, bound_by=b_by)
-        print(f"  R.3 spmm_int8_bf16 on {label} d={d}: K8 alone {k_ms:.4f} ms; spmm(impl='int8') "
-              f"on bf16 rows {turns[1]:.4f} / {turns[2]:.4f} ms, on float32 rows {turns[0]:.4f} "
-              f"/ {turns[3]:.4f} ms; plain {p_ms:.4f} ms; torch.sparse.mm on the dequantized "
-              f"rows {lib:.4f} ms ({lib_what}); bound {b_ms:.4f} ms ({b_by})")
-        return xb
+        store[key]["per_width"][f"{tag}_d{d}"] = dict(
+            ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, **({"f32_ms": f_ms} if half == bf16 else
+                              {"f32_wrapper_ms": f_ms, **extra}))
+        print(f"  {step(3)} {key} on {label} d={d}: {k_what}; spmm(impl='int8') on {sfx} rows "
+              f"{turns_of(turns, 1)} ms, on float32 rows {turns_of(turns, 0)} ms; plain "
+              f"{p_ms:.4f} ms; torch.sparse.mm on the dequantized rows {lib:.4f} ms "
+              f"({lib_what}); bound {b_ms:.4f} ms ({b_by})")
+        return xh
 
-    def r_path_a(label, a, g):
-        """Path R on A's graph: R.1 and R.2 on K.6's DropEdge graph, R.3 on
-        A's plan at d 128 and 256, R.5's int8 request."""
+    def r_path_a(label, a, g, half=bf16):
+        """Path R (S.5-S.7, S.9) on A's graph: R.1 and R.2 on K.6's DropEdge
+        graph, R.3 on A's plan at d 128 and 256, R.5's int8 request."""
+        step = half_path(half)[0]
         t_path = time.perf_counter()
         print(f"path {label}")
-        r_dropedge(label, a)
+        r_dropedge(label, a, half)
         for d in (128, 256):
-            xb = r_int8("A", "A's plan", a, g.plan, d, REQUESTS)
-        r_export("an int8 request on bf16 rows (A's plan, d 256)",
-                 lambda x: spmm(g.plan, x, impl="int8"), xb, "spmm_int8")
+            xh = r_int8("A", "A's plan", a, g.plan, d, REQUESTS, half)
+        r_export(f"an int8 request on {half_path(half)[3]} rows (A's plan, d 256)",
+                 lambda x: spmm(g.plan, x, impl="int8"), xh, "spmm_int8", step(5))
         torch.cuda.empty_cache()
-        path_r_s.append(time.perf_counter() - t_path)
-        print(f"path R on A: {path_r_s[-1]:.1f} s in all")
+        path_seconds(half, time.perf_counter() - t_path)
+        print(f"path {label[0]} on A: {time.perf_counter() - t_path:.1f} s in all")
 
-    def r_int8_on_c(label, a, g):
-        """R.3 on C's plan: one call at d 256."""
+    def r_int8_on_c(label, a, g, half=bf16):
+        """R.3 (S.7) on C's plan: one call at d 256, timed over 5 calls (a
+        call takes ~45 ms there)."""
         t_path = time.perf_counter()
-        r_int8("C", "C's plan", a, g.plan, 256, 1)
-        path_r_s.append(time.perf_counter() - t_path)
-        print(f"path R on {label}: {path_r_s[-1]:.1f} s in all")
+        r_int8("C", "C's plan", a, g.plan, 256, 1, half, iters=5)
+        path_seconds(half, time.perf_counter() - t_path)
+        print(f"path {half_path(half)[0](3)[0]} on {label}: {time.perf_counter() - t_path:.1f} s "
+              "in all")
 
     def r_time(key, tag, kernel, f32, plain, nbytes, flops):
         """R.6: a compute variant timed in turns with its compute-float32
@@ -4456,12 +4586,110 @@ def main() -> None:
                    lambda: attention_dkv_reference(plan, *bwd, **kb),
                    plan_bytes + n * 4 * (6 * d + 1) + lse_b, plan.num_edges * 8 * d)
 
-    def r_path_loops(label, a):
-        """Path R on D's, G's and H's graph (self-loops): R.2 K4 on D's plan
-        geometry at d 8 and 40; R.4 K13 under compute_dtype=bfloat16 at G's
-        geometry (H 8 x d 8 and H 1 x d 40, float32 and bf16 planes) and K9 on
-        H's plan at d 8 and 40, each against its plain version, twice the same
-        bits, timed in turns with compute_dtype float32; R.5's K13 request;
+    def r_attn_fwd(plan, n, plan_bytes, half=bf16):
+        """R.4 (S.8): K13 under compute_dtype `half` at G's geometry (H 8 x
+        d 8 and H 1 x d 40, float32 and bf16 planes) and K9 on H's plan at d
+        8 and 40, each against its plain version (float16: at calc_diff
+        1e-8), twice the same bits, timed in turns with compute_dtype float32
+        (and, for float16, bfloat16); R.5's (S.9's) K13 request under the
+        flag. S.8 also holds K13 on a bf16 plane whose k reaches 70,144, inf
+        in float16: the NaN rows the plain version has, and its values
+        elsewhere."""
+        step, store, drive, sfx = half_path(half)
+        limit = 1e-6 if half == bf16 else 1e-8
+        mh_key, one_key = f"attn_mh_fwd_{sfx}", f"attn_fwd_{sfx}"
+
+        def timed(key, tag, fns, plain, b_args):
+            """The compute variants in turns (float32, [bf16,] `half`), the
+            plain version, the bound; stored under `key`, `tag`."""
+            means, turns = in_turns_n(torch, fns)
+            p_ms = cuda_ms(torch, plain, iters=2, warmup=1)
+            b_ms, b_by = bound_ms(*b_args)
+            entry = dict(ms=means[-1], f32_ms=means[0], plain_ms=p_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by)
+            twin = ""
+            if half == F16:
+                entry["bf16_ms"] = means[1]
+                twin = f", compute bf16 {turns_of(turns, 1)} ms"
+            store[key]["per_width"][tag] = entry
+            print(f"  {step(4)} {key} {tag}: compute {sfx} {turns_of(turns, len(fns) - 1)} ms, "
+                  f"compute float32 {turns_of(turns, 0)} ms{twin} ({means[-1] / means[0]:.3f}x "
+                  f"float32); plain {p_ms:.4f} ms; no library call; bound {b_ms:.4f} ms "
+                  f"({b_by})")
+
+        def variants(fn, kw):
+            """fn under compute_dtype float32, [bf16,] `half`."""
+            dts = (bf16,) if half == bf16 else (bf16, half)
+            return [lambda: fn(**kw)] + [lambda dt=dt: fn(**kw, compute_dtype=dt) for dt in dts]
+
+        with torch.no_grad():
+            for heads, d in ((8, 8), (1, 40)):
+                q, k, v = (r_feat(heads * n, d).view(heads, n, d) for _ in range(3))
+                for pdt in (None, bf16):
+                    kw = dict(negative_slope=0.2, plane_dtype=pdt, return_stats=True)
+                    kb = dict(kw, compute_dtype=half)
+                    pname = "bf16" if pdt is not None else "float32"
+                    tag = f"h{heads}_d{d}_{pname}"
+                    drive(f"{step(4)} K13 H {heads} d {d}, {pname} planes, compute_dtype {sfx}",
+                          lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                          {"attn_mh_fwd": 1, mh_key: 1})
+                    compute_close(mh_key, f"{step(4)} G's plan H {heads} d {d} {pname} planes",
+                                  n, lambda: spmm_attention_mh(plan, q, k, v, **kb),
+                                  lambda: spmm_attention_mh_reference(plan, q, k, v, **kb), limit)
+                    plane = 2 if pdt is not None else 4
+                    timed(mh_key, tag,
+                          variants(lambda **a: spmm_attention_mh(plan, q, k, v, **a), kw),
+                          lambda: spmm_attention_mh_reference(plan, q, k, v, **kb),
+                          (plan_bytes + heads * n * (4 * d + plane * 2 * d + 4 * d)
+                           + heads * plan.padded_nodes * 4, plan.num_edges * heads * 4 * d))
+                if heads == 8:
+                    r_export(f"a K13 request under compute_dtype {sfx} (G's plan, H 8 x d 8, bf16 "
+                             "planes)", lambda x: spmm_attention_mh(
+                                 plan, x, k, v, negative_slope=0.2, plane_dtype=bf16,
+                                 compute_dtype=half), q, "spmm_attention_mh", step(5))
+                if heads == 8 and half == F16:  # k past float16's range on a bf16 plane
+                    k2 = k.clone()
+                    k2[0, 5, 0] = 7e4
+                    kb = dict(negative_slope=0.2, plane_dtype=bf16, return_stats=True,
+                              compute_dtype=half)
+                    o1, s1 = spmm_attention_mh(plan, q, k2, v, **kb)
+                    o2, s2 = spmm_attention_mh(plan, q, k2, v, **kb)
+                    op, sp_ = spmm_attention_mh_reference(plan, q, k2, v, **kb)
+                    nan_rows = op.isnan().any(-1)
+                    twice = all(torch.equal(a.nan_to_num(), b.nan_to_num())
+                                for a, b in ((o1, o2), (s1, s2)))
+                    same = torch.equal(o1.isnan(), op.isnan())
+                    diff = calc_diff(o1[~nan_rows], op[~nan_rows])
+                    ok = (same and twice and bool(nan_rows.any()) and diff < limit
+                          and bool((s1[:, :n][nan_rows] == 1e30).all()))
+                    print(f"  {step(4)} K13 compute_dtype {sfx}, a bf16 plane with k 70,144 (inf "
+                          f"in float16): {int(nan_rows.sum())} NaN rows, "
+                          f"{'the' if same else 'NOT the'} plain version's, lse 1e30 there; "
+                          f"calc_diff elsewhere {diff:.3e}; twice "
+                          f"{'bit-identical' if twice else 'DIFFERENT'} -> "
+                          f"{'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail(f"{step(4)}: K13 under compute_dtype {sfx} disagrees with its plain "
+                             "version past float16's range")
+            for d in (8, 40):
+                q, k, v = (r_feat(n, d) for _ in range(3))
+                kw = dict(negative_slope=0.2, return_stats=True)
+                kb = dict(kw, compute_dtype=half)
+                drive(f"{step(4)} K9 d {d}, compute_dtype {sfx}",
+                      lambda: spmm_attention(plan, q, k, v, **kb), {"attn_fwd": 1, one_key: 1})
+                compute_close(one_key, f"{step(4)} H's plan d {d}", n,
+                              lambda: spmm_attention(plan, q, k, v, **kb),
+                              lambda: spmm_attention_reference(plan, q, k, v, **kb), limit)
+                timed(one_key, f"d{d}", variants(lambda **a: spmm_attention(plan, q, k, v, **a),
+                                                 kw),
+                      lambda: spmm_attention_reference(plan, q, k, v, **kb),
+                      (plan_bytes + n * 4 * 4 * d + plan.padded_nodes * 4,
+                       plan.num_edges * 4 * d))
+
+    def r_path_loops(label, a, half=bf16):
+        """Path R (S.6, S.8, S.9) on D's, G's and H's graph (self-loops): R.2
+        K4 on D's plan geometry at d 8 and 40; R.4 K13 and K9 under the
+        16-bit compute_dtype with R.5's K13 request (r_attn_fwd); for bf16,
         R.6 the backward under the flag (r_backward)."""
         t_path = time.perf_counter()
         n = a.shape[0]
@@ -4471,75 +4699,17 @@ def main() -> None:
         dplan = csr_preprocess(a.indptr, a.indices, n, PlanConfig(64, 128), values=vals).to(dev)
         csr_w = csr_tensor(torch, a, dev, torch.from_numpy(vals))
         for d in (8, 40):
-            r_k4("D", "D's plan", dplan, d, deg, csr_w, a.nnz)
+            r_k4("D", "D's plan", dplan, d, deg, csr_w, a.nnz, half)
         del dplan, csr_w
         plan = csr_preprocess(a.indptr, a.indices, n, PlanConfig(128, 128, block_unroll=4)).to(dev)
         plan_bytes = tensor_bytes(plan.bitmask, plan.hind, plan.window_of_block, plan.block_ptr)
-        with torch.no_grad():
-            for heads, d in ((8, 8), (1, 40)):
-                q, k, v = (r_feat(heads * n, d).view(heads, n, d) for _ in range(3))
-                for pdt in (None, bf16):
-                    kw = dict(negative_slope=0.2, plane_dtype=pdt, return_stats=True)
-                    kb = dict(kw, compute_dtype=bf16)
-                    pname = "bf16" if pdt is not None else "float32"
-                    tag = f"h{heads}_d{d}_{pname}"
-                    r_drive(f"R.4 K13 H {heads} d {d}, {pname} planes, compute_dtype bf16",
-                            lambda: spmm_attention_mh(plan, q, k, v, **kb),
-                            {"attn_mh_fwd": 1, "attn_mh_fwd_bf16": 1})
-                    compute_close("attn_mh_fwd_bf16", f"R.4 G's plan H {heads} d {d} {pname} "
-                                  "planes", n, lambda: spmm_attention_mh(plan, q, k, v, **kb),
-                                  lambda: spmm_attention_mh_reference(plan, q, k, v, **kb))
-                    k_ms, f_ms, turns = in_turns(
-                        torch, lambda: spmm_attention_mh(plan, q, k, v, **kb),
-                        lambda: spmm_attention_mh(plan, q, k, v, **kw), plain_iters=20)
-                    p_ms = cuda_ms(torch, lambda: spmm_attention_mh_reference(plan, q, k, v, **kb),
-                                   iters=2, warmup=1)
-                    plane = 2 if pdt is not None else 4
-                    b_ms, b_by = bound_ms(plan_bytes + heads * n * (4 * d + plane * 2 * d + 4 * d)
-                                          + heads * plan.padded_nodes * 4,
-                                          plan.num_edges * heads * 4 * d)
-                    path_r["attn_mh_fwd_bf16"]["per_width"][tag] = dict(
-                        ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                        bound_by=b_by)
-                    print(f"  R.4 attn_mh_fwd_bf16 {tag}: compute bf16 {turns[1]:.4f} / "
-                          f"{turns[2]:.4f} ms, compute float32 {turns[0]:.4f} / {turns[3]:.4f} "
-                          f"ms ({k_ms / f_ms:.3f}x); plain {p_ms:.4f} ms; no library call; bound "
-                          f"{b_ms:.4f} ms ({b_by})")
-                if heads == 8:
-                    qx = q
-                    r_export("a K13 request under compute_dtype bf16 (G's plan, H 8 x d 8, bf16 "
-                             "planes)", lambda x: spmm_attention_mh(
-                                 plan, x, k, v, negative_slope=0.2, plane_dtype=bf16,
-                                 compute_dtype=bf16), qx, "spmm_attention_mh")
-            for d in (8, 40):
-                q, k, v = (r_feat(n, d) for _ in range(3))
-                kw = dict(negative_slope=0.2, return_stats=True)
-                kb = dict(kw, compute_dtype=bf16)
-                r_drive(f"R.4 K9 d {d}, compute_dtype bf16",
-                        lambda: spmm_attention(plan, q, k, v, **kb),
-                        {"attn_fwd": 1, "attn_fwd_bf16": 1})
-                compute_close("attn_fwd_bf16", f"R.4 H's plan d {d}", n,
-                              lambda: spmm_attention(plan, q, k, v, **kb),
-                              lambda: spmm_attention_reference(plan, q, k, v, **kb))
-                k_ms, f_ms, turns = in_turns(torch, lambda: spmm_attention(plan, q, k, v, **kb),
-                                             lambda: spmm_attention(plan, q, k, v, **kw),
-                                             plain_iters=20)
-                p_ms = cuda_ms(torch, lambda: spmm_attention_reference(plan, q, k, v, **kb),
-                               iters=2, warmup=1)
-                b_ms, b_by = bound_ms(plan_bytes + n * 4 * 4 * d + plan.padded_nodes * 4,
-                                      plan.num_edges * 4 * d)
-                path_r["attn_fwd_bf16"]["per_width"][f"d{d}"] = dict(
-                    ms=k_ms, f32_ms=f_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                    bound_by=b_by)
-                print(f"  R.4 attn_fwd_bf16 d{d}: compute bf16 {turns[1]:.4f} / {turns[2]:.4f} "
-                      f"ms, compute float32 {turns[0]:.4f} / {turns[3]:.4f} ms "
-                      f"({k_ms / f_ms:.3f}x); plain {p_ms:.4f} ms; no library call; bound "
-                      f"{b_ms:.4f} ms ({b_by})")
-        r_backward(plan, n, plan_bytes)
+        r_attn_fwd(plan, n, plan_bytes, half)
+        if half == bf16:
+            r_backward(plan, n, plan_bytes)
         del plan
         torch.cuda.empty_cache()
-        path_r_s.append(time.perf_counter() - t_path)
-        print(f"path {label}: {path_r_s[-1]:.1f} s in all")
+        path_seconds(half, time.perf_counter() - t_path)
+        print(f"path {label}: {time.perf_counter() - t_path:.1f} s in all")
 
     def klm_feat(n, d):
         return torch.from_numpy(klm_rng.standard_normal((n, d)).astype(np.float32)).to(dev)
@@ -5957,15 +6127,15 @@ def main() -> None:
         n, d = a.shape[0], 256
         free, total = torch.cuda.mem_get_info()
         print(f"path O.2 (tuner, protein proxy): tune_spmm at d {d}, default space, budget_s "
-              f"30; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
+              f"12; {a.nnz} nnz x {d} x 4 bytes = {a.nnz * d * 4 / 2**30:.1f} GiB of edge "
               f"features, past 4 GiB: residency budgeted (free {free / 2**30:.1f} of "
               f"{total / 2**30:.1f} GiB) and each candidate in a probe of its own")
         x = torch.from_numpy(orng.standard_normal((n, d)).astype(np.float32)).to(dev)
-        # budget 30 s (120 before path R joined the run, 60 before R.6): the
-        # isolated probes of C's candidates take 9-17 s each, and the run has
-        # 1,200 s
+        # budget 12 s (120 before path R joined the run, 60 before R.6, 30
+        # before S.5-S.9): the isolated probes of C's candidates take 9-17 s
+        # each, and the run has 1,200 s
         tuned, race_s = race("C d 256", SpmmTuner(cache_dir=os.path.join(tune_dir, "c")), a, x,
-                             budget_s=30, hash_tag="protein-proxy", accurate=True)
+                             budget_s=12, hash_tag="protein-proxy", accurate=True)
         print("  residency of the kept candidates (plan, workspace, features, output): "
               "tuner.estimate_residency beside the probe's torch.cuda.max_memory_allocated "
               "over the candidate's first call:")
@@ -6047,8 +6217,11 @@ def main() -> None:
         """O.5: `python -m voltrix_spmm_tpu_torch tune` once, in a fresh
         process, on a generator graph."""
         t0 = time.perf_counter()
+        # budget 8 s (30 before S.5-S.9 joined the run): the race is
+        # budget-bound; the command, its orderings and its record are what
+        # O.5 checks
         cmd = [sys.executable, "-m", "voltrix_spmm_tpu_torch", "tune", "rmat-15", "-d", "64",
-               "--device", "cuda", "--budget", "30", "--reorder", "identity", "rcm"]
+               "--device", "cuda", "--budget", "8", "--reorder", "identity", "rcm"]
         env = dict(os.environ, VOLTRIX_TORCH_CACHE_DIR=os.path.join(tune_dir, "cli"))
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
         secs = time.perf_counter() - t0
@@ -6078,6 +6251,9 @@ def main() -> None:
                  arxiv, g, params_np)
         r_path_a("R (ogbn-arxiv proxy, bf16 on K4 and K8: DropEdge on bf16 rows, K4 on bf16 rows "
                  "and planes, the int8 SpMM on bf16 rows)", arxiv, g)
+        r_path_a("S.5-S.7, S.9 (ogbn-arxiv proxy, float16 on K4 and K8: DropEdge on float16 "
+                 "rows, K4 on float16 rows with each plane type, the int8 SpMM on float16 rows)",
+                 arxiv, g, F16)
 
     t0 = time.perf_counter()
     arxiv = symmetrize(proxy_csr("ogbn-arxiv", seed=0))
@@ -6094,7 +6270,7 @@ def main() -> None:
                                   s_path_gcn("B (path S, K2's float16 instantiation)", arxiv, g,
                                              model, xs, logits, "spmm_subtile", (128, 256)))),
     }
-    part("A and B (A: N, I, J.1, J.2, Q, S, R.1-R.3; B: Q, S)")
+    part("A and B (A: N, I, J.1, J.2, Q, S, R.1-R.3, S.5-S.7; B: Q, S)")
     path_k = full_graph_models("K (ogbn-arxiv proxy, SAGE, GIN, APPNP, deep GCN, R-GCN on K1; "
                                "DropEdge on K4)", arxiv)
     part("K")
@@ -6135,6 +6311,9 @@ def main() -> None:
                  "compute_dtype=bfloat16 on G's and H's plan, and their backward, K10, K11, "
                  "K12, K14 and K15 under the flag)", loops)
     part("R on D, G, H (R.2, R.4-R.6)")
+    r_path_loops("S.6, S.8, S.9 (ogbn-arxiv proxy with self-loops: K4 on D's plan on float16 "
+                 "rows, K13 and K9 at compute_dtype=float16 on G's and H's plan)", loops, F16)
+    part("S on D, G, H (S.6, S.8, S.9)")
     serve_models()  # path N's bundles of D, E, G, H and I, from fresh processes
     part("N's model bundles")
     tuner_path_g(loops)
@@ -6161,9 +6340,11 @@ def main() -> None:
                                  **{k: v for k, v in path_f["spmm_block"].items()
                                     if k.startswith("f_")})
     t0 = time.perf_counter()
-    protein = symmetrize(proxy_csr("protein", seed=0))
+    made_from, protein, made_to = protein_made.result()
+    protein_pool.shutdown()
     n = protein.shape[0]
-    print(f"graph: protein proxy in {time.perf_counter() - t0:.2f} s")
+    print(f"graph: protein proxy in {made_to - made_from:.2f} s, made during the build "
+          f"(waited {time.perf_counter() - t0:.2f} s for it here)")
     last = (n - 1) // 2048 * 2048
     results["spmm_fused"] = serve(
         "C (protein proxy, K3)", protein,
@@ -6172,11 +6353,12 @@ def main() -> None:
         then=lambda g, model, _, xs, logits, __: (
             int8_on_c("C (protein proxy)", protein, g), c_plan_builds(protein),
             r_int8_on_c("C (protein proxy)", protein, g),
+            r_int8_on_c("C (protein proxy)", protein, g, F16),
             q_path_gcn("C (path Q, K3's bf16 instantiation)", protein, g, model, xs, logits,
                        "spmm_fused", (8, 256)),
             s_path_gcn("C (path S, K3's float16 instantiation)", protein, g, model, xs, logits,
                        "spmm_fused", (8, 256), plain_iters=1)))
-    part("C (I, R.3, Q and S on C)")
+    part("C (I, R.3, S.7, Q and S on C)")
     tuner_path_c(protein)
     part("O.2")
     del protein
@@ -6254,20 +6436,23 @@ def main() -> None:
             entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
         line.append(entry)
     # the float16 instantiations (path S): the same sources and registered
-    # ops; launches on path S's drives (the GCN on A, B and C, the hybrid,
-    # the ELL SpMM, the exported aggregate); times summed over the widths of
-    # S.3, beside the float32 kernel's (f32_ms) and the bf16 one's (bf16_ms)
+    # ops (K9's and K13's at compute_dtype=float16 their own source);
+    # launches on path S's drives (the GCN on A, B and C, the hybrid, the ELL
+    # SpMM, the exported aggregate; S.5-S.9); times summed over the widths of
+    # S.3 and S.6-S.8, beside the float32 kernel's (f32_ms) and the bf16
+    # one's (bf16_ms)
     for key, name in f16_of.items():
         pw = path_s[key]["per_width"]
         widest = max(pw.values(), key=lambda v: v["bound_ms"])
         entry = {"name": key, "route": "cuda",
-                 "source": f"voltrix_spmm_tpu_torch/csrc/{kernels[name][2]}",
-                 "replaces": kernels[name][3], "max_abs_err": half_err[key],
+                 "source": f"voltrix_spmm_tpu_torch/csrc/{half_source.get(key, kernels[name][2])}",
+                 "replaces": kernels[name][3], "max_abs_err": max(max_err[key], half_err[key]),
                  "registered": f"voltrix::{REGISTERED[name]}",
                  "o_launches": path_o["launches"][key], "launches": path_s[key]["launches"],
                  "bound_by": widest["bound_by"]}
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_ms", "bf16_ms"):
-            entry[field] = sum(v[field] for v in pw.values())
+            vals = [v[field] for v in pw.values()]
+            entry[field] = None if None in vals else sum(vals)
             entry.update({f"{field}_{w}": v[field] for w, v in pw.items()})
         line.append(entry)
     # path R: K4's bf16 instantiations, K8 on bf16 rows' codes, K9 and K13 at
@@ -6277,7 +6462,7 @@ def main() -> None:
         pw = path_r[key]["per_width"]
         widest = max(pw.values(), key=lambda v: v["bound_ms"])
         entry = {"name": key, "route": "cuda",
-                 "source": f"voltrix_spmm_tpu_torch/csrc/{r_source.get(key, kernels[name][2])}",
+                 "source": f"voltrix_spmm_tpu_torch/csrc/{half_source.get(key, kernels[name][2])}",
                  "replaces": kernels[name][3], "max_abs_err": max(max_err[key], r_err[key]),
                  "registered": f"voltrix::{REGISTERED[name]}",
                  "o_launches": path_o["launches"][key], "launches": path_r[key]["launches"],

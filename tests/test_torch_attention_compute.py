@@ -4,7 +4,7 @@ K9 and K13) against the JAX package on the CPU.
 The same numpy inputs go through `spmm_attention` and `spmm_attention_mh`
 of both packages under compute_dtype bf16; the JAX side runs its Pallas
 kernels in interpret mode, the port the plain version
-(ops/_attn_core.py:_fwd_plain_bf16), which rounds where JAX rounds: q, k
+(ops/_attn_core.py:_fwd_plain_half), which rounds where JAX rounds: q, k
 and v to bf16 before their products, p = exp(s - M) summed into l
 unrounded and rounded to bf16 before its product with v, M the row's
 running maximum at each of the TPU kernel's grid steps (block_unroll
@@ -12,7 +12,7 @@ blocks). out and lse agree at rtol 1e-4, atol 1e-5, the float32 tolerance:
 the rounding of p alone moves out by ~2e-3 (a case below shows that
 skipping it misses the limit).
 
-The card's kernel (csrc/attn_fwd_bf16.cu) walks each piece of its work
+The card's kernel (csrc/attn_fwd_half.cuh) walks each piece of its work
 list twice: the block maxima, then the rows from the maximum of the
 window's blocks before the piece, a grid step at a time. Its steps are
 emulated here piece by piece (windows cut into many pieces, grid steps
@@ -173,17 +173,23 @@ def score_chain(q, k):
     return raw
 
 
-def emulate_bf16_kernel(plan, q, k, v, scale, slope, limits):
-    """csrc/attn_fwd_bf16.cu in plain torch: pass 1's block maxima; pass 2
-    over each piece, a row starting from the maximum of its window's blocks
-    before the piece and, at the first edge of each grid step, taking the
-    maximum of that step's blocks (rescaling l and acc), each edge adding
-    exp(s - M) to l and bf16(exp(s - M)) v to acc, in the row's lane order;
-    the shares of a cut group merged in piece order."""
+def emulate_bf16_kernel(plan, q, k, v, scale, slope, limits, half=BF16, pdt=None):
+    """csrc/attn_fwd_half.cuh in plain torch at compute type `half` (bf16,
+    or float16; k and v first rounded to the plane's type `pdt`): pass 1's
+    block maxima; pass 2 over each piece, a row starting from the maximum
+    of its window's blocks before the piece and, at the first edge of each
+    grid step, taking the maximum of that step's blocks (rescaling l and
+    acc), each edge adding exp(s - M) to l and half(exp(s - M)) v to acc, in
+    the row's lane order; the shares of a cut group merged in piece order."""
     cfg = plan.config
     u = cfg.block_unroll
     heads, n, dv = q.shape[0], q.shape[1], v.shape[2]
-    qb, kb, vb = (torch.from_numpy(bf16(x)) for x in (q, k, v))
+
+    def rnd(x, dt=half):
+        return torch.as_tensor(np.array(x, np.float32)).to(dt).float()
+
+    qb = rnd(q)
+    kb, vb = (rnd(x if pdt is None else rnd(x, pdt)) for x in (k, v))
     rows, cols, lanes = _edges(plan)
     blk = lanes // cfg.block_w
     s_all = _act(score_chain(qb[:, rows], kb[:, cols]), scale, slope)
@@ -222,7 +228,7 @@ def emulate_bf16_kernel(plan, q, k, v, scale, slope, limits):
                     l, acc, m, step = l * corr, acc * corr[:, None], big, first
                 p = torch.exp(s_all[:, e] - m)
                 l = l + p
-                acc = acc + torch.from_numpy(bf16(p))[:, None] * vb[:, int(cols[e])]
+                acc = acc + rnd(p)[:, None] * vb[:, int(cols[e])]
                 share[r] = [m, l, acc, step]
             shares.append(share)
         for r in set().union(*shares):
@@ -266,7 +272,8 @@ def test_bf16_kernel_emulation_matches_the_plain_version(cfg, limits):
 
 def test_compute_bf16_under_no_grad_is_the_forward(graph):
     """Under torch.no_grad() the differentiable entry points under the flag
-    give the forward's bits; float16 is refused with its item-9 message."""
+    give the forward's bits; float16's backward (inputs that require grad)
+    is refused with its item-9 message."""
     tp = graph["h32"][1]
     q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in graph["one"])
     qh, kh, vh = (torch.from_numpy(x[:2]).requires_grad_(True) for x in graph["four"])
@@ -277,8 +284,8 @@ def test_compute_bf16_under_no_grad_is_the_forward(graph):
                                            compute_dtype=BF16))
     assert torch.equal(got_mh, spmm_attention_mh(tp, *(t.detach() for t in (qh, kh, vh)),
                                                  compute_dtype=BF16))
-    with pytest.raises(NotImplementedError, match="float16"):
-        spmm_attention(tp, *(t.detach() for t in (q, k, v)), compute_dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP.md item 9"):
+        spmm_attention_ad(tp, q, k, v, plan_t=tp, compute_dtype=torch.float16)
 
 
 def test_export_k13_under_the_flag(graph):

@@ -54,7 +54,8 @@ BF16_VARIANTS = [
 def test_variant_bf16_fields():
     """feat_dtype and compute_dtype take "bfloat16" (the key is JAX's, with
     its /x marker for feat_dtype); "float16" now builds JAX's key too; K4 and
-    K8 refuse a 16-bit compute_dtype, and float16 rows."""
+    K8 refuse a 16-bit compute_dtype, and a feat_dtype outside float32,
+    bfloat16 and float16 is refused."""
     for v in BF16_VARIANTS:
         assert v.bf16
         assert v.key() == jtuner.Variant(**{k: getattr(v, k) for k in (
@@ -66,13 +67,13 @@ def test_variant_bf16_fields():
         v = Variant("pregather", **{field: "float16"})
         assert v.half and not v.bf16
         assert v.key() == jtuner.Variant("pregather", **{field: "float16"}).key()
-    for impl in ("int8", "weighted"):  # K4 and K8 take bf16 rows, not compute_dtype
+    for impl in ("int8", "weighted"):  # K4 and K8 take 16-bit rows, not compute_dtype
         assert Variant(impl, feat_dtype="bfloat16").bf16
         for dtype in ("bfloat16", "float16"):
             with pytest.raises(NotImplementedError, match="no compute_dtype"):
                 Variant(impl, compute_dtype=dtype)
         with pytest.raises(NotImplementedError, match="float16"):
-            Variant(impl, feat_dtype="float16")
+            Variant(impl, feat_dtype="float64")
 
 
 # the difference with the JAX package's space, pinned: the port adds K1 on

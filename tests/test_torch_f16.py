@@ -266,14 +266,17 @@ def test_sum_past_f16_range_is_inf(label, make, kw):
 
 
 def test_refusals_name_what_is_left():
-    """Float16 rows on K8 are refused with the ROADMAP entry that holds
-    them (K4's refusal is the card's: chip_smoke.py phase 3), and a
-    compute_dtype that is neither float32 nor a 16-bit type is refused."""
+    """Float16 planes on the attention kernels are refused with the
+    ROADMAP entry that holds them, float64 rows on K8 with the types it
+    takes, and a compute_dtype that is neither float32 nor a 16-bit type
+    is refused."""
     a = random_csr(256, 0.05, seed=129)
     _, tplan = plans(a, dict(block_h=32, block_w=128))
     x = torch.from_numpy(features(256, 8, seed=130))
-    with pytest.raises(TypeError, match="ROADMAP.md item 9"):
-        vt.spmm(tplan, x.to(F16), impl="int8")
+    with pytest.raises(ValueError, match="ROADMAP.md item 9"):
+        vt.spmm_attention_mh(tplan, *(x[None],) * 3, plane_dtype=F16)
+    with pytest.raises(TypeError, match="float16"):
+        vt.spmm(tplan, x.double(), impl="int8")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         vt.spmm(tplan, x, compute_dtype=torch.float64)
 
@@ -387,9 +390,9 @@ F16_VARIANTS = [
 
 def test_variant_f16_fields_and_runs():
     """feat_dtype and compute_dtype take "float16" for K1, K2, K3 and K6,
-    with the JAX package's key; K4 and K8 refuse float16 rows and a float16
-    compute_dtype; each variant runs and returns the caller's float32,
-    against JAX's _run_variant at the float32 tolerance."""
+    with the JAX package's key; K4 and K8 take float16 rows and refuse a
+    float16 compute_dtype; each variant runs and returns the caller's
+    float32, against JAX's _run_variant at the float32 tolerance."""
     from voltrix_spmm_tpu_torch.tuner.tuner import _run_variant, build_variant_plan
 
     n, d = 256, 32
@@ -410,6 +413,6 @@ def test_variant_f16_fields_and_runs():
         np.testing.assert_allclose(f32(out), f32(want), **TOL, err_msg=v.key())
     assert "/xfloat16/" in Variant("pregather", feat_dtype="float16").key()
     for impl in ("int8", "weighted"):
-        for field in ("feat_dtype", "compute_dtype"):
-            with pytest.raises(NotImplementedError, match="K4 and K8"):
-                Variant(impl, **{field: "float16"})
+        assert Variant(impl, feat_dtype="float16").half
+        with pytest.raises(NotImplementedError, match="K4 and K8"):
+            Variant(impl, compute_dtype="float16")

@@ -208,11 +208,12 @@ def test_int8_refusals():
             fn(weighted, x)
         with pytest.raises(ValueError, match="natural lane order"):
             fn(dataclasses.replace(plan, src_perm=torch.arange(n, dtype=torch.int32)), x)
-        # bf16 rows are taken (tests/test_torch_bf16_weighted_int8.py), float16 not
+        # 16-bit rows are taken (tests/test_torch_bf16_weighted_int8.py,
+        # tests/test_torch_f16_weighted_int8.py), float64 not
         out = fn(plan, x.to(torch.bfloat16))
         assert out.dtype == torch.bfloat16 and tuple(out.shape) == (n, 8)
-        with pytest.raises(TypeError, match="float32 or bfloat16"):
-            fn(plan, x.to(torch.float16))
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            fn(plan, x.to(torch.float64))
     with pytest.raises(NotImplementedError, match="block_d"):
         vt.spmm(plan, x, impl="int8", block_d=128)
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -128,3 +128,40 @@ def test_profile_op_rows_and_attribution(tmp_path):
     with trace(str(tmp_path / "tr")), annotate("request"):
         vt.spmm(plan, x)
     assert list((tmp_path / "tr").glob("trace_*.json"))
+
+
+def test_nvcc_times_builds_each_source_of_each_checkout(tmp_path, monkeypatch, capsys):
+    """tools/nvcc_times.py times every .cu of each --csrc side by side, each
+    into a library of its own (two checkouts' sources of one name do not
+    share an output), prints their seconds as JSON, and exits 1 when nvcc
+    fails on one (an nvcc stand-in that records its -o and fails bad.cu)."""
+    import json
+    import stat
+    import sys
+
+    from voltrix_spmm_tpu_torch.project import const
+    from voltrix_spmm_tpu_torch.tools import nvcc_times
+
+    log = tmp_path / "outs.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    f"open({str(log)!r}, 'a').write(out + '\\n')\n"
+                    "sys.exit(1 if sys.argv[-1].endswith('bad.cu') else 0)\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv(const.NVCC_FLAG, str(fake))
+    dirs = [tmp_path / "parent" / "csrc", tmp_path / "change" / "csrc"]
+    for d in dirs:
+        d.mkdir(parents=True)
+        for name in ("a.cu", "b.cu", "walk.cuh"):
+            (d / name).write_text("")
+    nvcc_times.main([arg for d in dirs for arg in ("--csrc", str(d))])
+    times = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(times) == sorted(f"{d}/{s}" for d in dirs for s in ("a.cu", "b.cu"))
+    assert all(t >= 0 for t in times.values())
+    outs = log.read_text().split()
+    assert len(outs) == 4 and len(set(outs)) == 4
+    (dirs[1] / "bad.cu").write_text("")
+    with pytest.raises(SystemExit):
+        nvcc_times.main(["--csrc", str(dirs[1]), "a.cu", "bad.cu"])
+    assert "bad.cu: " in capsys.readouterr().out

@@ -37,7 +37,9 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "attn_mh_common.cuh"
@@ -473,34 +475,48 @@ __device__ __forceinline__ void axpy_typed(float coef, const T* s, int cw, float
   }
 }
 
-// --- compute_dtype=bfloat16 (the JAX package's rounding points) -------------
-// K9's and K13's bf16 kernels (attn_fwd_bf16.cu) and the compute variants of
-// K10 (attn_bwd.cu), K14 (attn_mh_dq.cu) and K15 (attn_mh_dkv.cu). Each
-// product takes two bf16 values, so it is exact in float32, and a sum of
-// them is one fma chain in column order: the plain versions
+// --- compute_dtype=bfloat16 or float16 (the JAX package's rounding points) --
+// K9's and K13's compute kernels (attn_fwd_bf16.cu: bf16 or float16) and the
+// bf16 compute variants of K10 (attn_bwd.cu), K14 (attn_mh_dq.cu) and K15
+// (attn_mh_dkv.cu). Each product takes two values of the rounding type R
+// (bf16: 8 significant bits, float16: 11), so it is exact in float32, and a
+// sum of them is one fma chain in column order: the plain versions
 // (ops/_attn_core.py:_chain) add the same products in the same order.
 
 using voltrix_walk::bf16_round;
 
-// four staged values rounded to bf16 (a bf16 plane's values already are)
-template <typename T>
+// x rounded to R, __nv_bfloat16 or __half, to nearest even (a float16
+// keeps its subnormals: the kernels are built without fast math)
+template <typename R>
+__device__ __forceinline__ float round16(float x) {
+  if constexpr (std::is_same<R, __half>::value) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return bf16_round(x);
+  }
+}
+
+// four staged values of type T rounded to R (a plane of type R holds R
+// values already; a bf16 plane is rounded to float16: past 65,504 to inf,
+// below 6.1e-5 to a subnormal)
+template <typename T, typename R = __nv_bfloat16>
 __device__ __forceinline__ float4 staged4_bf16(const T* p) {
   float4 y = staged4(p);
-  if constexpr (sizeof(T) == 4) {
-    y = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z), bf16_round(y.w));
+  if constexpr (!std::is_same<T, R>::value) {
+    y = make_float4(round16<R>(y.x), round16<R>(y.y), round16<R>(y.z), round16<R>(y.w));
   }
   return y;
 }
 
-// x[0..d) (registers, bf16-rounded, zero past d) . s[0..d) (staged): one
+// x[0..d) (registers, rounded to R, zero past d) . s[0..d) (staged): one
 // fma chain in column order
-template <int kQ, typename T>
+template <int kQ, typename T, typename R = __nv_bfloat16>
 __device__ __forceinline__ float score_regs(const float* qr, const T* s, int dk) {
   float a = 0.f;
 #pragma unroll
   for (int c = 0; c < kQ; c += 4) {
     if (c < dk) {
-      const float4 y = staged4_bf16(s + c);
+      const float4 y = staged4_bf16<T, R>(s + c);
       a = fmaf(qr[c], y.x, a);
       if (c + 1 < dk) a = fmaf(qr[c + 1], y.y, a);
       if (c + 2 < dk) a = fmaf(qr[c + 2], y.z, a);
@@ -510,18 +526,18 @@ __device__ __forceinline__ float score_regs(const float* qr, const T* s, int dk)
   return a;
 }
 
-// the same with x (float or bf16) read through __ldg and rounded (d past
-// the registers)
-template <typename U, typename T>
+// the same with x (float or bf16) read through __ldg and rounded to R (d
+// past the registers)
+template <typename U, typename T, typename R = __nv_bfloat16>
 __device__ __forceinline__ float score_ldg(const U* __restrict__ q, const T* s, int dk) {
   using voltrix_attn::to_f;
   float a = 0.f;
   for (int c = 0; c < dk; c += 4) {
-    const float4 y = staged4_bf16(s + c);
-    a = fmaf(bf16_round(to_f(__ldg(q + c))), y.x, a);
-    if (c + 1 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 1))), y.y, a);
-    if (c + 2 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 2))), y.z, a);
-    if (c + 3 < dk) a = fmaf(bf16_round(to_f(__ldg(q + c + 3))), y.w, a);
+    const float4 y = staged4_bf16<T, R>(s + c);
+    a = fmaf(round16<R>(to_f(__ldg(q + c))), y.x, a);
+    if (c + 1 < dk) a = fmaf(round16<R>(to_f(__ldg(q + c + 1))), y.y, a);
+    if (c + 2 < dk) a = fmaf(round16<R>(to_f(__ldg(q + c + 2))), y.z, a);
+    if (c + 3 < dk) a = fmaf(round16<R>(to_f(__ldg(q + c + 3))), y.w, a);
   }
   return a;
 }

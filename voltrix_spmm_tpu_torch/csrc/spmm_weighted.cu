@@ -1,13 +1,14 @@
 // Kernel K4: the weighted SpMM, out[num_nodes, d] = (A o V) @ feat, over a
 // plan that carries a dense value tile per block
 // (voltrix_spmm_tpu_torch/format/plan.py, `values`), for sm_90a. The
-// features are float32 or bfloat16 rows and the plane float32 or bfloat16
-// (a template each): a bf16 value is widened exactly to float32 as it is
-// read (a bf16 is the high half of its float32), as the TPU kernel's
-// astype and jnp.dot's promotion do (voltrix_spmm_tpu/ops/weighted.py:46,
-// :48), and the sums are float32 in the same order for every source, so
-// the bf16 instantiations give the float32 kernel's bits on the widened
-// rows and plane.
+// features are float32, bfloat16 or float16 rows and the plane float32,
+// bfloat16 or float16 (a template each): a 16-bit value is widened exactly
+// to float32 as it is read (a bf16 is the high half of its float32; every
+// float16, subnormals included, is a float32), as the TPU kernel's astype
+// and jnp.dot's promotion do (voltrix_spmm_tpu/ops/weighted.py:46, :48),
+// and the sums are float32 in the same order for every source, so the
+// 16-bit instantiations give the float32 kernel's bits on the widened rows
+// and plane.
 //
 // Replaces voltrix_spmm_tpu/ops/weighted.py:_spmm_weighted_kernel together
 // with the row gather it consumes there (a jnp.take with mode="clip"). As on
@@ -36,11 +37,11 @@
 // units ahead of the one being multiplied, so block b + 1's tile and rows
 // are in flight while block b is multiplied; the value rows with an L2
 // evict-first hint, the feature rows with 16-byte copies where d % 4 == 0
-// and feat is 16-byte aligned, 4-byte copies otherwise; bf16 rows of width
-// ld (a multiple of 4, 8-byte aligned: the wrapper pads other rows once,
-// ops/block_spmm.py:bf16_rows, as cp.async has no 2-byte copy) with 8-byte
-// copies, and a bf16 plane's rows of 32 lanes in four 16-byte copies (rows
-// 80 bytes apart), each half the float32 bytes. Thread (rt, ct)
+// and feat is 16-byte aligned, 4-byte copies otherwise; bf16 or float16
+// rows of width ld (a multiple of 4, 8-byte aligned: the wrapper pads other
+// rows once, ops/block_spmm.py:half_rows, as cp.async has no 2-byte copy)
+// with 8-byte copies, and a 16-bit plane's rows of 32 lanes in four 16-byte
+// copies (rows 80 bytes apart), each half the float32 bytes. Thread (rt, ct)
 // sums rows rt + RT * i, i < TR (RT = rows / TR; TR 2, 4 or 8) of columns
 // 4 ct .. 4 ct + 3 in registers: per four lanes it reads TR float4 values and
 // four float4 rows of features and makes 16 TR fused multiply-adds, so a
@@ -70,6 +71,7 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "spmm_walk.cuh"
@@ -81,10 +83,13 @@ using voltrix_walk::cp_async4;
 using voltrix_walk::cp_async8;
 using voltrix_walk::cp_async_commit;
 using voltrix_walk::cp_async_wait;
+using voltrix_walk::half_src;
 using voltrix_walk::kBF16;
+using voltrix_walk::kF16;
 using voltrix_walk::kF32x1;
 using voltrix_walk::kF32x4;
 using voltrix_walk::widen_bf16x4;
+using voltrix_walk::widen_f16x4;
 
 constexpr int kLanes = 32;          // lanes of a value tile per unit
 constexpr int kStages = 3;          // units in the cp.async ring (4 timed alike, 6 slower)
@@ -92,17 +97,18 @@ constexpr int kMaxThreads = 256;
 constexpr int kGroupRows = 32 * voltrix_walk::kWarps;  // rows of a work-list group
 
 // elements between value rows in shared memory: a float32 row's 32 lanes
-// plus 4 (144 bytes), a bf16 row's plus 8 (80 bytes), so the reads of
+// plus 4 (144 bytes), a 16-bit row's plus 8 (80 bytes), so the reads of
 // consecutive rows fall in different banks and every row starts 16-byte
 // aligned
-template <bool kValBF16>
-__host__ __device__ constexpr int pitch() { return kValBF16 ? kLanes + 8 : kLanes + 4; }
+template <typename V>
+__host__ __device__ constexpr int pitch() { return sizeof(V) == 2 ? kLanes + 8 : kLanes + 4; }
 
-// bytes of a ring stage: the group's value rows, then the unit's 32
-// feature rows of dc columns (float32 or bf16)
-template <int kSrc, bool kValBF16>
+// bytes of a ring stage: the group's value rows (V), then the unit's 32
+// feature rows of dc columns (float32 or 16-bit)
+template <int kSrc, typename V>
 __host__ __device__ constexpr int stage_bytes(int rmax, int dc) {
-  return rmax * pitch<kValBF16>() * (kValBF16 ? 2 : 4) + kLanes * dc * (kSrc == kBF16 ? 2 : 4);
+  return rmax * pitch<V>() * static_cast<int>(sizeof(V)) +
+         kLanes * dc * (half_src<kSrc>() ? 2 : 4);
 }
 
 // A 16-byte cp.async whose line L2 evicts first (`policy`): the value plane
@@ -116,17 +122,26 @@ __device__ __forceinline__ void cp_async16_stream(void* dst, const void* src, ui
 }
 
 // four consecutive staged values (16-byte aligned float32, 8-byte aligned
-// bf16) as floats
+// bf16 or float16) as floats
 __device__ __forceinline__ float4 staged4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float4 staged4(const __nv_bfloat16* p) {
   return widen_bf16x4(*reinterpret_cast<const uint2*>(p));
 }
+__device__ __forceinline__ float4 staged4(const __half* p) {
+  return widen_f16x4(*reinterpret_cast<const uint2*>(p));
+}
+
+// the element type of source kSrc's rows
+template <int kSrc>
+using Row = typename std::conditional<
+    kSrc == kBF16, __nv_bfloat16,
+    typename std::conditional<kSrc == kF16, __half, float>::type>::type;
 
 // kSrc: float32 rows copied 16 bytes (kF32x4) or 4 bytes (kF32x1) at a
-// time, or bf16 rows of width ld copied 8 bytes at a time (kBF16); V: the
-// plane's type
+// time, or bf16 (kBF16) or float16 (kF16) rows of width ld copied 8 bytes
+// at a time; V: the plane's type (float, __nv_bfloat16 or __half)
 template <int TR, int kSrc, typename V>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 spmm_weighted_kernel(const V* __restrict__ values,       // (B, block_h, block_w)
@@ -138,16 +153,15 @@ spmm_weighted_kernel(const V* __restrict__ values,       // (B, block_h, block_w
                      int block_h, int block_w, int num_nodes, int source_rows, int d,
                      int ld, int dc) {
   using namespace voltrix_walk;
-  using X = typename std::conditional<kSrc == kBF16, __nv_bfloat16, float>::type;
-  constexpr bool kValBF16 = sizeof(V) == 2;
-  constexpr int kPitch = pitch<kValBF16>();
+  using X = Row<kSrc>;
+  constexpr int kPitch = pitch<V>();
   constexpr int kVecsPerRow = kLanes * sizeof(V) / 16;  // 16-byte copies of a value row
   constexpr int kPerCopy = kSrc == kF32x1 ? 1 : 4;       // feature values a copy moves
   extern __shared__ __align__(16) unsigned char smem[];
   const int rmax = min(block_h, kGroupRows);  // rows of a group's tile
   const int ct_n = dc / 4, rt_n = rmax / TR;
   const int t = threadIdx.x, nthreads = blockDim.x;  // a multiple of 32
-  const int sbytes = stage_bytes<kSrc, kValBF16>(rmax, dc);
+  const int sbytes = stage_bytes<kSrc, V>(rmax, dc);
   const X* x_rows = static_cast<const X*>(feat);
 
   const int* task = tasks + (int64_t)blockIdx.x * kTaskInts;
@@ -203,7 +217,7 @@ spmm_weighted_kernel(const V* __restrict__ values,       // (B, block_h, block_w
           if (kPerCopy * e >= cw) continue;
           if constexpr (kSrc == kF32x4) {
             cp_async16(dst + 4 * e, x + 4 * e);
-          } else if constexpr (kSrc == kBF16) {
+          } else if constexpr (half_src<kSrc>()) {
             cp_async8(dst + 4 * e, x + 4 * e);
           } else {
             cp_async4(dst + e, x + e);
@@ -271,7 +285,7 @@ spmm_weighted_kernel(const V* __restrict__ values,       // (B, block_h, block_w
   const int nrows = rows_out(w, g, block_h / 32, block_h, num_nodes);
   const int c = c0 + 4 * ct;
   // 16-byte stores where a row's four columns are whole and aligned
-  const bool store4 = kSrc == kF32x4 || (kSrc == kBF16 && d % 4 == 0);
+  const bool store4 = kSrc == kF32x4 || (half_src<kSrc>() && d % 4 == 0);
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int r = rt + rt_n * i;
@@ -295,7 +309,7 @@ int launch(const void* values, const int32_t* hind, const int32_t* tasks, const 
            cudaStream_t stream) {
   auto kernel = spmm_weighted_kernel<TR, kSrc, V>;
   const int rmax = block_h < kGroupRows ? block_h : kGroupRows;
-  const int smem = kStages * stage_bytes<kSrc, sizeof(V) == 2>(rmax, dc);
+  const int smem = kStages * stage_bytes<kSrc, V>(rmax, dc);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -305,7 +319,7 @@ int launch(const void* values, const int32_t* hind, const int32_t* tasks, const 
       source_rows, d, ld, dc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = kSrc == kF32x4 || (kSrc == kBF16 && d % 4 == 0);
+  const bool vec = kSrc == kF32x4 || (half_src<kSrc>() && d % 4 == 0);
   return static_cast<int>(voltrix_walk::launch_merge(merges, ws, out, num_merges, block_h / 32,
                                                      block_h, num_nodes, d, vec, stream));
 }
@@ -324,6 +338,7 @@ int launch_src(int src, const void* values, const int32_t* hind, const int32_t* 
     VOLTRIX_K4_SRC(kF32x4)
     VOLTRIX_K4_SRC(kF32x1)
     VOLTRIX_K4_SRC(kBF16)
+    VOLTRIX_K4_SRC(kF16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -342,15 +357,16 @@ extern "C" {
 // of 4, at most 64) and tr rows per thread (2, 4 or 8, with at most 256
 // threads). src: the features' source (spmm_walk.cuh): 0 (kF32x4) float32
 // rows with 16-byte copies (d % 4 == 0, feat 16-byte aligned), 1 (kF32x1)
-// float32 rows with 4-byte copies, 3 (kBF16) bf16 rows of width ld (a
-// multiple of 4, >= d, 8-byte aligned); ld is d for float32 rows. val_bf16:
-// the plane holds bf16 values, else float32 (16-byte aligned either way).
+// float32 rows with 4-byte copies, 3 (kBF16) bf16 or 4 (kF16) float16 rows
+// of width ld (a multiple of 4, >= d, 8-byte aligned); ld is d for float32
+// rows. plane: the plane's type, 0 float32, 1 bf16, 2 float16 (16-byte
+// aligned whatever its type).
 // `ws` holds the cut groups' pieces 1.. (slots x min(block_h, 128) x d
 // floats), or is null when none is cut.
 int voltrix_spmm_weighted(const void* values, const void* hind, const void* tasks,
                           const void* merges, const void* feat, void* out, void* ws,
                           int num_tasks, int num_merges, int block_h, int block_w, int num_nodes,
-                          int source_rows, int d, int ld, int dc, int tr, int src, int val_bf16,
+                          int source_rows, int d, int ld, int dc, int tr, int src, int plane,
                           void* stream) {
   const auto* h = static_cast<const int32_t*>(hind);
   const auto* tk = static_cast<const int32_t*>(tasks);
@@ -359,20 +375,20 @@ int voltrix_spmm_weighted(const void* values, const void* hind, const void* task
   auto* wsp = static_cast<float*>(ws);
   auto s = static_cast<cudaStream_t>(stream);
   const int rmax = block_h < kGroupRows ? block_h : kGroupRows;
-  const bool bf16_rows = src == kBF16;
+  const bool half_rows = src == kBF16 || src == kF16;
   if (block_h <= 0 || block_h % 32 || block_w <= 0 || block_w % kLanes || dc < 4 ||
       dc > 64 || dc % 4 || tr <= 0 || rmax % tr || rmax / tr * (dc / 4) > kMaxThreads ||
       num_tasks <= 0 || d <= 0 || ld < d || (src == kF32x4 && d % 4) ||
-      (bf16_rows && ld % 4) || (!bf16_rows && ld != d)) {
+      (half_rows && ld % 4) || (!half_rows && ld != d) || plane < 0 || plane > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#define VOLTRIX_K4_PLANE(TR, V)                                                              \
+  launch_src<TR, V>(src, values, h, tk, mg, feat, o, wsp, num_tasks, num_merges, block_h,    \
+                    block_w, num_nodes, source_rows, d, ld, dc, s)
 #define VOLTRIX_K4(TR)                                                                       \
-  return val_bf16 ? launch_src<TR, __nv_bfloat16>(src, values, h, tk, mg, feat, o, wsp,      \
-                                                  num_tasks, num_merges, block_h, block_w,   \
-                                                  num_nodes, source_rows, d, ld, dc, s)      \
-                  : launch_src<TR, float>(src, values, h, tk, mg, feat, o, wsp, num_tasks,   \
-                                          num_merges, block_h, block_w, num_nodes,           \
-                                          source_rows, d, ld, dc, s)
+  return plane == 1   ? VOLTRIX_K4_PLANE(TR, __nv_bfloat16)                                  \
+         : plane == 2 ? VOLTRIX_K4_PLANE(TR, __half)                                         \
+                      : VOLTRIX_K4_PLANE(TR, float)
   switch (tr) {
     case 2: VOLTRIX_K4(2);
     case 4: VOLTRIX_K4(4);
@@ -380,6 +396,7 @@ int voltrix_spmm_weighted(const void* values, const void* hind, const void* task
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VOLTRIX_K4
+#undef VOLTRIX_K4_PLANE
 }
 
 const char* voltrix_cuda_error_string(int code) {

@@ -177,11 +177,11 @@ def spmm(plan, feat, *, impl: str = "auto", subtile: bool | None = None, out_dty
     feat may be (N, D) or graph-batched (B, N, D): the batch folds into
     the feature axis, so one launch serves the whole batch.
 
-    feat is float32, bfloat16 or float16: K1, K2, K3 and K6 read 16-bit
-    rows through their bf16 and float16 instantiations, K4 bf16 rows (and a
-    bf16 value plane) and K8 quantizes bf16 rows in bf16; all sum in
-    float32, and the output is cast once to `out_dtype` (default feat's
-    dtype). On the card K4 and K8 refuse float16 rows (ROADMAP.md item 9).
+    feat is float32, bfloat16 or float16: K1, K2, K3, K4 and K6 read
+    16-bit rows through their bf16 and float16 instantiations (K4 also a
+    bf16 or float16 value plane) and K8 quantizes 16-bit rows in their
+    dtype; all sum in float32, and the output is cast once to `out_dtype`
+    (default feat's dtype).
     compute_dtype=torch.bfloat16 or torch.float16 rounds float32 features
     to it (round to nearest even; K6 also its edge values) and runs the
     16-bit sources, the output defaulting to the caller's dtype, as the JAX

@@ -26,7 +26,7 @@ import torch
 from ..format.plan import SpmmPlan
 from ..jit import build
 from .bitmask import expand_bitmask
-from .block_spmm import _INT_MAX, launch
+from .block_spmm import _INT_MAX, HALF_DTYPES, launch
 from .reference import CHUNK_BYTES
 
 
@@ -63,11 +63,19 @@ load_dq_library = _loader("attn_mh_dq", "voltrix_attn_mh_dq",
                           [_p] * 12 + [_i] * 16 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
 load_dkv_library = _loader("attn_mh_dkv", "voltrix_attn_mh_dkv",
                            [_p] * 14 + [_i] * 16 + [_f, _f] + [_i] * 4 + [_ll] * 8 + [_p])
-# K9 and K13 under compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu): the plan's
+# K9 and K13 under compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu) and float16
+# (csrc/attn_fwd_f16.cu), two builds of csrc/attn_fwd_half.cuh: the plan's
 # arrays (with window_of_block) and the work list, the tensors and bmax, the
 # geometry, the plane, the alignment flags and the (head, row) strides
-load_fwd_bf16_library = _loader("attn_fwd_bf16", "voltrix_attn_fwd_bf16",
-                                [_p] * 13 + [_i] * 16 + [_f, _f, _i, _i] + [_ll] * 6 + [_p])
+_FWD_HALF_ARGS = [_p] * 13 + [_i] * 16 + [_f, _f, _i, _i] + [_ll] * 6 + [_p]
+load_fwd_bf16_library = _loader("attn_fwd_bf16", "voltrix_attn_fwd_bf16", _FWD_HALF_ARGS)
+load_fwd_f16_library = _loader("attn_fwd_f16", "voltrix_attn_fwd_f16", _FWD_HALF_ARGS)
+
+
+def fwd_half_library(half):
+    """The loader of K9's and K13's kernel at compute type `half`
+    (torch.bfloat16 or torch.float16)."""
+    return load_fwd_f16_library if half == torch.float16 else load_fwd_bf16_library
 
 
 # --- arguments -----------------------------------------------------------
@@ -79,7 +87,8 @@ def _plane(plane_dtype):
     if plane_dtype == torch.bfloat16:
         return torch.bfloat16
     raise ValueError(
-        f"plane_dtype must be None, torch.float32 or torch.bfloat16, not {plane_dtype}")
+        f"plane_dtype must be None, torch.float32 or torch.bfloat16, not {plane_dtype} "
+        "(plane_dtype=float16 on K13-K15 is an entry of ROADMAP.md item 9)")
 
 
 def _rounded(x: torch.Tensor, pdt) -> torch.Tensor:
@@ -87,29 +96,57 @@ def _rounded(x: torch.Tensor, pdt) -> torch.Tensor:
     return x.float() if pdt is None else x.to(pdt).float()
 
 
-def compute_bf16(compute_dtype) -> bool:
-    """The JAX package's compute_dtype of K9-K15 on the port: True for
-    torch.bfloat16 (the products' operands rounded to bf16 where JAX rounds
-    them: attention.py:121-143 forward, :379-414, :465-488 and :535-569
-    backward), False for None and float32; any other type raises."""
+def compute_half(compute_dtype) -> torch.dtype | None:
+    """The JAX package's compute_dtype of K9-K15 on the port: torch.bfloat16
+    or torch.float16, the type the products' operands are rounded to where
+    JAX rounds them (attention.py:121-143 forward, :379-414, :465-488 and
+    :535-569 backward), None for None and float32; any other type raises."""
     if compute_dtype is None or compute_dtype == torch.float32:
-        return False
-    if compute_dtype == torch.bfloat16:
-        return True
+        return None
+    if compute_dtype in HALF_DTYPES:
+        return compute_dtype
     raise NotImplementedError(
-        f"compute_dtype={compute_dtype}: the attention kernels compute in float32 or "
-        "bfloat16 (compute_dtype=float16 in K9-K15 is an entry of ROADMAP.md item 9)")
+        f"compute_dtype={compute_dtype}: the attention kernels compute in float32, bfloat16 "
+        "or float16")
+
+
+F16_BWD = ("compute_dtype=float16 in the attention backward (K10-K12, K14, K15) is the next "
+           "entry of ROADMAP.md item 9: the forward runs on inputs that need no gradient "
+           "(or under torch.no_grad())")
+
+
+def compute_bwd(compute_dtype) -> bool:
+    """The backward kernels' compute flag: True for torch.bfloat16, False
+    for None and float32; float16 raises NotImplementedError (`F16_BWD`)."""
+    half = compute_half(compute_dtype)
+    if half == torch.float16:
+        raise NotImplementedError(F16_BWD)
+    return half is not None
+
+
+def bwd_compute_dtype(compute_dtype) -> torch.dtype:
+    """The backward ops' compute_dtype argument for a call's: bfloat16 or
+    float32; float16 raises NotImplementedError (`F16_BWD`)."""
+    return torch.bfloat16 if compute_bwd(compute_dtype) else torch.float32
+
+
+def refuse_f16_grad(compute_dtype, *tensors) -> None:
+    """The differentiable entry points' refusal, before any launch, of
+    compute_dtype=float16 where autograd would take a gradient (`F16_BWD`)."""
+    if (compute_half(compute_dtype) == torch.float16 and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(F16_BWD)
 
 
 def op_compute_dtype(compute_dtype) -> torch.dtype:
-    """The registered ops' compute_dtype argument for a call's: bfloat16 or
-    float32."""
-    return torch.bfloat16 if compute_bf16(compute_dtype) else torch.float32
+    """The registered ops' compute_dtype argument for a call's: bfloat16,
+    float16 or float32."""
+    return compute_half(compute_dtype) or torch.float32
 
 
 def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> None:
     """The JAX package's TPU knobs: the H100 kernels pick their own tiles,
-    compute in float32 or bfloat16 (`compute_bf16`), and have no interpret
+    compute in float32, bfloat16 or float16 (`compute_half`), and have no interpret
     mode."""
     if block_d is not None:
         raise NotImplementedError(
@@ -121,7 +158,7 @@ def _refuse_knobs(compute_dtype, precision, block_d=None, interpret=None) -> Non
             "precision: a TPU matmul knob; the H100 kernels compute in float32 "
             "(ROADMAP.md item 9)"
         )
-    compute_bf16(compute_dtype)
+    compute_half(compute_dtype)
     if interpret is not None:
         raise NotImplementedError(
             "interpret: Pallas's interpret mode; the port launches the kernel on a CUDA "
@@ -219,14 +256,14 @@ def _ds(p, dp, d_row, raw, scale: float, slope: float) -> torch.Tensor:
 
 # --- the plain versions, over (H, n, d) stacks -------------------------------
 
-def _fwd_plain(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes, compute=False):
+def _fwd_plain(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes, compute=None):
     """out (H, num_nodes, dv) and lse (H, padded_nodes), float32: scores by
     gather over the plan's edges, row maxima by `scatter_reduce("amax")`,
     denominators and the aggregation by `index_add_`, in chunks of about
-    `chunk_bytes`. compute: compute_dtype=bfloat16 (`_fwd_plain_bf16`; a
-    bf16 plane's k and v are bf16 values already)."""
-    if compute:
-        return _fwd_plain_bf16(plan, q, k, v, scale, slope, chunk_bytes)
+    `chunk_bytes`. compute: compute_dtype bfloat16 or float16
+    (`_fwd_plain_half`; k and v rounded from the plane's values)."""
+    if compute is not None:
+        return _fwd_plain_half(plan, q, k, v, scale, slope, pdt, chunk_bytes, compute)
     heads, nq, dk, dv = q.shape[0], q.shape[1], q.shape[2], v.shape[2]
     padded, dev = plan.padded_nodes, q.device
     qf, kf, vf = q.float(), _rounded(k, pdt), _rounded(v, pdt)
@@ -264,18 +301,24 @@ def _grid_steps(plan: SpmmPlan, lanes: torch.Tensor) -> torch.Tensor:
     return (blk - first.index_select(0, wob.index_select(0, blk))) // plan.config.block_unroll
 
 
-def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
-    """`_fwd_plain` at compute_dtype=bfloat16, with the JAX package's
-    rounding points (attention.py:121-143, attention_mh.py:168-190): q, k
-    and v rounded to bf16, each score summed in column order (each product
-    exact; K9's and K13's bf16 kernels sum in the same order), p = exp(s -
-    M) summed into l unrounded and rounded to bf16 before its product with
-    v. M is the TPU kernel's running maximum: the row's largest score over
-    its window's grid steps (block_unroll blocks each) up to the edge's,
-    which the rounding of p depends on."""
+def _fwd_plain_half(plan: SpmmPlan, q, k, v, scale, slope, pdt, chunk_bytes, half):
+    """`_fwd_plain` at compute_dtype `half` (bfloat16 or float16), with the
+    JAX package's rounding points (attention.py:121-143,
+    attention_mh.py:168-190): q, k and v rounded to `half`, k and v after
+    the plane's rounding to `pdt` (under float16 a bf16 plane's values are
+    rounded twice, past 65,504 to inf), each score
+    summed in column order (each product of two 16-bit values is exact in
+    float32; K9's and K13's compute kernels sum in the same order), p =
+    exp(s - M) summed into l unrounded and rounded to `half` before its
+    product with v. M is the TPU kernel's running maximum: the row's
+    largest score over its window's grid steps (block_unroll blocks each)
+    up to the edge's, which the rounding of p depends on."""
     heads, nq, dk, dv = q.shape[0], q.shape[1], q.shape[2], v.shape[2]
     padded, dev = plan.padded_nodes, q.device
-    qb, kb, vb = _bf16(q), _bf16(k), _bf16(v)
+    def rnd(x):  # to `half`, nearest even, as jnp's astype (float16 keeps subnormals)
+        return x.to(half).float()
+
+    qb, kb, vb = rnd(q), rnd(_rounded(k, pdt)), rnd(_rounded(v, pdt))
     rows, cols, lanes = _edges(plan, chunk_bytes)
     s_all = torch.empty(heads, rows.numel(), dtype=torch.float32, device=dev)
     for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dk, chunk_bytes):
@@ -298,7 +341,7 @@ def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
     del s_all
     f = torch.exp(big - m.index_select(1, rows))  # from the step's maximum to the row's
     l = torch.zeros(heads, padded, dtype=torch.float32, device=dev).index_add_(1, rows, p_all * f)
-    pv = _bf16(p_all) * f
+    pv = rnd(p_all) * f
     del p_all, f, big
     acc = torch.zeros(heads, padded, dv, dtype=torch.float32, device=dev)
     for e0, e1 in _edge_chunks(rows.numel(), heads, 2 * dv, chunk_bytes):
@@ -309,9 +352,9 @@ def _fwd_plain_bf16(plan: SpmmPlan, q, k, v, scale, slope, chunk_bytes):
 
 
 def _chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(a * b, -1) of bf16 values, one sum in column order: each product
-    is exact in float32, so a kernel's fma chain in that order gives the
-    same bits."""
+    """sum(a * b, -1) of bf16 or float16 values, one sum in column order:
+    each product is exact in float32, so a kernel's fma chain in that order
+    gives the same bits."""
     out = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
     for c in range(a.shape[-1]):
         out = out + a[..., c] * b[..., c]
@@ -517,16 +560,17 @@ def _strides(*stacks):
     return [x for t in stacks for x in t.stride()[:2]]
 
 
-def fwd_bf16_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc):
+def fwd_half_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc, half):
     """out (H, nq, dv) and lse (H, padded_nodes), float32, through K13 at
-    compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu; `entry` K9's or K13's
-    wrapper, whose launches and launches_bf16 it counts), the body of their
-    ops (ops/library.py) under the flag: its first walk writes each block's
-    row maxima into a (H, blocks, block_h) workspace, its second walk the
-    rows, over `walk` for each group of hg heads and acc columns, and, when a
-    group of rows is cut, the merge of each head's shares. q, k and v are
-    read through their head and row strides (`_head_rows`). Every row is
-    written."""
+    compute_dtype `half`, bfloat16 or float16 (csrc/attn_fwd_bf16.cu or
+    attn_fwd_f16.cu, `fwd_half_library`; `entry` K9's or K13's wrapper,
+    whose launches and launches_bf16 or launches_f16 it counts), the body of
+    their ops (ops/library.py) under the flag: its first walk writes each
+    block's row maxima into a (H, blocks, block_h) workspace, its second
+    walk the rows, over `walk` for each group of hg heads and acc columns,
+    and, when a group of rows is cut, the merge of each head's shares. q, k
+    and v are read through their head and row strides (`_head_rows`). Every
+    row is written."""
     name = entry.__name__
     heads, nq, dk = q.shape
     nk, dv = k.shape[1], v.shape[2]
@@ -548,7 +592,7 @@ def fwd_bf16_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc):
         ws_ml = torch.empty(walk.slots * heads * walk.rows * 2, dtype=f32, device=dev)
         ws_acc = torch.empty(walk.slots * heads * walk.rows * dv, dtype=f32, device=dev)
     launch(
-        name, load_fwd_bf16_library(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
+        name, fwd_half_library(half)(), q, plan.bitmask.data_ptr(), plan.hind.data_ptr(),
         plan.window_of_block.data_ptr(), walk.tasks.data_ptr(), walk.merges.data_ptr(),
         qc.data_ptr(),
         kc.data_ptr(), vc.data_ptr(), bmax.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -559,7 +603,8 @@ def fwd_bf16_kernel(entry, plan, walk, q, k, v, scale, slope, pdt, hg, acc):
         *_strides(qc, kc, vc),
     )
     entry.launches += 1
-    entry.launches_bf16 += 1
+    entry.launches_bf16 += int(half == torch.bfloat16)
+    entry.launches_f16 += int(half == torch.float16)
     return out, lse
 
 

@@ -38,9 +38,12 @@ out_r and ds = p (dO_r . v_l - D_r) act'(raw) scale:
   and K12 when given the transpose plan, else `attention_bwd_summed`.
 
 compute_dtype=torch.bfloat16 rounds the products' operands to bf16 where
-the JAX package rounds them (ops/_attn_core.py:compute_bf16): the forward
+the JAX package rounds them (ops/_attn_core.py:compute_half): the forward
 through csrc/attn_fwd_bf16.cu, the backward through the compute variants of
-K10 (csrc/attn_bwd.cu) and of K14 and K15 (K11, K12).
+K10 (csrc/attn_bwd.cu) and of K14 and K15 (K11, K12). compute_dtype=
+torch.float16 rounds them to float16 in the forward (the same kernel's
+float16 instantiation); its backward raises NotImplementedError before any
+launch (`_attn_core.F16_BWD`).
 
 K9-K12 are the registered ops ``torch.ops.voltrix.spmm_attention``,
 ``attention_bwd``, ``attention_dq`` and ``attention_dkv`` (ops/library.py),
@@ -80,8 +83,11 @@ from ._attn_core import (
     _refuse_knobs,
     _tensors,
     _vec4,
-    compute_bf16,
+    bwd_compute_dtype,
+    compute_bwd,
+    compute_half,
     op_compute_dtype,
+    refuse_f16_grad,
 )
 from .block_spmm import (
     _INT_MAX,
@@ -236,10 +242,10 @@ def spmm_attention_reference(plan: SpmmPlan, q, k, v, *, scale: float | None = N
                              chunk_bytes: int = CHUNK_BYTES):
     """The plain version of K9: out (num_nodes, dv) in `out_dtype` (default
     v's) and, with return_stats, lse (padded_nodes,) float32;
-    compute_dtype=torch.bfloat16 rounds at the JAX package's points
-    (ops/_attn_core.py:_fwd_plain_bf16)."""
+    compute_dtype=torch.bfloat16 or torch.float16 rounds at the JAX
+    package's points (ops/_attn_core.py:_fwd_plain_half)."""
     spmm_attention_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_half(compute_dtype)
     dk = _check_single(plan, q, k, v, "spmm_attention_reference")[2]
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
     out, lse = _fwd_plain(plan, q[None], k[None], v[None], scale, negative_slope, None,
@@ -261,10 +267,11 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     (num_nodes, dk), k (source_rows, dk), v (source_rows, dv); returns
     (num_nodes, dv) in `out_dtype` (default v's) and, with return_stats,
     lse (padded_nodes,) float32. scale defaults to 1/sqrt(dk);
-    negative_slope 1.0 is the identity. compute_dtype=torch.bfloat16 rounds
-    q, k, v and p to bf16 before their products, as the JAX package does
-    (K13's bf16 kernel at one head, csrc/attn_fwd_bf16.cu; counted in
-    `launches` and `launches_bf16`; its gradient is `spmm_attention_ad`'s).
+    negative_slope 1.0 is the identity. compute_dtype=torch.bfloat16 or
+    torch.float16 rounds q, k, v and p to that type before their products,
+    as the JAX package does (K13's compute kernel at one head,
+    csrc/attn_fwd_bf16.cu; counted in `launches` and `launches_bf16` or
+    `launches_f16`; its gradient is `spmm_attention_ad`'s, bfloat16 only).
     A plan with a value plane raises ValueError; the
     TPU knobs block_d, precision and interpret raise NotImplementedError."""
     from . import library
@@ -287,8 +294,9 @@ def spmm_attention(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
 
 
 spmm_attention.launches = 0  # plain-int launch count, read by chip_smoke.py
-# of which at compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu)
+# of which at compute_dtype=bfloat16, and at float16 (csrc/attn_fwd_bf16.cu)
 spmm_attention.launches_bf16 = 0
+spmm_attention.launches_f16 = 0
 
 
 def _fwd_kernel(plan: SpmmPlan, walk, q, k, v, scale: float, slope: float):
@@ -335,7 +343,7 @@ def attention_dq_reference(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: flo
     torch.bfloat16 rounds at the JAX package's points (ops/_attn_core.py:
     _dq_plain)."""
     attention_dq_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_bwd(compute_dtype)
     views = _one_head("attention_dq_reference", q, k, v, g, lse, d_row)
     _check_bwd(plan, *views, "attention_dq_reference", False)
     return _dq_plain(plan, *views, scale, negative_slope, None, chunk_bytes, compute)[0]
@@ -350,7 +358,7 @@ def attention_dkv_reference(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: 
     """The plain version of K12: (dk, dv) float32 over the transpose plan;
     compute_dtype as `attention_dq_reference`'s."""
     attention_dkv_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_bwd(compute_dtype)
     views = _one_head("attention_dkv_reference", q, k, v, g, lse, d_row)
     _check_bwd(plan_t, *views, "attention_dkv_reference", True)
     dk, dv = _dkv_plain(plan_t, *views, scale, negative_slope, None, chunk_bytes, compute)
@@ -369,7 +377,7 @@ def attention_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
     `launches` and `launches_bf16`)."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_dq")
     views = _one_head("attention_dq", q, k, v, g, lse, d_row)
     _check_bwd(plan, *views, "attention_dq", False)
@@ -389,7 +397,7 @@ def attention_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
     as `attention_dq`'s."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_dkv")
     views = _one_head("attention_dkv", q, k, v, g, lse, d_row)
     _check_bwd(plan_t, *views, "attention_dkv", True)
@@ -425,7 +433,7 @@ def attention_bwd_reference(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: floa
     draw = bf16(ds) before dq's and dk's; D = rowsum(dO o out) from the
     unrounded dO and out."""
     attention_bwd_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_bwd(compute_dtype)
     nq, _, dk, dv = _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd_reference")
     lse = lse.float()
     d_row = (g.float() * out.float()).sum(-1)
@@ -462,7 +470,7 @@ def attention_bwd(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
     `launches_bf16`)."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_bwd")
     _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
     return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
@@ -486,7 +494,7 @@ def attention_bwd_summed(plan: SpmmPlan, q, k, v, out, lse, g, *, scale: float,
     `sum_slots_reference`. compute_dtype as `attention_bwd`'s."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_bwd")
     _check_lanes(plan, q, k, v, out, lse, g, "attention_bwd")
     return library.call_attention_bwd(plan, q, k, v, out, lse, g, float(scale),
@@ -628,12 +636,15 @@ def spmm_attention_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan | None = None
     (the kernels on the card, the plain versions on the CPU) or
     "reference" (the plain versions). compute_dtype=torch.bfloat16 rounds
     where the JAX package rounds, forward (`spmm_attention`) and backward
-    (K10's, K11's and K12's compute variants, and their plain versions)."""
+    (K10's, K11's and K12's compute variants, and their plain versions);
+    compute_dtype=torch.float16 runs the forward alone: on inputs that
+    require grad it raises NotImplementedError before any launch."""
     from . import library
 
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: it takes {', '.join(IMPLS)}")
     _refuse_knobs(compute_dtype, precision)
+    refuse_f16_grad(compute_dtype, q, k, v)
     compute = op_compute_dtype(compute_dtype)
     dk = _check_single(plan, q, k, v, "spmm_attention_ad")[2]
     _on_cuda(q, "spmm_attention_ad")

@@ -40,9 +40,11 @@ streams in bf16: k and v everywhere, q and dO where K15 gathers them.
 K13's q and K14's q and dO stay float32; all sums are float32. The
 backward casts k and v to the plane's type once for K14 and K15.
 compute_dtype=torch.bfloat16 rounds every product's operands to bf16 where
-JAX rounds them (ops/_attn_core.py:compute_bf16): K13 through
+JAX rounds them (ops/_attn_core.py:compute_half): K13 through
 csrc/attn_fwd_bf16.cu, K14 and K15 through their compute variants, on
-either plane.
+either plane. compute_dtype=torch.float16 rounds them to float16 in K13
+(the same kernel's float16 instantiation, on either plane); its backward
+raises NotImplementedError before any launch (`_attn_core.F16_BWD`).
 
 subtile=True is accepted, as in JAX, for plans with block_h % 128 == 0.
 The JAX kernels' subtile branch skips a block's empty 128-row sub-windows;
@@ -80,11 +82,14 @@ from ._attn_core import (  # noqa: F401 (load_*: the builds of this module's ker
     _refuse_knobs,
     _rows16,
     _strides,
-    compute_bf16,
+    bwd_compute_dtype,
+    compute_bwd,
+    compute_half,
     group_and_chunk,
     load_dkv_library,
     load_dq_library,
     op_compute_dtype,
+    refuse_f16_grad,
 )
 from .attention import load_mh_fwd_library
 from .block_spmm import _INT_MAX, launch
@@ -163,10 +168,10 @@ def spmm_attention_mh_reference(plan: SpmmPlan, q, k, v, *, scale: float | None 
     return_stats, lse (H, padded_nodes); scores by gather over the plan's
     edges, row maxima by `scatter_reduce("amax")`, denominators and the
     aggregation by `index_add_`, in chunks of about `chunk_bytes`;
-    compute_dtype=torch.bfloat16 rounds at the JAX package's points
-    (ops/_attn_core.py:_fwd_plain_bf16)."""
+    compute_dtype=torch.bfloat16 or torch.float16 rounds at the JAX
+    package's points (ops/_attn_core.py:_fwd_plain_half)."""
     spmm_attention_mh_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_half(compute_dtype)
     dk = _check_qkv(plan, q, k, v, "spmm_attention_mh_reference")[3]
     scale = 1.0 / float(dk) ** 0.5 if scale is None else scale
     out, lse = _fwd_plain(plan, q, k, v, scale, negative_slope, _plane(plane_dtype), chunk_bytes,
@@ -187,7 +192,7 @@ def attention_mh_dq_reference(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: 
     torch.bfloat16 rounds at the JAX package's points (ops/_attn_core.py:
     _dq_plain)."""
     attention_mh_dq_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_bwd(compute_dtype)
     _check_bwd(plan, q, k, v, g, lse, d_row, "attention_mh_dq_reference", False)
     return _dq_plain(plan, q, k, v, g, lse, d_row, scale, negative_slope, _plane(plane_dtype),
                      chunk_bytes, compute)
@@ -204,7 +209,7 @@ def attention_mh_dkv_reference(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scal
     destination rows of q, dO, lse and D; compute_dtype as
     `attention_mh_dq_reference`'s."""
     attention_mh_dkv_reference.calls += 1
-    compute = compute_bf16(compute_dtype)
+    compute = compute_bwd(compute_dtype)
     _check_bwd(plan_t, q, k, v, g, lse, d_row, "attention_mh_dkv_reference", True)
     return _dkv_plain(plan_t, q, k, v, g, lse, d_row, scale, negative_slope,
                       _plane(plane_dtype), chunk_bytes, compute)
@@ -227,10 +232,11 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
     `out_dtype` (default v's) and, with return_stats, lse (H, padded_nodes)
     float32. scale defaults to 1/sqrt(dk); negative_slope 1.0 is the
     identity. plane_dtype=torch.bfloat16 rounds k and v to bf16.
-    compute_dtype=torch.bfloat16 rounds q, k, v and p to bf16 before their
-    products, as the JAX package does (csrc/attn_fwd_bf16.cu; counted in
-    `launches` and `launches_bf16`; its gradient is
-    `spmm_attention_mh_ad`'s). A plan with a value plane is refused
+    compute_dtype=torch.bfloat16 or torch.float16 rounds q, k, v and p to
+    that type before their products, as the JAX package does
+    (csrc/attn_fwd_bf16.cu; counted in `launches` and `launches_bf16` or
+    `launches_f16`; its gradient is `spmm_attention_mh_ad`'s, bfloat16
+    only). A plan with a value plane is refused
     (ValueError), as the single-head op refuses it."""
     from . import library
 
@@ -254,8 +260,9 @@ def spmm_attention_mh(plan: SpmmPlan, q, k, v, *, scale: float | None = None,
 
 
 spmm_attention_mh.launches = 0  # plain-int launch count, read by chip_smoke.py
-# of which at compute_dtype=bfloat16 (csrc/attn_fwd_bf16.cu)
+# of which at compute_dtype=bfloat16, and at float16 (csrc/attn_fwd_bf16.cu)
 spmm_attention_mh.launches_bf16 = 0
+spmm_attention_mh.launches_f16 = 0
 
 
 def attention_mh_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
@@ -268,7 +275,7 @@ def attention_mh_dq(plan: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
     `launches` and `launches_bf16`)."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_mh_dq")
     _check_bwd(plan, q, k, v, g, lse, d_row, "attention_mh_dq", False)
     return library.call_attention_dq("attention_mh_dq", plan, q, k, v, g, lse, d_row,
@@ -288,7 +295,7 @@ def attention_mh_dkv(plan_t: SpmmPlan, q, k, v, g, lse, d_row, *, scale: float,
     as `attention_mh_dq`'s."""
     from . import library
 
-    compute = op_compute_dtype(compute_dtype)
+    compute = bwd_compute_dtype(compute_dtype)
     _on_cuda(q, "attention_mh_dkv")
     _check_bwd(plan_t, q, k, v, g, lse, d_row, "attention_mh_dkv", True)
     return library.call_attention_dkv("attention_mh_dkv", plan_t, q, k, v, g, lse, d_row,
@@ -347,7 +354,9 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     versions on the CPU) or "reference" (the plain versions).
     compute_dtype=torch.bfloat16 rounds where the JAX package rounds,
     forward (`spmm_attention_mh`) and backward (K14's and K15's compute
-    variants, and their plain versions), on float32 or bf16 planes."""
+    variants, and their plain versions), on float32 or bf16 planes;
+    compute_dtype=torch.float16 runs the forward alone: on inputs that
+    require grad it raises NotImplementedError before any launch."""
     from . import library
 
     if plan_t is None:
@@ -358,6 +367,7 @@ def spmm_attention_mh_ad(plan: SpmmPlan, q, k, v, *, plan_t: SpmmPlan, scale: fl
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: it takes {', '.join(IMPLS)}")
     _refuse_knobs(compute_dtype, precision)
+    refuse_f16_grad(compute_dtype, q, k, v)
     compute = op_compute_dtype(compute_dtype)
     dk = _check_qkv(plan, q, k, v, "spmm_attention_mh_ad")[3]
     _check_plan(plan_t, "spmm_attention_mh_ad")

@@ -26,8 +26,8 @@ The wrapper calls the registered op ``torch.ops.voltrix.spmm_block``
 `ops.reference.spmm_reference`, on a CPU tensor, and on a CUDA tensor
 launches the kernel or raises: there is no fallback.
 
-K1, K2, K3 and K6 read float32, bfloat16 or float16 feature rows
-(`FEAT_DTYPES`; K4 float32 or bfloat16, `BF16_FEAT_DTYPES`): a 16-bit row
+K1, K2, K3, K4 and K6 read float32, bfloat16 or float16 feature rows
+(`FEAT_DTYPES`; K8 quantizes them): a 16-bit row
 is read as 2-byte values and widened exactly to float32 in the kernel, the
 sums are float32 in the kernel's order, and the result is cast once to
 `out_dtype` (default: the features' dtype), the JAX package's semantics
@@ -52,15 +52,11 @@ from .reference import check_binary
 _COLS = 32  # the grid's column unit in _check
 _GROUP_WORDS = 4  # 32-row words per thread block (csrc/spmm_walk.cuh kWarps)
 _INT_MAX = 2**31 - 1
-# the feature types the CUDA kernels K1, K2, K3 and K6 read; K4 reads, and
-# K8 quantizes, float32 or bfloat16 rows alone (K5 and K7 read float32)
+# the feature types the CUDA kernels K1, K2, K3, K4 and K6 read, and K8
+# quantizes (K5 and K7 read float32)
 FEAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-BF16_FEAT_DTYPES = (torch.float32, torch.bfloat16)
 # the 16-bit feature types, each read by its own instantiation of a kernel
 HALF_DTYPES = (torch.bfloat16, torch.float16)
-# K4's and K8's refusal of float16 rows on the card
-F16_NEXT = ("{name} reads float32 or bfloat16 rows, got {dtype}: float16 rows on K4 "
-            "and K8 are the next entries of ROADMAP.md item 9")
 MAX_PIECE_BLOCKS = 256  # csrc/spmm_walk.cuh kMaxPiece
 # a piece holds at most PIECE_BLOCKS blocks and about PIECE_WORK units of
 # work (`block_work`; None: no work limit), by kernel:
@@ -415,12 +411,6 @@ def half_compute(compute_dtype) -> torch.dtype | None:
     raise NotImplementedError(
         f"compute_dtype={compute_dtype}: the SpMM kernels compute in float32 from float32, "
         "bfloat16 or float16 rows")
-
-
-def refuse_f16(name: str, dtype) -> None:
-    """K4's and K8's refusal of float16 rows (`F16_NEXT`)."""
-    if dtype == torch.float16:
-        raise TypeError(F16_NEXT.format(name=name, dtype=dtype))
 
 
 def half_rows(feat: torch.Tensor) -> tuple[torch.Tensor, int]:

@@ -50,10 +50,10 @@ inside the traced region (serve.py:export_servable does so).
 On a CPU tensor an op runs the kernel's plain version; on a CUDA tensor
 it launches the kernel or raises, and the kernel's `launches` count goes
 up there, in the op's body, and nowhere else (not in the fake, nor while
-tracing). The ops return float32; the wrappers cast. K1-K3 and K6 read
-float32, bfloat16 or float16 features, K4 float32 or bfloat16 ones and a
-bf16 value plane (the 16-bit instantiations; the plain versions widen
-them), and K8 the codes of float32 or bf16 rows. K1-K3's gradient runs
+tracing). The ops return float32; the wrappers cast. K1-K4 and K6 read
+float32, bfloat16 or float16 features, K4 a value plane of any of those
+types (the 16-bit instantiations; the plain versions widen them), and K8
+the codes of float32, bf16 or float16 rows. K1-K3's gradient runs
 the float32 kernel on the cotangent as it arrives and casts once to the
 features' dtype: behind a bf16 or float16 output the cotangent's values
 are of that type already, so this gives the bits of the JAX package's
@@ -61,9 +61,10 @@ are of that type already, so this gives the bits of the JAX package's
 the float32 one on the widened rows), and behind a float32 output it is
 the chain rule of the forward. K4's casts the
 cotangent to the features' dtype first, as JAX's rule does. K9's and
-K13's ops take a compute_dtype (float32, or bfloat16: csrc/attn_fwd_bf16.cu),
-which their gradient passes to the backward ops (K10-K12, K14, K15), whose
-own compute_dtype launches their kernels' compute variants.
+K13's ops take a compute_dtype (float32, or bfloat16 or float16:
+csrc/attn_fwd_bf16.cu), which their gradient passes to the backward ops
+(K10-K12, K14, K15), whose own compute_dtype (float32 or bfloat16; float16
+raises) launches their kernels' compute variants.
 """
 
 from __future__ import annotations
@@ -79,9 +80,10 @@ from ..format.plan import PlanConfig, SpmmPlan
 from ..utils import kept_beside
 from . import (attention, attention_mh, block_spmm, ell, fused_spmm, quant, subtile_spmm,
                weighted)
-from ._attn_core import (_dkv_kernel, _dq_kernel, check_plan_arrays, compute_bf16,
-                         fwd_bf16_kernel, load_fwd_bf16_library)
-from .block_spmm import Walk, _check_plan, acc_width, count_launch, launch_walk, library_for
+from ._attn_core import (_dkv_kernel, _dq_kernel, check_plan_arrays, compute_bwd,
+                         compute_half, fwd_half_kernel, fwd_half_library)
+from .block_spmm import (HALF_DTYPES, Walk, _check_plan, acc_width, count_launch, launch_walk,
+                         library_for)
 from .fused_spmm import launch_fused, spmm_fused_reference
 from .reference import spmm_reference
 from .subtile_spmm import spmm_subtile_reference, subtile_walk
@@ -478,9 +480,9 @@ def call_weighted(plan: SpmmPlan, feat: Tensor, plan_t: SpmmPlan | None = None) 
     if plan_t is not None and _needs(feat):
         if plan_t.values is not None and dev.type == "cuda":
             cfg = plan_t.config
-            plane = (weighted.BF16_FEAT_DTYPES, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
+            plane = (weighted.FEAT_DTYPES, (plan_t.total_blocks, cfg.block_h, cfg.block_w))
             weighted._check_kernel_args(plan_t, "spmm_weighted_ad", {"values": plane}, feat,
-                                        dtypes=weighted.BF16_FEAT_DTYPES)
+                                        dtypes=weighted.FEAT_DTYPES)
         values_t, (ops_t, geom_t) = plan_t.values, operands(plan_t, "spmm_weighted", dev)
     return spmm_weighted_op(feat, plan.values, ops, geom, ops_dv, geom_dv, values_t, ops_t, geom_t)
 
@@ -494,19 +496,19 @@ def call_dvalues(plan: SpmmPlan, feat: Tensor, g: Tensor) -> Tensor:
 
 # --- K8: the int8 SpMM -----------------------------------------------------------------
 
-def _int8_body(rows, scale, plan, geom, d, bf16_rows=False):
+def _int8_body(rows, scale, plan, geom, d, rows_dtype=torch.float32):
     p = _plan_of(plan, geom)
     if rows.device.type == "cpu":
         return quant.int8_rows_reference(p, rows, scale, d)
-    return quant.k8_kernel(p, _walk_of(plan, geom), rows, scale, d, bf16_rows)
+    return quant.k8_kernel(p, _walk_of(plan, geom), rows, scale, d, rows_dtype)
 
 
-def _int8_fake(rows, scale, plan, geom, d, bf16_rows=False):
+def _int8_fake(rows, scale, plan, geom, d, rows_dtype=torch.float32):
     return _f32(geom[_G["num_nodes"]], d, like=scale)
 
 
-def _int8_flops(rows_shape, scale_shape, plan, geom, d, bf16_rows=False, out_shape=None,
-                **kwargs) -> int:
+def _int8_flops(rows_shape, scale_shape, plan, geom, d, rows_dtype=torch.float32,
+                out_shape=None, **kwargs) -> int:
     """2 nnz d: a multiply and an add for each edge and column (the
     dequantization's 2 a row value aside)."""
     return 2 * geom[_G["num_edges"]] * d
@@ -519,17 +521,17 @@ def _int8_backward(ctx, grad):
 
 spmm_int8_op = _register(
     "spmm_int8", "(Tensor rows, Tensor scale, Tensor[] plan, int[] geom, int d, "
-    "bool bf16_rows=False) -> Tensor",
+    "ScalarType rows_dtype=float) -> Tensor",
     _int8_body, _int8_fake, _int8_flops, _int8_backward, lambda ctx, inputs, output: None)
 
 
 def call_int8(plan: SpmmPlan, rows: Tensor, scale: Tensor, d: int,
-              bf16_rows: bool = False) -> Tensor:
+              rows_dtype=torch.float32) -> Tensor:
     """K8's op on int8 rows and their scales from `quant.quantize_padded`
-    (`bf16_rows`: quantized from bf16 rows, which K8 counts apart): float32
-    (num_nodes, d)."""
+    (`rows_dtype`: the type of the rows they were quantized from, a 16-bit
+    one counted apart by K8): float32 (num_nodes, d)."""
     ops, geom = operands(plan, "spmm_int8", rows.device)
-    return spmm_int8_op(rows, scale, ops, geom, d, bf16_rows)
+    return spmm_int8_op(rows, scale, ops, geom, d, rows_dtype)
 
 
 # --- K9-K15: fused attention ---------------------------------------------------------
@@ -567,7 +569,7 @@ def _sources_of(tensors: list[Tensor]):
 def _attention_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope,
                     compute_dtype=torch.float32):
     p = _plan_of(plan, geom)
-    bf16 = compute_bf16(compute_dtype)
+    half = compute_half(compute_dtype)
     if q.device.type == "cpu":
         out, lse = attention.spmm_attention_reference(p, q, k, v, scale=scale,
                                                       negative_slope=slope, return_stats=True,
@@ -575,9 +577,9 @@ def _attention_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, s
                                                       compute_dtype=compute_dtype)
         return out.contiguous(), lse.contiguous()
     walk = _walk_of(plan, geom)
-    if bf16:  # K13's bf16 kernel at one head, on K9's work list and count
-        out, lse = fwd_bf16_kernel(attention.spmm_attention, p, walk, q[None], k[None], v[None],
-                                   scale, slope, None, 1, acc_width(v.shape[1]))
+    if half is not None:  # K13's compute kernel at one head, on K9's work list and count
+        out, lse = fwd_half_kernel(attention.spmm_attention, p, walk, q[None], k[None], v[None],
+                                   scale, slope, None, 1, acc_width(v.shape[1]), half)
         return out[0], lse[0]
     return attention._fwd_kernel(p, walk, q, k, v, scale, slope)
 
@@ -642,7 +644,7 @@ def _k10_body(q, k, v, out, lse, g, plan, geom, scale, slope, summed,
         return tuple(t.contiguous() for t in attention.bwd_plain(
             p, sources, q, k, v, out, lse, g, scale, slope, summed, compute_dtype))
     return attention._bwd_kernel(p, _walk_of(plan, geom), sources, q, k, v, out, lse, g, scale,
-                                 slope, summed, compute_bf16(compute_dtype))
+                                 slope, summed, compute_bwd(compute_dtype))
 
 
 def _k10_fake(q, k, v, out, lse, g, plan, geom, scale, slope, summed, *args):
@@ -681,7 +683,7 @@ def _define_dq(name: str):
                 p, q, k, v, g, lse, d_row, scale=scale, negative_slope=slope,
                 plane_dtype=plane_dtype, compute_dtype=compute_dtype)
         return _dq_kernel(entry, p, _walk_of(plan, geom), q, k, v, g, lse, d_row, scale, slope,
-                          plane_dtype, compute_bf16(compute_dtype))
+                          plane_dtype, compute_bwd(compute_dtype))
 
     def fake(q, k, v, g, lse, d_row, plan, geom, *args):
         return _f32(*q.shape, like=q)
@@ -707,7 +709,7 @@ def _define_dkv(name: str):
                 p, q, k, v, g, lse, d_row, scale=scale, negative_slope=slope,
                 plane_dtype=plane_dtype, compute_dtype=compute_dtype)
         return _dkv_kernel(entry, p, _walk_of(plan, geom), q, k, v, g, lse, d_row, scale, slope,
-                           plane_dtype, compute_bf16(compute_dtype))
+                           plane_dtype, compute_bwd(compute_dtype))
 
     def fake(q, k, v, g, lse, d_row, plan, geom, *args):
         return _f32(*k.shape, like=q), _f32(*v.shape, like=q)
@@ -724,16 +726,16 @@ attention_mh_dkv_op = _define_dkv("attention_mh_dkv")
 def _attention_mh_body(q, k, v, plan, geom, plan_dq, geom_dq, plan_dkv, geom_dkv, scale, slope,
                        plane_dtype, compute_dtype=torch.float32):
     p = _plan_of(plan, geom)
-    bf16 = compute_bf16(compute_dtype)
+    half = compute_half(compute_dtype)
     if q.device.type == "cpu":
         out, lse = attention_mh.spmm_attention_mh_reference(
             p, q, k, v, scale=scale, negative_slope=slope, plane_dtype=plane_dtype,
             return_stats=True, out_dtype=torch.float32, compute_dtype=compute_dtype)
         return out.contiguous(), lse.contiguous()
     walk = _walk_of(plan, geom)
-    if bf16:
-        return fwd_bf16_kernel(attention_mh.spmm_attention_mh, p, walk, q, k, v, scale, slope,
-                               plane_dtype, *attention_mh.mh_geometry(*q.shape[::2]))
+    if half is not None:
+        return fwd_half_kernel(attention_mh.spmm_attention_mh, p, walk, q, k, v, scale, slope,
+                               plane_dtype, *attention_mh.mh_geometry(*q.shape[::2]), half)
     return attention_mh._fwd_kernel(p, walk, q, k, v, scale, slope, plane_dtype)
 
 
@@ -1010,8 +1012,8 @@ def loaders_of(fn) -> list:
         if node.op == "call_function" and str(node.target).startswith(NAMESPACE + ".")]
     names = {str(node.target).split(".")[1] for node in nodes}
     loaders = [f for name in sorted(names) for f in LOADERS[name]]
-    if any(_compute_dtype_of(node) == torch.bfloat16 for node in nodes):
-        loaders.append(load_fwd_bf16_library)
+    loaders += [fwd_half_library(dt) for dt in map(_compute_dtype_of, nodes)
+                if dt in HALF_DTYPES]
     return list(dict.fromkeys(loaders))
 
 

@@ -4,17 +4,17 @@ gradient (counterpart of voltrix_spmm_tpu/ops/weighted.py).
 A weighted plan (`csr_preprocess(..., values=...)`) carries a dense
 float32 (total_blocks, block_h, block_w) value tile per block, aligned
 with the bitmask; a plane built from per-edge tensors (models/gat.py,
-models/dropedge.py) may be bfloat16.
+models/dropedge.py) may be bfloat16 or float16.
 
 - `spmm_weighted(plan, feat)` computes out = (A o V) @ feat through K4
   (csrc/spmm_weighted.cu, replacing weighted.py:_spmm_weighted_kernel). As
   in JAX, the whole value tile multiplies the gathered rows: the bitmask
-  is not read, and a value placed off it counts. K4 reads float32 or
-  bfloat16 rows and a float32 or bfloat16 plane, widens each bf16 value
-  exactly, sums in float32 and casts once to `out_dtype` (default the
-  features' dtype), the JAX package's semantics (weighted.py:46, :75); its
-  bf16 instantiations give the float32 kernel's bits on the widened
-  inputs. K4 walks the work list
+  is not read, and a value placed off it counts. K4 reads float32,
+  bfloat16 or float16 rows and a float32, bfloat16 or float16 plane, widens
+  each 16-bit value exactly, sums in float32 and casts once to `out_dtype`
+  (default the features' dtype), the JAX package's semantics
+  (weighted.py:46, :75); its 16-bit instantiations give the float32
+  kernel's bits on the widened inputs. K4 walks the work list
   of `block_spmm.plan_walk(plan, "spmm_weighted")` (each 128-row group of
   a window cut into pieces of at most PIECE_BLOCKS["spmm_weighted"]
   blocks, cut groups merged in piece order), so its sums run in a fixed
@@ -52,10 +52,9 @@ from .bitmask import expand_bitmask
 from .block_spmm import (
     _GROUP_WORDS,
     _INT_MAX,
-    BF16_FEAT_DTYPES,
+    FEAT_DTYPES,
     acc_width,
     half_rows,
-    refuse_f16,
     cast_out,
     launch,
     walk_workspace,
@@ -63,8 +62,11 @@ from .block_spmm import (
 from .reference import CHUNK_BYTES, block_sum, clipped_gather
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a thread block may use on sm_90
-# K4's feature sources (csrc/spmm_walk.cuh kF32x4, kF32x1, kBF16)
-_SRC_F32X4, _SRC_F32X1, _SRC_BF16 = 0, 1, 3
+# K4's feature sources (csrc/spmm_walk.cuh kF32x4, kF32x1, kBF16, kF16)
+_SRC_F32X4, _SRC_F32X1, _SRC_BF16, _SRC_F16 = 0, 1, 3, 4
+_SRC_HALF = {torch.bfloat16: _SRC_BF16, torch.float16: _SRC_F16}
+# K4's plane types (csrc/spmm_weighted.cu `plane`)
+_PLANE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
@@ -97,7 +99,7 @@ def _check_rows(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
 def _check_kernel_args(plan: SpmmPlan, name: str, fields: dict, *tensors,
                        dtypes=(torch.float32,)) -> None:
     """What K4-K7 take: contiguous tensors of one of `dtypes` (float32;
-    K4's and K6's features also bfloat16) on the plan's device, contiguous
+    K4's and K6's features also bfloat16 and float16) on the plan's device, contiguous
     plan arrays of the right type (one dtype, or a tuple of those it may
     have) and shape, and row, column and block counts that fit 32-bit
     ints."""
@@ -181,27 +183,26 @@ def k4_tiling(block_h: int, block_w: int, d: int) -> tuple[int, int, int]:
 
 def _check_weighted(plan: SpmmPlan, feat: torch.Tensor, name: str) -> None:
     """What K4 takes: a plan with a value plane, the features' rows, and on
-    the card contiguous float32 or bfloat16 features and plane and int32
-    plan arrays on the features' device."""
+    the card contiguous float32, bfloat16 or float16 features and plane and
+    int32 plan arrays on the features' device."""
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {feat.device}")
     if plan.values is None:
         raise ValueError("plan has no value plane; use spmm_block (spmm_reference on the CPU)")
     _check_rows(plan, feat, name)
     if feat.device.type == "cuda":
-        refuse_f16(name, feat.dtype)
         cfg = plan.config
         tb, H, K = plan.total_blocks, cfg.block_h, cfg.block_w
         _check_kernel_args(plan, name, {
-            "values": (BF16_FEAT_DTYPES, (tb, H, K)),
+            "values": (FEAT_DTYPES, (tb, H, K)),
             "hind": (torch.int32, (tb, K)),
             "block_ptr": (torch.int32, (plan.num_windows + 1,)),
-        }, feat, dtypes=BF16_FEAT_DTYPES)
+        }, feat, dtypes=FEAT_DTYPES)
 
 
 def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32 or
-    bfloat16 rows and plane in, float32 accumulation in a fixed order, cast
+    """out[num_nodes, D] = (A o V) @ feat through kernel K4 (float32,
+    bfloat16 or float16 rows and plane in, float32 accumulation in a fixed order, cast
     to `out_dtype`, default feat's dtype, at the end), as the registered op
     ``torch.ops.voltrix.spmm_weighted`` (ops/library.py). Every row of out
     is written (rows of windows without blocks are zero)."""
@@ -214,9 +215,10 @@ def spmm_weighted(plan: SpmmPlan, feat: torch.Tensor, out_dtype=None) -> torch.T
 
 def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     """K4 on the card over `walk`, the op's body (ops/library.py): float32
-    (num_nodes, d). The value plane is read in 16-byte words; bf16 rows go
-    to the kernel as `half_rows` gives them (padded once where d % 4 != 0
-    or they are not 8-byte aligned), float32 rows as they are."""
+    (num_nodes, d). The value plane is read in 16-byte words; bf16 and
+    float16 rows go to the kernel as `half_rows` gives them (padded once
+    where d % 4 != 0 or they are not 8-byte aligned), float32 rows as they
+    are."""
     if plan.values.data_ptr() % 16:
         raise ValueError("spmm_weighted reads the value plane in 16-byte words: "
                          "it must start 16-byte aligned")
@@ -227,29 +229,31 @@ def k4_kernel(plan: SpmmPlan, walk, feat: torch.Tensor) -> torch.Tensor:
     out = torch.empty(plan.num_nodes, d, dtype=torch.float32, device=feat.device)
     if out.numel():
         ws = walk_workspace("spmm_weighted", walk, d, feat.device)
-        if feat.dtype == torch.bfloat16:
+        if feat.dtype in _SRC_HALF:
             rows, ld = half_rows(feat)
-            src = _SRC_BF16
+            src = _SRC_HALF[feat.dtype]
         else:
             rows, ld = feat, d
             src = _SRC_F32X4 if d % 4 == 0 and feat.data_ptr() % 16 == 0 else _SRC_F32X1
-        bf16_plane = plan.values.dtype == torch.bfloat16
+        plane = plan.values.dtype
         launch(
             "spmm_weighted", load_library(), feat,
             plan.values.data_ptr(), plan.hind.data_ptr(), walk.tasks.data_ptr(),
             walk.merges.data_ptr(), rows.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), walk.tasks.shape[0], walk.merges.shape[0],
-            H, K, plan.num_nodes, plan.source_rows, d, ld, dc, tr, src, int(bf16_plane),
+            H, K, plan.num_nodes, plan.source_rows, d, ld, dc, tr, src, _PLANE[plane],
         )
         spmm_weighted.launches += 1
-        if src == _SRC_BF16 or bf16_plane:
-            spmm_weighted.launches_bf16 += 1
+        spmm_weighted.launches_bf16 += int(torch.bfloat16 in (feat.dtype, plane))
+        spmm_weighted.launches_f16 += int(torch.float16 in (feat.dtype, plane))
     return out
 
 
 spmm_weighted.launches = 0  # plain-int launch count, read by chip_smoke.py
-# of which on bf16 rows or a bf16 plane (a bf16 instantiation)
+# of which on bf16 rows or a bf16 plane (a bf16 instantiation), and on
+# float16 rows or a float16 plane
 spmm_weighted.launches_bf16 = 0
+spmm_weighted.launches_f16 = 0
 
 
 def _check_dvalues(plan: SpmmPlan, feat: torch.Tensor, g: torch.Tensor, name: str) -> None:

@@ -46,8 +46,8 @@ from ..utils import CPU_bench, env_flag, gpu_bench
 
 IMPLS = ("pregather", "fused", "hybrid", "int8", "ell", "weighted")
 # the dtypes a Variant's feat_dtype and compute_dtype may name: the
-# kernels' 16-bit sources (K1, K2, K3 and K6 read bf16 and float16 rows;
-# K4 bf16 rows, and K8 quantizes them) and their own float32
+# kernels' 16-bit sources (K1, K2, K3, K4 and K6 read bf16 and float16
+# rows, and K8 quantizes them) and their own float32
 FEAT_DTYPES = ("float32", "bfloat16", "float16")
 HALF_DTYPES = ("bfloat16", "float16")
 # f32 edge-feature volume (nnz x d x 4) past which the default space is
@@ -65,11 +65,10 @@ class Variant:
     "float16" casts the caller's features to that type before the SpMM,
     and compute_dtype="bfloat16" or "float16" has the SpMM round them (K6:
     and its edge values) itself; both run the kernels' 16-bit sources (K1,
-    K2, K3, K6; "weighted" and "int8" take feat_dtype="bfloat16" alone: K4
-    reads bf16 rows and K8 quantizes them in bf16, neither reads float16
-    rows yet, and the JAX package's K4 and K8 take no compute_dtype), and
-    the result returns in the caller's dtype, the float32 sums cast to it
-    once. The JAX package's TPU knobs raise
+    K2, K3, K6; "weighted" and "int8" take feat_dtype alone: K4 reads 16-bit
+    rows and K8 quantizes them in their type, and the JAX package's K4 and
+    K8 take no compute_dtype), and the result returns in the caller's dtype,
+    the float32 sums cast to it once. The JAX package's TPU knobs raise
     NotImplementedError with their reason."""
 
     impl: str
@@ -102,11 +101,8 @@ class Variant:
             raise NotImplementedError(
                 f"Variant {self.impl!r} with compute_dtype={self.compute_dtype!r}: the JAX "
                 "package's K4 and K8 take no compute_dtype (its variant would race float32 "
-                "rows under a 16-bit key); feat_dtype='bfloat16' runs them on bf16 rows")
-        if self.feat_dtype == "float16" and self.impl in ("int8", "weighted"):
-            raise NotImplementedError(
-                f"Variant {self.impl!r} with feat_dtype='float16': K4 and K8 read float32 or "
-                "bfloat16 rows; float16 rows on them are the next entries of ROADMAP.md item 9")
+                "rows under a 16-bit key); feat_dtype='bfloat16' or 'float16' runs them on "
+                "16-bit rows")
         refused = {
             "block_d": (self.block_d is not None,
                         "a TPU tiling knob; the H100 kernels pick their own tiles"),
@@ -508,8 +504,8 @@ def _run_variant(variant: Variant, plan, feat: torch.Tensor, perm=None, inv_perm
     elif impl in ("int8", "weighted"):
         # no compute_dtype (the Variant refuses it), but the caller's dtype:
         # the JAX package's _run_variant gives K4 and K8 no out_dtype, so its
-        # bf16 variants round their float32 sums through bf16 before the
-        # cast back (ROADMAP.md §3, Faults of the JAX package)
+        # 16-bit variants round their float32 sums through that type before
+        # the cast back (ROADMAP.md §3, Faults of the JAX package)
         out = spmm(plan, feat, impl=impl, out_dtype=out_dtype)
     else:  # K1 or K2, on the whole plan or its window chunks
         out = spmm(plan, feat, impl="pregather", subtile=variant.subtile, **kw)
